@@ -1,4 +1,4 @@
-"""Drive odelib_tpu_torch's main path once on one CUDA card.
+"""Drive odelib_tpu_torch's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -6,22 +6,35 @@ Phases, each failing the script if it fails:
 
 1. device: the card's name and power limit (nvidia-smi); exits non-zero
    without CUDA;
-2. build: both kernels (ops/csrc/mh.cu) from the checkout's sources into a
-   clean build directory, with the build's seconds;
+2. build: all four kernels (ops/csrc/*.cu) from the checkout's sources
+   into a clean build directory, with the build's seconds and each
+   kernel's registers, stack and spills;
 3. kernel versus twin on the card, at the main-path model (zero_i on the
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws (chi
-   rtol 1e-5, equal non-finite masks) and MH on 1024 chains x 200
-   iterations (identical accept sequences up to documented ulp ties,
-   records rtol 1e-5);
-4. the main path: ModelFramework(..., device='cuda').MCMC(chain_inits=
-   10000, iterations_per_chain=1000, fitsurvey_samples=1000,
-   sd_fitdistance=6.0) with launch counts reset just before and read just
-   after, the posterior's columns, finite chi, mean acceptance in
-   [0.1, 0.6] and the printed Fitting Report;
-5. times: each kernel launch against its plain torch twin on the card at
-   the main path's shapes (CUDA events), the MCMC wall time with its stage
-   breakdown, and the device's busy share of one more MCMC run under
-   torch.profiler.
+   rtol 1e-5, equal non-finite masks), MH on 1024 chains x 200 iterations
+   (identical accept sequences up to documented ulp ties, records rtol
+   1e-5), the ensemble on 2048 walkers (two ensembles of 1024) x 200
+   iterations and PT on 1024 chains x 4 rungs x 200 iterations (identical
+   accept sequences and swap counts, records rtol 1e-5);
+4. the main paths, each with launch counts reset just before and read just
+   after: ModelFramework(..., device='cuda').MCMC(chain_inits=10000,
+   iterations_per_chain=1000, fitsurvey_samples=1000, sd_fitdistance=6.0)
+   with sampler='mh', 'ensemble' and 'pt' (temperatures (1, 2, 4, 8)):
+   the posterior's columns, finite chi, mean final acceptance in the
+   sampler's band, the printed Fitting Report, and for PT a finite swap
+   rate in (0, 1]; then the public ensemble_fused against its twin on the
+   ensemble main path's own inputs (its 10,000 walkers and seed, the
+   default tile of 4096, padded to 12,288 walkers), 200 iterations: the
+   tile sets each walker's partners, so this is the geometry the main
+   path runs (identical accept sequences, records rtol 1e-5);
+5. times: each kernel against its plain torch twin on the card at the main
+   path's shapes (CUDA events; the twin over a few proposals, scaled), the
+   MCMC wall times with their stage breakdowns, and the device's busy share
+   of one more MH run under torch.profiler. Each kernel's bound is the
+   larger of its float32 operations (counted by running its twin on the
+   CPU under a counting dispatch mode; per chain and iteration they do not
+   depend on the data) over the FP32 peak and its bytes (inputs read once,
+   outputs written once) over the memory rate.
 
 Prints the device line and a JSON line of kernels before the last line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -29,13 +42,20 @@ and as the last line ``{"ok": true, "device": {...}}``.
 import contextlib
 import io
 import json
+import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+FP32_PEAK = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
+MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
+NITS, BURNIN, CHAINS = 1000, 500, 10000
+TEMPS = (1.0, 2.0, 4.0, 8.0)
+BANDS = {"mh": (0.1, 0.6), "ensemble": (0.1, 0.8), "pt": (0.1, 0.6)}
 
 
 def fail(msg):
@@ -61,6 +81,83 @@ def events_ms(fn, reps=1):
     return start.elapsed_time(end) / reps
 
 
+def fp32_ops(fn):
+    """Float32 arithmetic operations (elements) that ``fn`` runs, counted
+    at the aten level: the twins perform the kernels' float32 operations
+    in the same order. Integer RNG work, comparisons and selects are not
+    counted, so the count is a lower bound of the kernels' work."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    arith = {"add", "sub", "rsub", "mul", "div", "exp", "log", "sqrt",
+             "cos", "neg", "abs", "pow"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if (name in arith and isinstance(out, torch.Tensor)
+                    and out.dtype == torch.float32):
+                Count.n += out.numel()
+            return out
+    with Count():
+        fn()
+    return Count.n
+
+
+def per_iteration_ops(run):
+    """(init, per iteration without a record row, extra per record row)
+    float32 operations of a twin ``run(nits, burnin)``, per chain."""
+    c = {k: fp32_ops(lambda k=k: run(*k)) for k in ((2, 1), (3, 2), (3, 1))}
+    walk = c[(3, 2)] - c[(2, 1)]
+    rec = c[(3, 1)] - c[(3, 2)]
+    return c[(2, 1)] - walk, walk, rec
+
+
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / MEM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def accept_steps(ar, nits):
+    """Per-iteration accept indicators (R, C) from running acceptance
+    ratios (R, C) recorded from iteration 1."""
+    import numpy as np
+    return np.diff(np.concatenate([np.zeros((1, ar.shape[1])), np.round(
+        ar * np.arange(1, nits)[:, None])]), axis=0)
+
+
+def compare_records(name, rec_k, rec_t, nits):
+    """Kernel against twin records (chain-minor, burnin 0): identical
+    accept sequences, every record rtol 1e-5; returns chi's max abs
+    error."""
+    import numpy as np
+    rec_k = [r.cpu().numpy() for r in rec_k]
+    rec_t = [r.cpu().numpy() for r in rec_t]
+    flips = accept_steps(rec_k[4], nits) != accept_steps(rec_t[4], nits)
+    if flips.any():
+        c = np.where(flips.any(0))[0]
+        fail(f"{name}: accept sequences differ for {c.size} chains "
+             f"(first chain {c[0]})")
+    err = 0.0
+    for label, a, b in zip(("theta", "chi", "rsquared", "aic", "ar", "sw"),
+                           rec_k, rec_t):
+        if not (np.isfinite(a) == np.isfinite(b)).all():
+            fail(f"{name}: {label} kernel and twin disagree on finiteness")
+        m = np.isfinite(b)
+        rel = float(np.max(np.abs(a[m] - b[m]) / np.maximum(np.abs(b[m]),
+                                                            1e-30)))
+        if label == "chi":
+            err = float(np.max(np.abs(a[m] - b[m])))
+        print(f"{name} {label}: max rel err {rel:.3g}, bitwise equal "
+              f"{np.mean(a[m] == b[m]):.4f}")
+        if rel > 1e-5:
+            fail(f"{name}: {label} kernel vs twin rel err {rel:.3g} > 1e-5")
+    return err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -76,10 +173,10 @@ def main():
     import pandas as pd
     import scipy.stats
 
-    from odelib_tpu_torch import ModelFramework, parameter
+    from odelib_tpu_torch import ModelFramework, dispatch, parameter
     from odelib_tpu_torch.data import load_demo_dataframe
     from odelib_tpu_torch.models import zero_i
-    from odelib_tpu_torch.ops import build, cuda_mh
+    from odelib_tpu_torch.ops import build, cuda_mh, cuda_pt
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -122,8 +219,16 @@ def main():
     lib = build.load_kernels(spec)
     build_s = time.perf_counter() - t0
     log = open(os.path.join(os.path.dirname(lib._name), "nvcc.log")).read()
-    print("\n".join(line for line in log.splitlines()
-                    if "seconds" in line or "registers" in line))
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            print(f"kernel {m.group(1)}")
+        elif "seconds" in line or "registers" in line or "stack" in line:
+            print(line.strip())
+    for name in ("survey_kernel", "mh_kernel", "ens_init_kernel",
+                 "ens_half_kernel", "pt_kernel"):
+        if name not in log:
+            fail(f"build: {name} is missing from nvcc.log")
     print(f"build seconds: {build_s:.3f}", flush=True)
 
     # -- 3. kernel versus twin --------------------------------------------
@@ -151,8 +256,8 @@ def main():
     phase("MH kernel vs twin")
     C, nits = 1024, 200
     order = np.argsort(np.where(fin, ck, np.inf))
-    th0 = torch.as_tensor(draws[order[np.arange(C) % max(fin.sum(), 1)]],
-                          device=dev)
+    seeds = draws[order[np.arange(CHAINS) % max(fin.sum(), 1)]]
+    th0 = torch.as_tensor(seeds[:C], device=dev)
     seed = 11
     walk = (0.05,) * 3
     k = cuda_mh.metropolis_hastings_fused(spec, obs, tf, y0, th0, seed,
@@ -166,10 +271,8 @@ def main():
              k.aic.t(), k.acceptance_ratio.t()]
     rec_k = [r.cpu().numpy() for r in rec_k]          # (R, P, C), (R, C)
     rec_t = [r.cpu().numpy() for r in tw]
-    acc_k = np.diff(np.concatenate([np.zeros((1, C)), rec_k[4]
-                                    * np.arange(1, nits)[:, None]]), axis=0)
-    acc_t = np.diff(np.concatenate([np.zeros((1, C)), rec_t[4]
-                                    * np.arange(1, nits)[:, None]]), axis=0)
+    acc_k = accept_steps(rec_k[4], nits)
+    acc_t = accept_steps(rec_t[4], nits)
     flip = np.abs(acc_k - acc_t) > 0.5                  # (R, C)
     first = np.where(flip.any(0), flip.argmax(0), nits - 1)
     rows = np.arange(nits - 1)[:, None] < first[None, :]  # before any flip
@@ -213,80 +316,237 @@ def main():
           f"accept flip, mean acceptance {rec_k[4][-1].mean():.4f}",
           flush=True)
 
-    # -- 4. the main path -------------------------------------------------
-    phase("main path: ModelFramework(...).MCMC")
-    fw = framework()
-    out = io.StringIO()
-    cuda_mh.reset_launch_counts()
+    phase("ensemble kernel vs twin")
+    W, tile, mask = 2048, 1024, (1.0, 1.0, 1.0)
+    start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
+        seeds[:W], seed, tile, mask, 0.01).T), device=dev)
+    ens_kw = dict(tile=tile, nits=nits, burnin=0, a=2.0, walk=mask,
+                  walked=(True,) * 3, num=3, W0=W)
+    rec_k = cuda_mh.ensemble_launcher(spec, plan, y0, "dopri5", start, seed,
+                                      **ens_kw)()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        post = fw.MCMC(chain_inits=10000, iterations_per_chain=1000,
-                       fitsurvey_samples=1000, sd_fitdistance=6.0,
-                       print_report=True, profile=True)
+    rec_t = cuda_mh.ensemble_plain(spec, plan, y0, start, seed, **ens_kw)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = dict(cuda_mh.LAUNCHES)
-    print(out.getvalue())
-    print(f"MCMC wall seconds: {wall_s:.3f}; launches {launches}; stages "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in fw.last_profile.items()))
-    cols = ["mu", "phi", "beta", "chi", "rsquared", "aic", "iteration",
-            "acceptance_ratio", "chain#", "all_rejected"]
-    if list(post.columns) != cols:
-        fail(f"posterior columns {list(post.columns)}")
-    if len(post) != 10000 * 499 or post["chain#"].nunique() != 10000:
-        fail(f"posterior has {len(post)} rows")
-    finite = float(np.isfinite(post.chi.to_numpy()).mean())
-    last = post[post.iteration == post.iteration.max()]
-    mean_acc = float(last.acceptance_ratio.mean())
-    print(f"finite chi fraction {finite}, mean final acceptance "
-          f"{mean_acc:.4f}")
-    if finite != 1.0:
-        fail(f"finite chi fraction {finite}")
-    if not 0.1 <= mean_acc <= 0.6:
-        fail(f"mean final acceptance {mean_acc}")
-    if "Fitting Report" not in out.getvalue():
-        fail("the Fitting Report did not print")
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the main path never launched: {launches}")
-    if not isinstance(post, pd.DataFrame):
-        fail("MCMC did not return a DataFrame")
+    compare_records("ensemble", rec_k, rec_t, nits)
+    print(f"ensemble: {W} walkers ({W // tile} ensembles) x {nits} "
+          f"iterations, {1 + 2 * (nits - 1)} device launches, mean "
+          f"acceptance {float(rec_k[4][-1].mean()):.4f}", flush=True)
 
-    # -- 5. times ---------------------------------------------------------
+    phase("PT kernel vs twin")
+    scales, betas, dbetas = cuda_pt.ladder_constants(TEMPS, 0.05, mask)
+    pt_kw = dict(nits=nits, burnin=0, scales=scales, walked=(True,) * 3,
+                 betas=betas, dbetas=dbetas, swap_every=1, num=3)
+    th0 = torch.as_tensor(seeds[:C], device=dev).t().contiguous()
+    rec_k = cuda_pt.pt_launcher(spec, plan, y0, "dopri5", th0, seed,
+                                **pt_kw)()
+    torch.cuda.synchronize()
+    rec_t = cuda_pt.pt_plain(spec, plan, y0, th0, seed, **pt_kw)
+    torch.cuda.synchronize()
+    pt_err = compare_records("PT", rec_k, rec_t, nits)
+    att = cuda_pt.swap_attempts(nits, 1, 1)[0]
+    print(f"PT: {C} chains x {len(TEMPS)} rungs x {nits} iterations, mean "
+          f"cold acceptance {float(rec_k[4][-1].mean()):.4f}, mean cold swap "
+          f"rate {float(rec_k[5][-1].mean()) / att:.4f}", flush=True)
+
+    # -- 4. the main paths --------------------------------------------------
+    swap_log = io.StringIO()
+    handler = logging.StreamHandler(swap_log)
+    pkg_log = logging.getLogger("odelib_tpu_torch")
+    pkg_log.addHandler(handler)
+    pkg_log.setLevel(logging.INFO)
+    kernel_of = {"mh": "metropolis_hastings_fused",
+                 "ensemble": "ensemble_fused",
+                 "pt": "parallel_tempering_fused"}
+    runs = {}
+    # the ensemble main path's own inputs, for the comparison after it
+    ens_in = {}
+    ens_arm = dispatch._ARMS["cuda:ensemble"]
+
+    def recording_arm(fw_, theta0, cfg):
+        ens_in.update(theta0=np.asarray(theta0, np.float32), cfg=cfg,
+                      seed=int(fw_.random_seed) + cfg.seed_offset)
+        return ens_arm(fw_, theta0, cfg)
+    dispatch._ARMS["cuda:ensemble"] = recording_arm
+    for sampler in ("mh", "ensemble", "pt"):
+        phase(f"main path: ModelFramework(...).MCMC(sampler={sampler!r})")
+        fw = framework()
+        out = io.StringIO()
+        extra = dict(temperatures=TEMPS) if sampler == "pt" else {}
+        cuda_mh.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            post = fw.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
+                           fitsurvey_samples=1000, sd_fitdistance=6.0,
+                           sampler=sampler, print_report=True, profile=True,
+                           **extra)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(cuda_mh.LAUNCHES)
+        print(out.getvalue())
+        print(f"MCMC({sampler}) wall seconds: {wall_s:.3f}; launches "
+              f"{launches}; stages " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in fw.last_profile.items()))
+        cols = ["mu", "phi", "beta", "chi", "rsquared", "aic", "iteration",
+                "acceptance_ratio", "chain#", "all_rejected"]
+        if list(post.columns) != cols:
+            fail(f"{sampler}: posterior columns {list(post.columns)}")
+        if len(post) != CHAINS * (NITS - 1 - BURNIN) \
+                or post["chain#"].nunique() != CHAINS:
+            fail(f"{sampler}: posterior has {len(post)} rows")
+        finite = float(np.isfinite(post.chi.to_numpy()).mean())
+        last = post[post.iteration == post.iteration.max()]
+        mean_acc = float(last.acceptance_ratio.mean())
+        zeros = {c: float((last[c] == 0.0).mean()) for c in cols[:3]}
+        print(f"{sampler}: finite chi fraction {finite}, mean final "
+              f"acceptance {mean_acc:.4f}, final rows exactly 0: {zeros}")
+        if finite != 1.0:
+            fail(f"{sampler}: finite chi fraction {finite}")
+        lo, hi = BANDS[sampler]
+        if not lo <= mean_acc <= hi:
+            fail(f"{sampler}: mean final acceptance {mean_acc} outside "
+                 f"[{lo}, {hi}]")
+        if "Fitting Report" not in out.getvalue():
+            fail(f"{sampler}: the Fitting Report did not print")
+        for name in ("survey_fused", kernel_of[sampler]):
+            if launches[name] < 1:
+                fail(f"{sampler}: {name} never launched: {launches}")
+        if not isinstance(post, pd.DataFrame):
+            fail(f"{sampler}: MCMC did not return a DataFrame")
+        if sampler == "pt":
+            m = re.findall(r"swap acceptance ([0-9.]+)", swap_log.getvalue())
+            rate = float(m[-1]) if m else float("nan")
+            print(f"pt: mean cold-pair swap acceptance {rate}")
+            if not 0.0 < rate <= 1.0:
+                fail(f"pt: swap rate {rate} not in (0, 1]")
+        runs[sampler] = (wall_s, launches, dict(fw.last_profile))
+    pkg_log.removeHandler(handler)
+    dispatch._ARMS["cuda:ensemble"] = ens_arm
+
+    phase("ensemble kernel vs twin at the main path's inputs")
+    ens_th0, cfg, ens_seed = ens_in["theta0"], ens_in["cfg"], ens_in["seed"]
+    ens_nits = 200
+    tile_main = cfg.tile_chains or cuda_mh.pick_tile_chains(len(ens_th0))
+    ens_walk = tuple(float(w) for w in cfg.mask)
+    ens_sub = cuda_mh._normalize_substeps(cfg.substeps, len(tf) - 1)
+    stepper = dispatch.fused_stepper(cfg.method)
+    out = cuda_mh.ensemble_fused(
+        spec, obs, tf, y0, torch.as_tensor(ens_th0, device=dev), ens_seed,
+        nits=ens_nits, burnin=0, a=float(cfg.stretch_a), walk_mask=cfg.mask,
+        substeps=cfg.substeps, stepper=stepper, tile_chains=cfg.tile_chains)
+    torch.cuda.synchronize()
+    rec_k = [out.theta.permute(1, 2, 0), out.chi.t(), out.rsquared.t(),
+             out.aic.t(), out.acceptance_ratio.t()]
+    ens_np = cuda_mh.ensemble_init(ens_th0, ens_seed, tile_main, ens_walk,
+                                   0.01)
+    ens_start = torch.as_tensor(np.ascontiguousarray(ens_np.T), device=dev)
+    W_main = ens_start.shape[1]
+    ens_main = dict(tile=tile_main, a=float(cfg.stretch_a), walk=ens_walk,
+                    walked=tuple(w != 0.0 for w in ens_walk),
+                    num=int(np.count_nonzero(ens_th0[0])), W0=len(ens_th0),
+                    stepper=stepper)
+    ens_plan = cuda_mh._build_plan(spec, obs, tf, ens_sub)
+    rec_t = cuda_mh.ensemble_plain(spec, ens_plan, y0, ens_start, ens_seed,
+                                   nits=ens_nits, burnin=0, **ens_main)
+    torch.cuda.synchronize()
+    ens_err = compare_records("ensemble (main path's inputs)", rec_k, rec_t,
+                              ens_nits)
+    print(f"ensemble at the main path's inputs: {len(ens_th0)} walkers "
+          f"padded to {W_main} ({W_main // tile_main} ensembles of "
+          f"{tile_main}), seed {ens_seed}, substeps {ens_sub}, {stepper} x "
+          f"{ens_nits} iterations, mean acceptance "
+          f"{float(rec_k[4][-1].mean()):.4f}", flush=True)
+    if (len(ens_th0), tile_main, W_main) != (CHAINS, 4096, 12288):
+        fail(f"ensemble main path ran {len(ens_th0)} walkers at tile "
+             f"{tile_main} padded to {W_main}, not 10000 / 4096 / 12288")
+
+    # -- 5. times -----------------------------------------------------------
     phase("times")
-    C_main, nits_main = 10000, 1000
-    th_main = torch.as_tensor(
-        draws[order[np.arange(C_main) % max(fin.sum(), 1)]], device=dev)
-    th_main_t = th_main.t().contiguous()
+    short = 6        # the twins over 5 proposals, scaled per iteration
+    th_main_t = torch.as_tensor(seeds, device=dev).t().contiguous()
     mh_ms = events_ms(cuda_mh.mh_launcher(
-        spec, plan, y0, "dopri5", th_main_t, seed, nits=nits_main,
-        burnin=nits_main // 2, walk=walk, walked=(True,) * 3, num=3))
-    short = 6        # the twin over 5 proposals, scaled per chain-step
+        spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
+        walk=walk, walked=(True,) * 3, num=3))
     tw_ms = events_ms(lambda: cuda_mh.mh_plain(
         spec, plan, y0, th_main_t, seed, nits=short, burnin=0, walk=walk,
         walked=(True,) * 3, num=3))
-    mh_plain_ms = tw_ms / (short - 1) * (nits_main - 1)
+    mh_plain_ms = tw_ms / (short - 1) * (NITS - 1)
     th_s = torch.as_tensor(draws[:1000], device=dev).t().contiguous()
     sv_ms = events_ms(cuda_mh.survey_launcher(spec, plan, y0, "dopri5",
                                               th_s), reps=50)
     sv_plain_ms = events_ms(lambda: cuda_mh.survey_plain(
         spec, plan, y0, th_s), reps=3)
-    rate = C_main * (nits_main - 1) / (mh_ms / 1e3)
-    print(f"MH kernel {C_main} x {nits_main}: {mh_ms:.3f} ms "
-          f"({rate:.4g} chain-steps/s); twin {tw_ms:.3f} ms for "
-          f"{short - 1} proposals -> {mh_plain_ms:.1f} ms scaled")
+    launch_kw = {k: v for k, v in ens_main.items() if k != "stepper"}
+    ens_ms = events_ms(cuda_mh.ensemble_launcher(
+        spec, ens_plan, y0, stepper, ens_start, ens_seed, nits=NITS,
+        burnin=BURNIN, **launch_kw))
+    ens_tw_ms = events_ms(lambda: cuda_mh.ensemble_plain(
+        spec, ens_plan, y0, ens_start, ens_seed, nits=short, burnin=0,
+        **ens_main))
+    ens_plain_ms = ens_tw_ms / (short - 1) * (NITS - 1)
+    pt_main = dict(scales=scales, walked=(True,) * 3, betas=betas,
+                   dbetas=dbetas, swap_every=1, num=3)
+    pt_ms = events_ms(cuda_pt.pt_launcher(
+        spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
+        **pt_main))
+    pt_tw_ms = events_ms(lambda: cuda_pt.pt_plain(
+        spec, plan, y0, th_main_t, seed, nits=short, burnin=0, **pt_main))
+    pt_plain_ms = pt_tw_ms / (short - 1) * (NITS - 1)
+    for label, ms, p_ms, steps in (
+            ("MH", mh_ms, mh_plain_ms, CHAINS),
+            ("ensemble", ens_ms, ens_plain_ms, W_main),
+            ("PT", pt_ms, pt_plain_ms, CHAINS * len(TEMPS))):
+        rate = steps * (NITS - 1) / (ms / 1e3)
+        print(f"{label} kernel {steps} solves x {NITS}: {ms:.3f} ms "
+              f"({rate:.4g} solve-steps/s); twin scaled from {short - 1} "
+              f"proposals {p_ms:.1f} ms")
+    print(f"ensemble: {W_main} walkers in {W_main // tile_main} ensembles, "
+          f"{1 + 2 * (NITS - 1)} device launches per run")
     print(f"survey kernel 1000 draws: {sv_ms:.4f} ms; twin "
           f"{sv_plain_ms:.3f} ms")
-    print(f"MCMC wall time: {wall_s:.3f} s; build {build_s:.3f} s "
-          f"({smi_line})")
+    for sampler, (wall_s, _, stages) in runs.items():
+        print(f"MCMC({sampler}) wall time: {wall_s:.3f} s; stages "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
+    print(f"build {build_s:.3f} s ({smi_line})")
 
-    phase("where the time goes: one more MCMC under torch.profiler")
+    # bounds: float32 operations from the twins on the CPU, bytes from the
+    # main path's shapes
+    cpu = torch.device("cpu")
+    plan_bytes = sum(a.nbytes for a in cuda_mh.plan_tables(spec, plan, y0,
+                                                           "dopri5"))
+    one = torch.as_tensor(seeds[:1].T.copy(), device=cpu)
+    sv_ops = 1000 * fp32_ops(lambda: cuda_mh.survey_plain(spec, plan, y0,
+                                                          one))
+    sv_bound = bound(sv_ops, plan_bytes + 1000 * (3 + 1) * 4)
+    R = NITS - 1 - BURNIN
+    init, step, rec = per_iteration_ops(lambda n, b: cuda_mh.mh_plain(
+        spec, plan, y0, one, seed, nits=n, burnin=b, walk=walk,
+        walked=(True,) * 3, num=3))
+    mh_bound = bound(CHAINS * (init + (NITS - 1) * step + R * rec),
+                     plan_bytes + CHAINS * 3 * 4 + R * CHAINS * (3 + 4) * 4)
+    ens_one = torch.as_tensor(cuda_mh.ensemble_init(
+        seeds[:256], seed, 256, mask, 0.01).T.copy(), device=cpu)
+    init, step, rec = per_iteration_ops(lambda n, b: cuda_mh.ensemble_plain(
+        spec, plan, y0, ens_one, seed, tile=256, nits=n, burnin=b, a=2.0,
+        walk=mask, walked=(True,) * 3, num=3, W0=256))
+    ens_bound = bound(
+        (W_main * (init + (NITS - 1) * step) + CHAINS * R * rec) / 256,
+        plan_bytes + W_main * 3 * 4 + R * CHAINS * (3 + 4) * 4)
+    init, step, rec = per_iteration_ops(lambda n, b: cuda_pt.pt_plain(
+        spec, plan, y0, one, seed, nits=n, burnin=b, **pt_main))
+    pt_bound = bound(CHAINS * (init + (NITS - 1) * step + R * rec),
+                     plan_bytes + CHAINS * 3 * 4 + R * CHAINS * (3 + 5) * 4)
+    for label, (b_ms, by) in (("survey", sv_bound), ("MH", mh_bound),
+                              ("ensemble", ens_bound), ("PT", pt_bound)):
+        print(f"{label} bound: {b_ms:.4f} ms, by {by}")
+
+    phase("where the time goes: one more MH MCMC under torch.profiler")
     from torch.profiler import ProfilerActivity, profile
     fw = framework()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof, contextlib.redirect_stdout(io.StringIO()):
         t0 = time.perf_counter()
-        fw.MCMC(chain_inits=10000, iterations_per_chain=1000,
+        fw.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
                 fitsurvey_samples=1000, sd_fitdistance=6.0,
                 print_report=True, profile=True)
         torch.cuda.synchronize()
@@ -306,16 +566,26 @@ def main():
             print(f"  {v / 1e3:10.3f} ms  {k[:90]}")
     else:
         print("device time: not measured (the profiler recorded none)")
-    src = "odelib_tpu_torch/ops/csrc/mh.cu"
+
+    csrc = "odelib_tpu_torch/ops/csrc/"
+
+    def row(name, src, replaces, sampler, err, ms, plain_ms, b):
+        return {"name": name, "route": "cuda", "source": csrc + src,
+                "replaces": replaces, "launches": runs[sampler][1][name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
     print(json.dumps({"kernels": [
-        {"name": "survey_fused", "route": "cuda", "source": src,
-         "replaces": "odelib_tpu/ops/pallas_mh.py:1765",
-         "launches": launches["survey_fused"], "max_abs_err": survey_err,
-         "ms": sv_ms, "plain_ms": sv_plain_ms},
-        {"name": "metropolis_hastings_fused", "route": "cuda",
-         "source": src, "replaces": "odelib_tpu/ops/pallas_mh.py:1017",
-         "launches": launches["metropolis_hastings_fused"],
-         "max_abs_err": mh_err, "ms": mh_ms, "plain_ms": mh_plain_ms}]}))
+        row("survey_fused", "mh.cu", "odelib_tpu/ops/pallas_mh.py:1765",
+            "mh", survey_err, sv_ms, sv_plain_ms, sv_bound),
+        row("metropolis_hastings_fused", "mh.cu",
+            "odelib_tpu/ops/pallas_mh.py:1017", "mh", mh_err, mh_ms,
+            mh_plain_ms, mh_bound),
+        row("ensemble_fused", "ensemble.cu",
+            "odelib_tpu/ops/pallas_mh.py:1514", "ensemble", ens_err, ens_ms,
+            ens_plain_ms, ens_bound),
+        row("parallel_tempering_fused", "pt.cu",
+            "odelib_tpu/ops/pallas_pt.py:49", "pt", pt_err, pt_ms,
+            pt_plain_ms, pt_bound)]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

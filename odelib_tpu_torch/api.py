@@ -2,10 +2,11 @@
 
 Counterpart of ``odelib_tpu/api.py`` for the main path: construction from
 a dataframe, accessors, ``integrate`` (adaptive Dopri5), the fit
-statistics, the LHS prescreen and ``MCMC(sampler='mh')`` — prescreen
-scored by the survey kernel, chains seeded under the ``sd_fitdistance``
-chi cut, all chains in one launch of the MH kernel, the posterior
-DataFrame and the Fitting Report.
+statistics, the LHS prescreen and ``MCMC`` with ``sampler='mh'``,
+``'ensemble'`` and ``'pt'`` — prescreen scored by the survey kernel,
+chains seeded under the ``sd_fitdistance`` chi cut, all chains in the
+sampler's fused kernel (MH, Goodman-Weare ensemble, parallel tempering),
+the posterior DataFrame and the Fitting Report.
 
 ``ModelFramework(device=...)`` picks where everything runs: ``cuda`` when
 ``torch.cuda.is_available()`` and ``cpu`` otherwise. On ``cuda`` the
@@ -94,10 +95,15 @@ class parameter:
         return self.dist is not None
 
 
+_FUSED_SAMPLERS = ("mh", "ensemble", "pt")
 _UNPORTED_SAMPLERS = {
     "hmc": "ROADMAP queue 1, item 16", "amh": "ROADMAP queue 1, item 16",
-    "ensemble": "ROADMAP queue 1, item 15", "pt": "ROADMAP queue 1, item 15",
     "pmmh": "ROADMAP queue 1, item 15"}
+# what the reference runs where the port has no kernel arm yet
+_XLA_SAMPLER_ITEM = {
+    "mh": "the XLA scan sampler is ROADMAP queue 1, item 8",
+    "ensemble": "the XLA samplers/ensemble.py is ROADMAP queue 1, item 15",
+    "pt": "the XLA samplers/pt.py is ROADMAP queue 1, item 15"}
 
 
 class ModelFramework:
@@ -364,27 +370,48 @@ class ModelFramework:
              static_parameters=(), print_report=True, fitsurvey_samples=1000,
              sd_fitdistance=3.0, use_priors=False, rwalk_std=0.05,
              checkpoint_path=None, checkpoint_every=None, resume_from=None,
-             backend="auto", burnin=None, sampler="mh", until_rhat=None,
-             until_min_ess=None, profile=False, pallas_interpret=False,
-             pallas_tile_chains=None, route="auto", **solver_kw):
-        """Markov Chain Monte Carlo with ``sampler='mh'``: every chain in
-        one launch of the fused MH kernel (on a CPU framework, its twin).
+             backend="auto", burnin=None, sampler="mh",
+             temperatures=(1.0, 2.0, 4.0, 8.0), swap_every=1, n_temps=4,
+             pilot_iters=150, ladder_rounds=6, stretch_a=2.0,
+             until_rhat=None, until_min_ess=None, profile=False,
+             pallas_interpret=False, pallas_tile_chains=None, route="auto",
+             **solver_kw):
+        """Markov Chain Monte Carlo: every chain in one run of the
+        sampler's fused kernel (on a CPU framework, its twin).
 
         Same signature and posterior DataFrame as ``odelib_tpu``: columns
         pnames..., chi, rsquared, aic, iteration, acceptance_ratio, chain#,
-        all_rejected. ``cpu_cores``, ``route``, ``pallas_interpret`` and
-        ``pallas_tile_chains`` are accepted and ignored. ``profile=True``
-        records each stage's wall seconds in ``last_profile``, with a
-        device synchronize at each stage boundary. ``backend='pallas'``
-        runs the fused kernel and warns if the configured method is not
-        dopri5/rk4; ``backend='auto'`` raises for such a method, since its
-        JAX counterpart takes the XLA sampler there. Not ported yet, each
-        raising ``NotImplementedError``: other samplers,
-        ``use_priors=True``, checkpointing, ``until_rhat``/
-        ``until_min_ess``, ``backend='xla'`` (and adaptive methods under
-        ``backend='auto'``) and the kvaerno3 kernel stepper.
+        all_rejected. Samplers:
+
+        * ``'mh'``: random-walk Metropolis-Hastings, one launch of the MH
+          kernel;
+        * ``'ensemble'``: Goodman-Weare stretch moves (``stretch_a``), the
+          ``chain_inits`` count being the walker count; every
+          ``pallas_tile_chains`` walkers (default the JAX package's
+          ``pick_tile_chains``) form one independent ensemble, so that
+          knob is part of the result here. As in the reference,
+          ``backend='auto'`` takes the kernel only with at least
+          ``pallas_tile_chains or 1024`` walkers;
+        * ``'pt'``: parallel tempering over the ``temperatures`` ladder
+          with swaps every ``swap_every`` iterations; the T=1 rung is
+          returned and the mean cold-pair swap acceptance is logged
+          (logger ``odelib_tpu_torch``).
+
+        ``cpu_cores``, ``route`` and ``pallas_interpret`` are accepted and
+        ignored, and so is ``pallas_tile_chains`` for 'mh' and 'pt'.
+        ``profile=True`` records each stage's wall seconds in
+        ``last_profile``, with a device synchronize at each stage
+        boundary. ``backend='pallas'`` runs the fused kernel and warns if
+        the configured method is not dopri5/rk4; ``backend='auto'`` raises
+        for such a method, since its JAX counterpart takes the XLA sampler
+        there. Not ported yet, each raising ``NotImplementedError``: the
+        other samplers, ``use_priors=True``, checkpointing,
+        ``until_rhat``/``until_min_ess``, ``backend='xla'`` (and what
+        ``backend='auto'`` sends to an XLA sampler), ``temperatures=
+        'auto'`` (with ``n_temps``/``pilot_iters``/``ladder_rounds``) and
+        the kvaerno3 kernel stepper.
         """
-        if sampler != "mh":
+        if sampler not in _FUSED_SAMPLERS:
             if sampler not in _UNPORTED_SAMPLERS:
                 raise ValueError(f"sampler must be 'mh', 'hmc', 'pt', "
                                  f"'ensemble', 'amh' or 'pmmh', got "
@@ -392,6 +419,14 @@ class ModelFramework:
             raise NotImplementedError(
                 f"sampler={sampler!r} is not ported yet "
                 f"({_UNPORTED_SAMPLERS[sampler]})")
+        if sampler == "pt" and isinstance(temperatures, str):
+            if temperatures != "auto":
+                raise ValueError("temperatures must be a ladder tuple or "
+                                 "'auto'")
+            raise NotImplementedError(
+                "temperatures='auto' tunes the ladder with the XLA PT "
+                "sampler (tune_ladder), not ported yet (ROADMAP queue 1, "
+                "item 15)")
         if use_priors:
             raise NotImplementedError(
                 "use_priors=True (in-kernel priors) is not ported yet "
@@ -406,8 +441,17 @@ class ModelFramework:
                 "ported yet (ROADMAP queue 1, item 11)")
         if backend not in ("auto", "pallas"):
             raise NotImplementedError(
-                f"backend={backend!r}: the port runs the fused MH kernel "
-                "(the XLA scan sampler is ROADMAP queue 1, item 8)")
+                f"backend={backend!r}: the port runs the fused kernels "
+                f"({_XLA_SAMPLER_ITEM[sampler]})")
+        n_req = chain_inits if isinstance(chain_inits, int) \
+            else len(chain_inits)
+        if sampler == "ensemble" and backend == "auto" \
+                and n_req < int(pallas_tile_chains or 1024):
+            raise NotImplementedError(
+                f"{n_req} walkers do not fill an ensemble tile, where "
+                "backend='auto' runs the reference's XLA ensemble "
+                f"({_XLA_SAMPLER_ITEM['ensemble']}); pass backend='pallas' "
+                "to run the fused kernel")
         method, rtol, atol, max_steps, substeps = self._solver_args(
             solver_kw)
         if method == "kvaerno3":
@@ -417,8 +461,8 @@ class ModelFramework:
         if method not in ("dopri5", "rk4"):
             if backend == "auto":
                 raise NotImplementedError(
-                    f"method={method!r} runs on the XLA scan sampler, not "
-                    "ported yet (ROADMAP queue 1, item 8); pass "
+                    f"method={method!r} runs on the XLA sampler, not "
+                    f"ported yet ({_XLA_SAMPLER_ITEM[sampler]}); pass "
                     "backend='pallas' to run fixed-step dopri5 instead")
             warnings.warn(
                 f"backend='pallas' integrates fixed-step dopri5/rk4; the "
@@ -487,7 +531,11 @@ class ModelFramework:
         cfg = _dispatch.RunConfig(
             nits=nits, burnin=burnin,
             mask=self._walk_mask(static_parameters), rwalk_std=rwalk_std,
-            method=method, substeps=substeps)
+            method=method, substeps=substeps,
+            tile_chains=(None if pallas_tile_chains is None
+                         else int(pallas_tile_chains)),
+            temperatures=tuple(temperatures), swap_every=int(swap_every),
+            stretch_a=float(stretch_a))
         out = _dispatch.dispatch(self, sampler, theta0, cfg)
         stage_done("chains")
         posterior = self._posterior_to_df(out, n_chains, static_parameters)

@@ -1,13 +1,15 @@
-"""Build and load the CUDA kernels (``csrc/mh.cu``) for one model.
+"""Build and load the CUDA kernels (``csrc/*.cu``) for one model.
 
-The kernels are compiled with ``nvcc`` into a shared library with a plain
-C interface and loaded with ``ctypes``; no PyTorch headers are involved,
-so a build takes seconds. The build input is the template source in
-``csrc/`` plus ``odelib_gen.cuh``, generated here from the traced RHS
-(:meth:`odelib_tpu_torch.rhs.RhsProgram.cuda_source`) and the fixed-step
-Dopri5/RK4 steppers. The inputs and the flags are hashed into a directory
-under ``odelib_tpu_torch/_build/`` (gitignored), so each model builds
-once, at first use, and every later process loads it.
+The kernels are compiled with ``nvcc`` into one shared library with a
+plain C interface and loaded with ``ctypes``; no PyTorch headers are
+involved, so a build takes seconds. The build input is the sources in
+``csrc/`` (``mh.cu``, ``ensemble.cu``, ``pt.cu`` and their shared
+``common.cuh``) plus ``odelib_gen.cuh``, generated here from the traced
+RHS (:meth:`odelib_tpu_torch.rhs.RhsProgram.cuda_source`) and the
+fixed-step Dopri5/RK4 steppers, all in one nvcc call. The
+inputs and the flags are hashed into a directory under
+``odelib_tpu_torch/_build/`` (gitignored), so each model builds once, at
+first use, and every later process loads it.
 A failed build raises with nvcc's output; a failed launch raises with the
 CUDA error. Nothing falls back to the torch twins.
 """
@@ -18,7 +20,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
 import time
 from pathlib import Path
 
@@ -28,11 +29,13 @@ from ..rhs import _f32_literal, trace_rhs
 from .runge_kutta import DP_A
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("mh.cu",)
+SOURCES = ("mh.cu", "ensemble.cu", "pt.cu")
+HEADERS = ("common.cuh",)
+PT_KMAX = 8     # rungs the PT kernel holds per chain (csrc/pt.cu)
 # -Xptxas -v: registers, stack and spills of each kernel go to nvcc.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DPT_KMAX={PT_KMAX}")
 
 
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
@@ -105,28 +108,26 @@ def build(program) -> Path:
     build's seconds are kept beside it in ``nvcc.log``."""
     header = generated_header(program)
     h = hashlib.sha256()
-    for part in (header, *((CSRC / s).read_text() for s in SOURCES),
+    for part in (header, *((CSRC / s).read_text()
+                           for s in SOURCES + HEADERS),
                  " ".join(NVCC_FLAGS)):
         h.update(part.encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    lib = out_dir / "libodelib_mh.so"
+    lib = out_dir / "libodelib_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "odelib_gen.cuh").write_text(header)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    tmp = out_dir / f"{lib.name}.{os.getpid()}"
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-shared",
+           *(str(CSRC / s) for s in SOURCES), "-o", str(tmp)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
+    text = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    (out_dir / "nvcc.log").write_text(
-        f"{' '.join(cmd)}\nseconds: {secs:.3f}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+    secs = time.perf_counter() - t0
+    (out_dir / "nvcc.log").write_text(f"seconds: {secs:.3f}\n{text}")
     os.replace(tmp, lib)
     return lib
 
@@ -152,6 +153,12 @@ def load_kernels(spec):
         lib.odelib_mh.argtypes = [_P] * 9 + [_I, _I, _I, ctypes.c_uint,
                                              ctypes.c_float, _I, _P]
         lib.odelib_mh.restype = _I
+        lib.odelib_ensemble.argtypes = [_P] * 10 + [_I] * 5 + [
+            ctypes.c_uint] + [ctypes.c_float] * 4 + [_I, _P]
+        lib.odelib_ensemble.restype = _I
+        lib.odelib_pt.argtypes = [_P] * 10 + [_I] * 5 + [
+            ctypes.c_uint, ctypes.c_float, _I, _P]
+        lib.odelib_pt.restype = _I
         lib.odelib_error_string.argtypes = [_I]
         lib.odelib_error_string.restype = ctypes.c_char_p
         _LIBS[path] = lib

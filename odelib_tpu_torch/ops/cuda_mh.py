@@ -4,12 +4,13 @@ Counterpart of the parts of ``odelib_tpu/ops/pallas_mh.py`` on the main
 path: the static plan (``_StaticPlan``/``_normalize_substeps``/
 ``_build_plan``), the counter RNG (``_mix``/``_Rng``), the scorer
 (``_make_scorer``, lognormal and uncensored) and the public
-``survey_fused`` and ``metropolis_hastings_fused`` with the JAX package's
-arguments and ``MHOutput``.
+``survey_fused``, ``metropolis_hastings_fused`` and ``ensemble_fused``
+with the JAX package's arguments and ``MHOutput``.
 
 Each public function takes the device from its input: for a CUDA tensor it
-launches its hand-written kernel (``csrc/mh.cu``, built by :mod:`.build`)
-or raises; for a CPU tensor it runs the plain torch twin defined here. The
+launches its hand-written kernel (``csrc/mh.cu``, ``csrc/ensemble.cu``,
+built by :mod:`.build`) or raises; for a CPU tensor it runs the plain
+torch twin defined here. The
 twin and the kernel perform the same float32 operations in the same order
 as the Pallas kernel, and draw the same random words, so a chain's accept
 sequence agrees with the JAX reference up to ulp-level ties of the math
@@ -33,7 +34,8 @@ _SLOT_BUDGET = 1024
 
 # Kernel launches per public wrapper (a run shows it went through the
 # kernels by these counts; reset with ``reset_launch_counts``).
-LAUNCHES = {"survey_fused": 0, "metropolis_hastings_fused": 0}
+LAUNCHES = {"survey_fused": 0, "metropolis_hastings_fused": 0,
+            "ensemble_fused": 0, "parallel_tempering_fused": 0}
 
 
 def reset_launch_counts():
@@ -110,7 +112,7 @@ def _build_plan(spec: ModelSpec, obs: ObsData, times, substeps):
 
 
 _STEPPER_ID = {"dopri5": 0, "rk4": 1}
-_HDR = 16  # int header of plan_i (see csrc/mh.cu, struct-free layout)
+_HDR = 16  # int header of plan_i (see csrc/common.cuh)
 
 
 def _check_stepper(stepper):
@@ -310,6 +312,123 @@ def mh_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, walk,
     return tuple(recs)
 
 
+def pick_tile_chains(C: int) -> int:
+    """The JAX package's auto tile on one device (``odelib_tpu/ops/
+    pallas_mh.py`` ``pick_tile_chains``), copied so that the same call
+    gives the same ensembles: it is the ensemble size of
+    ``ensemble_fused``, and so part of the result. Its rates were measured
+    on a TPU; nothing here is tuned for the card."""
+    C = max(1, C)
+    best_t, best_score = 1024, 0.0
+    for t, rate in ((4096, 192.0), (2048, 150.0), (1024, 125.0)):
+        padded = -(-C // t) * t
+        score = rate * C / padded
+        if score > best_score:
+            best_t, best_score = t, score
+    return best_t
+
+
+def ensemble_init(theta0, seed: int, tile: int, walk, init_jitter: float):
+    """The walkers' start points on the host, as the JAX package makes
+    them: ``np.random.default_rng(seed)`` jitters every walker's walked
+    slots by ``exp(init_jitter * N(0, 1))``, then pads to a multiple of
+    ``tile`` with jittered clones. ``theta0`` (W0, P) float32 ndarray ->
+    (W, P) float32 ndarray."""
+    W0 = theta0.shape[0]
+    W = int(-(-W0 // tile) * tile)
+    mask_row = np.asarray([1.0 if w != 0.0 else 0.0 for w in walk],
+                          np.float32)
+    rng = np.random.default_rng(seed)
+    if init_jitter:
+        theta0 = theta0 * np.exp(
+            float(init_jitter) * mask_row[None, :]
+            * rng.normal(size=theta0.shape)).astype(np.float32)
+    if W > W0:
+        reps = theta0[rng.integers(0, W0, W - W0)]
+        reps = reps * np.exp(0.05 * mask_row[None, :]
+                             * rng.normal(size=reps.shape)
+                             ).astype(np.float32)
+        theta0 = np.concatenate([theta0, reps], axis=0)
+    return theta0
+
+
+def ensemble_halves(W: int, tile: int, device):
+    """Global indices of each half's walkers, ordered (ensemble, row, lane),
+    and the (ensemble, row, lane) of each: the kernel's thread order."""
+    half = tile // 256
+    e, r, lane = torch.meshgrid(
+        torch.arange(W // tile, device=device),
+        torch.arange(half, device=device),
+        torch.arange(128, device=device), indexing="ij")
+    e, r, lane = e.reshape(-1), r.reshape(-1), lane.reshape(-1)
+    return [(e * tile + (lo + r) * 128 + lane, e, r, lane)
+            for lo in (0, half)]
+
+
+def ensemble_plain(spec, plan, y0_base, theta0, seed, *, tile, nits, burnin,
+                   a, walk, walked, num, W0, stepper="dopri5"):
+    """Twin of the ensemble kernel: ``theta0`` (P, W) float32 walkers (W a
+    multiple of ``tile``); returns the records of the first ``W0`` walkers,
+    theta (R, P, W0) and chi, rsq, aic, acceptance ratio (R, W0),
+    R = nits - 1 - burnin. ``walk`` is the per-slot walk mask and
+    ``walked`` marks its non-zero slots."""
+    score = make_scorer(spec, plan, y0_base, stepper)
+    P, W = theta0.shape
+    dev = theta0.device
+    R = nits - 1 - burnin
+    half = tile // 256
+    n_walked = sum(walked)
+    s = int(np.uint32(np.int64(seed) & _M32))
+    halves = ensemble_halves(W, tile, dev)
+    scal_base = mix((s * 0x7FEB352D + torch.arange(W // tile, device=dev)
+                     * tile + 0xE75) & _M32)
+    rng = Rng(seed, torch.arange(W, device=dev))
+    chi, rsq = score(list(theta0))
+    lt = [torch.log(th) for th in theta0]
+    acc = torch.zeros_like(chi)
+    one, am1, a_c = (const(v, chi) for v in (1.0, a - 1.0, a))
+    nw1 = const(float(n_walked - 1), chi)
+    wc = [const(w, chi) for w in walk]
+    recs = [torch.empty((R, P, W0), dtype=torch.float32, device=dev)] + [
+        torch.empty((R, W0), dtype=torch.float32, device=dev)
+        for _ in range(4)]
+    two, aic_c = const(2.0, chi), const(2.0 * num, chi)
+    for it in range(1, nits):
+        rng.start(it)
+        draws = [rng.uniform() for _ in range(4)]   # slots 0-3, all walkers
+        for hb, (idx, e, r, lane) in enumerate(halves):
+            sbits = mix(scal_base ^ mix(torch.tensor(
+                it * 2 + hb, dtype=torch.int64, device=dev)))
+            r_sub = (sbits % max(half, 1))[e]
+            r_lane = ((sbits >> 8) % 128)[e]
+            comp = half - (half if hb else 0)
+            pidx = e * tile + (comp + (r - r_sub) % half) * 128 \
+                + (lane - r_lane) % 128
+            u, uacc = draws[2 * hb][idx], draws[2 * hb + 1][idx]
+            t = one + am1 * u
+            z = (t * t) / a_c
+            omz = one - z
+            cur = [v[idx] for v in lt]
+            prop = [c + (omz * (v[pidx] - c)) * wc[p] if walked[p] else c
+                    for p, (c, v) in enumerate(zip(cur, lt))]
+            chi_new, rsq_new = score([torch.exp(v) for v in prop])
+            log_ratio = (nw1 * torch.log(z) + chi[idx]) - chi_new
+            accept = torch.exp(log_ratio) > uacc   # NaN / -inf rejects
+            for p in range(P):
+                lt[p][idx] = torch.where(accept, prop[p], cur[p])
+            chi[idx] = torch.where(accept, chi_new, chi[idx])
+            rsq[idx] = torch.where(accept, rsq_new, rsq[idx])
+            acc[idx] = acc[idx] + accept.to(torch.float32)
+        r = it - 1 - burnin
+        if r >= 0:
+            recs[0][r] = torch.stack([torch.exp(v[:W0]) for v in lt])
+            recs[1][r] = chi[:W0]
+            recs[2][r] = rsq[:W0]
+            recs[3][r] = two * chi[:W0] + aic_c
+            recs[4][r] = acc[:W0] / torch.full_like(acc[:W0], float(it))
+    return tuple(recs)
+
+
 # --------------------------------------------------------------------------
 # public wrappers
 # --------------------------------------------------------------------------
@@ -319,6 +438,23 @@ def _as_f32_tensor(x):
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
     return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def _check_unported(priors, checkpoint_every, checkpoint_path,
+                    resume_from, mesh):
+    """Raise for the fused kernels' options that are not ported yet."""
+    if priors is not None and any(d is not None for d in priors):
+        raise NotImplementedError(
+            "in-kernel priors are not ported yet (ROADMAP queue 1, item 12)")
+    if checkpoint_every is not None or resume_from is not None \
+            or checkpoint_path is not None:
+        raise NotImplementedError(
+            "chunked checkpoint/resume is not ported yet (ROADMAP queue 1, "
+            "item 11)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-GPU chain split is not ported yet (ROADMAP queue 1, "
+            "item 18)")
 
 
 def _check_cuda(spec, t: torch.Tensor):
@@ -391,6 +527,44 @@ def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
     return launch
 
 
+def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
+                      nits, burnin, a, walk, walked, num, W0):
+    """Prepare the ensemble kernels for walkers ``th0`` (P, W) on the card
+    and return ``launch() -> records`` (theta (R, P, W0); chi, rsq, aic,
+    acceptance ratio (R, W0)). Each call launches 1 + 2 (nits - 1)
+    kernels, one per half-update, and counts once."""
+    from . import build
+    lib = build.load_kernels(spec)
+    dev = th0.device
+    P, W = th0.shape
+    R = nits - 1 - burnin
+    plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
+                                  str(dev))
+    # per slot: the walk mask value, then the walked flag
+    walk_t = torch.as_tensor(np.asarray(
+        tuple(walk) + tuple(float(w) for w in walked), np.float32),
+        device=dev)
+    state = torch.empty((P + 3, W), dtype=torch.float32, device=dev)
+    recs = (torch.empty((R, P, W0), dtype=torch.float32, device=dev),) \
+        + tuple(torch.empty((R, W0), dtype=torch.float32, device=dev)
+                for _ in range(4))
+    # a - 1, a, n_walked - 1 and the AIC term, rounded as JAX rounds them
+    consts = (float(np.float32(v)) for v in (a - 1.0, a, sum(walked) - 1,
+                                             2.0 * num))
+    args = (plan_i.data_ptr(), plan_f.data_ptr(), th0.data_ptr(),
+            walk_t.data_ptr(), state.data_ptr(),
+            *(r.data_ptr() for r in recs), W, W0, int(tile), int(nits),
+            int(burnin), int(np.uint32(np.int64(seed) & _M32)), *consts,
+            _STEPPER_ID[stepper], build.stream(dev))
+
+    def launch():
+        build.check(lib, lib.odelib_ensemble(*args), "ensemble")
+        LAUNCHES["ensemble_fused"] += 1
+        return recs
+    launch.keep = (walk_t, state)   # alive as long as the launcher
+    return launch
+
+
 def _key(y0_base):
     return tuple(float(v) for v in np.asarray(y0_base, np.float64))
 
@@ -437,18 +611,8 @@ def metropolis_hastings_fused(
     are accepted and ignored; in-kernel priors, checkpointing and meshes
     are not ported yet and raise ``NotImplementedError``."""
     from ..samplers.mh import MHOutput
-    if priors is not None and any(d is not None for d in priors):
-        raise NotImplementedError(
-            "in-kernel priors are not ported yet (ROADMAP queue 1, item 12)")
-    if checkpoint_every is not None or resume_from is not None \
-            or checkpoint_path is not None:
-        raise NotImplementedError(
-            "chunked checkpoint/resume is not ported yet (ROADMAP queue 1, "
-            "item 11)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-GPU chain split is not ported yet (ROADMAP queue 1, "
-            "item 18)")
+    _check_unported(priors, checkpoint_every, checkpoint_path, resume_from,
+                    mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)
@@ -488,11 +652,83 @@ def metropolis_hastings_fused(
                     acceptance_ratio=ar_r.t(), iteration=iteration)
 
 
+def ensemble_fused(
+        spec: ModelSpec, obs: ObsData, times, y0_base, theta0, seed: int, *,
+        nits: int = 1000, burnin: Optional[int] = None, a: float = 2.0,
+        walk_mask: Optional[Sequence[float]] = None,
+        substeps: int = 4, stepper: str = "dopri5",
+        tile_chains: Optional[int] = None, interpret: bool = False,
+        mesh=None, priors=None, init_jitter: float = 0.01,
+        checkpoint_every: Optional[int] = None,
+        checkpoint_path: Optional[str] = None,
+        resume_from: Optional[str] = None, config_token: str = ""):
+    """Affine-invariant ensemble sampler (Goodman-Weare stretch moves).
+
+    ``theta0`` is (W0, P) float32 walkers; a CUDA tensor launches the
+    ensemble kernels, a CPU one runs their twin. Walkers are jittered and
+    padded on the host exactly as in the JAX package (:func:`ensemble_init`),
+    to W, a multiple of ``tile_chains``; every ``tile_chains`` walkers are
+    one independent ensemble, so the tile is part of the result (default:
+    :func:`pick_tile_chains`, the JAX rule; any multiple of 256). Returns
+    ``MHOutput`` for the first W0 walkers, as
+    :func:`metropolis_hastings_fused`. ``interpret``/``config_token`` are
+    accepted and ignored; in-kernel priors, checkpointing and meshes are
+    not ported yet and raise ``NotImplementedError``."""
+    from ..samplers.mh import MHOutput
+    _check_unported(priors, checkpoint_every, checkpoint_path, resume_from,
+                    mesh)
+    _check_stepper(stepper)
+    if burnin is None:
+        burnin = int(nits / 2)
+    P = spec.theta_size
+    if a <= 1.0:
+        raise ValueError(f"stretch scale a must exceed 1, got {a}")
+    dev = theta0.device if isinstance(theta0, torch.Tensor) \
+        else torch.device("cpu")
+    th_np = _as_f32_tensor(theta0).cpu().numpy()
+    W0 = th_np.shape[0]
+    if th_np.shape[1] != P:
+        raise ValueError(f"theta0 must have {P} columns")
+    tile = int(tile_chains if tile_chains is not None
+               else pick_tile_chains(W0))
+    if tile <= 0 or tile % 256:
+        raise ValueError("tile_chains must be a positive multiple of 256 "
+                         "(two halves of 128-lane rows per ensemble)")
+    if nits - 1 <= burnin:
+        raise ValueError(f"nits={nits} leaves no recorded iterations after "
+                         f"burnin={burnin}")
+    num = int(np.count_nonzero(th_np[0]))
+    if walk_mask is None:
+        walk_mask = [1.0] * P
+    walk = tuple(float(w) for w in walk_mask)
+    walked = tuple(w != 0.0 for w in walk)
+    th_np = ensemble_init(th_np, seed, tile, walk, init_jitter)
+    substeps = _normalize_substeps(substeps, len(np.asarray(times)) - 1)
+    plan = _build_plan(spec, obs, times, substeps)
+    th0 = torch.as_tensor(np.ascontiguousarray(th_np.T), device=dev)
+    iteration = torch.arange(1, nits, device=dev)[burnin:]
+    kw = dict(tile=tile, nits=nits, burnin=burnin, a=float(a), walk=walk,
+              walked=walked, num=num, W0=W0)
+    if not _check_cuda(spec, th0):
+        recs = ensemble_plain(spec, plan, y0_base, th0, seed,
+                              stepper=stepper, **kw)
+    else:
+        recs = ensemble_launcher(spec, plan, y0_base, stepper, th0, seed,
+                                 **kw)()
+    th_r, chi_r, rsq_r, aic_r, ar_r = recs
+    return MHOutput(theta=th_r.permute(2, 0, 1), chi=chi_r.t(),
+                    rsquared=rsq_r.t(), aic=aic_r.t(),
+                    acceptance_ratio=ar_r.t(), iteration=iteration)
+
+
 def inputs_from_reference(obs, theta0, seed, y0):
     """The port's inputs from the JAX package's host objects: ``obs`` with
-    the ``ObsData`` field names (numpy), theta0 (C, P) float32, the kernel
-    seed and y0. Reads plain numpy only. Returns (ObsData, theta0 CPU
-    tensor, seed, y0 ndarray); move the tensor to run on the card."""
+    the ``ObsData`` field names (numpy), theta0 (C, P) float32 (chains,
+    walkers or ladder seeds: the ensemble's jitter and padding happen
+    inside both packages' ``ensemble_fused`` from the same seed, and a
+    temperature ladder is a plain tuple), the kernel seed and y0. Reads
+    plain numpy only. Returns (ObsData, theta0 CPU tensor, seed, y0
+    ndarray); move the tensor to run on the card."""
     th = _as_f32_tensor(theta0)
     return (obsdata_from_arrays(obs), th, int(seed),
             np.asarray(y0, np.float64))

@@ -128,10 +128,22 @@ def test_unported_options_raise():
                      (dict(backend="xla"), "item 8"),
                      (dict(method="auto"), "item 8"),
                      (dict(method="kvaerno5"), "item 8"),
-                     (dict(method="kvaerno3"), "item 14")):
+                     (dict(method="kvaerno3"), "item 14"),
+                     (dict(sampler="pt", temperatures="auto"), "item 15"),
+                     (dict(sampler="pt", use_priors=True), "item 12"),
+                     (dict(sampler="ensemble", use_priors=True), "item 12"),
+                     (dict(sampler="pt", backend="xla"), "item 15"),
+                     # fewer walkers than a tile: the reference's XLA
+                     # ensemble under backend='auto'
+                     (dict(sampler="ensemble"), "item 15"),
+                     (dict(sampler="ensemble", pallas_tile_chains=256),
+                      "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             fw.MCMC(chain_inits=_INITS, iterations_per_chain=6,
                     print_report=False, **kw)
+    with pytest.raises(ValueError, match="ladder tuple"):
+        fw.MCMC(chain_inits=_INITS, iterations_per_chain=6, sampler="pt",
+                temperatures="hot", print_report=False)
 
 
 def test_pallas_backend_warns_for_adaptive_method():

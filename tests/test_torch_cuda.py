@@ -16,6 +16,7 @@ from odelib_tpu_torch.data import (build_obsdata_host,
 from odelib_tpu_torch.model import make_spec
 from odelib_tpu_torch.models import zero_i
 from odelib_tpu_torch.ops import cuda_mh as T
+from odelib_tpu_torch.ops import cuda_pt as TP
 from odelib_tpu_torch.rhs import RhsTraceError, adapt_rhs
 
 pytestmark = pytest.mark.cuda
@@ -76,6 +77,65 @@ def test_mh_kernel_matches_twin(card):
                                rtol=1e-5)
     np.testing.assert_allclose(k.chi.cpu().numpy(), tw[1].t().cpu().numpy(),
                                rtol=1e-5)
+
+
+def _equal_runs(k_recs, t_recs):
+    """Kernel and twin records (chain-minor) agree: the accept sequences
+    (running acceptance ratios) exactly, the rest to rtol 1e-5."""
+    k_recs = [r.cpu().numpy() for r in k_recs]
+    t_recs = [r.cpu().numpy() for r in t_recs]
+    np.testing.assert_array_equal(k_recs[4], t_recs[4])
+    for a, b in zip(k_recs, t_recs):
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+
+
+def test_ensemble_kernel_matches_twin(card):
+    """700 walkers padded to three ensembles of 256, a static slot."""
+    spec, obs, tf, y0 = card
+    draws = _draws(700, sd=0.05)
+    walk = (1.0, 1.0, 0.0)
+    before = T.LAUNCHES["ensemble_fused"]
+    k = T.ensemble_fused(spec, obs, tf, y0, torch.as_tensor(draws,
+                                                            device="cuda"),
+                         11, nits=40, burnin=10, substeps=4, walk_mask=walk,
+                         tile_chains=256)
+    assert T.LAUNCHES["ensemble_fused"] == before + 1
+    th0 = torch.as_tensor(T.ensemble_init(draws, 11, 256, walk, 0.01).T
+                          .copy(), device="cuda")
+    tw = T.ensemble_plain(spec, T._build_plan(spec, obs, tf, 4), y0, th0, 11,
+                          tile=256, nits=40, burnin=10, a=2.0, walk=walk,
+                          walked=(True, True, False), num=3, W0=700)
+    torch.cuda.synchronize()
+    _equal_runs([k.theta.permute(1, 2, 0), k.chi.t(), k.rsquared.t(),
+                 k.aic.t(), k.acceptance_ratio.t()], tw)
+    assert 0 < float(k.acceptance_ratio[:, -1].mean()) < 1
+
+
+@pytest.mark.parametrize("every", [1, 3])
+def test_pt_kernel_matches_twin(card, every):
+    spec, obs, tf, y0 = card
+    temps = (1.0, 2.0, 4.0, 8.0)
+    th0 = torch.as_tensor(_draws(512, sd=0.05), device="cuda")
+    before = T.LAUNCHES["parallel_tempering_fused"]
+    k, rate = TP.parallel_tempering_fused(
+        spec, obs, tf, y0, th0, 11, temperatures=temps, swap_every=every,
+        nits=40, burnin=10, substeps=4, walk_mask=[1, 0, 1])
+    assert T.LAUNCHES["parallel_tempering_fused"] == before + 1
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.05, [1, 0, 1])
+    tw = TP.pt_plain(spec, T._build_plan(spec, obs, tf, 4), y0,
+                     th0.t().contiguous(), 11, nits=40, burnin=10,
+                     scales=scales, walked=(True, False, True), betas=betas,
+                     dbetas=dbetas, swap_every=every, num=3)
+    torch.cuda.synchronize()
+    _equal_runs([k.theta.permute(1, 2, 0), k.chi.t(), k.rsquared.t(),
+                 k.aic.t(), k.acceptance_ratio.t()], tw[:5])
+    att = TP.swap_attempts(40, every, 1)[0]
+    np.testing.assert_array_equal(rate.cpu().numpy(),
+                                  (tw[5][-1] / torch.tensor(
+                                      att, dtype=torch.float32,
+                                      device="cuda")).cpu().numpy())
+    assert 0 < float(rate.mean()) <= 1
 
 
 def test_summed_observable_kernel_matches_twin():

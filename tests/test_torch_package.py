@@ -17,7 +17,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_out():
     code = ("import sys, odelib_tpu_torch, odelib_tpu_torch.api, "
-            "odelib_tpu_torch.ops.cuda_mh, odelib_tpu_torch.ops.build, "
+            "odelib_tpu_torch.ops.cuda_mh, odelib_tpu_torch.ops.cuda_pt, "
+            "odelib_tpu_torch.ops.build, odelib_tpu_torch.samplers.pt, "
             "odelib_tpu_torch.models, odelib_tpu_torch.dispatch; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'odelib_tpu.'))"
@@ -26,6 +27,28 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_launch_counts_cover_every_kernel():
+    from odelib_tpu_torch.ops import cuda_mh
+    assert set(cuda_mh.LAUNCHES) == {
+        "survey_fused", "metropolis_hastings_fused", "ensemble_fused",
+        "parallel_tempering_fused"}
+    cuda_mh.LAUNCHES["ensemble_fused"] = 3
+    cuda_mh.reset_launch_counts()
+    assert not any(cuda_mh.LAUNCHES.values())
+
+
+def test_build_hashes_every_source():
+    """Every kernel source and the shared header feed the build hash, and
+    each names the TPU kernel it replaces."""
+    from odelib_tpu_torch.ops import build
+    files = {p.name for p in build.CSRC.iterdir()}
+    assert set(build.SOURCES) | set(build.HEADERS) == files
+    for s in build.SOURCES:
+        text = (build.CSRC / s).read_text()
+        assert "Replaces, in odelib_tpu/ops/pallas_" in text
+        assert '#include "common.cuh"' in text
 
 
 _DISTS = [
