@@ -6,35 +6,54 @@ Phases, each failing the script if it fails:
 
 1. device: the card's name and power limit (nvidia-smi); exits non-zero
    without CUDA;
-2. build: all four kernels (ops/csrc/*.cu) from the checkout's sources
-   into a clean build directory, with the build's seconds and each
+2. build: all six kernels (ops/csrc/*.cu) from the checkout's sources
+   into a clean build directory, three libraries started together: the
+   main-path model's, a joint fit of two different models' (zero_i and
+   one_i) and the PMMH path's SDE model's; the builds' seconds and each
    kernel's registers, stack and spills;
 3. kernel versus twin on the card, at the main-path model (zero_i on the
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws (chi
    rtol 1e-5, equal non-finite masks), MH on 1024 chains x 200 iterations
    (identical accept sequences up to documented ulp ties, records rtol
    1e-5), the ensemble on 2048 walkers (two ensembles of 1024) x 200
-   iterations and PT on 1024 chains x 4 rungs x 200 iterations (identical
-   accept sequences and swap counts, records rtol 1e-5);
+   iterations, PT on 1024 chains x 4 rungs x 200 iterations (identical
+   accept sequences and swap counts, records rtol 1e-5), and the joint
+   kernel on the heterogeneous pair zero_i + one_i, 256 chains x 20
+   iterations (bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after: ModelFramework(..., device='cuda').MCMC(chain_inits=10000,
    iterations_per_chain=1000, fitsurvey_samples=1000, sd_fitdistance=6.0)
    with sampler='mh', 'ensemble' and 'pt' (temperatures (1, 2, 4, 8)):
    the posterior's columns, finite chi, mean final acceptance in the
    sampler's band, the printed Fitting Report, and for PT a finite swap
-   rate in (0, 1]; then the public ensemble_fused against its twin on the
-   ensemble main path's own inputs (its 10,000 walkers and seed, the
-   default tile of 4096, padded to 12,288 walkers), 200 iterations: the
-   tile sets each walker's partners, so this is the geometry the main
-   path runs (identical accept sequences, records rtol 1e-5);
+   rate in (0, 1]; JointFit({a, b}, shared=['phi', 'beta']).MCMC(10000
+   chains x 1000 iterations) of zero_i on the demo data (a) and on the
+   same frame with perturbed log abundances and initial abundances x 1.13
+   (b); ModelFramework(GBM with diffusion=).MCMC(sampler='pmmh', 10240
+   chains x 128 particles x 200 iterations, 40 Euler steps per 0.5
+   interval, LogNormal prior, adaptation): finite chi, the frozen-phase
+   acceptance in [0.15, 0.5], and the posterior of log mu against the
+   exact grid-Kalman posterior of the target the kernel samples
+   (|mean - exact| < 0.02, std within rtol 0.05). Then each of three
+   kernels, through its public wrapper, against its twin on its main
+   path's own inputs, captured where the path calls the wrapper:
+   ensemble_fused (its 10,000 walkers and seed, the default tile of 4096,
+   padded to 12,288 walkers; 200 iterations; the tile sets each walker's
+   partners, so this is the geometry the main path runs; identical accept
+   sequences, records rtol 1e-5), joint_metropolis_hastings_fused (all
+   10,000 chains x 50 iterations) and pmmh_fused (all 10,240 chains x 128
+   particles x 20 iterations, adapting for 10), both bitwise;
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MCMC wall times with their stage breakdowns, and the device's busy share
    of one more MH run under torch.profiler. Each kernel's bound is the
    larger of its float32 operations (counted by running its twin on the
    CPU under a counting dispatch mode; per chain and iteration they do not
-   depend on the data) over the FP32 peak and its bytes (inputs read once,
-   outputs written once) over the memory rate.
+   depend on the data but for the particle filter's selection, which
+   twin and kernel make by a search, one add per particle and state,
+   or by a masked sum where rounding made the prefix sum dip: averaged
+   over 8 chains) over the FP32 peak and its
+   bytes (inputs read once, outputs written once) over the memory rate.
 
 Prints the device line and a JSON line of kernels before the last line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -55,7 +74,12 @@ FP32_PEAK = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
 NITS, BURNIN, CHAINS = 1000, 500, 10000
 TEMPS = (1.0, 2.0, 4.0, 8.0)
-BANDS = {"mh": (0.1, 0.6), "ensemble": (0.1, 0.8), "pt": (0.1, 0.6)}
+BANDS = {"mh": (0.1, 0.6), "ensemble": (0.1, 0.8), "pt": (0.1, 0.6),
+         "joint": (0.1, 0.6)}
+# the PMMH path: bench/suite.py's config 14 as a user would call it
+PF_CHAINS, PF_NITS, PF_K, PF_SUB = 10240, 200, 128, 40
+MU, SIG, S_OBS = 0.4, 0.3, 0.15
+PRI_MU, PRI_SD = 0.4, 0.5          # mu ~ lognorm(s=PRI_SD, scale=PRI_MU)
 
 
 def fail(msg):
@@ -89,7 +113,7 @@ def fp32_ops(fn):
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     arith = {"add", "sub", "rsub", "mul", "div", "exp", "log", "sqrt",
-             "cos", "neg", "abs", "pow"}
+             "cos", "sin", "neg", "abs", "pow"}
 
     class Count(TorchDispatchMode):
         n = 0
@@ -129,21 +153,27 @@ def accept_steps(ar, nits):
         ar * np.arange(1, nits)[:, None])]), axis=0)
 
 
-def compare_records(name, rec_k, rec_t, nits):
-    """Kernel against twin records (chain-minor, burnin 0): identical
-    accept sequences, every record rtol 1e-5; returns chi's max abs
-    error."""
+MH_LABELS = ("theta", "chi", "rsquared", "aic", "ar", "sw")
+
+
+def compare_records(name, rec_k, rec_t, nits, labels=MH_LABELS, burnin=0):
+    """Kernel against twin records (chain-minor, from iteration burnin +
+    1): identical accept sequences, every record rtol 1e-5; returns chi's
+    max abs error."""
     import numpy as np
     rec_k = [r.cpu().numpy() for r in rec_k]
     rec_t = [r.cpu().numpy() for r in rec_t]
-    flips = accept_steps(rec_k[4], nits) != accept_steps(rec_t[4], nits)
-    if flips.any():
-        c = np.where(flips.any(0))[0]
-        fail(f"{name}: accept sequences differ for {c.size} chains "
-             f"(first chain {c[0]})")
+    ar = labels.index("ar")
+    its = np.arange(burnin + 1, nits)[:, None]
+    steps_k, steps_t = (np.diff(np.round(r[ar] * its), axis=0)
+                        for r in (rec_k, rec_t))
+    if (steps_k != steps_t).any() or (
+            np.round(rec_k[ar][0] * its[0]) != np.round(rec_t[ar][0] * its[0])
+    ).any():
+        c = np.where((steps_k != steps_t).any(0))[0]
+        fail(f"{name}: accept sequences differ for {c.size} chains")
     err = 0.0
-    for label, a, b in zip(("theta", "chi", "rsquared", "aic", "ar", "sw"),
-                           rec_k, rec_t):
+    for label, a, b in zip(labels, rec_k, rec_t):
         if not (np.isfinite(a) == np.isfinite(b)).all():
             fail(f"{name}: {label} kernel and twin disagree on finiteness")
         m = np.isfinite(b)
@@ -156,6 +186,50 @@ def compare_records(name, rec_k, rec_t, nits):
         if rel > 1e-5:
             fail(f"{name}: {label} kernel vs twin rel err {rel:.3g} > 1e-5")
     return err
+
+
+def gbm_data():
+    """tests/test_pallas_pf.py's GBM observations: log N at t = 0.5, ...,
+    4.0 from numpy seed 42 (MU, SIG, S_OBS)."""
+    import numpy as np
+    rng = np.random.default_rng(42)
+    t_obs = np.arange(1, 9) * 0.5
+    z, zs = np.log(2.0), []
+    for dt in np.diff(np.concatenate([[0.0], t_obs])):
+        z = z + (MU - 0.5 * SIG ** 2) * dt + SIG * np.sqrt(dt) * rng.normal()
+        zs.append(z)
+    return t_obs, np.array(zs) + S_OBS * rng.normal(size=len(zs))
+
+
+def kalman_posterior(t_obs, log_o):
+    """Mean and std of log mu under the exact posterior: the GBM with
+    lognormal observations is linear-Gaussian in log N, so the likelihood
+    is a Kalman filter's, taken on a grid of log mu with the N(log PRI_MU,
+    PRI_SD) prior (tests/test_pallas_pf.py:54-66, 94-101). The chain walks
+    log mu but weighs the LogNormal density of mu, 1/mu included, with no
+    Jacobian term (as the JAX kernel does), so the target it samples in
+    log mu carries a further factor 1/mu: the ``- grid`` below."""
+    import numpy as np
+
+    def loglik(mu):
+        m, P, ll, prev = np.log(2.0), 0.0, 0.0, 0.0
+        for t, y in zip(t_obs, log_o):
+            dt, prev = t - prev, t
+            m += (mu - 0.5 * SIG ** 2) * dt
+            P += SIG ** 2 * dt
+            S = P + S_OBS ** 2
+            ll += -0.5 * np.log(2 * np.pi * S) - 0.5 * (y - m) ** 2 / S
+            K = P / S
+            m += K * (y - m)
+            P *= 1 - K
+        return ll
+    grid = np.log(PRI_MU) + np.linspace(-3, 3, 601)
+    lp = np.array([loglik(np.exp(z)) for z in grid]) \
+        - 0.5 * ((grid - np.log(PRI_MU)) / PRI_SD) ** 2 - grid
+    w = np.exp(lp - lp.max())
+    w /= w.sum()
+    mean = float((grid * w).sum())
+    return mean, float(np.sqrt(((grid - mean) ** 2 * w).sum()))
 
 
 def main():
@@ -173,10 +247,14 @@ def main():
     import pandas as pd
     import scipy.stats
 
-    from odelib_tpu_torch import ModelFramework, dispatch, parameter
-    from odelib_tpu_torch.data import load_demo_dataframe
-    from odelib_tpu_torch.models import zero_i
-    from odelib_tpu_torch.ops import build, cuda_mh, cuda_pt
+    from odelib_tpu_torch import JointFit, ModelFramework, dispatch, parameter
+    from odelib_tpu_torch.data import (build_obsdata_host,
+                                       compact_observation_grid,
+                                       format_dataframe, load_demo_dataframe)
+    from odelib_tpu_torch.models import one_i, zero_i
+    from odelib_tpu_torch.ops import (build, cuda_joint, cuda_mh, cuda_pf,
+                                      cuda_pt)
+    from odelib_tpu_torch.ops.priors import prior_table
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -193,43 +271,96 @@ def main():
           f"device: {kind}", flush=True)
     dev = torch.device("cuda")
 
-    def framework(t_steps=288):
+    def framework(df=None, **kw):
         return ModelFramework(
             ODE=zero_i.rhs, parameter_names=list(zero_i.pnames),
             state_names=list(zero_i.snames),
-            dataframe=load_demo_dataframe(host="S", virus="V"),
+            dataframe=(load_demo_dataframe(host="S", virus="V")
+                       if df is None else df),
             mu=parameter(scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
                          random_seed=1),
             phi=parameter(scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
                           random_seed=2),
             beta=parameter(scipy.stats.lognorm, {"s": 1, "scale": 25},
                            random_seed=3),
-            t_steps=t_steps, device="cuda", ode_style="jax")
+            t_steps=288, device="cuda", ode_style="jax", **kw)
+
+    def joint_fit():
+        """zero_i on the demo data (a) and on the same frame with its log
+        abundances perturbed (numpy seed 7, sd 0.1) and both initial
+        abundances x 1.13 (b), sharing phi and beta: D = 4."""
+        fw_a = framework()
+        df = load_demo_dataframe(host="S", virus="V")
+        df["abundance"] = df["abundance"] * np.exp(
+            np.random.default_rng(7).normal(0, 0.1, len(df)))
+        y0_a = fw_a.get_inits(as_dict=True)
+        fw_b = framework(df, **{s: 1.13 * float(v) for s, v in y0_a.items()})
+        return JointFit({"a": fw_a, "b": fw_b}, shared=["phi", "beta"],
+                        random_seed=0)
+
+    def gbm(y, t, ps):
+        return np.array([ps[0] * y[0]])
+
+    def gnoise(y, t, ps):
+        return np.array([SIG * y[0]])
+
+    def pmmh_framework():
+        t_obs, log_o = gbm_data()
+        df = pd.DataFrame({"organism": "N", "time": t_obs,
+                           "abundance": np.exp(log_o), "log_sigma": S_OBS})
+        return ModelFramework(
+            ODE=gbm, diffusion=gnoise, parameter_names=["mu"],
+            state_names=["N"], dataframe=df, t_steps=41, N=2.0,
+            mu=parameter(scipy.stats.lognorm, {"s": PRI_SD,
+                                               "scale": PRI_MU}),
+            device="cuda")
 
     fw = framework()
     spec, obs, tf, y0 = (fw._spec, fw._obsdata_fit_host, fw._times_fit,
                          fw.get_inits())
     print(f"compact grid: {len(tf)} points, {len(obs.log_abundance)} "
           "observations", flush=True)
+    # the heterogeneous joint check's second model: one_i, host H = S + I1
+    df1 = format_dataframe(load_demo_dataframe(host="H", virus="V"),
+                           one_i.snames)
+    spec1 = one_i.spec()
+    obs1, _ = build_obsdata_host(df1, np.linspace(0, df1["time"].max(), 288),
+                                 spec1.post_snames)
+    tf1, obs1 = compact_observation_grid(
+        obs1, np.linspace(0, df1["time"].max(), 288))
+    y01 = np.array([df1.loc["H"].iloc[0]["abundance"], 0.0,
+                    df1.loc["V"].iloc[0]["abundance"]])
+    pf_spec = pmmh_framework()._spec
 
     # -- 2. build -------------------------------------------------------------
     phase("build")
+    from concurrent.futures import ThreadPoolExecutor
     shutil.rmtree(build.BUILD_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
-    lib = build.load_kernels(spec)
+    with ThreadPoolExecutor(3) as ex:       # three nvcc processes at once
+        libs = list(ex.map(lambda a: build.load_kernels(*a),
+                           [(spec,), (spec, (spec1,)), (pf_spec,)]))
     build_s = time.perf_counter() - t0
-    log = open(os.path.join(os.path.dirname(lib._name), "nvcc.log")).read()
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            print(f"kernel {m.group(1)}")
-        elif "seconds" in line or "registers" in line or "stack" in line:
-            print(line.strip())
+    logs = ""
+    for label, lib in zip(("zero_i", "zero_i + one_i (joint)", "GBM SDE"),
+                          libs):
+        log = open(os.path.join(os.path.dirname(lib._name),
+                                "nvcc.log")).read()
+        logs += log
+        print(f"library for {label}:")
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                print(f"kernel {m.group(1)}")
+            elif "seconds" in line or "registers" in line \
+                    or "stack" in line:
+                print(line.strip())
     for name in ("survey_kernel", "mh_kernel", "ens_init_kernel",
-                 "ens_half_kernel", "pt_kernel"):
-        if name not in log:
+                 "ens_half_kernel", "pt_kernel", "joint_kernel", "pf_kernel"):
+        if name not in logs:
             fail(f"build: {name} is missing from nvcc.log")
-    print(f"build seconds: {build_s:.3f}", flush=True)
+    print(f"build seconds (three libraries in parallel): {build_s:.3f}",
+          flush=True)
 
     # -- 3. kernel versus twin --------------------------------------------
     phase("survey kernel vs twin")
@@ -348,6 +479,26 @@ def main():
           f"cold acceptance {float(rec_k[4][-1].mean()):.4f}, mean cold swap "
           f"rate {float(rec_k[5][-1].mean()) / att:.4f}", flush=True)
 
+    phase("joint kernel vs twin: zero_i + one_i")
+    hspecs, hidx = [spec, spec1], [(2, 0, 1), (3, 0, 1, 4)]
+    hplans = [cuda_mh._build_plan(spec, obs, tf, 4),
+              cuda_mh._build_plan(spec1, obs1, tf1, 4)]
+    hth0 = torch.as_tensor((np.array([2.4e-8, 22.0, 0.6, 0.6, 1.2])
+                            * np.exp(np.random.default_rng(3).normal(
+                                0, 0.05, (256, 5)))).astype(np.float32).T
+                           .copy(), device=dev)
+    hkw = dict(nits=20, burnin=0, walk=(0.05,) * 5, walked=(True,) * 5)
+    rec_k = cuda_joint.joint_launcher(hspecs, hplans, [y0, y01], hidx,
+                                      "dopri5", hth0, seed, **hkw)()
+    torch.cuda.synchronize()
+    rec_t = cuda_joint.joint_plain(hspecs, hplans, [y0, y01], hidx, hth0,
+                                   seed, **hkw)
+    torch.cuda.synchronize()
+    compare_records("joint (zero_i + one_i)", rec_k, rec_t, 20,
+                    labels=("theta", "chi", "chi parts", "ar"))
+    print(f"joint, two models: 256 chains x 20 iterations, mean acceptance "
+          f"{float(rec_k[3][-1].mean()):.4f}", flush=True)
+
     # -- 4. the main paths --------------------------------------------------
     swap_log = io.StringIO()
     handler = logging.StreamHandler(swap_log)
@@ -423,6 +574,124 @@ def main():
     pkg_log.removeHandler(handler)
     dispatch._ARMS["cuda:ensemble"] = ens_arm
 
+    phase("main path: JointFit({'a': zero_i, 'b': zero_i perturbed}, "
+          "shared=['phi', 'beta']).MCMC()")
+    jf = joint_fit()
+    joint_in = {}
+    joint_fused = cuda_joint.joint_metropolis_hastings_fused
+
+    def recording_joint(*args, **kw):
+        joint_in.update(args=args, kw=kw)
+        return joint_fused(*args, **kw)
+    cuda_joint.joint_metropolis_hastings_fused = recording_joint
+    out = io.StringIO()
+    cuda_mh.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        jpost = jf.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
+                        fitsurvey_samples=1000, substeps=4,
+                        backend="pallas", profile=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(cuda_mh.LAUNCHES)
+    cuda_joint.joint_metropolis_hastings_fused = joint_fused
+    print(out.getvalue())
+    print(f"JointFit.MCMC wall seconds: {wall_s:.3f}; launches {launches}; "
+          "stages " + ", ".join(f"{k} {v:.3f} s"
+                                for k, v in jf.last_profile.items()))
+    jcols = ["phi", "beta", "a:mu", "b:mu", "chi", "chi:a", "chi:b",
+             "iteration", "acceptance_ratio", "chain#", "all_rejected"]
+    if list(jpost.columns) != jcols:
+        fail(f"joint: posterior columns {list(jpost.columns)}")
+    if len(jpost) != CHAINS * (NITS - 1 - BURNIN) \
+            or jpost["chain#"].nunique() != CHAINS:
+        fail(f"joint: posterior has {len(jpost)} rows")
+    finite = float(np.isfinite(jpost.chi.to_numpy()).mean())
+    last = jpost[jpost.iteration == jpost.iteration.max()]
+    mean_acc = float(last.acceptance_ratio.mean())
+    print(f"joint: D = {jf.dim}, idx maps {jf._idx_maps}; finite chi "
+          f"fraction {finite}, mean final acceptance {mean_acc:.4f}")
+    if finite != 1.0:
+        fail(f"joint: finite chi fraction {finite}")
+    if not BANDS["joint"][0] <= mean_acc <= BANDS["joint"][1]:
+        fail(f"joint: mean final acceptance {mean_acc} outside "
+             f"{BANDS['joint']}")
+    if not (jpost["chi"].to_numpy() == (jpost["chi:a"].to_numpy()
+                                        + jpost["chi:b"].to_numpy())).all():
+        fail("joint: chi is not chi:a + chi:b")
+    if "Joint Fitting Report" not in out.getvalue():
+        fail("joint: the Joint Fitting Report did not print")
+    if launches["joint_metropolis_hastings_fused"] != 1:
+        fail(f"joint: the joint kernel was not launched once: {launches}")
+    runs["joint"] = (wall_s, launches, dict(jf.last_profile))
+
+    phase("main path: ModelFramework(GBM, diffusion=...).MCMC("
+          "sampler='pmmh')")
+    pf_in = {}
+    pf_fused = cuda_pf.pmmh_fused
+
+    def recording_pf(*args, **kw):
+        pf_in.update(args=args, kw=kw)
+        return pf_fused(*args, **kw)
+    cuda_pf.pmmh_fused = recording_pf
+    pfw = pmmh_framework()
+    pf_plan = cuda_mh._build_plan(pfw._spec, pfw._obsdata_fit_host,
+                                  pfw._times_fit, PF_SUB)
+    print(f"PMMH compact grid {[float(t) for t in pfw._times_fit]}: "
+          f"{len(pf_plan.step_ts)} Euler steps of h = "
+          f"{pf_plan.step_ts[0][1]}, "
+          f"{len(cuda_pf.obs_grid_indices(pf_plan))} observation blocks")
+    out = io.StringIO()
+    cuda_mh.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ppost = pfw.MCMC(sampler="pmmh", chain_inits=PF_CHAINS,
+                         iterations_per_chain=PF_NITS,
+                         fitsurvey_samples=1000, n_particles=PF_K,
+                         sde_substeps=PF_SUB, rwalk_std=0.4, use_priors=True,
+                         adapt_proposal=True, target_accept=0.3,
+                         adapt_rate=0.15, profile=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(cuda_mh.LAUNCHES)
+    cuda_pf.pmmh_fused = pf_fused
+    print(out.getvalue())
+    print(f"MCMC(pmmh) wall seconds: {wall_s:.3f}; launches {launches}; "
+          "stages " + ", ".join(f"{k} {v:.3f} s"
+                                for k, v in pfw.last_profile.items()))
+    pcols = ["mu", "chi", "rsquared", "aic", "iteration", "acceptance_ratio",
+             "chain#", "all_rejected"]
+    pf_R = PF_NITS - 1 - PF_NITS // 2
+    if list(ppost.columns) != pcols or len(ppost) != PF_CHAINS * pf_R:
+        fail(f"pmmh: posterior {list(ppost.columns)}, {len(ppost)} rows")
+    if not ppost["rsquared"].isna().all():
+        fail("pmmh: rsquared is not NaN")
+    finite = float(np.isfinite(ppost.chi.to_numpy()).mean())
+    ar = ppost.acceptance_ratio.to_numpy().reshape(PF_CHAINS, pf_R)
+    its = np.arange(1, PF_NITS)[PF_NITS // 2:].astype(float)
+    frozen = float(np.mean((ar[:, -1] * its[-1] - ar[:, 0] * its[0])
+                           / (its[-1] - its[0])))
+    z = np.log(ppost.mu.to_numpy(np.float64))
+    exact_mean, exact_std = kalman_posterior(*gbm_data())
+    print(f"pmmh: finite chi fraction {finite}, mean final acceptance "
+          f"{float(ar[:, -1].mean()):.4f}, frozen-phase acceptance "
+          f"{frozen:.4f}; log mu posterior mean {z.mean():.4f} (exact "
+          f"{exact_mean:.4f}), std {z.std():.4f} (exact {exact_std:.4f})")
+    if finite != 1.0:
+        fail(f"pmmh: finite chi fraction {finite}")
+    if not 0.15 <= frozen <= 0.5:
+        fail(f"pmmh: frozen-phase acceptance {frozen} outside [0.15, 0.5]")
+    if not abs(z.mean() - exact_mean) < 0.02 \
+            or not abs(z.std() - exact_std) <= 0.05 * exact_std:
+        fail("pmmh: the log mu posterior misses the exact one")
+    if "Fitting Report" not in out.getvalue():
+        fail("pmmh: the Fitting Report did not print")
+    if launches["pmmh_fused"] != 1:
+        fail(f"pmmh: the PMMH kernel was not launched once: {launches}")
+    runs["pmmh"] = (wall_s, launches, dict(pfw.last_profile))
+
     phase("ensemble kernel vs twin at the main path's inputs")
     ens_th0, cfg, ens_seed = ens_in["theta0"], ens_in["cfg"], ens_in["seed"]
     ens_nits = 200
@@ -460,6 +729,71 @@ def main():
         fail(f"ensemble main path ran {len(ens_th0)} walkers at tile "
              f"{tile_main} padded to {W_main}, not 10000 / 4096 / 12288")
 
+    phase("joint kernel vs twin at the main path's inputs")
+    jspecs, jidx, jobs, jtimes, jy0s, jth0 = joint_in["args"][:6]
+    jkw = joint_in["kw"]
+    jseed, jstep = jkw["seed"], jkw["stepper"]
+    jplans = [cuda_mh._build_plan(sp, ob, tm, cuda_mh._normalize_substeps(
+        sub, len(tm) - 1)) for sp, ob, tm, sub in
+        zip(jspecs, jobs, jtimes, jkw["substeps_list"])]
+    jwalk = tuple(float(jkw["rwalk_std"]) * float(w) for w in jkw["walk_mask"])
+    jwalked = tuple(float(w) != 0.0 for w in jkw["walk_mask"])
+    jth_all = jth0.t().contiguous()
+    j_nits = 50
+    jl_kw = dict(walk=jwalk, walked=jwalked)
+    jout = cuda_joint.joint_metropolis_hastings_fused(
+        *joint_in["args"], **{**jkw, "nits": j_nits, "burnin": 0})
+    torch.cuda.synchronize()
+    rec_k = [jout.theta.permute(1, 2, 0), jout.chi.t(),
+             jout.chi_parts.permute(1, 2, 0), jout.acceptance_ratio.t()]
+    rec_t = cuda_joint.joint_plain(jspecs, jplans, jy0s, jidx, jth_all,
+                                   jseed, nits=j_nits, burnin=0,
+                                   stepper=jstep, **jl_kw)
+    torch.cuda.synchronize()
+    joint_err = compare_records("joint (main path's inputs)", rec_k, rec_t,
+                                j_nits,
+                                labels=("theta", "chi", "chi parts", "ar"))
+    print(f"joint at the main path's inputs: joint_metropolis_hastings_fused"
+          f" on all {jth_all.shape[1]} chains, seed {jseed}, {jstep} x "
+          f"{j_nits} iterations, mean acceptance "
+          f"{float(rec_k[3][-1].mean()):.4f}", flush=True)
+    if jth_all.shape[1] != CHAINS:
+        fail(f"joint main path ran {jth_all.shape[1]} chains, not {CHAINS}")
+
+    phase("PMMH kernel vs twin at the main path's inputs")
+    pspec, pobs, ptf, py0, pth0 = pf_in["args"]
+    pkw = pf_in["kw"]
+    pseed, n_part = pkw["seed"], pkw["n_particles"]
+    pf_plan = cuda_mh._build_plan(pspec, pobs, ptf,
+                                  cuda_mh._normalize_substeps(
+                                      pkw["substeps"], len(ptf) - 1))
+    pf_walk = tuple(float(w) for w in pkw["walk_mask"])
+    pf_run = dict(K=n_part, walk=pf_walk,
+                  walked=tuple(w != 0.0 for w in pf_walk),
+                  rwalk_std=pkw["rwalk_std"], prior=prior_table(pkw["priors"]),
+                  adapt=pkw["adapt_proposal"], target=pkw["target_accept"],
+                  adapt_rate=pkw["adapt_rate"])
+    pth_all = pth0.t().contiguous()
+    p_nits, p_burn = 21, 10
+    pout = cuda_pf.pmmh_fused(*pf_in["args"],
+                              **{**pkw, "nits": p_nits, "burnin": p_burn})
+    torch.cuda.synchronize()
+    rec_k = [pout.theta.permute(1, 2, 0), pout.chi.t(),
+             pout.acceptance_ratio.t()]
+    rec_t = cuda_pf.pmmh_plain(pspec, pf_plan, py0, pth_all, pseed,
+                               nits=p_nits, burnin=p_burn, **pf_run)
+    torch.cuda.synchronize()
+    pf_err = compare_records("PMMH (main path's inputs)", rec_k, rec_t,
+                             p_nits, labels=("theta", "chi", "ar"),
+                             burnin=p_burn)
+    print(f"PMMH at the main path's inputs: pmmh_fused on all "
+          f"{pth_all.shape[1]} chains x {n_part} particles x {p_nits - 1} "
+          f"proposals ({p_burn} adapting), seed {pseed}, mean acceptance "
+          f"{float(rec_k[2][-1].mean()):.4f}", flush=True)
+    if (pth_all.shape[1], n_part) != (PF_CHAINS, PF_K):
+        fail(f"PMMH main path ran {pth_all.shape[1]} chains x {n_part} "
+             f"particles, not {PF_CHAINS} x {PF_K}")
+
     # -- 5. times -----------------------------------------------------------
     phase("times")
     short = 6        # the twins over 5 proposals, scaled per iteration
@@ -492,14 +826,37 @@ def main():
     pt_tw_ms = events_ms(lambda: cuda_pt.pt_plain(
         spec, plan, y0, th_main_t, seed, nits=short, burnin=0, **pt_main))
     pt_plain_ms = pt_tw_ms / (short - 1) * (NITS - 1)
+    joint_ms = events_ms(cuda_joint.joint_launcher(
+        jspecs, jplans, jy0s, jidx, jstep, jth_all, jseed, nits=NITS,
+        burnin=BURNIN, **jl_kw))
+    jt_ms = events_ms(lambda: cuda_joint.joint_plain(
+        jspecs, jplans, jy0s, jidx, jth_all, jseed, nits=short, burnin=0,
+        stepper=jstep, **jl_kw))
+    joint_plain_ms = jt_ms / (short - 1) * (NITS - 1)
+    pf_burn = PF_NITS // 2
+    pf_ms = events_ms(cuda_pf.pmmh_launcher(
+        pspec, pf_plan, py0, pth_all, pseed, nits=PF_NITS, burnin=pf_burn,
+        **pf_run))
+    pf_short = 3     # the twin over 2 proposals (and its initial filter)
+    pft_ms = events_ms(lambda: cuda_pf.pmmh_plain(
+        pspec, pf_plan, py0, pth_all, pseed, nits=pf_short, burnin=0,
+        **pf_run))
+    pf_plain_ms = pft_ms / (pf_short - 1) * (PF_NITS - 1)
     for label, ms, p_ms, steps in (
             ("MH", mh_ms, mh_plain_ms, CHAINS),
             ("ensemble", ens_ms, ens_plain_ms, W_main),
-            ("PT", pt_ms, pt_plain_ms, CHAINS * len(TEMPS))):
+            ("PT", pt_ms, pt_plain_ms, CHAINS * len(TEMPS)),
+            ("joint", joint_ms, joint_plain_ms, CHAINS * len(jspecs))):
         rate = steps * (NITS - 1) / (ms / 1e3)
         print(f"{label} kernel {steps} solves x {NITS}: {ms:.3f} ms "
               f"({rate:.4g} solve-steps/s); twin scaled from {short - 1} "
               f"proposals {p_ms:.1f} ms")
+    n_pf = pth_all.shape[1]
+    pf_steps = n_pf * n_part * len(pf_plan.step_ts) * PF_NITS
+    print(f"PMMH kernel {n_pf} chains x {n_part} particles x "
+          f"{len(pf_plan.step_ts)} steps x {PF_NITS} filters: {pf_ms:.3f} ms "
+          f"({pf_steps / (pf_ms / 1e3):.4g} particle-steps/s); twin scaled "
+          f"from {pf_short - 1} proposals {pf_plain_ms:.1f} ms")
     print(f"ensemble: {W_main} walkers in {W_main // tile_main} ensembles, "
           f"{1 + 2 * (NITS - 1)} device launches per run")
     print(f"survey kernel 1000 draws: {sv_ms:.4f} ms; twin "
@@ -536,8 +893,35 @@ def main():
         spec, plan, y0, one, seed, nits=n, burnin=b, **pt_main))
     pt_bound = bound(CHAINS * (init + (NITS - 1) * step + R * rec),
                      plan_bytes + CHAINS * 3 * 4 + R * CHAINS * (3 + 5) * 4)
+    jone = jth_all[:, :1].cpu().contiguous()
+    init, step, rec = per_iteration_ops(lambda n, b: cuda_joint.joint_plain(
+        jspecs, jplans, jy0s, jidx, jone, jseed, nits=n, burnin=b,
+        stepper=jstep, **jl_kw))
+    D, K_exp = jth_all.shape[0], len(jspecs)
+    jplan_bytes = sum(a.nbytes for a in cuda_joint.joint_tables(
+        jspecs, jplans, jy0s, jidx, jstep)[:3])
+    joint_bound = bound(CHAINS * (init + (NITS - 1) * step + R * rec),
+                        jplan_bytes + CHAINS * D * 4
+                        + R * CHAINS * (D + K_exp + 2) * 4)
+    # the selection's work depends on the data (a masked sum, K * K * S
+    # adds, in each block whose ladder dipped), so average 8 chains' counts
+    pf_counts = [per_iteration_ops(lambda n, b, c=c: cuda_pf.pmmh_plain(
+        pspec, pf_plan, py0, pth_all[:, c:c + 1].cpu().contiguous(), pseed,
+        nits=n, burnin=b, **pf_run)) for c in range(8)]
+    init, step, rec = (sum(v) / len(pf_counts) for v in zip(*pf_counts))
+    print("PMMH float32 operations per iteration of 8 chains: "
+          f"{sorted(c[1] for c in pf_counts)} (a masked sum adds "
+          f"{n_part ** 2 * len(pspec.snames)})")
+    pf_R = PF_NITS - 1 - pf_burn
+    pf_plan_bytes = sum(a.nbytes for a in cuda_mh.plan_tables(
+        pspec, pf_plan, py0, "euler"))
+    P_pf = pth_all.shape[0]
+    pf_bound = bound(n_pf * (init + (PF_NITS - 1) * step + pf_R * rec),
+                     pf_plan_bytes + (n_pf + 7) * P_pf * 4
+                     + pf_R * n_pf * (P_pf + 2) * 4)
     for label, (b_ms, by) in (("survey", sv_bound), ("MH", mh_bound),
-                              ("ensemble", ens_bound), ("PT", pt_bound)):
+                              ("ensemble", ens_bound), ("PT", pt_bound),
+                              ("joint", joint_bound), ("PMMH", pf_bound)):
         print(f"{label} bound: {b_ms:.4f} ms, by {by}")
 
     phase("where the time goes: one more MH MCMC under torch.profiler")
@@ -585,7 +969,12 @@ def main():
             ens_plain_ms, ens_bound),
         row("parallel_tempering_fused", "pt.cu",
             "odelib_tpu/ops/pallas_pt.py:49", "pt", pt_err, pt_ms,
-            pt_plain_ms, pt_bound)]}))
+            pt_plain_ms, pt_bound),
+        row("joint_metropolis_hastings_fused", "joint.cu",
+            "odelib_tpu/ops/pallas_joint.py:347", "joint", joint_err,
+            joint_ms, joint_plain_ms, joint_bound),
+        row("pmmh_fused", "pf.cu", "odelib_tpu/ops/pallas_pf.py:130",
+            "pmmh", pf_err, pf_ms, pf_plain_ms, pf_bound)]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,14 @@
 """Reference-compatible user API: ``ModelFramework`` + ``parameter``.
 
 Counterpart of ``odelib_tpu/api.py`` for the main path: construction from
-a dataframe, accessors, ``integrate`` (adaptive Dopri5), the fit
-statistics, the LHS prescreen and ``MCMC`` with ``sampler='mh'``,
-``'ensemble'`` and ``'pt'`` — prescreen scored by the survey kernel,
+a dataframe (optionally with a ``diffusion=`` making the model an SDE),
+accessors, ``integrate`` (adaptive Dopri5), the fit statistics, the LHS
+prescreen, ``fit_survey`` and ``MCMC`` with ``sampler='mh'``,
+``'ensemble'``, ``'pt'`` and ``'pmmh'`` — prescreen scored by the survey
+kernel (by ``fit_survey``'s batched solve of the drift for 'pmmh'),
 chains seeded under the ``sd_fitdistance`` chi cut, all chains in the
-sampler's fused kernel (MH, Goodman-Weare ensemble, parallel tempering),
-the posterior DataFrame and the Fitting Report.
+sampler's fused kernel (MH, Goodman-Weare ensemble, parallel tempering,
+particle-marginal MH), the posterior DataFrame and the Fitting Report.
 
 ``ModelFramework(device=...)`` picks where everything runs: ``cuda`` when
 ``torch.cuda.is_available()`` and ``cpu`` otherwise. On ``cuda`` the
@@ -27,11 +29,11 @@ from . import data as _data
 from . import dispatch as _dispatch
 from . import distributions as _dist
 from . import stats as tstats
-from .model import make_spec
+from .model import make_spec, state_func
 from .ops.integrate import odeint_grid
 from .rhs import adapt_rhs
 from .samplers.lhs import sample_lhs
-from .samplers.mh import state_func
+from .samplers.mh import survey as _survey
 
 
 def rawstats(pdseries):
@@ -95,15 +97,15 @@ class parameter:
         return self.dist is not None
 
 
-_FUSED_SAMPLERS = ("mh", "ensemble", "pt")
+_FUSED_SAMPLERS = ("mh", "ensemble", "pt", "pmmh")
 _UNPORTED_SAMPLERS = {
-    "hmc": "ROADMAP queue 1, item 16", "amh": "ROADMAP queue 1, item 16",
-    "pmmh": "ROADMAP queue 1, item 15"}
+    "hmc": "ROADMAP queue 1, item 16", "amh": "ROADMAP queue 1, item 16"}
 # what the reference runs where the port has no kernel arm yet
 _XLA_SAMPLER_ITEM = {
     "mh": "the XLA scan sampler is ROADMAP queue 1, item 8",
     "ensemble": "the XLA samplers/ensemble.py is ROADMAP queue 1, item 15",
-    "pt": "the XLA samplers/pt.py is ROADMAP queue 1, item 15"}
+    "pt": "the XLA samplers/pt.py is ROADMAP queue 1, item 15",
+    "pmmh": "the XLA samplers/pf.py is ROADMAP queue 1, item 15"}
 
 
 class ModelFramework:
@@ -114,7 +116,10 @@ class ModelFramework:
     kernels run (default ``cuda`` when available, else ``cpu``). Solver
     knobs: ``method`` 'dopri5' | 'rk4' (fixed-step kernels), ``rtol``/
     ``atol``/``max_steps`` for the adaptive ``integrate``, ``substeps``
-    (int or per-interval schedule) for the kernels.
+    (int or per-interval schedule) for the kernels. ``diffusion`` is the
+    diagonal process noise ``g`` of ``dy = f dt + g dW``, with the RHS's
+    signature convention: the model is then fitted with
+    ``MCMC(sampler='pmmh')``, and ``integrate`` solves its drift.
     """
 
     _SOLVER_KEYS = ("method", "rtol", "atol", "max_steps", "substeps")
@@ -140,7 +145,9 @@ class ModelFramework:
                                self._snames, state_summations,
                                obs_model=obs_model, obs_param=obs_param,
                                dose_events=dose_events, forcings=forcings,
-                               diffusion=diffusion)
+                               diffusion=(None if diffusion is None
+                                          else adapt_rhs(diffusion,
+                                                         ode_style)))
         self._obs_logabundance, self._obs_logsigma = {}, {}
         if isinstance(dataframe, pd.DataFrame):
             self.df = _data.format_dataframe(dataframe.copy(), self._snames)
@@ -365,6 +372,23 @@ class ModelFramework:
             df[p] = [pstatic[p]] * samples
         return df
 
+    def fit_survey(self, samples=1000, cpu_cores=1, **solver_kw):
+        """LHS prior survey -> DataFrame[pnames..., chi]: the draws of
+        ``_lhs_samples`` scored in one batched float64 solve on the
+        framework's device with the configured solver (adaptive Dopri5, or
+        fixed steps for 'rk4'/'fixed_dopri5'). Failed solves give NaN
+        chi; ``cpu_cores`` is accepted and ignored."""
+        ps = self._lhs_samples(samples)
+        thetas = torch.as_tensor(self._theta_from_df(ps),
+                                 dtype=torch.float64, device=self.device)
+        method, rtol, atol, max_steps, substeps = self._solver_args(solver_kw)
+        chis = _survey(self._spec, self._obsdata_fit_host, self._times_fit,
+                       self.get_inits(), thetas, method=method, rtol=rtol,
+                       atol=atol, max_steps=max_steps, substeps=substeps)
+        out = ps[self.get_pnames()].copy()
+        out["chi"] = chis.cpu().numpy()
+        return out
+
     # -- MCMC --------------------------------------------------------------
     def MCMC(self, chain_inits=1, iterations_per_chain=1000, cpu_cores=1,
              static_parameters=(), print_report=True, fitsurvey_samples=1000,
@@ -375,6 +399,8 @@ class ModelFramework:
              pilot_iters=150, ladder_rounds=6, stretch_a=2.0,
              until_rhat=None, until_min_ess=None, profile=False,
              pallas_interpret=False, pallas_tile_chains=None, route="auto",
+             target_accept=None, n_particles=128, sde_method="euler",
+             sde_substeps=4, adapt_proposal=None, adapt_rate=0.05,
              **solver_kw):
         """Markov Chain Monte Carlo: every chain in one run of the
         sampler's fused kernel (on a CPU framework, its twin).
@@ -395,7 +421,16 @@ class ModelFramework:
         * ``'pt'``: parallel tempering over the ``temperatures`` ladder
           with swaps every ``swap_every`` iterations; the T=1 rung is
           returned and the mean cold-pair swap acceptance is logged
-          (logger ``odelib_tpu_torch``).
+          (logger ``odelib_tpu_torch``);
+        * ``'pmmh'``: particle-marginal MH for a model built with
+          ``diffusion=``: each proposal is scored by an ``n_particles``
+          bootstrap particle filter over the SDE (Euler-Maruyama,
+          ``sde_substeps`` steps per observation interval), chains seeded
+          from :meth:`fit_survey` (the drift's chi). During burn-in the
+          proposal scale adapts (``adapt_proposal``, default True) toward
+          ``target_accept`` (default 0.3) with gain ``adapt_rate``.
+          ``use_priors=True`` adds the LogNormal/Normal/Uniform priors to
+          the acceptance in the kernel. The ``rsquared`` column is NaN.
 
         ``cpu_cores``, ``route`` and ``pallas_interpret`` are accepted and
         ignored, and so is ``pallas_tile_chains`` for 'mh' and 'pt'.
@@ -405,11 +440,11 @@ class ModelFramework:
         the configured method is not dopri5/rk4; ``backend='auto'`` raises
         for such a method, since its JAX counterpart takes the XLA sampler
         there. Not ported yet, each raising ``NotImplementedError``: the
-        other samplers, ``use_priors=True``, checkpointing,
+        other samplers, ``use_priors=True`` outside 'pmmh', checkpointing,
         ``until_rhat``/``until_min_ess``, ``backend='xla'`` (and what
         ``backend='auto'`` sends to an XLA sampler), ``temperatures=
-        'auto'`` (with ``n_temps``/``pilot_iters``/``ladder_rounds``) and
-        the kvaerno3 kernel stepper.
+        'auto'`` (with ``n_temps``/``pilot_iters``/``ladder_rounds``),
+        the kvaerno3 kernel stepper and ``sde_method='milstein'``.
         """
         if sampler not in _FUSED_SAMPLERS:
             if sampler not in _UNPORTED_SAMPLERS:
@@ -427,10 +462,36 @@ class ModelFramework:
                 "temperatures='auto' tunes the ladder with the XLA PT "
                 "sampler (tune_ladder), not ported yet (ROADMAP queue 1, "
                 "item 15)")
+        if sampler == "pmmh" and self._spec.diffusion is None:
+            raise ValueError(
+                "sampler='pmmh' targets the STOCHASTIC model: construct the "
+                "ModelFramework with diffusion=g (process noise); for a "
+                "deterministic ODE use sampler='mh'")
+        if sampler != "pmmh" and self._spec.diffusion is not None:
+            raise ValueError(
+                f"MCMC(sampler={sampler!r}) on a model with diffusion= would "
+                "fit the drift only; use sampler='pmmh'")
+        priors = None
         if use_priors:
-            raise NotImplementedError(
-                "use_priors=True (in-kernel priors) is not ported yet "
-                "(ROADMAP queue 1, item 12)")
+            if sampler != "pmmh":
+                raise NotImplementedError(
+                    "use_priors=True (in-kernel priors) is ported for "
+                    "sampler='pmmh' only (ROADMAP queue 1, item 12)")
+            priors = tuple(self.parameters[p].tdist
+                           if self.parameters[p] is not None else None
+                           for p in self._pnames)
+        if sampler == "pmmh":
+            if sde_method == "milstein":
+                raise NotImplementedError(
+                    "sde_method='milstein' needs the diffusion's diagonal "
+                    "derivative from the RHS front end, not ported yet "
+                    "(ROADMAP queue 1, item 3)")
+            if sde_method != "euler":
+                raise ValueError("the fused PMMH kernel integrates "
+                                 "Euler-Maruyama or Milstein, got "
+                                 f"sde_method={sde_method!r}")
+            if not isinstance(sde_substeps, (int, np.integer)):
+                raise ValueError("sde_substeps must be an int")
         if checkpoint_every is not None or resume_from is not None \
                 or checkpoint_path is not None:
             raise NotImplementedError(
@@ -454,11 +515,11 @@ class ModelFramework:
                 "to run the fused kernel")
         method, rtol, atol, max_steps, substeps = self._solver_args(
             solver_kw)
-        if method == "kvaerno3":
+        if method == "kvaerno3" and sampler != "pmmh":
             raise NotImplementedError(
                 "the kvaerno3 kernel stepper is not ported yet (ROADMAP "
                 "queue 1, item 14)")
-        if method not in ("dopri5", "rk4"):
+        if method not in ("dopri5", "rk4") and sampler != "pmmh":
             if backend == "auto":
                 raise NotImplementedError(
                     f"method={method!r} runs on the XLA sampler, not "
@@ -487,20 +548,27 @@ class ModelFramework:
                            chain_inits[self.get_pnames()].iterrows()]
         if isinstance(chain_inits, int):
             n_chains = chain_inits
-            # the prescreen uses the chains' own integrator, so a seed's
-            # chi is finite under the kernel's fixed steps
-            from .ops.cuda_mh import survey_fused
-            ps = self._lhs_samples(fitsurvey_samples)
-            thetas = torch.as_tensor(
-                self._theta_from_df(ps).astype(np.float32),
-                device=self.device)
-            chis = survey_fused(self._spec, self._obsdata_fit_host,
-                                self._times_fit, self.get_inits(), thetas,
-                                substeps=substeps, stepper=stepper)
-            chis = chis.cpu().numpy()
+            if sampler == "pmmh":
+                # the drift's chi: a prescreen of start points, not part
+                # of the particle filter's target
+                fitsurvey = self.fit_survey(samples=fitsurvey_samples,
+                                            **solver_kw)
+            else:
+                # the prescreen uses the chains' own integrator, so a
+                # seed's chi is finite under the kernel's fixed steps
+                from .ops.cuda_mh import survey_fused
+                ps = self._lhs_samples(fitsurvey_samples)
+                thetas = torch.as_tensor(
+                    self._theta_from_df(ps).astype(np.float32),
+                    device=self.device)
+                chis = survey_fused(self._spec, self._obsdata_fit_host,
+                                    self._times_fit, self.get_inits(),
+                                    thetas, substeps=substeps,
+                                    stepper=stepper)
+                chis = chis.cpu().numpy()
+                fitsurvey = ps[self.get_pnames()].copy()
+                fitsurvey["chi"] = np.where(np.isfinite(chis), chis, np.nan)
             stage_done("survey")
-            fitsurvey = ps[self.get_pnames()].copy()
-            fitsurvey["chi"] = np.where(np.isfinite(chis), chis, np.nan)
             fitsurvey = fitsurvey.dropna()
             if fitsurvey.empty:
                 initps = pd.DataFrame([[]] * n_chains)
@@ -535,7 +603,13 @@ class ModelFramework:
             tile_chains=(None if pallas_tile_chains is None
                          else int(pallas_tile_chains)),
             temperatures=tuple(temperatures), swap_every=int(swap_every),
-            stretch_a=float(stretch_a))
+            stretch_a=float(stretch_a), priors=priors,
+            n_particles=int(n_particles), sde_substeps=int(sde_substeps),
+            adapt_proposal=(sampler == "pmmh" if adapt_proposal is None
+                            else bool(adapt_proposal)),
+            adapt_rate=float(adapt_rate),
+            target_accept=0.3 if target_accept is None
+            else float(target_accept))
         out = _dispatch.dispatch(self, sampler, theta0, cfg)
         stage_done("chains")
         posterior = self._posterior_to_df(out, n_chains, static_parameters)

@@ -2,11 +2,12 @@
 
 Counterpart of ``odelib_tpu/dispatch.py``'s fused arms. Each arm is keyed
 by the device the framework runs on and the sampler: ``cuda:mh``,
-``cuda:ensemble`` and ``cuda:pt`` launch the CUDA kernels, ``cpu:mh``,
-``cpu:ensemble`` and ``cpu:pt`` run their torch twins. Both go through the
-public wrappers of :mod:`~odelib_tpu_torch.ops.cuda_mh` and
-:mod:`~odelib_tpu_torch.ops.cuda_pt`, which pick kernel or twin from the
-tensor's device. The other samplers are ROADMAP queue 1, items 15-16.
+``cuda:ensemble``, ``cuda:pt`` and ``cuda:pmmh`` launch the CUDA kernels,
+``cpu:mh``, ``cpu:ensemble``, ``cpu:pt`` and ``cpu:pmmh`` run their torch
+twins. Both go through the public wrappers of
+:mod:`~odelib_tpu_torch.ops.cuda_mh`, :mod:`~odelib_tpu_torch.ops.cuda_pt`
+and :mod:`~odelib_tpu_torch.ops.cuda_pf`, which pick kernel or twin from
+the tensor's device. The other samplers are ROADMAP queue 1, item 16.
 """
 from __future__ import annotations
 
@@ -34,6 +35,12 @@ class RunConfig:
     temperatures: Tuple[float, ...] = (1.0, 2.0, 4.0, 8.0)
     swap_every: int = 1
     stretch_a: float = 2.0
+    priors: Optional[Tuple[Any, ...]] = None   # per slot (pmmh only)
+    n_particles: int = 128
+    sde_substeps: int = 4
+    adapt_proposal: bool = False
+    adapt_rate: float = 0.05
+    target_accept: float = 0.3
 
 
 def fused_stepper(method: str) -> str:
@@ -78,10 +85,31 @@ def run_fused_pt(fw, theta0, cfg: RunConfig):
     return out
 
 
+def run_pmmh(fw, theta0, cfg: RunConfig):
+    """The fused particle-marginal MH kernel (or its twin), as an
+    ``MHOutput`` whose ``rsquared`` is NaN: a noisy likelihood estimate
+    has no single trajectory to take R^2 of."""
+    from .ops.cuda_pf import pmmh_fused
+    from .samplers.mh import MHOutput
+    th0 = torch.as_tensor(np.asarray(theta0, np.float32), device=fw.device)
+    out = pmmh_fused(
+        fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits(), th0,
+        seed=int(fw.random_seed) + cfg.seed_offset, nits=cfg.nits,
+        burnin=cfg.burnin, walk_mask=cfg.mask, rwalk_std=cfg.rwalk_std,
+        n_particles=cfg.n_particles, substeps=cfg.sde_substeps,
+        priors=cfg.priors, adapt_proposal=cfg.adapt_proposal,
+        target_accept=cfg.target_accept, adapt_rate=cfg.adapt_rate)
+    return MHOutput(theta=out.theta, chi=out.chi,
+                    rsquared=torch.full_like(out.chi, float("nan")),
+                    aic=out.aic, acceptance_ratio=out.acceptance_ratio,
+                    iteration=out.iteration)
+
+
 _ARMS = {f"{dev}:{s}": arm for dev in ("cuda", "cpu")
          for s, arm in (("mh", run_fused_mh),
                         ("ensemble", run_fused_ensemble),
-                        ("pt", run_fused_pt))}
+                        ("pt", run_fused_pt),
+                        ("pmmh", run_pmmh))}
 
 
 def dispatch(fw, sampler: str, theta0, cfg: RunConfig):

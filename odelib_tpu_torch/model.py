@@ -2,10 +2,10 @@
 
 Counterpart of ``odelib_tpu/model.py``: :class:`ModelSpec` is the static,
 hashable description of the problem (RHS, names, state summations, the
-``<sname>0`` init-parameter wiring) and :class:`ObsData` holds the flat
-per-observation arrays as host numpy. Scalar parameters only: forcings,
-dose events, diffusions and array parameters raise ``NotImplementedError``
-(ROADMAP queue 1, item 13).
+``<sname>0`` init-parameter wiring, the diagonal diffusion of an SDE
+model) and :class:`ObsData` holds the flat per-observation arrays as host
+numpy. Scalar parameters only: forcings, dose events and array parameters
+raise ``NotImplementedError`` (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -57,6 +57,10 @@ class ModelSpec:
     init_pidx: Tuple[int, ...] = None            # theta slot of '<s>0' or -1
     obs_model: str = "lognormal"
     obs_param: float = 0.0
+    # diagonal process noise ``g(t, y, ps)`` (same convention as ``rhs``):
+    # the model is the SDE dy = f dt + g dW, fitted by sampler='pmmh';
+    # None for an ODE
+    diffusion: Optional[Callable] = None
 
     def __post_init__(self):
         if self.post_snames is None:
@@ -117,10 +121,6 @@ def make_spec(rhs, pnames, snames, state_summations=None, pshapes=None,
         raise NotImplementedError(
             "dose_events and forcings are not ported yet (ROADMAP queue 1, "
             "item 13)")
-    if diffusion is not None:
-        raise NotImplementedError(
-            "diffusion (SDE models, sampler='pmmh') is not ported yet "
-            "(ROADMAP queue 1, item 15)")
     if obs_model not in OBS_MODELS:
         raise ValueError(f"obs_model must be one of {OBS_MODELS}, "
                          f"got {obs_model!r}")
@@ -169,4 +169,68 @@ def make_spec(rhs, pnames, snames, state_summations=None, pshapes=None,
         post_snames = tuple(post)
     return ModelSpec(rhs=rhs, pnames=pnames, snames=snames,
                      sum_matrix=sum_matrix, post_snames=post_snames,
-                     obs_model=obs_model, obs_param=obs_param)
+                     obs_model=obs_model, obs_param=obs_param,
+                     diffusion=diffusion)
+
+
+# --------------------------------------------------------------------------
+# batched integration and scoring (torch, any device and dtype)
+# --------------------------------------------------------------------------
+
+def state_func(spec: ModelSpec):
+    """``func(t, y (S, N), ps) -> (S, N)`` for the integrators."""
+    from .rhs import torch_evaluator
+    f = torch_evaluator(spec.rhs, len(spec.snames), spec.theta_size)
+    return lambda t, y, ps: torch.stack(f(t, list(y), ps))
+
+
+def integrate_theta(spec: ModelSpec, thetas, y0, times, *, method="dopri5",
+                    rtol=1e-6, atol=1e-4, max_steps=4096, substeps=4):
+    """Solve the ODE for N flat parameter vectors ``thetas`` (N, P) from
+    per-lane initial states ``y0`` (S, N), on the tensor's device and
+    dtype. Returns raw-state ys (T, S, N), NaN from a failed adaptive
+    lane on. ``method``: 'dopri5' (adaptive), 'rk4' or 'fixed_dopri5'
+    (fixed steps, ``substeps`` per interval)."""
+    from .ops.integrate import odeint_fixed, odeint_grid
+    f = state_func(spec)
+    ps = spec.unpack_theta(thetas)
+    if method in ("rk4", "fixed_dopri5"):
+        return odeint_fixed(f, y0, times, ps, substeps=substeps,
+                            method="rk4" if method == "rk4" else "dopri5").ys
+    if method != "dopri5":
+        raise NotImplementedError(
+            f"method={method!r} is not ported yet (ROADMAP queue 1, item 14)")
+    return odeint_grid(f, y0, times, ps, rtol=rtol, atol=atol,
+                       max_steps=max_steps, method=method).ys
+
+
+def observe(spec: ModelSpec, obs: ObsData, ys):
+    """Predictions at the observation points: (T, S_raw, N) -> (N, n_obs),
+    after summation."""
+    post = spec.apply_summations(ys.permute(2, 0, 1))      # (N, T, S_post)
+    ti = torch.as_tensor(np.asarray(obs.t_index), dtype=torch.int64,
+                         device=ys.device)
+    si = torch.as_tensor(np.asarray(obs.state_index), dtype=torch.int64,
+                         device=ys.device)
+    return post[:, ti, si]
+
+
+def score_pred(spec: ModelSpec, obs: ObsData, pred):
+    """Chi of linear-space predictions (N, n_obs) under the spec's
+    observation model -> (N,)."""
+    from . import stats
+    dt, dev = pred.dtype, pred.device
+    la = torch.as_tensor(np.asarray(obs.log_abundance), dtype=dt, device=dev)
+    ls = torch.as_tensor(np.asarray(obs.log_sigma), dtype=dt, device=dev)
+    return stats.obs_negloglik(spec.obs_model, spec.obs_param, la,
+                               torch.log(pred), ls, censor=obs.censor)
+
+
+def chi_of_theta(spec: ModelSpec, obs: ObsData, thetas, y0, times, **ikw):
+    """One survey evaluation per row of ``thetas`` (N, P): integrate from
+    ``y0`` (S,) with the '<s>0' overrides, observe and score -> chi (N,),
+    on ``thetas``' device and dtype."""
+    y0 = torch.as_tensor(y0, dtype=thetas.dtype, device=thetas.device)
+    ys = integrate_theta(spec, thetas, spec.override_inits(y0, thetas),
+                         times, **ikw)
+    return score_pred(spec, obs, observe(spec, obs, ys))

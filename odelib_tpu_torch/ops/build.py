@@ -3,13 +3,15 @@
 The kernels are compiled with ``nvcc`` into one shared library with a
 plain C interface and loaded with ``ctypes``; no PyTorch headers are
 involved, so a build takes seconds. The build input is the sources in
-``csrc/`` (``mh.cu``, ``ensemble.cu``, ``pt.cu`` and their shared
-``common.cuh``) plus ``odelib_gen.cuh``, generated here from the traced
-RHS (:meth:`odelib_tpu_torch.rhs.RhsProgram.cuda_source`) and the
-fixed-step Dopri5/RK4 steppers, all in one nvcc call. The
+``csrc/`` (``mh.cu``, ``ensemble.cu``, ``pt.cu``, ``joint.cu``, ``pf.cu``
+and their shared ``common.cuh``) plus ``odelib_gen.cuh``, generated here
+from the traced RHS (:meth:`odelib_tpu_torch.rhs.RhsProgram.cuda_source`)
+and the fixed-step Dopri5/RK4 steppers, all in one nvcc call. An SDE
+model's header adds its traced diffusion; a joint fit of different models
+adds each further model as a ``ModelN`` type for the joint kernel. The
 inputs and the flags are hashed into a directory under
-``odelib_tpu_torch/_build/`` (gitignored), so each model builds once, at
-first use, and every later process loads it.
+``odelib_tpu_torch/_build/`` (gitignored), so each model (or set of
+models) builds once, at first use, and every later process loads it.
 A failed build raises with nvcc's output; a failed launch raises with the
 CUDA error. Nothing falls back to the torch twins.
 """
@@ -29,13 +31,17 @@ from ..rhs import _f32_literal, trace_rhs
 from .runge_kutta import DP_A
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("mh.cu", "ensemble.cu", "pt.cu")
+SOURCES = ("mh.cu", "ensemble.cu", "pt.cu", "joint.cu", "pf.cu")
 HEADERS = ("common.cuh",)
-PT_KMAX = 8     # rungs the PT kernel holds per chain (csrc/pt.cu)
+PT_KMAX = 8         # rungs the PT kernel holds per chain (csrc/pt.cu)
+JOINT_KMAX = 8      # experiments of the joint kernel (csrc/joint.cu)
+JOINT_DMAX = 64     # joint theta slots per chain (csrc/joint.cu)
+PF_KMAX = 512       # particles per PMMH chain, one thread each (csrc/pf.cu)
 # -Xptxas -v: registers, stack and spills of each kernel go to nvcc.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DPT_KMAX={PT_KMAX}")
+              f"-DPT_KMAX={PT_KMAX}", f"-DJOINT_KMAX={JOINT_KMAX}",
+              f"-DJOINT_DMAX={JOINT_DMAX}", f"-DPF_KMAX={PF_KMAX}")
 
 
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
@@ -47,8 +53,8 @@ def _stage_sum(coefs, ks, s):
     return " + ".join(terms)
 
 
-def stepper_source(n_states: int) -> str:
-    """Fixed-step Dopri5 and RK4 over ``y[ODE_S]`` with the step's
+def stepper_source(n_states: int, size: str = "ODE_S") -> str:
+    """Fixed-step Dopri5 and RK4 over ``y[size]`` with the step's
     constants ``sf`` (see ``plan_tables``), unrolled with literal float32
     tableau entries in the JAX kernel's summation order."""
     S = n_states
@@ -56,7 +62,7 @@ def stepper_source(n_states: int) -> str:
     lines = ["__device__ __forceinline__ void step_dopri5(float* y, "
              "const float* sf, const float* p) {",
              "  const float h = sf[0];",
-             f"  float {', '.join(f'{k}[ODE_S]' for k in ks)}, yi[ODE_S];",
+             f"  float {', '.join(f'{k}[{size}]' for k in ks)}, yi[{size}];",
              "  rhs(sf[1], y, p, k0);"]
     for i in range(1, 6):
         for s in range(S):
@@ -68,7 +74,8 @@ def stepper_source(n_states: int) -> str:
     lines += ["}", "",
               "__device__ __forceinline__ void step_rk4(float* y, "
               "const float* sf, const float* p) {",
-              "  float k0[ODE_S], k1[ODE_S], k2[ODE_S], k3[ODE_S], yi[ODE_S];",
+              f"  float k0[{size}], k1[{size}], k2[{size}], k3[{size}], "
+              f"yi[{size}];",
               "  rhs(sf[3], y, p, k0);"]
     for src, coef, t_idx, dst in (("k0", 1, 4, "k1"), ("k1", 1, 4, "k2"),
                                   ("k2", 0, 5, "k3")):
@@ -82,14 +89,45 @@ def stepper_source(n_states: int) -> str:
     return "\n".join(lines)
 
 
-def generated_header(program) -> str:
-    """``odelib_gen.cuh`` for a traced RHS program."""
+def _model_source(i: int, program) -> str:
+    """A further model of a joint fit: its RHS and steppers in namespace
+    ``odelib_m<i>`` and the ``Model<i>`` type the joint kernel scores."""
+    ns, S, P = f"odelib_m{i}", program.n_states, program.n_params
+    fwd = [(f"rhs(float t, const float* y, const float* p, float* dy)",
+            "rhs(t, y, p, dy)"),
+           ("step_dopri5(float* y, const float* sf, const float* p)",
+            "step_dopri5(y, sf, p)"),
+           ("step_rk4(float* y, const float* sf, const float* p)",
+            "step_rk4(y, sf, p)")]
+    return "\n".join(
+        [f"// model {i}: traced from {program.name}", f"namespace {ns} {{",
+         program.cuda_function("rhs"), stepper_source(S, str(S)), "}",
+         f"struct Model{i} {{", f"  static constexpr int S = {S};",
+         f"  static constexpr int P = {P};"]
+        + [f"  static __device__ __forceinline__ void {sig} {{ "
+           f"{ns}::{call}; }}" for sig, call in fwd] + ["};", ""])
+
+
+def generated_header(program, diffusion=None, extra=()) -> str:
+    """``odelib_gen.cuh`` for a traced RHS program; with the traced
+    ``diffusion`` of an SDE model, and with the ``extra`` programs of a
+    joint fit's other models."""
     import math
-    return "\n".join([
-        "// generated by odelib_tpu_torch/ops/build.py; do not edit",
-        "#pragma once",
-        f"#define ODELIB_TWO_PI {_f32_literal(2.0 * math.pi)}",
-        program.cuda_source(), stepper_source(program.n_states)])
+    parts = ["// generated by odelib_tpu_torch/ops/build.py; do not edit",
+             "#pragma once",
+             f"#define ODELIB_TWO_PI {_f32_literal(2.0 * math.pi)}",
+             program.cuda_source(), stepper_source(program.n_states)]
+    if diffusion is not None:
+        parts += ["#define ODE_HAS_DIFFUSION 1",
+                  f"// diffusion traced from {diffusion.name}",
+                  diffusion.cuda_function("diffusion")]
+    if extra:
+        parts += [_model_source(i + 1, p) for i, p in enumerate(extra)]
+        parts += ["#define ODE_MODELS(X) " + " ".join(
+                      f"X({i})" for i in range(len(extra) + 1)),
+                  "#define ODE_PMAX " + str(max(
+                      p.n_params for p in (program, *extra)))]
+    return "\n".join(parts)
 
 
 def nvcc() -> str:
@@ -102,11 +140,12 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(program) -> Path:
-    """Compile the kernels for ``program`` (cached by content hash);
-    returns the shared library's path. The compiler's output and the
-    build's seconds are kept beside it in ``nvcc.log``."""
-    header = generated_header(program)
+def build(program, diffusion=None, extra=()) -> Path:
+    """Compile the kernels for ``program`` (with an SDE's ``diffusion`` and
+    a joint fit's ``extra`` programs; cached by content hash); returns the
+    shared library's path. The compiler's output and the build's seconds
+    are kept beside it in ``nvcc.log``."""
+    header = generated_header(program, diffusion, extra)
     h = hashlib.sha256()
     for part in (header, *((CSRC / s).read_text()
                            for s in SOURCES + HEADERS),
@@ -133,18 +172,40 @@ def build(program) -> Path:
 
 
 _LIBS = {}          # by library path
-_BY_PROGRAM = {}    # by traced RHS program (skips regenerating the header)
+_BY_PROGRAM = {}    # by traced programs (skips regenerating the header)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
 
 
-def load_kernels(spec):
-    """The loaded kernel library for ``spec``'s RHS (build at first use)."""
-    program = trace_rhs(spec.rhs, len(spec.snames), spec.theta_size)
-    lib = _BY_PROGRAM.get(program)
+def distinct_programs(specs):
+    """The traced RHS programs of ``specs`` without repeats (two specs
+    whose RHS emits the same device code share one), and each spec's
+    index into them: the model of each experiment of a joint fit."""
+    programs, index, model_of = [], {}, []
+    for sp in specs:
+        prog = trace_rhs(sp.rhs, len(sp.snames), sp.theta_size)
+        text = prog.cuda_function("rhs")
+        if text not in index:
+            index[text] = len(programs)
+            programs.append(prog)
+        model_of.append(index[text])
+    return programs, model_of
+
+
+def load_kernels(spec, others=()):
+    """The loaded kernel library for ``spec``'s RHS (and diffusion), with
+    the models of ``others`` compiled in for the joint kernel (build at
+    first use)."""
+    programs, _ = distinct_programs((spec, *others))
+    diffusion = None if spec.diffusion is None else trace_rhs(
+        spec.diffusion, len(spec.snames), spec.theta_size)
+    key = (tuple(programs), diffusion)
+    lib = _BY_PROGRAM.get(key)
     if lib is not None:
         return lib
-    path = str(build(program))
+    path = str(build(programs[0], diffusion, tuple(programs[1:])))
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)
@@ -159,10 +220,16 @@ def load_kernels(spec):
         lib.odelib_pt.argtypes = [_P] * 10 + [_I] * 5 + [
             ctypes.c_uint, ctypes.c_float, _I, _P]
         lib.odelib_pt.restype = _I
+        lib.odelib_joint.argtypes = [_P] * 3 + [_I] + [_P] * 6 + [_I] * 5 \
+            + [_U, _I, _P]
+        lib.odelib_joint.restype = _I
+        lib.odelib_pf.argtypes = [_P] * 8 + [_I] * 4 + [_U] * 2 + [_I] * 3 \
+            + [_F] * 5 + [_P]
+        lib.odelib_pf.restype = _I
         lib.odelib_error_string.argtypes = [_I]
         lib.odelib_error_string.restype = ctypes.c_char_p
         _LIBS[path] = lib
-    _BY_PROGRAM[program] = lib
+    _BY_PROGRAM[key] = lib
     return lib
 
 

@@ -35,7 +35,8 @@ _SLOT_BUDGET = 1024
 # Kernel launches per public wrapper (a run shows it went through the
 # kernels by these counts; reset with ``reset_launch_counts``).
 LAUNCHES = {"survey_fused": 0, "metropolis_hastings_fused": 0,
-            "ensemble_fused": 0, "parallel_tempering_fused": 0}
+            "ensemble_fused": 0, "parallel_tempering_fused": 0,
+            "joint_metropolis_hastings_fused": 0, "pmmh_fused": 0}
 
 
 def reset_launch_counts():
@@ -112,6 +113,7 @@ def _build_plan(spec: ModelSpec, obs: ObsData, times, substeps):
 
 
 _STEPPER_ID = {"dopri5": 0, "rk4": 1}
+_EULER = 2  # header stepper id of the particle filter's step layout
 _HDR = 16  # int header of plan_i (see csrc/common.cuh)
 
 
@@ -129,8 +131,10 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     members and the init-parameter wiring) and ``plan_f`` (float32: sstot,
     then 8 floats per step, the per-observation constants and y0). Floats
     are rounded to float32 on the host exactly where the JAX kernel's
-    Python scalars meet float32 arrays."""
-    _check_stepper(stepper)
+    Python scalars meet float32 arrays. ``stepper`` 'euler' lays each step
+    out for the particle filter as (h, t, f32(sqrt h))."""
+    if stepper != "euler":
+        _check_stepper(stepper)
     n_steps, n_grid = len(plan.step_ts), plan.n_grid
     posts = sorted({mem for grid in plan.obs_after for mem, *_ in grid})
     post_id = {mem: k for k, mem in enumerate(posts)}
@@ -147,6 +151,8 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     for k, (t, h, _) in enumerate(plan.step_ts):
         if stepper == "dopri5":
             steps[k, :7] = [h] + [t + DP_C[i] * h for i in range(6)]
+        elif stepper == "euler":
+            steps[k, :3] = [h, t, float(np.sqrt(h))]
         else:
             steps[k, :6] = [h, 0.5 * h, h / 6.0, t, t + 0.5 * h, t + h]
     floats = [np.asarray([plan.sstot]), steps.ravel(),
@@ -157,7 +163,8 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     offs_i = np.cumsum([_HDR] + [len(a) for a in ints])[:-1]
     offs_f = np.cumsum([0] + [len(a) for a in floats])[:-1]
     header = np.zeros(_HDR, np.int64)
-    header[:5] = [n_steps, n_grid, len(obs), len(posts), _STEPPER_ID[stepper]]
+    header[:5] = [n_steps, n_grid, len(obs), len(posts),
+                  _STEPPER_ID.get(stepper, _EULER)]
     header[5:11] = offs_i
     header[11:15] = offs_f[1:5]
     header[15] = offs_f[5]
@@ -183,6 +190,23 @@ def mix(x):
     return x ^ (x >> 16)
 
 
+def words(key, ctr: int):
+    """The counter RNG's word ``mix(key ^ mix(ctr))`` for every key."""
+    c = mix(torch.tensor(ctr & _M32, dtype=torch.int64, device=key.device))
+    return mix(key ^ c)
+
+
+def _unit(w):
+    """(0, 1) uniform from the top 24 bits: (b24 + 1/2) * 2^-24."""
+    b = (w >> 8).to(torch.int32).to(torch.float32)
+    return b * const(1.0 / (1 << 24), b) + const(0.5 / (1 << 24), b)
+
+
+def uniform_of(key, ctr: int):
+    """(0, 1) uniform of counter ``ctr`` for every key."""
+    return _unit(words(key, ctr))
+
+
 class Rng:
     """Per-chain counter RNG, bit-identical to ``odelib_tpu``'s ``_Rng``:
     chain ``c`` keys on ``mix(seed * 0x9E3779B1 + c)`` (the tile drops
@@ -204,16 +228,12 @@ class Rng:
             raise ValueError(
                 "per-iteration RNG slot budget (1024) exhausted — too many "
                 "draw sites (walked parameters) for the fused kernel")
-        ctr = (self._it * 1024 + self._slot) & _M32
         self._slot += 1
-        c = mix(torch.tensor(ctr, dtype=torch.int64,
-                             device=self._key.device))
-        return mix(self._key ^ c)
+        return words(self._key, self._it * 1024 + self._slot - 1)
 
     def uniform(self):
-        """(0, 1) uniform from the top 24 bits: (b24 + 1/2) * 2^-24."""
-        b = (self.bits() >> 8).to(torch.int32).to(torch.float32)
-        return b * const(1.0 / (1 << 24), b) + const(0.5 / (1 << 24), b)
+        """The next slot's (0, 1) uniform."""
+        return _unit(self.bits())
 
     def normal(self):
         """Box-Muller, cos half only."""
@@ -227,6 +247,22 @@ class Rng:
 # scorer and twins
 # --------------------------------------------------------------------------
 
+def obs_terms(obs_at, y, chi, ssres=None):
+    """Add the lognormal chi terms (and, unless ``ssres`` is None, the
+    squared residuals) of one grid point's observations ``obs_at`` for
+    states ``y``; returns (chi, ssres)."""
+    for mem, lab, lsig, ab in obs_at:
+        pred = y[mem[0]]
+        for m in mem[1:]:
+            pred = pred + y[m]
+        d = const(lab, pred) - torch.log(pred)
+        chi = chi + (d * d) / const(2.0 * lsig * lsig, pred)
+        if ssres is not None:
+            e = pred - const(ab, pred)
+            ssres = ssres + e * e
+    return chi, ssres
+
+
 def make_scorer(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     """``score(theta_list) -> (chi, rsq)``: the fixed-step solve over the
     plan's steps with the static per-observation terms, on a list of P
@@ -237,15 +273,7 @@ def make_scorer(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     step = FIXED_STEPPERS[stepper]
 
     def contrib(y, gi, chi, ssres):
-        for mem, lab, lsig, ab in plan.obs_after[gi]:
-            pred = y[mem[0]]
-            for m in mem[1:]:
-                pred = pred + y[m]
-            d = const(lab, pred) - torch.log(pred)
-            chi = chi + (d * d) / const(2.0 * lsig * lsig, pred)
-            e = pred - const(ab, pred)
-            ssres = ssres + e * e
-        return chi, ssres
+        return obs_terms(plan.obs_after[gi], y, chi, ssres)
 
     def score(theta):
         ref = theta[0]

@@ -1,11 +1,13 @@
-"""Adaptive Dopri5 integration on a fixed output grid, batched over lanes.
+"""ODE integration on a fixed output grid, batched over lanes.
 
-Counterpart of ``odeint_grid`` in ``odelib_tpu/ops/integrate.py`` (Dopri5
-only; the Kvaerno methods are ROADMAP queue 1, item 14). The JAX version is
-one solve vmapped over lanes; here every lane is a column of an (S, N)
-state and steps in lock-step, with a per-lane done mask taking the place
-of the per-lane ``while_loop``: a lane that reached its output time, failed
-or spent ``max_steps`` keeps its state exactly while the others advance.
+Counterpart of ``odeint_grid`` (adaptive; Dopri5 only, the Kvaerno methods
+are ROADMAP queue 1, item 14) and ``odeint_fixed`` (fixed steps, dopri5 or
+rk4; kvaerno3 is item 14) in ``odelib_tpu/ops/integrate.py``. The JAX
+``odeint_grid`` is one solve vmapped over lanes; here every lane is a
+column of an (S, N) state and steps in lock-step, with a per-lane done mask
+taking the place of the per-lane ``while_loop``: a lane that reached its
+output time, failed or spent ``max_steps`` keeps its state exactly while
+the others advance.
 Step control (safety 0.9, factor clip [0.2, 10], RMS error norm, Hairer's
 initial step) and the failure model (NaN from the failure on, ``ok`` False)
 are the JAX package's.
@@ -127,3 +129,50 @@ def odeint_grid(func, y0, ts, args=(), *, rtol=1e-7, atol=1e-9,
                            num_steps=int(nsteps[0]),
                            accepted_at=acc_at[:, 0])
     return ODESolution(ys=ys, ok=ok, num_steps=nsteps, accepted_at=acc_at)
+
+
+def odeint_fixed(func, y0, ts, args=(), *, substeps=1, method="rk4"):
+    """Fixed-step integration on the grid ``ts``, every interval split into
+    ``substeps`` equal steps (an int, or one int per interval: a static
+    schedule). ``method`` is 'rk4' or 'dopri5' (its error estimate
+    unused). Shapes and ``func`` as :func:`odeint_grid`; the step sizes and
+    times are computed in the state's dtype as ``odelib_tpu``'s
+    ``odeint_fixed`` computes them. Returns :class:`ODESolution` with
+    ``ok`` False where a value is not finite and ``accepted_at`` None."""
+    if method == "rk4":
+        def substep(t, y, h):
+            k1 = func(t, y, args)
+            k2 = func(t + 0.5 * h, y + 0.5 * h * k1, args)
+            k3 = func(t + 0.5 * h, y + 0.5 * h * k2, args)
+            k4 = func(t + h, y + h * k3, args)
+            return y + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    elif method == "dopri5":
+        def substep(t, y, h):
+            f0 = Dopri5.first_stage(func, t, y, args)
+            return Dopri5.step(func, t, y, f0, h, args)[0]
+    elif method == "kvaerno3":
+        raise NotImplementedError(
+            "fixed-step kvaerno3 is not ported yet (ROADMAP queue 1, item 14)")
+    else:
+        raise ValueError(f"unknown fixed method {method!r}")
+    single = y0.ndim == 1
+    y = y0[:, None] if single else y0
+    ts = torch.as_tensor(ts, dtype=y.dtype, device=y.device)
+    n_int = ts.shape[0] - 1
+    sched = [int(substeps)] * n_int if isinstance(substeps, int) \
+        else [int(v) for v in substeps]
+    if len(sched) != n_int or min(sched, default=1) < 1:
+        raise ValueError(f"substeps must be >= 1, one per interval "
+                         f"({n_int})")
+    ys = [y]
+    for i in range(n_int):
+        h = (ts[i + 1] - ts[i]) / sched[i]
+        for k in range(sched[i]):
+            y = substep(ts[i] + k * h, y, h)
+        ys.append(y)
+    ys = torch.stack(ys)
+    ok = torch.isfinite(ys).flatten(0, 1).all(dim=0)
+    if single:
+        return ODESolution(ys=ys[..., 0], ok=bool(ok[0]),
+                           num_steps=sum(sched), accepted_at=None)
+    return ODESolution(ys=ys, ok=ok, num_steps=sum(sched), accepted_at=None)

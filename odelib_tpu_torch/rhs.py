@@ -390,7 +390,16 @@ class RhsProgram:
 
     def cuda_source(self) -> str:
         """The RHS as ``__device__ void rhs(float t, const float* y,
-        const float* p, float* dy)``, one SSA statement per node."""
+        const float* p, float* dy)`` after the ``ODE_S``/``ODE_P``
+        defines, one SSA statement per node."""
+        return "\n".join([f"// traced from {self.name}",
+                          f"#define ODE_S {self.n_states}",
+                          f"#define ODE_P {self.n_params}",
+                          self.cuda_function("rhs")])
+
+    def cuda_function(self, fn_name: str) -> str:
+        """The traced function as ``__device__ void <fn_name>(float t,
+        const float* y, const float* p, float* dy)``."""
         names, lines, k = {}, [], 0
         for n in self.order:
             a = [names[x.id] for x in n.args]
@@ -424,11 +433,8 @@ class RhsProgram:
         for s, o in enumerate(self.outputs):
             lines.append(f"  dy[{s}] = {names[o.id]};")
         return "\n".join(
-            [f"// traced from {self.name}",
-             f"#define ODE_S {self.n_states}",
-             f"#define ODE_P {self.n_params}",
-             "__device__ __forceinline__ void rhs(float t, const float* y, "
-             "const float* p, float* dy) {",
+            [f"__device__ __forceinline__ void {fn_name}(float t, "
+             "const float* y, const float* p, float* dy) {",
              "  (void)t; (void)y; (void)p;"] + lines + ["}", ""])
 
 

@@ -164,3 +164,42 @@ def test_framework_defaults_and_lhs():
     a, b = fw._lhs_samples(32), fw._lhs_samples(32)
     pd.testing.assert_frame_equal(a, b)     # seeded from random_seed
     assert list(a.columns) == ["mu", "phi", "beta"] and (a > 0).all().all()
+
+
+@pytest.mark.parametrize("solver", [{}, {"method": "rk4", "substeps": 2}])
+def test_fit_survey_matches_odelib_tpu(solver):
+    """fit_survey: the port's LHS draws scored in one batched float64
+    solve (adaptive Dopri5 by default, or the configured fixed steps)
+    against odelib_tpu's fit_survey on the same draws."""
+    fw = _framework(odelib_tpu_torch, device="cpu")
+    ref_fw = _framework(odelib_tpu)
+    draws = fw._lhs_samples(40)
+    ref_fw._lhs_samples = lambda samples: draws
+    got, ref = fw.fit_survey(40, **solver), ref_fw.fit_survey(40, **solver)
+    assert list(got.columns) == list(ref.columns) == ["mu", "phi", "beta",
+                                                      "chi"]
+    assert got["chi"].dtype == np.float64
+    pd.testing.assert_frame_equal(got.drop(columns="chi"),
+                                  ref.drop(columns="chi"))
+    assert np.isfinite(ref["chi"]).sum() > 20
+    np.testing.assert_allclose(got["chi"], ref["chi"], rtol=1e-9,
+                               equal_nan=True)
+
+
+def test_priors_and_diffusion_options():
+    """use_priors=True is ported for sampler='pmmh' only; a model without
+    diffusion= cannot run it, nor can a JointFit with such a member."""
+    fw = _framework(odelib_tpu_torch, device="cpu")
+    with pytest.raises(ValueError, match="diffusion"):
+        fw.MCMC(chain_inits=_INITS, iterations_per_chain=6, sampler="pmmh",
+                print_report=False)
+    for sampler in ("mh", "ensemble", "pt"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            fw.MCMC(chain_inits=_INITS, iterations_per_chain=6,
+                    sampler=sampler, use_priors=True, backend="pallas",
+                    print_report=False)
+    sde = _framework(odelib_tpu_torch, device="cpu",
+                     diffusion=lambda t, y, ps: [0.1 * y[0], 0.1 * y[1]])
+    jf = odelib_tpu_torch.JointFit([sde, fw], shared=["phi"])
+    with pytest.raises(NotImplementedError, match="joint PMMH"):
+        jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=8)

@@ -176,3 +176,120 @@ def test_untraceable_rhs_raises_on_card(card):
     with pytest.raises(RhsTraceError, match="control flow"):
         T.survey_fused(spec, obs, tf, y0,
                        torch.as_tensor(_draws(4), device="cuda"))
+
+
+def _joint_inputs(card, others=()):
+    """zero_i on the demo data (a) and, unless ``others`` replaces it, the
+    same model on perturbed data with initial abundances x 1.13 (b),
+    sharing phi and beta: D = 4, two idx maps that differ."""
+    spec, obs, tf, y0 = card
+    rng = np.random.default_rng(7)
+    obs_b = obs._replace(log_abundance=obs.log_abundance
+                         + rng.normal(0, 0.1, len(obs.log_abundance)))
+    exps = [(spec, obs, tf, y0, (2, 0, 1))]
+    exps += list(others) or [(spec, obs_b, tf, 1.13 * y0, (3, 0, 1))]
+    return [list(x) for x in zip(*exps)]
+
+
+def _check_joint(specs, obs, tfs, y0s, idxs, th0, seed, nits, burnin,
+                 mask):
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    before = T.LAUNCHES["joint_metropolis_hastings_fused"]
+    k = TJ.joint_metropolis_hastings_fused(specs, idxs, obs, tfs, y0s, th0,
+                                           seed, nits=nits, burnin=burnin,
+                                           walk_mask=mask,
+                                           substeps_list=[4] * len(specs))
+    assert T.LAUNCHES["joint_metropolis_hastings_fused"] == before + 1
+    plans = [T._build_plan(sp, ob, tf, 4) for sp, ob, tf in
+             zip(specs, obs, tfs)]
+    tw = TJ.joint_plain(specs, plans, y0s, idxs, th0.t().contiguous(), seed,
+                        nits=nits, burnin=burnin,
+                        walk=tuple(0.05 * w for w in mask),
+                        walked=tuple(w != 0 for w in mask))
+    torch.cuda.synchronize()
+    got = [k.theta.permute(1, 2, 0), k.chi.t(), k.chi_parts.permute(1, 2, 0),
+           k.acceptance_ratio.t()]
+    for a, b in zip(got, tw):        # bitwise: the same float32 operations
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert 0 < float(k.acceptance_ratio[:, -1].mean()) < 1
+
+
+def test_joint_kernel_matches_twin(card):
+    specs, obs, tfs, y0s, idxs = _joint_inputs(card)
+    rng = np.random.default_rng(2)
+    th0 = (np.array([2.4e-8, 24.0, 0.6, 0.6])
+           * np.exp(rng.normal(0, 0.05, (256, 4)))).astype(np.float32)
+    _check_joint(specs, obs, tfs, y0s, idxs,
+                 torch.as_tensor(th0, device="cuda"), 11, 20, 5,
+                 (1.0, 1.0, 1.0, 0.0))
+
+
+def test_joint_kernel_heterogeneous_models(card):
+    """zero_i and one_i in one fit: two models compiled into one library,
+    selected per experiment, sharing phi and beta."""
+    from odelib_tpu_torch.models import one_i
+    df = format_dataframe(load_demo_dataframe(host="H", virus="V"),
+                          one_i.snames)
+    times = np.linspace(0, df["time"].max(), 288)
+    spec1 = one_i.spec()
+    obs1, _ = build_obsdata_host(df, times, spec1.post_snames)
+    tf1, obs1 = compact_observation_grid(obs1, times)
+    y01 = np.array([df.loc["H"].iloc[0]["abundance"], 0.0,
+                    df.loc["V"].iloc[0]["abundance"]])
+    specs, obs, tfs, y0s, idxs = _joint_inputs(
+        card, [(spec1, obs1, tf1, y01, (3, 0, 1, 4))])
+    rng = np.random.default_rng(3)
+    th0 = (np.array([2.4e-8, 22.0, 0.6, 0.6, 1.2])
+           * np.exp(rng.normal(0, 0.05, (256, 5)))).astype(np.float32)
+    _check_joint(specs, obs, tfs, y0s, idxs,
+                 torch.as_tensor(th0, device="cuda"), 5, 20, 5,
+                 (1.0,) * 5)
+
+
+def _gbm_inputs():
+    """The GBM state-space model on its compact grid (8 observations at
+    t = 0.5, ..., 4.0)."""
+    from odelib_tpu_torch.model import ObsData
+
+    def gbm(t, y, ps):
+        return [ps[0] * y[0]]
+
+    def noise(t, y, ps):
+        return [0.3 * y[0]]
+    spec = make_spec(adapt_rhs(gbm), ("mu",), ("N",),
+                     diffusion=adapt_rhs(noise))
+    log_o = np.log(2.0) + 0.33 * np.arange(1, 9) * 0.5 \
+        + 0.2 * np.random.default_rng(42).normal(size=8)
+    obs = ObsData(log_abundance=log_o, log_sigma=np.full(8, 0.15),
+                  abundance=np.exp(log_o), t_index=np.arange(1, 9),
+                  state_index=np.zeros(8, np.int32),
+                  sstot=np.asarray(np.var(np.exp(log_o)) * 8))
+    return spec, obs, np.arange(9) * 0.5, np.array([2.0])
+
+
+@pytest.mark.parametrize("K,prior", [(8, True), (128, False), (512, True)])
+def test_pf_kernel_matches_twin(K, prior):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from odelib_tpu_torch import distributions as D
+    from odelib_tpu_torch.ops import cuda_pf as TF
+    from odelib_tpu_torch.ops.priors import prior_table
+    spec, obs, tf, y0 = _gbm_inputs()
+    th0 = torch.as_tensor(np.exp(np.random.default_rng(1).normal(
+        np.log(0.4), 0.3, (200, 1))).astype(np.float32), device="cuda")
+    pri = (D.LogNormal(s=0.5, scale=0.4),) if prior else None
+    kw = dict(nits=6, burnin=2, rwalk_std=0.3, n_particles=K, substeps=5,
+              adapt_proposal=prior, adapt_rate=0.15)
+    before = T.LAUNCHES["pmmh_fused"]
+    k = TF.pmmh_fused(spec, obs, tf, y0, th0, 3, priors=pri, **kw)
+    assert T.LAUNCHES["pmmh_fused"] == before + 1
+    plan = T._build_plan(spec, obs, tf, 5)
+    tw = TF.pmmh_plain(spec, plan, y0, th0.t().contiguous(), 3, K=K, nits=6,
+                       burnin=2, walk=(1.0,), walked=(True,), rwalk_std=0.3,
+                       prior=None if pri is None else prior_table(pri),
+                       adapt=prior, target=0.3, adapt_rate=0.15)
+    torch.cuda.synchronize()
+    got = [k.theta.permute(1, 2, 0), k.chi.t(), k.acceptance_ratio.t()]
+    for a, b in zip(got, tw):        # bitwise: the same float32 operations
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert np.isfinite(k.chi.cpu().numpy()).all()

@@ -71,3 +71,59 @@ def test_batched_lanes_equal_single_solves():
         assert bool(batch.ok[n]) == one.ok
     assert not bool(batch.ok[2])
     assert torch.isnan(batch.ys[-1, :, 2]).all()
+
+
+@pytest.mark.parametrize("method,substeps", [("rk4", 3), ("dopri5", 2),
+                                             ("rk4", (1, 2, 3, 1, 2, 3, 1, 2,
+                                                      3))])
+def test_odeint_fixed_matches_jax(method, substeps):
+    """Fixed steps, uniform or a per-interval schedule, float64."""
+    from odelib_tpu.ops.integrate import odeint_fixed as jax_odeint_fixed
+    from odelib_tpu_torch.ops.integrate import odeint_fixed
+    jfn, _, theta, y0 = _CASES["zero_i"]
+    ts = np.linspace(0.0, 3.0, 10)
+    got = odeint_fixed(_port_func("zero_i"),
+                       torch.tensor(y0, dtype=torch.float64), ts,
+                       list(torch.tensor(theta, dtype=torch.float64)),
+                       substeps=substeps, method=method)
+    ref = jax_odeint_fixed(lambda t, y, th: jfn(t, y, th), jnp.asarray(y0),
+                           jnp.asarray(ts), jnp.asarray(theta),
+                           substeps=substeps if isinstance(substeps, int)
+                           else list(substeps), method=method)
+    assert got.ok and got.ys.dtype == torch.float64
+    np.testing.assert_allclose(got.ys.numpy(), np.asarray(ref.ys),
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("method", ["dopri5", "rk4", "fixed_dopri5"])
+def test_chi_of_theta_matches_jax(method):
+    """A batch of thetas scored by the port's chi_of_theta against the JAX
+    package's, vmapped, in float64 (one_i: summed observable H = S + I1
+    and an adaptive failure-free grid)."""
+    import jax
+    from helpers import demo_df
+    from odelib_tpu.data import (build_obsdata_host,
+                                 compact_observation_grid, format_dataframe)
+    from odelib_tpu.model import chi_of_theta as jax_chi_of_theta
+    from odelib_tpu.model import make_spec as jax_make_spec
+    from odelib_tpu_torch.model import chi_of_theta
+    jfn, tmodel, theta, _ = _CASES["one_i"]
+    df = format_dataframe(demo_df().replace({"S": "H"}), ("S", "I1", "V"))
+    times = np.linspace(0, df["time"].max(), 64)
+    jspec = jax_make_spec(jfn, tmodel.pnames, tmodel.snames,
+                          {"H": ["S", "I1"]})
+    obs, _ = build_obsdata_host(df, times, jspec.post_snames)
+    tf, obs = compact_observation_grid(obs, times)
+    y0 = np.array([df.loc["H"].iloc[0]["abundance"], 0.0,
+                   df.loc["V"].iloc[0]["abundance"]])
+    thetas = np.asarray(theta) * np.exp(np.random.default_rng(0).normal(
+        0, 0.2, (12, 4)))
+    ref = np.asarray(jax.vmap(lambda th: jax_chi_of_theta(
+        jspec, obs, th, jnp.asarray(y0), jnp.asarray(tf), method=method,
+        substeps=2))(jnp.asarray(thetas)))
+    tspec = make_spec(adapt_rhs(tmodel.rhs, "jax"), tmodel.pnames,
+                      tmodel.snames, {"H": ["S", "I1"]})
+    got = chi_of_theta(tspec, obs, torch.as_tensor(thetas), y0, tf,
+                       method=method, substeps=2)
+    assert got.dtype == torch.float64 and np.isfinite(ref).all()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9)

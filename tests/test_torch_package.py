@@ -18,7 +18,10 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_leaves_jax_out():
     code = ("import sys, odelib_tpu_torch, odelib_tpu_torch.api, "
             "odelib_tpu_torch.ops.cuda_mh, odelib_tpu_torch.ops.cuda_pt, "
+            "odelib_tpu_torch.ops.cuda_joint, odelib_tpu_torch.ops.cuda_pf, "
+            "odelib_tpu_torch.ops.priors, odelib_tpu_torch.joint, "
             "odelib_tpu_torch.ops.build, odelib_tpu_torch.samplers.pt, "
+            "odelib_tpu_torch.samplers.joint, "
             "odelib_tpu_torch.models, odelib_tpu_torch.dispatch; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'odelib_tpu.'))"
@@ -33,7 +36,8 @@ def test_launch_counts_cover_every_kernel():
     from odelib_tpu_torch.ops import cuda_mh
     assert set(cuda_mh.LAUNCHES) == {
         "survey_fused", "metropolis_hastings_fused", "ensemble_fused",
-        "parallel_tempering_fused"}
+        "parallel_tempering_fused", "joint_metropolis_hastings_fused",
+        "pmmh_fused"}
     cuda_mh.LAUNCHES["ensemble_fused"] = 3
     cuda_mh.reset_launch_counts()
     assert not any(cuda_mh.LAUNCHES.values())

@@ -133,3 +133,32 @@ def test_untraceable_rhs_runs_eagerly_on_cpu():
     a = survey_fused(spec_b, obs, tf, y0, th, substeps=1)
     b = survey_fused(spec_z, obs, tf, y0, th, substeps=1)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_generated_header_per_set_of_models():
+    """One library per set of distinct RHS programs: experiments of one
+    model (two adapted copies of zero_i) share the single-model header; a
+    second model adds a ModelN type and ODE_MODELS; a diffusion appears
+    only in an SDE model's header."""
+    z1 = make_spec(adapt_rhs(zero_i), ("mu", "phi", "beta"), ("S", "V"))
+    z2 = make_spec(adapt_rhs(zero_i), ("mu", "phi", "beta"), ("S", "V"))
+    o = make_spec(adapt_rhs(one_i), ("mu", "phi", "beta", "lam"),
+                  ("S", "I1", "V"))
+    progs, model_of = build.distinct_programs([z1, z2, o, z1])
+    assert model_of == [0, 0, 1, 0] and len(progs) == 2
+    single = build.generated_header(trace_rhs(z1.rhs, 2, 3))
+    same, _ = build.distinct_programs([z1, z2])
+    assert build.generated_header(same[0], None, tuple(same[1:])) == single
+    assert "diffusion" not in single and "ODE_MODELS" not in single
+    joint = build.generated_header(progs[0], None, tuple(progs[1:]))
+    assert joint.startswith(single)
+    assert "struct Model1" in joint and "namespace odelib_m1" in joint
+    assert "#define ODE_MODELS(X) X(0) X(1)" in joint
+    assert "#define ODE_PMAX 4" in joint
+    sde = make_spec(adapt_rhs(zero_i), ("mu", "phi", "beta"), ("S", "V"),
+                    diffusion=adapt_rhs(lambda t, y, ps: [0.3 * y[0],
+                                                          0.1 * y[1]]))
+    header = build.generated_header(trace_rhs(sde.rhs, 2, 3),
+                                    trace_rhs(sde.diffusion, 2, 3))
+    assert header.startswith(single) and "#define ODE_HAS_DIFFUSION" in header
+    assert "void diffusion(float t" in header and "0.3f * y[0]" in header
