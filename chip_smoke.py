@@ -16,10 +16,11 @@ Phases, each failing the script if it fails:
    rtol 1e-5, equal non-finite masks), MH on 1024 chains x 200 iterations
    (identical accept sequences up to documented ulp ties, records rtol
    1e-5), the ensemble on 2048 walkers (two ensembles of 1024) x 200
-   iterations, PT on 1024 chains x 4 rungs x 200 iterations (identical
-   accept sequences and swap counts, records rtol 1e-5), and the joint
-   kernel on the heterogeneous pair zero_i + one_i, 256 chains x 20
-   iterations (bitwise records);
+   iterations, PT with the main path's 4 rungs on 1024 chains x 200
+   iterations, and with 3 (an idle lane in each chain's group of 4) and 8
+   rungs on 1000 chains x 60 (identical accept sequences and swap counts,
+   bitwise records), and the joint kernel on the heterogeneous pair
+   zero_i + one_i, 256 chains x 20 iterations (bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after: ModelFramework(..., device='cuda').MCMC(chain_inits=10000,
    iterations_per_chain=1000, fitsurvey_samples=1000, sd_fitdistance=6.0)
@@ -34,15 +35,18 @@ Phases, each failing the script if it fails:
    interval, LogNormal prior, adaptation): finite chi, the frozen-phase
    acceptance in [0.15, 0.5], and the posterior of log mu against the
    exact grid-Kalman posterior of the target the kernel samples
-   (|mean - exact| < 0.02, std within rtol 0.05). Then each of three
+   (|mean - exact| < 0.02, std within rtol 0.05). Then each of four
    kernels, through its public wrapper, against its twin on its main
    path's own inputs, captured where the path calls the wrapper:
    ensemble_fused (its 10,000 walkers and seed, the default tile of 4096,
    padded to 12,288 walkers; 200 iterations; the tile sets each walker's
    partners, so this is the geometry the main path runs; identical accept
-   sequences, records rtol 1e-5), joint_metropolis_hastings_fused (all
-   10,000 chains x 50 iterations) and pmmh_fused (all 10,240 chains x 128
-   particles x 20 iterations, adapting for 10), both bitwise;
+   sequences, records rtol 1e-5), parallel_tempering_fused (all 10,000
+   chains x 4 rungs x 20 iterations: 40,000 threads, so the last block of
+   128 is part empty; identical accept sequences and swap counts, bitwise),
+   joint_metropolis_hastings_fused (all 10,000 chains x 50 iterations) and
+   pmmh_fused (all 10,240 chains x 128 particles x 20 iterations, adapting
+   for 10), the last three bitwise (PT and PMMH fail on any bit);
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MCMC wall times with their stage breakdowns, and the device's busy share
@@ -55,8 +59,10 @@ Phases, each failing the script if it fails:
    over 8 chains) over the FP32 peak and its
    bytes (inputs read once, outputs written once) over the memory rate.
 
-Prints the device line and a JSON line of kernels before the last line,
-and as the last line ``{"ok": true, "device": {...}}``.
+Each phase's header gives the seconds since the start; the twins on the
+card are launch-bound and take most of the run. Prints the device line
+and a JSON line of kernels before the last line, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import io
@@ -87,8 +93,11 @@ def fail(msg):
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.0f} s)", flush=True)
 
 
 def events_ms(fn, reps=1):
@@ -156,10 +165,11 @@ def accept_steps(ar, nits):
 MH_LABELS = ("theta", "chi", "rsquared", "aic", "ar", "sw")
 
 
-def compare_records(name, rec_k, rec_t, nits, labels=MH_LABELS, burnin=0):
+def compare_records(name, rec_k, rec_t, nits, labels=MH_LABELS, burnin=0,
+                    bitwise=False):
     """Kernel against twin records (chain-minor, from iteration burnin +
-    1): identical accept sequences, every record rtol 1e-5; returns chi's
-    max abs error."""
+    1): identical accept sequences, every record rtol 1e-5 (``bitwise``:
+    equal); returns chi's max abs error."""
     import numpy as np
     rec_k = [r.cpu().numpy() for r in rec_k]
     rec_t = [r.cpu().numpy() for r in rec_t]
@@ -185,6 +195,8 @@ def compare_records(name, rec_k, rec_t, nits, labels=MH_LABELS, burnin=0):
               f"{np.mean(a[m] == b[m]):.4f}")
         if rel > 1e-5:
             fail(f"{name}: {label} kernel vs twin rel err {rel:.3g} > 1e-5")
+        if bitwise and not (a[m] == b[m]).all():
+            fail(f"{name}: {label} kernel and twin differ in bits")
     return err
 
 
@@ -339,7 +351,8 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as ex:       # three nvcc processes at once
         libs = list(ex.map(lambda a: build.load_kernels(*a),
-                           [(spec,), (spec, (spec1,)), (pf_spec,)]))
+                           [(spec,), (spec, (spec1,)),
+                            (pf_spec, (), True)]))
     build_s = time.perf_counter() - t0
     logs = ""
     for label, lib in zip(("zero_i", "zero_i + one_i (joint)", "GBM SDE"),
@@ -464,20 +477,30 @@ def main():
           f"acceptance {float(rec_k[4][-1].mean()):.4f}", flush=True)
 
     phase("PT kernel vs twin")
+    # the main path's ladder, then 3 rungs (an idle lane in each chain's
+    # group of 4 lanes) and 8 (a full group), on 1000 chains so the last
+    # block of 128 threads is part empty; the twin's time grows with the
+    # rungs, so these two take fewer iterations
+    for temps, n_c, n_it in (
+            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
+            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
+        th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
+        sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
+        pt_kw = dict(nits=n_it, burnin=0, scales=sc, walked=(True,) * 3,
+                     betas=bt, dbetas=db, swap_every=1, num=3)
+        rec_k = cuda_pt.pt_launcher(spec, plan, y0, "dopri5", th0, seed,
+                                    **pt_kw)()
+        torch.cuda.synchronize()
+        rec_t = cuda_pt.pt_plain(spec, plan, y0, th0, seed, **pt_kw)
+        torch.cuda.synchronize()
+        compare_records(f"PT {len(temps)} rungs", rec_k, rec_t, n_it,
+                        bitwise=True)
+        att = cuda_pt.swap_attempts(n_it, 1, 1)[0]
+        print(f"PT: {n_c} chains x {len(temps)} rungs x {n_it} iterations, "
+              f"mean cold acceptance {float(rec_k[4][-1].mean()):.4f}, mean "
+              f"cold swap rate {float(rec_k[5][-1].mean()) / att:.4f}",
+              flush=True)
     scales, betas, dbetas = cuda_pt.ladder_constants(TEMPS, 0.05, mask)
-    pt_kw = dict(nits=nits, burnin=0, scales=scales, walked=(True,) * 3,
-                 betas=betas, dbetas=dbetas, swap_every=1, num=3)
-    th0 = torch.as_tensor(seeds[:C], device=dev).t().contiguous()
-    rec_k = cuda_pt.pt_launcher(spec, plan, y0, "dopri5", th0, seed,
-                                **pt_kw)()
-    torch.cuda.synchronize()
-    rec_t = cuda_pt.pt_plain(spec, plan, y0, th0, seed, **pt_kw)
-    torch.cuda.synchronize()
-    pt_err = compare_records("PT", rec_k, rec_t, nits)
-    att = cuda_pt.swap_attempts(nits, 1, 1)[0]
-    print(f"PT: {C} chains x {len(TEMPS)} rungs x {nits} iterations, mean "
-          f"cold acceptance {float(rec_k[4][-1].mean()):.4f}, mean cold swap "
-          f"rate {float(rec_k[5][-1].mean()) / att:.4f}", flush=True)
 
     phase("joint kernel vs twin: zero_i + one_i")
     hspecs, hidx = [spec, spec1], [(2, 0, 1), (3, 0, 1, 4)]
@@ -518,6 +541,14 @@ def main():
                       seed=int(fw_.random_seed) + cfg.seed_offset)
         return ens_arm(fw_, theta0, cfg)
     dispatch._ARMS["cuda:ensemble"] = recording_arm
+    # and the PT main path's, captured where the PT arm calls the wrapper
+    pt_in = {}
+    pt_fused = cuda_pt.parallel_tempering_fused
+
+    def recording_pt(*args, **kw):
+        pt_in.update(args=args, kw=kw)
+        return pt_fused(*args, **kw)
+    cuda_pt.parallel_tempering_fused = recording_pt
     for sampler in ("mh", "ensemble", "pt"):
         phase(f"main path: ModelFramework(...).MCMC(sampler={sampler!r})")
         fw = framework()
@@ -573,6 +604,7 @@ def main():
         runs[sampler] = (wall_s, launches, dict(fw.last_profile))
     pkg_log.removeHandler(handler)
     dispatch._ARMS["cuda:ensemble"] = ens_arm
+    cuda_pt.parallel_tempering_fused = pt_fused
 
     phase("main path: JointFit({'a': zero_i, 'b': zero_i perturbed}, "
           "shared=['phi', 'beta']).MCMC()")
@@ -729,6 +761,44 @@ def main():
         fail(f"ensemble main path ran {len(ens_th0)} walkers at tile "
              f"{tile_main} padded to {W_main}, not 10000 / 4096 / 12288")
 
+    phase("PT kernel vs twin at the main path's inputs")
+    pt_spec, pt_obs, pt_tf, pt_y0, pt_th0 = pt_in["args"]
+    ptkw = pt_in["kw"]
+    pt_nits, pt_every = 21, int(ptkw["swap_every"])
+    pt_temps = tuple(float(t) for t in ptkw["temperatures"])
+    pout, prate = cuda_pt.parallel_tempering_fused(
+        *pt_in["args"], **{**ptkw, "nits": pt_nits, "burnin": 0})
+    torch.cuda.synchronize()
+    rec_k = [pout.theta.permute(1, 2, 0), pout.chi.t(), pout.rsquared.t(),
+             pout.aic.t(), pout.acceptance_ratio.t()]
+    psc, pbt, pdb = cuda_pt.ladder_constants(pt_temps, ptkw["rwalk_std"],
+                                             ptkw["walk_mask"])
+    pt_plan = cuda_mh._build_plan(pt_spec, pt_obs, pt_tf,
+                                  cuda_mh._normalize_substeps(
+                                      ptkw["substeps"], len(pt_tf) - 1))
+    pt_th_all = pt_th0.t().contiguous()
+    rec_t = cuda_pt.pt_plain(
+        pt_spec, pt_plan, pt_y0, pt_th_all, ptkw["seed"], nits=pt_nits,
+        burnin=0, scales=psc,
+        walked=tuple(float(w) != 0.0 for w in ptkw["walk_mask"]),
+        betas=pbt, dbetas=pdb, swap_every=pt_every,
+        num=int(torch.count_nonzero(pt_th0[0])), stepper=ptkw["stepper"])
+    torch.cuda.synchronize()
+    pt_err = compare_records("PT (main path's inputs)", rec_k, rec_t[:5],
+                             pt_nits, bitwise=True)
+    pt_att = max(float(cuda_pt.swap_attempts(pt_nits, pt_every, 1)[0]), 1.0)
+    if not torch.equal(prate, rec_t[5][-1] / cuda_mh.const(pt_att,
+                                                           rec_t[5])):
+        fail("PT (main path's inputs): kernel and twin swap counts differ")
+    print(f"PT at the main path's inputs: parallel_tempering_fused on all "
+          f"{pt_th_all.shape[1]} chains x {len(pt_temps)} rungs x "
+          f"{pt_nits - 1} iterations, seed {ptkw['seed']}, mean cold "
+          f"acceptance {float(rec_k[4][-1].mean()):.4f}, mean cold swap "
+          f"rate {float(prate.mean()):.4f}", flush=True)
+    if (pt_th_all.shape[1], pt_temps) != (CHAINS, TEMPS):
+        fail(f"PT main path ran {pt_th_all.shape[1]} chains x {pt_temps}, "
+             f"not {CHAINS} x {TEMPS}")
+
     phase("joint kernel vs twin at the main path's inputs")
     jspecs, jidx, jobs, jtimes, jy0s, jth0 = joint_in["args"][:6]
     jkw = joint_in["kw"]
@@ -785,7 +855,7 @@ def main():
     torch.cuda.synchronize()
     pf_err = compare_records("PMMH (main path's inputs)", rec_k, rec_t,
                              p_nits, labels=("theta", "chi", "ar"),
-                             burnin=p_burn)
+                             burnin=p_burn, bitwise=True)
     print(f"PMMH at the main path's inputs: pmmh_fused on all "
           f"{pth_all.shape[1]} chains x {n_part} particles x {p_nits - 1} "
           f"proposals ({p_burn} adapting), seed {pseed}, mean acceptance "

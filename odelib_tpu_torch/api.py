@@ -119,7 +119,8 @@ class ModelFramework:
     (int or per-interval schedule) for the kernels. ``diffusion`` is the
     diagonal process noise ``g`` of ``dy = f dt + g dW``, with the RHS's
     signature convention: the model is then fitted with
-    ``MCMC(sampler='pmmh')``, and ``integrate`` solves its drift.
+    ``MCMC(sampler='pmmh')`` (any other sampler warns and fits the drift
+    only, as the reference does), and ``integrate`` solves its drift.
     """
 
     _SOLVER_KEYS = ("method", "rtol", "atol", "max_steps", "substeps")
@@ -468,9 +469,11 @@ class ModelFramework:
                 "ModelFramework with diffusion=g (process noise); for a "
                 "deterministic ODE use sampler='mh'")
         if sampler != "pmmh" and self._spec.diffusion is not None:
-            raise ValueError(
-                f"MCMC(sampler={sampler!r}) on a model with diffusion= would "
-                "fit the drift only; use sampler='pmmh'")
+            warnings.warn(
+                f"MCMC(sampler={sampler!r}) on a model with diffusion= "
+                "fits the DRIFT ONLY: the deterministic likelihood "
+                "mis-attributes process noise to observation error. Use "
+                "sampler='pmmh' for the exact stochastic posterior.")
         priors = None
         if use_priors:
             if sampler != "pmmh":

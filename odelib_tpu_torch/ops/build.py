@@ -6,9 +6,10 @@ involved, so a build takes seconds. The build input is the sources in
 ``csrc/`` (``mh.cu``, ``ensemble.cu``, ``pt.cu``, ``joint.cu``, ``pf.cu``
 and their shared ``common.cuh``) plus ``odelib_gen.cuh``, generated here
 from the traced RHS (:meth:`odelib_tpu_torch.rhs.RhsProgram.cuda_source`)
-and the fixed-step Dopri5/RK4 steppers, all in one nvcc call. An SDE
-model's header adds its traced diffusion; a joint fit of different models
-adds each further model as a ``ModelN`` type for the joint kernel. The
+and the fixed-step Dopri5/RK4 steppers, all in one nvcc call. The
+particle filter's library of an SDE model adds its traced diffusion to
+the header; a joint fit of different models adds each further model as a
+``ModelN`` type for the joint kernel. The
 inputs and the flags are hashed into a directory under
 ``odelib_tpu_torch/_build/`` (gitignored), so each model (or set of
 models) builds once, at first use, and every later process loads it.
@@ -36,7 +37,7 @@ HEADERS = ("common.cuh",)
 PT_KMAX = 8         # rungs the PT kernel holds per chain (csrc/pt.cu)
 JOINT_KMAX = 8      # experiments of the joint kernel (csrc/joint.cu)
 JOINT_DMAX = 64     # joint theta slots per chain (csrc/joint.cu)
-PF_KMAX = 512       # particles per PMMH chain, one thread each (csrc/pf.cu)
+PF_KMAX = 512       # particles per PMMH chain, at most 16 a lane (csrc/pf.cu)
 # -Xptxas -v: registers, stack and spills of each kernel go to nvcc.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -194,13 +195,15 @@ def distinct_programs(specs):
     return programs, model_of
 
 
-def load_kernels(spec, others=()):
-    """The loaded kernel library for ``spec``'s RHS (and diffusion), with
-    the models of ``others`` compiled in for the joint kernel (build at
-    first use)."""
+def load_kernels(spec, others=(), diffusion=False):
+    """The loaded kernel library for ``spec``'s RHS, with the models of
+    ``others`` compiled in for the joint kernel (build at first use). With
+    ``diffusion`` it holds an SDE model's traced diffusion too, which only
+    the particle filter reads; every other kernel integrates the drift, so
+    the drift of an SDE model shares the library of the same ODE."""
     programs, _ = distinct_programs((spec, *others))
-    diffusion = None if spec.diffusion is None else trace_rhs(
-        spec.diffusion, len(spec.snames), spec.theta_size)
+    diffusion = None if not diffusion or spec.diffusion is None else \
+        trace_rhs(spec.diffusion, len(spec.snames), spec.theta_size)
     key = (tuple(programs), diffusion)
     lib = _BY_PROGRAM.get(key)
     if lib is not None:

@@ -156,9 +156,15 @@ __device__ __forceinline__ uint32_t mix(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ float uniform(uint32_t key, uint32_t ctr) {
-  const uint32_t w = mix(key ^ mix(ctr));
+// The (0, 1) uniform of a key and a counter word already mixed, mix(ctr):
+// keys that share a counter (a chain's particles) share its mix.
+__device__ __forceinline__ float uniform_mixed(uint32_t key, uint32_t mctr) {
+  const uint32_t w = mix(key ^ mctr);
   return (float)(int32_t)(w >> 8) * 0x1p-24f + 0x1p-25f;
+}
+
+__device__ __forceinline__ float uniform(uint32_t key, uint32_t ctr) {
+  return uniform_mixed(key, mix(ctr));
 }
 
 // Box-Muller (cos half only) from slots ctr and ctr + 1.

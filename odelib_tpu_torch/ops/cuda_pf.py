@@ -117,6 +117,19 @@ def group_sum(w):
     return total
 
 
+def hillis_steele(w):
+    """Inclusive prefix sum over the particle axis (0) of ``w`` (K, C): the
+    Hillis-Steele ladder ``c[k] += c[k - d]`` for d = 1, 2, 4, ..., each
+    level reading only the previous level's values (the kernel's
+    association)."""
+    K = w.shape[0]
+    cum, d = w, 1
+    while d < K:
+        cum = cum + torch.cat([torch.zeros_like(cum[:d]), cum[:-d]])
+        d *= 2
+    return cum
+
+
 def systematic_resample(w, u, y):
     """Systematic resampling of particles ``y`` (S tensors (K, C)) with
     weights ``w`` (K, C) and one uniform per chain ``u`` (C,): ``cum`` is
@@ -130,10 +143,7 @@ def systematic_resample(w, u, y):
     rounding puts ``pos_i`` at or past the total; in a chain where
     rounding made ``cum`` dip, the masked sum over every particle."""
     K = w.shape[0]
-    cum, d = w, 1
-    while d < K:
-        cum = cum + torch.cat([torch.zeros_like(cum[:d]), cum[:-d]])
-        d *= 2
+    cum = hillis_steele(w)
     rows = torch.arange(K, device=w.device, dtype=torch.float32)[:, None]
     pos = ((rows + u) * const(1.0 / K, w)) * cum[-1]
     zero = const(0.0, w)
@@ -283,7 +293,7 @@ def pmmh_launcher(spec, plan, y0_base, th0, seed, *, K, nits, burnin, walk,
     return ``launch() -> records`` (as :func:`pmmh_plain`); each call
     launches the kernel once (and counts it)."""
     from . import build
-    lib = build.load_kernels(spec)
+    lib = build.load_kernels(spec, diffusion=True)
     dev = th0.device
     P, C = th0.shape
     R = nits - 1 - burnin

@@ -6,6 +6,8 @@ without them:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -112,11 +114,13 @@ def test_ensemble_kernel_matches_twin(card):
     assert 0 < float(k.acceptance_ratio[:, -1].mean()) < 1
 
 
-@pytest.mark.parametrize("every", [1, 3])
-def test_pt_kernel_matches_twin(card, every):
+# K = 3 leaves a lane of each 4-lane chain group idle; K = 8 fills a group.
+# 500 chains leave the last 128-thread block part empty for every K.
+@pytest.mark.parametrize("every,K", [(1, 4), (3, 4), (1, 3), (2, 8)])
+def test_pt_kernel_matches_twin(card, every, K):
     spec, obs, tf, y0 = card
-    temps = (1.0, 2.0, 4.0, 8.0)
-    th0 = torch.as_tensor(_draws(512, sd=0.05), device="cuda")
+    temps = tuple(2.0 ** (k / 2) for k in range(K))
+    th0 = torch.as_tensor(_draws(500, sd=0.05), device="cuda")
     before = T.LAUNCHES["parallel_tempering_fused"]
     k, rate = TP.parallel_tempering_fused(
         spec, obs, tf, y0, th0, 11, temperatures=temps, swap_every=every,
@@ -267,7 +271,11 @@ def _gbm_inputs():
     return spec, obs, np.arange(9) * 0.5, np.array([2.0])
 
 
-@pytest.mark.parametrize("K,prior", [(8, True), (128, False), (512, True)])
+# one particle a lane on 8 of 32 lanes; K = 40 (2 a lane, 20 lanes, a last
+# group of 8); the main path's 128 (4 a lane); 200 (8 a lane, 25 lanes, a
+# last group of 8); 512 (16 a lane)
+@pytest.mark.parametrize("K,prior", [(8, True), (40, False), (128, False),
+                                     (200, True), (512, True)])
 def test_pf_kernel_matches_twin(K, prior):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -275,8 +283,9 @@ def test_pf_kernel_matches_twin(K, prior):
     from odelib_tpu_torch.ops import cuda_pf as TF
     from odelib_tpu_torch.ops.priors import prior_table
     spec, obs, tf, y0 = _gbm_inputs()
+    # 202 chains: the last block of four warps holds two
     th0 = torch.as_tensor(np.exp(np.random.default_rng(1).normal(
-        np.log(0.4), 0.3, (200, 1))).astype(np.float32), device="cuda")
+        np.log(0.4), 0.3, (202, 1))).astype(np.float32), device="cuda")
     pri = (D.LogNormal(s=0.5, scale=0.4),) if prior else None
     kw = dict(nits=6, burnin=2, rwalk_std=0.3, n_particles=K, substeps=5,
               adapt_proposal=prior, adapt_rate=0.15)
@@ -293,3 +302,45 @@ def test_pf_kernel_matches_twin(K, prior):
     for a, b in zip(got, tw):        # bitwise: the same float32 operations
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
     assert np.isfinite(k.chi.cpu().numpy()).all()
+
+
+def test_mh_kernel_fits_an_sde_drift():
+    """MCMC(sampler='mh') on a model with diffusion= warns and fits the
+    drift through the survey and MH kernels of the drift's own library (the
+    ODE model's, without the particle filter): the same posterior, bitwise,
+    as the model built without diffusion=."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pandas as pd
+    import scipy.stats
+
+    from odelib_tpu_torch import ModelFramework, parameter
+    from odelib_tpu_torch.ops import build
+    _, obs, tf, _ = _gbm_inputs()
+    df = pd.DataFrame({"organism": "N", "time": tf[1:],
+                       "abundance": obs.abundance, "log_sigma": 0.15})
+
+    def framework(noise):
+        return ModelFramework(
+            ODE=lambda y, t, ps: np.array([ps[0] * y[0]]),
+            diffusion=(lambda y, t, ps: np.array([0.3 * y[0]])) if noise
+            else None, parameter_names=["mu"], state_names=["N"],
+            dataframe=df, t_steps=41, N=2.0, device="cuda",
+            mu=parameter(scipy.stats.lognorm, {"s": 0.5, "scale": 0.4},
+                         random_seed=1))
+    kw = dict(chain_inits=256, iterations_per_chain=40,
+              fitsurvey_samples=256, sampler="mh", print_report=False)
+    sde, ode = framework(True), framework(False)
+    lib = build.load_kernels(sde._spec)
+    assert lib._name == build.load_kernels(ode._spec)._name
+    assert "ODE_HAS_DIFFUSION" not in open(os.path.join(os.path.dirname(
+        lib._name), "odelib_gen.cuh")).read()
+    assert build.load_kernels(sde._spec, diffusion=True)._name != lib._name
+    T.reset_launch_counts()
+    with pytest.warns(UserWarning, match="DRIFT ONLY"):
+        got = sde.MCMC(**kw)
+    assert T.LAUNCHES["survey_fused"] == 1
+    assert T.LAUNCHES["metropolis_hastings_fused"] == 1
+    want = ode.MCMC(**kw)
+    pd.testing.assert_frame_equal(got, want)
+    assert np.isfinite(got["chi"]).all()

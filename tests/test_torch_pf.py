@@ -178,6 +178,98 @@ def test_weight_sum_order(K):
                                   ref)
 
 
+def _shfl_up(x, q):
+    """__shfl_up_sync over the 32 lanes (axis 0): lane l reads lane l - q,
+    lanes below q keep their own value."""
+    return np.concatenate([x[:q], x[:-q]])
+
+
+def _lanes(w, ppt):
+    """Particles k < K of ``w`` (K, C) on lane k // ppt, slot k % ppt:
+    (32, ppt, C) float32, zeros past K."""
+    out = np.zeros((32 * ppt,) + w.shape[1:], np.float32)
+    out[:w.shape[0]] = w
+    return out.reshape((32, ppt) + w.shape[1:])
+
+
+def _lane_group_sum(w, ppt):
+    """pf.cu resample_block's sum of the weights, lane by lane: lane g
+    adds group g's 32 weights (particles 32 g + j) in particle order, one
+    shuffle each; then every lane adds the group sums in order."""
+    K = w.shape[0]
+    lanes, G, lpg = _lanes(w, ppt), (K + 31) // 32, 32 // ppt
+    part = np.zeros((32,) + w.shape[1:], np.float32)
+    for j in range(32):
+        for lane in range(32):
+            g = lane if lane < G else 0
+            v = lanes[g * lpg + j // ppt, j % ppt]
+            if 32 * g + j < K:
+                part[lane] = part[lane] + v
+    total = np.zeros(w.shape[1:], np.float32)
+    for q in range(G):
+        total = total + part[q]
+    return total
+
+
+def _lane_scan(w, ppt):
+    """pf.cu resample_block's prefix sum, lane by lane: a level d < ppt
+    adds in-lane values and, for the lane's first d slots, the previous
+    lane's last ones (a shuffle up by 1); a level d >= ppt adds the same
+    slot of the lane d / ppt below (a shuffle up by d / ppt)."""
+    K = w.shape[0]
+    c = _lanes(w, ppt)
+    lane = np.arange(32).reshape((32,) + (1,) * (w.ndim - 1))
+    zero = np.float32(0.0)
+    d = 1
+    while d < ppt:
+        n = np.empty_like(c)
+        for i in range(ppt):
+            if i >= d:
+                n[:, i] = c[:, i] + c[:, i - d]
+            else:
+                v = _shfl_up(c[:, i - d + ppt], 1)
+                n[:, i] = c[:, i] + np.where(lane > 0, v, zero)
+        c, d = n, 2 * d
+    while d < K:
+        q = d // ppt
+        for i in range(ppt):
+            v = _shfl_up(c[:, i], q)
+            c[:, i] = c[:, i] + np.where(lane >= q, v, zero)
+        d *= 2
+    return c.reshape((32 * ppt,) + w.shape[1:])[:K]
+
+
+# every (particles per lane, K) the lanes hold; the kernel's own choice is
+# the least power of two with 32 ppt >= K (1, 1, 2, 4, 8 and 16 here)
+_LANE_CASES = [(ppt, K) for ppt in (1, 2, 4, 8, 16)
+               for K in (8, 24, 40, 128, 200, 512) if K <= 32 * ppt]
+
+
+def _weights(K):
+    rng = np.random.default_rng(K)
+    return (np.exp(rng.normal(0, 6, (K, 64)))
+            * (rng.random((K, 64)) > 0.3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("ppt,K", _LANE_CASES,
+                         ids=[f"ppt{p}-K{k}" for p, k in _LANE_CASES])
+def test_lane_blocked_scan_is_the_ladder(ppt, K):
+    """The warp's lane-blocked Hillis-Steele scan associates as the ladder
+    of systematic_resample (hillis_steele), bitwise."""
+    w = _weights(K)
+    np.testing.assert_array_equal(
+        _lane_scan(w, ppt), TP.hillis_steele(torch.as_tensor(w)).numpy())
+
+
+@pytest.mark.parametrize("ppt,K", _LANE_CASES,
+                         ids=[f"ppt{p}-K{k}" for p, k in _LANE_CASES])
+def test_lane_blocked_group_sum_is_group_sum(ppt, K):
+    """The warp's lane-blocked sum of the weights is group_sum, bitwise."""
+    w = _weights(K)
+    np.testing.assert_array_equal(_lane_group_sum(w, ppt),
+                                  TP.group_sum(torch.as_tensor(w)).numpy())
+
+
 def test_resample_edge_gives_zero_states():
     """Equal weights and a uniform just below 1: pos of the last slot,
     7 + u, rounds to the total 8, matches no particle and takes all-zero
@@ -237,7 +329,7 @@ def test_resample_dip_takes_the_masked_sum():
     np.testing.assert_array_equal(new[:, 1].numpy(), -np.arange(1.0, 9.0))
 
 
-def _gbm_framework(pkg, **kw):
+def _gbm_framework(pkg, noise=True, **kw):
     t_obs, log_o = _gbm_obs()
     df = pd.DataFrame({"organism": "N", "time": t_obs,
                        "abundance": np.exp(log_o), "log_sigma": S_OBS})
@@ -249,7 +341,7 @@ def _gbm_framework(pkg, **kw):
         return np.array([0.3 * y[0]])
 
     return pkg.ModelFramework(
-        ODE=gbm, diffusion=gnoise, parameter_names=["mu"],
+        ODE=gbm, diffusion=gnoise if noise else None, parameter_names=["mu"],
         state_names=["N"], dataframe=df, t_steps=41, N=2.0,
         mu=pkg.parameter(scipy.stats.lognorm, {"s": 0.5, "scale": 0.4},
                          random_seed=1),
@@ -320,9 +412,7 @@ def test_pmmh_options_raise():
             (dict(sampler="pmmh", n_particles=100), ValueError,
              "multiple of 8"),
             (dict(sampler="pmmh", n_particles=1024), ValueError,
-             "multiple of 8"),
-            (dict(sampler="mh"), ValueError, "sampler='pmmh'"),
-            (dict(sampler="pt"), ValueError, "sampler='pmmh'")):
+             "multiple of 8")):
         with pytest.raises(exc, match=match):
             fw.MCMC(**kw, **extra)
     ode = _gbm_framework(odelib_tpu_torch, device="cpu")
@@ -334,3 +424,20 @@ def test_pmmh_options_raise():
     assert not TP.pmmh_supported(fw._spec, 520, "euler")
     assert not TP.pmmh_supported(fw._spec, 128, "milstein")
     assert not TP.pmmh_supported(ode._spec, 128, "euler")
+
+
+@pytest.mark.parametrize("sampler", ["mh", "pt"])
+def test_drift_sampler_on_a_diffusion_model_warns(sampler):
+    """A sampler other than 'pmmh' on a model with diffusion= warns and
+    fits the drift, as odelib_tpu does: the same posterior, bitwise, as
+    the model built without diffusion=, from the same seed."""
+    kw = dict(chain_inits=4, iterations_per_chain=8, fitsurvey_samples=32,
+              sampler=sampler, print_report=False)
+    with pytest.warns(UserWarning, match="DRIFT ONLY"):
+        got = _gbm_framework(odelib_tpu_torch, device="cpu").MCMC(**kw)
+    want = _gbm_framework(odelib_tpu_torch, noise=False,
+                          device="cpu").MCMC(**kw)
+    pd.testing.assert_frame_equal(got, want)
+    assert np.isfinite(got["chi"]).all()
+    with pytest.warns(UserWarning, match="DRIFT ONLY"):
+        _gbm_framework(odelib_tpu).MCMC(**kw)

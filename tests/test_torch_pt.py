@@ -24,6 +24,7 @@ import odelib_tpu_torch
 from odelib_tpu.ops import pallas_pt as JP
 from odelib_tpu.samplers.pt import swap_attempts as jax_swap_attempts
 from odelib_tpu_torch.ops import cuda_mh as T
+from odelib_tpu_torch.ops import cuda_pf as TF
 from odelib_tpu_torch.ops import cuda_pt as TP
 from odelib_tpu_torch.samplers.pt import swap_attempts
 
@@ -87,6 +88,138 @@ def test_pt_twin_matches_pallas_interpret(setup, refs, case):  # noqa: F811
 def test_swap_attempts_match_odelib_tpu(nits, every):
     np.testing.assert_array_equal(swap_attempts(nits, every, 3),
                                   jax_swap_attempts(nits, every, 3))
+
+
+def _fake_scorer(*_args, **_kw):
+    """A cheap stand-in for the solve (the RNG layout and the swap logic
+    do not depend on it): chi a quadratic in log theta, R^2 from chi."""
+    def score(theta):
+        chi = sum((torch.log(th) - torch.tensor(0.1 * p)) ** 2
+                  for p, th in enumerate(theta)) * torch.tensor(40.0)
+        return chi, torch.tensor(1.0) - chi / torch.tensor(100.0)
+    return score
+
+
+def pt_slot_layout(K, n_walked, it):
+    """pt.cu's closed-form counters of iteration ``it``: rung k's first
+    slot (its walk normals, two slots each, then its accept uniform) and
+    pair k's swap uniform."""
+    per_rung = 2 * n_walked + 1
+    return ([it * 1024 + k * per_rung for k in range(K)],
+            [it * 1024 + K * per_rung + k for k in range(K - 1)])
+
+
+_MASKS = {1: [0, 1, 0], 2: [1, 0, 1], 3: [1, 1, 1]}
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 8])
+@pytest.mark.parametrize("n_walked", [1, 2, 3])
+def test_pt_slot_layout_is_the_serial_draw_order(monkeypatch, K, n_walked):
+    """The counters pt_plain draws, in order, are the closed-form layout's:
+    per rung its walk normals and accept uniform from its first slot, then
+    each pair's uniform."""
+    drawn = []
+
+    class Recording(T.Rng):
+        def bits(self):
+            drawn.append(self._it * 1024 + self._slot)
+            return super().bits()
+    monkeypatch.setattr(TP, "Rng", Recording)
+    monkeypatch.setattr(TP, "make_scorer", _fake_scorer)
+    temps = tuple(1.5 ** k for k in range(K))
+    mask = _MASKS[n_walked]
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.3, mask)
+    TP.pt_plain(None, None, None, torch.as_tensor(_theta0(2).T.copy()), 5,
+                nits=3, burnin=0, scales=scales,
+                walked=tuple(m != 0 for m in mask), betas=betas,
+                dbetas=dbetas, swap_every=1, num=3)
+    expect = []
+    for it in (1, 2):
+        rungs, pairs = pt_slot_layout(K, n_walked, it)
+        for first in rungs:
+            expect += list(range(first, first + 2 * n_walked + 1))
+        expect += pairs
+    assert drawn == expect
+
+
+def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every):
+    """pt.cu lane by lane: each rung draws from its closed-form slots, then
+    every lane takes the partner of its due pair (one parity), reads the
+    partner's chi as the shuffle does, and both lanes of a pair compute the
+    same delta (lower rung's chi first) and decision from the pair's own
+    uniform.
+    Returns the cold rung's chi per iteration, its accept and swap counts."""
+    score = _fake_scorer()
+    K, P = len(betas), theta0.shape[0]
+    n_w = sum(walked)
+    key = T.Rng(seed, torch.arange(theta0.shape[1]))._key
+    chi0, _ = score(list(theta0))
+    lt = [[torch.log(th) for th in theta0] for _ in range(K)]
+    chi = [chi0] * K
+    acc = sw = torch.zeros_like(chi0)
+    out = []
+    for it in range(1, nits):
+        rungs, pairs = pt_slot_layout(K, n_w, it)
+        for k in range(K):
+            ctr, prop = rungs[k], []
+            for p in range(P):
+                if walked[p]:
+                    prop.append(lt[k][p] + torch.tensor(scales[k][p])
+                                * TF.rng_normal(key, ctr))
+                    ctr += 2
+                else:
+                    prop.append(lt[k][p])
+            chi_new, _ = score([torch.exp(v) for v in prop])
+            ok = torch.exp((chi[k] - chi_new) * torch.tensor(betas[k])) \
+                > T.uniform_of(key, ctr)
+            lt[k] = [torch.where(ok, a, b) for a, b in zip(prop, lt[k])]
+            chi[k] = torch.where(ok, chi_new, chi[k])
+            if k == 0:
+                acc = acc + ok.to(torch.float32)
+        if it % every == 0:
+            parity = (it // every) % 2
+            lt0, chi0_ = [list(v) for v in lt], list(chi)
+            for k in range(K):          # every lane at once, from lt0/chi0_
+                lo = k if k % 2 == parity else k - 1
+                paired = 0 <= lo and lo + 1 < K
+                partner = (k + 1 if lo == k else lo) if paired else k
+                chi_o = chi0_[partner]              # the width-G shuffle
+                if not paired:
+                    continue
+                delta = torch.tensor(dbetas[lo]) * (
+                    chi0_[k] - chi_o if lo == k else chi_o - chi0_[k])
+                flag = (torch.exp(delta) > T.uniform_of(key, pairs[lo])) \
+                    & torch.isfinite(delta)
+                lt[k] = [torch.where(flag, y, x)
+                         for x, y in zip(lt0[k], lt0[partner])]
+                chi[k] = torch.where(flag, chi_o, chi0_[k])
+                if k == 0:
+                    sw = sw + flag.to(torch.float32)
+        out.append(chi[0])
+    return torch.stack(out), acc, sw
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 8])
+def test_pt_lane_parallel_swaps_equal_the_serial_loop(monkeypatch, K):
+    """The kernel's layout (a rung per lane, due pairs deciding at once)
+    gives pt_plain's serial-loop records bitwise: the cold chi, accepts
+    and swaps (16 chains, 12 iterations, swaps every 1 and 2)."""
+    monkeypatch.setattr(TP, "make_scorer", _fake_scorer)
+    temps = tuple(2.0 ** k for k in range(K))
+    mask = [1, 0, 1]
+    walked = (True, False, True)
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.4, mask)
+    th0 = torch.as_tensor(_theta0(16).T.copy())
+    for every in (1, 2):
+        recs = TP.pt_plain(None, None, None, th0, 9, nits=13, burnin=0,
+                           scales=scales, walked=walked, betas=betas,
+                           dbetas=dbetas, swap_every=every, num=3)
+        chi, acc, sw = _pt_lanes(th0, 9, 13, scales, walked, betas, dbetas,
+                                 every)
+        np.testing.assert_array_equal(chi.numpy(), recs[1].numpy())
+        np.testing.assert_array_equal((acc / 12).numpy(), recs[4][-1].numpy())
+        np.testing.assert_array_equal(sw.numpy(), recs[5][-1].numpy())
+        assert 0 < float(sw.sum()) and 0 < float(acc.sum()) < 16 * 12
 
 
 def test_ladder_constants_rounded_on_host():
