@@ -16,11 +16,15 @@ Phases, each failing the script if it fails:
    rtol 1e-5, equal non-finite masks), MH on 1024 chains x 200 iterations
    (identical accept sequences up to documented ulp ties, records rtol
    1e-5), the ensemble on 2048 walkers (two ensembles of 1024) x 200
-   iterations, PT with the main path's 4 rungs on 1024 chains x 200
+   iterations, in one launch of as many blocks as can be co-resident and
+   again on 7 blocks of 32 threads, so each thread loops over 4-5 of the
+   1024 columns, PT with the main path's 4 rungs on 1024 chains x 100
    iterations, and with 3 (an idle lane in each chain's group of 4) and 8
-   rungs on 1000 chains x 60 (identical accept sequences and swap counts,
-   bitwise records), and the joint kernel on the heterogeneous pair
-   zero_i + one_i, 256 chains x 20 iterations (bitwise records);
+   rungs on 1000 chains x 60 (identical accept sequences and swap counts),
+   and the joint kernel on the heterogeneous pair zero_i + one_i, 256
+   chains x 20 iterations, and with a third experiment (K = 3, blocks of
+   three warps) on 1000 chains, so the last block has dead lanes (all
+   bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after: ModelFramework(..., device='cuda').MCMC(chain_inits=10000,
    iterations_per_chain=1000, fitsurvey_samples=1000, sd_fitdistance=6.0)
@@ -40,17 +44,20 @@ Phases, each failing the script if it fails:
    path's own inputs, captured where the path calls the wrapper:
    ensemble_fused (its 10,000 walkers and seed, the default tile of 4096,
    padded to 12,288 walkers; 200 iterations; the tile sets each walker's
-   partners, so this is the geometry the main path runs; identical accept
-   sequences, records rtol 1e-5), parallel_tempering_fused (all 10,000
-   chains x 4 rungs x 20 iterations: 40,000 threads, so the last block of
-   128 is part empty; identical accept sequences and swap counts, bitwise),
-   joint_metropolis_hastings_fused (all 10,000 chains x 50 iterations) and
-   pmmh_fused (all 10,240 chains x 128 particles x 20 iterations, adapting
-   for 10), the last three bitwise (PT and PMMH fail on any bit);
+   partners, so this is the geometry the main path runs),
+   parallel_tempering_fused (all 10,000 chains x 4 rungs x 20 iterations:
+   40,000 threads, so the last block of 128 is part empty; identical swap
+   counts), joint_metropolis_hastings_fused (all 10,000 chains x 50
+   iterations) and pmmh_fused (all 10,240 chains x 128 particles x 20
+   iterations, adapting for 10); every comparison of phases 3-4 fails on
+   any bit, and each main path launches its chain kernel's wrapper once;
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
-   MCMC wall times with their stage breakdowns, and the device's busy share
-   of one more MH run under torch.profiler. Each kernel's bound is the
+   MCMC wall times with their stage breakdowns, and one more MH and
+   ensemble run each under torch.profiler: the device's busy share (the
+   union of its kernels' and copies' intervals), each kernel's launches,
+   mean duration and mean gap between launches, and exactly one device
+   launch of the ensemble kernel on its path. Each kernel's bound is the
    larger of its float32 operations (counted by running its twin on the
    CPU under a counting dispatch mode; per chain and iteration they do not
    depend on the data but for the particle filter's selection, which
@@ -114,6 +121,39 @@ def events_ms(fn, reps=1):
     return start.elapsed_time(end) / reps
 
 
+def device_kernels(prof):
+    """The device activities (kernels, copies) of a finished torch.profiler
+    profile, from the device's timestamps: {name: [(start_us, end_us),
+    ...]} in start order."""
+    from torch.autograd import DeviceType
+    spans = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            spans.setdefault(ev.name, []).append(
+                (ev.time_range.start, ev.time_range.end))
+    return {k: sorted(v) for k, v in spans.items()}
+
+
+def launch_stats(spans):
+    """Launches, total ms, mean us per launch and the mean gap in us from
+    one launch's end to the next one's start (None for one launch)."""
+    durs = [e - s for s, e in spans]
+    gaps = [s1 - e0 for (_, e0), (s1, _) in zip(spans, spans[1:])]
+    return (len(spans), sum(durs) / 1e3, sum(durs) / len(durs),
+            sum(gaps) / len(gaps) if gaps else None)
+
+
+def print_launches(kernels, top=8):
+    """One line per device activity, the busiest first."""
+    for name, spans in sorted(kernels.items(),
+                              key=lambda kv: -sum(e - s for s, e in kv[1])
+                              )[:top]:
+        n, ms, mean_us, gap_us = launch_stats(spans)
+        gap = "-" if gap_us is None else f"{gap_us:.3f} us"
+        print(f"  {n:6d} launches {ms:10.3f} ms  mean {mean_us:10.3f} us  "
+              f"gap {gap}  {name[:80]}")
+
+
 def fp32_ops(fn):
     """Float32 arithmetic operations (elements) that ``fn`` runs, counted
     at the aten level: the twins perform the kernels' float32 operations
@@ -165,11 +205,10 @@ def accept_steps(ar, nits):
 MH_LABELS = ("theta", "chi", "rsquared", "aic", "ar", "sw")
 
 
-def compare_records(name, rec_k, rec_t, nits, labels=MH_LABELS, burnin=0,
-                    bitwise=False):
+def compare_records(name, rec_k, rec_t, nits, labels=MH_LABELS, burnin=0):
     """Kernel against twin records (chain-minor, from iteration burnin +
-    1): identical accept sequences, every record rtol 1e-5 (``bitwise``:
-    equal); returns chi's max abs error."""
+    1): identical accept sequences and every record bitwise equal (the same
+    float32 operations); returns chi's max abs error."""
     import numpy as np
     rec_k = [r.cpu().numpy() for r in rec_k]
     rec_t = [r.cpu().numpy() for r in rec_t]
@@ -193,10 +232,9 @@ def compare_records(name, rec_k, rec_t, nits, labels=MH_LABELS, burnin=0,
             err = float(np.max(np.abs(a[m] - b[m])))
         print(f"{name} {label}: max rel err {rel:.3g}, bitwise equal "
               f"{np.mean(a[m] == b[m]):.4f}")
-        if rel > 1e-5:
-            fail(f"{name}: {label} kernel vs twin rel err {rel:.3g} > 1e-5")
-        if bitwise and not (a[m] == b[m]).all():
-            fail(f"{name}: {label} kernel and twin differ in bits")
+        if not (a[m] == b[m]).all():
+            fail(f"{name}: {label} kernel and twin differ in bits (max rel "
+                 f"err {rel:.3g})")
     return err
 
 
@@ -368,8 +406,8 @@ def main():
             elif "seconds" in line or "registers" in line \
                     or "stack" in line:
                 print(line.strip())
-    for name in ("survey_kernel", "mh_kernel", "ens_init_kernel",
-                 "ens_half_kernel", "pt_kernel", "joint_kernel", "pf_kernel"):
+    for name in ("survey_kernel", "mh_kernel", "ens_kernel", "pt_kernel",
+                 "joint_kernel", "pf_kernel"):
         if name not in logs:
             fail(f"build: {name} is missing from nvcc.log")
     print(f"build seconds (three libraries in parallel): {build_s:.3f}",
@@ -473,16 +511,23 @@ def main():
     torch.cuda.synchronize()
     compare_records("ensemble", rec_k, rec_t, nits)
     print(f"ensemble: {W} walkers ({W // tile} ensembles) x {nits} "
-          f"iterations, {1 + 2 * (nits - 1)} device launches, mean "
-          f"acceptance {float(rec_k[4][-1].mean()):.4f}", flush=True)
+          f"iterations in one device launch, mean acceptance "
+          f"{float(rec_k[4][-1].mean()):.4f}", flush=True)
+    # the same run on 7 blocks of 32 threads: 1,024 columns, 4-5 a thread
+    rec_k = cuda_mh.ensemble_launcher(spec, plan, y0, "dopri5", start, seed,
+                                      blocks=7, **ens_kw)()
+    torch.cuda.synchronize()
+    compare_records("ensemble (7 blocks, columns looped)", rec_k, rec_t,
+                    nits)
 
     phase("PT kernel vs twin")
     # the main path's ladder, then 3 rungs (an idle lane in each chain's
     # group of 4 lanes) and 8 (a full group), on 1000 chains so the last
     # block of 128 threads is part empty; the twin's time grows with the
-    # rungs, so these two take fewer iterations
+    # rungs and is launch-bound, so the ladders take fewer iterations than
+    # the other checks (PT's main path is held at its full width below)
     for temps, n_c, n_it in (
-            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
+            (TEMPS, C, 100), ((1.0, 2.0, 4.0), 1000, 60),
             (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
@@ -493,8 +538,7 @@ def main():
         torch.cuda.synchronize()
         rec_t = cuda_pt.pt_plain(spec, plan, y0, th0, seed, **pt_kw)
         torch.cuda.synchronize()
-        compare_records(f"PT {len(temps)} rungs", rec_k, rec_t, n_it,
-                        bitwise=True)
+        compare_records(f"PT {len(temps)} rungs", rec_k, rec_t, n_it)
         att = cuda_pt.swap_attempts(n_it, 1, 1)[0]
         print(f"PT: {n_c} chains x {len(temps)} rungs x {n_it} iterations, "
               f"mean cold acceptance {float(rec_k[4][-1].mean()):.4f}, mean "
@@ -521,6 +565,26 @@ def main():
                     labels=("theta", "chi", "chi parts", "ar"))
     print(f"joint, two models: 256 chains x 20 iterations, mean acceptance "
           f"{float(rec_k[3][-1].mean()):.4f}", flush=True)
+    # K = 3 (blocks of three warps) on 1,000 chains, so the last block of 32
+    # holds 8: a third experiment, zero_i on the demo data with its own mu
+    hspecs.append(spec)
+    hidx.append((5, 0, 1))
+    hplans.append(cuda_mh._build_plan(spec, obs, tf, 4))
+    hth0 = torch.as_tensor((np.array([2.4e-8, 22.0, 0.6, 0.6, 1.2, 0.6])
+                            * np.exp(np.random.default_rng(4).normal(
+                                0, 0.05, (1000, 6)))).astype(np.float32).T
+                           .copy(), device=dev)
+    hkw = dict(nits=20, burnin=0, walk=(0.05,) * 6, walked=(True,) * 6)
+    rec_k = cuda_joint.joint_launcher(hspecs, hplans, [y0, y01, y0], hidx,
+                                      "dopri5", hth0, seed, **hkw)()
+    torch.cuda.synchronize()
+    rec_t = cuda_joint.joint_plain(hspecs, hplans, [y0, y01, y0], hidx, hth0,
+                                   seed, **hkw)
+    torch.cuda.synchronize()
+    compare_records("joint (K = 3, 1,000 chains)", rec_k, rec_t, 20,
+                    labels=("theta", "chi", "chi parts", "ar"))
+    print(f"joint, three experiments: 1000 chains x 20 iterations, mean "
+          f"acceptance {float(rec_k[3][-1].mean()):.4f}", flush=True)
 
     # -- 4. the main paths --------------------------------------------------
     swap_log = io.StringIO()
@@ -590,9 +654,11 @@ def main():
                  f"[{lo}, {hi}]")
         if "Fitting Report" not in out.getvalue():
             fail(f"{sampler}: the Fitting Report did not print")
-        for name in ("survey_fused", kernel_of[sampler]):
-            if launches[name] < 1:
-                fail(f"{sampler}: {name} never launched: {launches}")
+        if launches["survey_fused"] < 1:
+            fail(f"{sampler}: survey_fused never launched: {launches}")
+        if launches[kernel_of[sampler]] != 1:
+            fail(f"{sampler}: {kernel_of[sampler]} was not launched once: "
+                 f"{launches}")
         if not isinstance(post, pd.DataFrame):
             fail(f"{sampler}: MCMC did not return a DataFrame")
         if sampler == "pt":
@@ -785,7 +851,7 @@ def main():
         num=int(torch.count_nonzero(pt_th0[0])), stepper=ptkw["stepper"])
     torch.cuda.synchronize()
     pt_err = compare_records("PT (main path's inputs)", rec_k, rec_t[:5],
-                             pt_nits, bitwise=True)
+                             pt_nits)
     pt_att = max(float(cuda_pt.swap_attempts(pt_nits, pt_every, 1)[0]), 1.0)
     if not torch.equal(prate, rec_t[5][-1] / cuda_mh.const(pt_att,
                                                            rec_t[5])):
@@ -855,7 +921,7 @@ def main():
     torch.cuda.synchronize()
     pf_err = compare_records("PMMH (main path's inputs)", rec_k, rec_t,
                              p_nits, labels=("theta", "chi", "ar"),
-                             burnin=p_burn, bitwise=True)
+                             burnin=p_burn)
     print(f"PMMH at the main path's inputs: pmmh_fused on all "
           f"{pth_all.shape[1]} chains x {n_part} particles x {p_nits - 1} "
           f"proposals ({p_burn} adapting), seed {pseed}, mean acceptance "
@@ -927,8 +993,6 @@ def main():
           f"{len(pf_plan.step_ts)} steps x {PF_NITS} filters: {pf_ms:.3f} ms "
           f"({pf_steps / (pf_ms / 1e3):.4g} particle-steps/s); twin scaled "
           f"from {pf_short - 1} proposals {pf_plain_ms:.1f} ms")
-    print(f"ensemble: {W_main} walkers in {W_main // tile_main} ensembles, "
-          f"{1 + 2 * (NITS - 1)} device launches per run")
     print(f"survey kernel 1000 draws: {sv_ms:.4f} ms; twin "
           f"{sv_plain_ms:.3f} ms")
     for sampler, (wall_s, _, stages) in runs.items():
@@ -994,32 +1058,45 @@ def main():
                               ("joint", joint_bound), ("PMMH", pf_bound)):
         print(f"{label} bound: {b_ms:.4f} ms, by {by}")
 
-    phase("where the time goes: one more MH MCMC under torch.profiler")
     from torch.profiler import ProfilerActivity, profile
-    fw = framework()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof, contextlib.redirect_stdout(io.StringIO()):
-        t0 = time.perf_counter()
-        fw.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
-                fitsurvey_samples=1000, sd_fitdistance=6.0,
-                print_report=True, profile=True)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    dev_us = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", 0) or 0
-        if t > 0:
-            dev_us[ev.key] = t
-    busy = sum(dev_us.values()) / 1e6
-    print(f"profiled MCMC wall {prof_wall:.3f} s; stages "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in fw.last_profile.items()))
-    if busy > 0:
-        print(f"device busy {busy:.4f} s = {100 * busy / prof_wall:.2f} % "
-              f"of wall (idle {100 - 100 * busy / prof_wall:.2f} %)")
-        for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"  {v / 1e3:10.3f} ms  {k[:90]}")
-    else:
-        print("device time: not measured (the profiler recorded none)")
+    for sampler in ("mh", "ensemble"):
+        phase(f"where the time goes: one more MCMC(sampler={sampler!r}) "
+              "under torch.profiler")
+        fw = framework()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            fw.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
+                    fitsurvey_samples=1000, sd_fitdistance=6.0,
+                    sampler=sampler, print_report=True, profile=True)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        kernels = device_kernels(prof)
+        # busy: the union of the device's intervals, copies included
+        busy, end = 0.0, float("-inf")
+        for s, e in sorted(x for v in kernels.values() for x in v):
+            if e > end:
+                busy += e - max(s, end)
+                end = e
+        busy /= 1e6
+        print(f"profiled MCMC({sampler}) wall {prof_wall:.3f} s; stages "
+              + ", ".join(f"{k} {v:.3f} s"
+                          for k, v in fw.last_profile.items()))
+        if busy > 0:
+            print(f"device busy {busy:.4f} s = {100 * busy / prof_wall:.2f} "
+                  f"% of wall (idle {100 - 100 * busy / prof_wall:.2f} %)")
+            print_launches(kernels)
+        else:
+            print("device time: not measured (the profiler recorded none)")
+        if sampler == "ensemble":
+            ens = [s for k, v in kernels.items() if "ens_kernel" in k
+                   for s in v]
+            if len(ens) != 1:
+                fail(f"ensemble main path: {len(ens)} device launches of "
+                     "ens_kernel under the profiler, not 1")
+            print(f"ensemble main path: 1 device launch of ens_kernel, "
+                  f"{(ens[0][1] - ens[0][0]) / 1e3:.3f} ms")
 
     csrc = "odelib_tpu_torch/ops/csrc/"
 

@@ -10,9 +10,10 @@ chains seeded under the ``sd_fitdistance`` chi cut, all chains in the
 sampler's fused kernel (MH, Goodman-Weare ensemble, parallel tempering,
 particle-marginal MH), the posterior DataFrame and the Fitting Report.
 
-``ModelFramework(device=...)`` picks where everything runs: ``cuda`` when
-``torch.cuda.is_available()`` and ``cpu`` otherwise. On ``cuda`` the
-kernels run; on ``cpu`` their torch twins do. An option the kernels do not
+``ModelFramework(device=...)`` picks where everything runs: ``cuda`` by
+default, and ``cpu`` only when asked for; without a card the default
+raises. On ``cuda`` the kernels run; on ``cpu`` their torch twins do. An
+option the kernels do not
 support yet raises ``NotImplementedError`` naming its ROADMAP item; it is
 never moved to the twin.
 """
@@ -113,7 +114,8 @@ class ModelFramework:
 
     Same construction and semantics as ``odelib_tpu.ModelFramework`` for
     scalar-parameter models, plus ``device``: where tensors live and
-    kernels run (default ``cuda`` when available, else ``cpu``). Solver
+    kernels run (default ``cuda``; ``cpu`` runs the kernels' torch twins
+    and must be asked for). Solver
     knobs: ``method`` 'dopri5' | 'rk4' (fixed-step kernels), ``rtol``/
     ``atol``/``max_steps`` for the adaptive ``integrate``, ``substeps``
     (int or per-interval schedule) for the kernels. ``diffusion`` is the
@@ -131,8 +133,12 @@ class ModelFramework:
                  max_steps=4096, substeps=4, obs_model="lognormal",
                  obs_param=None, dose_events=None, forcings=None,
                  diffusion=None, device=None, **kwargs):
-        self.device = torch.device(device if device is not None else (
-            "cuda" if torch.cuda.is_available() else "cpu"))
+        if device is None and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ModelFramework runs on a CUDA device by default and found "
+                "none (torch.cuda.is_available() is False); pass "
+                "device='cpu' to run the kernels' torch twins on the CPU")
+        self.device = torch.device("cuda" if device is None else device)
         self._pnames = tuple(parameter_names)
         self._snames = tuple(state_names)
         self._model = ODE

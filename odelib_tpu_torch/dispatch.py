@@ -65,7 +65,7 @@ def run_fused_mh(fw, theta0, cfg: RunConfig):
 
 
 def run_fused_ensemble(fw, theta0, cfg: RunConfig):
-    """The fused Goodman-Weare ensemble kernels (or their twin)."""
+    """The fused Goodman-Weare ensemble kernel (or its twin)."""
     from .ops.cuda_mh import ensemble_fused
     args, kw = _fused_args(fw, theta0, cfg)
     return ensemble_fused(*args, a=float(cfg.stretch_a),

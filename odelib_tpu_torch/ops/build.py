@@ -217,14 +217,17 @@ def load_kernels(spec, others=(), diffusion=False):
         lib.odelib_mh.argtypes = [_P] * 9 + [_I, _I, _I, ctypes.c_uint,
                                              ctypes.c_float, _I, _P]
         lib.odelib_mh.restype = _I
-        lib.odelib_ensemble.argtypes = [_P] * 10 + [_I] * 5 + [
-            ctypes.c_uint] + [ctypes.c_float] * 4 + [_I, _P]
+        lib.odelib_ensemble_blocks.argtypes = [_I, _I, _I,
+                                               ctypes.POINTER(_I)]
+        lib.odelib_ensemble_blocks.restype = _I
+        lib.odelib_ensemble.argtypes = [_P, _I, _P, _I] + [_P] * 9 + [
+            _I] * 5 + [_U] + [_F] * 4 + [_I, _I, _P]
         lib.odelib_ensemble.restype = _I
         lib.odelib_pt.argtypes = [_P] * 10 + [_I] * 5 + [
             ctypes.c_uint, ctypes.c_float, _I, _P]
         lib.odelib_pt.restype = _I
-        lib.odelib_joint.argtypes = [_P] * 3 + [_I] + [_P] * 6 + [_I] * 5 \
-            + [_U, _I, _P]
+        lib.odelib_joint.argtypes = [_P, _I, _P, _I, _P, _I] + [_P] * 6 \
+            + [_I] * 5 + [_U, _I, _P]
         lib.odelib_joint.restype = _I
         lib.odelib_pf.argtypes = [_P] * 8 + [_I] * 4 + [_U] * 2 + [_I] * 3 \
             + [_F] * 5 + [_P]

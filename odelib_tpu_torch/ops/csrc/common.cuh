@@ -1,6 +1,6 @@
 // Device code shared by the fused kernels (mh.cu, ensemble.cu, pt.cu,
-// joint.cu, pf.cu): the runtime plan tables, the scorer, the counter RNG
-// and the in-kernel priors.
+// joint.cu, pf.cu): the runtime plan tables (and their staging into shared
+// memory), the scorer, the counter RNG and the in-kernel priors.
 //
 // Counterparts in odelib_tpu/ops/pallas_mh.py: _build_plan (the plan, laid
 // out as flat tables by ops/cuda_mh.py plan_tables), _make_scorer
@@ -80,6 +80,20 @@ __device__ __forceinline__ Plan load_plan(const int* __restrict__ pi,
   p.ab = pf + pi[H_F_AB];
   p.y0 = pf + pi[H_F_Y0];
   return p;
+}
+
+// Dynamic shared memory a kernel stages its read-only tables into without
+// opting in to more (cudaFuncSetAttribute); tables that do not fit are read
+// from global memory.
+constexpr int SMEM_STAGE_MAX = 48 * 1024;
+
+// Copy n words of a read-only table into shared memory, the block's
+// threads in turn; the caller waits at a block barrier before reading it.
+// Returns the staged copy: the Plan's generic pointers may point into it.
+template <class T>
+__device__ __forceinline__ T* stage(const T* __restrict__ src, T* dst, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  return dst;
 }
 
 // v[i] for a runtime i, by an unrolled select so v stays in registers.

@@ -18,19 +18,32 @@
 // (key mix(seed * 0x9E3779B1 + c) on the global chain index c, counter
 // it * 1024 + slot), so no block layout changes a chain's draws.
 //
-// What bounds it on the card: K dependent fixed-step solves per chain and
-// iteration, as mh_kernel does one; the bytes are the records only. At the
-// main path's 10,000 chains (2.4 warps per SM) it is bound by latency.
+// What bounds it on the card: K fixed-step solves per chain and iteration,
+// long chains of dependent float32 operations as in mh_kernel; the bytes
+// are the records only. Latency-bound: with a thread per chain (the first
+// port) the main path's 10,000 chains were 2.4 warps per SM, each thread
+// solving its K experiments one after another.
 //
-// What the design does about it: one thread per chain and the whole run in
-// the thread, 32-thread blocks spread over every SM, as mh_kernel. The
-// joint state (D log-thetas, the proposal) and the K parts are
-// thread-local arrays indexed at run time (L1-cached local memory); each
-// experiment's theta is gathered into registers through its idx map inside
-// a switch over the experiment's model, so every model of the fit is
-// compiled in (ODE_MODELS, generated by ops/build.py) and selected per
-// experiment at run time. The plans are the MH kernel's runtime tables,
-// concatenated; each experiment reads its own through two offsets.
+// What the design does about it: a block is K warps and 32 chains; lane l
+// is chain blockIdx.x * 32 + l and warp k scores experiment k for the
+// block's 32 chains, so the K solves run side by side (the main path's
+// K = 2: 4.7 warps per SM, one solve each per iteration). All 32 lanes of a
+// warp run one model, so a fit of different models does not diverge inside
+// a warp. Per iteration:
+//   - the warps draw the proposal, dimension d by warp d mod K, from the
+//     closed-form slot of d (two per walked dimension before it), into
+//     shared memory, where each chain's log-theta lives too (D x 32 each);
+//   - after a block barrier warp k gathers exp(prop[idx_k]) and scores,
+//     and writes its part to shared memory;
+//   - after a second barrier every warp sums the chain's K parts in k
+//     order from part 0, draws the same uniform and makes the same accept
+//     decision; warp k keeps part k, and the dimensions it drew.
+// Records are spread over the warps (theta's dimension d by warp d mod K,
+// part k by warp k, chi and the ratio by warps D and D + 1 mod K), all
+// coalesced by chain. The experiment table and, where they fit, the K plans
+// (the MH kernel's runtime tables, concatenated) are staged in shared
+// memory. Lanes past the last chain score its copy, take part in every
+// barrier and store nothing.
 //
 // Numerics: as mh.cu (-fmad=false, no fast math, constants rounded to
 // float32 on the host), so it rounds like its torch twin joint_plain
@@ -45,21 +58,33 @@ namespace {
 
 using namespace odelib;
 
-// Experiment table entry: plan_i offset, plan_f offset, model, then the
-// experiment's idx map (ODE_PMAX entries, the first Model::P used).
-template <int STEPPER>
-__device__ __forceinline__ float score_experiment(const int* e,
-                                                  const int* pi_all,
-                                                  const float* pf_all,
-                                                  const float* th) {
-  const Plan pl = load_plan(pi_all + e[0], pf_all + e[1]);
-  const int* idx = e + 3;
+struct JointArgs {
+  const int* pi_all;
+  const float* pf_all;
+  const int* exp_tab;    // per experiment: plan_i and plan_f offsets, model,
+                         // then its idx map (ODE_PMAX entries)
+  const float* theta0;
+  const float* walk;     // D scales f32(rwalk_std * mask_d), D walked flags
+  float* th_rec;
+  float* chi_rec;
+  float* parts_rec;
+  float* ar_rec;
+  int ew, C, D, K, nits, burnin;
+  int n_i, n_f;          // plan words staged in shared memory (0: none)
+  uint32_t seed;
+};
+
+// Experiment `model`'s chi at the parameters th(j), j < its P.
+template <int STEPPER, class Theta>
+__device__ __forceinline__ float score_experiment(const Plan& pl, int model,
+                                                  Theta th) {
   float chi = 0.0f, rsq = 0.0f;
-  switch (e[2]) {
+  switch (model) {
 #define ODELIB_JOINT_CASE(i)                                   \
   case i: {                                                    \
     float tk[Model##i::P];                                     \
-    for (int j = 0; j < Model##i::P; ++j) tk[j] = th[idx[j]];  \
+    _Pragma("unroll")                                          \
+    for (int j = 0; j < Model##i::P; ++j) tk[j] = th(j);       \
     score_model<Model##i, STEPPER>(pl, tk, chi, rsq);          \
   } break;
     ODE_MODELS(ODELIB_JOINT_CASE)
@@ -70,68 +95,89 @@ __device__ __forceinline__ float score_experiment(const int* e,
   return chi;
 }
 
-template <int STEPPER>
-__device__ __forceinline__ float joint_score(const int* exp_tab, int ew,
-                                             int K, const int* pi_all,
-                                             const float* pf_all,
-                                             const float* th, float* parts) {
-  float total = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    parts[k] = score_experiment<STEPPER>(exp_tab + k * ew, pi_all, pf_all,
-                                         th);
-    total = k ? total + parts[k] : parts[k];
-  }
-  return total;
+// Shared words the block needs besides the plans.
+__host__ __device__ constexpr int state_words(int D, int K, int ew) {
+  return 2 * D * 32 + K * 32 + D + K * ew;
 }
 
-// walk: D per-dimension scales f32(rwalk_std * mask_d), then D walked flags.
+// One block per SM named as the least, so ptxas does not trade registers
+// for resident blocks (with the block size alone it held the one-state GBM
+// model's builds to 48 registers and spilled 16 bytes).
 template <int STEPPER>
-__global__ void __launch_bounds__(32)
-joint_kernel(const int* __restrict__ pi_all, const float* __restrict__ pf_all,
-             const int* __restrict__ exp_tab, int ew,
-             const float* __restrict__ theta0, const float* __restrict__ walk,
-             float* __restrict__ th_rec, float* __restrict__ chi_rec,
-             float* __restrict__ parts_rec, float* __restrict__ ar_rec, int C,
-             int D, int K, int nits, int burnin, uint32_t seed) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float lt[JOINT_DMAX], prop[JOINT_DMAX], th[JOINT_DMAX];
-  float parts[JOINT_KMAX], parts_new[JOINT_KMAX];
-  for (int d = 0; d < D; ++d) th[d] = theta0[(size_t)d * C + c];
-  float chi = joint_score<STEPPER>(exp_tab, ew, K, pi_all, pf_all, th, parts);
-  for (int d = 0; d < D; ++d) lt[d] = logf(th[d]);
+__global__ void __launch_bounds__(32 * JOINT_KMAX, 1)
+joint_kernel(const JointArgs a) {
+  extern __shared__ uint32_t smem[];
+  const int C = a.C, D = a.D, K = a.K;
+  const int lane = threadIdx.x % 32, k = threadIdx.x / 32;
+  const int c_own = blockIdx.x * 32 + lane;
+  const bool live = c_own < C;
+  const int c = live ? c_own : C - 1;
+  float* lt = reinterpret_cast<float*>(smem);   // D x 32
+  float* prop = lt + D * 32;                     // D x 32
+  float* part = prop + D * 32;                   // K x 32
+  int* slot = reinterpret_cast<int*>(part + K * 32);   // D: -1 if static
+  const int* tab = stage(a.exp_tab, slot + D, K * a.ew);
+  const int* pi = a.pi_all;
+  const float* pf = a.pf_all;
+  if (a.n_i > 0) {
+    int* si = slot + D + K * a.ew;
+    pi = stage(a.pi_all, si, a.n_i);
+    pf = stage(a.pf_all, reinterpret_cast<float*>(si + a.n_i), a.n_f);
+  }
+  int n_walked = 0;
+  for (int d = 0; d < D; ++d) {
+    const bool w = a.walk[D + d] != 0.0f;
+    if (d % blockDim.x == threadIdx.x) slot[d] = w ? 2 * n_walked : -1;
+    n_walked += w;
+  }
+  __syncthreads();
+  const int* e = tab + k * a.ew;
+  const Plan pl = load_plan(pi + e[0], pf + e[1]);
+  const int model = e[2];
+  const int* idx = e + 3;
+
+  float part_k = score_experiment<STEPPER>(pl, model, [&](int j) {
+    return a.theta0[(size_t)idx[j] * C + c];
+  });
+  part[k * 32 + lane] = part_k;
+  for (int d = k; d < D; d += K)
+    lt[d * 32 + lane] = logf(a.theta0[(size_t)d * C + c]);
+  __syncthreads();
+  float chi = part[lane];
+  for (int kk = 1; kk < K; ++kk) chi = chi + part[kk * 32 + lane];
   float acc = 0.0f;
-  const uint32_t key = mix(seed * 0x9E3779B1u + (uint32_t)c);
-  for (int it = 1; it < nits; ++it) {
+  const uint32_t key = mix(a.seed * 0x9E3779B1u + (uint32_t)c);
+  for (int it = 1; it < a.nits; ++it) {
     const uint32_t base = (uint32_t)it * 1024u;
-    uint32_t slot = 0;
-    for (int d = 0; d < D; ++d) {
-      if (walk[D + d] != 0.0f) {
-        prop[d] = lt[d] + walk[d] * normal(key, base + slot);
-        slot += 2;
-      } else {
-        prop[d] = lt[d];
-      }
-      th[d] = expf(prop[d]);
+    for (int d = k; d < D; d += K) {
+      const float l0 = lt[d * 32 + lane];
+      prop[d * 32 + lane] =
+          slot[d] >= 0 ? l0 + a.walk[d] * normal(key, base + (uint32_t)slot[d])
+                       : l0;
     }
-    const float chi_new = joint_score<STEPPER>(exp_tab, ew, K, pi_all,
-                                               pf_all, th, parts_new);
-    const float u = uniform(key, base + slot);
+    __syncthreads();   // the proposal is drawn
+    const float part_new = score_experiment<STEPPER>(pl, model, [&](int j) {
+      return expf(prop[idx[j] * 32 + lane]);
+    });
+    part[k * 32 + lane] = part_new;
+    __syncthreads();   // every part is scored
+    float chi_new = part[lane];
+    for (int kk = 1; kk < K; ++kk) chi_new = chi_new + part[kk * 32 + lane];
+    const float u = uniform(key, base + 2u * (uint32_t)n_walked);
     // NaN or -inf log ratio compares false: rejected
     if (expf(chi - chi_new) > u) {
-      for (int d = 0; d < D; ++d) lt[d] = prop[d];
-      for (int k = 0; k < K; ++k) parts[k] = parts_new[k];
+      for (int d = k; d < D; d += K) lt[d * 32 + lane] = prop[d * 32 + lane];
+      part_k = part_new;
       chi = chi_new;
       acc = acc + 1.0f;
     }
-    const int r = it - 1 - burnin;
-    if (r >= 0) {
-      for (int d = 0; d < D; ++d)
-        th_rec[((size_t)r * D + d) * C + c] = expf(lt[d]);
-      for (int k = 0; k < K; ++k)
-        parts_rec[((size_t)r * K + k) * C + c] = parts[k];
-      chi_rec[(size_t)r * C + c] = chi;
-      ar_rec[(size_t)r * C + c] = acc / (float)it;
+    const int r = it - 1 - a.burnin;
+    if (r >= 0 && live) {
+      for (int d = k; d < D; d += K)
+        a.th_rec[((size_t)r * D + d) * C + c] = expf(lt[d * 32 + lane]);
+      a.parts_rec[((size_t)r * K + k) * C + c] = part_k;
+      if (k == D % K) a.chi_rec[(size_t)r * C + c] = chi;
+      if (k == (D + 1) % K) a.ar_rec[(size_t)r * C + c] = acc / (float)it;
     }
   }
 }
@@ -140,26 +186,31 @@ joint_kernel(const int* __restrict__ pi_all, const float* __restrict__ pf_all,
 
 extern "C" {
 
-int odelib_joint(const int* pi_all, const float* pf_all, const int* exp_tab,
-                 int ew, const float* theta0, const float* walk,
-                 float* th_rec, float* chi_rec, float* parts_rec,
-                 float* ar_rec, int C, int D, int K, int nits, int burnin,
-                 unsigned int seed, int stepper, void* stream) {
-  if (D < 1 || D > JOINT_DMAX || K < 1 || K > JOINT_KMAX || ew < 3 + ODE_PMAX)
+int odelib_joint(const int* pi_all, int n_i, const float* pf_all, int n_f,
+                 const int* exp_tab, int ew, const float* theta0,
+                 const float* walk, float* th_rec, float* chi_rec,
+                 float* parts_rec, float* ar_rec, int C, int D, int K,
+                 int nits, int burnin, unsigned int seed, int stepper,
+                 void* stream) {
+  if (D < 1 || D > JOINT_DMAX || K < 1 || K > JOINT_KMAX || C < 1
+      || ew < 3 + ODE_PMAX)
     return (int)cudaErrorInvalidValue;
-  const int block = 32;
-  const int grid = (C + block - 1) / block;
+  size_t smem = sizeof(int) * (size_t)state_words(D, K, ew);
+  const size_t plans = sizeof(int) * ((size_t)n_i + (size_t)n_f);
+  if (smem + plans <= odelib::SMEM_STAGE_MAX) {
+    smem += plans;
+  } else {
+    n_i = n_f = 0;
+  }
+  const JointArgs a{pi_all, pf_all, exp_tab, theta0, walk, th_rec, chi_rec,
+                    parts_rec, ar_rec, ew, C, D, K, nits, burnin, n_i, n_f,
+                    seed};
+  const int grid = (C + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stepper == 0) {
-    joint_kernel<0><<<grid, block, 0, s>>>(pi_all, pf_all, exp_tab, ew,
-                                            theta0, walk, th_rec, chi_rec,
-                                            parts_rec, ar_rec, C, D, K, nits,
-                                            burnin, seed);
+    joint_kernel<0><<<grid, 32 * K, smem, s>>>(a);
   } else {
-    joint_kernel<1><<<grid, block, 0, s>>>(pi_all, pf_all, exp_tab, ew,
-                                            theta0, walk, th_rec, chi_rec,
-                                            parts_rec, ar_rec, C, D, K, nits,
-                                            burnin, seed);
+    joint_kernel<1><<<grid, 32 * K, smem, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

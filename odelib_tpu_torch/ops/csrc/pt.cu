@@ -44,7 +44,9 @@
 // The launch bounds name one block per SM as the least, so ptxas does not
 // trade registers for more resident blocks (with 128 threads alone it held
 // the main path's zero_i kernel to 48 registers and spilled; at 1 it takes
-// 93 and spills nothing, 7 % faster: tools/ab_kernels.py). The 32-byte frame
+// 93 and spills nothing; two versions are weighed by running the parent's
+// and this tree's chip_smoke.py in one card call, the recipe in
+// .claude/skills/verify/SKILL.md). The 32-byte frame
 // is cosf's slow-path argument reduction (|x| > 105615, never 2 pi u), as
 // in mh_kernel.
 //

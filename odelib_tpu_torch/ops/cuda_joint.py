@@ -134,7 +134,8 @@ def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
             torch.empty((R, C), dtype=torch.float32, device=dev),
             torch.empty((R, K, C), dtype=torch.float32, device=dev),
             torch.empty((R, C), dtype=torch.float32, device=dev))
-    args = (plan_i.data_ptr(), plan_f.data_ptr(), exp_tab.data_ptr(), width,
+    args = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
+            plan_f.numel(), exp_tab.data_ptr(), width,
             th0.data_ptr(), walk_t.data_ptr(),
             *(r.data_ptr() for r in recs), C, D, K, int(nits), int(burnin),
             int(np.uint32(np.int64(seed) & _M32)), _STEPPER_ID[stepper],

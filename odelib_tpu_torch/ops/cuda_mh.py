@@ -18,6 +18,7 @@ library (``exp``/``log``/``cos``).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 from typing import NamedTuple, Optional, Sequence
@@ -556,11 +557,13 @@ def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
 
 
 def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
-                      nits, burnin, a, walk, walked, num, W0):
-    """Prepare the ensemble kernels for walkers ``th0`` (P, W) on the card
+                      nits, burnin, a, walk, walked, num, W0, blocks=None):
+    """Prepare the ensemble kernel for walkers ``th0`` (P, W) on the card
     and return ``launch() -> records`` (theta (R, P, W0); chi, rsq, aic,
-    acceptance ratio (R, W0)). Each call launches 1 + 2 (nits - 1)
-    kernels, one per half-update, and counts once."""
+    acceptance ratio (R, W0)). Each call makes one device launch, which
+    runs the whole run, and counts it. ``blocks`` caps the grid (default:
+    as many blocks as can be co-resident; with fewer threads than the W/2
+    columns each thread loops over several)."""
     from . import build
     lib = build.load_kernels(spec)
     dev = th0.device
@@ -568,28 +571,35 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
     R = nits - 1 - burnin
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
                                   str(dev))
+    sizes = (plan_i.numel(), plan_f.numel())
+    if blocks is None:
+        n = ctypes.c_int()
+        build.check(lib, lib.odelib_ensemble_blocks(
+            *sizes, _STEPPER_ID[stepper], ctypes.byref(n)), "ensemble")
+        blocks = n.value
     # per slot: the walk mask value, then the walked flag
     walk_t = torch.as_tensor(np.asarray(
         tuple(walk) + tuple(float(w) for w in walked), np.float32),
         device=dev)
     state = torch.empty((P + 3, W), dtype=torch.float32, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)  # zeroed per launch
     recs = (torch.empty((R, P, W0), dtype=torch.float32, device=dev),) \
         + tuple(torch.empty((R, W0), dtype=torch.float32, device=dev)
                 for _ in range(4))
     # a - 1, a, n_walked - 1 and the AIC term, rounded as JAX rounds them
     consts = (float(np.float32(v)) for v in (a - 1.0, a, sum(walked) - 1,
                                              2.0 * num))
-    args = (plan_i.data_ptr(), plan_f.data_ptr(), th0.data_ptr(),
-            walk_t.data_ptr(), state.data_ptr(),
-            *(r.data_ptr() for r in recs), W, W0, int(tile), int(nits),
-            int(burnin), int(np.uint32(np.int64(seed) & _M32)), *consts,
-            _STEPPER_ID[stepper], build.stream(dev))
+    args = (plan_i.data_ptr(), sizes[0], plan_f.data_ptr(), sizes[1],
+            th0.data_ptr(), walk_t.data_ptr(), state.data_ptr(),
+            bar.data_ptr(), *(r.data_ptr() for r in recs), W, W0, int(tile),
+            int(nits), int(burnin), int(np.uint32(np.int64(seed) & _M32)),
+            *consts, _STEPPER_ID[stepper], int(blocks), build.stream(dev))
 
     def launch():
         build.check(lib, lib.odelib_ensemble(*args), "ensemble")
         LAUNCHES["ensemble_fused"] += 1
         return recs
-    launch.keep = (walk_t, state)   # alive as long as the launcher
+    launch.keep = (walk_t, state, bar)   # alive as long as the launcher
     return launch
 
 
@@ -693,7 +703,7 @@ def ensemble_fused(
     """Affine-invariant ensemble sampler (Goodman-Weare stretch moves).
 
     ``theta0`` is (W0, P) float32 walkers; a CUDA tensor launches the
-    ensemble kernels, a CPU one runs their twin. Walkers are jittered and
+    ensemble kernel, a CPU one runs its twin. Walkers are jittered and
     padded on the host exactly as in the JAX package (:func:`ensemble_init`),
     to W, a multiple of ``tile_chains``; every ``tile_chains`` walkers are
     one independent ensemble, so the tile is part of the result (default:

@@ -157,10 +157,13 @@ def test_pallas_backend_warns_for_adaptive_method():
     assert post["chain#"].nunique() == 2
 
 
-def test_framework_defaults_and_lhs():
-    fw = _framework(odelib_tpu_torch)
-    expect = "cuda" if torch.cuda.is_available() else "cpu"
-    assert fw.device.type == expect
+def test_framework_defaults_and_lhs(monkeypatch):
+    # the default is the card: without one it raises, never falls back
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _framework(odelib_tpu_torch)
+    fw = _framework(odelib_tpu_torch, device="cpu")
+    assert fw.device.type == "cpu"
     a, b = fw._lhs_samples(32), fw._lhs_samples(32)
     pd.testing.assert_frame_equal(a, b)     # seeded from random_seed
     assert list(a.columns) == ["mu", "phi", "beta"] and (a > 0).all().all()

@@ -114,6 +114,25 @@ def test_ensemble_kernel_matches_twin(card):
     assert 0 < float(k.acceptance_ratio[:, -1].mean()) < 1
 
 
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_ensemble_column_loop_matches_twin(card, blocks):
+    """A grid of fewer threads than the 384 columns of three ensembles of
+    256 (32 threads: 12 columns each; 96: 4 each): bitwise the twin's."""
+    spec, obs, tf, y0 = card
+    walk = (1.0, 0.0, 1.0)
+    th0 = torch.as_tensor(T.ensemble_init(_draws(700, sd=0.05), 11, 256,
+                                          walk, 0.01).T.copy(), device="cuda")
+    kw = dict(tile=256, nits=30, burnin=10, a=2.0, walk=walk,
+              walked=(True, False, True), num=3, W0=700)
+    plan = T._build_plan(spec, obs, tf, 4)
+    k = T.ensemble_launcher(spec, plan, y0, "dopri5", th0, 11, blocks=blocks,
+                            **kw)()
+    tw = T.ensemble_plain(spec, plan, y0, th0, 11, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, tw):          # bitwise: the same float32 operations
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
 # K = 3 leaves a lane of each 4-lane chain group idle; K = 8 fills a group.
 # 500 chains leave the last 128-thread block part empty for every K.
 @pytest.mark.parametrize("every,K", [(1, 4), (3, 4), (1, 3), (2, 8)])
@@ -248,6 +267,31 @@ def test_joint_kernel_heterogeneous_models(card):
     _check_joint(specs, obs, tfs, y0s, idxs,
                  torch.as_tensor(th0, device="cuda"), 5, 20, 5,
                  (1.0,) * 5)
+
+
+def test_joint_kernel_three_experiments(card):
+    """K = 3 (zero_i on the demo and on perturbed data, one_i on the demo;
+    blocks of three warps) on 1,000 chains: the last block's 24 dead lanes
+    meet every barrier and store nothing."""
+    from odelib_tpu_torch.models import one_i
+    df = format_dataframe(load_demo_dataframe(host="H", virus="V"),
+                          one_i.snames)
+    times = np.linspace(0, df["time"].max(), 288)
+    spec1 = one_i.spec()
+    obs1, _ = build_obsdata_host(df, times, spec1.post_snames)
+    tf1, obs1 = compact_observation_grid(obs1, times)
+    y01 = np.array([df.loc["H"].iloc[0]["abundance"], 0.0,
+                    df.loc["V"].iloc[0]["abundance"]])
+    specs, obs, tfs, y0s, idxs = _joint_inputs(card)
+    for x, extra in zip((specs, obs, tfs, y0s, idxs),
+                        (spec1, obs1, tf1, y01, (4, 0, 1, 5))):
+        x.append(extra)
+    rng = np.random.default_rng(4)
+    th0 = (np.array([2.4e-8, 22.0, 0.6, 0.6, 0.6, 1.2])
+           * np.exp(rng.normal(0, 0.05, (1000, 6)))).astype(np.float32)
+    _check_joint(specs, obs, tfs, y0s, idxs,
+                 torch.as_tensor(th0, device="cuda"), 6, 20, 5,
+                 (1.0, 1.0, 1.0, 1.0, 0.0, 1.0))
 
 
 def _gbm_inputs():

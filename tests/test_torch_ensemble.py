@@ -255,6 +255,132 @@ def test_ensemble_rejects_bad_arguments(setup):  # noqa: F811
             T.ensemble_fused(tspec, obs, times_fit, y0, th0, 0, nits=8,
                              **{"burnin": 2, **kw})
 
+_M32 = 0xFFFFFFFF
+
+
+def _kernel_columns(j, tile, seed, it, hb):
+    """ensemble.cu's thread-column mapping in its C integer arithmetic:
+    the walker of column ``j`` in half ``hb`` and, at iteration ``it``, its
+    partner in the other half."""
+    hn, half = tile // 2, tile // 256
+    e = j // hn
+    jj = j - e * hn
+    rp, lane = jj // 128, jj % 128
+    lo = half if hb else 0
+    scal_base = T.mix((seed * 0x7FEB352D + e * tile + 0xE75) & _M32)
+    sbits = T.mix(scal_base ^ T.mix(torch.tensor(it * 2 + hb)))
+    r_sub, r_lane = sbits % half, (sbits >> 8) % 128
+    g = e * tile + hb * hn + jj
+    gp = e * tile + ((half - lo) + (rp - r_sub + half) % half) * 128 \
+        + (lane - r_lane + 128) % 128
+    return g, gp
+
+
+@pytest.mark.parametrize("tile", [256, 1024, 4096])
+def test_ensemble_columns_are_the_halves(tile):
+    """Thread j's walkers are ensemble_halves' j-th of each half (the
+    twin's order), and the kernel's partner is the one ensemble_plain forms
+    from (ensemble, row, lane): a roll of the other half of the same
+    ensemble."""
+    W, seed, half, hn = 2 * tile, 12345, tile // 256, tile // 2
+    j = torch.arange(W // 2)
+    halves = T.ensemble_halves(W, tile, "cpu")
+    scal = T.mix((seed * 0x7FEB352D + torch.arange(W // tile) * tile + 0xE75)
+                 & _M32)
+    for it in (1, 2, 999):
+        for hb, (idx, e, r, lane) in enumerate(halves):
+            g, gp = _kernel_columns(j, tile, seed, it, hb)
+            assert torch.equal(g, idx)
+            sbits = T.mix(scal ^ T.mix(torch.tensor(it * 2 + hb)))
+            r_sub, r_lane = (sbits % half)[e], ((sbits >> 8) % 128)[e]
+            comp = half - (half if hb else 0)
+            assert torch.equal(gp, e * tile + (comp + (r - r_sub) % half) * 128
+                               + (lane - r_lane) % 128)
+            assert torch.equal(gp // tile, e)
+            assert ((gp % tile) // hn == 1 - hb).all()
+            assert torch.unique(gp).numel() == W // 2
+
+
+def _ensemble_columns(theta0, seed, threads, *, tile, nits, burnin, a, walk,
+                      walked, num, W0):
+    """ensemble.cu run by ``threads`` threads: walker state in the (P + 3)
+    x W buffer; each thread scores both walkers of its columns j, j +
+    threads, ...; then, after each half-update's barrier, the rounds of
+    columns in turn, each reading its own state and its partner's
+    log-theta from the buffer, writing back on accept and recording the
+    walker, whose state is final for the iteration."""
+    score = T.make_scorer(None, None, None, "dopri5")
+    P, W = theta0.shape
+    hn, cols = tile // 2, W // 2
+    f32 = lambda v: torch.tensor(np.float32(v))  # noqa: E731
+    key = T.Rng(seed, torch.arange(W))._key
+    lt, chi, rsq, acc = (torch.empty(P, W),) + tuple(torch.empty(W)
+                                                     for _ in range(3))
+    rounds = [torch.arange(j0, min(j0 + threads, cols))
+              for j0 in range(0, cols, threads)]
+    for j in rounds:
+        e = j // hn
+        for hb in (0, 1):
+            g = e * tile + hb * hn + (j - e * hn)
+            chi[g], rsq[g] = score(list(theta0[:, g]))
+            lt[:, g] = torch.log(theta0[:, g])
+            acc[g] = 0.0
+    R = nits - 1 - burnin
+    recs = [torch.full((R, P, W0), np.nan)] + [torch.full((R, W0), np.nan)
+                                                for _ in range(4)]
+    for it in range(1, nits):
+        for hb in (0, 1):
+            for j in rounds:
+                g, gp = _kernel_columns(j, tile, seed, it, hb)
+                ctr = it * 1024 + 2 * hb
+                s = f32(1.0) + f32(a - 1.0) * T.uniform_of(key[g], ctr)
+                z = (s * s) / f32(a)
+                cur = list(lt[:, g])
+                prop = [c + ((f32(1.0) - z) * (lt[p, gp] - c)) * f32(walk[p])
+                        if walked[p] else c for p, c in enumerate(cur)]
+                chi_new, rsq_new = score([torch.exp(v) for v in prop])
+                ok = torch.exp((f32(sum(walked) - 1) * torch.log(z) + chi[g])
+                               - chi_new) > T.uniform_of(key[g], ctr + 1)
+                lt[:, g] = torch.stack([torch.where(ok, v, c)
+                                        for v, c in zip(prop, cur)])
+                chi[g] = torch.where(ok, chi_new, chi[g])
+                rsq[g] = torch.where(ok, rsq_new, rsq[g])
+                acc[g] = acc[g] + ok.to(torch.float32)
+                r, m = it - 1 - burnin, g[g < W0]
+                if r >= 0:
+                    recs[0][r][:, m] = torch.exp(lt[:, m])
+                    recs[1][r][m] = chi[m]
+                    recs[2][r][m] = rsq[m]
+                    recs[3][r][m] = f32(2.0) * chi[m] + f32(2.0 * num)
+                    recs[4][r][m] = acc[m] / f32(float(it))
+    return recs
+
+
+# (W0, tile, walk mask, threads): a column a thread; 96 threads over 256
+# columns (rounds of 96, 96, 64); 700 walkers padded to three ensembles,
+# 40 threads over 384 columns, a static slot
+@pytest.mark.parametrize("W0,tile,mask,threads", [
+    (512, 256, (1.0, 1.0, 1.0), 256), (512, 256, (1.0, 1.0, 1.0), 96),
+    (700, 256, (1.0, 0.0, 1.0), 40)])
+def test_ensemble_column_loop_equals_twin(monkeypatch, W0, tile, mask,
+                                          threads):
+    """The kernel's schedule (state in the buffer, both halves' walkers a
+    thread, columns in rounds where threads are fewer, a barrier a
+    half-update) gives ensemble_plain's records bitwise."""
+    from test_torch_pt import _fake_scorer
+    monkeypatch.setattr(T, "make_scorer", _fake_scorer)
+    seed = 9
+    th0 = torch.as_tensor(np.ascontiguousarray(T.ensemble_init(
+        _theta0(W0), seed, tile, mask, 0.01).T))
+    kw = dict(tile=tile, nits=9, burnin=2, a=2.0, walk=mask,
+              walked=tuple(w != 0.0 for w in mask), num=3, W0=W0)
+    want = T.ensemble_plain(None, None, None, th0, seed, **kw)
+    got = _ensemble_columns(th0, seed, threads, **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert 0 < float(got[4][-1].mean()) < 1
+
+
 def test_default_tile_is_the_jax_rule():
     for C in (1, 255, 256, 1000, 2048, 3000, 5000, 10000, 12289):
         assert T.pick_tile_chains(C) == J.pick_tile_chains(C), C

@@ -23,6 +23,8 @@ from odelib_tpu.samplers.joint import joint_survey as jax_joint_survey
 from odelib_tpu_torch import JointFit
 from odelib_tpu_torch.distributions import LogNormal
 from odelib_tpu_torch.ops import cuda_joint as TJ
+from odelib_tpu_torch.ops import cuda_mh as T
+from odelib_tpu_torch.ops import cuda_pf as TF
 from odelib_tpu_torch.samplers import joint_survey
 
 from helpers import synthetic_df, zero_i
@@ -162,6 +164,103 @@ def test_joint_twin_matches_pallas_interpret(name):
         fixed = got.theta[:, :, 1].numpy()
         assert (fixed == fixed[:, :1]).all()
         np.testing.assert_allclose(fixed[:, 0], th0[:, 1], rtol=1e-6)
+
+
+def _joint_warps(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
+                 walk, walked):
+    """joint.cu's layout: blocks of 32 chains (lanes) and K warps; lanes
+    past the last chain run chain C - 1's copy and store nothing. Warp k
+    draws the proposal's dimensions d = k, k + K, ... from their
+    closed-form slots (two per walked dimension before d), scores
+    experiment k on exp(prop[idx_k]) and puts its part in the shared
+    buffer; then every warp sums the parts in k order from part 0, draws
+    the accept uniform after the walked dimensions' slots and decides for
+    itself. Warp k keeps part k and its dimensions and writes their
+    records, and chi's and the ratio's where D and D + 1 fall mod K."""
+    scorers = [T.make_scorer(sp, pl, y0, "dopri5")
+               for sp, pl, y0 in zip(specs, plans, y0s)]
+    D, C = theta0.shape
+    K = len(specs)
+    c_own = torch.arange(-(-C // 32) * 32)
+    live = c_own < C
+    th0 = theta0[:, c_own.clamp(max=C - 1)]
+    key = T.Rng(seed, c_own.clamp(max=C - 1))._key
+    slot, n_walked = [], 0
+    for w in walked:
+        slot.append(2 * n_walked if w else -1)
+        n_walked += w
+    f32 = lambda v: torch.tensor(np.float32(v))  # noqa: E731
+
+    def total(part):
+        out = part[0]
+        for p in part[1:]:
+            out = out + p
+        return out
+    part = [score([th0[i] for i in idx])[0]
+            for score, idx in zip(scorers, idx_maps)]
+    part_k = list(part)
+    lt = [torch.log(th) for th in th0]
+    chi, acc = [total(part)] * K, [torch.zeros(len(c_own))] * K
+    R = nits - 1 - burnin
+    recs = (torch.full((R, D, C), np.nan), torch.full((R, C), np.nan),
+            torch.full((R, K, C), np.nan), torch.full((R, C), np.nan))
+    for it in range(1, nits):
+        base, prop = it * 1024, [None] * D
+        for k in range(K):
+            for d in range(k, D, K):
+                prop[d] = lt[d] + f32(walk[d]) * TF.rng_normal(
+                    key, base + slot[d]) if slot[d] >= 0 else lt[d]
+        part = [score([torch.exp(prop[i]) for i in idx])[0]
+                for score, idx in zip(scorers, idx_maps)]
+        oks = []
+        for k in range(K):
+            chi_new = total(part)
+            ok = torch.exp(chi[k] - chi_new) > T.uniform_of(
+                key, base + 2 * n_walked)
+            oks.append(ok)
+            for d in range(k, D, K):
+                lt[d] = torch.where(ok, prop[d], lt[d])
+            part_k[k] = torch.where(ok, part[k], part_k[k])
+            chi[k] = torch.where(ok, chi_new, chi[k])
+            acc[k] = acc[k] + ok.to(torch.float32)
+        assert all(torch.equal(ok, oks[0]) for ok in oks)
+        r = it - 1 - burnin
+        if r >= 0:
+            for k in range(K):
+                for d in range(k, D, K):
+                    recs[0][r, d] = torch.exp(lt[d])[live]
+                recs[2][r, k] = part_k[k][live]
+                if k == D % K:
+                    recs[1][r] = chi[k][live]
+                if k == (D + 1) % K:
+                    recs[3][r] = (acc[k] / f32(float(it)))[live]
+    return recs
+
+
+def test_joint_warp_per_experiment_equals_twin():
+    """The kernel's warp-per-experiment layout gives joint_plain's records
+    bitwise: decay (a) and logistic growth (b) of the heterogeneous pair
+    plus a third experiment, decay on a's data with its own rate (K = 3,
+    D = 3, the logistic's capacity static), on 100 chains (the last block
+    of 32 holds 4)."""
+    jf = JointFit(_hetero_pair(odelib_tpu_torch, LogNormal, device="cpu"),
+                  shared=["k"], random_seed=3)
+    specs, idx_maps, obs, times, y0s = (list(x) for x in _host_args(jf))
+    for x, extra in zip((specs, idx_maps, obs, times, y0s),
+                        (specs[0], (2,), obs[0], times[0], y0s[0])):
+        x.append(extra)
+    plans = [T._build_plan(sp, ob, tm, 1)
+             for sp, ob, tm in zip(specs, obs, times)]
+    rng = np.random.default_rng(8)
+    th0 = torch.as_tensor((np.array([1.0, 1e6, 1.1]) * np.exp(rng.normal(
+        0, 0.05, (100, 3)))).astype(np.float32).T.copy())
+    kw = dict(nits=11, burnin=2, walk=(0.05, 0.0, 0.05),
+              walked=(True, False, True))
+    want = TJ.joint_plain(specs, plans, y0s, idx_maps, th0, 4, **kw)
+    got = _joint_warps(specs, plans, y0s, idx_maps, th0, 4, **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert 0 < float(got[3][-1].mean()) < 1
 
 
 @pytest.mark.parametrize("name", sorted(_PAIRS))
