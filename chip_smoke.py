@@ -18,13 +18,16 @@ Phases, each failing the script if it fails:
    1e-5), the ensemble on 2048 walkers (two ensembles of 1024) x 200
    iterations, in one launch of as many blocks as can be co-resident and
    again on 7 blocks of 32 threads, so each thread loops over 4-5 of the
-   1024 columns, PT with the main path's 4 rungs on 1024 chains x 100
+   1024 columns, PT with the main path's 4 rungs on 1024 chains x 200
    iterations, and with 3 (an idle lane in each chain's group of 4) and 8
    rungs on 1000 chains x 60 (identical accept sequences and swap counts),
-   and the joint kernel on the heterogeneous pair zero_i + one_i, 256
+   the joint kernel on the heterogeneous pair zero_i + one_i, 256
    chains x 20 iterations, and with a third experiment (K = 3, blocks of
-   three warps) on 1000 chains, so the last block has dead lanes (all
-   bitwise records);
+   three warps) on 1000 chains, so the last block has dead lanes, and
+   the ensemble (512 walkers, substeps=100) and the joint pair (256
+   chains, substeps=50) x 3 iterations with plans above the 48 KB staged
+   in shared memory, so both kernels read their tables from global
+   memory (all bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after: ModelFramework(..., device='cuda').MCMC(chain_inits=10000,
    iterations_per_chain=1000, fitsurvey_samples=1000, sd_fitdistance=6.0)
@@ -524,10 +527,9 @@ def main():
     # the main path's ladder, then 3 rungs (an idle lane in each chain's
     # group of 4 lanes) and 8 (a full group), on 1000 chains so the last
     # block of 128 threads is part empty; the twin's time grows with the
-    # rungs and is launch-bound, so the ladders take fewer iterations than
-    # the other checks (PT's main path is held at its full width below)
+    # rungs, so these two take fewer iterations
     for temps, n_c, n_it in (
-            (TEMPS, C, 100), ((1.0, 2.0, 4.0), 1000, 60),
+            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
             (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
@@ -565,6 +567,7 @@ def main():
                     labels=("theta", "chi", "chi parts", "ar"))
     print(f"joint, two models: 256 chains x 20 iterations, mean acceptance "
           f"{float(rec_k[3][-1].mean()):.4f}", flush=True)
+    pair_th0 = hth0
     # K = 3 (blocks of three warps) on 1,000 chains, so the last block of 32
     # holds 8: a third experiment, zero_i on the demo data with its own mu
     hspecs.append(spec)
@@ -585,6 +588,43 @@ def main():
                     labels=("theta", "chi", "chi parts", "ar"))
     print(f"joint, three experiments: 1000 chains x 20 iterations, mean "
           f"acceptance {float(rec_k[3][-1].mean()):.4f}", flush=True)
+
+    phase("ensemble and joint kernels vs twin: plans above 48 KB")
+    # at substeps 100 (1,700 Dopri5 steps a solve) and 50 (850) the plan
+    # tables outgrow the 48 KB that the kernels stage in shared memory, so
+    # both read them from global memory
+    big_plan = cuda_mh._build_plan(spec, obs, tf, 100)
+    big_bytes = sum(a.nbytes for a in cuda_mh.plan_tables(spec, big_plan,
+                                                          y0, "dopri5"))
+    jbig_plans = [cuda_mh._build_plan(spec, obs, tf, 50),
+                  cuda_mh._build_plan(spec1, obs1, tf1, 50)]
+    jbig_bytes = sum(a.nbytes for a in cuda_joint.joint_tables(
+        hspecs[:2], jbig_plans, [y0, y01], hidx[:2], "dopri5")[:2])
+    if min(big_bytes, jbig_bytes) <= 48 * 1024:
+        fail(f"plans of {big_bytes} and {jbig_bytes} bytes fit in 48 KB")
+    start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
+        seeds[:512], seed, 256, mask, 0.01).T), device=dev)
+    big_kw = dict(tile=256, nits=3, burnin=0, a=2.0, walk=mask,
+                  walked=(True,) * 3, num=3, W0=512)
+    rec_k = cuda_mh.ensemble_launcher(spec, big_plan, y0, "dopri5", start,
+                                      seed, **big_kw)()
+    torch.cuda.synchronize()
+    rec_t = cuda_mh.ensemble_plain(spec, big_plan, y0, start, seed, **big_kw)
+    torch.cuda.synchronize()
+    compare_records(f"ensemble (plan of {big_bytes} bytes)", rec_k, rec_t, 3)
+    hkw = dict(nits=3, burnin=0, walk=(0.05,) * 5, walked=(True,) * 5)
+    rec_k = cuda_joint.joint_launcher(hspecs[:2], jbig_plans, [y0, y01],
+                                      hidx[:2], "dopri5", pair_th0, seed,
+                                      **hkw)()
+    torch.cuda.synchronize()
+    rec_t = cuda_joint.joint_plain(hspecs[:2], jbig_plans, [y0, y01],
+                                   hidx[:2], pair_th0, seed, **hkw)
+    torch.cuda.synchronize()
+    compare_records(f"joint (plans of {jbig_bytes} bytes)", rec_k, rec_t, 3,
+                    labels=("theta", "chi", "chi parts", "ar"))
+    print(f"plans above 48 KB: the ensemble on 512 walkers ({big_bytes} "
+          f"bytes), the joint pair on 256 chains ({jbig_bytes} bytes), x 3 "
+          "iterations each", flush=True)
 
     # -- 4. the main paths --------------------------------------------------
     swap_log = io.StringIO()

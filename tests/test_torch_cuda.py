@@ -133,6 +133,25 @@ def test_ensemble_column_loop_matches_twin(card, blocks):
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
+def test_ensemble_kernel_unstaged_plan_matches_twin(card):
+    """substeps=100 (1,700 steps a solve): the plan outgrows the 48 KB
+    staged in shared memory, so the kernel reads it from global memory."""
+    spec, obs, tf, y0 = card
+    walk = (1.0, 1.0, 0.0)
+    plan = T._build_plan(spec, obs, tf, 100)
+    assert sum(a.nbytes for a in T.plan_tables(spec, plan, y0,
+                                               "dopri5")) > 48 * 1024
+    th0 = torch.as_tensor(T.ensemble_init(_draws(300, sd=0.05), 11, 256,
+                                          walk, 0.01).T.copy(), device="cuda")
+    kw = dict(tile=256, nits=4, burnin=1, a=2.0, walk=walk,
+              walked=(True, True, False), num=3, W0=300)
+    k = T.ensemble_launcher(spec, plan, y0, "dopri5", th0, 11, **kw)()
+    tw = T.ensemble_plain(spec, plan, y0, th0, 11, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, tw):          # bitwise: the same float32 operations
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
 # K = 3 leaves a lane of each 4-lane chain group idle; K = 8 fills a group.
 # 500 chains leave the last 128-thread block part empty for every K.
 @pytest.mark.parametrize("every,K", [(1, 4), (3, 4), (1, 3), (2, 8)])
@@ -215,15 +234,14 @@ def _joint_inputs(card, others=()):
 
 
 def _check_joint(specs, obs, tfs, y0s, idxs, th0, seed, nits, burnin,
-                 mask):
+                 mask, substeps=4):
     from odelib_tpu_torch.ops import cuda_joint as TJ
     before = T.LAUNCHES["joint_metropolis_hastings_fused"]
-    k = TJ.joint_metropolis_hastings_fused(specs, idxs, obs, tfs, y0s, th0,
-                                           seed, nits=nits, burnin=burnin,
-                                           walk_mask=mask,
-                                           substeps_list=[4] * len(specs))
+    k = TJ.joint_metropolis_hastings_fused(
+        specs, idxs, obs, tfs, y0s, th0, seed, nits=nits, burnin=burnin,
+        walk_mask=mask, substeps_list=[substeps] * len(specs))
     assert T.LAUNCHES["joint_metropolis_hastings_fused"] == before + 1
-    plans = [T._build_plan(sp, ob, tf, 4) for sp, ob, tf in
+    plans = [T._build_plan(sp, ob, tf, substeps) for sp, ob, tf in
              zip(specs, obs, tfs)]
     tw = TJ.joint_plain(specs, plans, y0s, idxs, th0.t().contiguous(), seed,
                         nits=nits, burnin=burnin,
@@ -245,6 +263,24 @@ def test_joint_kernel_matches_twin(card):
     _check_joint(specs, obs, tfs, y0s, idxs,
                  torch.as_tensor(th0, device="cuda"), 11, 20, 5,
                  (1.0, 1.0, 1.0, 0.0))
+
+
+def test_joint_kernel_unstaged_plans_match_twin(card):
+    """substeps=50 (850 steps a solve): the two plans outgrow the 48 KB
+    staged in shared memory, so the kernel reads them from global
+    memory."""
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    specs, obs, tfs, y0s, idxs = _joint_inputs(card)
+    plans = [T._build_plan(sp, ob, tf, 50) for sp, ob, tf in
+             zip(specs, obs, tfs)]
+    assert sum(a.nbytes for a in TJ.joint_tables(
+        specs, plans, y0s, idxs, "dopri5")[:2]) > 48 * 1024
+    rng = np.random.default_rng(2)
+    th0 = (np.array([2.4e-8, 24.0, 0.6, 0.6])
+           * np.exp(rng.normal(0, 0.05, (256, 4)))).astype(np.float32)
+    _check_joint(specs, obs, tfs, y0s, idxs,
+                 torch.as_tensor(th0, device="cuda"), 11, 4, 1,
+                 (1.0, 1.0, 1.0, 0.0), substeps=50)
 
 
 def test_joint_kernel_heterogeneous_models(card):
