@@ -12,10 +12,9 @@ Phases, each failing the script if it fails:
    one_i) and the PMMH path's SDE model's; the builds' seconds and each
    kernel's registers, stack and spills;
 3. kernel versus twin on the card, at the main-path model (zero_i on the
-   demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws (chi
-   rtol 1e-5, equal non-finite masks), MH on 1024 chains x 200 iterations
-   (identical accept sequences up to documented ulp ties, records rtol
-   1e-5), the ensemble on 2048 walkers (two ensembles of 1024) x 200
+   demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
+   on 1024 chains x 200 iterations (with the kernel's rounds of 2 and 3
+   iterations counted), the ensemble on 2048 walkers (two ensembles of 1024) x 200
    iterations, in one launch of as many blocks as can be co-resident and
    again on 7 blocks of 32 threads, so each thread loops over 4-5 of the
    1024 columns, PT with the main path's 4 rungs on 1024 chains x 200
@@ -29,7 +28,10 @@ Phases, each failing the script if it fails:
    in shared memory, so both kernels read their tables from global
    memory (all bitwise records);
 4. the main paths, each with launch counts reset just before and read just
-   after: ModelFramework(..., device='cuda').MCMC(chain_inits=10000,
+   after (each launching survey_fused and its chain kernel's wrapper
+   once; Python's garbage collections per stage, and for MH the chains
+   stage's host part, kernel time and record allocations):
+   ModelFramework(..., device='cuda').MCMC(chain_inits=10000,
    iterations_per_chain=1000, fitsurvey_samples=1000, sd_fitdistance=6.0)
    with sampler='mh', 'ensemble' and 'pt' (temperatures (1, 2, 4, 8)):
    the posterior's columns, finite chi, mean final acceptance in the
@@ -42,10 +44,13 @@ Phases, each failing the script if it fails:
    interval, LogNormal prior, adaptation): finite chi, the frozen-phase
    acceptance in [0.15, 0.5], and the posterior of log mu against the
    exact grid-Kalman posterior of the target the kernel samples
-   (|mean - exact| < 0.02, std within rtol 0.05). Then each of four
+   (|mean - exact| < 0.02, std within rtol 0.05). Then each of six
    kernels, through its public wrapper, against its twin on its main
    path's own inputs, captured where the path calls the wrapper:
-   ensemble_fused (its 10,000 walkers and seed, the default tile of 4096,
+   survey_fused (the MH path's 1,000 draws), metropolis_hastings_fused (all
+   10,000 chains and the path's seed x 50 iterations, and the first 9,997
+   chains, so the last warp's group of 8 chains is part empty; rounds of
+   2 and 3 iterations must both occur), ensemble_fused (its 10,000 walkers and seed, the default tile of 4096,
    padded to 12,288 walkers; 200 iterations; the tile sets each walker's
    partners, so this is the geometry the main path runs),
    parallel_tempering_fused (all 10,000 chains x 4 rungs x 20 iterations:
@@ -53,7 +58,7 @@ Phases, each failing the script if it fails:
    counts), joint_metropolis_hastings_fused (all 10,000 chains x 50
    iterations) and pmmh_fused (all 10,240 chains x 128 particles x 20
    iterations, adapting for 10); every comparison of phases 3-4 fails on
-   any bit, and each main path launches its chain kernel's wrapper once;
+   any bit;
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MCMC wall times with their stage breakdowns, and one more MH and
@@ -108,6 +113,38 @@ T0 = time.perf_counter()
 
 def phase(name):
     print(f"== {name} (at {time.perf_counter() - T0:.0f} s)", flush=True)
+
+
+# Python's garbage collections, (start, end, generation) on the host
+# clock: each main path reports those that fell inside its MCMC call
+GC_SPANS = []
+
+
+def _gc_probe(stage, info):
+    if stage == "start":
+        _gc_probe.t = time.perf_counter()
+    else:
+        GC_SPANS.append((_gc_probe.t, time.perf_counter(),
+                         info["generation"]))
+
+
+def gc_report(t0, stages):
+    """The collections since GC_SPANS was cleared, by the MCMC stage (from
+    ``last_profile``'s durations after ``t0``) in which each started."""
+    edges, at = [], t0
+    for name, secs in stages.items():
+        at += secs
+        edges.append((at, name))
+    per = {}
+    for s, e, gen in GC_SPANS:
+        name = next((n for end, n in edges if s < end), "after")
+        n, secs, gens = per.get(name, (0, 0.0, set()))
+        per[name] = (n + 1, secs + (e - s), gens | {gen})
+    total = sum(e - s for s, e, _ in GC_SPANS)
+    return (f"garbage collections: {len(GC_SPANS)}, {total:.6f} s; "
+            + (", ".join(f"{k}: {n} ({secs:.6f} s, generations "
+                         f"{sorted(g)})" for k, (n, secs, g) in per.items())
+               or "none"))
 
 
 def events_ms(fn, reps=1):
@@ -241,6 +278,41 @@ def compare_records(name, rec_k, rec_t, nits, labels=MH_LABELS, burnin=0):
     return err
 
 
+def compare_chi(name, chi_k, chi_t):
+    """Kernel against twin chi (numpy): every value bitwise equal, NaN
+    where the twin's is NaN; returns the max abs error of the finite ones."""
+    import numpy as np
+    fin = np.isfinite(chi_t)
+    same = (chi_k == chi_t) | (np.isnan(chi_k) & np.isnan(chi_t))
+    print(f"{name} chi: bitwise equal {np.mean(same):.4f}")
+    if not same.all():
+        fail(f"{name}: kernel and twin chi differ in bits for "
+             f"{int((~same).sum())} of {same.size}")
+    return float(np.max(np.abs(chi_k[fin] - chi_t[fin]))) if fin.any() \
+        else 0.0
+
+
+def rounds_of(steps):
+    """The prefetching MH kernel's rounds (csrc/mh.cu) replayed from the
+    accept indicators (R, C) of iterations 1.. nits - 1: a round takes 2
+    iterations, or 3 when its first and second proposals both reject (1
+    where one iteration is left). Returns the counts of 2 and 3."""
+    import numpy as np
+    R, C = steps.shape
+    it = np.zeros(C, int)
+    n = {1: 0, 2: 0, 3: 0}
+    cols = np.arange(C)
+    while (it < R).any():
+        live = it < R
+        a = steps[np.minimum(it, R - 1), cols] > 0.5
+        b = steps[np.minimum(it + 1, R - 1), cols] > 0.5
+        done = np.where(it + 1 >= R, 1, np.where(a | b | (it + 2 >= R), 2, 3))
+        for k in (1, 2, 3):
+            n[k] += int((live & (done == k)).sum())
+        it = np.where(live, it + done, it)
+    return n[2], n[3]
+
+
 def gbm_data():
     """tests/test_pallas_pf.py's GBM observations: log N at t = 0.5, ...,
     4.0 from numpy seed 42 (MU, SIG, S_OBS)."""
@@ -310,6 +382,8 @@ def main():
     from odelib_tpu_torch.ops.priors import prior_table
     if "jax" in sys.modules:
         fail("jax was imported")
+    import gc
+    gc.callbacks.append(_gc_probe)
 
     # -- 1. device ----------------------------------------------------------
     phase("device")
@@ -427,20 +501,13 @@ def main():
     chi_t = cuda_mh.survey_plain(spec, plan, y0, th.t().contiguous())
     torch.cuda.synchronize()
     ck, ct = chi_k.cpu().numpy(), chi_t.cpu().numpy()
-    if not (np.isfinite(ck) == np.isfinite(ct)).all():
-        fail("survey: kernel and twin disagree on which chi are finite")
-    fin = np.isfinite(ck)
-    survey_err = float(np.max(np.abs(ck[fin] - ct[fin]))) if fin.any() else 0.0
-    survey_rel = float(np.max(np.abs(ck[fin] - ct[fin]) / np.abs(ct[fin])))
-    print(f"survey: {fin.sum()}/{n_draws} finite, max abs err "
-          f"{survey_err:.6g}, max rel err {survey_rel:.3g}, bitwise equal "
-          f"{np.mean(ck[fin] == ct[fin]):.4f}", flush=True)
-    if survey_rel > 1e-5:
-        fail(f"survey: kernel vs twin rel err {survey_rel:.3g} > 1e-5")
+    fin = np.isfinite(ct)
+    compare_chi("survey", ck, ct)
+    print(f"survey: {fin.sum()}/{n_draws} finite", flush=True)
 
     phase("MH kernel vs twin")
     C, nits = 1024, 200
-    order = np.argsort(np.where(fin, ck, np.inf))
+    order = np.argsort(np.where(fin, ct, np.inf))
     seeds = draws[order[np.arange(CHAINS) % max(fin.sum(), 1)]]
     th0 = torch.as_tensor(seeds[:C], device=dev)
     seed = 11
@@ -454,52 +521,11 @@ def main():
     torch.cuda.synchronize()
     rec_k = [k.theta.permute(1, 2, 0), k.chi.t(), k.rsquared.t(),
              k.aic.t(), k.acceptance_ratio.t()]
-    rec_k = [r.cpu().numpy() for r in rec_k]          # (R, P, C), (R, C)
-    rec_t = [r.cpu().numpy() for r in tw]
-    acc_k = accept_steps(rec_k[4], nits)
-    acc_t = accept_steps(rec_t[4], nits)
-    flip = np.abs(acc_k - acc_t) > 0.5                  # (R, C)
-    first = np.where(flip.any(0), flip.argmax(0), nits - 1)
-    rows = np.arange(nits - 1)[:, None] < first[None, :]  # before any flip
-    n_flip = int(flip.any(0).sum())
-    for c in np.where(flip.any(0))[0]:
-        r = int(first[c])
-        it = r + 1
-        lt = np.log(rec_t[0][r - 1, :, c] if r else
-                    th0[c].cpu().numpy()).astype(np.float32)
-        chi_old = rec_t[1][r - 1, c] if r else float(
-            cuda_mh.survey_plain(spec, plan, y0,
-                                 th0[c:c + 1].t().contiguous())[0])
-        rng = cuda_mh.Rng(seed, torch.tensor([c], device=dev))
-        rng.start(it)
-        prop = [torch.tensor(lt[p], device=dev)
-                + cuda_mh.const(walk[p], th0) * rng.normal()
-                for p in range(3)]
-        u = float(rng.uniform()[0])
-        th_p = torch.stack([torch.exp(v) for v in prop]).reshape(3, 1)
-        chi_new = float(cuda_mh.survey_plain(spec, plan, y0, th_p)[0])
-        gap = abs((chi_old - chi_new) - np.log(u))
-        print(f"accept flip: chain {c} iteration {it}: |log_ratio - log u| "
-              f"= {gap:.3g}")
-        if not gap < 1e-4:
-            fail(f"MH: accept decision of chain {c} flipped at iteration "
-                 f"{it} without an ulp-level tie")
-    mh_err = 0.0
-    for name, a, b in zip(("theta", "chi", "rsquared", "aic", "ar"),
-                          rec_k, rec_t):
-        m = rows if a.ndim == 2 else rows[:, None, :]
-        m = np.broadcast_to(m, a.shape) & np.isfinite(b)
-        rel = float(np.max(np.abs(a[m] - b[m]) / np.maximum(np.abs(b[m]),
-                                                              1e-30)))
-        if name == "chi":
-            mh_err = float(np.max(np.abs(a[m] - b[m])))
-        print(f"MH {name}: max rel err {rel:.3g}, bitwise equal "
-              f"{np.mean(a[m] == b[m]):.4f}")
-        if rel > 1e-5:
-            fail(f"MH: {name} kernel vs twin rel err {rel:.3g} > 1e-5")
-    print(f"MH: {C} chains x {nits} iterations, {n_flip} chains with an "
-          f"accept flip, mean acceptance {rec_k[4][-1].mean():.4f}",
-          flush=True)
+    compare_records("MH", rec_k, tw, nits)
+    n2, n3 = rounds_of(accept_steps(tw[4].cpu().numpy(), nits))
+    print(f"MH: {C} chains x {nits} iterations, mean acceptance "
+          f"{float(rec_k[4][-1].mean()):.4f}, the kernel's rounds of 2 and 3 "
+          f"iterations {n2} and {n3}", flush=True)
 
     phase("ensemble kernel vs twin")
     W, tile, mask = 2048, 1024, (1.0, 1.0, 1.0)
@@ -653,13 +679,48 @@ def main():
         pt_in.update(args=args, kw=kw)
         return pt_fused(*args, **kw)
     cuda_pt.parallel_tempering_fused = recording_pt
+    # and the MH path's survey and MH calls; the MH call's host part, its
+    # kernel's device time and the allocations it made (the chains stage)
+    sv_in, mh_in, mh_probe = {}, {}, {}
+    sv_fused = cuda_mh.survey_fused
+    mh_fused = cuda_mh.metropolis_hastings_fused
+    current = [None]
+
+    def recording_survey(*args, **kw):
+        sv_in[current[0]] = (args, kw)
+        return sv_fused(*args, **kw)
+
+    def recording_mh(*args, **kw):
+        mh_in.update(args=args, kw=kw)
+        m0 = torch.cuda.memory_stats()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        res = mh_fused(*args, **kw)
+        e1.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        m1 = torch.cuda.memory_stats()
+        mh_probe.update(
+            host_s=t1 - t0, wait_s=t2 - t1,
+            device_s=e0.elapsed_time(e1) / 1e3,
+            cuda_mallocs=m1.get("num_device_alloc", 0)
+            - m0.get("num_device_alloc", 0),
+            reserved_mb=(m1["reserved_bytes.all.current"]
+                         - m0["reserved_bytes.all.current"]) / 2 ** 20)
+        return res
+    cuda_mh.survey_fused = recording_survey
+    cuda_mh.metropolis_hastings_fused = recording_mh
     for sampler in ("mh", "ensemble", "pt"):
         phase(f"main path: ModelFramework(...).MCMC(sampler={sampler!r})")
         fw = framework()
         out = io.StringIO()
         extra = dict(temperatures=TEMPS) if sampler == "pt" else {}
+        current[0] = sampler
         cuda_mh.reset_launch_counts()
         torch.cuda.synchronize()
+        GC_SPANS.clear()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             post = fw.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
@@ -673,6 +734,15 @@ def main():
         print(f"MCMC({sampler}) wall seconds: {wall_s:.3f}; launches "
               f"{launches}; stages " + ", ".join(
                   f"{k} {v:.3f} s" for k, v in fw.last_profile.items()))
+        print(f"MCMC({sampler}) " + gc_report(t0, fw.last_profile))
+        if sampler == "mh":
+            print("MCMC(mh) chains stage: metropolis_hastings_fused's host "
+                  f"part {mh_probe['host_s']:.6f} s (trace, library, plan, "
+                  f"record allocation, launch), its device time "
+                  f"{mh_probe['device_s']:.6f} s, waited "
+                  f"{mh_probe['wait_s']:.6f} s after it returned; "
+                  f"{mh_probe['cuda_mallocs']} cudaMalloc calls, "
+                  f"{mh_probe['reserved_mb']:.1f} MB more reserved")
         cols = ["mu", "phi", "beta", "chi", "rsquared", "aic", "iteration",
                 "acceptance_ratio", "chain#", "all_rejected"]
         if list(post.columns) != cols:
@@ -694,8 +764,9 @@ def main():
                  f"[{lo}, {hi}]")
         if "Fitting Report" not in out.getvalue():
             fail(f"{sampler}: the Fitting Report did not print")
-        if launches["survey_fused"] < 1:
-            fail(f"{sampler}: survey_fused never launched: {launches}")
+        if launches["survey_fused"] != 1:
+            fail(f"{sampler}: survey_fused was not launched once: "
+                 f"{launches}")
         if launches[kernel_of[sampler]] != 1:
             fail(f"{sampler}: {kernel_of[sampler]} was not launched once: "
                  f"{launches}")
@@ -711,6 +782,8 @@ def main():
     pkg_log.removeHandler(handler)
     dispatch._ARMS["cuda:ensemble"] = ens_arm
     cuda_pt.parallel_tempering_fused = pt_fused
+    cuda_mh.survey_fused = sv_fused
+    cuda_mh.metropolis_hastings_fused = mh_fused
 
     phase("main path: JointFit({'a': zero_i, 'b': zero_i perturbed}, "
           "shared=['phi', 'beta']).MCMC()")
@@ -829,6 +902,68 @@ def main():
     if launches["pmmh_fused"] != 1:
         fail(f"pmmh: the PMMH kernel was not launched once: {launches}")
     runs["pmmh"] = (wall_s, launches, dict(pfw.last_profile))
+
+    phase("survey and MH kernels vs twin at the MH main path's inputs")
+    sv_args, sv_kw = sv_in["mh"]
+    sv_spec, sv_obs, sv_tf, sv_y0, sv_th = sv_args
+    chi_k = cuda_mh.survey_fused(*sv_args, **sv_kw)
+    torch.cuda.synchronize()
+    sv_plan = cuda_mh._build_plan(sv_spec, sv_obs, sv_tf,
+                                  cuda_mh._normalize_substeps(
+                                      sv_kw["substeps"], len(sv_tf) - 1))
+    chi_t = cuda_mh.survey_plain(sv_spec, sv_plan, sv_y0,
+                                 sv_th.t().contiguous(), sv_kw["stepper"])
+    torch.cuda.synchronize()
+    survey_err = compare_chi("survey (main path's inputs)",
+                             chi_k.cpu().numpy(), chi_t.cpu().numpy())
+    print(f"survey at the main path's inputs: survey_fused on its "
+          f"{sv_th.shape[0]} draws, {sv_kw['stepper']}, substeps "
+          f"{sv_kw['substeps']}", flush=True)
+    if sv_th.shape[0] != 1000:
+        fail(f"the MH main path surveyed {sv_th.shape[0]} draws, not 1000")
+    m_spec, m_obs, m_tf, m_y0, m_th0 = mh_in["args"]
+    mkw = mh_in["kw"]
+    m_nits = 51
+    m_plan = cuda_mh._build_plan(m_spec, m_obs, m_tf,
+                                 cuda_mh._normalize_substeps(
+                                     mkw["substeps"], len(m_tf) - 1))
+    m_mask = [1.0] * m_th0.shape[1] if mkw["walk_mask"] is None \
+        else [float(w) for w in mkw["walk_mask"]]
+    m_run = dict(nits=m_nits, burnin=0,
+                 walk=tuple(float(mkw["rwalk_std"]) * float(w)
+                            for w in m_mask),
+                 walked=tuple(float(w) != 0.0 for w in m_mask),
+                 num=int(torch.count_nonzero(m_th0[0])),
+                 stepper=mkw["stepper"])
+    rec_t = cuda_mh.mh_plain(m_spec, m_plan, m_y0, m_th0.t().contiguous(),
+                             mkw["seed"], **m_run)
+    torch.cuda.synchronize()
+    # all chains, then a prefix that is not a multiple of the 8 chains a
+    # warp holds: its last warp is part empty, and each chain's stream is
+    # keyed on its index, so its records are the full run's
+    for n_c in (m_th0.shape[0], m_th0.shape[0] - 3):
+        mout = cuda_mh.metropolis_hastings_fused(
+            m_spec, m_obs, m_tf, m_y0, m_th0[:n_c], **{
+                **mkw, "nits": m_nits, "burnin": 0})
+        torch.cuda.synchronize()
+        rec_k = [mout.theta.permute(1, 2, 0), mout.chi.t(),
+                 mout.rsquared.t(), mout.aic.t(),
+                 mout.acceptance_ratio.t()]
+        err = compare_records(f"MH (main path's inputs, {n_c} chains)",
+                              rec_k, [r[..., :n_c] for r in rec_t], m_nits)
+        if n_c == m_th0.shape[0]:
+            mh_err = err
+    n2, n3 = rounds_of(accept_steps(rec_t[4].cpu().numpy(), m_nits))
+    print(f"MH at the main path's inputs: metropolis_hastings_fused on all "
+          f"{m_th0.shape[0]} chains and on {m_th0.shape[0] - 3}, seed "
+          f"{mkw['seed']}, {mkw['stepper']} x {m_nits - 1} iterations, mean "
+          f"acceptance {float(rec_t[4][-1].mean()):.4f}; the kernel's rounds "
+          f"of 2 iterations {n2}, of 3 {n3}", flush=True)
+    if not (n2 and n3):
+        fail(f"MH: the main path's inputs gave rounds of 2 and 3 iterations "
+             f"{n2} and {n3} times: both must occur")
+    if m_th0.shape[0] != CHAINS:
+        fail(f"MH main path ran {m_th0.shape[0]} chains, not {CHAINS}")
 
     phase("ensemble kernel vs twin at the main path's inputs")
     ens_th0, cfg, ens_seed = ens_in["theta0"], ens_in["cfg"], ens_in["seed"]
@@ -977,6 +1112,15 @@ def main():
     mh_ms = events_ms(cuda_mh.mh_launcher(
         spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
         walk=walk, walked=(True,) * 3, num=3))
+    mh2_ms = events_ms(cuda_mh.mh_launcher(
+        spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
+        walk=walk, walked=(True,) * 3, num=3, group=2))
+    mh0_ms = events_ms(cuda_mh.mh_launcher(
+        spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
+        walk=walk, walked=(True,) * 3, num=3, adaptive=False))
+    print(f"MH kernel, 2 lanes a chain (A and C): {mh2_ms:.3f} ms; 4 lanes "
+          f"on the first tree only {mh0_ms:.3f} ms; 4 lanes, trees by "
+          f"acceptance {mh_ms:.3f} ms")
     tw_ms = events_ms(lambda: cuda_mh.mh_plain(
         spec, plan, y0, th_main_t, seed, nits=short, burnin=0, walk=walk,
         walked=(True,) * 3, num=3))
@@ -1106,6 +1250,7 @@ def main():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof, \
                 contextlib.redirect_stdout(io.StringIO()):
+            GC_SPANS.clear()
             t0 = time.perf_counter()
             fw.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
                     fitsurvey_samples=1000, sd_fitdistance=6.0,
@@ -1123,6 +1268,7 @@ def main():
         print(f"profiled MCMC({sampler}) wall {prof_wall:.3f} s; stages "
               + ", ".join(f"{k} {v:.3f} s"
                           for k, v in fw.last_profile.items()))
+        print(f"profiled MCMC({sampler}) " + gc_report(t0, fw.last_profile))
         if busy > 0:
             print(f"device busy {busy:.4f} s = {100 * busy / prof_wall:.2f} "
                   f"% of wall (idle {100 - 100 * busy / prof_wall:.2f} %)")

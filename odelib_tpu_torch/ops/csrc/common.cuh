@@ -42,18 +42,21 @@ namespace odelib {
 
 // Header of plan_i (ops/cuda_mh.py plan_tables).
 enum : int {
-  H_NSTEPS = 0, H_NGRID, H_NOBS, H_NPOST, H_STEPPER,
-  H_STEP_GI, H_OBS_PTR, H_OBS_STATE, H_POST_PTR, H_POST_MEM, H_INIT_PIDX,
+  H_NSTEPS = 0, H_NGRID, H_NOBS, H_STEPPER,
+  H_STEP_GI, H_STEP_OBS, H_OBS_PTR, H_OBS_MASK, H_INIT_PIDX,
   H_F_STEPS, H_F_LAB, H_F_DEN, H_F_AB, H_F_Y0
 };
 
+// Observations are flat: observation o reads its member mask (the states
+// its prediction sums, bit s for state s), lab, den and ab at index o, and
+// step k the range [step_obs[2k], step_obs[2k + 1]) it scores; no load
+// waits on another's result but the range's.
 struct Plan {
   int n_steps;
-  const int* step_gi;
-  const int* obs_ptr;
-  const int* obs_state;
-  const int* post_ptr;
-  const int* post_mem;
+  const int* step_gi;   // grid index scored after step k, or -1
+  const int* step_obs;  // per step: first and end observation scored
+  const int* obs_ptr;   // per grid point: first observation (CSR)
+  const int* obs_mask;
   const int* init_pidx;
   float sstot;
   const float* steps;  // 8 floats per step
@@ -68,10 +71,9 @@ __device__ __forceinline__ Plan load_plan(const int* __restrict__ pi,
   Plan p;
   p.n_steps = pi[H_NSTEPS];
   p.step_gi = pi + pi[H_STEP_GI];
+  p.step_obs = pi + pi[H_STEP_OBS];
   p.obs_ptr = pi + pi[H_OBS_PTR];
-  p.obs_state = pi + pi[H_OBS_STATE];
-  p.post_ptr = pi + pi[H_POST_PTR];
-  p.post_mem = pi + pi[H_POST_MEM];
+  p.obs_mask = pi + pi[H_OBS_MASK];
   p.init_pidx = pi + pi[H_INIT_PIDX];
   p.sstot = pf[0];
   p.steps = pf + pi[H_F_STEPS];
@@ -105,28 +107,44 @@ __device__ __forceinline__ float pick(const float* v, int i) {
   return r;
 }
 
-// Observation terms scored at grid point gi (lognormal, uncensored) for a
-// model of S states.
+// Observation terms of observations [o0, o1) (lognormal, uncensored) for
+// a model of S states. The prediction sums the masked states in ascending
+// order, the members' order of the twin's obs_terms.
 template <int S>
-__device__ __forceinline__ void contrib(const Plan& pl, int gi,
-                                        const float* y, float& chi,
-                                        float& ssres) {
-  const int o1 = pl.obs_ptr[gi + 1];
-  for (int o = pl.obs_ptr[gi]; o < o1; ++o) {
-    const int j = pl.obs_state[o];
-    const int m1 = pl.post_ptr[j + 1];
-    int m = pl.post_ptr[j];
-    float pred = pick<S>(y, pl.post_mem[m]);
-    for (++m; m < m1; ++m) pred = pred + pick<S>(y, pl.post_mem[m]);
+__device__ __forceinline__ void obs_terms(const Plan& pl, int o0, int o1,
+                                          const float* y, float& chi,
+                                          float& ssres) {
+  for (int o = o0; o < o1; ++o) {
+    const int mask = pl.obs_mask[o];
+    const float lab = pl.lab[o], den = pl.den[o], ab = pl.ab[o];
+    float pred = 0.0f;
+    bool first = true;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if ((mask >> s) & 1) {
+        pred = first ? y[s] : pred + y[s];
+        first = false;
+      }
+    }
     // no floor on pred: a blown-up trajectory gives a non-finite chi
-    const float d = pl.lab[o] - logf(pred);
-    chi = chi + (d * d) / pl.den[o];
-    const float e = pred - pl.ab[o];
+    const float d = lab - logf(pred);
+    chi = chi + (d * d) / den;
+    const float e = pred - ab;
     ssres = ssres + e * e;
   }
 }
 
-// The fixed-step solve of model M over the plan's steps, scored.
+// Observation terms scored at grid point gi.
+template <int S>
+__device__ __forceinline__ void contrib(const Plan& pl, int gi,
+                                        const float* y, float& chi,
+                                        float& ssres) {
+  obs_terms<S>(pl, pl.obs_ptr[gi], pl.obs_ptr[gi + 1], y, chi, ssres);
+}
+
+// The fixed-step solve of model M over the plan's steps, scored. Step k's
+// observation range is read before its arithmetic, so its latency hides
+// behind the step.
 template <class M, int STEPPER>
 __device__ __forceinline__ void score_model(const Plan& pl,
                                             const float* theta,
@@ -140,14 +158,14 @@ __device__ __forceinline__ void score_model(const Plan& pl,
   float chi = 0.0f, ssres = 0.0f;
   contrib<M::S>(pl, 0, y, chi, ssres);
   for (int k = 0; k < pl.n_steps; ++k) {
+    const int o0 = pl.step_obs[2 * k], o1 = pl.step_obs[2 * k + 1];
     const float* sf = pl.steps + 8 * k;
     if (STEPPER == 0) {
       M::step_dopri5(y, sf, theta);
     } else {
       M::step_rk4(y, sf, theta);
     }
-    const int gi = pl.step_gi[k];
-    if (gi >= 0) contrib<M::S>(pl, gi, y, chi, ssres);
+    obs_terms<M::S>(pl, o0, o1, y, chi, ssres);
   }
   chi_out = chi;
   rsq_out = 1.0f - ssres / pl.sstot;

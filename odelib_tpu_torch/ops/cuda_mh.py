@@ -115,7 +115,8 @@ def _build_plan(spec: ModelSpec, obs: ObsData, times, substeps):
 
 _STEPPER_ID = {"dopri5": 0, "rk4": 1}
 _EULER = 2  # header stepper id of the particle filter's step layout
-_HDR = 16  # int header of plan_i (see csrc/common.cuh)
+_HDR = 14  # int header of plan_i (see csrc/common.cuh)
+_MAX_MASK_STATES = 32  # an observation's members are a bit mask of states
 
 
 def _check_stepper(stepper):
@@ -127,26 +128,29 @@ def _check_stepper(stepper):
 
 def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     """The plan as two flat arrays the kernels read at run time:
-    ``plan_i`` (int32: a 16-entry header of sizes and offsets, then the
-    step grid indices, the per-grid-point observation CSR, the summation
-    members and the init-parameter wiring) and ``plan_f`` (float32: sstot,
-    then 8 floats per step, the per-observation constants and y0). Floats
-    are rounded to float32 on the host exactly where the JAX kernel's
-    Python scalars meet float32 arrays. ``stepper`` 'euler' lays each step
-    out for the particle filter as (h, t, f32(sqrt h))."""
+    ``plan_i`` (int32: a 14-entry header of sizes and offsets, then the
+    step grid indices, each step's range of observations, the
+    per-grid-point observation CSR, each observation's member mask and
+    the init-parameter wiring) and ``plan_f`` (float32: sstot, then 8
+    floats per step, the per-observation constants and y0). Floats are
+    rounded to float32 on the host exactly where the JAX kernel's Python
+    scalars meet float32 arrays. ``stepper`` 'euler' lays each step out
+    for the particle filter as (h, t, f32(sqrt h))."""
     if stepper != "euler":
         _check_stepper(stepper)
+    if len(spec.snames) > _MAX_MASK_STATES:
+        raise NotImplementedError(
+            f"the kernels score models of at most {_MAX_MASK_STATES} "
+            f"states, not {len(spec.snames)}")
     n_steps, n_grid = len(plan.step_ts), plan.n_grid
-    posts = sorted({mem for grid in plan.obs_after for mem, *_ in grid})
-    post_id = {mem: k for k, mem in enumerate(posts)}
     obs = [o for grid in plan.obs_after for o in grid]
     obs_ptr = np.cumsum([0] + [len(g) for g in plan.obs_after])
-    post_ptr = np.cumsum([0] + [len(m) for m in posts])
+    step_obs = [(obs_ptr[gi], obs_ptr[gi + 1]) if gi >= 0 else (0, 0)
+                for _, _, gi in plan.step_ts]
     ints = [np.asarray([gi for _, _, gi in plan.step_ts]),
+            np.asarray(step_obs).ravel(),
             obs_ptr,
-            np.asarray([post_id[mem] for mem, *_ in obs]),
-            post_ptr,
-            np.asarray([i for m in posts for i in m]),
+            np.asarray([sum(1 << m for m in mem) for mem, *_ in obs]),
             np.asarray(spec.init_pidx)]
     steps = np.zeros((n_steps, 8))
     for k, (t, h, _) in enumerate(plan.step_ts):
@@ -164,11 +168,9 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     offs_i = np.cumsum([_HDR] + [len(a) for a in ints])[:-1]
     offs_f = np.cumsum([0] + [len(a) for a in floats])[:-1]
     header = np.zeros(_HDR, np.int64)
-    header[:5] = [n_steps, n_grid, len(obs), len(posts),
-                  _STEPPER_ID.get(stepper, _EULER)]
-    header[5:11] = offs_i
-    header[11:15] = offs_f[1:5]
-    header[15] = offs_f[5]
+    header[:4] = [n_steps, n_grid, len(obs), _STEPPER_ID.get(stepper, _EULER)]
+    header[4:9] = offs_i
+    header[9:14] = offs_f[1:]
     plan_i = np.concatenate([header] + [np.asarray(a, np.int64)
                                         for a in ints]).astype(np.int32)
     plan_f = np.concatenate(floats).astype(np.float32)
@@ -513,8 +515,9 @@ def survey_launcher(spec, plan, y0_base, stepper, th):
                                   str(dev))
     N = th.shape[1]
     chi = torch.empty(N, dtype=torch.float32, device=dev)
-    args = (plan_i.data_ptr(), plan_f.data_ptr(), th.data_ptr(),
-            chi.data_ptr(), N, _STEPPER_ID[stepper], build.stream(dev))
+    args = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
+            plan_f.numel(), th.data_ptr(), chi.data_ptr(), N,
+            _STEPPER_ID[stepper], build.stream(dev))
 
     def launch():
         build.check(lib, lib.odelib_survey(*args), "survey")
@@ -524,11 +527,12 @@ def survey_launcher(spec, plan, y0_base, stepper, th):
 
 
 def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
-                walk, walked, num):
+                walk, walked, num, group=4, block=128, adaptive=True):
     """Prepare the MH kernel for chains ``th0`` (P, C) on the card and
     return ``launch() -> records`` (theta (R, P, C); chi, rsq, aic,
     acceptance ratio (R, C)); each call launches the kernel once (and
-    counts it)."""
+    counts it). ``group`` lanes a chain (4, or 2 for the A/B of the
+    layout) in blocks of ``block`` threads."""
     from . import build
     lib = build.load_kernels(spec)
     dev = th0.device
@@ -542,11 +546,12 @@ def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
     recs = (torch.empty((R, P, C), dtype=torch.float32, device=dev),) \
         + tuple(torch.empty((R, C), dtype=torch.float32, device=dev)
                 for _ in range(4))
-    args = (plan_i.data_ptr(), plan_f.data_ptr(), th0.data_ptr(),
-            walk_t.data_ptr(), *(r.data_ptr() for r in recs), C, int(nits),
-            int(burnin), int(np.uint32(np.int64(seed) & _M32)),
-            float(np.float32(2.0 * num)), _STEPPER_ID[stepper],
-            build.stream(dev))
+    args = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
+            plan_f.numel(), th0.data_ptr(), walk_t.data_ptr(),
+            *(r.data_ptr() for r in recs), C, int(nits), int(burnin),
+            int(np.uint32(np.int64(seed) & _M32)),
+            float(np.float32(2.0 * num)), _STEPPER_ID[stepper], int(group),
+            int(block), int(adaptive), build.stream(dev))
 
     def launch():
         build.check(lib, lib.odelib_mh(*args), "mh")

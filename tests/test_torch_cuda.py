@@ -21,6 +21,9 @@ from odelib_tpu_torch.ops import cuda_mh as T
 from odelib_tpu_torch.ops import cuda_pt as TP
 from odelib_tpu_torch.rhs import RhsTraceError, adapt_rhs
 
+from test_torch_mh_prefetch import CASES as MH_CASES
+from test_torch_mh_prefetch import assert_bitwise, run_case
+
 pytestmark = pytest.mark.cuda
 
 
@@ -54,9 +57,8 @@ def test_survey_kernel_matches_twin(card, stepper):
     plan = T._build_plan(spec, obs, tf, 4)
     tw = T.survey_plain(spec, plan, y0, th.t().contiguous(), stepper)
     torch.cuda.synchronize()
-    k, tw = k.cpu().numpy(), tw.cpu().numpy()
-    np.testing.assert_array_equal(np.isfinite(k), np.isfinite(tw))
-    np.testing.assert_allclose(k, tw, rtol=1e-5)
+    # bitwise: the same float32 operations (-fmad=false, no fast math)
+    np.testing.assert_array_equal(k.cpu().numpy(), tw.cpu().numpy())
 
 
 def test_mh_kernel_matches_twin(card):
@@ -72,13 +74,20 @@ def test_mh_kernel_matches_twin(card):
                     burnin=20, walk=(0.05, 0.05, 0.0),
                     walked=(True, True, False), num=3)
     torch.cuda.synchronize()
-    np.testing.assert_array_equal(k.acceptance_ratio.cpu().numpy(),
-                                  tw[4].t().cpu().numpy())
-    np.testing.assert_allclose(k.theta.cpu().numpy(),
-                               tw[0].permute(2, 0, 1).cpu().numpy(),
-                               rtol=1e-5)
-    np.testing.assert_allclose(k.chi.cpu().numpy(), tw[1].t().cpu().numpy(),
-                               rtol=1e-5)
+    assert_bitwise((k.theta.permute(1, 2, 0), k.chi.t(), k.rsquared.t(),
+                    k.aic.t(), k.acceptance_ratio.t()), tw)
+
+
+@pytest.mark.parametrize("case", sorted(MH_CASES))
+def test_mh_prefetch_cases_match_twin(card, case):
+    """The prefetching kernel (a group of four lanes a chain, rounds of 2
+    or 3 iterations) against mh_plain on every case of the CPU emulation
+    (tests/test_torch_mh_prefetch.py), at the main path's substeps and on
+    1,003 chains, so the last warp is part empty: bitwise."""
+    got, want, _, _ = run_case(card, case, device="cuda", substeps=4,
+                               chains=1003)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
 
 
 def _equal_runs(k_recs, t_recs):
@@ -201,7 +210,7 @@ def test_summed_observable_kernel_matches_twin():
     plan = T._build_plan(spec, obs, tf, 4)
     tw = T.survey_plain(spec, plan, y0, th.t().contiguous())
     torch.cuda.synchronize()
-    np.testing.assert_allclose(k.cpu().numpy(), tw.cpu().numpy(), rtol=1e-5)
+    np.testing.assert_array_equal(k.cpu().numpy(), tw.cpu().numpy())
 
 
 def test_untraceable_rhs_raises_on_card(card):
