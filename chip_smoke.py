@@ -292,25 +292,43 @@ def compare_chi(name, chi_k, chi_t):
         else 0.0
 
 
+# csrc/mh.cu's speculation trees: per tree and node, the node after a
+# reject and after an accept (-1: the round ends there)
+MH_CHILD = (((2, 1), (-1, -1), (3, -1), (-1, -1)),
+            ((2, 1), (-1, 3), (-1, -1), (-1, -1)),
+            ((-1, 1), (-1, 2), (-1, 3), (-1, -1)))
+
+
 def rounds_of(steps):
     """The prefetching MH kernel's rounds (csrc/mh.cu) replayed from the
-    accept indicators (R, C) of iterations 1.. nits - 1: a round takes 2
-    iterations, or 3 when its first and second proposals both reject (1
-    where one iteration is left). Returns the counts of 2 and 3."""
+    accept indicators (R, C) of iterations 1 .. nits - 1: each round picks
+    its tree from the acceptance so far, as the kernel does in float32, and
+    walks it down the decisions. Returns {iterations a round: rounds}."""
+    import collections
+
     import numpy as np
     R, C = steps.shape
-    it = np.zeros(C, int)
-    n = {1: 0, 2: 0, 3: 0}
+    child = np.array(MH_CHILD)
     cols = np.arange(C)
-    while (it < R).any():
-        live = it < R
-        a = steps[np.minimum(it, R - 1), cols] > 0.5
-        b = steps[np.minimum(it + 1, R - 1), cols] > 0.5
-        done = np.where(it + 1 >= R, 1, np.where(a | b | (it + 2 >= R), 2, 3))
-        for k in (1, 2, 3):
-            n[k] += int((live & (done == k)).sum())
-        it = np.where(live, it + done, it)
-    return n[2], n[3]
+    it = np.ones(C, int)                   # the next iteration
+    acc = np.zeros(C, np.float32)
+    counts = collections.Counter()
+    while (it <= R).any():
+        live = it <= R
+        past = (it - 1).astype(np.float32)
+        tree = np.where(acc > np.float32(0.8) * past, 2,
+                        np.where(acc > np.float32(0.5) * past, 1, 0))
+        n, k, going = np.zeros(C, int), np.zeros(C, int), live.copy()
+        for _ in range(4):
+            ok = going & (steps[np.minimum(it - 1 + k, R - 1), cols] > 0.5)
+            acc += ok
+            k += going
+            nxt = child[tree, n, ok.astype(int)]
+            going &= (nxt >= 0) & (it + k <= R)
+            n = np.where(going, nxt, n)
+        counts.update(k[live].tolist())
+        it = np.where(live, it + k, it)
+    return counts
 
 
 def gbm_data():
@@ -522,10 +540,11 @@ def main():
     rec_k = [k.theta.permute(1, 2, 0), k.chi.t(), k.rsquared.t(),
              k.aic.t(), k.acceptance_ratio.t()]
     compare_records("MH", rec_k, tw, nits)
-    n2, n3 = rounds_of(accept_steps(tw[4].cpu().numpy(), nits))
+    rounds = rounds_of(accept_steps(tw[4].cpu().numpy(), nits))
     print(f"MH: {C} chains x {nits} iterations, mean acceptance "
-          f"{float(rec_k[4][-1].mean()):.4f}, the kernel's rounds of 2 and 3 "
-          f"iterations {n2} and {n3}", flush=True)
+          f"{float(rec_k[4][-1].mean()):.4f}, the kernel's rounds by the "
+          f"iterations they complete {dict(sorted(rounds.items()))}",
+          flush=True)
 
     phase("ensemble kernel vs twin")
     W, tile, mask = 2048, 1024, (1.0, 1.0, 1.0)
@@ -691,20 +710,56 @@ def main():
         return sv_fused(*args, **kw)
 
     def recording_mh(*args, **kw):
+        """The MH path's call, with its host part split at the library
+        load, the plan upload and the launch (times on the host clock from
+        the call's entry) and its process CPU time."""
         mh_in.update(args=args, kw=kw)
+        marks = {}
+        real_load, real_plan = build.load_kernels, cuda_mh._device_plan
+        patched = []
+
+        def timed(name, fn):
+            def run(*a, **k):
+                marks[name] = time.perf_counter()
+                res = fn(*a, **k)
+                marks[name + " done"] = time.perf_counter()
+                return res
+            return run
+
+        def load(*a, **k):
+            lib = timed("library", real_load)(*a, **k)
+            patched.append((lib, lib.odelib_mh))
+            lib.odelib_mh = timed("launch", lib.odelib_mh)
+            return lib
+        build.load_kernels = load
+        cuda_mh._device_plan = timed("plan", real_plan)
         m0 = torch.cuda.memory_stats()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
+        cpu0, t0 = time.process_time(), time.perf_counter()
         e0.record()
-        res = mh_fused(*args, **kw)
+        try:
+            res = mh_fused(*args, **kw)
+        finally:
+            build.load_kernels, cuda_mh._device_plan = real_load, real_plan
+            for lib, fn in patched:
+                lib.odelib_mh = fn
         e1.record()
-        t1 = time.perf_counter()
+        t1, cpu1 = time.perf_counter(), time.process_time()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         m1 = torch.cuda.memory_stats()
+        points = [t0] + [marks.get(k) for k in (
+            "library", "library done", "plan", "plan done", "launch",
+            "launch done")] + [t1]
+        names = ("checks and RHS trace", "library", "to the plan", "plan",
+                 "walk table and record allocation", "launch", "return")
+        split = ("not split: the call did not load the library, upload the "
+                 "plan and launch" if None in points else ", ".join(
+                     f"{k} {b - a:.6f} s"
+                     for k, a, b in zip(names, points, points[1:])))
         mh_probe.update(
-            host_s=t1 - t0, wait_s=t2 - t1,
-            device_s=e0.elapsed_time(e1) / 1e3,
+            host_s=t1 - t0, cpu_s=cpu1 - cpu0, wait_s=t2 - t1,
+            device_s=e0.elapsed_time(e1) / 1e3, split=split,
             cuda_mallocs=m1.get("num_device_alloc", 0)
             - m0.get("num_device_alloc", 0),
             reserved_mb=(m1["reserved_bytes.all.current"]
@@ -737,12 +792,12 @@ def main():
         print(f"MCMC({sampler}) " + gc_report(t0, fw.last_profile))
         if sampler == "mh":
             print("MCMC(mh) chains stage: metropolis_hastings_fused's host "
-                  f"part {mh_probe['host_s']:.6f} s (trace, library, plan, "
-                  f"record allocation, launch), its device time "
-                  f"{mh_probe['device_s']:.6f} s, waited "
-                  f"{mh_probe['wait_s']:.6f} s after it returned; "
-                  f"{mh_probe['cuda_mallocs']} cudaMalloc calls, "
-                  f"{mh_probe['reserved_mb']:.1f} MB more reserved")
+                  f"part {mh_probe['host_s']:.6f} s ({mh_probe['split']}; "
+                  f"process CPU time {mh_probe['cpu_s']:.6f} s), the "
+                  f"device's {mh_probe['device_s']:.6f} s from its entry to "
+                  f"its kernel's end, waited {mh_probe['wait_s']:.6f} s after "
+                  f"it returned; {mh_probe['cuda_mallocs']} cudaMalloc "
+                  f"calls, {mh_probe['reserved_mb']:.1f} MB more reserved")
         cols = ["mu", "phi", "beta", "chi", "rsquared", "aic", "iteration",
                 "acceptance_ratio", "chain#", "all_rejected"]
         if list(post.columns) != cols:
@@ -953,15 +1008,16 @@ def main():
                               rec_k, [r[..., :n_c] for r in rec_t], m_nits)
         if n_c == m_th0.shape[0]:
             mh_err = err
-    n2, n3 = rounds_of(accept_steps(rec_t[4].cpu().numpy(), m_nits))
+    rounds = rounds_of(accept_steps(rec_t[4].cpu().numpy(), m_nits))
     print(f"MH at the main path's inputs: metropolis_hastings_fused on all "
           f"{m_th0.shape[0]} chains and on {m_th0.shape[0] - 3}, seed "
           f"{mkw['seed']}, {mkw['stepper']} x {m_nits - 1} iterations, mean "
           f"acceptance {float(rec_t[4][-1].mean()):.4f}; the kernel's rounds "
-          f"of 2 iterations {n2}, of 3 {n3}", flush=True)
-    if not (n2 and n3):
-        fail(f"MH: the main path's inputs gave rounds of 2 and 3 iterations "
-             f"{n2} and {n3} times: both must occur")
+          f"by the iterations they complete {dict(sorted(rounds.items()))}",
+          flush=True)
+    if not (rounds[2] and rounds[3]):
+        fail(f"MH: the main path's inputs gave rounds {dict(rounds)}: "
+             "rounds of 2 and of 3 iterations must both occur")
     if m_th0.shape[0] != CHAINS:
         fail(f"MH main path ran {m_th0.shape[0]} chains, not {CHAINS}")
 
@@ -1112,15 +1168,6 @@ def main():
     mh_ms = events_ms(cuda_mh.mh_launcher(
         spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
         walk=walk, walked=(True,) * 3, num=3))
-    mh2_ms = events_ms(cuda_mh.mh_launcher(
-        spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
-        walk=walk, walked=(True,) * 3, num=3, group=2))
-    mh0_ms = events_ms(cuda_mh.mh_launcher(
-        spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
-        walk=walk, walked=(True,) * 3, num=3, adaptive=False))
-    print(f"MH kernel, 2 lanes a chain (A and C): {mh2_ms:.3f} ms; 4 lanes "
-          f"on the first tree only {mh0_ms:.3f} ms; 4 lanes, trees by "
-          f"acceptance {mh_ms:.3f} ms")
     tw_ms = events_ms(lambda: cuda_mh.mh_plain(
         spec, plan, y0, th_main_t, seed, nits=short, burnin=0, walk=walk,
         walked=(True,) * 3, num=3))

@@ -215,7 +215,7 @@ def load_kernels(spec, others=(), diffusion=False):
         lib.odelib_survey.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I, _P]
         lib.odelib_survey.restype = _I
         lib.odelib_mh.argtypes = [_P, _I, _P, _I] + [_P] * 7 + [
-            _I, _I, _I, _U, _F, _I, _I, _I, _I, _P]
+            _I, _I, _I, _U, _F, _I, _P]
         lib.odelib_mh.restype = _I
         lib.odelib_ensemble_blocks.argtypes = [_I, _I, _I,
                                                ctypes.POINTER(_I)]

@@ -98,6 +98,27 @@ __device__ __forceinline__ T* stage(const T* __restrict__ src, T* dst, int n) {
   return dst;
 }
 
+// Dynamic shared memory that stages a plan of n_i + n_f words, or 0 where
+// it does not fit (the launch then passes n_i = n_f = 0).
+inline size_t plan_smem(int n_i, int n_f) {
+  const size_t bytes = sizeof(int) * ((size_t)n_i + (size_t)n_f);
+  return bytes <= SMEM_STAGE_MAX ? bytes : 0;
+}
+
+// The plan of a launch that staged it (n_i > 0: its dynamic shared memory
+// holds the tables), else read from global memory; every thread of the
+// block calls it.
+__device__ __forceinline__ Plan staged_plan(const int* pi, int n_i,
+                                            const float* pf, int n_f) {
+  extern __shared__ uint32_t smem[];
+  if (n_i > 0) {
+    pi = stage(pi, reinterpret_cast<int*>(smem), n_i);
+    pf = stage(pf, reinterpret_cast<float*>(smem + n_i), n_f);
+    __syncthreads();
+  }
+  return load_plan(pi, pf);
+}
+
 // v[i] for a runtime i, by an unrolled select so v stays in registers.
 template <int N>
 __device__ __forceinline__ float pick(const float* v, int i) {

@@ -32,11 +32,12 @@
 // and every lane replays the serial decisions down the tree,
 // exp(chi - chi_new) > u with the same uniforms (NaN rejected), so all four
 // update the same state with no second exchange. A round advances 2 or 3
-// iterations on the first two trees (2 + (1 - a)^2 at acceptance a: 2.4
-// on the main path) and up to 4 on the last. The tree matters because the
-// launch ends with its slowest chain: on the first tree alone a chain that
-// accepts nearly every proposal needs (nits - 1) / 2 rounds, against
-// about (nits - 1) / 2.4 for the rest. Lanes whose iteration is past
+// iterations on the first two trees (on average 2 + (1 - a)^2 and 2 + a^2
+// at acceptance a: 2.4 on the first at the main path's 0.35) and 1 to 4 on
+// the last (1 + a + a^2 + a^3). The tree matters because the launch ends
+// with its slowest chain: on the first tree alone a chain that accepts
+// every proposal needs (nits - 1) / 2 rounds, against about
+// (nits - 1) / 2.4 for the rest. Lanes whose iteration is past
 // nits - 1 solve nothing, and their results are never read. The lanes
 // split the stores: lane k writes the k-th row the round completes (burn-in
 // rows are never written). Each lane's proposal, solve and decision are
@@ -52,7 +53,7 @@
 // pt.cu).
 //
 // Both kernels stage the plan (step list, per-grid-point observation CSR,
-// y0) in shared memory where it fits in 48 KB (common.cuh stage), as the
+// y0) in shared memory where it fits in 48 KB (common.cuh staged_plan), as the
 // ensemble and joint kernels do: the survey's one solve then reads no table
 // cold from L2 inside its step loop. The plan is a runtime table, so one
 // build serves every dataset and schedule of a model: only the RHS, S and
@@ -64,27 +65,15 @@
 // operation rounds like its torch twin (ops/cuda_mh.py) and the JAX
 // kernel: same order of the Dopri5/RK4 stage sums, constants rounded to
 // float32 on the host, and the same counter RNG words.
-#include "common.cuh"  // Plan, stage, score<STEPPER>, mix, uniform, normal
+#include "common.cuh"  // staged_plan, score<STEPPER>, mix, uniform, normal
 
 #define SURVEY_BLOCK 32
-#define MH_BLOCK_MAX 128
+#define MH_BLOCK 128
+#define MH_GROUP 4   // lanes a chain: the speculation tree's nodes
 
 namespace {
 
 using namespace odelib;
-
-// The plan tables in shared memory where the launch gave room (n_i > 0),
-// else in global memory; every thread of the block calls it.
-__device__ __forceinline__ Plan staged_plan(const int* pi, int n_i,
-                                            const float* pf, int n_f) {
-  extern __shared__ uint32_t smem[];
-  if (n_i > 0) {
-    pi = stage(pi, reinterpret_cast<int*>(smem), n_i);
-    pf = stage(pf, reinterpret_cast<float*>(smem + n_i), n_f);
-    __syncthreads();
-  }
-  return load_plan(pi, pf);
-}
 
 template <int STEPPER>
 __global__ void __launch_bounds__(SURVEY_BLOCK)
@@ -115,7 +104,6 @@ struct MhArgs {
   float* ar_rec;
   int n_i, n_f;          // plan words staged in shared memory (0: none)
   int C, nits, burnin;
-  int adaptive;          // pick the round's tree by the acceptance so far
   uint32_t seed;
   float aic_const;
 };
@@ -178,10 +166,9 @@ __device__ __forceinline__ float pick4(const float (&v)[4], int n) {
   return n == 0 ? v[0] : n == 1 ? v[1] : n == 2 ? v[2] : v[3];
 }
 
-// G lanes a chain: 4 (the trees above) or 2 (A and C, a round of 1 or 2
-// iterations).
-template <int STEPPER, int G>
-__global__ void __launch_bounds__(MH_BLOCK_MAX, 1) mh_kernel(const MhArgs a) {
+template <int STEPPER>
+__global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
+  constexpr int G = MH_GROUP;
   const Plan pl = staged_plan(a.pi, a.n_i, a.pf, a.n_f);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int c_own = t / G;
@@ -210,8 +197,7 @@ __global__ void __launch_bounds__(MH_BLOCK_MAX, 1) mh_kernel(const MhArgs a) {
     const uint32_t b0 = (uint32_t)it * 1024u;
     // every lane of the group picks the same tree from the same state
     const float past = (float)(it - 1);
-    const int tree = G == 2 || !a.adaptive ? 0
-                     : acc > 0.8f * past ? 2 : acc > 0.5f * past ? 1 : 0;
+    const int tree = acc > 0.8f * past ? 2 : acc > 0.5f * past ? 1 : 0;
     // the nodes' proposals, each the serial chain's on the node's path
     float nd[4][ODE_P];
     uint32_t slot = 0;
@@ -219,19 +205,15 @@ __global__ void __launch_bounds__(MH_BLOCK_MAX, 1) mh_kernel(const MhArgs a) {
     for (int p = 0; p < ODE_P; ++p) {
       if (walked[p]) {
         const float s1 = scale[p] * normal(key, b0 + 1024u + slot);
+        const float s2 = scale[p] * normal(key, b0 + 2048u + slot);
         nd[0][p] = lt[p] + scale[p] * normal(key, b0 + slot);   // A
-        if constexpr (G == 4) {
-          const float s2 = scale[p] * normal(key, b0 + 2048u + slot);
-          nd[1][p] = nd[0][p] + s1;                              // B
-          if (tree == 2) {
-            nd[2][p] = nd[1][p] + s2;                            // BB
-            nd[3][p] = nd[2][p] + scale[p] * normal(key, b0 + 3072u + slot);
-          } else {
-            nd[2][p] = lt[p] + s1;                               // C
-            nd[3][p] = tree == 0 ? lt[p] + s2 : nd[1][p] + s2;   // D, BB
-          }
+        nd[1][p] = nd[0][p] + s1;                                // B
+        if (tree == 2) {
+          nd[2][p] = nd[1][p] + s2;                              // BB
+          nd[3][p] = nd[2][p] + scale[p] * normal(key, b0 + 3072u + slot);
         } else {
-          nd[1][p] = lt[p] + s1;                                 // C
+          nd[2][p] = lt[p] + s1;                                 // C
+          nd[3][p] = tree == 0 ? lt[p] + s2 : nd[1][p] + s2;     // D, BB
         }
         slot += 2;
       } else {
@@ -242,14 +224,14 @@ __global__ void __launch_bounds__(MH_BLOCK_MAX, 1) mh_kernel(const MhArgs a) {
                     : role == 2 ? nd[2][p] : nd[3][p]);
     }
     // lanes past nits - 1 solve nothing; their results are never read
-    const int ahead = G == 4 ? node_depth(tree, role) : role;
+    const int ahead = node_depth(tree, role);
     float chi_new = 0.0f, rsq_new = 0.0f;
     if (it + ahead < nits) score<STEPPER>(pl, thp, chi_new, rsq_new);
     float chi_n[4], rsq_n[4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      chi_n[n] = __shfl_sync(0xFFFFFFFFu, chi_new, n % G, G);
-      rsq_n[n] = __shfl_sync(0xFFFFFFFFu, rsq_new, n % G, G);
+      chi_n[n] = __shfl_sync(0xFFFFFFFFu, chi_new, n, G);
+      rsq_n[n] = __shfl_sync(0xFFFFFFFFu, rsq_new, n, G);
     }
     if (it < nits) {
       // replay the serial decisions down the tree; lane k stores the k-th
@@ -266,23 +248,13 @@ __global__ void __launch_bounds__(MH_BLOCK_MAX, 1) mh_kernel(const MhArgs a) {
                                uniform(key, b0 + 1024u * k + slot));
         if (live && role == k) record(a, c, it + k, lt, chi, rsq, acc);
         ++k;
-        const int next = G == 4 ? node_child(tree, n, ok)
-                                : (n == 0 && !ok ? 1 : -1);
+        const int next = node_child(tree, n, ok);
         if (next < 0 || it + k >= nits) break;
         n = next;
       }
       it += k;
     }
   }
-}
-
-// Dynamic shared memory for the staged plan, or 0 where it does not fit
-// (the tables are then read from global memory).
-size_t plan_smem(int& n_i, int& n_f) {
-  const size_t bytes = sizeof(int) * ((size_t)n_i + (size_t)n_f);
-  if (bytes <= SMEM_STAGE_MAX) return bytes;
-  n_i = n_f = 0;
-  return 0;
 }
 
 }  // namespace
@@ -293,7 +265,8 @@ int odelib_survey(const int* pi, int n_i, const float* pf, int n_f,
                   const float* theta, float* chi, int N, int stepper,
                   void* stream) {
   if (N < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = plan_smem(n_i, n_f);
+  const size_t smem = odelib::plan_smem(n_i, n_f);
+  if (smem == 0) n_i = n_f = 0;
   const int grid = (N + SURVEY_BLOCK - 1) / SURVEY_BLOCK;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stepper == 0) {
@@ -310,30 +283,19 @@ int odelib_mh(const int* pi, int n_i, const float* pf, int n_f,
               const float* theta0, const float* walk, float* th_rec,
               float* chi_rec, float* rsq_rec, float* aic_rec, float* ar_rec,
               int C, int nits, int burnin, unsigned int seed,
-              float aic_const, int stepper, int group, int block,
-              int adaptive, void* stream) {
-  if (C < 1 || (group != 2 && group != 4) || block < 32 ||
-      block > MH_BLOCK_MAX || block % 32)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = plan_smem(n_i, n_f);
+              float aic_const, int stepper, void* stream) {
+  if (C < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = odelib::plan_smem(n_i, n_f);
+  if (smem == 0) n_i = n_f = 0;
   const MhArgs a{pi, pf, theta0, walk, th_rec, chi_rec, rsq_rec, aic_rec,
-                 ar_rec, n_i, n_f, C, nits, burnin, adaptive, seed,
-                 aic_const};
-  const long long threads = (long long)C * group;
-  const int grid = (int)((threads + block - 1) / block);
+                 ar_rec, n_i, n_f, C, nits, burnin, seed, aic_const};
+  const long long threads = (long long)C * MH_GROUP;
+  const int grid = (int)((threads + MH_BLOCK - 1) / MH_BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (group == 4) {
-    if (stepper == 0) {
-      mh_kernel<0, 4><<<grid, block, smem, s>>>(a);
-    } else {
-      mh_kernel<1, 4><<<grid, block, smem, s>>>(a);
-    }
+  if (stepper == 0) {
+    mh_kernel<0><<<grid, MH_BLOCK, smem, s>>>(a);
   } else {
-    if (stepper == 0) {
-      mh_kernel<0, 2><<<grid, block, smem, s>>>(a);
-    } else {
-      mh_kernel<1, 2><<<grid, block, smem, s>>>(a);
-    }
+    mh_kernel<1><<<grid, MH_BLOCK, smem, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

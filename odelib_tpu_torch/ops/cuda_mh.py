@@ -527,12 +527,11 @@ def survey_launcher(spec, plan, y0_base, stepper, th):
 
 
 def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
-                walk, walked, num, group=4, block=128, adaptive=True):
+                walk, walked, num):
     """Prepare the MH kernel for chains ``th0`` (P, C) on the card and
     return ``launch() -> records`` (theta (R, P, C); chi, rsq, aic,
     acceptance ratio (R, C)); each call launches the kernel once (and
-    counts it). ``group`` lanes a chain (4, or 2 for the A/B of the
-    layout) in blocks of ``block`` threads."""
+    counts it)."""
     from . import build
     lib = build.load_kernels(spec)
     dev = th0.device
@@ -550,8 +549,8 @@ def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
             plan_f.numel(), th0.data_ptr(), walk_t.data_ptr(),
             *(r.data_ptr() for r in recs), C, int(nits), int(burnin),
             int(np.uint32(np.int64(seed) & _M32)),
-            float(np.float32(2.0 * num)), _STEPPER_ID[stepper], int(group),
-            int(block), int(adaptive), build.stream(dev))
+            float(np.float32(2.0 * num)), _STEPPER_ID[stepper],
+            build.stream(dev))
 
     def launch():
         build.check(lib, lib.odelib_mh(*args), "mh")

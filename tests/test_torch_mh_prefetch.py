@@ -2,16 +2,18 @@
 in torch on the CPU, held bitwise against the serial twin ``mh_plain``.
 
 A chain runs on a group of four lanes with replicated state. At the start
-of a round at iteration ``it`` lane 0 (A) solves the proposal of ``it``,
-lane 1 (B) that of ``it + 1`` built on A's proposal, lane 2 (C) that of
-``it + 1`` built on the current state, lane 3 (D) that of ``it + 2`` built
-on the current state; the group exchanges chi and R^2 (the kernel's
-width-4 shuffles) and every lane replays the serial decisions with the
-serial uniforms, so a round completes 2 iterations, or 3 when A and C both
-reject, and lane k stores the k-th row it completes. The emulation pads
-the lanes to whole warps as the kernel does (lanes past the last chain run
-no round and store nothing). This file imports neither jax nor the JAX
-package; ``CASES`` also drive the kernel-versus-twin cases on the card
+of a round at iteration ``it`` the lanes solve the four nodes of a
+speculation tree picked by the chain's acceptance so far: lane 0 (A) the
+proposal of ``it``, lane 1 (B) that of ``it + 1`` built on A's proposal,
+and lanes 2 and 3 C (``it + 1`` on the current state) and D (``it + 2``
+after A and C reject), or C and BB (``it + 2`` after A and B accept), or
+BB and BBB. The group exchanges chi and R^2 (the kernel's width-4
+shuffles) and every lane replays the serial decisions down the tree with
+the serial uniforms, so a round completes 1 to 4 iterations, and lane k
+stores the k-th row it completes. The emulation pads the lanes to whole
+warps as the kernel does (lanes past the last chain run no round and
+store nothing). This file imports neither jax nor the JAX package;
+``CASES`` also drive the kernel-versus-twin cases on the card
 (tests/test_torch_cuda.py).
 """
 import math
@@ -89,7 +91,7 @@ CHILD = torch.tensor([[[2, 1], [-1, -1], [3, -1], [-1, -1]],
 
 
 def prefetch_mh(spec, plan, y0, theta0, seed, *, nits, burnin, walk, walked,
-                num, stepper="dopri5", adaptive=True):
+                num, stepper="dopri5"):
     """mh.cu's mh_kernel lane by lane. ``theta0`` (P, C) float32; returns
     mh_plain's records, a Counter of the iterations each chain's rounds
     completed and a Counter of the trees they used."""
@@ -129,10 +131,8 @@ def prefetch_mh(spec, plan, y0, theta0, seed, *, nits, burnin, walk, walked,
     while bool((it < nits).any()):          # the warp's __any_sync
         b0 = it * 1024
         past = (it - 1).to(torch.float32)
-        tree = torch.zeros_like(it)
-        if adaptive:
-            tree = torch.where(acc > const(0.8, acc) * past, 2, torch.where(
-                acc > const(0.5, acc) * past, 1, 0))
+        tree = torch.where(acc > const(0.8, acc) * past, 2, torch.where(
+            acc > const(0.5, acc) * past, 1, 0))
         nd = [[], [], [], []]
         for p in range(P):
             if not walked[p]:
@@ -191,8 +191,7 @@ def demo():
     return demo_inputs()
 
 
-def run_case(demo, case, device="cpu", substeps=1, chains=None,
-             adaptive=True):
+def run_case(demo, case, device="cpu", substeps=1, chains=None):
     """The emulation's (or, on the card, the kernel's) records and
     mh_plain's on one case (``chains`` replaces its chain count); returns
     (got, want, rounds, trees), the last two None on the card."""
@@ -206,8 +205,7 @@ def run_case(demo, case, device="cpu", substeps=1, chains=None,
               stepper=stepper)
     want = T.mh_plain(spec, plan, y0, th0, 11, **kw)
     if device == "cpu":
-        got, rounds, trees = prefetch_mh(spec, plan, y0, th0, 11,
-                                         adaptive=adaptive, **kw)
+        got, rounds, trees = prefetch_mh(spec, plan, y0, th0, 11, **kw)
         return got, want, rounds, trees
     out = T.metropolis_hastings_fused(
         spec, obs, tf, y0, th0.t().contiguous(), 11, nits=nits,
@@ -223,16 +221,14 @@ def assert_bitwise(got, want):
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
-@pytest.mark.parametrize("adaptive", [True, False],
-                         ids=["adaptive", "fixed-tree"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_prefetch_schedule_equals_the_serial_chain(demo, case, adaptive):
-    got, want, rounds, _ = run_case(demo, case, adaptive=adaptive)
+def test_prefetch_schedule_equals_the_serial_chain(demo, case):
+    got, want, rounds, _ = run_case(demo, case)
     assert_bitwise(got, want)
     nits = CASES[case][1]
     # every chain's rounds add up to its nits - 1 iterations
     assert sum(k * n for k, n in rounds.items()) == 13 * (nits - 1)
-    assert set(rounds) <= ({1, 2, 3, 4} if adaptive else {1, 2, 3})
+    assert set(rounds) <= {1, 2, 3, 4}
 
 
 def test_prefetch_trees_follow_the_acceptance(demo):

@@ -66,3 +66,17 @@ def test_plain_and_draw_paths_skip_the_resampling(listing, capsys):
     assert "plain 9, draw 10 instructions" in out
     assert "block 0x00b0:    2 instructions -> 0x00d0  resample" in out
     assert "_Z5otherv" not in out
+
+
+def test_every_loop_with_its_loads(tmp_path, capsys):
+    """--all: every natural loop, the fewest instructions around it and its
+    loads by class, hashing or not."""
+    path = tmp_path / "k.sass"
+    path.write_text(LISTING.replace(
+        "FADD R4, R4, 1 ;", "LD.E R4, desc[UR4][R8.64] ;").replace(
+        "FADD R4, R4, R6 ;", "LDS R4, [R6] ;"))
+    sass_loops.report(str(path), "pf_kernel", show_all=True)
+    out = capsys.readouterr().out
+    assert "_Z9pf_kernelv: 17 instructions, 8 blocks, 1 loops" in out
+    assert ("loop at 0x0020: 6 blocks, 14 instructions, cycle 9; loads "
+            "generic 1, shared 1") in out

@@ -186,8 +186,8 @@ def test_plan_tables_layout(setup):
     obs_ptr = pi[pi[6]:pi[6] + n_grid + 1]
     assert obs_ptr[0] == 0 and obs_ptr[-1] == n_obs
     assert pf[0] == np.float32(float(obs.sstot))
-    np.testing.assert_array_equal(pf[pi[15]:pi[15] + 2], y0.astype(np.float32))
-    steps = pf[pi[11]:pi[11] + 8 * n_steps].reshape(n_steps, 8)
+    np.testing.assert_array_equal(pf[pi[13]:pi[13] + 2], y0.astype(np.float32))
+    steps = pf[pi[9]:pi[9] + 8 * n_steps].reshape(n_steps, 8)
     np.testing.assert_array_equal(
         steps[:, 0], np.float32([h for _, h, _ in plan.step_ts]))
 

@@ -1,6 +1,6 @@
 """The loops of a kernel in SASS, to count the instructions of a hot loop.
 
-    python3 tools/sass_loops.py FILE.sass [NAME] [--blocks]
+    python3 tools/sass_loops.py FILE.sass [NAME] [--blocks] [--all]
 
 ``FILE.sass`` is the output of ``cuobjdump -sass`` on a built library or
 cubin (on a machine with the CUDA toolkit). For every function whose
@@ -23,7 +23,11 @@ point) and take every fast path (the libm functions' slow paths and
 special cases are longer, and the shortest path avoids them). With one
 state, steps alternate between ``draw`` and ``plain``, so an ordinary
 step costs their mean, and a particle-step that mean over the particles a
-lane holds. ``--blocks`` lists the loop's basic blocks.
+lane holds. ``--blocks`` lists the loop's basic blocks. ``--all`` lists
+instead every natural loop of each function, with its size, the fewest
+instructions around it and its loads (generic ``LD``, global, shared,
+constant): the MH kernel's step loop and the observation loop after it,
+which hold no hash.
 """
 import heapq
 import re
@@ -39,7 +43,8 @@ MIX = ("0x85ebca6b", "-0x7a143595", "0xc2b2ae35", "-0x3d4d51cb")
 RESAMPLE = ("SHFL", "BAR", "VOTE", "LDS", "STS", "WARPSYNC")
 CLASSES = (("MUFU", "mufu"), ("SHFL", "shfl"), ("BAR", "barrier"),
            ("LDS", "shared"), ("STS", "shared"), ("LDG", "global"),
-           ("STG", "global"), ("LDC", "const"), ("F", "float"),
+           ("STG", "global"), ("LDC", "const"), ("LD", "generic"),
+           ("F", "float"),
            ("I", "int"), ("LOP", "int"), ("SHF", "int"), ("LEA", "int"),
            ("BRA", "branch"), ("BSSY", "branch"), ("BSYNC", "branch"),
            ("CALL", "branch"), ("RET", "branch"), ("EXIT", "branch"),
@@ -189,12 +194,29 @@ def cycle(blocks, succ, body, head, latches, via=None):
     return best
 
 
-def report(path, name="pf_kernel", show_blocks=False):
+def every_loop(blocks, succ, loops):
+    """One line per natural loop: size, shortest cycle, loads by class."""
+    for h, (body, latches) in sorted(loops.items()):
+        body_insns = [x for b in body for x in blocks[b]]
+        loads = Counter(klass(split(t)[1]) for _, t in body_insns
+                        if split(t)[1].startswith("LD"))
+        print(f"  loop at {h:#06x}: {len(body)} blocks, {len(body_insns)} "
+              f"instructions, cycle {cycle(blocks, succ, body, h, latches)}"
+              "; loads " + (", ".join(f"{k} {v}" for k, v in
+                                      sorted(loads.items())) or "none"))
+
+
+def report(path, name="pf_kernel", show_blocks=False, show_all=False):
     for fname, insns in functions(open(path).read()).items():
         if name not in fname or not insns:
             continue
         blocks, succ = cfg(insns)
         loops = natural_loops(insns[0][0], succ)
+        if show_all:
+            print(f"{fname}: {len(insns)} instructions, {len(blocks)} "
+                  f"blocks, {len(loops)} loops")
+            every_loop(blocks, succ, loops)
+            continue
         hashes = {b for b, body in blocks.items()
                   if any(c in t for _, t in body for c in MIX)}
         rng = {h: lp for h, lp in loops.items() if lp[0] & hashes}
@@ -226,4 +248,5 @@ if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     if not args:
         sys.exit(__doc__)
-    report(args[0], *(args[1:2]), show_blocks="--blocks" in sys.argv)
+    report(args[0], *(args[1:2]), show_blocks="--blocks" in sys.argv,
+           show_all="--all" in sys.argv)
