@@ -13,8 +13,8 @@ Phases, each failing the script if it fails:
    kernel's registers, stack and spills;
 3. kernel versus twin on the card, at the main-path model (zero_i on the
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
-   on 1024 chains x 200 iterations (with the kernel's rounds of 2 and 3
-   iterations counted), the ensemble on 2048 walkers (two ensembles of 1024) x 200
+   on 1024 chains x 200 iterations (the kernel's rounds counted by the
+   iterations each completes), the ensemble on 2048 walkers (two ensembles of 1024) x 200
    iterations, in one launch of as many blocks as can be co-resident and
    again on 7 blocks of 32 threads, so each thread loops over 4-5 of the
    1024 columns, PT with the main path's 4 rungs on 1024 chains x 200

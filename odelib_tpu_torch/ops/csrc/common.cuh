@@ -107,7 +107,8 @@ inline size_t plan_smem(int n_i, int n_f) {
 
 // The plan of a launch that staged it (n_i > 0: its dynamic shared memory
 // holds the tables), else read from global memory; every thread of the
-// block calls it.
+// block calls it. ens_kernel stages inline: through this helper ptxas
+// allocated it 84 registers in place of 94, and it ran 8 % slower.
 __device__ __forceinline__ Plan staged_plan(const int* pi, int n_i,
                                             const float* pf, int n_f) {
   extern __shared__ uint32_t smem[];

@@ -94,7 +94,15 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar) {
 
 template <int STEPPER>
 __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
-  const Plan pl = staged_plan(a.pi, a.n_i, a.pf, a.n_f);
+  extern __shared__ uint32_t smem[];
+  const int* pi = a.pi;
+  const float* pf = a.pf;
+  if (a.n_i > 0) {
+    pi = stage(a.pi, reinterpret_cast<int*>(smem), a.n_i);
+    pf = stage(a.pf, reinterpret_cast<float*>(smem + a.n_i), a.n_f);
+    __syncthreads();
+  }
+  const Plan pl = load_plan(pi, pf);
   const int W = a.W, tile = a.tile;
   const int hn = tile / 2;               // walkers per half
   const int half = tile / 256;           // rows per half

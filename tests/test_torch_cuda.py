@@ -80,8 +80,9 @@ def test_mh_kernel_matches_twin(card):
 
 @pytest.mark.parametrize("case", sorted(MH_CASES))
 def test_mh_prefetch_cases_match_twin(card, case):
-    """The prefetching kernel (a group of four lanes a chain, rounds of 2
-    or 3 iterations) against mh_plain on every case of the CPU emulation
+    """The prefetching kernel (a group of four lanes a chain, rounds of 1
+    to 4 iterations down the tree the chain's acceptance picks) against
+    mh_plain on every case of the CPU emulation
     (tests/test_torch_mh_prefetch.py), at the main path's substeps and on
     1,003 chains, so the last warp is part empty: bitwise."""
     got, want, _, _ = run_case(card, case, device="cuda", substeps=4,

@@ -4,6 +4,8 @@ step's observation range, and the flat per-observation records (member
 mask, lab, den, ab) read as the kernels read them, held bitwise against the
 twin's ``obs_terms`` on zero_i and on one_i, whose host observable sums two
 states. Imports neither jax nor the JAX package."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -106,3 +108,10 @@ def test_flat_observation_records_score_as_the_twin(name):
             ssres = ssres + e * e
         for a, b in zip((chi, ssres), want):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_plan_tables_raise_above_32_states():
+    """An observation's members are a 32-bit mask of states."""
+    spec = SimpleNamespace(snames=tuple(f"s{i}" for i in range(33)))
+    with pytest.raises(NotImplementedError, match="at most 32 states"):
+        T.plan_tables(spec, None, None, "dopri5")
