@@ -14,19 +14,24 @@ Phases, each failing the script if it fails:
 3. kernel versus twin on the card, at the main-path model (zero_i on the
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
    on 1024 chains x 200 iterations (the kernel's rounds counted by the
-   iterations each completes), the ensemble on 2048 walkers (two ensembles of 1024) x 200
-   iterations, in one launch of as many blocks as can be co-resident and
-   again on 7 blocks of 32 threads, so each thread loops over 4-5 of the
-   1024 columns, PT with the main path's 4 rungs on 1024 chains x 200
-   iterations, and with 3 (an idle lane in each chain's group of 4) and 8
-   rungs on 1000 chains x 60 (identical accept sequences and swap counts),
+   iterations each completes), the ensemble on 2048 walkers (two
+   ensembles of 1024) x 100 iterations, in one launch of as many blocks as
+   can be co-resident and again on 7 blocks of 32 threads, so each thread
+   loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
+   1024 chains x 100 iterations, and with 3 (an idle lane in each chain's
+   group of 4) and 8 rungs on 1000 chains x 30 (identical accept
+   sequences and swap counts),
    the joint kernel on the heterogeneous pair zero_i + one_i, 256
    chains x 20 iterations, and with a third experiment (K = 3, blocks of
    three warps) on 1000 chains, so the last block has dead lanes, and
    the ensemble (512 walkers, substeps=100) and the joint pair (256
    chains, substeps=50) x 3 iterations with plans above the 48 KB staged
    in shared memory, so both kernels read their tables from global
-   memory (all bitwise records);
+   memory, and with in-kernel priors: four assignments over zero_i's
+   slots that together cover the ten in-kernel families (``prior_sets``),
+   each through MH (1024 chains x 50), the ensemble (2048 walkers x 20),
+   PT (1024 chains x 4 rungs x 50) and the joint pair zero_i + one_i (256
+   chains x 50), from start points around the fit (all bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after (each launching survey_fused and its chain kernel's wrapper
    once; Python's garbage collections per stage, and for MH the chains
@@ -51,17 +56,27 @@ Phases, each failing the script if it fails:
    10,000 chains and the path's seed x 50 iterations, and the first 9,997
    chains, so the last warp's group of 8 chains is part empty; rounds of
    2 and 3 iterations must both occur), ensemble_fused (its 10,000 walkers and seed, the default tile of 4096,
-   padded to 12,288 walkers; 200 iterations; the tile sets each walker's
+   padded to 12,288 walkers; 100 iterations; the tile sets each walker's
    partners, so this is the geometry the main path runs),
    parallel_tempering_fused (all 10,000 chains x 4 rungs x 20 iterations:
    40,000 threads, so the last block of 128 is part empty; identical swap
    counts), joint_metropolis_hastings_fused (all 10,000 chains x 50
    iterations) and pmmh_fused (all 10,240 chains x 128 particles x 20
    iterations, adapting for 10); every comparison of phases 3-4 fails on
-   any bit;
+   any bit. The slice's path: the MH, ensemble and PT main paths again
+   with use_priors=True (the demo's lognormal priors) and substeps='auto'
+   (the schedule calibrated from the run's seeds, printed with its
+   schedule_cost against substeps=4's 68 steps and the calibration
+   call's seconds; the ensemble's share of walkers ending at mu = 0), and
+   JointFit.MCMC(use_priors=True), each with the finite-chi and
+   acceptance checks and its launch counts; then calibrate_substeps on
+   the MH path's seeds on the card and on the CPU, which must agree;
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
-   MCMC wall times with their stage breakdowns, and one more MH and
+   MH, ensemble, PT and joint kernels with the demo's priors, with flat
+   priors (the prior-free run's chains, so the prior's own cost) and MH on
+   the calibrated schedule, the MCMC wall times with their stage breakdowns,
+   and one more MH and
    ensemble run each under torch.profiler: the device's busy share (the
    union of its kernels' and copies' intervals), each kernel's launches,
    mean duration and mean gap between launches, and exactly one device
@@ -101,6 +116,31 @@ BANDS = {"mh": (0.1, 0.6), "ensemble": (0.1, 0.8), "pt": (0.1, 0.6),
 PF_CHAINS, PF_NITS, PF_K, PF_SUB = 10240, 200, 128, 40
 MU, SIG, S_OBS = 0.4, 0.3, 0.15
 PRI_MU, PRI_SD = 0.4, 0.5          # mu ~ lognorm(s=PRI_SD, scale=PRI_MU)
+CENTRE = (0.6, 2.4e-8, 24.0)       # zero_i's fit region: mu, phi, beta
+
+
+def prior_sets():
+    """Four prior assignments over zero_i's slots (mu, phi, beta) that
+    together cover the ten in-kernel families, centred on CENTRE so the
+    chains accept (tests/test_torch_mh_prefetch.py's PRIOR_SETS); the
+    last leaves phi without a prior."""
+    from odelib_tpu_torch import distributions as D
+    return {
+        "lognormal-normal-uniform": (
+            D.LogNormal(s=0.05, scale=0.6),
+            D.Normal(loc=2.4e-8, scale=0.1e-8),
+            D.Uniform(loc=22.0, scale=4.0)),
+        "gamma-truncnorm-exponential": (
+            D.Gamma(a=400.0, scale=0.0015),
+            D.TruncNormal(a=-1.5, b=1.5, loc=2.4e-8, scale=0.1e-8),
+            D.Exponential(loc=20.0, scale=2.0)),
+        "cauchy-halfnormal-weibull": (
+            D.Cauchy(loc=0.6, scale=0.01),
+            D.HalfNormal(loc=2.2e-8, scale=0.2e-8),
+            D.Weibull(c=40.0, scale=24.5)),
+        "beta-none-gamma": (
+            D.Beta(a=60.0, b=40.0), None, D.Gamma(a=600.0, scale=0.04)),
+    }
 
 
 def fail(msg):
@@ -391,12 +431,13 @@ def main():
     import scipy.stats
 
     from odelib_tpu_torch import JointFit, ModelFramework, dispatch, parameter
+    from odelib_tpu_torch import distributions as D
     from odelib_tpu_torch.data import (build_obsdata_host,
                                        compact_observation_grid,
                                        format_dataframe, load_demo_dataframe)
     from odelib_tpu_torch.models import one_i, zero_i
     from odelib_tpu_torch.ops import (build, cuda_joint, cuda_mh, cuda_pf,
-                                      cuda_pt)
+                                      cuda_pt, schedule)
     from odelib_tpu_torch.ops.priors import prior_table
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -547,18 +588,18 @@ def main():
           flush=True)
 
     phase("ensemble kernel vs twin")
-    W, tile, mask = 2048, 1024, (1.0, 1.0, 1.0)
+    W, tile, mask, e_nits = 2048, 1024, (1.0, 1.0, 1.0), 100
     start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
         seeds[:W], seed, tile, mask, 0.01).T), device=dev)
-    ens_kw = dict(tile=tile, nits=nits, burnin=0, a=2.0, walk=mask,
+    ens_kw = dict(tile=tile, nits=e_nits, burnin=0, a=2.0, walk=mask,
                   walked=(True,) * 3, num=3, W0=W)
     rec_k = cuda_mh.ensemble_launcher(spec, plan, y0, "dopri5", start, seed,
                                       **ens_kw)()
     torch.cuda.synchronize()
     rec_t = cuda_mh.ensemble_plain(spec, plan, y0, start, seed, **ens_kw)
     torch.cuda.synchronize()
-    compare_records("ensemble", rec_k, rec_t, nits)
-    print(f"ensemble: {W} walkers ({W // tile} ensembles) x {nits} "
+    compare_records("ensemble", rec_k, rec_t, e_nits)
+    print(f"ensemble: {W} walkers ({W // tile} ensembles) x {e_nits} "
           f"iterations in one device launch, mean acceptance "
           f"{float(rec_k[4][-1].mean()):.4f}", flush=True)
     # the same run on 7 blocks of 32 threads: 1,024 columns, 4-5 a thread
@@ -566,7 +607,7 @@ def main():
                                       blocks=7, **ens_kw)()
     torch.cuda.synchronize()
     compare_records("ensemble (7 blocks, columns looped)", rec_k, rec_t,
-                    nits)
+                    e_nits)
 
     phase("PT kernel vs twin")
     # the main path's ladder, then 3 rungs (an idle lane in each chain's
@@ -574,8 +615,8 @@ def main():
     # block of 128 threads is part empty; the twin's time grows with the
     # rungs, so these two take fewer iterations
     for temps, n_c, n_it in (
-            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
-            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
+            (TEMPS, C, 100), ((1.0, 2.0, 4.0), 1000, 30),
+            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 30)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
         pt_kw = dict(nits=n_it, burnin=0, scales=sc, walked=(True,) * 3,
@@ -670,6 +711,74 @@ def main():
     print(f"plans above 48 KB: the ensemble on 512 walkers ({big_bytes} "
           f"bytes), the joint pair on 256 chains ({jbig_bytes} bytes), x 3 "
           "iterations each", flush=True)
+
+    phase("priors: the MH, ensemble, PT and joint kernels vs twin, four "
+          "assignments over the ten in-kernel families")
+    # start points around the fit, so the tight priors let chains accept
+    near = (np.array(CENTRE) * np.exp(np.random.default_rng(9).normal(
+        0, 0.05, (2048, 3)))).astype(np.float32)
+    near_t = torch.as_tensor(near.T.copy(), device=dev)
+    jnear = torch.as_tensor((np.array([2.4e-8, 24.0, 0.6, 0.6, 1.2])
+                             * np.exp(np.random.default_rng(10).normal(
+                                 0, 0.05, (256, 5)))).astype(np.float32).T
+                            .copy(), device=dev)
+    pri_walk = (0.1,) * 3
+    for label, pri in prior_sets().items():
+        table = prior_table(pri)
+        mh_kw = dict(nits=50, burnin=0, walk=pri_walk, walked=(True,) * 3,
+                     num=3, prior=table)
+        rec_k = cuda_mh.mh_launcher(spec, plan, y0, "dopri5",
+                                    near_t[:, :1024].contiguous(), seed,
+                                    **mh_kw)()
+        torch.cuda.synchronize()
+        rec_t = cuda_mh.mh_plain(spec, plan, y0,
+                                 near_t[:, :1024].contiguous(), seed, **mh_kw)
+        torch.cuda.synchronize()
+        compare_records(f"MH, priors {label}", rec_k, rec_t, 50)
+        acc_mh = float(rec_k[4][-1].mean())
+        start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
+            near, seed, 1024, mask, 0.01).T), device=dev)
+        e_kw = dict(tile=1024, nits=20, burnin=0, a=2.0, walk=mask,
+                    walked=(True,) * 3, num=3, W0=2048, prior=table)
+        rec_k = cuda_mh.ensemble_launcher(spec, plan, y0, "dopri5", start,
+                                          seed, **e_kw)()
+        torch.cuda.synchronize()
+        rec_t = cuda_mh.ensemble_plain(spec, plan, y0, start, seed, **e_kw)
+        torch.cuda.synchronize()
+        compare_records(f"ensemble, priors {label}", rec_k, rec_t, 20)
+        acc_ens = float(rec_k[4][-1].mean())
+        sc, bt, db = cuda_pt.ladder_constants(TEMPS, 0.1, mask)
+        p_kw = dict(nits=50, burnin=0, scales=sc, walked=(True,) * 3,
+                    betas=bt, dbetas=db, swap_every=1, num=3, prior=table)
+        rec_k = cuda_pt.pt_launcher(spec, plan, y0, "dopri5",
+                                    near_t[:, :1024].contiguous(), seed,
+                                    **p_kw)()
+        torch.cuda.synchronize()
+        rec_t = cuda_pt.pt_plain(spec, plan, y0,
+                                 near_t[:, :1024].contiguous(), seed, **p_kw)
+        torch.cuda.synchronize()
+        compare_records(f"PT 4 rungs, priors {label}", rec_k, rec_t, 50)
+        acc_pt = float(rec_k[4][-1].mean())
+        # the zero_i + one_i pair: joint slots phi, beta, mu (zero_i), mu
+        # (one_i), one_i's fourth parameter (no prior)
+        jtab = prior_table((pri[1], pri[2], pri[0], pri[0], None))
+        j_kw = dict(nits=50, burnin=0, walk=(0.1,) * 5, walked=(True,) * 5,
+                    prior=jtab)
+        rec_k = cuda_joint.joint_launcher(hspecs[:2], hplans[:2], [y0, y01],
+                                          hidx[:2], "dopri5", jnear, seed,
+                                          **j_kw)()
+        torch.cuda.synchronize()
+        rec_t = cuda_joint.joint_plain(hspecs[:2], hplans[:2], [y0, y01],
+                                       hidx[:2], jnear, seed, **j_kw)
+        torch.cuda.synchronize()
+        compare_records(f"joint (zero_i + one_i), priors {label}", rec_k,
+                        rec_t, 50, labels=("theta", "chi", "chi parts", "ar"))
+        print(f"priors {label}: MH 1024 chains x 50, ensemble 2048 walkers "
+              f"x 20, PT 1024 x 4 rungs x 50, joint 256 x 50: mean "
+              f"acceptance {acc_mh:.4f}, {acc_ens:.4f}, {acc_pt:.4f}, "
+              f"{float(rec_k[3][-1].mean()):.4f}", flush=True)
+        if min(acc_mh, acc_ens, acc_pt) <= 0.0:
+            fail(f"priors {label}: a kernel's chains never accepted")
 
     # -- 4. the main paths --------------------------------------------------
     swap_log = io.StringIO()
@@ -958,6 +1067,132 @@ def main():
         fail(f"pmmh: the PMMH kernel was not launched once: {launches}")
     runs["pmmh"] = (wall_s, launches, dict(pfw.last_profile))
 
+    # the slice's path: in-kernel priors (the demo's lognormal priors) and
+    # the schedule calibrated from each run's seeds
+    calib = []
+    real_calibrate = schedule.calibrate_substeps
+
+    def recording_calibrate(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_calibrate(*args, **kw)
+        torch.cuda.synchronize()
+        calib.append(dict(args=args, kw=kw, sched=out,
+                          secs=time.perf_counter() - t0))
+        return out
+    schedule.calibrate_substeps = recording_calibrate
+    auto_runs = {}
+    for sampler in ("mh", "ensemble", "pt"):
+        phase(f"main path: ModelFramework(...).MCMC(sampler={sampler!r}, "
+              "use_priors=True, substeps='auto')")
+        fw = framework()
+        out = io.StringIO()
+        extra = dict(temperatures=TEMPS) if sampler == "pt" else {}
+        cuda_mh.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            post = fw.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
+                           fitsurvey_samples=1000, sd_fitdistance=6.0,
+                           sampler=sampler, use_priors=True, substeps="auto",
+                           print_report=True, profile=True, **extra)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(cuda_mh.LAUNCHES)
+        sched = fw._auto_schedule
+        if sched != calib[-1]["sched"]:
+            fail(f"{sampler}: the cached schedule is not the calibrated one")
+        print(f"MCMC({sampler}, priors, auto) wall seconds: {wall_s:.3f}; "
+              f"launches {launches}; stages " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in fw.last_profile.items()))
+        print(f"MCMC({sampler}, priors, auto): calibrated schedule "
+              f"{list(sched)}, schedule_cost {schedule.schedule_cost(sched)}"
+              f" RHS steps a solve against {4 * (len(tf) - 1)} at substeps=4;"
+              f" calibration call {calib[-1]['secs']:.3f} s on "
+              f"{min(len(calib[-1]['args'][3]), 256)} of the "
+              f"{len(calib[-1]['args'][3])} seeds")
+        finite = float(np.isfinite(post.chi.to_numpy()).mean())
+        last = post[post.iteration == post.iteration.max()]
+        mean_acc = float(last.acceptance_ratio.mean())
+        zeros = {c: float((last[c] == 0.0).mean()) for c in
+                 ("mu", "phi", "beta")}
+        print(f"{sampler} (priors, auto): finite chi fraction {finite}, mean "
+              f"final acceptance {mean_acc:.4f}, final rows exactly 0: "
+              f"{zeros}")
+        if sampler == "ensemble":
+            print(f"ensemble with the prior on: {100 * zeros['mu']:.2f} % of "
+                  f"the walkers end at mu = 0 (without it, phase 4 above)")
+        if finite != 1.0:
+            fail(f"{sampler} (priors): finite chi fraction {finite}")
+        lo, hi = BANDS[sampler]
+        if not lo <= mean_acc <= hi:
+            fail(f"{sampler} (priors): mean final acceptance {mean_acc} "
+                 f"outside [{lo}, {hi}]")
+        if launches["survey_fused"] != 1 \
+                or launches[kernel_of[sampler]] != 1:
+            fail(f"{sampler} (priors): the survey and chain kernels were "
+                 f"not launched once each: {launches}")
+        auto_runs[sampler] = (fw, sched)
+    schedule.calibrate_substeps = real_calibrate
+
+    phase("main path: JointFit({'a', 'b'}).MCMC(use_priors=True, "
+          "substeps='auto')")
+    jf = joint_fit()
+    out = io.StringIO()
+    jpost_plain = jpost
+    cuda_mh.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        jpost = jf.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
+                        fitsurvey_samples=1000, substeps="auto",
+                        use_priors=True, profile=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(cuda_mh.LAUNCHES)
+    finite = float(np.isfinite(jpost.chi.to_numpy()).mean())
+    last = jpost[jpost.iteration == jpost.iteration.max()]
+    mean_acc = float(last.acceptance_ratio.mean())
+    print(f"JointFit.MCMC(priors) wall seconds: {wall_s:.3f}; launches "
+          f"{launches}; stages " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in jf.last_profile.items()))
+    # the same seeds and schedule as the joint main path: only the prior
+    # differs
+    moved = float((jpost.acceptance_ratio.to_numpy()
+                   != jpost_plain.acceptance_ratio.to_numpy()).mean())
+    last_plain = jpost_plain[jpost_plain.iteration
+                             == jpost_plain.iteration.max()]
+    print(f"joint (priors; 'auto' resolved to "
+          f"{jf._device_args({'substeps': 'auto'})[6]}): finite chi "
+          f"fraction {finite}, mean final acceptance {mean_acc:.6f} (without "
+          f"priors {float(last_plain.acceptance_ratio.mean()):.6f}); the "
+          f"prior changed the running acceptance in {100 * moved:.2f} % of "
+          "the rows")
+    if moved == 0.0:
+        fail("joint (priors): the chains are those without priors")
+    if finite != 1.0:
+        fail(f"joint (priors): finite chi fraction {finite}")
+    if not BANDS["joint"][0] <= mean_acc <= BANDS["joint"][1]:
+        fail(f"joint (priors): mean final acceptance {mean_acc} outside "
+             f"{BANDS['joint']}")
+    if launches["joint_metropolis_hastings_fused"] != 1:
+        fail(f"joint (priors): the joint kernel was not launched once: "
+             f"{launches}")
+
+    phase("calibration: calibrate_substeps on the card and on the CPU, the "
+          "MH path's seeds")
+    c_args, c_kw = calib[0]["args"], dict(calib[0]["kw"])
+    c_kw.pop("device", None)
+    t0 = time.perf_counter()
+    on_card = schedule.calibrate_substeps(*c_args, device="cuda", **c_kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = schedule.calibrate_substeps(*c_args, device="cpu", **c_kw)
+    cpu_s = time.perf_counter() - t0
+    print(f"calibrated on the card {list(on_card)} in {card_s:.3f} s; on "
+          f"the CPU {list(on_cpu)} in {cpu_s:.3f} s")
+    if on_card != on_cpu or on_card != calib[0]["sched"]:
+        fail("calibration: the card's schedule differs from the CPU's")
+
     phase("survey and MH kernels vs twin at the MH main path's inputs")
     sv_args, sv_kw = sv_in["mh"]
     sv_spec, sv_obs, sv_tf, sv_y0, sv_th = sv_args
@@ -1023,7 +1258,7 @@ def main():
 
     phase("ensemble kernel vs twin at the main path's inputs")
     ens_th0, cfg, ens_seed = ens_in["theta0"], ens_in["cfg"], ens_in["seed"]
-    ens_nits = 200
+    ens_nits = 100
     tile_main = cfg.tile_chains or cuda_mh.pick_tile_chains(len(ens_th0))
     ens_walk = tuple(float(w) for w in cfg.mask)
     ens_sub = cuda_mh._normalize_substeps(cfg.substeps, len(tf) - 1)
@@ -1226,6 +1461,67 @@ def main():
           f"from {pf_short - 1} proposals {pf_plain_ms:.1f} ms")
     print(f"survey kernel 1000 draws: {sv_ms:.4f} ms; twin "
           f"{sv_plain_ms:.3f} ms")
+    # the slice's kernels: the demo's lognormal priors at the main paths'
+    # shapes, and MH on the schedule its prior-aware path calibrated
+    demo_tab = prior_table(auto_runs["mh"][0].parameters[p].tdist
+                           for p in ("mu", "phi", "beta"))
+    auto_sched = auto_runs["mh"][1]
+    auto_plan = cuda_mh._build_plan(spec, obs, tf, auto_sched)
+    mh_kw = dict(nits=NITS, burnin=BURNIN, walk=walk, walked=(True,) * 3,
+                 num=3)
+    prior_ms = {
+        "MH, priors": events_ms(cuda_mh.mh_launcher(
+            spec, plan, y0, "dopri5", th_main_t, seed, prior=demo_tab,
+            **mh_kw)),
+        "MH, calibrated schedule": events_ms(cuda_mh.mh_launcher(
+            spec, auto_plan, y0, "dopri5", th_main_t, seed, **mh_kw)),
+        "MH, calibrated schedule and priors": events_ms(cuda_mh.mh_launcher(
+            spec, auto_plan, y0, "dopri5", th_main_t, seed, prior=demo_tab,
+            **mh_kw)),
+        "ensemble, priors": events_ms(cuda_mh.ensemble_launcher(
+            spec, ens_plan, y0, stepper, ens_start, ens_seed, nits=NITS,
+            burnin=BURNIN, prior=demo_tab, **launch_kw)),
+        "PT, priors": events_ms(cuda_pt.pt_launcher(
+            spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS,
+            burnin=BURNIN, prior=demo_tab, **pt_main)),
+        "joint, priors": events_ms(cuda_joint.joint_launcher(
+            jspecs, jplans, jy0s, jidx, jstep, jth_all, jseed, nits=NITS,
+            burnin=BURNIN, prior=prior_table(jf._dists()), **jl_kw)),
+    }
+    # a prior whose log density is one constant over the chains' range
+    # (Cauchy of a huge scale: -log1p(z * z) + c rounds to c, theta = 0
+    # included) runs the prior's arithmetic on the chains of the prior-free
+    # run: what the prior costs apart from the chains it changes. At scale
+    # 1e30 the quotient z of phi is near float32's smallest normal, where
+    # an IEEE division leaves its fast path; at 1e15 it does not.
+    flat_ms = {}
+    for scale in (1e15, 1e30):
+        flat_d = D.Cauchy(loc=0.0, scale=scale)
+        flat = prior_table([flat_d] * 3)
+        flat_ms[f"MH, flat prior of scale {scale:g}"] = events_ms(
+            cuda_mh.mh_launcher(spec, plan, y0, "dopri5", th_main_t, seed,
+                                prior=flat, **mh_kw))
+        flat_ms[f"ensemble, flat prior of scale {scale:g}"] = events_ms(
+            cuda_mh.ensemble_launcher(spec, ens_plan, y0, stepper, ens_start,
+                                      ens_seed, nits=NITS, burnin=BURNIN,
+                                      prior=flat, **launch_kw))
+        flat_ms[f"PT, flat prior of scale {scale:g}"] = events_ms(
+            cuda_pt.pt_launcher(spec, plan, y0, "dopri5", th_main_t, seed,
+                                nits=NITS, burnin=BURNIN, prior=flat,
+                                **pt_main))
+        flat_ms[f"joint, flat prior of scale {scale:g}"] = events_ms(
+            cuda_joint.joint_launcher(
+                jspecs, jplans, jy0s, jidx, jstep, jth_all, jseed, nits=NITS,
+                burnin=BURNIN, prior=prior_table([flat_d] * len(jf._dists())),
+                **jl_kw))
+    print(f"MH kernel without priors, substeps=4 ({len(plan.step_ts)} steps "
+          f"a solve): {mh_ms:.3f} ms")
+    for label, ms in prior_ms.items():
+        print(f"{label} kernel at the main path's shape: {ms:.3f} ms"
+              + (f" ({len(auto_plan.step_ts)} steps a solve)"
+                 if "calibrated" in label else ""))
+    for label, ms in flat_ms.items():
+        print(f"{label} (the prior-free run's chains): {ms:.3f} ms")
     for sampler, (wall_s, _, stages) in runs.items():
         print(f"MCMC({sampler}) wall time: {wall_s:.3f} s; stages "
               + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))

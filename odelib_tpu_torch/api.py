@@ -8,7 +8,9 @@ prescreen, ``fit_survey`` and ``MCMC`` with ``sampler='mh'``,
 kernel (by ``fit_survey``'s batched solve of the drift for 'pmmh'),
 chains seeded under the ``sd_fitdistance`` chi cut, all chains in the
 sampler's fused kernel (MH, Goodman-Weare ensemble, parallel tempering,
-particle-marginal MH), the posterior DataFrame and the Fitting Report.
+particle-marginal MH; in-kernel priors with ``use_priors=True``, a
+calibrated schedule with ``substeps='auto'``), the posterior DataFrame and
+the Fitting Report.
 
 ``ModelFramework(device=...)`` picks where everything runs: ``cuda`` by
 default, and ``cpu`` only when asked for; without a card the default
@@ -44,10 +46,15 @@ def rawstats(pdseries):
 
 
 def _norm_substeps_arg(substeps):
+    """Validate/normalize a user substeps setting: positive int, the string
+    'auto' (a calibrated per-interval schedule, resolved inside MCMC), or
+    an explicit per-interval schedule (stored as a hashable tuple)."""
     if isinstance(substeps, str):
-        raise NotImplementedError(
-            "substeps='auto' (calibrate_substeps) is not ported yet "
-            "(ROADMAP queue 1, item 5)")
+        if substeps != "auto":
+            raise ValueError(
+                f"substeps must be an int, 'auto', or a per-interval "
+                f"sequence; got {substeps!r}")
+        return "auto"
     if isinstance(substeps, (int, np.integer)):
         if int(substeps) < 1:
             raise ValueError("substeps must be >= 1")
@@ -259,15 +266,35 @@ class ModelFramework:
                 cols.append(np.full((len(df), 1), v))
         return np.concatenate(cols, axis=1)
 
-    def _solver_args(self, overrides):
+    def _solver_args(self, overrides, n_intervals=None, keep_auto=False):
         s = dict(self._solver)
         s.update({k: _norm_substeps_arg(v) if k == "substeps" else v
                   for k, v in overrides.items() if k in self._SOLVER_KEYS})
         unknown = set(overrides) - set(self._SOLVER_KEYS)
         if unknown:
             raise TypeError(f"unexpected solver keyword(s) {sorted(unknown)}")
-        return s["method"], s["rtol"], s["atol"], s["max_steps"], \
-            s["substeps"]
+        sub = s["substeps"]
+        if not keep_auto:
+            sub = self._resolve_substeps(sub, n_intervals)
+        return s["method"], s["rtol"], s["atol"], s["max_steps"], sub
+
+    def _resolve_substeps(self, substeps, n_intervals=None):
+        """Concrete substeps for a compute path: 'auto' resolves to the
+        MCMC-calibrated schedule when its length matches this grid (MCMC
+        calibrates on the compact fit grid), else to the uniform default 4;
+        explicit schedules are length-checked against the grid."""
+        if substeps == "auto":
+            sched = getattr(self, "_auto_schedule", None)
+            if sched is not None and (n_intervals is None
+                                      or len(sched) == n_intervals):
+                return sched
+            return 4
+        if (isinstance(substeps, tuple) and n_intervals is not None
+                and len(substeps) != n_intervals):
+            raise ValueError(
+                f"substeps schedule has {len(substeps)} entries but this "
+                f"integration grid has {n_intervals} intervals")
+        return substeps
 
     # -- integration -------------------------------------------------------
     def integrate(self, inits=None, parameters=None, predict_obs=False,
@@ -388,7 +415,8 @@ class ModelFramework:
         ps = self._lhs_samples(samples)
         thetas = torch.as_tensor(self._theta_from_df(ps),
                                  dtype=torch.float64, device=self.device)
-        method, rtol, atol, max_steps, substeps = self._solver_args(solver_kw)
+        method, rtol, atol, max_steps, substeps = self._solver_args(
+            solver_kw, len(self._times_fit) - 1)
         chis = _survey(self._spec, self._obsdata_fit_host, self._times_fit,
                        self.get_inits(), thetas, method=method, rtol=rtol,
                        atol=atol, max_steps=max_steps, substeps=substeps)
@@ -435,9 +463,19 @@ class ModelFramework:
           ``sde_substeps`` steps per observation interval), chains seeded
           from :meth:`fit_survey` (the drift's chi). During burn-in the
           proposal scale adapts (``adapt_proposal``, default True) toward
-          ``target_accept`` (default 0.3) with gain ``adapt_rate``.
-          ``use_priors=True`` adds the LogNormal/Normal/Uniform priors to
-          the acceptance in the kernel. The ``rsquared`` column is NaN.
+          ``target_accept`` (default 0.3) with gain ``adapt_rate``. The
+          ``rsquared`` column is NaN.
+
+        ``use_priors=True`` adds the parameters' log priors to every
+        sampler's acceptance inside its kernel (the ten in-kernel families
+        of :mod:`~odelib_tpu_torch.ops.priors`; another family raises
+        ``ValueError`` under ``backend='pallas'``, and under ``'auto'``
+        ``NotImplementedError``, since the reference runs it on its XLA
+        sampler). ``substeps='auto'`` (here or on the framework) calibrates
+        the kernels' per-interval schedule from this run's seeding draws
+        with the adaptive solver (:mod:`~odelib_tpu_torch.ops.schedule`),
+        caches it as ``_auto_schedule`` and logs it; the prescreen uses the
+        last calibrated schedule, or 4 on the first call.
 
         ``cpu_cores``, ``route`` and ``pallas_interpret`` are accepted and
         ignored, and so is ``pallas_tile_chains`` for 'mh' and 'pt'.
@@ -447,7 +485,7 @@ class ModelFramework:
         the configured method is not dopri5/rk4; ``backend='auto'`` raises
         for such a method, since its JAX counterpart takes the XLA sampler
         there. Not ported yet, each raising ``NotImplementedError``: the
-        other samplers, ``use_priors=True`` outside 'pmmh', checkpointing,
+        other samplers, checkpointing,
         ``until_rhat``/``until_min_ess``, ``backend='xla'`` (and what
         ``backend='auto'`` sends to an XLA sampler), ``temperatures=
         'auto'`` (with ``n_temps``/``pilot_iters``/``ladder_rounds``),
@@ -482,13 +520,21 @@ class ModelFramework:
                 "sampler='pmmh' for the exact stochastic posterior.")
         priors = None
         if use_priors:
-            if sampler != "pmmh":
-                raise NotImplementedError(
-                    "use_priors=True (in-kernel priors) is ported for "
-                    "sampler='pmmh' only (ROADMAP queue 1, item 12)")
+            from .ops.priors import kernel_priors_supported
             priors = tuple(self.parameters[p].tdist
                            if self.parameters[p] is not None else None
                            for p in self._pnames)
+            if not kernel_priors_supported(priors):
+                if backend == "pallas":
+                    raise ValueError(
+                        "backend='pallas' with use_priors=True requires "
+                        "every prior to be a kernel-supported family "
+                        "(Normal, LogNormal, Uniform, Gamma, TruncNormal, "
+                        "Exponential, Cauchy, HalfNormal, Weibull, Beta); "
+                        "use backend='xla'")
+                raise NotImplementedError(
+                    "a prior without an in-kernel form runs on the XLA "
+                    f"sampler, not ported yet ({_XLA_SAMPLER_ITEM[sampler]})")
         if sampler == "pmmh":
             if sde_method == "milstein":
                 raise NotImplementedError(
@@ -522,8 +568,15 @@ class ModelFramework:
                 "backend='auto' runs the reference's XLA ensemble "
                 f"({_XLA_SAMPLER_ITEM['ensemble']}); pass backend='pallas' "
                 "to run the fused kernel")
+        n_fit_intervals = len(self._times_fit) - 1
         method, rtol, atol, max_steps, substeps = self._solver_args(
-            solver_kw)
+            solver_kw, n_fit_intervals, keep_auto=True)
+        auto_substeps = substeps == "auto"
+        if auto_substeps:
+            # the prescreen runs on the last calibrated schedule (or the
+            # uniform default on the first call); the chains' schedule is
+            # calibrated below from this run's own seeding draws
+            substeps = self._resolve_substeps("auto", n_fit_intervals)
         if method == "kvaerno3" and sampler != "pmmh":
             raise NotImplementedError(
                 "the kvaerno3 kernel stepper is not ported yet (ROADMAP "
@@ -605,6 +658,22 @@ class ModelFramework:
             theta0 = self._theta_from_df(pd.DataFrame(chain_inits))
 
         stage_done("seeding")
+        if auto_substeps and method in ("dopri5", "rk4", "kvaerno3"):
+            # substeps='auto': the adaptive solver over this run's seeding
+            # draws sets the fixed schedule (ops/schedule.py), cached on the
+            # instance for later surveys
+            from .ops.schedule import calibrate_substeps, schedule_cost
+            substeps = calibrate_substeps(
+                self._spec, self.get_inits(), self._times_fit, theta0,
+                rtol=rtol, atol=atol,
+                method="kvaerno5" if method == "kvaerno3" else "dopri5",
+                max_steps=max_steps, device=self.device)
+            self._auto_schedule = substeps
+            _dispatch.log.info(
+                "substeps='auto': calibrated schedule %s (total %d RHS "
+                "steps/solve vs %d at uniform 4)", list(substeps),
+                schedule_cost(substeps), 4 * n_fit_intervals)
+            stage_done("calibration")
         cfg = _dispatch.RunConfig(
             nits=nits, burnin=burnin,
             mask=self._walk_mask(static_parameters), rwalk_std=rwalk_std,

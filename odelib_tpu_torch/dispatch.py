@@ -35,7 +35,7 @@ class RunConfig:
     temperatures: Tuple[float, ...] = (1.0, 2.0, 4.0, 8.0)
     swap_every: int = 1
     stretch_a: float = 2.0
-    priors: Optional[Tuple[Any, ...]] = None   # per slot (pmmh only)
+    priors: Optional[Tuple[Any, ...]] = None   # per slot, or None
     n_particles: int = 128
     sde_substeps: int = 4
     adapt_proposal: bool = False
@@ -61,7 +61,8 @@ def run_fused_mh(fw, theta0, cfg: RunConfig):
     """The fused MH kernel (or, for a CPU framework, its twin)."""
     from .ops.cuda_mh import metropolis_hastings_fused
     args, kw = _fused_args(fw, theta0, cfg)
-    return metropolis_hastings_fused(*args, rwalk_std=cfg.rwalk_std, **kw)
+    return metropolis_hastings_fused(*args, rwalk_std=cfg.rwalk_std,
+                                     priors=cfg.priors, **kw)
 
 
 def run_fused_ensemble(fw, theta0, cfg: RunConfig):
@@ -69,7 +70,8 @@ def run_fused_ensemble(fw, theta0, cfg: RunConfig):
     from .ops.cuda_mh import ensemble_fused
     args, kw = _fused_args(fw, theta0, cfg)
     return ensemble_fused(*args, a=float(cfg.stretch_a),
-                          tile_chains=cfg.tile_chains, **kw)
+                          tile_chains=cfg.tile_chains, priors=cfg.priors,
+                          **kw)
 
 
 def run_fused_pt(fw, theta0, cfg: RunConfig):
@@ -78,7 +80,8 @@ def run_fused_pt(fw, theta0, cfg: RunConfig):
     args, kw = _fused_args(fw, theta0, cfg)
     out, swap_rate = parallel_tempering_fused(
         *args, temperatures=tuple(cfg.temperatures),
-        swap_every=cfg.swap_every, rwalk_std=cfg.rwalk_std, **kw)
+        swap_every=cfg.swap_every, rwalk_std=cfg.rwalk_std,
+        priors=cfg.priors, **kw)
     log.info("parallel tempering (fused): mean cold-pair swap acceptance "
              "%.3f per proposal over %d temperatures",
              float(swap_rate.mean()), len(cfg.temperatures))

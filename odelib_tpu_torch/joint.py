@@ -10,8 +10,8 @@ framework). The joint layout, LHS survey, seeding, posterior frame and
 report are the JAX package's. Not ported yet, each raising
 ``NotImplementedError`` naming its ROADMAP item: ``hierarchical=``,
 array parameters, stochastic experiments (joint PMMH), ``sampler='hmc'``,
-``backend='xla'``, ``use_priors=True``, checkpointing and
-``until_rhat``/``until_min_ess``.
+``backend='xla'`` (and priors without an in-kernel form, which the
+reference runs there), checkpointing and ``until_rhat``/``until_min_ess``.
 """
 from __future__ import annotations
 
@@ -136,7 +136,9 @@ class JointFit:
     def _device_args(self, solver_kw):
         """(specs, idx maps, host obs, compact grids, y0s, method, substeps
         per experiment): the first framework's method as a fixed-step
-        survey method, each framework's own substeps."""
+        survey method, each framework's own substeps ('auto' resolved per
+        framework: its calibrated schedule where it fits the framework's
+        grid, else 4)."""
         specs, idxs, obs, times, y0s, subs = [], [], [], [], [], []
         method = None
         for nm, fw in self.frameworks.items():
@@ -145,7 +147,8 @@ class JointFit:
             obs.append(fw._obsdata_fit_host)
             times.append(np.asarray(fw._times_fit, np.float64))
             y0s.append(np.asarray(fw.get_inits(), np.float64))
-            m, _, _, _, sub = fw._solver_args(solver_kw)
+            m, _, _, _, sub = fw._solver_args(solver_kw,
+                                              len(fw._times_fit) - 1)
             subs.append(sub)
             if method is None:
                 method = m
@@ -209,8 +212,11 @@ class JointFit:
         Returns a DataFrame with the joint columns plus total ``chi``,
         per-experiment ``chi:<name>``, ``iteration``, ``acceptance_ratio``,
         ``chain#`` and ``all_rejected``, one row per recorded joint sample.
-        ``profile=True`` records each stage's wall seconds in
-        ``last_profile`` (synchronising the device at each boundary).
+        ``use_priors=True`` adds the log prior of every joint slot (a
+        shared parameter's from the first framework) to the acceptance in
+        the kernel, once per proposal. ``profile=True`` records each
+        stage's wall seconds in ``last_profile`` (synchronising the device
+        at each boundary).
         ``pallas_tile_chains``, ``pallas_interpret`` and the HMC and SDE
         knobs are accepted; the options that are not ported raise
         ``NotImplementedError`` naming their ROADMAP item.
@@ -233,10 +239,19 @@ class JointFit:
             raise NotImplementedError(
                 "backend='xla': the XLA samplers/joint.py is not ported yet "
                 "(ROADMAP queue 1, item 15)")
+        priors = None
         if use_priors:
-            raise NotImplementedError(
-                "use_priors=True (in-kernel priors of the joint kernel) is "
-                "not ported yet (ROADMAP queue 1, item 12)")
+            from .ops.priors import kernel_priors_supported
+            priors = tuple(self._dists())
+            if not kernel_priors_supported(priors):
+                if backend == "pallas":
+                    raise ValueError(
+                        "unsupported prior family for the fused kernel; "
+                        "use the XLA backend")
+                raise NotImplementedError(
+                    "a prior without an in-kernel form runs on the XLA "
+                    "samplers/joint.py, not ported yet (ROADMAP queue 1, "
+                    "item 15)")
         if checkpoint_every is not None or checkpoint_path is not None \
                 or resume_from is not None:
             raise NotImplementedError(
@@ -281,7 +296,7 @@ class JointFit:
             seed=int(self.random_seed), nits=nits, burnin=int(burnin),
             walk_mask=mask, rwalk_std=float(rwalk_std),
             stepper="rk4" if method == "rk4" else "dopri5",
-            substeps_list=subs)
+            substeps_list=subs, priors=priors)
         stage_done("chains")
         posterior = self._posterior_to_df(out, n_chains)
         stage_done("posterior")

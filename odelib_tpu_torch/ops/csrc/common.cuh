@@ -5,7 +5,7 @@
 // Counterparts in odelib_tpu/ops/pallas_mh.py: _build_plan (the plan, laid
 // out as flat tables by ops/cuda_mh.py plan_tables), _make_scorer
 // (lognormal, uncensored) with the fixed steppers, _mix/_Rng, and
-// _kernel_logpdf for the LogNormal, Normal and Uniform families.
+// _kernel_logpdf for its ten in-kernel prior families.
 #pragma once
 
 #include <cstdint>
@@ -228,28 +228,72 @@ __device__ __forceinline__ float normal(uint32_t key, uint32_t ctr) {
   return sqrtf(-2.0f * logf(u1)) * cosf(ODELIB_TWO_PI * u2);
 }
 
-// Log prior density of one theta slot, from its 5-float table entry
-// (ops/priors.py prior_table): family (0 none, 1 LogNormal, 2 Normal,
-// 3 Uniform), then loc, scale, s (LogNormal) or the upper edge (Uniform),
-// and the normalising constant, each rounded to float32 on the host as
-// _kernel_logpdf's Python floats are where they meet the float32 theta.
-enum : int { PRIOR_NONE = 0, PRIOR_LOGNORMAL, PRIOR_NORMAL, PRIOR_UNIFORM };
-constexpr int PRIOR_WIDTH = 5;
+// Log prior density of one theta slot, from its 6-float table entry
+// (ops/priors.py prior_table): the family, loc, scale, two shape values
+// p1 and p2, and the normalising constant c, each rounded to float32 on the
+// host as _kernel_logpdf's Python floats are where they meet the float32
+// theta. p1, p2 by family: LogNormal s; Uniform the upper edge; Gamma a - 1;
+// TruncNormal a, b; Weibull c - 1, c; Beta a - 1, b - 1. Each family's
+// operations are _kernel_logpdf's, in its order.
+enum : int {
+  PRIOR_NONE = 0, PRIOR_LOGNORMAL, PRIOR_NORMAL, PRIOR_UNIFORM, PRIOR_GAMMA,
+  PRIOR_TRUNCNORMAL, PRIOR_EXPONENTIAL, PRIOR_CAUCHY, PRIOR_HALFNORMAL,
+  PRIOR_WEIBULL, PRIOR_BETA
+};
+constexpr int PRIOR_WIDTH = 6;
 
 __device__ __forceinline__ float log_prior(const float* e, float x) {
   const int fam = (int)e[0];
-  if (fam == PRIOR_LOGNORMAL) {
-    const float y = (x - e[1]) / e[2];
-    const float ly = logf(fmaxf(y, 1e-37f));
-    const float q = ly / e[3];
-    return y > 0.0f ? (-0.5f * (q * q) - ly) + e[4] : -INFINITY;
+  const float loc = e[1], scale = e[2], p1 = e[3], p2 = e[4], c = e[5];
+  const float y = (x - loc) / scale;   // z of the location-scale families
+  switch (fam) {
+    case PRIOR_LOGNORMAL: {
+      const float ly = logf(fmaxf(y, 1e-37f));
+      const float q = ly / p1;
+      return y > 0.0f ? (-0.5f * (q * q) - ly) + c : -INFINITY;
+    }
+    case PRIOR_NORMAL:
+      return -0.5f * y * y + c;
+    case PRIOR_UNIFORM:
+      return (x >= loc && x <= p1) ? c : -INFINITY;
+    case PRIOR_GAMMA: {
+      const float ly = logf(fmaxf(y, 1e-37f));
+      return y > 0.0f ? (p1 * ly - y) + c : -INFINITY;
+    }
+    case PRIOR_TRUNCNORMAL:
+      return (y >= p1 && y <= p2) ? -0.5f * y * y + c : -INFINITY;
+    case PRIOR_EXPONENTIAL:
+      return y >= 0.0f ? -y + c : -INFINITY;
+    case PRIOR_CAUCHY:
+      return -log1pf(y * y) + c;
+    case PRIOR_HALFNORMAL:
+      return y >= 0.0f ? -0.5f * y * y + c : -INFINITY;
+    case PRIOR_WEIBULL: {
+      const float ly = logf(fmaxf(y, 1e-37f));
+      return y > 0.0f ? (p1 * ly - expf(p2 * ly)) + c : -INFINITY;
+    }
+    case PRIOR_BETA: {
+      const bool inside = y > 0.0f && y < 1.0f;
+      const float ys = inside ? y : 0.5f;
+      return inside ? (p1 * logf(ys) + p2 * log1pf(-ys)) + c : -INFINITY;
+    }
+    default:
+      return 0.0f;
   }
-  if (fam == PRIOR_NORMAL) {
-    const float z = (x - e[1]) / e[2];
-    return -0.5f * z * z + e[4];
+}
+
+// The prior sum of N slots at theta th: the slots with a prior add to a
+// zero start in slot order, as the JAX kernels' logprior does.
+template <int N>
+__device__ __forceinline__ float log_prior_sum(const float* __restrict__ tab,
+                                               const float* th) {
+  float lp = 0.0f;
+#pragma unroll
+  for (int p = 0; p < N; ++p) {
+    const float* e = tab + PRIOR_WIDTH * p;
+    if ((int)e[0] != PRIOR_NONE) lp = lp + log_prior(e, th[p]);
   }
-  if (fam == PRIOR_UNIFORM) return (x >= e[1] && x <= e[3]) ? e[4] : -INFINITY;
-  return 0.0f;
+  return lp;
 }
 
 }  // namespace odelib

@@ -42,6 +42,10 @@
 //     cooperative, so it fails (cudaErrorCooperativeLaunchTooLarge) rather
 //     than deadlock where the grid cannot be co-resident.
 //
+// With priors (the PRIORS instantiations) the buffer holds a further row,
+// each walker's log prior, and the ratio adds lp_new - lp
+// (pallas_mh.py:1598,1631-1648).
+//
 // Numerics: as mh.cu (-fmad=false, no fast math, host-rounded constants),
 // so it rounds like its torch twin ensemble_plain (ops/cuda_mh.py).
 #include "common.cuh"
@@ -57,7 +61,9 @@ struct EnsArgs {
   const float* pf;
   const float* theta0;
   const float* walk;     // P mask values, then P walked flags
-  float* state;          // (P + 3) x W: log-theta, chi, R^2, accept count
+  const float* prior;    // P prior table entries (PRIORS instantiations)
+  float* state;          // (P + 3) x W: log-theta, chi, R^2, accept count;
+                         // with PRIORS a further row, the log prior
   unsigned int* bar;     // the grid barrier: arrivals, generation
   float* th_rec;
   float* chi_rec;
@@ -92,7 +98,9 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar) {
   __syncthreads();
 }
 
-template <int STEPPER>
+// PRIORS adds the log prior to the acceptance (pallas_mh.py:1631-1648); the
+// false instantiations are the prior-free kernel, its code compiled out.
+template <int STEPPER, bool PRIORS>
 __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
   extern __shared__ uint32_t smem[];
   const int* pi = a.pi;
@@ -113,6 +121,7 @@ __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
   float* chi_s = a.state + (size_t)ODE_P * W;
   float* rsq_s = chi_s + W;
   float* acc_s = rsq_s + W;
+  float* lp_s = acc_s + W;               // PRIORS only
   float scale[ODE_P];
   bool walked[ODE_P];
 #pragma unroll
@@ -136,6 +145,8 @@ __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
       __stcg(chi_s + g, chi);
       __stcg(rsq_s + g, rsq);
       __stcg(acc_s + g, 0.0f);
+      if constexpr (PRIORS)
+        __stcg(lp_s + g, log_prior_sum<ODE_P>(a.prior, th));
     }
   }
 
@@ -181,9 +192,17 @@ __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
         float chi = __ldcg(chi_s + g);
         float rsq = __ldcg(rsq_s + g);
         float acc = __ldcg(acc_s + g);
+        // the state's log prior is read before the solve, which hides its
+        // L2 latency (read after it, the latency adds to each half-update)
+        const float lp = PRIORS ? __ldcg(lp_s + g) : 0.0f;
         float chi_new, rsq_new;
         score<STEPPER>(pl, thp, chi_new, rsq_new);
-        const float log_ratio = (a.nw1 * logf(z) + chi) - chi_new;
+        float log_ratio = (a.nw1 * logf(z) + chi) - chi_new;
+        float lp_new = 0.0f;
+        if constexpr (PRIORS) {
+          lp_new = log_prior_sum<ODE_P>(a.prior, thp);
+          log_ratio = log_ratio + (lp_new - lp);
+        }
         const float uacc = uniform(key, ctr + 1u);
         // NaN or -inf log ratio compares false: rejected
         if (expf(log_ratio) > uacc) {
@@ -198,6 +217,7 @@ __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
           __stcg(chi_s + g, chi);
           __stcg(rsq_s + g, rsq);
           __stcg(acc_s + g, acc);
+          if constexpr (PRIORS) __stcg(lp_s + g, lp_new);
         }
         // this walker's state is final for the iteration: record it
         const int r = it - 1 - a.burnin;
@@ -216,7 +236,7 @@ __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
   }
 }
 
-template <int STEPPER>
+template <int STEPPER, bool PRIORS>
 int run(EnsArgs a, int blocks, cudaStream_t s) {
   const size_t smem = plan_smem(a.n_i, a.n_f);
   if (smem == 0) a.n_i = a.n_f = 0;
@@ -226,20 +246,22 @@ int run(EnsArgs a, int blocks, cudaStream_t s) {
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
   return (int)cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&ens_kernel<STEPPER>), grid, ENS_BLOCK,
-      args, smem, s);
+      reinterpret_cast<const void*>(&ens_kernel<STEPPER, PRIORS>), grid,
+      ENS_BLOCK, args, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The most blocks of the ensemble kernel that can be co-resident on the
-// current device with a plan of n_i + n_f words: the largest grid a
-// cooperative launch of it accepts.
-int odelib_ensemble_blocks(int n_i, int n_f, int stepper, int* blocks) {
+// The most blocks of the ensemble kernel (with priors or without) that can
+// be co-resident on the current device with a plan of n_i + n_f words: the
+// largest grid a cooperative launch of it accepts.
+int odelib_ensemble_blocks(int n_i, int n_f, int stepper, int priors,
+                           int* blocks) {
   void (*kernel)(const EnsArgs) =
-      stepper == 0 ? &ens_kernel<0> : &ens_kernel<1>;
+      stepper == 0 ? (priors ? &ens_kernel<0, true> : &ens_kernel<0, false>)
+                   : (priors ? &ens_kernel<1, true> : &ens_kernel<1, false>);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -254,9 +276,12 @@ int odelib_ensemble_blocks(int n_i, int n_f, int stepper, int* blocks) {
 // One device launch for the whole run, of at most `blocks` blocks (the
 // count odelib_ensemble_blocks gives, or fewer: threads then loop over
 // columns). tile must be a positive multiple of 256 dividing W; W0 <= W
-// walkers are recorded; bar is two words of device scratch.
+// walkers are recorded; bar is two words of device scratch. prior: P
+// table entries, or null for none (state then holds P + 3 rows, else
+// P + 4).
 int odelib_ensemble(const int* pi, int n_i, const float* pf, int n_f,
-                    const float* theta0, const float* walk, float* state,
+                    const float* theta0, const float* walk,
+                    const float* prior, float* state,
                     unsigned int* bar, float* th_rec, float* chi_rec,
                     float* rsq_rec, float* aic_rec, float* ar_rec, int W,
                     int W0, int tile, int nits, int burnin, unsigned int seed,
@@ -264,11 +289,15 @@ int odelib_ensemble(const int* pi, int n_i, const float* pf, int n_f,
                     int stepper, int blocks, void* stream) {
   if (tile <= 0 || tile % 256 != 0 || W % tile != 0 || W0 > W || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  const EnsArgs args{pi, pf, theta0, walk, state, bar, th_rec, chi_rec,
-                     rsq_rec, aic_rec, ar_rec, W, W0, tile, nits, burnin,
-                     n_i, n_f, seed, am1, a, nw1, aic_const};
+  const EnsArgs args{pi, pf, theta0, walk, prior, state, bar, th_rec,
+                     chi_rec, rsq_rec, aic_rec, ar_rec, W, W0, tile, nits,
+                     burnin, n_i, n_f, seed, am1, a, nw1, aic_const};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return stepper == 0 ? run<0>(args, blocks, s) : run<1>(args, blocks, s);
+  if (prior)
+    return stepper == 0 ? run<0, true>(args, blocks, s)
+                        : run<1, true>(args, blocks, s);
+  return stepper == 0 ? run<0, false>(args, blocks, s)
+                      : run<1, false>(args, blocks, s);
 }
 
 }  // extern "C"

@@ -14,7 +14,13 @@
 // score, at slot 2W, W the walked dimensions (pallas_joint.py:439-449).
 // It accepts when exp(chi - chi_new) > u, so a NaN ratio rejects, and
 // records theta, the total chi, the K parts and the running acceptance
-// ratio acc / it. Burn-in rows are not written. The RNG is the MH kernel's
+// ratio acc / it. Burn-in rows are not written. With priors (the PRIORS
+// instantiations, pallas_joint.py:365-426) the chain carries the log prior
+// lp of its joint theta, one table entry per joint dimension, and accepts
+// when exp((chi - chi_new) + (lp_new - lp)) > u: the prior enters the total
+// once, not once per experiment part. Every warp evaluates lp_new itself
+// from the proposal in shared memory, in dimension order, so all K warps
+// hold the same value and make the same decision without another barrier. The RNG is the MH kernel's
 // (key mix(seed * 0x9E3779B1 + c) on the global chain index c, counter
 // it * 1024 + slot), so no block layout changes a chain's draws.
 //
@@ -65,6 +71,7 @@ struct JointArgs {
                          // then its idx map (ODE_PMAX entries)
   const float* theta0;
   const float* walk;     // D scales f32(rwalk_std * mask_d), D walked flags
+  const float* prior;    // D prior table entries (PRIORS instantiations)
   float* th_rec;
   float* chi_rec;
   float* parts_rec;
@@ -95,6 +102,19 @@ __device__ __forceinline__ float score_experiment(const Plan& pl, int model,
   return chi;
 }
 
+// The log prior of the joint theta th(d), d < D: the dimensions with a
+// prior add to a zero start in dimension order.
+template <class Theta>
+__device__ __forceinline__ float joint_log_prior(const float* prior, int D,
+                                                 Theta th) {
+  float lp = 0.0f;
+  for (int d = 0; d < D; ++d) {
+    const float* e = prior + PRIOR_WIDTH * d;
+    if ((int)e[0] != PRIOR_NONE) lp = lp + log_prior(e, th(d));
+  }
+  return lp;
+}
+
 // Shared words the block needs besides the plans.
 __host__ __device__ constexpr int state_words(int D, int K, int ew) {
   return 2 * D * 32 + K * 32 + D + K * ew;
@@ -103,7 +123,7 @@ __host__ __device__ constexpr int state_words(int D, int K, int ew) {
 // One block per SM named as the least, so ptxas does not trade registers
 // for resident blocks (with the block size alone it held the one-state GBM
 // model's builds to 48 registers and spilled 16 bytes).
-template <int STEPPER>
+template <int STEPPER, bool PRIORS>
 __global__ void __launch_bounds__(32 * JOINT_KMAX, 1)
 joint_kernel(const JointArgs a) {
   extern __shared__ uint32_t smem[];
@@ -145,6 +165,11 @@ joint_kernel(const JointArgs a) {
   __syncthreads();
   float chi = part[lane];
   for (int kk = 1; kk < K; ++kk) chi = chi + part[kk * 32 + lane];
+  float lp = 0.0f;
+  if constexpr (PRIORS)
+    lp = joint_log_prior(a.prior, D, [&](int d) {
+      return a.theta0[(size_t)d * C + c];
+    });
   float acc = 0.0f;
   const uint32_t key = mix(a.seed * 0x9E3779B1u + (uint32_t)c);
   for (int it = 1; it < a.nits; ++it) {
@@ -164,11 +189,20 @@ joint_kernel(const JointArgs a) {
     float chi_new = part[lane];
     for (int kk = 1; kk < K; ++kk) chi_new = chi_new + part[kk * 32 + lane];
     const float u = uniform(key, base + 2u * (uint32_t)n_walked);
+    float log_ratio = chi - chi_new;
+    float lp_new = 0.0f;
+    if constexpr (PRIORS) {
+      lp_new = joint_log_prior(a.prior, D, [&](int d) {
+        return expf(prop[d * 32 + lane]);
+      });
+      log_ratio = log_ratio + (lp_new - lp);
+    }
     // NaN or -inf log ratio compares false: rejected
-    if (expf(chi - chi_new) > u) {
+    if (expf(log_ratio) > u) {
       for (int d = k; d < D; d += K) lt[d * 32 + lane] = prop[d * 32 + lane];
       part_k = part_new;
       chi = chi_new;
+      if constexpr (PRIORS) lp = lp_new;
       acc = acc + 1.0f;
     }
     const int r = it - 1 - a.burnin;
@@ -186,12 +220,13 @@ joint_kernel(const JointArgs a) {
 
 extern "C" {
 
+// prior: D table entries of PRIOR_WIDTH floats, or null for none.
 int odelib_joint(const int* pi_all, int n_i, const float* pf_all, int n_f,
                  const int* exp_tab, int ew, const float* theta0,
-                 const float* walk, float* th_rec, float* chi_rec,
-                 float* parts_rec, float* ar_rec, int C, int D, int K,
-                 int nits, int burnin, unsigned int seed, int stepper,
-                 void* stream) {
+                 const float* walk, const float* prior, float* th_rec,
+                 float* chi_rec, float* parts_rec, float* ar_rec, int C,
+                 int D, int K, int nits, int burnin, unsigned int seed,
+                 int stepper, void* stream) {
   if (D < 1 || D > JOINT_DMAX || K < 1 || K > JOINT_KMAX || C < 1
       || ew < 3 + ODE_PMAX)
     return (int)cudaErrorInvalidValue;
@@ -202,16 +237,16 @@ int odelib_joint(const int* pi_all, int n_i, const float* pf_all, int n_f,
   } else {
     n_i = n_f = 0;
   }
-  const JointArgs a{pi_all, pf_all, exp_tab, theta0, walk, th_rec, chi_rec,
-                    parts_rec, ar_rec, ew, C, D, K, nits, burnin, n_i, n_f,
-                    seed};
+  const JointArgs a{pi_all, pf_all, exp_tab, theta0, walk, prior, th_rec,
+                    chi_rec, parts_rec, ar_rec, ew, C, D, K, nits, burnin,
+                    n_i, n_f, seed};
   const int grid = (C + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stepper == 0) {
-    joint_kernel<0><<<grid, 32 * K, smem, s>>>(a);
-  } else {
-    joint_kernel<1><<<grid, 32 * K, smem, s>>>(a);
-  }
+  void (*kernel)(const JointArgs) =
+      stepper == 0
+          ? (prior ? &joint_kernel<0, true> : &joint_kernel<0, false>)
+          : (prior ? &joint_kernel<1, true> : &joint_kernel<1, false>);
+  kernel<<<grid, 32 * K, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

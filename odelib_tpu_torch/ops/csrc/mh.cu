@@ -52,6 +52,15 @@
 // as the least, so ptxas does not trade registers for resident blocks (as
 // pt.cu).
 //
+// In-kernel priors (pallas_mh.py:1044-1125): the PRIORS instantiations
+// carry the chain's log prior lp and accept when exp((chi - chi_new) +
+// (lp_new - lp)) > u. Each lane evaluates the log prior of its own node
+// beside its solve (common.cuh log_prior_sum, on the theta it solves) and
+// the group exchanges it with chi and R^2: one evaluation a lane and round.
+// (Replaying lanes that each evaluated every node they replay, up to four
+// in turn after the exchange, made mh_kernel 10-17 % slower; PERF.md §6.)
+// Without priors the kernel is the prior-free code.
+//
 // Both kernels stage the plan (step list, per-grid-point observation CSR,
 // y0) in shared memory where it fits in 48 KB (common.cuh staged_plan), as the
 // ensemble and joint kernels do: the survey's one solve then reads no table
@@ -97,6 +106,7 @@ struct MhArgs {
   const float* pf;
   const float* theta0;
   const float* walk;     // P walk scales, then P walked flags
+  const float* prior;    // P prior table entries (PRIORS instantiations)
   float* th_rec;
   float* chi_rec;
   float* rsq_rec;
@@ -109,20 +119,25 @@ struct MhArgs {
 };
 
 // The chain's state after one replayed decision on proposal `prop` with
-// its score (chi_new, rsq_new); the serial kernel's update exactly.
+// its score (chi_new, rsq_new) and, with PRIORS, its log prior lp_new; the
+// serial kernel's update exactly (pallas_mh.py:1115-1125).
+template <bool PRIORS>
 __device__ __forceinline__ bool decide(float (&lt)[ODE_P], float& chi,
-                                       float& rsq, float& acc,
+                                       float& rsq, float& acc, float& lp,
                                        const float (&prop)[ODE_P],
                                        float chi_new, float rsq_new,
-                                       float u) {
+                                       float lp_new, float u) {
+  float log_ratio = chi - chi_new;
+  if constexpr (PRIORS) log_ratio = log_ratio + (lp_new - lp);
   // NaN or -inf log ratio compares false: rejected
-  const bool ok = expf(chi - chi_new) > u;
+  const bool ok = expf(log_ratio) > u;
   if (ok) {
 #pragma unroll
     for (int p = 0; p < ODE_P; ++p) lt[p] = prop[p];
     chi = chi_new;
     rsq = rsq_new;
     acc = acc + 1.0f;
+    if constexpr (PRIORS) lp = lp_new;
   }
   return ok;
 }
@@ -166,7 +181,9 @@ __device__ __forceinline__ float pick4(const float (&v)[4], int n) {
   return n == 0 ? v[0] : n == 1 ? v[1] : n == 2 ? v[2] : v[3];
 }
 
-template <int STEPPER>
+// PRIORS adds the log prior to the acceptance (a.prior); the false
+// instantiations are the prior-free kernel, the prior's code compiled out.
+template <int STEPPER, bool PRIORS>
 __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
   constexpr int G = MH_GROUP;
   const Plan pl = staged_plan(a.pi, a.n_i, a.pf, a.n_f);
@@ -186,6 +203,8 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
   }
   float chi, rsq;
   score<STEPPER>(pl, thp, chi, rsq);
+  float lp = 0.0f;   // the log prior at the chain's state
+  if constexpr (PRIORS) lp = log_prior_sum<ODE_P>(a.prior, thp);
 #pragma unroll
   for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
   float acc = 0.0f;
@@ -225,13 +244,17 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
     }
     // lanes past nits - 1 solve nothing; their results are never read
     const int ahead = node_depth(tree, role);
-    float chi_new = 0.0f, rsq_new = 0.0f;
-    if (it + ahead < nits) score<STEPPER>(pl, thp, chi_new, rsq_new);
-    float chi_n[4], rsq_n[4];
+    float chi_new = 0.0f, rsq_new = 0.0f, lp_new = 0.0f;
+    if (it + ahead < nits) {
+      score<STEPPER>(pl, thp, chi_new, rsq_new);
+      if constexpr (PRIORS) lp_new = log_prior_sum<ODE_P>(a.prior, thp);
+    }
+    float chi_n[4], rsq_n[4], lp_n[4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       chi_n[n] = __shfl_sync(0xFFFFFFFFu, chi_new, n, G);
       rsq_n[n] = __shfl_sync(0xFFFFFFFFu, rsq_new, n, G);
+      lp_n[n] = PRIORS ? __shfl_sync(0xFFFFFFFFu, lp_new, n, G) : 0.0f;
     }
     if (it < nits) {
       // replay the serial decisions down the tree; lane k stores the k-th
@@ -243,9 +266,10 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
         for (int p = 0; p < ODE_P; ++p)
           prop[p] = n == 0 ? nd[0][p] : n == 1 ? nd[1][p]
                     : n == 2 ? nd[2][p] : nd[3][p];
-        const bool ok = decide(lt, chi, rsq, acc, prop, pick4(chi_n, n),
-                               pick4(rsq_n, n),
-                               uniform(key, b0 + 1024u * k + slot));
+        const bool ok = decide<PRIORS>(lt, chi, rsq, acc, lp, prop,
+                                       pick4(chi_n, n), pick4(rsq_n, n),
+                                       pick4(lp_n, n),
+                                       uniform(key, b0 + 1024u * k + slot));
         if (live && role == k) record(a, c, it + k, lt, chi, rsq, acc);
         ++k;
         const int next = node_child(tree, n, ok);
@@ -279,24 +303,25 @@ int odelib_survey(const int* pi, int n_i, const float* pf, int n_f,
   return (int)cudaGetLastError();
 }
 
+// prior: P table entries of PRIOR_WIDTH floats, or null for none.
 int odelib_mh(const int* pi, int n_i, const float* pf, int n_f,
-              const float* theta0, const float* walk, float* th_rec,
-              float* chi_rec, float* rsq_rec, float* aic_rec, float* ar_rec,
-              int C, int nits, int burnin, unsigned int seed,
+              const float* theta0, const float* walk, const float* prior,
+              float* th_rec, float* chi_rec, float* rsq_rec, float* aic_rec,
+              float* ar_rec, int C, int nits, int burnin, unsigned int seed,
               float aic_const, int stepper, void* stream) {
   if (C < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = odelib::plan_smem(n_i, n_f);
   if (smem == 0) n_i = n_f = 0;
-  const MhArgs a{pi, pf, theta0, walk, th_rec, chi_rec, rsq_rec, aic_rec,
-                 ar_rec, n_i, n_f, C, nits, burnin, seed, aic_const};
+  const MhArgs a{pi, pf, theta0, walk, prior, th_rec, chi_rec, rsq_rec,
+                 aic_rec, ar_rec, n_i, n_f, C, nits, burnin, seed,
+                 aic_const};
   const long long threads = (long long)C * MH_GROUP;
   const int grid = (int)((threads + MH_BLOCK - 1) / MH_BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stepper == 0) {
-    mh_kernel<0><<<grid, MH_BLOCK, smem, s>>>(a);
-  } else {
-    mh_kernel<1><<<grid, MH_BLOCK, smem, s>>>(a);
-  }
+  void (*kernel)(const MhArgs) =
+      stepper == 0 ? (prior ? &mh_kernel<0, true> : &mh_kernel<0, false>)
+                   : (prior ? &mh_kernel<1, true> : &mh_kernel<1, false>);
+  kernel<<<grid, MH_BLOCK, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

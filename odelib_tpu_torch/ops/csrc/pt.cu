@@ -13,7 +13,11 @@
 // finite, delta = (beta_k - beta_{k+1}) (chi_k - chi_{k+1}). Only the T = 1
 // rung is recorded, with its walk acceptances and accepted (0,1) swaps.
 // Without priors the log-prior planes of the JAX kernel are zero, and
-// chi - 0 is chi exactly, so they are left out.
+// chi - 0 is chi exactly, so they are left out. With priors (the PRIORS
+// instantiations, pallas_pt.py:119,155-177) each rung carries its log
+// prior lp: the walk accepts when exp(((chi - chi_new) + (lp_new - lp))
+// beta_k) > u, delta is (beta_k - beta_{k+1}) ((chi - lp)_k - (chi -
+// lp)_{k+1}), and lp swaps with chi and R^2.
 //
 // What bounds it on the card: K fixed-step solves per chain and iteration,
 // long chains of dependent float32 operations, as mh_kernel; the bytes are
@@ -69,11 +73,12 @@ using namespace odelib;
 
 // ladder: K*P walk scales f32(rwalk_std sqrt(T_k) mask_p), P walked flags,
 // K betas f32(1/T_k), K-1 pair factors f32(beta_k - beta_{k+1}).
-template <int STEPPER>
+// prior: P table entries (read by the PRIORS instantiations only).
+template <int STEPPER, bool PRIORS>
 __global__ void __launch_bounds__(PT_BLOCK, 1)
 pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
           const float* __restrict__ theta0, const float* __restrict__ ladder,
-          float* __restrict__ th_rec, float* __restrict__ chi_rec,
+          const float* __restrict__ prior, float* __restrict__ th_rec, float* __restrict__ chi_rec,
           float* __restrict__ rsq_rec, float* __restrict__ aic_rec,
           float* __restrict__ ar_rec, float* __restrict__ sw_rec, int C,
           int K, int G, int nits, int burnin, int swap_every, uint32_t seed,
@@ -100,6 +105,8 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
   for (int p = 0; p < ODE_P; ++p) thp[p] = theta0[(size_t)p * C + c];
   float chi, rsq;
   score<STEPPER>(pl, thp, chi, rsq);
+  float lp = 0.0f;   // this rung's log prior
+  if constexpr (PRIORS) lp = log_prior_sum<ODE_P>(prior, thp);
 #pragma unroll
   for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
   float acc = 0.0f, sw = 0.0f;
@@ -120,12 +127,19 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
     float chi_new, rsq_new;
     score<STEPPER>(pl, thp, chi_new, rsq_new);
     const float u = uniform(key, ctr);
+    float log_ratio = chi - chi_new;
+    float lp_new = 0.0f;
+    if constexpr (PRIORS) {
+      lp_new = log_prior_sum<ODE_P>(prior, thp);
+      log_ratio = log_ratio + (lp_new - lp);
+    }
     // NaN or -inf log ratio compares false: rejected
-    if (rung && expf((chi - chi_new) * beta) > u) {
+    if (rung && expf(log_ratio * beta) > u) {
 #pragma unroll
       for (int p = 0; p < ODE_P; ++p) lt[p] = prop[p];
       chi = chi_new;
       rsq = rsq_new;
+      if constexpr (PRIORS) lp = lp_new;
       if (k == 0) acc = acc + 1.0f;
     }
     // swap phase: the due pairs (one parity) are disjoint, so every due
@@ -139,8 +153,15 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
       const float u_s = uniform(key, (uint32_t)it * 1024u +
                                          (uint32_t)K * per_rung +
                                          (uint32_t)(paired ? lo : 0));
+      // the energies chi - lp (chi alone without priors), lower rung first
+      float e = chi, e_o = chi_o, lp_o = 0.0f;
+      if constexpr (PRIORS) {
+        lp_o = __shfl_sync(0xFFFFFFFFu, lp, partner, G);
+        e = chi - lp;
+        e_o = chi_o - lp_o;
+      }
       const float delta = dbeta[paired ? lo : 0] *
-                          (lo == k ? chi - chi_o : chi_o - chi);
+                          (lo == k ? e - e_o : e_o - e);
       const bool swap = paired && expf(delta) > u_s && isfinite(delta);
 #pragma unroll
       for (int p = 0; p < ODE_P; ++p) {
@@ -151,6 +172,7 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
       if (swap) {
         chi = chi_o;
         rsq = rsq_o;
+        if constexpr (PRIORS) lp = lp_o;
         if (k == 0) sw = sw + 1.0f;
       }
     }
@@ -173,11 +195,13 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
 
 extern "C" {
 
+// prior: P table entries of PRIOR_WIDTH floats, or null for none.
 int odelib_pt(const int* pi, const float* pf, const float* theta0,
-              const float* ladder, float* th_rec, float* chi_rec,
-              float* rsq_rec, float* aic_rec, float* ar_rec, float* sw_rec,
-              int C, int K, int nits, int burnin, int swap_every,
-              unsigned int seed, float aic_const, int stepper, void* stream) {
+              const float* ladder, const float* prior, float* th_rec,
+              float* chi_rec, float* rsq_rec, float* aic_rec, float* ar_rec,
+              float* sw_rec, int C, int K, int nits, int burnin,
+              int swap_every, unsigned int seed, float aic_const,
+              int stepper, void* stream) {
   if (K < 2 || K > PT_KMAX || swap_every < 1 || C < 1)
     return (int)cudaErrorInvalidValue;
   int G = 2;
@@ -185,15 +209,13 @@ int odelib_pt(const int* pi, const float* pf, const float* theta0,
   const long long threads = (long long)C * G;
   const int grid = (int)((threads + PT_BLOCK - 1) / PT_BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stepper == 0) {
-    pt_kernel<0><<<grid, PT_BLOCK, 0, s>>>(
-        pi, pf, theta0, ladder, th_rec, chi_rec, rsq_rec, aic_rec, ar_rec,
-        sw_rec, C, K, G, nits, burnin, swap_every, seed, aic_const);
-  } else {
-    pt_kernel<1><<<grid, PT_BLOCK, 0, s>>>(
-        pi, pf, theta0, ladder, th_rec, chi_rec, rsq_rec, aic_rec, ar_rec,
-        sw_rec, C, K, G, nits, burnin, swap_every, seed, aic_const);
-  }
+  auto kernel =
+      stepper == 0 ? (prior ? &pt_kernel<0, true> : &pt_kernel<0, false>)
+                   : (prior ? &pt_kernel<1, true> : &pt_kernel<1, false>);
+  kernel<<<grid, PT_BLOCK, 0, s>>>(pi, pf, theta0, ladder, prior, th_rec,
+                                   chi_rec, rsq_rec, aic_rec, ar_rec, sw_rec,
+                                   C, K, G, nits, burnin, swap_every, seed,
+                                   aic_const);
   return (int)cudaGetLastError();
 }
 

@@ -25,8 +25,9 @@ import torch
 from ..rhs import trace_rhs
 from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
                       _as_f32_tensor, _build_plan, _check_stepper,
-                      _check_unported, _normalize_substeps, make_scorer,
-                      plan_tables)
+                      _check_unported, _normalize_substeps, _prior_tensor,
+                      make_scorer, plan_tables)
+from .priors import checked_priors, logprior_plain
 from .runge_kutta import const
 
 
@@ -40,12 +41,13 @@ class JointFusedOutput(NamedTuple):
 
 
 def joint_plain(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
-                walk, walked, stepper="dopri5"):
+                walk, walked, stepper="dopri5", prior=None):
     """Twin of the joint kernel: ``theta0`` (D, C) float32; returns the
     chain-minor records theta (R, D, C), chi (R, C), chi parts (R, K, C)
     and acceptance ratio (R, C), R = nits - 1 - burnin. ``walk`` is the
     per-dimension scale ``rwalk_std * walk_mask`` and ``walked`` marks the
-    dimensions that draw a normal."""
+    dimensions that draw a normal; ``prior`` a :func:`~.priors.prior_table`
+    of one entry per joint dimension, or None."""
     scorers = [make_scorer(sp, pl, y0, stepper)
                for sp, pl, y0 in zip(specs, plans, y0s)]
 
@@ -63,6 +65,7 @@ def joint_plain(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
     R = nits - 1 - burnin
     rng = Rng(seed, torch.arange(C, device=dev))
     chi, parts = joint_score(list(theta0))
+    lp = None if prior is None else logprior_plain(prior, list(theta0))
     lt = [torch.log(th) for th in theta0]
     acc = torch.zeros_like(chi)
     recs = (torch.empty((R, D, C), dtype=torch.float32, device=dev),
@@ -73,9 +76,16 @@ def joint_plain(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
         rng.start(it)
         prop = [lt[d] + const(walk[d], chi) * rng.normal() if walked[d]
                 else lt[d] for d in range(D)]
-        chi_new, parts_new = joint_score([torch.exp(v) for v in prop])
+        thp = [torch.exp(v) for v in prop]
+        chi_new, parts_new = joint_score(thp)
         u = rng.uniform()
-        accept = torch.exp(chi - chi_new) > u   # NaN / -inf ratio rejects
+        log_ratio = chi - chi_new
+        if prior is not None:
+            lp_new = logprior_plain(prior, thp)
+            log_ratio = log_ratio + (lp_new - lp)
+        accept = torch.exp(log_ratio) > u   # NaN / -inf ratio rejects
+        if prior is not None:
+            lp = torch.where(accept, lp_new, lp)
         lt = [torch.where(accept, a, b) for a, b in zip(prop, lt)]
         chi = torch.where(accept, chi_new, chi)
         parts = [torch.where(accept, a, b) for a, b in zip(parts_new, parts)]
@@ -111,7 +121,7 @@ def joint_tables(specs, plans, y0s, idx_maps, stepper):
 
 
 def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
-                   nits, burnin, walk, walked):
+                   nits, burnin, walk, walked, prior=None):
     """Prepare the joint kernel for chains ``th0`` (D, C) on the card and
     return ``launch() -> records`` (as :func:`joint_plain`); each call
     launches the kernel once (and counts it)."""
@@ -130,6 +140,7 @@ def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
     walk_t = torch.as_tensor(np.asarray(
         tuple(walk) + tuple(float(w) for w in walked), np.float32),
         device=dev)
+    prior_t = _prior_tensor(prior, dev)
     recs = (torch.empty((R, D, C), dtype=torch.float32, device=dev),
             torch.empty((R, C), dtype=torch.float32, device=dev),
             torch.empty((R, K, C), dtype=torch.float32, device=dev),
@@ -137,6 +148,7 @@ def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
     args = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
             plan_f.numel(), exp_tab.data_ptr(), width,
             th0.data_ptr(), walk_t.data_ptr(),
+            None if prior_t is None else prior_t.data_ptr(),
             *(r.data_ptr() for r in recs), C, D, K, int(nits), int(burnin),
             int(np.uint32(np.int64(seed) & _M32)), _STEPPER_ID[stepper],
             build.stream(dev))
@@ -145,7 +157,8 @@ def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
         build.check(lib, lib.odelib_joint(*args), "joint")
         LAUNCHES["joint_metropolis_hastings_fused"] += 1
         return recs
-    launch.keep = (plan_i, plan_f, exp_tab, walk_t)   # alive with the launcher
+    # alive as long as the launcher
+    launch.keep = (plan_i, plan_f, exp_tab, walk_t, prior_t)
     return launch
 
 
@@ -164,13 +177,14 @@ def joint_metropolis_hastings_fused(
     ``theta0`` is (C, D) float32 joint thetas; a CUDA tensor launches the
     joint kernel, a CPU one runs its twin. ``idx_maps`` gives each
     experiment's gather map into the joint theta and ``substeps_list`` its
-    substeps (default 4 each). Returns ``JointFusedOutput``. ``tile_chains``
-    /``interpret``/``config_token`` are accepted and ignored; in-kernel
-    priors, checkpointing and meshes are not ported yet and raise
+    substeps (default 4 each). ``priors``: one distribution (or None) per
+    joint dimension, added once to the acceptance (a family without an
+    in-kernel form raises ``ValueError``). Returns ``JointFusedOutput``.
+    ``tile_chains``/``interpret``/``config_token`` are accepted and
+    ignored; checkpointing and meshes are not ported yet and raise
     ``NotImplementedError``."""
     from .build import JOINT_DMAX, JOINT_KMAX
-    _check_unported(priors, checkpoint_every, checkpoint_path, resume_from,
-                    mesh)
+    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)
@@ -192,6 +206,7 @@ def joint_metropolis_hastings_fused(
     if nits - 1 <= burnin:
         raise ValueError(f"nits={nits} leaves no recorded iterations after "
                          f"burnin={burnin}")
+    prior = checked_priors(priors, D, "joint dimension")
     if walk_mask is None:
         walk_mask = [1.0] * D
     walked = tuple(float(w) != 0.0 for w in walk_mask)
@@ -208,7 +223,8 @@ def joint_metropolis_hastings_fused(
                                     substeps_list))
     y0s = tuple(np.asarray(y0, np.float64) for y0 in y0_list)
     th0 = theta0.t().contiguous()
-    kw = dict(nits=int(nits), burnin=int(burnin), walk=walk, walked=walked)
+    kw = dict(nits=int(nits), burnin=int(burnin), walk=walk, walked=walked,
+              prior=prior)
     if th0.device.type != "cuda":
         recs = joint_plain(specs, plans, y0s, idx_maps, th0, seed,
                            stepper=stepper, **kw)

@@ -28,6 +28,7 @@ import torch
 
 from ..model import ModelSpec, ObsData, obsdata_from_arrays
 from ..rhs import torch_evaluator, trace_rhs
+from .priors import checked_priors, logprior_plain
 from .runge_kutta import DP_C, FIXED_STEPPERS, const
 
 _M32 = 0xFFFFFFFF
@@ -303,18 +304,20 @@ def survey_plain(spec, plan, y0_base, thetas, stepper="dopri5"):
 
 
 def mh_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, walk,
-             walked, num, stepper="dopri5"):
+             walked, num, stepper="dopri5", prior=None):
     """Twin of the MH kernel: ``theta0`` (P, C) float32; returns the
     chain-minor records theta (R, P, C) and chi, rsq, aic, acceptance
     ratio (R, C), R = nits - 1 - burnin. ``walk`` is the per-slot walk
     scale ``rwalk_std * walk_mask`` and ``walked`` marks the slots that
-    draw a normal (``walk_mask != 0``)."""
+    draw a normal (``walk_mask != 0``); ``prior`` a
+    :func:`~.priors.prior_table` or None."""
     score = make_scorer(spec, plan, y0_base, stepper)
     P, C = theta0.shape
     R = nits - 1 - burnin
     rng = Rng(seed, torch.arange(C, device=theta0.device))
     theta = list(theta0)
     chi, rsq = score(theta)
+    lp = None if prior is None else logprior_plain(prior, theta)
     lt = [torch.log(th) for th in theta]
     acc = torch.zeros_like(chi)
     recs = [torch.empty((R, P, C), dtype=torch.float32,
@@ -326,12 +329,19 @@ def mh_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, walk,
         rng.start(it)
         prop = [lt[p] + const(walk[p], chi) * rng.normal()
                 if walked[p] else lt[p] for p in range(P)]
-        chi_new, rsq_new = score([torch.exp(v) for v in prop])
+        thp = [torch.exp(v) for v in prop]
+        chi_new, rsq_new = score(thp)
         u = rng.uniform()
-        accept = torch.exp(chi - chi_new) > u   # NaN / -inf ratio rejects
+        log_ratio = chi - chi_new
+        if prior is not None:
+            lp_new = logprior_plain(prior, thp)
+            log_ratio = log_ratio + (lp_new - lp)
+        accept = torch.exp(log_ratio) > u   # NaN / -inf ratio rejects
         lt = [torch.where(accept, a, b) for a, b in zip(prop, lt)]
         chi = torch.where(accept, chi_new, chi)
         rsq = torch.where(accept, rsq_new, rsq)
+        if prior is not None:
+            lp = torch.where(accept, lp_new, lp)
         acc = acc + accept.to(torch.float32)
         r = it - 1 - burnin
         if r >= 0:
@@ -397,12 +407,13 @@ def ensemble_halves(W: int, tile: int, device):
 
 
 def ensemble_plain(spec, plan, y0_base, theta0, seed, *, tile, nits, burnin,
-                   a, walk, walked, num, W0, stepper="dopri5"):
+                   a, walk, walked, num, W0, stepper="dopri5", prior=None):
     """Twin of the ensemble kernel: ``theta0`` (P, W) float32 walkers (W a
     multiple of ``tile``); returns the records of the first ``W0`` walkers,
     theta (R, P, W0) and chi, rsq, aic, acceptance ratio (R, W0),
     R = nits - 1 - burnin. ``walk`` is the per-slot walk mask and
-    ``walked`` marks its non-zero slots."""
+    ``walked`` marks its non-zero slots; ``prior`` a
+    :func:`~.priors.prior_table` or None."""
     score = make_scorer(spec, plan, y0_base, stepper)
     P, W = theta0.shape
     dev = theta0.device
@@ -415,6 +426,7 @@ def ensemble_plain(spec, plan, y0_base, theta0, seed, *, tile, nits, burnin,
                      * tile + 0xE75) & _M32)
     rng = Rng(seed, torch.arange(W, device=dev))
     chi, rsq = score(list(theta0))
+    lp = None if prior is None else logprior_plain(prior, list(theta0))
     lt = [torch.log(th) for th in theta0]
     acc = torch.zeros_like(chi)
     one, am1, a_c = (const(v, chi) for v in (1.0, a - 1.0, a))
@@ -442,9 +454,15 @@ def ensemble_plain(spec, plan, y0_base, theta0, seed, *, tile, nits, burnin,
             cur = [v[idx] for v in lt]
             prop = [c + (omz * (v[pidx] - c)) * wc[p] if walked[p] else c
                     for p, (c, v) in enumerate(zip(cur, lt))]
-            chi_new, rsq_new = score([torch.exp(v) for v in prop])
+            thp = [torch.exp(v) for v in prop]
+            chi_new, rsq_new = score(thp)
             log_ratio = (nw1 * torch.log(z) + chi[idx]) - chi_new
+            if prior is not None:
+                lp_new = logprior_plain(prior, thp)
+                log_ratio = log_ratio + (lp_new - lp[idx])
             accept = torch.exp(log_ratio) > uacc   # NaN / -inf rejects
+            if prior is not None:
+                lp[idx] = torch.where(accept, lp_new, lp[idx])
             for p in range(P):
                 lt[p][idx] = torch.where(accept, prop[p], cur[p])
             chi[idx] = torch.where(accept, chi_new, chi[idx])
@@ -471,12 +489,8 @@ def _as_f32_tensor(x):
     return torch.as_tensor(np.asarray(x, np.float32))
 
 
-def _check_unported(priors, checkpoint_every, checkpoint_path,
-                    resume_from, mesh):
+def _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh):
     """Raise for the fused kernels' options that are not ported yet."""
-    if priors is not None and any(d is not None for d in priors):
-        raise NotImplementedError(
-            "in-kernel priors are not ported yet (ROADMAP queue 1, item 12)")
     if checkpoint_every is not None or resume_from is not None \
             or checkpoint_path is not None:
         raise NotImplementedError(
@@ -526,12 +540,18 @@ def survey_launcher(spec, plan, y0_base, stepper, th):
     return launch
 
 
+def _prior_tensor(prior, dev):
+    """A prior table on the card, or None (a null pointer: no priors)."""
+    return None if prior is None else torch.as_tensor(
+        np.ascontiguousarray(prior, np.float32), device=dev)
+
+
 def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
-                walk, walked, num):
+                walk, walked, num, prior=None):
     """Prepare the MH kernel for chains ``th0`` (P, C) on the card and
     return ``launch() -> records`` (theta (R, P, C); chi, rsq, aic,
     acceptance ratio (R, C)); each call launches the kernel once (and
-    counts it)."""
+    counts it). ``prior``: a :func:`~.priors.prior_table` or None."""
     from . import build
     lib = build.load_kernels(spec)
     dev = th0.device
@@ -542,11 +562,13 @@ def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
     # per slot: the walk scale, then the walked flag
     walk_t = torch.as_tensor(np.asarray(
         walk + tuple(float(w) for w in walked), np.float32), device=dev)
+    prior_t = _prior_tensor(prior, dev)
     recs = (torch.empty((R, P, C), dtype=torch.float32, device=dev),) \
         + tuple(torch.empty((R, C), dtype=torch.float32, device=dev)
                 for _ in range(4))
     args = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
             plan_f.numel(), th0.data_ptr(), walk_t.data_ptr(),
+            None if prior_t is None else prior_t.data_ptr(),
             *(r.data_ptr() for r in recs), C, int(nits), int(burnin),
             int(np.uint32(np.int64(seed) & _M32)),
             float(np.float32(2.0 * num)), _STEPPER_ID[stepper],
@@ -556,18 +578,20 @@ def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
         build.check(lib, lib.odelib_mh(*args), "mh")
         LAUNCHES["metropolis_hastings_fused"] += 1
         return recs
-    launch.keep = walk_t        # alive as long as the launcher
+    launch.keep = (walk_t, prior_t)   # alive as long as the launcher
     return launch
 
 
 def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
-                      nits, burnin, a, walk, walked, num, W0, blocks=None):
+                      nits, burnin, a, walk, walked, num, W0, blocks=None,
+                      prior=None):
     """Prepare the ensemble kernel for walkers ``th0`` (P, W) on the card
     and return ``launch() -> records`` (theta (R, P, W0); chi, rsq, aic,
     acceptance ratio (R, W0)). Each call makes one device launch, which
     runs the whole run, and counts it. ``blocks`` caps the grid (default:
     as many blocks as can be co-resident; with fewer threads than the W/2
-    columns each thread loops over several)."""
+    columns each thread loops over several). ``prior``: a
+    :func:`~.priors.prior_table` or None."""
     from . import build
     lib = build.load_kernels(spec)
     dev = th0.device
@@ -579,13 +603,17 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
     if blocks is None:
         n = ctypes.c_int()
         build.check(lib, lib.odelib_ensemble_blocks(
-            *sizes, _STEPPER_ID[stepper], ctypes.byref(n)), "ensemble")
+            *sizes, _STEPPER_ID[stepper], int(prior is not None),
+            ctypes.byref(n)), "ensemble")
         blocks = n.value
     # per slot: the walk mask value, then the walked flag
     walk_t = torch.as_tensor(np.asarray(
         tuple(walk) + tuple(float(w) for w in walked), np.float32),
         device=dev)
-    state = torch.empty((P + 3, W), dtype=torch.float32, device=dev)
+    prior_t = _prior_tensor(prior, dev)
+    # log-theta, chi, R^2, the accept count and, with priors, the log prior
+    state = torch.empty((P + 3 + (prior is not None), W),
+                        dtype=torch.float32, device=dev)
     bar = torch.empty(2, dtype=torch.int32, device=dev)  # zeroed per launch
     recs = (torch.empty((R, P, W0), dtype=torch.float32, device=dev),) \
         + tuple(torch.empty((R, W0), dtype=torch.float32, device=dev)
@@ -594,7 +622,8 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
     consts = (float(np.float32(v)) for v in (a - 1.0, a, sum(walked) - 1,
                                              2.0 * num))
     args = (plan_i.data_ptr(), sizes[0], plan_f.data_ptr(), sizes[1],
-            th0.data_ptr(), walk_t.data_ptr(), state.data_ptr(),
+            th0.data_ptr(), walk_t.data_ptr(),
+            None if prior_t is None else prior_t.data_ptr(), state.data_ptr(),
             bar.data_ptr(), *(r.data_ptr() for r in recs), W, W0, int(tile),
             int(nits), int(burnin), int(np.uint32(np.int64(seed) & _M32)),
             *consts, _STEPPER_ID[stepper], int(blocks), build.stream(dev))
@@ -603,7 +632,7 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
         build.check(lib, lib.odelib_ensemble(*args), "ensemble")
         LAUNCHES["ensemble_fused"] += 1
         return recs
-    launch.keep = (walk_t, state, bar)   # alive as long as the launcher
+    launch.keep = (walk_t, prior_t, state, bar)   # alive with the launcher
     return launch
 
 
@@ -649,12 +678,14 @@ def metropolis_hastings_fused(
     chi, rsquared, aic, acceptance_ratio (C, R), R = nits - 1 - burnin, and
     iteration (R,).
     Chain c keys its RNG on its global index c, as in the JAX kernel, so
-    no padding is needed. ``tile_chains``/``interpret``/``config_token``
-    are accepted and ignored; in-kernel priors, checkpointing and meshes
-    are not ported yet and raise ``NotImplementedError``."""
+    no padding is needed. ``priors``: one distribution (or None) per theta
+    slot, added to the acceptance in the kernel (all None: no priors; a
+    family without an in-kernel form raises ``ValueError``).
+    ``tile_chains``/``interpret``/``config_token`` are accepted and
+    ignored; checkpointing and meshes are not ported yet and raise
+    ``NotImplementedError``."""
     from ..samplers.mh import MHOutput
-    _check_unported(priors, checkpoint_every, checkpoint_path, resume_from,
-                    mesh)
+    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)
@@ -666,6 +697,7 @@ def metropolis_hastings_fused(
     C, P = theta0.shape
     if P != spec.theta_size:
         raise ValueError(f"theta0 must have {spec.theta_size} columns")
+    prior = checked_priors(priors, P)
     num = int(torch.count_nonzero(theta0[0]))
     if walk_mask is None:
         walk_mask = [1.0] * P
@@ -683,11 +715,11 @@ def metropolis_hastings_fused(
     if not _check_cuda(spec, th0):
         recs = mh_plain(spec, plan, y0_base, th0, seed, nits=nits,
                         burnin=burnin, walk=walk, walked=walked, num=num,
-                        stepper=stepper)
+                        stepper=stepper, prior=prior)
     else:
         recs = mh_launcher(spec, plan, y0_base, stepper, th0, seed,
                            nits=nits, burnin=burnin, walk=walk,
-                           walked=walked, num=num)()
+                           walked=walked, num=num, prior=prior)()
     th_r, chi_r, rsq_r, aic_r, ar_r = recs
     return MHOutput(theta=th_r.permute(2, 0, 1), chi=chi_r.t(),
                     rsquared=rsq_r.t(), aic=aic_r.t(),
@@ -713,12 +745,11 @@ def ensemble_fused(
     one independent ensemble, so the tile is part of the result (default:
     :func:`pick_tile_chains`, the JAX rule; any multiple of 256). Returns
     ``MHOutput`` for the first W0 walkers, as
-    :func:`metropolis_hastings_fused`. ``interpret``/``config_token`` are
-    accepted and ignored; in-kernel priors, checkpointing and meshes are
-    not ported yet and raise ``NotImplementedError``."""
+    :func:`metropolis_hastings_fused`, with ``priors`` as there.
+    ``interpret``/``config_token`` are accepted and ignored; checkpointing
+    and meshes are not ported yet and raise ``NotImplementedError``."""
     from ..samplers.mh import MHOutput
-    _check_unported(priors, checkpoint_every, checkpoint_path, resume_from,
-                    mesh)
+    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)
@@ -731,6 +762,7 @@ def ensemble_fused(
     W0 = th_np.shape[0]
     if th_np.shape[1] != P:
         raise ValueError(f"theta0 must have {P} columns")
+    prior = checked_priors(priors, P)
     tile = int(tile_chains if tile_chains is not None
                else pick_tile_chains(W0))
     if tile <= 0 or tile % 256:
@@ -750,7 +782,7 @@ def ensemble_fused(
     th0 = torch.as_tensor(np.ascontiguousarray(th_np.T), device=dev)
     iteration = torch.arange(1, nits, device=dev)[burnin:]
     kw = dict(tile=tile, nits=nits, burnin=burnin, a=float(a), walk=walk,
-              walked=walked, num=num, W0=W0)
+              walked=walked, num=num, W0=W0, prior=prior)
     if not _check_cuda(spec, th0):
         recs = ensemble_plain(spec, plan, y0_base, th0, seed,
                               stepper=stepper, **kw)

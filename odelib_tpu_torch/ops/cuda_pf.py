@@ -5,7 +5,7 @@ Counterpart of ``odelib_tpu/ops/pallas_pf.py`` (Euler-Maruyama): the public
 ``pmmh_supported``, and ``PMMHOutput`` (``odelib_tpu/samplers/pf.py``).
 Each proposal of each chain is scored by a K-particle bootstrap filter
 over the model's SDE, with systematic resampling at every observed grid
-point, in-kernel LogNormal/Normal/Uniform priors and Robbins-Monro
+point, in-kernel priors (:mod:`.priors`) and Robbins-Monro
 proposal-scale adaptation during burn-in (``csrc/pf.cu`` states the
 semantics and every parity trap with the JAX line it mirrors).
 
@@ -33,7 +33,7 @@ from .cuda_mh import (_M32, LAUNCHES, _as_f32_tensor, _build_plan,
                       _check_unported, _device_plan, _key,
                       _normalize_substeps, mix, obs_terms, uniform_of)
 from .build import PF_KMAX
-from .priors import logprior_plain, prior_table
+from .priors import checked_priors, logprior_plain, prior_table
 from .runge_kutta import const
 
 
@@ -361,8 +361,7 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
         raise ValueError(f"fused PMMH needs n_particles in [8, {PF_KMAX}] and "
                          "a multiple of 8 (lifting it is ROADMAP queue 2, "
                          "item 6)")
-    _check_unported(None, checkpoint_every, checkpoint_path, resume_from,
-                    mesh)
+    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
     if burnin is None:
         burnin = int(nits / 2)
     if nits - 1 <= burnin:
@@ -377,14 +376,7 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
         walk_mask = [1.0] * P
     walk = tuple(float(w) for w in np.asarray(walk_mask).ravel())
     walked = tuple(w != 0.0 for w in walk)
-    prior = None
-    if priors is not None:
-        priors = tuple(priors)
-        if len(priors) != P:
-            raise ValueError(f"priors must have one entry per theta slot "
-                             f"({P}), got {len(priors)}")
-        if any(d is not None for d in priors):
-            prior = prior_table(priors)
+    prior = checked_priors(priors, P)
     substeps = _normalize_substeps(substeps, len(np.asarray(times)) - 1)
     plan = _build_plan(spec, obs, times, substeps)
     stride = slot_stride(plan, len(spec.snames), sum(walked))

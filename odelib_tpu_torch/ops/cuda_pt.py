@@ -26,7 +26,8 @@ from ..samplers.pt import swap_attempts
 from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
                       _as_f32_tensor, _build_plan, _check_cuda,
                       _check_stepper, _check_unported, _device_plan, _key,
-                      _normalize_substeps, make_scorer)
+                      _normalize_substeps, _prior_tensor, make_scorer)
+from .priors import checked_priors, logprior_plain
 from .build import PT_KMAX
 from .runge_kutta import const
 
@@ -47,11 +48,13 @@ def ladder_constants(temperatures, rwalk_std: float, walk_mask):
 
 
 def pt_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, scales,
-             walked, betas, dbetas, swap_every, num, stepper="dopri5"):
+             walked, betas, dbetas, swap_every, num, stepper="dopri5",
+             prior=None):
     """Twin of the PT kernel: ``theta0`` (P, C) float32; returns the T=1
     rung's records theta (R, P, C) and chi, rsq, aic, acceptance ratio and
     the running count of accepted (0,1) swaps (R, C),
-    R = nits - 1 - burnin."""
+    R = nits - 1 - burnin. ``prior``: a :func:`~.priors.prior_table` or
+    None; with one each rung carries its log prior."""
     score = make_scorer(spec, plan, y0_base, stepper)
     P, C = theta0.shape
     K = len(betas)
@@ -61,6 +64,8 @@ def pt_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, scales,
     chi0, rsq0 = score(list(theta0))
     lt = [[torch.log(th) for th in theta0] for _ in range(K)]
     chi, rsq = [chi0] * K, [rsq0] * K
+    lp = None if prior is None else \
+        [logprior_plain(prior, list(theta0))] * K
     acc = torch.zeros_like(chi0)
     sw = torch.zeros_like(chi0)
     sc = [[const(float(v), chi0) for v in row] for row in scales]
@@ -75,25 +80,35 @@ def pt_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, scales,
         for k in range(K):
             prop = [lt[k][p] + sc[k][p] * rng.normal() if walked[p]
                     else lt[k][p] for p in range(P)]
-            chi_new, rsq_new = score([torch.exp(v) for v in prop])
+            thp = [torch.exp(v) for v in prop]
+            chi_new, rsq_new = score(thp)
             u = rng.uniform()
-            accept = torch.exp((chi[k] - chi_new) * bc[k]) > u
+            log_ratio = chi[k] - chi_new
+            if prior is not None:
+                lp_new = logprior_plain(prior, thp)
+                log_ratio = log_ratio + (lp_new - lp[k])
+            accept = torch.exp(log_ratio * bc[k]) > u
             lt[k] = [torch.where(accept, a, b) for a, b in zip(prop, lt[k])]
             chi[k] = torch.where(accept, chi_new, chi[k])
             rsq[k] = torch.where(accept, rsq_new, rsq[k])
+            if prior is not None:
+                lp[k] = torch.where(accept, lp_new, lp[k])
             if k == 0:
                 acc = acc + accept.to(torch.float32)
         do_swap = it % swap_every == 0
         parity = (it // swap_every) % 2
         for k in range(K - 1):
             u = rng.uniform()
-            delta = dc[k] * (chi[k] - chi[k + 1])
+            if prior is None:
+                delta = dc[k] * (chi[k] - chi[k + 1])
+            else:
+                delta = dc[k] * ((chi[k] - lp[k]) - (chi[k + 1] - lp[k + 1]))
             flag = (torch.exp(delta) > u) & torch.isfinite(delta) & (
                 do_swap and parity == k % 2)
             lt[k], lt[k + 1] = (
                 [torch.where(flag, b, a) for a, b in zip(lt[k], lt[k + 1])],
                 [torch.where(flag, a, b) for a, b in zip(lt[k], lt[k + 1])])
-            for arr in (chi, rsq):
+            for arr in (chi, rsq) if prior is None else (chi, rsq, lp):
                 arr[k], arr[k + 1] = (torch.where(flag, arr[k + 1], arr[k]),
                                       torch.where(flag, arr[k], arr[k + 1]))
             if k == 0:
@@ -110,7 +125,7 @@ def pt_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, scales,
 
 
 def pt_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
-                scales, walked, betas, dbetas, swap_every, num):
+                scales, walked, betas, dbetas, swap_every, num, prior=None):
     """Prepare the PT kernel for chains ``th0`` (P, C) on the card and
     return ``launch() -> records`` (as :func:`pt_plain`); each call
     launches the kernel once (and counts it)."""
@@ -126,11 +141,13 @@ def pt_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
         np.asarray(scales, np.float32).ravel(),
         np.asarray(walked, np.float32), betas, dbetas]).astype(np.float32),
         device=dev)
+    prior_t = _prior_tensor(prior, dev)
     recs = (torch.empty((R, P, C), dtype=torch.float32, device=dev),) \
         + tuple(torch.empty((R, C), dtype=torch.float32, device=dev)
                 for _ in range(5))
     args = (plan_i.data_ptr(), plan_f.data_ptr(), th0.data_ptr(),
-            ladder.data_ptr(), *(r.data_ptr() for r in recs), C, K,
+            ladder.data_ptr(), None if prior_t is None else prior_t.data_ptr(),
+            *(r.data_ptr() for r in recs), C, K,
             int(nits), int(burnin), int(swap_every),
             int(np.uint32(np.int64(seed) & _M32)),
             float(np.float32(2.0 * num)), _STEPPER_ID[stepper],
@@ -140,7 +157,7 @@ def pt_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
         build.check(lib, lib.odelib_pt(*args), "parallel tempering")
         LAUNCHES["parallel_tempering_fused"] += 1
         return recs
-    launch.keep = ladder        # alive as long as the launcher
+    launch.keep = (ladder, prior_t)   # alive as long as the launcher
     return launch
 
 
@@ -160,13 +177,14 @@ def parallel_tempering_fused(
     CPU one runs its twin. ``temperatures`` (2 to ``PT_KMAX`` rungs,
     starting at 1.0, strictly increasing) and ``swap_every`` as in the JAX
     package. Returns ``(MHOutput of the T=1 rung, swap_rate (C,))``, the
-    cold pair's accepted swaps per proposal. ``tile_chains``/
-    ``interpret``/``config_token`` are accepted and ignored; in-kernel
-    priors, checkpointing and meshes are not ported yet and raise
-    ``NotImplementedError``."""
+    cold pair's accepted swaps per proposal. ``priors``: one distribution
+    (or None) per theta slot, in the tempered acceptance and the swaps as
+    in the JAX kernel (a family without an in-kernel form raises
+    ``ValueError``). ``tile_chains``/``interpret``/``config_token`` are
+    accepted and ignored; checkpointing and meshes are not ported yet and
+    raise ``NotImplementedError``."""
     from ..samplers.mh import MHOutput
-    _check_unported(priors, checkpoint_every, checkpoint_path, resume_from,
-                    mesh)
+    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)
@@ -187,6 +205,7 @@ def parallel_tempering_fused(
     C, P = theta0.shape
     if P != spec.theta_size:
         raise ValueError(f"theta0 must have {spec.theta_size} columns")
+    prior = checked_priors(priors, P)
     if nits - 1 <= burnin:
         raise ValueError(f"nits={nits} leaves no recorded iterations after "
                          f"burnin={burnin}")
@@ -205,7 +224,7 @@ def parallel_tempering_fused(
     th0 = theta0.t().contiguous()
     kw = dict(nits=int(nits), burnin=int(burnin), scales=scales,
               walked=walked, betas=betas, dbetas=dbetas,
-              swap_every=int(swap_every), num=num)
+              swap_every=int(swap_every), num=num, prior=prior)
     if not _check_cuda(spec, th0):
         recs = pt_plain(spec, plan, y0_base, th0, seed, stepper=stepper,
                         **kw)

@@ -14,6 +14,7 @@ import odelib_tpu
 import odelib_tpu_torch
 from odelib_tpu.ops.pallas_mh import survey_fused as jax_survey_fused
 from odelib_tpu_torch import dispatch as t_dispatch
+from odelib_tpu_torch.distributions import DiscreteNormal
 from odelib_tpu_torch.ops import cuda_mh
 
 from helpers import demo_df, zero_i
@@ -122,7 +123,6 @@ def test_lhs_seeding_path(monkeypatch):
 def test_unported_options_raise():
     fw = _framework(odelib_tpu_torch, device="cpu")
     for kw, item in ((dict(sampler="hmc"), "item 16"),
-                     (dict(use_priors=True), "item 12"),
                      (dict(checkpoint_every=5), "item 11"),
                      (dict(until_rhat=1.1), "item 11"),
                      (dict(backend="xla"), "item 8"),
@@ -130,8 +130,6 @@ def test_unported_options_raise():
                      (dict(method="kvaerno5"), "item 8"),
                      (dict(method="kvaerno3"), "item 14"),
                      (dict(sampler="pt", temperatures="auto"), "item 15"),
-                     (dict(sampler="pt", use_priors=True), "item 12"),
-                     (dict(sampler="ensemble", use_priors=True), "item 12"),
                      (dict(sampler="pt", backend="xla"), "item 15"),
                      # fewer walkers than a tile: the reference's XLA
                      # ensemble under backend='auto'
@@ -144,6 +142,15 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="ladder tuple"):
         fw.MCMC(chain_inits=_INITS, iterations_per_chain=6, sampler="pt",
                 temperatures="hot", print_report=False)
+    # a prior without an in-kernel form: the reference's XLA samplers
+    fw_dn = _framework(odelib_tpu_torch, device="cpu")
+    fw_dn.set_parameters(mu=odelib_tpu_torch.parameter(
+        DiscreteNormal(mu=1.0, sigma=0.2)))
+    for sampler, item in (("mh", "item 8"), ("pt", "item 15"),
+                          ("ensemble", "item 15")):
+        with pytest.raises(NotImplementedError, match=item):
+            fw_dn.MCMC(chain_inits=_INITS, iterations_per_chain=6,
+                       sampler=sampler, use_priors=True, print_report=False)
 
 
 def test_pallas_backend_warns_for_adaptive_method():
@@ -190,19 +197,73 @@ def test_fit_survey_matches_odelib_tpu(solver):
 
 
 def test_priors_and_diffusion_options():
-    """use_priors=True is ported for sampler='pmmh' only; a model without
-    diffusion= cannot run it, nor can a JointFit with such a member."""
+    """use_priors=True with a prior that has no in-kernel form under
+    backend='pallas' raises the reference's ValueError; a model without
+    diffusion= cannot run sampler='pmmh', nor can a JointFit with such a
+    member."""
     fw = _framework(odelib_tpu_torch, device="cpu")
     with pytest.raises(ValueError, match="diffusion"):
         fw.MCMC(chain_inits=_INITS, iterations_per_chain=6, sampler="pmmh",
                 print_report=False)
+    fw_dn = _framework(odelib_tpu_torch, device="cpu")
+    fw_dn.set_parameters(beta=odelib_tpu_torch.parameter(
+        DiscreteNormal(mu=24.0, sigma=2.0)))
     for sampler in ("mh", "ensemble", "pt"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fw.MCMC(chain_inits=_INITS, iterations_per_chain=6,
-                    sampler=sampler, use_priors=True, backend="pallas",
-                    print_report=False)
+        with pytest.raises(ValueError, match="kernel-supported family"):
+            fw_dn.MCMC(chain_inits=_INITS, iterations_per_chain=6,
+                       sampler=sampler, use_priors=True, backend="pallas",
+                       print_report=False)
     sde = _framework(odelib_tpu_torch, device="cpu",
                      diffusion=lambda t, y, ps: [0.1 * y[0], 0.1 * y[1]])
     jf = odelib_tpu_torch.JointFit([sde, fw], shared=["phi"])
     with pytest.raises(NotImplementedError, match="joint PMMH"):
         jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=8)
+
+
+def _prior_framework(pkg, **kw):
+    """_framework with priors of the new families (scipy generators), tight
+    around the fit so that they move the chains."""
+    fw = _framework(pkg, **kw)
+    fw.set_parameters(
+        mu=pkg.parameter(scipy.stats.gamma, {"a": 400.0, "scale": 0.0015},
+                         random_seed=1),
+        phi=pkg.parameter(scipy.stats.halfnorm,
+                          {"loc": 2.2e-8, "scale": 0.2e-8}, random_seed=2),
+        beta=pkg.parameter(scipy.stats.weibull_min,
+                           {"c": 40.0, "scale": 24.5}, random_seed=3))
+    return fw
+
+
+@pytest.mark.parametrize("sampler", ["mh", "ensemble", "pt"])
+def test_mcmc_use_priors_matches_odelib_tpu(sampler):
+    """MCMC(use_priors=True) through each sampler's kernel twin against
+    odelib_tpu's fused kernel in interpret mode with the same priors: equal
+    accept sequences, and theta and chi within the sampler's no-prior
+    tolerances (the ensemble's grown ulps: 5e-5 and 1e-3)."""
+    rng = np.random.default_rng(11)
+    n = 256 if sampler == "ensemble" else 16
+    inits = [dict(zip(("mu", "phi", "beta"), map(float, d)))
+             for d in np.array([0.62, 2.3e-8, 25.0])
+             * np.exp(rng.normal(0, 0.05, (n, 3)))]
+    kw = dict(chain_inits=inits, iterations_per_chain=24, burnin=12,
+              sampler=sampler, use_priors=True, backend="pallas",
+              rwalk_std=0.1, pallas_tile_chains=256 if n == 256 else 128,
+              print_report=False)
+    if sampler == "pt":
+        kw["temperatures"] = (1.0, 2.0)
+    ref = _prior_framework(odelib_tpu).MCMC(pallas_interpret=True, **kw)
+    fw = _prior_framework(odelib_tpu_torch, device="cpu")
+    got = fw.MCMC(**kw)
+    assert list(got.columns) == list(ref.columns)
+    for col in ("iteration", "chain#", "acceptance_ratio"):
+        np.testing.assert_array_equal(got[col].to_numpy(),
+                                      ref[col].to_numpy())
+    ens = sampler == "ensemble"
+    for col, tol in (("mu", 5e-5 if ens else 1e-5),
+                     ("phi", 5e-5 if ens else 1e-5),
+                     ("beta", 5e-5 if ens else 1e-5),
+                     ("chi", 1e-3 if ens else 5e-5)):
+        np.testing.assert_allclose(got[col].to_numpy(), ref[col].to_numpy(),
+                                   rtol=tol, err_msg=col)
+    plain = fw.MCMC(**{**kw, "use_priors": False})
+    assert (plain.acceptance_ratio != got.acceptance_ratio).any()

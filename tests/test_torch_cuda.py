@@ -19,10 +19,11 @@ from odelib_tpu_torch.model import make_spec
 from odelib_tpu_torch.models import zero_i
 from odelib_tpu_torch.ops import cuda_mh as T
 from odelib_tpu_torch.ops import cuda_pt as TP
+from odelib_tpu_torch.ops.priors import prior_table
 from odelib_tpu_torch.rhs import RhsTraceError, adapt_rhs
 
 from test_torch_mh_prefetch import CASES as MH_CASES
-from test_torch_mh_prefetch import assert_bitwise, run_case
+from test_torch_mh_prefetch import PRIOR_SETS, assert_bitwise, run_case
 
 pytestmark = pytest.mark.cuda
 
@@ -338,6 +339,70 @@ def test_joint_kernel_three_experiments(card):
     _check_joint(specs, obs, tfs, y0s, idxs,
                  torch.as_tensor(th0, device="cuda"), 6, 20, 5,
                  (1.0, 1.0, 1.0, 1.0, 0.0, 1.0))
+
+
+@pytest.mark.parametrize("prior_set", sorted(PRIOR_SETS))
+def test_kernels_with_priors_match_twins(card, prior_set):
+    """Each prior assignment (together the ten in-kernel families over
+    zero_i's slots) through the ensemble, PT and joint kernels, bitwise
+    against their twins with the same table (the MH kernel's prior cases
+    are among the prefetch cases above)."""
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    spec, obs, tf, y0 = card
+    priors = PRIOR_SETS[prior_set]
+    table = prior_table(priors)
+    plan = T._build_plan(spec, obs, tf, 4)
+    draws = _draws(500, sd=0.05)
+    dev = "cuda"
+    # the ensemble: 500 walkers padded to two ensembles of 256
+    walk = (1.0, 1.0, 1.0)
+    k = T.ensemble_fused(spec, obs, tf, y0, torch.as_tensor(draws, device=dev),
+                         11, nits=30, burnin=10, substeps=4, tile_chains=256,
+                         priors=priors)
+    th0 = torch.as_tensor(T.ensemble_init(draws, 11, 256, walk, 0.01).T
+                          .copy(), device=dev)
+    tw = T.ensemble_plain(spec, plan, y0, th0, 11, tile=256, nits=30,
+                          burnin=10, a=2.0, walk=walk, walked=(True,) * 3,
+                          num=3, W0=500, prior=table)
+    torch.cuda.synchronize()
+    assert_bitwise((k.theta.permute(1, 2, 0), k.chi.t(), k.rsquared.t(),
+                    k.aic.t(), k.acceptance_ratio.t()), tw)
+    # PT: 4 rungs on 500 chains
+    temps = (1.0, 2.0, 4.0, 8.0)
+    th = torch.as_tensor(draws, device=dev)
+    k, rate = TP.parallel_tempering_fused(
+        spec, obs, tf, y0, th, 11, temperatures=temps, nits=30, burnin=10,
+        substeps=4, rwalk_std=0.1, priors=priors)
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.1, walk)
+    tw = TP.pt_plain(spec, plan, y0, th.t().contiguous(), 11, nits=30,
+                     burnin=10, scales=scales, walked=(True,) * 3,
+                     betas=betas, dbetas=dbetas, swap_every=1, num=3,
+                     prior=table)
+    torch.cuda.synchronize()
+    assert_bitwise((k.theta.permute(1, 2, 0), k.chi.t(), k.rsquared.t(),
+                    k.aic.t(), k.acceptance_ratio.t()), tw[:5])
+    np.testing.assert_array_equal(
+        rate.cpu().numpy(), (tw[5][-1] / torch.tensor(
+            float(TP.swap_attempts(30, 1, 1)[0]), device=dev)).cpu().numpy())
+    # joint: the zero_i pair, one prior per joint slot (phi, beta, a:mu,
+    # b:mu)
+    specs, obs2, tfs, y0s, idxs = _joint_inputs(card)
+    jpri = (priors[1], priors[2], priors[0], priors[0])
+    jth0 = torch.as_tensor((np.array([2.4e-8, 24.0, 0.6, 0.6]) * np.exp(
+        np.random.default_rng(2).normal(0, 0.05, (256, 4)))).astype(
+            np.float32), device=dev)
+    k = TJ.joint_metropolis_hastings_fused(
+        specs, idxs, obs2, tfs, y0s, jth0, 11, nits=30, burnin=10,
+        rwalk_std=0.1, priors=jpri)
+    plans = [T._build_plan(sp, ob, tm, 4) for sp, ob, tm in
+             zip(specs, obs2, tfs)]
+    tw = TJ.joint_plain(specs, plans, y0s, idxs, jth0.t().contiguous(), 11,
+                        nits=30, burnin=10, walk=(0.1,) * 4,
+                        walked=(True,) * 4, prior=prior_table(jpri))
+    torch.cuda.synchronize()
+    assert_bitwise((k.theta.permute(1, 2, 0), k.chi.t(),
+                    k.chi_parts.permute(1, 2, 0), k.acceptance_ratio.t()),
+                   tw)
 
 
 def _gbm_inputs():

@@ -26,9 +26,12 @@ import torch
 import odelib_tpu
 import odelib_tpu_torch
 from odelib_tpu.ops import pallas_mh as J
+from odelib_tpu_torch.distributions import DiscreteNormal
 from odelib_tpu_torch.ops import cuda_mh as T
 
 from test_torch_api import _framework, _report_numbers
+from test_torch_mh_prefetch import PRIOR_SETS
+from test_torch_priors import jax_priors
 from test_torch_survey import setup  # noqa: F401  (module fixture)
 
 _NITS, _BURNIN = 24, 12
@@ -131,6 +134,32 @@ def test_ensemble_twin_matches_pallas_interpret(setup, refs, case):  # noqa: F81
         fixed = got.theta[:, :, 1].numpy()
         assert (fixed == fixed[:, :1]).all()
         np.testing.assert_allclose(fixed[:, 0], th0[:, 1], rtol=1e-6)
+
+
+@pytest.mark.parametrize("prior_set", ["beta-none-gamma",
+                                       "cauchy-halfnormal-weibull"])
+def test_ensemble_twin_with_priors_matches_pallas_interpret(
+        setup, prior_set):  # noqa: F811
+    """In-kernel priors of the new families on one ensemble of 256: the
+    same accept sequences as the JAX kernel with the same priors, theta and
+    chi within the no-prior test's tolerances."""
+    spec, tspec, obs_fit, times_fit, y0 = setup
+    priors = PRIOR_SETS[prior_set]
+    th0 = _theta0(256)
+    kw = dict(nits=_NITS, burnin=_BURNIN, substeps=2, tile_chains=256)
+    ref = J.ensemble_fused(spec, obs_fit, times_fit, y0, th0, seed=7,
+                           interpret=True, priors=jax_priors(priors), **kw)
+    obs_t, th_t, seed, y0_t = T.inputs_from_reference(obs_fit, th0, 7, y0)
+    got = T.ensemble_fused(tspec, obs_t, times_fit, y0_t, th_t, seed,
+                           priors=priors, **kw)
+    np.testing.assert_array_equal(got.acceptance_ratio.numpy(),
+                                  np.asarray(ref.acceptance_ratio))
+    plain = T.ensemble_fused(tspec, obs_t, times_fit, y0_t, th_t, seed, **kw)
+    assert (plain.acceptance_ratio != got.acceptance_ratio).any()
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(ref.theta),
+                               rtol=5e-5)
+    np.testing.assert_allclose(got.chi.numpy(), np.asarray(ref.chi),
+                               rtol=1e-3)
 
 
 def _accept_steps(ar):
@@ -247,8 +276,9 @@ def test_ensemble_rejects_bad_arguments(setup):  # noqa: F811
     for kw, err, msg in ((dict(tile_chains=128), ValueError, "256"),
                          (dict(a=1.0), ValueError, "exceed 1"),
                          (dict(burnin=7), ValueError, "no recorded"),
-                         (dict(priors=[object()] * 3), NotImplementedError,
-                          "item 12"),
+                         (dict(priors=[None, DiscreteNormal(0.0, 1.0),
+                                       None]), ValueError,
+                          "unsupported prior family"),
                          (dict(checkpoint_every=4), NotImplementedError,
                           "item 11")):
         with pytest.raises(err, match=msg):

@@ -21,13 +21,16 @@ from odelib_tpu.ops.pallas_joint import \
     joint_metropolis_hastings_fused as jax_joint_fused
 from odelib_tpu.samplers.joint import joint_survey as jax_joint_survey
 from odelib_tpu_torch import JointFit
+from odelib_tpu_torch import distributions as D
 from odelib_tpu_torch.distributions import LogNormal
 from odelib_tpu_torch.ops import cuda_joint as TJ
 from odelib_tpu_torch.ops import cuda_mh as T
 from odelib_tpu_torch.ops import cuda_pf as TF
+from odelib_tpu_torch.ops.priors import logprior_plain, prior_table
 from odelib_tpu_torch.samplers import joint_survey
 
 from helpers import synthetic_df, zero_i
+from test_torch_priors import jax_priors
 
 _PRI = dict(mu=((3.0, 1e-8)), phi=(3.0, 1e-8), beta=(1.0, 25.0))
 
@@ -167,7 +170,7 @@ def test_joint_twin_matches_pallas_interpret(name):
 
 
 def _joint_warps(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
-                 walk, walked):
+                 walk, walked, prior=None):
     """joint.cu's layout: blocks of 32 chains (lanes) and K warps; lanes
     past the last chain run chain C - 1's copy and store nothing. Warp k
     draws the proposal's dimensions d = k, k + K, ... from their
@@ -176,7 +179,9 @@ def _joint_warps(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
     buffer; then every warp sums the parts in k order from part 0, draws
     the accept uniform after the walked dimensions' slots and decides for
     itself. Warp k keeps part k and its dimensions and writes their
-    records, and chi's and the ratio's where D and D + 1 fall mod K."""
+    records, and chi's and the ratio's where D and D + 1 fall mod K. With
+    a ``prior`` every warp evaluates the log prior of the whole proposal
+    itself and adds it once."""
     scorers = [T.make_scorer(sp, pl, y0, "dopri5")
                for sp, pl, y0 in zip(specs, plans, y0s)]
     D, C = theta0.shape
@@ -201,6 +206,7 @@ def _joint_warps(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
     part_k = list(part)
     lt = [torch.log(th) for th in th0]
     chi, acc = [total(part)] * K, [torch.zeros(len(c_own))] * K
+    lp = [None if prior is None else logprior_plain(prior, list(th0))] * K
     R = nits - 1 - burnin
     recs = (torch.full((R, D, C), np.nan), torch.full((R, C), np.nan),
             torch.full((R, K, C), np.nan), torch.full((R, C), np.nan))
@@ -215,8 +221,13 @@ def _joint_warps(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
         oks = []
         for k in range(K):
             chi_new = total(part)
-            ok = torch.exp(chi[k] - chi_new) > T.uniform_of(
-                key, base + 2 * n_walked)
+            log_ratio = chi[k] - chi_new
+            if prior is not None:
+                lp_new = logprior_plain(prior, [torch.exp(v) for v in prop])
+                log_ratio = log_ratio + (lp_new - lp[k])
+            ok = torch.exp(log_ratio) > T.uniform_of(key, base + 2 * n_walked)
+            if prior is not None:
+                lp[k] = torch.where(ok, lp_new, lp[k])
             oks.append(ok)
             for d in range(k, D, K):
                 lt[d] = torch.where(ok, prop[d], lt[d])
@@ -261,6 +272,57 @@ def test_joint_warp_per_experiment_equals_twin():
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert 0 < float(got[3][-1].mean()) < 1
+
+
+# one prior per joint dimension of the zero_i pair (phi, beta, a:mu, b:mu)
+_JOINT_PRIORS = (D.TruncNormal(a=-1.5, b=1.5, loc=2.4e-8, scale=0.1e-8),
+                 D.Weibull(c=40.0, scale=24.5), D.Beta(a=60.0, b=40.0),
+                 D.Gamma(a=400.0, scale=0.0015))
+
+
+def test_joint_warp_per_experiment_with_priors_equals_twin():
+    """The warp-per-experiment layout with in-kernel priors (every warp
+    adds the whole proposal's log prior once) gives joint_plain's records
+    bitwise, on the zero_i pair (D = 4, K = 2) and 40 chains."""
+    _, jf = _fits("zero_i-pair")
+    specs, idx_maps, obs, times, y0s = _host_args(jf)
+    plans = [T._build_plan(sp, ob, tm, 1)
+             for sp, ob, tm in zip(specs, obs, times)]
+    rng = np.random.default_rng(8)
+    th0 = torch.as_tensor((np.array(_CENTRES["zero_i-pair"]) * np.exp(
+        rng.normal(0, 0.05, (40, 4)))).astype(np.float32).T.copy())
+    kw = dict(nits=11, burnin=2, walk=(0.1,) * 4, walked=(True,) * 4,
+              prior=prior_table(_JOINT_PRIORS))
+    want = TJ.joint_plain(specs, plans, y0s, idx_maps, th0, 4, **kw)
+    got = _joint_warps(specs, plans, y0s, idx_maps, th0, 4, **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert 0 < float(got[3][-1].mean()) < 1
+
+
+def test_joint_twin_with_priors_matches_pallas_interpret():
+    """In-kernel priors of the new families, one per joint dimension: the
+    same accept sequences as the JAX kernel with the same priors; theta
+    and chi within the no-prior test's tolerances."""
+    ref_jf, jf = _fits("zero_i-pair")
+    rng = np.random.default_rng(5)
+    th0 = (np.array(_CENTRES["zero_i-pair"])
+           * np.exp(rng.normal(0, 0.05, (128, jf.dim)))).astype(np.float32)
+    kw = dict(nits=13, burnin=2, rwalk_std=0.1, substeps_list=[1, 1])
+    ref = jax_joint_fused(*_host_args(ref_jf), th0, seed=4, tile_chains=128,
+                          interpret=True, priors=jax_priors(_JOINT_PRIORS),
+                          **kw)
+    got = TJ.joint_metropolis_hastings_fused(
+        *_host_args(jf), torch.as_tensor(th0), 4, priors=_JOINT_PRIORS, **kw)
+    np.testing.assert_array_equal(got.acceptance_ratio.numpy(),
+                                  np.asarray(ref.acceptance_ratio))
+    plain = TJ.joint_metropolis_hastings_fused(
+        *_host_args(jf), torch.as_tensor(th0), 4, **kw)
+    assert (plain.acceptance_ratio != got.acceptance_ratio).any()
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(ref.theta),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.chi.numpy(), np.asarray(ref.chi),
+                               rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", sorted(_PAIRS))
@@ -338,16 +400,74 @@ def test_joint_mcmc_matches_odelib_tpu(monkeypatch, capsys):
     assert jf.frameworks["b"].parameters["mu"].val == best["b:mu"]
 
 
+def test_joint_mcmc_use_priors_matches_odelib_tpu(monkeypatch):
+    """JointFit.MCMC(use_priors=True) on the zero_i pair with priors of the
+    new families (scipy generators; the shared phi's from framework a):
+    both packages score the port's LHS draws, seed the same chains and run
+    their joint kernels with the joint priors. Equal accept sequences,
+    theta within 1e-5 and chi within 1e-4."""
+    import scipy.stats
+    ref_jf, jf = _fits("zero_i-pair")
+    for pkg, fit in ((odelib_tpu, ref_jf), (odelib_tpu_torch, jf)):
+        for fw in fit.frameworks.values():
+            fw.set_parameters(
+                mu=pkg.parameter(scipy.stats.gamma,
+                                 {"a": 400.0, "scale": 0.0015},
+                                 random_seed=1),
+                phi=pkg.parameter(scipy.stats.halfnorm,
+                                  {"loc": 2.2e-8, "scale": 0.2e-8},
+                                  random_seed=2),
+                beta=pkg.parameter(scipy.stats.weibull_min,
+                                   {"c": 40.0, "scale": 24.5},
+                                   random_seed=3))
+    seen = {}
+    orig = jf.fit_survey
+
+    def capture(samples, **kw):
+        out = orig(samples, **kw)
+        seen["thetas"] = jf._thetas_from_df(out)
+        return out
+    monkeypatch.setattr(jf, "fit_survey", capture)
+    kw = dict(chain_inits=16, iterations_per_chain=12, burnin=4,
+              fitsurvey_samples=48, substeps=1, rwalk_std=0.1,
+              print_report=False)
+    got = jf.MCMC(use_priors=True, **kw)
+    dists = ref_jf._dists()
+    draw_dims = [j for j, d in enumerate(dists) if d is not None]
+    monkeypatch.setattr(jax_samplers, "sample_lhs",
+                        lambda key, ds, n: seen["thetas"][:, draw_dims])
+    ref = ref_jf.MCMC(use_priors=True, backend="pallas",
+                      pallas_interpret=True, pallas_tile_chains=128, **kw)
+    for col in ("iteration", "chain#", "acceptance_ratio"):
+        np.testing.assert_array_equal(got[col].to_numpy(),
+                                      ref[col].to_numpy())
+    for col in ("phi", "beta", "a:mu", "b:mu"):
+        np.testing.assert_allclose(got[col], ref[col], rtol=1e-5, err_msg=col)
+    for col in ("chi", "chi:a", "chi:b"):
+        np.testing.assert_allclose(got[col], ref[col], rtol=1e-4, err_msg=col)
+    plain = jf.MCMC(use_priors=False, **kw)
+    assert (plain.acceptance_ratio != got.acceptance_ratio).any()
+
+
 def test_joint_unported_options_raise():
     _, jf = _fits("zero_i-pair")
     for kw, item in ((dict(sampler="hmc"), "item 16"),
                      (dict(backend="xla"), "item 15"),
-                     (dict(use_priors=True), "item 12"),
                      (dict(checkpoint_every=5), "item 11"),
                      (dict(until_rhat=1.1), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             jf.MCMC(chain_inits=4, iterations_per_chain=6,
                     fitsurvey_samples=16, print_report=False, **kw)
+    # a prior without an in-kernel form: the reference's XLA joint sampler
+    # under backend='auto', its ValueError under 'pallas'
+    jf.frameworks["b"].set_parameters(mu=odelib_tpu_torch.parameter(
+        D.DiscreteNormal(mu=1.0, sigma=0.2)))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=16,
+                print_report=False, use_priors=True)
+    with pytest.raises(ValueError, match="unsupported prior family"):
+        jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=16,
+                print_report=False, use_priors=True, backend="pallas")
     fws = _zero_i_pair(odelib_tpu_torch, LogNormal, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         JointFit(fws, shared=["phi"], hierarchical=["beta"])

@@ -8,8 +8,11 @@ import pytest
 import torch
 
 from odelib_tpu.ops import pallas_mh as J
+from odelib_tpu_torch.distributions import DiscreteNormal
 from odelib_tpu_torch.ops import cuda_mh as T
 
+from test_torch_mh_prefetch import PRIOR_SETS
+from test_torch_priors import jax_priors
 from test_torch_survey import setup  # noqa: F401  (module fixture)
 
 
@@ -63,16 +66,50 @@ def test_mh_twin_matches_pallas_interpret(setup, walk_mask):  # noqa: F811
         got.aic.numpy(), np.float32(2.0) * got.chi.numpy() + np.float32(6.0))
 
 
+@pytest.mark.parametrize("prior_set", ["gamma-truncnorm-exponential",
+                                       "cauchy-halfnormal-weibull"])
+def test_mh_twin_with_priors_matches_pallas_interpret(setup,  # noqa: F811
+                                                      prior_set):
+    """In-kernel priors of the new families: the same accept sequences as
+    the JAX kernel with the same priors, theta within the no-prior test's
+    rtol 1e-5 and chi within its 5e-5."""
+    spec, tspec, obs_fit, times_fit, y0 = setup
+    th0 = _theta0()
+    priors = PRIOR_SETS[prior_set]
+    kw = dict(nits=24, burnin=12, substeps=1, rwalk_std=0.1)
+    ref = J.metropolis_hastings_fused(spec, obs_fit, times_fit, y0, th0,
+                                      seed=7, tile_chains=128,
+                                      interpret=True,
+                                      priors=jax_priors(priors), **kw)
+    obs_t, th_t, seed, y0_t = T.inputs_from_reference(obs_fit, th0, 7, y0)
+    got = T.metropolis_hastings_fused(tspec, obs_t, times_fit, y0_t, th_t,
+                                      seed, priors=priors, **kw)
+    np.testing.assert_array_equal(got.acceptance_ratio.numpy(),
+                                  np.asarray(ref.acceptance_ratio))
+    plain = T.metropolis_hastings_fused(tspec, obs_t, times_fit, y0_t, th_t,
+                                        seed, **kw)
+    # the priors change the chains
+    assert (plain.acceptance_ratio != got.acceptance_ratio).any()
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(ref.theta),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.chi.numpy(), np.asarray(ref.chi),
+                               rtol=5e-5)
+
+
 def test_mh_twin_rejects_unported_options(setup):  # noqa: F811
     _, tspec, obs_fit, times_fit, y0 = setup
     obs = T.obsdata_from_arrays(obs_fit)
     th0 = torch.as_tensor(_theta0(4))
-    for kw, item in ((dict(priors=[object()] * 3), "item 12"),
-                     (dict(checkpoint_every=4), "item 11"),
+    for kw, item in ((dict(checkpoint_every=4), "item 11"),
                      (dict(stepper="kvaerno3"), "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             T.metropolis_hastings_fused(tspec, obs, times_fit, y0, th0, 0,
                                         nits=8, burnin=2, **kw)
+    # a prior without an in-kernel form: the reference's ValueError
+    with pytest.raises(ValueError, match="unsupported prior family"):
+        T.metropolis_hastings_fused(
+            tspec, obs, times_fit, y0, th0, 0, nits=8, burnin=2,
+            priors=[None, DiscreteNormal(0.0, 1.0), None])
     with pytest.raises(ValueError, match="no recorded iterations"):
         T.metropolis_hastings_fused(tspec, obs, times_fit, y0, th0, 0,
                                     nits=8, burnin=7)

@@ -10,7 +10,9 @@ after A and C reject), or C and BB (``it + 2`` after A and B accept), or
 BB and BBB. The group exchanges chi and R^2 (the kernel's width-4
 shuffles) and every lane replays the serial decisions down the tree with
 the serial uniforms, so a round completes 1 to 4 iterations, and lane k
-stores the k-th row it completes. The emulation pads the lanes to whole
+stores the k-th row it completes. With priors each lane evaluates the log
+prior of its own node beside its solve, and the group exchanges it with
+chi and R^2. The emulation pads the lanes to whole
 warps as the kernel does (lanes past the last chain run no round and
 store nothing). This file imports neither jax nor the JAX package;
 ``CASES`` also drive the kernel-versus-twin cases on the card
@@ -26,24 +28,47 @@ import torch
 from odelib_tpu_torch.data import (build_obsdata_host,
                                    compact_observation_grid,
                                    format_dataframe, load_demo_dataframe)
+from odelib_tpu_torch import distributions as D
 from odelib_tpu_torch.models import zero_i
 from odelib_tpu_torch.ops import cuda_mh as T
+from odelib_tpu_torch.ops.priors import logprior_plain, prior_table
 from odelib_tpu_torch.ops.runge_kutta import const
 
 G = 4          # lanes a chain
 WARP = 32
 
-# name: (chains, nits, burnin, walk_mask, rwalk_std, stepper); 13 chains
-# are 52 lanes, so the second warp is part empty; nits 2-7 end the last
-# round at every residue of rounds of 2, 3 and 4 iterations
+# Prior assignments over zero_i's slots (mu, phi, beta) that cover the ten
+# in-kernel families, centred on the start region (0.6, 2.4e-8, 24) so the
+# chains accept; the last leaves phi without a prior.
+PRIOR_SETS = {
+    "lognormal-normal-uniform": (
+        D.LogNormal(s=0.05, scale=0.6), D.Normal(loc=2.4e-8, scale=0.1e-8),
+        D.Uniform(loc=22.0, scale=4.0)),
+    "gamma-truncnorm-exponential": (
+        D.Gamma(a=400.0, scale=0.0015),
+        D.TruncNormal(a=-1.5, b=1.5, loc=2.4e-8, scale=0.1e-8),
+        D.Exponential(loc=20.0, scale=2.0)),
+    "cauchy-halfnormal-weibull": (
+        D.Cauchy(loc=0.6, scale=0.01), D.HalfNormal(loc=2.2e-8, scale=0.2e-8),
+        D.Weibull(c=40.0, scale=24.5)),
+    "beta-none-gamma": (
+        D.Beta(a=60.0, b=40.0), None, D.Gamma(a=600.0, scale=0.04)),
+}
+
+# name: (chains, nits, burnin, walk_mask, rwalk_std, stepper, priors); 13
+# chains are 52 lanes, so the second warp is part empty; nits 2-7 end the
+# last round at every residue of rounds of 2, 3 and 4 iterations
 CASES = {
-    **{f"nits{n}": (13, n, 0, None, 0.05, "dopri5") for n in range(2, 8)},
-    "burnin-mid-round": (13, 21, 6, None, 0.05, "dopri5"),
-    "burnin-mid-round-odd": (13, 22, 7, None, 0.05, "dopri5"),
-    "walk-101": (13, 20, 4, [1, 0, 1], 0.05, "dopri5"),
-    "rk4": (13, 20, 4, None, 0.05, "rk4"),
-    "accept-near-0": (13, 24, 0, None, 3.0, "dopri5"),
-    "accept-near-1": (13, 24, 0, None, 1e-5, "dopri5"),
+    **{f"nits{n}": (13, n, 0, None, 0.05, "dopri5", None)
+       for n in range(2, 8)},
+    "burnin-mid-round": (13, 21, 6, None, 0.05, "dopri5", None),
+    "burnin-mid-round-odd": (13, 22, 7, None, 0.05, "dopri5", None),
+    "walk-101": (13, 20, 4, [1, 0, 1], 0.05, "dopri5", None),
+    "rk4": (13, 20, 4, None, 0.05, "rk4", None),
+    "accept-near-0": (13, 24, 0, None, 3.0, "dopri5", None),
+    "accept-near-1": (13, 24, 0, None, 1e-5, "dopri5", None),
+    **{f"priors-{k}": (13, 21, 6, None, 0.1, "dopri5", v)
+       for k, v in PRIOR_SETS.items()},
 }
 
 
@@ -91,10 +116,11 @@ CHILD = torch.tensor([[[2, 1], [-1, -1], [3, -1], [-1, -1]],
 
 
 def prefetch_mh(spec, plan, y0, theta0, seed, *, nits, burnin, walk, walked,
-                num, stepper="dopri5"):
-    """mh.cu's mh_kernel lane by lane. ``theta0`` (P, C) float32; returns
-    mh_plain's records, a Counter of the iterations each chain's rounds
-    completed and a Counter of the trees they used."""
+                num, stepper="dopri5", prior=None):
+    """mh.cu's mh_kernel lane by lane. ``theta0`` (P, C) float32, ``prior``
+    a prior table or None; returns mh_plain's records, a Counter of the
+    iterations each chain's rounds completed and a Counter of the trees
+    they used."""
     score = T.make_scorer(spec, plan, y0, stepper)
     P, C = theta0.shape
     R = nits - 1 - burnin
@@ -106,6 +132,7 @@ def prefetch_mh(spec, plan, y0, theta0, seed, *, nits, burnin, walk, walked,
     key = T.Rng(seed, c)._key
     th = theta0[:, c]
     chi, rsq = score(list(th))
+    lp = None if prior is None else logprior_plain(prior, list(th))
     lt = [torch.log(v) for v in th]
     acc = torch.zeros_like(chi)
     it = torch.where(live, torch.ones_like(t), torch.full_like(t, nits))
@@ -151,21 +178,29 @@ def prefetch_mh(spec, plan, y0, theta0, seed, *, nits, burnin, walk, walked,
             nd[3].append(torch.where(tree == 2, bb + sp[3], torch.where(
                 tree == 0, lt[p] + sp[2], bb)))
         nodes = [torch.stack(v) for v in zip(*nd)]       # P x (4, L)
-        own = [v[role, t] for v in nodes]
-        chi_new, rsq_new = score([torch.exp(v) for v in own])
+        own = [torch.exp(v[role, t]) for v in nodes]
+        chi_new, rsq_new = score(own)
         solved = it + DEPTH[tree, role] < nits  # past nits - 1: no solve
         chi_new = torch.where(solved, chi_new, torch.zeros_like(chi_new))
         rsq_new = torch.where(solved, rsq_new, torch.zeros_like(rsq_new))
+        lp_new = torch.zeros_like(chi_new) if prior is None else torch.where(
+            solved, logprior_plain(prior, own), torch.zeros_like(chi_new))
         # the width-4 shuffles: every lane reads its group's four results
         base = t - role
         chi_n = torch.stack([chi_new[base + n] for n in range(G)])
         rsq_n = torch.stack([rsq_new[base + n] for n in range(G)])
+        lp_n = torch.stack([lp_new[base + n] for n in range(G)])
         act = it < nits
         n, k, going = torch.zeros_like(it), torch.zeros_like(it), act
         for _ in range(G):                  # the replay down the tree
             u = _uniform(key, b0 + 1024 * k + slot)
-            ok = going & (torch.exp(chi - chi_n[n, t]) > u)
+            log_ratio = chi - chi_n[n, t]
+            if prior is not None:
+                log_ratio = log_ratio + (lp_n[n, t] - lp)
+            ok = going & (torch.exp(log_ratio) > u)
             lt = [torch.where(ok, v[n, t], x) for v, x in zip(nodes, lt)]
+            if prior is not None:
+                lp = torch.where(ok, lp_n[n, t], lp)
             chi = torch.where(ok, chi_n[n, t], chi)
             rsq = torch.where(ok, rsq_n[n, t], rsq)
             acc = acc + ok.to(torch.float32)
@@ -175,7 +210,7 @@ def prefetch_mh(spec, plan, y0, theta0, seed, *, nits, burnin, walk, walked,
             going = going & (nxt >= 0) & (it + k < nits)
             n = torch.where(going, nxt, n)
         # the group's lanes hold one state: no second exchange is needed
-        for v in lt + [chi, rsq, acc]:
+        for v in lt + [chi, rsq, acc] + ([] if lp is None else [lp]):
             g = v.view(-1, G)
             assert torch.equal(g, g[:, :1].expand_as(g))
         head = act & live & (role == 0)
@@ -196,13 +231,14 @@ def run_case(demo, case, device="cpu", substeps=1, chains=None):
     mh_plain's on one case (``chains`` replaces its chain count); returns
     (got, want, rounds, trees), the last two None on the card."""
     spec, obs, tf, y0 = demo
-    C, nits, burnin, mask, std, stepper = CASES[case]
+    C, nits, burnin, mask, std, stepper, priors = CASES[case]
     C = chains or C
     walk, walked = walk_of(mask, std)
     plan = T._build_plan(spec, obs, tf, substeps)
     th0 = torch.as_tensor(start_points(C).T.copy(), device=device)
+    prior = None if priors is None else prior_table(priors)
     kw = dict(nits=nits, burnin=burnin, walk=walk, walked=walked, num=3,
-              stepper=stepper)
+              stepper=stepper, prior=prior)
     want = T.mh_plain(spec, plan, y0, th0, 11, **kw)
     if device == "cpu":
         got, rounds, trees = prefetch_mh(spec, plan, y0, th0, 11, **kw)
@@ -210,7 +246,7 @@ def run_case(demo, case, device="cpu", substeps=1, chains=None):
     out = T.metropolis_hastings_fused(
         spec, obs, tf, y0, th0.t().contiguous(), 11, nits=nits,
         burnin=burnin, walk_mask=mask, rwalk_std=std, substeps=substeps,
-        stepper=stepper)
+        stepper=stepper, priors=priors)
     got = (out.theta.permute(1, 2, 0), out.chi.t(), out.rsquared.t(),
            out.aic.t(), out.acceptance_ratio.t())
     return got, want, None, None

@@ -19,7 +19,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, odelib_tpu_torch, odelib_tpu_torch.api, "
             "odelib_tpu_torch.ops.cuda_mh, odelib_tpu_torch.ops.cuda_pt, "
             "odelib_tpu_torch.ops.cuda_joint, odelib_tpu_torch.ops.cuda_pf, "
-            "odelib_tpu_torch.ops.priors, odelib_tpu_torch.joint, "
+            "odelib_tpu_torch.ops.priors, odelib_tpu_torch.ops.schedule, "
+            "odelib_tpu_torch.joint, "
             "odelib_tpu_torch.ops.build, odelib_tpu_torch.samplers.pt, "
             "odelib_tpu_torch.samplers.joint, "
             "odelib_tpu_torch.models, odelib_tpu_torch.dispatch; "
@@ -82,8 +83,9 @@ def test_from_scipy_bridge():
     d = D.from_scipy(scipy.stats.lognorm, {"s": 3, "scale": 1e-8})
     assert d == D.LogNormal(s=3.0, scale=1e-8) and hash(d)
     assert D.from_scipy(scipy.stats.norm(1.0, 2.0)) == D.Normal(1.0, 2.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        D.from_scipy(scipy.stats.gamma, {"a": 2.0})
+    assert D.from_scipy(scipy.stats.gamma, {"a": 2.0}) == D.Gamma(a=2.0)
+    with pytest.raises(ValueError, match="laplace"):
+        D.from_scipy(scipy.stats.laplace, {})
 
 
 def test_lhs_one_draw_per_stratum():

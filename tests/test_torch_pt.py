@@ -23,13 +23,17 @@ import odelib_tpu
 import odelib_tpu_torch
 from odelib_tpu.ops import pallas_pt as JP
 from odelib_tpu.samplers.pt import swap_attempts as jax_swap_attempts
+from odelib_tpu_torch.distributions import DiscreteNormal
 from odelib_tpu_torch.ops import cuda_mh as T
 from odelib_tpu_torch.ops import cuda_pf as TF
 from odelib_tpu_torch.ops import cuda_pt as TP
+from odelib_tpu_torch.ops.priors import logprior_plain, prior_table
 from odelib_tpu_torch.samplers.pt import swap_attempts
 
 from test_torch_api import _framework, _report_numbers
 from test_torch_ensemble import _inits, _theta0
+from test_torch_mh_prefetch import PRIOR_SETS
+from test_torch_priors import jax_priors
 from test_torch_survey import setup  # noqa: F401  (module fixture)
 
 _NITS, _BURNIN, _TEMPS = 24, 12, (1.0, 2.0, 4.0)
@@ -142,12 +146,13 @@ def test_pt_slot_layout_is_the_serial_draw_order(monkeypatch, K, n_walked):
     assert drawn == expect
 
 
-def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every):
+def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every,
+              prior=None):
     """pt.cu lane by lane: each rung draws from its closed-form slots, then
     every lane takes the partner of its due pair (one parity), reads the
-    partner's chi as the shuffle does, and both lanes of a pair compute the
-    same delta (lower rung's chi first) and decision from the pair's own
-    uniform.
+    partner's chi (and log prior) as the shuffles do, and both lanes of a
+    pair compute the same delta (lower rung's chi - lp first) and decision
+    from the pair's own uniform.
     Returns the cold rung's chi per iteration, its accept and swap counts."""
     score = _fake_scorer()
     K, P = len(betas), theta0.shape[0]
@@ -156,6 +161,8 @@ def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every):
     chi0, _ = score(list(theta0))
     lt = [[torch.log(th) for th in theta0] for _ in range(K)]
     chi = [chi0] * K
+    lp = [torch.zeros_like(chi0) if prior is None
+          else logprior_plain(prior, list(theta0))] * K
     acc = sw = torch.zeros_like(chi0)
     out = []
     for it in range(1, nits):
@@ -169,30 +176,42 @@ def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every):
                     ctr += 2
                 else:
                     prop.append(lt[k][p])
-            chi_new, _ = score([torch.exp(v) for v in prop])
-            ok = torch.exp((chi[k] - chi_new) * torch.tensor(betas[k])) \
+            thp = [torch.exp(v) for v in prop]
+            chi_new, _ = score(thp)
+            log_ratio = chi[k] - chi_new
+            if prior is not None:
+                lp_new = logprior_plain(prior, thp)
+                log_ratio = log_ratio + (lp_new - lp[k])
+            ok = torch.exp(log_ratio * torch.tensor(betas[k])) \
                 > T.uniform_of(key, ctr)
             lt[k] = [torch.where(ok, a, b) for a, b in zip(prop, lt[k])]
             chi[k] = torch.where(ok, chi_new, chi[k])
+            if prior is not None:
+                lp[k] = torch.where(ok, lp_new, lp[k])
             if k == 0:
                 acc = acc + ok.to(torch.float32)
         if it % every == 0:
             parity = (it // every) % 2
-            lt0, chi0_ = [list(v) for v in lt], list(chi)
+            lt0, chi0_, lp0 = [list(v) for v in lt], list(chi), list(lp)
             for k in range(K):          # every lane at once, from lt0/chi0_
                 lo = k if k % 2 == parity else k - 1
                 paired = 0 <= lo and lo + 1 < K
                 partner = (k + 1 if lo == k else lo) if paired else k
-                chi_o = chi0_[partner]              # the width-G shuffle
+                chi_o = chi0_[partner]              # the width-G shuffles
+                lp_o = lp0[partner]
                 if not paired:
                     continue
+                e, e_o = chi0_[k], chi_o
+                if prior is not None:
+                    e, e_o = chi0_[k] - lp0[k], chi_o - lp_o
                 delta = torch.tensor(dbetas[lo]) * (
-                    chi0_[k] - chi_o if lo == k else chi_o - chi0_[k])
+                    e - e_o if lo == k else e_o - e)
                 flag = (torch.exp(delta) > T.uniform_of(key, pairs[lo])) \
                     & torch.isfinite(delta)
                 lt[k] = [torch.where(flag, y, x)
                          for x, y in zip(lt0[k], lt0[partner])]
                 chi[k] = torch.where(flag, chi_o, chi0_[k])
+                lp[k] = torch.where(flag, lp_o, lp0[k])
                 if k == 0:
                     sw = sw + flag.to(torch.float32)
         out.append(chi[0])
@@ -222,6 +241,58 @@ def test_pt_lane_parallel_swaps_equal_the_serial_loop(monkeypatch, K):
         assert 0 < float(sw.sum()) and 0 < float(acc.sum()) < 16 * 12
 
 
+@pytest.mark.parametrize("K", [3, 4])
+def test_pt_lane_parallel_swaps_with_priors(monkeypatch, K):
+    """As above with in-kernel priors: each lane carries its rung's log
+    prior, the due pairs' delta takes chi - lp, and lp swaps with chi."""
+    monkeypatch.setattr(TP, "make_scorer", _fake_scorer)
+    temps = tuple(2.0 ** k for k in range(K))
+    mask = [1, 0, 1]
+    walked = (True, False, True)
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.4, mask)
+    th0 = torch.as_tensor(_theta0(16).T.copy())
+    prior = prior_table(PRIOR_SETS["gamma-truncnorm-exponential"])
+    for every in (1, 2):
+        recs = TP.pt_plain(None, None, None, th0, 9, nits=13, burnin=0,
+                           scales=scales, walked=walked, betas=betas,
+                           dbetas=dbetas, swap_every=every, num=3,
+                           prior=prior)
+        chi, acc, sw = _pt_lanes(th0, 9, 13, scales, walked, betas, dbetas,
+                                 every, prior)
+        np.testing.assert_array_equal(chi.numpy(), recs[1].numpy())
+        np.testing.assert_array_equal((acc / 12).numpy(), recs[4][-1].numpy())
+        np.testing.assert_array_equal(sw.numpy(), recs[5][-1].numpy())
+        assert 0 < float(sw.sum()) and 0 < float(acc.sum()) < 16 * 12
+
+
+def test_pt_twin_with_priors_matches_pallas_interpret(setup):  # noqa: F811
+    """In-kernel priors of the new families: the T=1 accept sequence and
+    the cold pair's swap counts equal the JAX kernel's with the same
+    priors; theta and chi within the no-prior test's tolerances."""
+    spec, tspec, obs_fit, times_fit, y0 = setup
+    priors = PRIOR_SETS["cauchy-halfnormal-weibull"]
+    th0 = _theta0(128)
+    kw = dict(temperatures=_TEMPS, swap_every=1, nits=_NITS, burnin=_BURNIN,
+              substeps=1, rwalk_std=0.1)
+    ref, ref_rate = JP.parallel_tempering_fused(
+        spec, obs_fit, times_fit, y0, th0, seed=7, tile_chains=128,
+        interpret=True, priors=jax_priors(priors), **kw)
+    obs_t, th_t, seed, y0_t = T.inputs_from_reference(obs_fit, th0, 7, y0)
+    got, rate = TP.parallel_tempering_fused(tspec, obs_t, times_fit, y0_t,
+                                            th_t, seed, priors=priors, **kw)
+    np.testing.assert_array_equal(got.acceptance_ratio.numpy(),
+                                  np.asarray(ref.acceptance_ratio))
+    np.testing.assert_array_equal(rate.numpy(), np.asarray(ref_rate))
+    plain, _ = TP.parallel_tempering_fused(tspec, obs_t, times_fit, y0_t,
+                                           th_t, seed, **kw)
+    assert (plain.acceptance_ratio != got.acceptance_ratio).any()
+    assert 0 < float(rate.mean()) <= 1
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(ref.theta),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.chi.numpy(), np.asarray(ref.chi),
+                               rtol=5e-5)
+
+
 def test_ladder_constants_rounded_on_host():
     scales, betas, dbetas = TP.ladder_constants((1.0, 2.0, 3.0), 0.05,
                                                 [1.0, 0.0, 1.0])
@@ -244,7 +315,8 @@ def test_pt_rejects_bad_arguments(setup):  # noqa: F811
             (dict(temperatures=tuple(range(1, 10))), ValueError, "at most"),
             (dict(swap_every=0), ValueError, "swap_every"),
             (dict(burnin=7), ValueError, "no recorded"),
-            (dict(priors=[object()] * 3), NotImplementedError, "item 12"),
+            (dict(priors=[None, DiscreteNormal(0.0, 1.0), None]),
+             ValueError, "unsupported prior family"),
             (dict(resume_from="x"), NotImplementedError, "item 11")):
         with pytest.raises(err, match=msg):
             TP.parallel_tempering_fused(tspec, obs, times_fit, y0, th0, 0,
