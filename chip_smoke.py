@@ -15,11 +15,11 @@ Phases, each failing the script if it fails:
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
    on 1024 chains x 200 iterations (the kernel's rounds counted by the
    iterations each completes), the ensemble on 2048 walkers (two
-   ensembles of 1024) x 100 iterations, in one launch of as many blocks as
+   ensembles of 1024) x 200 iterations, in one launch of as many blocks as
    can be co-resident and again on 7 blocks of 32 threads, so each thread
    loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
-   1024 chains x 100 iterations, and with 3 (an idle lane in each chain's
-   group of 4) and 8 rungs on 1000 chains x 30 (identical accept
+   1024 chains x 200 iterations, and with 3 (an idle lane in each chain's
+   group of 4) and 8 rungs on 1000 chains x 60 (identical accept
    sequences and swap counts),
    the joint kernel on the heterogeneous pair zero_i + one_i, 256
    chains x 20 iterations, and with a third experiment (K = 3, blocks of
@@ -55,9 +55,10 @@ Phases, each failing the script if it fails:
    survey_fused (the MH path's 1,000 draws), metropolis_hastings_fused (all
    10,000 chains and the path's seed x 50 iterations, and the first 9,997
    chains, so the last warp's group of 8 chains is part empty; rounds of
-   2 and 3 iterations must both occur), ensemble_fused (its 10,000 walkers and seed, the default tile of 4096,
-   padded to 12,288 walkers; 100 iterations; the tile sets each walker's
-   partners, so this is the geometry the main path runs),
+   2 and 3 iterations must both occur), ensemble_fused (its 10,000
+   walkers and seed, the default tile of 4096, padded to 12,288 walkers;
+   200 iterations; the tile sets each walker's partners, so this is the
+   geometry the main path runs),
    parallel_tempering_fused (all 10,000 chains x 4 rungs x 20 iterations:
    40,000 threads, so the last block of 128 is part empty; identical swap
    counts), joint_metropolis_hastings_fused (all 10,000 chains x 50
@@ -70,7 +71,17 @@ Phases, each failing the script if it fails:
    call's seconds; the ensemble's share of walkers ending at mu = 0), and
    JointFit.MCMC(use_priors=True), each with the finite-chi and
    acceptance checks and its launch counts; then calibrate_substeps on
-   the MH path's seeds on the card and on the CPU, which must agree;
+   the MH path's seeds on the card and on the CPU, which must agree; the
+   calibrated schedule's chi against the adaptive solve's on the MH
+   path's 10,000 seeds and final draws, as the JAX package's accuracy
+   gate measures it (float64, adaptive Dopri5 at rtol 1e-6 and atol 1e-2
+   on the full grid; near the fit, chi < 500, within 1e-4), beside
+   substeps=4 and the survey kernel's float32 chi; and each prior-aware
+   path's wrapper call, captured where the path made it (all 10,000
+   chains, the demo's priors, the calibrated schedule; the joint fit's
+   'auto' resolves to 4), through its kernel and through its twin
+   (every launcher swapped for its twin), bitwise: MH, ensemble and
+   joint x 50 iterations, PT x 20;
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MH, ensemble, PT and joint kernels with the demo's priors, with flat
@@ -332,6 +343,53 @@ def compare_chi(name, chi_k, chi_t):
         else 0.0
 
 
+@contextlib.contextmanager
+def recording(module, name, store):
+    """``module.name`` (a chain wrapper) records the arguments of its
+    calls in ``store`` while the block runs."""
+    real = getattr(module, name)
+
+    def record(*args, **kw):
+        store.update(args=args, kw=kw)
+        return real(*args, **kw)
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def kernel_vs_twin_at(label, wrapper, call, nits):
+    """A main path's captured wrapper call, cut to ``nits`` iterations
+    without burn-in, through its kernel (one launch) and through its twin
+    (``plain_launchers``, no launch): identical accept sequences,
+    every record and PT's swap rates bitwise. Returns chi's max abs error
+    and the kernel's output."""
+    import torch
+    from odelib_tpu_torch.ops import cuda_mh, plain_launchers
+    kw = {**call["kw"], "nits": nits, "burnin": 0}
+    n0 = sum(cuda_mh.LAUNCHES.values())
+    res_k = wrapper(*call["args"], **kw)
+    torch.cuda.synchronize()
+    n1 = sum(cuda_mh.LAUNCHES.values())
+    with plain_launchers():
+        res_t = wrapper(*call["args"], **kw)
+    torch.cuda.synchronize()
+    if (n1 - n0, sum(cuda_mh.LAUNCHES.values()) - n1) != (1, 0):
+        fail(f"{label}: the kernel run launched {n1 - n0} kernels and the "
+             "twin run launched some")
+    (out_k, rate_k), (out_t, rate_t) = (
+        (r, None) if hasattr(r, "_fields") else r for r in (res_k, res_t))
+    names = [f for f in out_k._fields if f != "iteration"]
+    labels = tuple("ar" if f == "acceptance_ratio" else f for f in names)
+    err = compare_records(label, *([getattr(o, f).movedim(0, -1)
+                                    for f in names] for o in (out_k, out_t)),
+                          nits, labels=labels)
+    if rate_k is not None and not torch.equal(rate_k, rate_t):
+        fail(f"{label}: kernel and twin swap counts differ")
+    return err, out_k
+
+
 # csrc/mh.cu's speculation trees: per tree and node, the node after a
 # reject and after an accept (-1: the round ends there)
 MH_CHILD = (((2, 1), (-1, -1), (3, -1), (-1, -1)),
@@ -438,6 +496,7 @@ def main():
     from odelib_tpu_torch.models import one_i, zero_i
     from odelib_tpu_torch.ops import (build, cuda_joint, cuda_mh, cuda_pf,
                                       cuda_pt, schedule)
+    from odelib_tpu_torch.model import chi_of_theta
     from odelib_tpu_torch.ops.priors import prior_table
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -588,18 +647,18 @@ def main():
           flush=True)
 
     phase("ensemble kernel vs twin")
-    W, tile, mask, e_nits = 2048, 1024, (1.0, 1.0, 1.0), 100
+    W, tile, mask = 2048, 1024, (1.0, 1.0, 1.0)
     start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
         seeds[:W], seed, tile, mask, 0.01).T), device=dev)
-    ens_kw = dict(tile=tile, nits=e_nits, burnin=0, a=2.0, walk=mask,
+    ens_kw = dict(tile=tile, nits=nits, burnin=0, a=2.0, walk=mask,
                   walked=(True,) * 3, num=3, W0=W)
     rec_k = cuda_mh.ensemble_launcher(spec, plan, y0, "dopri5", start, seed,
                                       **ens_kw)()
     torch.cuda.synchronize()
     rec_t = cuda_mh.ensemble_plain(spec, plan, y0, start, seed, **ens_kw)
     torch.cuda.synchronize()
-    compare_records("ensemble", rec_k, rec_t, e_nits)
-    print(f"ensemble: {W} walkers ({W // tile} ensembles) x {e_nits} "
+    compare_records("ensemble", rec_k, rec_t, nits)
+    print(f"ensemble: {W} walkers ({W // tile} ensembles) x {nits} "
           f"iterations in one device launch, mean acceptance "
           f"{float(rec_k[4][-1].mean()):.4f}", flush=True)
     # the same run on 7 blocks of 32 threads: 1,024 columns, 4-5 a thread
@@ -607,7 +666,7 @@ def main():
                                       blocks=7, **ens_kw)()
     torch.cuda.synchronize()
     compare_records("ensemble (7 blocks, columns looped)", rec_k, rec_t,
-                    e_nits)
+                    nits)
 
     phase("PT kernel vs twin")
     # the main path's ladder, then 3 rungs (an idle lane in each chain's
@@ -615,8 +674,8 @@ def main():
     # block of 128 threads is part empty; the twin's time grows with the
     # rungs, so these two take fewer iterations
     for temps, n_c, n_it in (
-            (TEMPS, C, 100), ((1.0, 2.0, 4.0), 1000, 30),
-            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 30)):
+            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
+            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
         pt_kw = dict(nits=n_it, burnin=0, scales=sc, walked=(True,) * 3,
@@ -1081,6 +1140,12 @@ def main():
         return out
     schedule.calibrate_substeps = recording_calibrate
     auto_runs = {}
+    # the wrappers' inputs on these paths, for the comparisons after them
+    wrappers = {"mh": (cuda_mh, "metropolis_hastings_fused"),
+                "ensemble": (cuda_mh, "ensemble_fused"),
+                "pt": (cuda_pt, "parallel_tempering_fused"),
+                "joint": (cuda_joint, "joint_metropolis_hastings_fused")}
+    auto_in = {k: {} for k in wrappers}
     for sampler in ("mh", "ensemble", "pt"):
         phase(f"main path: ModelFramework(...).MCMC(sampler={sampler!r}, "
               "use_priors=True, substeps='auto')")
@@ -1090,7 +1155,8 @@ def main():
         cuda_mh.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), \
+                recording(*wrappers[sampler], auto_in[sampler]):
             post = fw.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
                            fitsurvey_samples=1000, sd_fitdistance=6.0,
                            sampler=sampler, use_priors=True, substeps="auto",
@@ -1131,7 +1197,8 @@ def main():
                 or launches[kernel_of[sampler]] != 1:
             fail(f"{sampler} (priors): the survey and chain kernels were "
                  f"not launched once each: {launches}")
-        auto_runs[sampler] = (fw, sched)
+        auto_runs[sampler] = (fw, sched,
+                              last[["mu", "phi", "beta"]].to_numpy(copy=True))
     schedule.calibrate_substeps = real_calibrate
 
     phase("main path: JointFit({'a', 'b'}).MCMC(use_priors=True, "
@@ -1142,7 +1209,8 @@ def main():
     cuda_mh.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), \
+            recording(*wrappers["joint"], auto_in["joint"]):
         jpost = jf.MCMC(chain_inits=CHAINS, iterations_per_chain=NITS,
                         fitsurvey_samples=1000, substeps="auto",
                         use_priors=True, profile=True)
@@ -1192,6 +1260,73 @@ def main():
           f"the CPU {list(on_cpu)} in {cpu_s:.3f} s")
     if on_card != on_cpu or on_card != calib[0]["sched"]:
         fail("calibration: the card's schedule differs from the CPU's")
+
+    phase("accuracy: chi on the calibrated schedule against the adaptive "
+          "solve, the MH path's seeds and final draws")
+    # as the JAX package's accuracy gate (tests/test_accuracy_gate.py): the
+    # oracle is adaptive Dopri5 (rtol 1e-6, atol 1e-2) on the full
+    # 288-point grid in float64, the fixed steps run on the compact grid,
+    # and near the fit (chi < 500) they must agree to 1e-4
+    fw_mh, sched_mh, final_mh = auto_runs["mh"]
+    obs_full, _ = build_obsdata_host(fw_mh.df, fw_mh.times,
+                                     spec.post_snames)
+    gate = []
+    for what, th64 in (
+            ("seeds", auto_in["mh"]["args"][4].double()),
+            ("final draws", torch.as_tensor(final_mh, dtype=torch.float64,
+                                            device=dev))):
+        oracle = chi_of_theta(spec, obs_full, th64, y0, fw_mh.times,
+                              method="dopri5", rtol=1e-6, atol=1e-2,
+                              max_steps=32768).cpu().numpy()
+        for label, chi in (
+                ("calibrated schedule, float64", chi_of_theta(
+                    spec, obs, th64, y0, tf, method="fixed_dopri5",
+                    substeps=sched_mh)),
+                ("substeps=4, float64", chi_of_theta(
+                    spec, obs, th64, y0, tf, method="fixed_dopri5",
+                    substeps=4)),
+                ("calibrated schedule, the survey kernel",
+                 cuda_mh.survey_fused(spec, obs, tf, y0, th64.float(),
+                                      substeps=sched_mh))):
+            chi = chi.double().cpu().numpy()
+            both = np.isfinite(oracle) & np.isfinite(chi)
+            near = both & (oracle < 500.0)
+            rel = np.abs(chi - oracle) / np.maximum(np.abs(oracle), 1.0)
+            near_max = float(rel[near].max()) if near.any() else float("nan")
+            if label == "calibrated schedule, float64":
+                gate.append(near_max)
+            print(f"accuracy, the MH path's {len(oracle)} {what}, {label}, "
+                  f"against the adaptive solve: near the fit ({near.sum()} "
+                  f"draws) max rel chi err {near_max:.3g}; all "
+                  f"{both.sum()} finite: median {np.median(rel[both]):.3g}, "
+                  f"p99 {np.percentile(rel[both], 99):.3g}, max "
+                  f"{rel[both].max():.3g}; finiteness disagreements "
+                  f"{int((np.isfinite(oracle) != np.isfinite(chi)).sum())}",
+                  flush=True)
+    if not all(g < 1e-4 for g in gate):
+        fail(f"accuracy: the calibrated schedule's near-fit max rel chi "
+             f"errors {gate} (no near-fit draw: nan) are not below 1e-4")
+
+    phase("the prior-aware paths: kernels vs twins at their main paths' "
+          "inputs (all chains, the demo's priors, calibrated schedules)")
+    auto_err = {}
+    for sampler, its in (("mh", 51), ("ensemble", 51), ("pt", 21),
+                         ("joint", 51)):
+        call = auto_in[sampler]
+        kw = call["kw"]
+        th0 = call["args"][5 if sampler == "joint" else 4]
+        sub = kw["substeps_list" if sampler == "joint" else "substeps"]
+        if th0.shape[0] != CHAINS or kw["priors"] is None:
+            fail(f"{sampler} (priors): the main path ran {th0.shape[0]} "
+                 f"chains with priors {kw['priors']}")
+        auto_err[sampler], out = kernel_vs_twin_at(
+            f"{sampler} (priors, substeps='auto'; main path's inputs)",
+            getattr(*wrappers[sampler]), call, its)
+        print(f"{sampler} with priors at its main path's inputs: all "
+              f"{th0.shape[0]} chains x {its - 1} iterations, seed "
+              f"{kw['seed']}, substeps {sub}, priors {kw['priors']}, mean "
+              f"acceptance {float(out.acceptance_ratio[:, -1].mean()):.4f}",
+              flush=True)
 
     phase("survey and MH kernels vs twin at the MH main path's inputs")
     sv_args, sv_kw = sv_in["mh"]
@@ -1258,7 +1393,7 @@ def main():
 
     phase("ensemble kernel vs twin at the main path's inputs")
     ens_th0, cfg, ens_seed = ens_in["theta0"], ens_in["cfg"], ens_in["seed"]
-    ens_nits = 100
+    ens_nits = 200
     tile_main = cfg.tile_chains or cuda_mh.pick_tile_chains(len(ens_th0))
     ens_walk = tuple(float(w) for w in cfg.mask)
     ens_sub = cuda_mh._normalize_substeps(cfg.substeps, len(tf) - 1)
@@ -1638,17 +1773,19 @@ def main():
         row("survey_fused", "mh.cu", "odelib_tpu/ops/pallas_mh.py:1765",
             "mh", survey_err, sv_ms, sv_plain_ms, sv_bound),
         row("metropolis_hastings_fused", "mh.cu",
-            "odelib_tpu/ops/pallas_mh.py:1017", "mh", mh_err, mh_ms,
-            mh_plain_ms, mh_bound),
+            "odelib_tpu/ops/pallas_mh.py:1017", "mh",
+            max(mh_err, auto_err["mh"]), mh_ms, mh_plain_ms, mh_bound),
         row("ensemble_fused", "ensemble.cu",
-            "odelib_tpu/ops/pallas_mh.py:1514", "ensemble", ens_err, ens_ms,
-            ens_plain_ms, ens_bound),
+            "odelib_tpu/ops/pallas_mh.py:1514", "ensemble",
+            max(ens_err, auto_err["ensemble"]), ens_ms, ens_plain_ms,
+            ens_bound),
         row("parallel_tempering_fused", "pt.cu",
-            "odelib_tpu/ops/pallas_pt.py:49", "pt", pt_err, pt_ms,
-            pt_plain_ms, pt_bound),
+            "odelib_tpu/ops/pallas_pt.py:49", "pt",
+            max(pt_err, auto_err["pt"]), pt_ms, pt_plain_ms, pt_bound),
         row("joint_metropolis_hastings_fused", "joint.cu",
-            "odelib_tpu/ops/pallas_joint.py:347", "joint", joint_err,
-            joint_ms, joint_plain_ms, joint_bound),
+            "odelib_tpu/ops/pallas_joint.py:347", "joint",
+            max(joint_err, auto_err["joint"]), joint_ms, joint_plain_ms,
+            joint_bound),
         row("pmmh_fused", "pf.cu", "odelib_tpu/ops/pallas_pf.py:130",
             "pmmh", pf_err, pf_ms, pf_plain_ms, pf_bound)]}))
     print(smi_line)

@@ -520,21 +520,11 @@ class ModelFramework:
                 "sampler='pmmh' for the exact stochastic posterior.")
         priors = None
         if use_priors:
-            from .ops.priors import kernel_priors_supported
-            priors = tuple(self.parameters[p].tdist
-                           if self.parameters[p] is not None else None
-                           for p in self._pnames)
-            if not kernel_priors_supported(priors):
-                if backend == "pallas":
-                    raise ValueError(
-                        "backend='pallas' with use_priors=True requires "
-                        "every prior to be a kernel-supported family "
-                        "(Normal, LogNormal, Uniform, Gamma, TruncNormal, "
-                        "Exponential, Cauchy, HalfNormal, Weibull, Beta); "
-                        "use backend='xla'")
-                raise NotImplementedError(
-                    "a prior without an in-kernel form runs on the XLA "
-                    f"sampler, not ported yet ({_XLA_SAMPLER_ITEM[sampler]})")
+            from .ops.priors import require_kernel_priors
+            priors = require_kernel_priors(
+                (self.parameters[p].tdist if self.parameters[p] is not None
+                 else None for p in self._pnames), backend,
+                _XLA_SAMPLER_ITEM[sampler])
         if sampler == "pmmh":
             if sde_method == "milstein":
                 raise NotImplementedError(

@@ -241,17 +241,10 @@ class JointFit:
                 "(ROADMAP queue 1, item 15)")
         priors = None
         if use_priors:
-            from .ops.priors import kernel_priors_supported
-            priors = tuple(self._dists())
-            if not kernel_priors_supported(priors):
-                if backend == "pallas":
-                    raise ValueError(
-                        "unsupported prior family for the fused kernel; "
-                        "use the XLA backend")
-                raise NotImplementedError(
-                    "a prior without an in-kernel form runs on the XLA "
-                    "samplers/joint.py, not ported yet (ROADMAP queue 1, "
-                    "item 15)")
+            from .ops.priors import require_kernel_priors
+            priors = require_kernel_priors(
+                self._dists(), backend,
+                "the XLA samplers/joint.py is ROADMAP queue 1, item 15")
         if checkpoint_every is not None or checkpoint_path is not None \
                 or resume_from is not None:
             raise NotImplementedError(

@@ -85,30 +85,48 @@ def kernel_priors_supported(priors) -> bool:
 
 def prior_table(priors) -> np.ndarray:
     """(P, WIDTH) float32 table of per-slot priors (None for no prior).
-    Raises ``ValueError`` for a family without an in-kernel form."""
+    Raises the reference's ``ValueError`` for a family without an in-kernel
+    form."""
     rows = [_row(d) for d in priors]
     if any(r is None for r in rows):
-        raise ValueError("unsupported prior family for the fused kernel; "
-                         "use the XLA backend")
+        raise ValueError(
+            "unsupported prior family for the fused kernel: every prior "
+            "must be a kernel-supported family (LogNormal, Normal, Uniform, "
+            "Gamma, TruncNormal, Exponential, Cauchy, HalfNormal, Weibull, "
+            "Beta); use the XLA backend")
     return np.asarray(rows, np.float64).astype(np.float32).reshape(-1, WIDTH)
+
+
+def require_kernel_priors(priors, backend: str, item: str):
+    """The MCMC entry points' check of ``use_priors=True``: ``priors`` as
+    given when every family has an in-kernel form. Otherwise
+    ``backend='pallas'`` raises the reference's ``ValueError``, and
+    ``'auto'``, where the reference takes its XLA sampler,
+    ``NotImplementedError`` naming ``item``, the ROADMAP item that ports
+    that sampler."""
+    priors = tuple(priors)
+    if not kernel_priors_supported(priors):
+        if backend == "pallas":
+            prior_table(priors)
+        raise NotImplementedError("a prior without an in-kernel form runs "
+                                  f"on the XLA sampler, not ported yet "
+                                  f"({item})")
+    return priors
 
 
 def checked_priors(priors, n: int, what: str = "theta slot"):
     """A fused wrapper's ``priors=`` as a table, or None: one entry per
     slot (``ValueError`` otherwise), every family with an in-kernel form
-    (the reference's ``ValueError`` otherwise); all None is no priors."""
+    (:func:`prior_table`'s ``ValueError`` otherwise); all None is no
+    priors."""
     if priors is None:
         return None
     priors = tuple(priors)
     if len(priors) != n:
         raise ValueError(f"priors must have one entry per {what} ({n}), "
                          f"got {len(priors)}")
-    if not kernel_priors_supported(priors):
-        raise ValueError("unsupported prior family for the fused kernel; "
-                         "use the XLA backend")
-    if all(d is None for d in priors):
-        return None
-    return prior_table(priors)
+    table = prior_table(priors)
+    return None if all(d is None for d in priors) else table
 
 
 def _log_prior(e, x):

@@ -405,6 +405,53 @@ def test_kernels_with_priors_match_twins(card, prior_set):
                    tw)
 
 
+# the schedule substeps='auto' calibrates from the MH main path's seeds on
+# the demo data: 21 steps a solve where substeps=4 takes 68
+CALIBRATED = (3,) + (1,) * 14 + (2, 2)
+
+
+@pytest.mark.parametrize("prior_set", sorted(PRIOR_SETS))
+def test_kernels_on_a_calibrated_schedule_with_priors(card, prior_set):
+    """The MH, ensemble, PT and joint kernels on a non-uniform schedule with
+    each prior assignment: each wrapper's kernel (one launch) against the
+    same call through its twin, bitwise."""
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    from odelib_tpu_torch.ops import plain_launchers
+    spec, obs, tf, y0 = card
+    assert len(CALIBRATED) == len(tf) - 1
+    priors = PRIOR_SETS[prior_set]
+    draws = torch.as_tensor(_draws(500, sd=0.05), device="cuda")
+    jpri = (priors[1], priors[2], priors[0], priors[0])
+    jth0 = torch.as_tensor((np.array([2.4e-8, 24.0, 0.6, 0.6]) * np.exp(
+        np.random.default_rng(2).normal(0, 0.05, (256, 4)))).astype(
+            np.float32), device="cuda")
+    specs, obs2, tfs, y0s, idxs = _joint_inputs(card)
+    runs = (
+        (T.metropolis_hastings_fused, (spec, obs, tf, y0, draws, 11),
+         dict(substeps=CALIBRATED, rwalk_std=0.1, priors=priors)),
+        (T.ensemble_fused, (spec, obs, tf, y0, draws, 11),
+         dict(substeps=CALIBRATED, tile_chains=256, priors=priors)),
+        (TP.parallel_tempering_fused, (spec, obs, tf, y0, draws, 11),
+         dict(substeps=CALIBRATED, rwalk_std=0.1, priors=priors)),
+        (TJ.joint_metropolis_hastings_fused,
+         (specs, idxs, obs2, tfs, y0s, jth0, 11),
+         dict(substeps_list=[CALIBRATED] * 2, rwalk_std=0.1, priors=jpri)))
+    for wrapper, args, kw in runs:
+        before = sum(T.LAUNCHES.values())
+        k = wrapper(*args, nits=30, burnin=10, **kw)
+        assert sum(T.LAUNCHES.values()) == before + 1
+        with plain_launchers():
+            tw = wrapper(*args, nits=30, burnin=10, **kw)
+        torch.cuda.synchronize()
+        assert sum(T.LAUNCHES.values()) == before + 1
+        (k, rate_k), (tw, rate_t) = ((r, None) if hasattr(r, "_fields")
+                                     else r for r in (k, tw))
+        assert_bitwise(k, tw)
+        if rate_k is not None:
+            assert_bitwise((rate_k,), (rate_t,))
+        assert float(k.acceptance_ratio[:, -1].mean()) > 0
+
+
 def _gbm_inputs():
     """The GBM state-space model on its compact grid (8 observations at
     t = 0.5, ..., 4.0)."""

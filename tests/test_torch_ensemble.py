@@ -136,17 +136,25 @@ def test_ensemble_twin_matches_pallas_interpret(setup, refs, case):  # noqa: F81
         np.testing.assert_allclose(fixed[:, 0], th0[:, 1], rtol=1e-6)
 
 
-@pytest.mark.parametrize("prior_set", ["beta-none-gamma",
-                                       "cauchy-halfnormal-weibull"])
+@pytest.mark.parametrize("prior_set,substeps", [
+    pytest.param("beta-none-gamma", 2, id="beta-none-gamma"),
+    pytest.param("cauchy-halfnormal-weibull", 2,
+                 id="cauchy-halfnormal-weibull"),
+    pytest.param("gamma-truncnorm-exponential", "auto-like",
+                 id="gamma-truncnorm-exponential-schedule")])
 def test_ensemble_twin_with_priors_matches_pallas_interpret(
-        setup, prior_set):  # noqa: F811
-    """In-kernel priors of the new families on one ensemble of 256: the
-    same accept sequences as the JAX kernel with the same priors, theta and
-    chi within the no-prior test's tolerances."""
+        setup, prior_set, substeps):  # noqa: F811
+    """In-kernel priors of the new families on one ensemble of 256, on 2
+    substeps or the shape of schedule substeps='auto' gives (3 steps in the
+    first interval, 1 in most, 2 in the last two): the same accept
+    sequences as the JAX kernel with the same priors and schedule, theta
+    and chi within the no-prior test's tolerances."""
     spec, tspec, obs_fit, times_fit, y0 = setup
     priors = PRIOR_SETS[prior_set]
     th0 = _theta0(256)
-    kw = dict(nits=_NITS, burnin=_BURNIN, substeps=2, tile_chains=256)
+    if substeps == "auto-like":
+        substeps = (3,) + (1,) * (len(times_fit) - 4) + (2, 2)
+    kw = dict(nits=_NITS, burnin=_BURNIN, substeps=substeps, tile_chains=256)
     ref = J.ensemble_fused(spec, obs_fit, times_fit, y0, th0, seed=7,
                            interpret=True, priors=jax_priors(priors), **kw)
     obs_t, th_t, seed, y0_t = T.inputs_from_reference(obs_fit, th0, 7, y0)

@@ -325,6 +325,33 @@ def test_joint_twin_with_priors_matches_pallas_interpret():
                                rtol=1e-4)
 
 
+def test_joint_twin_with_priors_on_schedules_matches_pallas_interpret():
+    """Priors with a non-uniform schedule in each experiment, the shape
+    substeps='auto' gives (the two differ): the same accept sequences as
+    the JAX kernel with the same priors and schedules; theta and chi
+    within the no-prior test's tolerances."""
+    ref_jf, jf = _fits("zero_i-pair")
+    rng = np.random.default_rng(5)
+    th0 = (np.array(_CENTRES["zero_i-pair"])
+           * np.exp(rng.normal(0, 0.05, (128, jf.dim)))).astype(np.float32)
+    n = [len(fw._times_fit) - 1 for fw in jf.frameworks.values()]
+    scheds = [(3,) + (1,) * (n[0] - 3) + (2, 2),
+              (1,) * (n[1] - 2) + (2, 3)]
+    kw = dict(nits=13, burnin=2, rwalk_std=0.1, substeps_list=scheds)
+    ref = jax_joint_fused(*_host_args(ref_jf), th0, seed=4, tile_chains=128,
+                          interpret=True, priors=jax_priors(_JOINT_PRIORS),
+                          **kw)
+    got = TJ.joint_metropolis_hastings_fused(
+        *_host_args(jf), torch.as_tensor(th0), 4, priors=_JOINT_PRIORS, **kw)
+    np.testing.assert_array_equal(got.acceptance_ratio.numpy(),
+                                  np.asarray(ref.acceptance_ratio))
+    assert 0 < float(got.acceptance_ratio[:, -1].mean()) < 1
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(ref.theta),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.chi.numpy(), np.asarray(ref.chi),
+                               rtol=1e-4)
+
+
 @pytest.mark.parametrize("name", sorted(_PAIRS))
 def test_joint_survey_matches_jax(name):
     """joint_survey and JointFit.fit_survey in float64 against the JAX

@@ -66,17 +66,30 @@ def test_mh_twin_matches_pallas_interpret(setup, walk_mask):  # noqa: F811
         got.aic.numpy(), np.float32(2.0) * got.chi.numpy() + np.float32(6.0))
 
 
-@pytest.mark.parametrize("prior_set", ["gamma-truncnorm-exponential",
-                                       "cauchy-halfnormal-weibull"])
+# the shape of schedule substeps='auto' gives: 3 steps in the first
+# interval, 1 in most, 2 in the last two
+_AUTO_LIKE = "auto-like"
+
+
+@pytest.mark.parametrize("prior_set,substeps", [
+    pytest.param("gamma-truncnorm-exponential", 1,
+                 id="gamma-truncnorm-exponential"),
+    pytest.param("cauchy-halfnormal-weibull", 1,
+                 id="cauchy-halfnormal-weibull"),
+    pytest.param("lognormal-normal-uniform", _AUTO_LIKE,
+                 id="lognormal-normal-uniform-schedule")])
 def test_mh_twin_with_priors_matches_pallas_interpret(setup,  # noqa: F811
-                                                      prior_set):
-    """In-kernel priors of the new families: the same accept sequences as
-    the JAX kernel with the same priors, theta within the no-prior test's
-    rtol 1e-5 and chi within its 5e-5."""
+                                                      prior_set, substeps):
+    """In-kernel priors of the new families, on 1 substep or a non-uniform
+    schedule: the same accept sequences as the JAX kernel with the same
+    priors and schedule, theta within the no-prior test's rtol 1e-5 and
+    chi within its 5e-5."""
     spec, tspec, obs_fit, times_fit, y0 = setup
     th0 = _theta0()
     priors = PRIOR_SETS[prior_set]
-    kw = dict(nits=24, burnin=12, substeps=1, rwalk_std=0.1)
+    if substeps == _AUTO_LIKE:
+        substeps = (3,) + (1,) * (len(times_fit) - 4) + (2, 2)
+    kw = dict(nits=24, burnin=12, substeps=substeps, rwalk_std=0.1)
     ref = J.metropolis_hastings_fused(spec, obs_fit, times_fit, y0, th0,
                                       seed=7, tile_chains=128,
                                       interpret=True,
@@ -128,3 +141,27 @@ def test_mh_chain_streams_independent_of_batch(setup):  # noqa: F811
     np.testing.assert_array_equal(a.theta[:16].numpy(), b.theta.numpy())
     np.testing.assert_array_equal(a.chi[:16].numpy(), b.chi.numpy())
 
+
+
+def test_plain_launchers_swap_in_the_twins(setup):  # noqa: F811
+    """ops.plain_launchers: inside the block a chain launcher returns its
+    twin's run on the launcher's arguments; after it the kernels'
+    launchers are back."""
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    from odelib_tpu_torch.ops import cuda_pt as TP
+    from odelib_tpu_torch.ops import plain_launchers
+    _, tspec, obs_fit, times_fit, y0 = setup
+    th0 = torch.as_tensor(_theta0(8)).t().contiguous()
+    plan = T._build_plan(tspec, T.obsdata_from_arrays(obs_fit), times_fit,
+                         (3,) + (1,) * (len(times_fit) - 4) + (2, 2))
+    kw = dict(nits=6, burnin=0, walk=(0.05,) * 3, walked=(True,) * 3,
+              num=3)
+    real = (T.mh_launcher, T.ensemble_launcher, TP.pt_launcher,
+            TJ.joint_launcher)
+    with plain_launchers():
+        got = T.mh_launcher(tspec, plan, y0, "rk4", th0, 7, **kw)()
+    assert (T.mh_launcher, T.ensemble_launcher, TP.pt_launcher,
+            TJ.joint_launcher) == real
+    want = T.mh_plain(tspec, plan, y0, th0, 7, stepper="rk4", **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())

@@ -293,6 +293,34 @@ def test_pt_twin_with_priors_matches_pallas_interpret(setup):  # noqa: F811
                                rtol=5e-5)
 
 
+def test_pt_twin_with_priors_on_a_schedule_matches_pallas_interpret(
+        setup):  # noqa: F811
+    """Priors on a non-uniform schedule, the shape substeps='auto' gives:
+    the T=1 accept sequence and the cold pair's swap counts equal the JAX
+    kernel's with the same priors and schedule; theta and chi within the
+    no-prior test's tolerances."""
+    spec, tspec, obs_fit, times_fit, y0 = setup
+    priors = PRIOR_SETS["beta-none-gamma"]
+    th0 = _theta0(128)
+    sched = (3,) + (1,) * (len(times_fit) - 4) + (2, 2)
+    kw = dict(temperatures=_TEMPS, swap_every=1, nits=_NITS, burnin=_BURNIN,
+              substeps=sched, rwalk_std=0.1)
+    ref, ref_rate = JP.parallel_tempering_fused(
+        spec, obs_fit, times_fit, y0, th0, seed=7, tile_chains=128,
+        interpret=True, priors=jax_priors(priors), **kw)
+    obs_t, th_t, seed, y0_t = T.inputs_from_reference(obs_fit, th0, 7, y0)
+    got, rate = TP.parallel_tempering_fused(tspec, obs_t, times_fit, y0_t,
+                                            th_t, seed, priors=priors, **kw)
+    np.testing.assert_array_equal(got.acceptance_ratio.numpy(),
+                                  np.asarray(ref.acceptance_ratio))
+    np.testing.assert_array_equal(rate.numpy(), np.asarray(ref_rate))
+    assert 0 < float(got.acceptance_ratio[:, -1].mean()) < 1
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(ref.theta),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.chi.numpy(), np.asarray(ref.chi),
+                               rtol=5e-5)
+
+
 def test_ladder_constants_rounded_on_host():
     scales, betas, dbetas = TP.ladder_constants((1.0, 2.0, 3.0), 0.05,
                                                 [1.0, 0.0, 1.0])

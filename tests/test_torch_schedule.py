@@ -137,3 +137,33 @@ def test_mcmc_auto_substeps_calibrates_and_caches(demo, monkeypatch):
     np.testing.assert_array_equal(got["chi"], want["chi"])
     with pytest.raises(ValueError, match="'auto'"):
         fw.MCMC(substeps="fast", **kw)
+
+
+def test_calibrated_schedule_keeps_the_adaptive_solves_chi(demo):
+    """The JAX package's accuracy gate (tests/test_accuracy_gate.py) on a
+    calibrated schedule: chi from the schedule's fixed Dopri5 steps on the
+    compact grid against the adaptive solve (rtol 1e-6, atol 1e-2) on the
+    full grid, in float64, within 1e-4 where chi < 500. The draws are
+    what MCMC calibrates on: the prescreen's best, here the 113 of 256
+    under chi 1000 (measured max 2.9e-6 on 50 near-fit draws, 2.4e-6 at
+    substeps=4; the schedule takes 20 steps a solve)."""
+    from odelib_tpu_torch.data import build_obsdata_host
+    from odelib_tpu_torch.model import chi_of_theta
+    _, fw, _ = demo
+    survey = fw.fit_survey(256)
+    cloud = fw._theta_from_df(survey[survey.chi < 1000.0])
+    sched = S.calibrate_substeps(fw._spec, fw.get_inits(), fw._times_fit,
+                                 cloud)
+    assert S.schedule_cost(sched) < 4 * len(sched)
+    th = torch.as_tensor(cloud, dtype=torch.float64)
+    obs_full, _ = build_obsdata_host(fw.df, fw.times, fw._spec.post_snames)
+    oracle = chi_of_theta(fw._spec, obs_full, th, fw.get_inits(), fw.times,
+                          method="dopri5", rtol=1e-6, atol=1e-2,
+                          max_steps=32768).numpy()
+    fixed = chi_of_theta(fw._spec, fw._obsdata_fit_host, th, fw.get_inits(),
+                         fw._times_fit, method="fixed_dopri5",
+                         substeps=sched).numpy()
+    near = np.isfinite(oracle) & np.isfinite(fixed) & (oracle < 500.0)
+    assert near.sum() >= 40
+    rel = np.abs(fixed - oracle) / np.maximum(np.abs(oracle), 1.0)
+    assert rel[near].max() < 1e-4
