@@ -81,7 +81,22 @@ Phases, each failing the script if it fails:
    chains, the demo's priors, the calibrated schedule; the joint fit's
    'auto' resolves to 4), through its kernel and through its twin
    (every launcher swapped for its twin), bitwise: MH, ensemble and
-   joint x 50 iterations, PT x 20;
+   joint x 50 iterations, PT x 20. Then chunked checkpointing, on the MH,
+   ensemble, PT and PMMH paths' captured wrapper calls at their full run
+   lengths: (a) each wrapper with checkpoint_every (250; PMMH 64, so its
+   burn-in of 100 spans two boundaries while the scale adapts) against
+   its whole run, bitwise, one launch a chunk, both timed (CUDA events
+   around the wrapper call); (b) each run killed after its first chunk
+   (``_stop_after_chunks``) and resumed from its progress file, bitwise
+   the uninterrupted run, and a changed checkpoint_every refused; (c)
+   ModelFramework.MCMC(sampler='mh') at full width with
+   checkpoint_every=250 and a file, between two runs without: the wall
+   times, each progress write's seconds, the posterior save's and the
+   files' sizes, and the posterior equal to the plain run's; (d)
+   MCMC(sampler='mh', until_min_ess=1.5 x a first run's least ESS) at
+   2,000 chains x 200 iterations: at least one extension, the iteration
+   column rising without a reset, acceptance_ratio x iteration integral,
+   and the target met or the cap's warning given;
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MH, ensemble, PT and joint kernels with the demo's priors, with flat
@@ -471,6 +486,194 @@ def kalman_posterior(t_obs, log_o):
     w /= w.sum()
     mean = float((grid * w).sum())
     return mean, float(np.sqrt(((grid - mean) ** 2 * w).sum()))
+
+
+def outputs_of(res):
+    """Every array of a chain wrapper's result on the host (PT: the
+    records, then the swap rate)."""
+    parts = (res,) if hasattr(res, "_fields") else res
+    return [v.cpu().numpy() for p in parts
+            for v in (p if hasattr(p, "_fields") else (p,))]
+
+
+def same_bits(label, a, b):
+    """Two wrapper results, array by array: every bit equal (NaN where
+    NaN), or the script fails."""
+    import numpy as np
+    for i, (x, y) in enumerate(zip(outputs_of(a), outputs_of(b))):
+        if x.shape != y.shape or not np.array_equal(
+                np.ascontiguousarray(x).view(np.uint8),
+                np.ascontiguousarray(y).view(np.uint8)):
+            fail(f"{label}: output {i} differs in bits")
+
+
+def chunk_phases(calls, framework, chains, nits):
+    """Chunked checkpointing, bit-exact resume and run-length extension
+    on the card. ``calls``: per kernel (label, wrapper, args, kw, E), a
+    main path's captured wrapper call and its chunk length. Returns
+    {label: (whole ms, chunked ms, chunks)}."""
+    import tempfile
+
+    import numpy as np
+    import pandas as pd
+    import torch
+    from odelib_tpu_torch.ops import chunked, cuda_mh
+    from odelib_tpu_torch.utils.diagnostics import effective_sample_size
+
+    phase("chunks (a): each chain kernel chunked against its whole run at "
+          "the main path's shape, bitwise")
+    times = {}
+    for label, wrapper, args, kw, E in calls:
+        name = wrapper.__name__
+        n_chunks = -(-(kw["nits"] - 1) // E)
+        n0 = cuda_mh.LAUNCHES[name]
+        whole = wrapper(*args, **kw)
+        chunk = wrapper(*args, **{**kw, "checkpoint_every": E})
+        torch.cuda.synchronize()
+        if cuda_mh.LAUNCHES[name] - n0 != 1 + n_chunks:
+            fail(f"{label}: {cuda_mh.LAUNCHES[name] - n0} launches, not "
+                 f"1 + {n_chunks}")
+        same_bits(f"{label} chunked (every {E})", chunk, whole)
+        whole_ms = events_ms(lambda: wrapper(*args, **kw), reps=3)
+        chunk_ms = events_ms(lambda: wrapper(
+            *args, **{**kw, "checkpoint_every": E}), reps=3)
+        times[label] = (whole_ms, chunk_ms, n_chunks)
+        print(f"{label}: {args[4].shape[0]} chains x {kw['nits']} "
+              f"iterations (burn-in {kw['burnin']}) in {n_chunks} chunks of "
+              f"{E}: bitwise the whole run; wrapper call whole {whole_ms:.3f}"
+              f" ms, chunked {chunk_ms:.3f} ms ({chunk_ms - whole_ms:+.3f} "
+              f"ms, {(chunk_ms - whole_ms) / (n_chunks - 1):+.3f} ms a "
+              "boundary)", flush=True)
+
+    phase("chunks (b): kill after the first chunk and resume, through the "
+          "public wrappers on the main paths' inputs")
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, wrapper, args, kw, E in calls:
+            path = os.path.join(tmp, f"{wrapper.__name__}.progress")
+            whole = wrapper(*args, **kw)
+            ck = {**kw, "checkpoint_every": E, "checkpoint_path": path}
+            if wrapper(*args, **{**ck, "_stop_after_chunks": 1}) is not None:
+                fail(f"{label}: the killed run returned records")
+            with np.load(path) as z:
+                if int(z["next_chunk"]) != 1:
+                    fail(f"{label}: the killed run's file is at chunk "
+                         f"{int(z['next_chunk'])}")
+            try:
+                wrapper(*args, **{**ck, "checkpoint_every": E + 1,
+                                  "resume_from": path})
+                fail(f"{label}: a changed checkpoint_every resumed")
+            except ValueError as e:
+                if "different" not in str(e):
+                    raise
+            res = wrapper(*args, **{**ck, "resume_from": path})
+            torch.cuda.synchronize()
+            same_bits(f"{label} killed and resumed", res, whole)
+            print(f"{label}: killed after chunk 1 of "
+                  f"{-(-(kw['nits'] - 1) // E)}, resumed: bitwise the "
+                  "uninterrupted run; checkpoint_every "
+                  f"{E + 1} refused the file", flush=True)
+
+        phase("chunks (c): MCMC(sampler='mh') checkpointed every 250 "
+              "iterations at full width, against the same run without")
+        from odelib_tpu_torch.utils import checkpoint as post_io
+        writes, saves = [], []
+        real_write, real_save = chunked.write_checkpoint, \
+            post_io.save_posterior
+
+        def timed(fn, into):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                fn(*a, **k)
+                into.append(time.perf_counter() - t0)
+            return run
+        chunked.write_checkpoint = timed(real_write, writes)
+        post_io.save_posterior = timed(real_save, saves)
+        ckpt = os.path.join(tmp, "posterior.npz")
+        walls, posts = {}, {}
+        try:
+            for mode in ("plain", "checkpointed", "plain"):
+                fw = framework()
+                extra = dict(checkpoint_every=250, checkpoint_path=ckpt) \
+                    if mode == "checkpointed" else {}
+                writes.clear()
+                cuda_mh.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    posts[mode] = fw.MCMC(
+                        chain_inits=chains, iterations_per_chain=nits,
+                        fitsurvey_samples=1000, sd_fitdistance=6.0,
+                        print_report=False, **extra)
+                torch.cuda.synchronize()
+                walls.setdefault(mode, []).append(time.perf_counter() - t0)
+                n_mh = cuda_mh.LAUNCHES["metropolis_hastings_fused"]
+                if n_mh != (-(-(nits - 1) // 250) if extra else 1):
+                    fail(f"MCMC(mh) {mode}: {n_mh} MH launches")
+                if extra:
+                    sizes = (os.path.getsize(ckpt + ".progress"),
+                             os.path.getsize(ckpt))
+                    print(f"MCMC(mh) checkpointed: the {len(writes)} progress "
+                          "writes "
+                          f"{', '.join(f'{w:.4f}' for w in writes)} s "
+                          f"(total {sum(writes):.4f} s), the posterior's "
+                          f"save {saves[0]:.4f} s; progress file "
+                          f"{sizes[0] / 2 ** 20:.1f} MiB, posterior file "
+                          f"{sizes[1] / 2 ** 20:.1f} MiB", flush=True)
+        finally:
+            chunked.write_checkpoint = real_write
+            post_io.save_posterior = real_save
+        pd.testing.assert_frame_equal(posts["plain"], posts["checkpointed"])
+        print("MCMC(mh) wall seconds, plain "
+              f"{', '.join(f'{w:.3f}' for w in walls['plain'])}; "
+              "checkpointed "
+              f"{', '.join(f'{w:.3f}' for w in walls['checkpointed'])} "
+              "(the posteriors equal)", flush=True)
+
+    phase("chunks (d): MCMC(sampler='mh', until_min_ess=...) at 2,000 "
+          "chains x 200 iterations")
+    n_c, n_it = 2000, 200
+
+    def min_ess(post):
+        z = [np.log(np.stack([g[p].to_numpy(float) for _, g in
+                              post.groupby("chain#")])) for p in
+             ("mu", "phi", "beta")]
+        return min(effective_sample_size(x) for x in z)
+    with contextlib.redirect_stdout(io.StringIO()):
+        first = framework().MCMC(chain_inits=n_c, iterations_per_chain=n_it,
+                                 fitsurvey_samples=1000, sd_fitdistance=6.0,
+                                 print_report=False)
+    target = 1.5 * min_ess(first)
+    import warnings
+    cuda_mh.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(io.StringIO()):
+        warnings.simplefilter("always")
+        post = framework().MCMC(chain_inits=n_c, iterations_per_chain=n_it,
+                                fitsurvey_samples=1000, sd_fitdistance=6.0,
+                                print_report=False, until_min_ess=target,
+                                max_extensions=3)
+    n_ext = cuda_mh.LAUNCHES["metropolis_hastings_fused"] - 1
+    capped = any("extension cap" in str(w.message) for w in caught)
+    got = min_ess(post)
+    its = post[post["chain#"] == 0]["iteration"].to_numpy()
+    counts = (post["acceptance_ratio"].to_numpy(float)
+              * post["iteration"].to_numpy(float))
+    print(f"until_min_ess {target:.1f} (1.5 x the single run's "
+          f"{target / 1.5:.1f}): {n_ext} extension(s), min ESS {got:.1f}, "
+          f"{len(its)} records a chain, iterations {its[0]}..{its[-1]}, "
+          f"cap warning {capped}", flush=True)
+    if n_ext < 1:
+        fail("until_min_ess: no extension ran")
+    if not (np.diff(its) > 0).all() or its[-1] != n_it - 1 + n_ext * (
+            n_it - 1):
+        fail("until_min_ess: the iteration column resets or stops short")
+    # float32 ratios: counts to a few float32 ulps of their size
+    if (np.abs(counts - np.round(counts))
+            > 1e-6 * np.maximum(counts, 1.0)).any():
+        fail("until_min_ess: acceptance_ratio x iteration is not integral")
+    if not (got >= target or capped):
+        fail("until_min_ess: the target was missed without a warning")
+    return times
 
 
 def main():
@@ -1531,6 +1734,23 @@ def main():
         fail(f"PMMH main path ran {pth_all.shape[1]} chains x {n_part} "
              f"particles, not {PF_CHAINS} x {PF_K}")
 
+    # chunked checkpointing, resume and run-length extension, on the main
+    # paths' captured calls at their full run lengths
+    ens_cfg = ens_in["cfg"]
+    chunk_phases([
+        ("MH", mh_fused, mh_in["args"], mh_in["kw"], 250),
+        ("ensemble", cuda_mh.ensemble_fused,
+         (spec, obs, tf, y0, torch.as_tensor(ens_in["theta0"], device=dev),
+          ens_in["seed"]),
+         dict(nits=ens_cfg.nits, burnin=ens_cfg.burnin,
+              a=float(ens_cfg.stretch_a), walk_mask=ens_cfg.mask,
+              substeps=ens_cfg.substeps,
+              stepper=dispatch.fused_stepper(ens_cfg.method),
+              tile_chains=ens_cfg.tile_chains), 250),
+        ("PT", pt_fused, pt_in["args"], pt_in["kw"], 250),
+        ("PMMH", pf_fused, pf_in["args"], pf_in["kw"], 64)],
+        framework, CHAINS, NITS)
+
     # -- 5. times -----------------------------------------------------------
     phase("times")
     short = 6        # the twins over 5 proposals, scaled per iteration
@@ -1677,6 +1897,15 @@ def main():
         walked=(True,) * 3, num=3))
     mh_bound = bound(CHAINS * (init + (NITS - 1) * step + R * rec),
                      plan_bytes + CHAINS * 3 * 4 + R * CHAINS * (3 + 4) * 4)
+    # and on the schedule the MH path's substeps='auto' calibrated
+    init, step, rec = per_iteration_ops(lambda n, b: cuda_mh.mh_plain(
+        spec, auto_plan, y0, one, seed, nits=n, burnin=b, walk=walk,
+        walked=(True,) * 3, num=3))
+    mh_auto_bound = bound(
+        CHAINS * (init + (NITS - 1) * step + R * rec),
+        sum(a.nbytes for a in cuda_mh.plan_tables(spec, auto_plan, y0,
+                                                  "dopri5"))
+        + CHAINS * 3 * 4 + R * CHAINS * (3 + 4) * 4)
     ens_one = torch.as_tensor(cuda_mh.ensemble_init(
         seeds[:256], seed, 256, mask, 0.01).T.copy(), device=cpu)
     init, step, rec = per_iteration_ops(lambda n, b: cuda_mh.ensemble_plain(
@@ -1716,6 +1945,9 @@ def main():
                      pf_plan_bytes + (n_pf + 7) * P_pf * 4
                      + pf_R * n_pf * (P_pf + 2) * 4)
     for label, (b_ms, by) in (("survey", sv_bound), ("MH", mh_bound),
+                              ("MH, calibrated schedule "
+                               f"({len(auto_plan.step_ts)} steps)",
+                               mh_auto_bound),
                               ("ensemble", ens_bound), ("PT", pt_bound),
                               ("joint", joint_bound), ("PMMH", pf_bound)):
         print(f"{label} bound: {b_ms:.4f} ms, by {by}")

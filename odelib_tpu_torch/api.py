@@ -21,6 +21,8 @@ never moved to the twin.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import time
 import warnings
 
@@ -432,7 +434,8 @@ class ModelFramework:
              backend="auto", burnin=None, sampler="mh",
              temperatures=(1.0, 2.0, 4.0, 8.0), swap_every=1, n_temps=4,
              pilot_iters=150, ladder_rounds=6, stretch_a=2.0,
-             until_rhat=None, until_min_ess=None, profile=False,
+             until_rhat=None, until_min_ess=None, max_extensions=8,
+             profile=False,
              pallas_interpret=False, pallas_tile_chains=None, route="auto",
              target_accept=None, n_particles=128, sde_method="euler",
              sde_substeps=4, adapt_proposal=None, adapt_rate=0.05,
@@ -477,6 +480,24 @@ class ModelFramework:
         caches it as ``_auto_schedule`` and logs it; the prescreen uses the
         last calibrated schedule, or 4 on the first call.
 
+        ``checkpoint_every`` runs the chains' kernel in chunks of that many
+        proposals and persists the chain state and records after each to
+        ``<checkpoint_path>.progress`` (the port's own format: a file
+        ``odelib_tpu`` wrote fails the resume); ``resume_from`` (with the
+        same ``checkpoint_every``) continues a killed run from such a file,
+        bitwise the uninterrupted run's posterior, and raises
+        ``ValueError`` for one written by a different configuration, data
+        or priors. ``checkpoint_path`` alone saves the posterior there
+        (:func:`~odelib_tpu_torch.utils.checkpoint.save_posterior`).
+        ``until_rhat``/``until_min_ess`` (``sampler='mh'``, not with
+        checkpointing): after the run, while the pooled posterior's worst
+        split-R-hat or least ESS over the walked parameters misses the
+        target, every chain continues from its last state for another
+        ``iterations_per_chain`` proposals (a fresh stream, no burn-in),
+        at most ``max_extensions`` times (then a warning); the iteration
+        column continues and the acceptance ratios stay exact running
+        ratios.
+
         ``cpu_cores``, ``route`` and ``pallas_interpret`` are accepted and
         ignored, and so is ``pallas_tile_chains`` for 'mh' and 'pt'.
         ``profile=True`` records each stage's wall seconds in
@@ -485,12 +506,26 @@ class ModelFramework:
         the configured method is not dopri5/rk4; ``backend='auto'`` raises
         for such a method, since its JAX counterpart takes the XLA sampler
         there. Not ported yet, each raising ``NotImplementedError``: the
-        other samplers, checkpointing,
-        ``until_rhat``/``until_min_ess``, ``backend='xla'`` (and what
+        other samplers, ``backend='xla'`` (and what
         ``backend='auto'`` sends to an XLA sampler), ``temperatures=
         'auto'`` (with ``n_temps``/``pilot_iters``/``ladder_rounds``),
         the kvaerno3 kernel stepper and ``sde_method='milstein'``.
         """
+        until = until_rhat is not None or until_min_ess is not None
+        if until and sampler != "mh":
+            raise ValueError(
+                "until_rhat/until_min_ess run-length extension is supported "
+                "for sampler='mh'")
+        if until and (checkpoint_every is not None
+                      or resume_from is not None):
+            raise ValueError(
+                "until_rhat/until_min_ess cannot be combined with "
+                "checkpointing (the extension count is data-dependent)")
+        if resume_from is not None and checkpoint_every is None:
+            raise ValueError(
+                "resume_from requires checkpoint_every (and "
+                "checkpoint_path) — restate the checkpointing "
+                "configuration the run was started with")
         if sampler not in _FUSED_SAMPLERS:
             if sampler not in _UNPORTED_SAMPLERS:
                 raise ValueError(f"sampler must be 'mh', 'hmc', 'pt', "
@@ -537,14 +572,6 @@ class ModelFramework:
                                  f"sde_method={sde_method!r}")
             if not isinstance(sde_substeps, (int, np.integer)):
                 raise ValueError("sde_substeps must be an int")
-        if checkpoint_every is not None or resume_from is not None \
-                or checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpointing is not ported yet (ROADMAP queue 1, item 11)")
-        if until_rhat is not None or until_min_ess is not None:
-            raise NotImplementedError(
-                "until_rhat/until_min_ess run-length extension is not "
-                "ported yet (ROADMAP queue 1, item 11)")
         if backend not in ("auto", "pallas"):
             raise NotImplementedError(
                 f"backend={backend!r}: the port runs the fused kernels "
@@ -664,9 +691,14 @@ class ModelFramework:
                 "steps/solve vs %d at uniform 4)", list(substeps),
                 schedule_cost(substeps), 4 * n_fit_intervals)
             stage_done("calibration")
+        # a digest of the data, solver and (with use_priors) priors in the
+        # resume signature: a resume against edited data must fail
+        config_token = "" if checkpoint_every is None else \
+            self._stable_config_token(method, substeps, use_priors)
+        mask = self._walk_mask(static_parameters)
         cfg = _dispatch.RunConfig(
             nits=nits, burnin=burnin,
-            mask=self._walk_mask(static_parameters), rwalk_std=rwalk_std,
+            mask=mask, rwalk_std=rwalk_std,
             method=method, substeps=substeps,
             tile_chains=(None if pallas_tile_chains is None
                          else int(pallas_tile_chains)),
@@ -677,10 +709,25 @@ class ModelFramework:
                             else bool(adapt_proposal)),
             adapt_rate=float(adapt_rate),
             target_accept=0.3 if target_accept is None
-            else float(target_accept))
+            else float(target_accept),
+            checkpoint_every=checkpoint_every,
+            checkpoint_path=checkpoint_path, resume_from=resume_from,
+            config_token=config_token)
         out = _dispatch.dispatch(self, sampler, theta0, cfg)
+        if until:
+            def run_more(th_last, salt):
+                return _dispatch.run_fused_mh(
+                    self, th_last, dataclasses.replace(
+                        cfg, burnin=0, seed_offset=104729 * salt))
+            out = self._extend_until(
+                out, run_more, nits=nits, mask=mask, until_rhat=until_rhat,
+                until_min_ess=until_min_ess,
+                max_extensions=int(max_extensions))
         stage_done("chains")
         posterior = self._posterior_to_df(out, n_chains, static_parameters)
+        if checkpoint_path:
+            from .utils.checkpoint import save_posterior
+            save_posterior(checkpoint_path, posterior)
         stage_done("posterior")
 
         if print_report:
@@ -702,6 +749,105 @@ class ModelFramework:
         if profile:
             self.last_profile = stages
         return posterior
+
+    def _stable_config_token(self, method, substeps, include_priors=False):
+        """A process-stable sha1 of what the chains' target density bakes
+        in: the parameter names, method and substeps, the observation
+        model, the initial states, the time grid and the observation
+        arrays, and with ``include_priors`` each parameter's prior family
+        and hyperparameters (``odelib_tpu``'s ``_stable_config_token`` in
+        the port's terms). Part of a checkpoint's signature, so a resume
+        against edited data or priors raises."""
+        h = hashlib.sha1()
+        spec = self._spec
+        h.update(repr((tuple(spec.pnames), str(method), substeps,
+                       spec.obs_model, spec.obs_param)).encode())
+        h.update(np.asarray(self.get_inits(), float).tobytes())
+        h.update(np.asarray(self._times_fit, float).tobytes())
+        for leaf in self._obsdata_fit_host:
+            if leaf is not None:
+                h.update(np.asarray(leaf).tobytes())
+        if include_priors:
+            for name in sorted(self.parameters):
+                par = self.parameters[name]
+                d = getattr(par, "dist", None)
+                if d is None:
+                    h.update(repr((name, None)).encode())
+                    continue
+                fam = getattr(d, "name", None) or type(d).__name__
+                hp = getattr(par, "hp", None) or {}
+                items = tuple(sorted(
+                    (str(k), repr(np.asarray(v, float).tolist()))
+                    for k, v in hp.items()))
+                h.update(repr((name, str(fam), items)).encode())
+        return h.hexdigest()
+
+    def _extend_until(self, out, run_more, *, nits, mask, until_rhat,
+                      until_min_ess, max_extensions):
+        """Extend a finished MH run in whole-run increments until the
+        pooled posterior meets the split-R-hat / ESS targets or
+        ``max_extensions`` is spent (``odelib_tpu``'s ``_extend_until``).
+        Each extension restarts every chain from its last state with a
+        fresh stream (``run_more(theta_last, salt)``, no burn-in) and
+        appends its records with exact global running acceptance ratios
+        and a continuing ``iteration`` column."""
+        from .samplers.mh import MHOutput
+        from .utils.diagnostics import effective_sample_size, split_rhat
+
+        def host(x):
+            return x.cpu().numpy()
+        theta, chi, rsq, aic, ar, iteration = (host(v) for v in out)
+        total = int(iteration[-1])          # global proposals so far
+        counts = ar[:, -1] * total          # accepts, burn-in included
+        mask_flat = np.ravel(np.asarray(mask, float))
+        walked = [j for j in range(theta.shape[-1]) if mask_flat[j] != 0]
+
+        def worst():
+            max_rh, min_ess = 0.0, float("inf")
+            for j in walked:
+                x = theta[:, :, j].astype(float)
+                if np.allclose(x, x.flat[0]):   # a pinned slot
+                    continue
+                z = np.log(x) if np.all(x > 0) else x
+                max_rh = max(max_rh, float(split_rhat(z)))
+                min_ess = min(min_ess, float(effective_sample_size(z)))
+            return max_rh, min_ess
+
+        for ext in range(max_extensions + 1):
+            max_rh, min_ess = worst()
+            if ((until_rhat is None or max_rh <= until_rhat)
+                    and (until_min_ess is None or min_ess >= until_min_ess)):
+                if ext:
+                    _dispatch.log.info(
+                        "converged after %d extension(s): max split-rhat "
+                        "%.4f, min ESS %.0f", ext, max_rh, min_ess)
+                break
+            if ext == max_extensions:
+                warnings.warn(
+                    f"run-length extension cap reached (max_extensions="
+                    f"{max_extensions}) without meeting the targets: max "
+                    f"split-rhat {max_rh:.4f} (target {until_rhat}), min "
+                    f"ESS {min_ess:.0f} (target {until_min_ess}) — the "
+                    "returned posterior holds everything sampled so far")
+                break
+            _dispatch.log.info(
+                "extending run (%d/%d): max split-rhat %.4f, min ESS %.0f",
+                ext + 1, max_extensions, max_rh, min_ess)
+            more = run_more(theta[:, -1, :], ext + 1)
+            its = np.arange(1, nits)
+            m_counts = host(more.acceptance_ratio) * its[None, :]
+            ar = np.concatenate(
+                [ar, (counts[:, None] + m_counts) / (total + its)[None, :]],
+                axis=1)
+            theta = np.concatenate([theta, host(more.theta)], axis=1)
+            chi = np.concatenate([chi, host(more.chi)], axis=1)
+            rsq = np.concatenate([rsq, host(more.rsquared)], axis=1)
+            aic = np.concatenate([aic, host(more.aic)], axis=1)
+            iteration = np.concatenate([iteration, total + its])
+            counts = counts + m_counts[:, -1]
+            total += nits - 1
+        return MHOutput(*(torch.as_tensor(v) for v in (
+            theta, chi, rsq, aic, ar, iteration)))
 
     def _posterior_to_df(self, out, n_chains, static_parameters):
         """Records -> the reference's long DataFrame, one block of rows

@@ -7,7 +7,10 @@ by the device the framework runs on and the sampler: ``cuda:mh``,
 twins. Both go through the public wrappers of
 :mod:`~odelib_tpu_torch.ops.cuda_mh`, :mod:`~odelib_tpu_torch.ops.cuda_pt`
 and :mod:`~odelib_tpu_torch.ops.cuda_pf`, which pick kernel or twin from
-the tensor's device. The other samplers are ROADMAP queue 1, item 16.
+the tensor's device. With ``checkpoint_every`` each arm runs its kernel
+in chunks and persists the chain state to ``<checkpoint_path>.progress``
+(:mod:`~odelib_tpu_torch.ops.chunked`). The other samplers are ROADMAP
+queue 1, item 16.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ log = logging.getLogger("odelib_tpu_torch")
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Resolved per-run settings (built once in ``ModelFramework.MCMC``)."""
+    """Resolved per-run settings (built once in ``ModelFramework.MCMC``;
+    ``dataclasses.replace`` derives a run-length extension's: burn-in 0,
+    a fresh stream salt)."""
     nits: int
     burnin: int
     mask: Any                      # per-slot walk mask (flat, host array)
@@ -41,11 +46,32 @@ class RunConfig:
     adapt_proposal: bool = False
     adapt_rate: float = 0.05
     target_accept: float = 0.3
+    checkpoint_every: Optional[int] = None
+    checkpoint_path: Optional[str] = None
+    resume_from: Optional[str] = None
+    config_token: str = ""
 
 
 def fused_stepper(method: str) -> str:
     """Fixed-step kernel stepper for a configured method name."""
     return "rk4" if method == "rk4" else "dopri5"
+
+
+def _progress_path(cfg: RunConfig) -> Optional[str]:
+    """The chunked run's progress file, ``<checkpoint_path>.progress``."""
+    if cfg.checkpoint_every is None:
+        return None
+    if cfg.checkpoint_path is None:
+        raise ValueError(
+            "checkpoint_every requires checkpoint_path (chain state is "
+            "persisted to <checkpoint_path>.progress)")
+    return cfg.checkpoint_path + ".progress"
+
+
+def _checkpoint_args(cfg: RunConfig):
+    return dict(checkpoint_every=cfg.checkpoint_every,
+                checkpoint_path=_progress_path(cfg),
+                resume_from=cfg.resume_from, config_token=cfg.config_token)
 
 
 def _fused_args(fw, theta0, cfg: RunConfig):
@@ -54,7 +80,8 @@ def _fused_args(fw, theta0, cfg: RunConfig):
              th0),
             dict(seed=int(fw.random_seed) + cfg.seed_offset, nits=cfg.nits,
                  burnin=cfg.burnin, walk_mask=cfg.mask,
-                 stepper=fused_stepper(cfg.method), substeps=cfg.substeps))
+                 stepper=fused_stepper(cfg.method), substeps=cfg.substeps,
+                 **_checkpoint_args(cfg)))
 
 
 def run_fused_mh(fw, theta0, cfg: RunConfig):
@@ -101,7 +128,8 @@ def run_pmmh(fw, theta0, cfg: RunConfig):
         burnin=cfg.burnin, walk_mask=cfg.mask, rwalk_std=cfg.rwalk_std,
         n_particles=cfg.n_particles, substeps=cfg.sde_substeps,
         priors=cfg.priors, adapt_proposal=cfg.adapt_proposal,
-        target_accept=cfg.target_accept, adapt_rate=cfg.adapt_rate)
+        target_accept=cfg.target_accept, adapt_rate=cfg.adapt_rate,
+        **_checkpoint_args(cfg))
     return MHOutput(theta=out.theta, chi=out.chi,
                     rsquared=torch.full_like(out.chi, float("nan")),
                     aic=out.aic, acceptance_ratio=out.acceptance_ratio,

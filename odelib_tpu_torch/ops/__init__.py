@@ -21,15 +21,9 @@ def plain_launchers():
              (cuda_mh, "ensemble_launcher", cuda_mh.ensemble_plain),
              (cuda_pt, "pt_launcher", cuda_pt.pt_plain),
              (cuda_joint, "joint_launcher", cuda_joint.joint_plain))
-
-    def as_launcher(plain):
-        def launcher(*args, **kw):
-            *head, stepper, th0, seed = args
-            return lambda: plain(*head, th0, seed, stepper=stepper, **kw)
-        return launcher
     real = [getattr(m, n) for m, n, _ in swaps]
     for m, n, plain in swaps:
-        setattr(m, n, as_launcher(plain))
+        setattr(m, n, cuda_mh.twin_launcher(plain))
     try:
         yield
     finally:

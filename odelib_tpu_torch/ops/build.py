@@ -214,22 +214,22 @@ def load_kernels(spec, others=(), diffusion=False):
         lib = ctypes.CDLL(path)
         lib.odelib_survey.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I, _P]
         lib.odelib_survey.restype = _I
-        lib.odelib_mh.argtypes = [_P, _I, _P, _I] + [_P] * 8 + [
-            _I, _I, _I, _U, _F, _I, _P]
+        lib.odelib_mh.argtypes = [_P, _I, _P, _I] + [_P] * 10 + [
+            _I] * 4 + [_U, _F, _I, _P]
         lib.odelib_mh.restype = _I
         lib.odelib_ensemble_blocks.argtypes = [_I, _I, _I, _I,
                                                ctypes.POINTER(_I)]
         lib.odelib_ensemble_blocks.restype = _I
-        lib.odelib_ensemble.argtypes = [_P, _I, _P, _I] + [_P] * 10 + [
-            _I] * 5 + [_U] + [_F] * 4 + [_I, _I, _P]
+        lib.odelib_ensemble.argtypes = [_P, _I, _P, _I] + [_P] * 11 + [
+            _I] * 6 + [_U] + [_F] * 4 + [_I, _I, _P]
         lib.odelib_ensemble.restype = _I
-        lib.odelib_pt.argtypes = [_P] * 11 + [_I] * 5 + [
+        lib.odelib_pt.argtypes = [_P] * 13 + [_I] * 6 + [
             ctypes.c_uint, ctypes.c_float, _I, _P]
         lib.odelib_pt.restype = _I
         lib.odelib_joint.argtypes = [_P, _I, _P, _I, _P, _I] + [_P] * 7 \
             + [_I] * 5 + [_U, _I, _P]
         lib.odelib_joint.restype = _I
-        lib.odelib_pf.argtypes = [_P] * 8 + [_I] * 4 + [_U] * 2 + [_I] * 3 \
+        lib.odelib_pf.argtypes = [_P] * 10 + [_I] * 6 + [_U] * 2 + [_I] * 3 \
             + [_F] * 5 + [_P]
         lib.odelib_pf.restype = _I
         lib.odelib_error_string.argtypes = [_I]

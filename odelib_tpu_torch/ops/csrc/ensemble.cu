@@ -1,7 +1,8 @@
 // Fused Goodman-Weare ensemble (stretch-move) sampler for Hopper (sm_90a).
 //
 // Replaces, in odelib_tpu/ops/pallas_mh.py:
-//   ens_kernel <- _cached_ens_grid, whole-run mode (public ensemble_fused)
+//   ens_kernel <- _cached_ens_grid, whole-run and chunk mode (public
+//                 ensemble_fused)
 //
 // Semantics. Walker g lies in ensemble e = g / tile; inside it, at row
 // (g % tile) / 128 and lane g % 128 of the JAX kernel's (tile/128, 128)
@@ -42,9 +43,18 @@
 //     cooperative, so it fails (cudaErrorCooperativeLaunchTooLarge) rather
 //     than deadlock where the grid cannot be co-resident.
 //
-// With priors (the PRIORS instantiations) the buffer holds a further row,
-// each walker's log prior, and the ratio adds lp_new - lp
-// (pallas_mh.py:1598,1631-1648).
+// With priors (the PRIORS instantiations) the buffer's last row holds each
+// walker's log prior, and the ratio adds lp_new - lp
+// (pallas_mh.py:1598,1631-1648); without them it is never written.
+//
+// Chunk mode (pallas_mh.py:1523-1527, :1583-1589, :1684-1688): the buffer
+// is the JAX kernel's chunk state, (P + 4) x W. A launch covers the
+// proposals it_base + 1 .. it_end - 1; with state_in it copies that state
+// into the buffer instead of scoring the start points, and the buffer holds
+// the state after it_end - 1 when the launch ends. Both streams (the
+// walkers' draws and the partner offsets) are keyed on the global
+// iteration, so a run cut into launches gives the records of one launch,
+// bitwise. Still one cooperative launch per chunk.
 //
 // Numerics: as mh.cu (-fmad=false, no fast math, host-rounded constants),
 // so it rounds like its torch twin ensemble_plain (ops/cuda_mh.py).
@@ -62,15 +72,18 @@ struct EnsArgs {
   const float* theta0;
   const float* walk;     // P mask values, then P walked flags
   const float* prior;    // P prior table entries (PRIORS instantiations)
-  float* state;          // (P + 3) x W: log-theta, chi, R^2, accept count;
-                         // with PRIORS a further row, the log prior
+  const float* state_in; // (P + 4) x W state to start from, or null
+  float* state;          // (P + 4) x W: log-theta, chi, R^2, accept count,
+                         // log prior (PRIORS only)
   unsigned int* bar;     // the grid barrier: arrivals, generation
   float* th_rec;
   float* chi_rec;
   float* rsq_rec;
   float* aic_rec;
   float* ar_rec;
-  int W, W0, tile, nits, burnin;
+  int W, W0, tile;
+  int it_base, it_end;   // the launch's proposals: it_base + 1 .. it_end - 1
+  int rec0;              // row it - 1 - rec0 records iteration it (if >= 0)
   int n_i, n_f;          // plan words staged in shared memory (0: none)
   uint32_t seed;
   float am1, a, nw1, aic_const;
@@ -130,11 +143,18 @@ __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
     walked[p] = a.walk[ODE_P + p] != 0.0f;
   }
 
-  // the start points, both walkers of each column
+  // the start points (or the state the launch resumes), both walkers of
+  // each column
   for (int j = t; j < cols; j += T) {
     const int e = j / hn;
     for (int hb = 0; hb < 2; ++hb) {
       const int g = e * tile + hb * hn + (j - e * hn);
+      if (a.state_in) {
+        for (int q = 0; q < ODE_P + 4; ++q)
+          __stcg(a.state + (size_t)q * W + g,
+                 __ldcg(a.state_in + (size_t)q * W + g));
+        continue;
+      }
       float th[ODE_P];
 #pragma unroll
       for (int p = 0; p < ODE_P; ++p) th[p] = a.theta0[(size_t)p * W + g];
@@ -150,7 +170,7 @@ __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
     }
   }
 
-  for (int it = 1; it < a.nits; ++it) {
+  for (int it = a.it_base + 1; it < a.it_end; ++it) {
     for (int hb = 0; hb < 2; ++hb) {
       grid_barrier(a.bar);   // the other half's positions are final
       for (int j = t; j < cols; j += T) {
@@ -220,7 +240,7 @@ __global__ void __launch_bounds__(ENS_BLOCK) ens_kernel(const EnsArgs a) {
           if constexpr (PRIORS) __stcg(lp_s + g, lp_new);
         }
         // this walker's state is final for the iteration: record it
-        const int r = it - 1 - a.burnin;
+        const int r = it - 1 - a.rec0;
         if (r >= 0 && g < a.W0) {
           const size_t row = (size_t)r * a.W0 + g;
 #pragma unroll
@@ -277,21 +297,27 @@ int odelib_ensemble_blocks(int n_i, int n_f, int stepper, int priors,
 // count odelib_ensemble_blocks gives, or fewer: threads then loop over
 // columns). tile must be a positive multiple of 256 dividing W; W0 <= W
 // walkers are recorded; bar is two words of device scratch. prior: P
-// table entries, or null for none (state then holds P + 3 rows, else
-// P + 4).
+// table entries, or null for none. The launch runs iterations it_base + 1
+// .. it_end - 1 and records iteration it in row it - 1 - rec0 where that
+// is >= 0 (a whole run: it_base = 0, it_end = nits, rec0 = burnin; a
+// chunk: rec0 = it_base). state ((P + 4) x W) ends holding the walkers'
+// state; state_in (the same layout; it may be state itself) replaces the
+// scoring of theta0, or is null.
 int odelib_ensemble(const int* pi, int n_i, const float* pf, int n_f,
                     const float* theta0, const float* walk,
-                    const float* prior, float* state,
+                    const float* prior, const float* state_in, float* state,
                     unsigned int* bar, float* th_rec, float* chi_rec,
                     float* rsq_rec, float* aic_rec, float* ar_rec, int W,
-                    int W0, int tile, int nits, int burnin, unsigned int seed,
-                    float am1, float a, float nw1, float aic_const,
-                    int stepper, int blocks, void* stream) {
-  if (tile <= 0 || tile % 256 != 0 || W % tile != 0 || W0 > W || blocks < 1)
+                    int W0, int tile, int it_base, int it_end, int rec0,
+                    unsigned int seed, float am1, float a, float nw1,
+                    float aic_const, int stepper, int blocks, void* stream) {
+  if (tile <= 0 || tile % 256 != 0 || W % tile != 0 || W0 > W || blocks < 1
+      || it_base < 0 || it_end <= it_base)
     return (int)cudaErrorInvalidValue;
-  const EnsArgs args{pi, pf, theta0, walk, prior, state, bar, th_rec,
-                     chi_rec, rsq_rec, aic_rec, ar_rec, W, W0, tile, nits,
-                     burnin, n_i, n_f, seed, am1, a, nw1, aic_const};
+  const EnsArgs args{pi, pf, theta0, walk, prior, state_in, state, bar,
+                     th_rec, chi_rec, rsq_rec, aic_rec, ar_rec, W, W0, tile,
+                     it_base, it_end, rec0, n_i, n_f, seed, am1, a, nw1,
+                     aic_const};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (prior)
     return stepper == 0 ? run<0, true>(args, blocks, s)

@@ -2,8 +2,9 @@
 //
 // Replaces, in odelib_tpu/ops/pallas_mh.py:
 //   survey_kernel  <- _cached_survey_call (public survey_fused)
-//   mh_kernel      <- _cached_mh_grid, whole-run mode (public
-//                     metropolis_hastings_fused via _cached_mh_run)
+//   mh_kernel      <- _cached_mh_grid, whole-run and chunk mode (public
+//                     metropolis_hastings_fused via _cached_mh_run and
+//                     _mh_fused_chunked)
 //
 // What bounds them on the card: neither moves meaningful bytes (the MH
 // kernel writes (P+4) floats per chain and recorded iteration; the plan
@@ -61,6 +62,22 @@
 // in turn after the exchange, made mh_kernel 10-17 % slower; PERF.md §6.)
 // Without priors the kernel is the prior-free code.
 //
+// Chunk mode (pallas_mh.py:1031-1037, :1057-1084, :1104-1108): a launch
+// covers the proposals it_base + 1 .. it_end - 1, so a run cut into chunks
+// is a sequence of launches. The state (P + 4) x C (log-theta, chi, R^2,
+// the accept count, the log prior, 0 without priors) comes in from
+// state_in instead of the scoring of theta0, and one lane of each group
+// writes it to state_out after the last round. A round's tree may cross
+// it_end: its nodes at or past it_end solve nothing and the replay stops
+// there, as at the run's end, and the next launch builds its round from the
+// persisted state. The tree choice reads the global acc and it - 1, both
+// exact after a reload, so every decision is the serial chain's and the
+// records are bitwise those of one launch. The CHUNK template flag
+// compiles the state's load and store in; the whole run (it_base = 0,
+// it_end = nits, no state) is the false instantiation, the code without
+// chunks (with the branches in every instantiation the 21-step schedule's
+// whole run took 2.7 % longer; PERF.md §6).
+//
 // Both kernels stage the plan (step list, per-grid-point observation CSR,
 // y0) in shared memory where it fits in 48 KB (common.cuh staged_plan), as the
 // ensemble and joint kernels do: the survey's one solve then reads no table
@@ -107,13 +124,17 @@ struct MhArgs {
   const float* theta0;
   const float* walk;     // P walk scales, then P walked flags
   const float* prior;    // P prior table entries (PRIORS instantiations)
+  const float* state_in; // (P + 4) x C chain state, or null: score theta0
+  float* state_out;      // (P + 4) x C chain state after it_end - 1, or null
   float* th_rec;
   float* chi_rec;
   float* rsq_rec;
   float* aic_rec;
   float* ar_rec;
   int n_i, n_f;          // plan words staged in shared memory (0: none)
-  int C, nits, burnin;
+  int C;
+  int it_base, it_end;   // the launch's proposals: it_base + 1 .. it_end - 1
+  int rec0;              // row it - 1 - rec0 records iteration it (if >= 0)
   uint32_t seed;
   float aic_const;
 };
@@ -146,7 +167,7 @@ __device__ __forceinline__ bool decide(float (&lt)[ODE_P], float& chi,
 __device__ __forceinline__ void record(const MhArgs& a, int c, int it,
                                        const float (&lt)[ODE_P], float chi,
                                        float rsq, float acc) {
-  const int r = it - 1 - a.burnin;
+  const int r = it - 1 - a.rec0;
   if (r < 0) return;
   const int C = a.C;
   const size_t row = (size_t)r * C + c;
@@ -183,7 +204,9 @@ __device__ __forceinline__ float pick4(const float (&v)[4], int n) {
 
 // PRIORS adds the log prior to the acceptance (a.prior); the false
 // instantiations are the prior-free kernel, the prior's code compiled out.
-template <int STEPPER, bool PRIORS>
+// CHUNK reads it_base and the state in and out; without it the launch is a
+// whole run.
+template <int STEPPER, bool PRIORS, bool CHUNK>
 __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
   constexpr int G = MH_GROUP;
   const Plan pl = staged_plan(a.pi, a.n_i, a.pf, a.n_f);
@@ -192,27 +215,38 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
   const int role = t % G;
   const bool live = c_own < a.C;
   const int c = live ? c_own : a.C - 1;
-  const int C = a.C, nits = a.nits;
+  const int C = a.C, it_end = a.it_end;
   float lt[ODE_P], thp[ODE_P], scale[ODE_P];
   bool walked[ODE_P];
 #pragma unroll
   for (int p = 0; p < ODE_P; ++p) {
-    thp[p] = a.theta0[(size_t)p * C + c];
     scale[p] = a.walk[p];
     walked[p] = a.walk[ODE_P + p] != 0.0f;
   }
-  float chi, rsq;
-  score<STEPPER>(pl, thp, chi, rsq);
+  float chi, rsq, acc;
   float lp = 0.0f;   // the log prior at the chain's state
-  if constexpr (PRIORS) lp = log_prior_sum<ODE_P>(a.prior, thp);
+  if (CHUNK && a.state_in) {
 #pragma unroll
-  for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
-  float acc = 0.0f;
+    for (int p = 0; p < ODE_P; ++p) lt[p] = a.state_in[(size_t)p * C + c];
+    chi = a.state_in[(size_t)ODE_P * C + c];
+    rsq = a.state_in[(size_t)(ODE_P + 1) * C + c];
+    acc = a.state_in[(size_t)(ODE_P + 2) * C + c];
+    if constexpr (PRIORS) lp = a.state_in[(size_t)(ODE_P + 3) * C + c];
+  } else {
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) thp[p] = a.theta0[(size_t)p * C + c];
+    score<STEPPER>(pl, thp, chi, rsq);
+    if constexpr (PRIORS) lp = log_prior_sum<ODE_P>(a.prior, thp);
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
+    acc = 0.0f;
+  }
   // the chain's global index keys its stream: any layout gives the JAX
   // kernel's words
   const uint32_t key = mix(a.seed * 0x9E3779B1u + (uint32_t)c);
-  int it = live ? 1 : nits;   // the next iteration of this lane's chain
-  while (__any_sync(0xFFFFFFFFu, it < nits)) {
+  // the next iteration of this lane's chain
+  int it = live ? (CHUNK ? a.it_base : 0) + 1 : it_end;
+  while (__any_sync(0xFFFFFFFFu, it < it_end)) {
     const uint32_t b0 = (uint32_t)it * 1024u;
     // every lane of the group picks the same tree from the same state
     const float past = (float)(it - 1);
@@ -242,10 +276,11 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
       thp[p] = expf(role == 0 ? nd[0][p] : role == 1 ? nd[1][p]
                     : role == 2 ? nd[2][p] : nd[3][p]);
     }
-    // lanes past nits - 1 solve nothing; their results are never read
+    // lanes past this launch's last iteration solve nothing; their results
+    // are never read
     const int ahead = node_depth(tree, role);
     float chi_new = 0.0f, rsq_new = 0.0f, lp_new = 0.0f;
-    if (it + ahead < nits) {
+    if (it + ahead < it_end) {
       score<STEPPER>(pl, thp, chi_new, rsq_new);
       if constexpr (PRIORS) lp_new = log_prior_sum<ODE_P>(a.prior, thp);
     }
@@ -256,7 +291,7 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
       rsq_n[n] = __shfl_sync(0xFFFFFFFFu, rsq_new, n, G);
       lp_n[n] = PRIORS ? __shfl_sync(0xFFFFFFFFu, lp_new, n, G) : 0.0f;
     }
-    if (it < nits) {
+    if (it < it_end) {
       // replay the serial decisions down the tree; lane k stores the k-th
       // row of the round
       int n = 0, k = 0;
@@ -273,11 +308,19 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
         if (live && role == k) record(a, c, it + k, lt, chi, rsq, acc);
         ++k;
         const int next = node_child(tree, n, ok);
-        if (next < 0 || it + k >= nits) break;
+        if (next < 0 || it + k >= it_end) break;
         n = next;
       }
       it += k;
     }
+  }
+  if (CHUNK && a.state_out && live && role == 0) {
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) a.state_out[(size_t)p * C + c] = lt[p];
+    a.state_out[(size_t)ODE_P * C + c] = chi;
+    a.state_out[(size_t)(ODE_P + 1) * C + c] = rsq;
+    a.state_out[(size_t)(ODE_P + 2) * C + c] = acc;
+    a.state_out[(size_t)(ODE_P + 3) * C + c] = lp;
   }
 }
 
@@ -303,24 +346,36 @@ int odelib_survey(const int* pi, int n_i, const float* pf, int n_f,
   return (int)cudaGetLastError();
 }
 
-// prior: P table entries of PRIOR_WIDTH floats, or null for none.
+// prior: P table entries of PRIOR_WIDTH floats, or null for none. The
+// launch runs iterations it_base + 1 .. it_end - 1 and records iteration it
+// in row it - 1 - rec0 where that is >= 0: a whole run is it_base = 0,
+// it_end = nits, rec0 = burnin; a chunk of R_chunk proposals is it_end =
+// it_base + R_chunk + 1, rec0 = it_base. state_in (or null: score theta0)
+// and state_out (or null) are (P + 4) x C.
 int odelib_mh(const int* pi, int n_i, const float* pf, int n_f,
               const float* theta0, const float* walk, const float* prior,
-              float* th_rec, float* chi_rec, float* rsq_rec, float* aic_rec,
-              float* ar_rec, int C, int nits, int burnin, unsigned int seed,
+              const float* state_in, float* state_out, float* th_rec,
+              float* chi_rec, float* rsq_rec, float* aic_rec, float* ar_rec,
+              int C, int it_base, int it_end, int rec0, unsigned int seed,
               float aic_const, int stepper, void* stream) {
-  if (C < 1) return (int)cudaErrorInvalidValue;
+  if (C < 1 || it_base < 0 || it_end <= it_base)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = odelib::plan_smem(n_i, n_f);
   if (smem == 0) n_i = n_f = 0;
-  const MhArgs a{pi, pf, theta0, walk, prior, th_rec, chi_rec, rsq_rec,
-                 aic_rec, ar_rec, n_i, n_f, C, nits, burnin, seed,
-                 aic_const};
+  const MhArgs a{pi, pf, theta0, walk, prior, state_in, state_out, th_rec,
+                 chi_rec, rsq_rec, aic_rec, ar_rec, n_i, n_f, C, it_base,
+                 it_end, rec0, seed, aic_const};
   const long long threads = (long long)C * MH_GROUP;
   const int grid = (int)((threads + MH_BLOCK - 1) / MH_BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void (*kernels[2][2][2])(const MhArgs) = {
+      {{&mh_kernel<0, false, false>, &mh_kernel<0, false, true>},
+       {&mh_kernel<0, true, false>, &mh_kernel<0, true, true>}},
+      {{&mh_kernel<1, false, false>, &mh_kernel<1, false, true>},
+       {&mh_kernel<1, true, false>, &mh_kernel<1, true, true>}}};
   void (*kernel)(const MhArgs) =
-      stepper == 0 ? (prior ? &mh_kernel<0, true> : &mh_kernel<0, false>)
-                   : (prior ? &mh_kernel<1, true> : &mh_kernel<1, false>);
+      kernels[stepper != 0][prior != nullptr]
+             [state_in != nullptr || state_out != nullptr];
   kernel<<<grid, MH_BLOCK, smem, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Fused particle-marginal Metropolis-Hastings kernel for Hopper (sm_90a).
 //
 // Replaces, in odelib_tpu/ops/pallas_pf.py:
-//   pf_kernel <- _cached_pf_grid, whole-run mode, Euler-Maruyama (public
-//                pmmh_fused)
+//   pf_kernel <- _cached_pf_grid, whole-run and chunk mode,
+//                Euler-Maruyama (public pmmh_fused)
 //
 // Semantics (pallas_pf.py:130-469, read for its function). Per chain: the
 // log-theta, chi, the accept count and the log proposal scale lsc. Per
@@ -22,6 +22,16 @@
 // particles dead gives +inf and a rejection. Accept when
 // exp(chi - chi_new [+ lp(theta') - lp(theta)]) > u; during burn-in
 // (it <= burnin) lsc += adapt_rate (accept - target) (:393-396).
+//
+// Chunk mode (pallas_pf.py:136-142, :352-355, :368-376, :415-418): a
+// launch covers the proposals it_base + 1 .. it_end - 1; with state_in the
+// P + 3 planes (log-theta, chi, the accept count, lsc) replace the first
+// filter on theta0, and lane 0 writes them to state_out at the end. The
+// counters and the adaptation's it <= burnin read the global it and the
+// run's burn-in, so a run cut into launches gives one launch's records. The
+// CHUNK template flag compiles the state's load and store in; the whole run
+// is the false instantiation, the code without chunks (in every
+// instantiation they cost pf_kernel<4> 8 registers and 32 bytes of spill).
 //
 // Parity with the JAX kernel, each trap named where the code meets it:
 //   - lane keys (:343-344): particle k of chain c keys on
@@ -111,10 +121,15 @@ struct PfArgs {
   const float* theta0;
   const float* walk;    // P mask values, then P walked flags
   const float* prior;   // P table entries of PRIOR_WIDTH (common.cuh)
+  const float* state_in;  // (P + 3) x C chain state, or null: filter theta0
+  float* state_out;       // (P + 3) x C chain state at the end, or null
   float* th_rec;
   float* chi_rec;
   float* ar_rec;
-  int C, K, nits, burnin;
+  int C, K;
+  int it_base, it_end;  // the launch's proposals: it_base + 1 .. it_end - 1
+  int rec0;             // row it - 1 - rec0 records iteration it (if >= 0)
+  int burnin;           // the run's: the scale adapts while it <= burnin
   uint32_t seed, stride;
   int last_gi, use_priors, use_adapt;
   float rwalk_std, adapt_rate, target, log_k, inv_k;
@@ -337,7 +352,7 @@ __device__ __forceinline__ float particle_filter(const Plan& pl,
   return -loglik;
 }
 
-template <int PPT>
+template <int PPT, bool CHUNK>
 __global__ void __launch_bounds__(32 * PF_WARPS) pf_kernel(const PfArgs a) {
   extern __shared__ float smem[];
   constexpr int KP = 32 * PPT;
@@ -365,14 +380,24 @@ __global__ void __launch_bounds__(32 * PF_WARPS) pf_kernel(const PfArgs a) {
   const float* walk = a.walk;
 
   float lt[ODE_P], prop[ODE_P], thp[ODE_P];
-#pragma unroll
-  for (int p = 0; p < ODE_P; ++p) thp[p] = a.theta0[(size_t)p * C + c];
   uint32_t slot = 0;
-  float chi = particle_filter<PPT>(pl, F, thp, 0u, slot);
+  float chi, acc, lsc;
+  if (CHUNK && a.state_in) {
 #pragma unroll
-  for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
-  float acc = 0.0f, lsc = 0.0f;
-  for (int it = 1; it < a.nits; ++it) {
+    for (int p = 0; p < ODE_P; ++p) lt[p] = a.state_in[(size_t)p * C + c];
+    chi = a.state_in[(size_t)ODE_P * C + c];
+    acc = a.state_in[(size_t)(ODE_P + 1) * C + c];
+    lsc = a.state_in[(size_t)(ODE_P + 2) * C + c];
+  } else {
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) thp[p] = a.theta0[(size_t)p * C + c];
+    chi = particle_filter<PPT>(pl, F, thp, 0u, slot);
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
+    acc = 0.0f;
+    lsc = 0.0f;
+  }
+  for (int it = (CHUNK ? a.it_base : 0) + 1; it < a.it_end; ++it) {
     const uint32_t ctr = (uint32_t)it * a.stride;
     slot = 0;
     const float std = a.rwalk_std * expf(lsc);
@@ -413,7 +438,8 @@ __global__ void __launch_bounds__(32 * PF_WARPS) pf_kernel(const PfArgs a) {
     acc = acc + acc_step;
     if (a.use_adapt && it <= a.burnin)
       lsc = lsc + a.adapt_rate * (acc_step - a.target);
-    const int r = it - 1 - a.burnin;
+    // a whole run's rec0 is its burn-in
+    const int r = it - 1 - (CHUNK ? a.rec0 : a.burnin);
     if (r >= 0 && F.lane == 0) {
 #pragma unroll
       for (int p = 0; p < ODE_P; ++p)
@@ -421,6 +447,13 @@ __global__ void __launch_bounds__(32 * PF_WARPS) pf_kernel(const PfArgs a) {
       a.chi_rec[(size_t)r * C + c] = chi;
       a.ar_rec[(size_t)r * C + c] = acc / (float)it;
     }
+  }
+  if (CHUNK && a.state_out && F.lane == 0) {
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) a.state_out[(size_t)p * C + c] = lt[p];
+    a.state_out[(size_t)ODE_P * C + c] = chi;
+    a.state_out[(size_t)(ODE_P + 1) * C + c] = acc;
+    a.state_out[(size_t)(ODE_P + 2) * C + c] = lsc;
   }
 }
 
@@ -430,8 +463,12 @@ int launch_pf(const PfArgs& a, cudaStream_t s) {
   if (per_warp > 48 * 1024) return (int)cudaErrorInvalidValue;
   int warps = PF_WARPS;
   while (warps * per_warp > 48 * 1024) --warps;
-  pf_kernel<PPT><<<(a.C + warps - 1) / warps, 32 * warps, warps * per_warp,
-                   s>>>(a);
+  const size_t smem = warps * per_warp;
+  const int grid = (a.C + warps - 1) / warps;
+  if (a.state_in || a.state_out)
+    pf_kernel<PPT, true><<<grid, 32 * warps, smem, s>>>(a);
+  else
+    pf_kernel<PPT, false><<<grid, 32 * warps, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -441,18 +478,26 @@ int launch_pf(const PfArgs& a, cudaStream_t s) {
 
 extern "C" {
 
+// The launch runs iterations it_base + 1 .. it_end - 1 and records
+// iteration it in row it - 1 - rec0 where that is >= 0 (a whole run:
+// it_base = 0, it_end = nits, rec0 = burnin; a chunk: rec0 = it_base);
+// burnin is the run's. state_in (or null: filter theta0) and state_out (or
+// null) are (P + 3) x C.
 int odelib_pf(const int* pi, const float* pf, const float* theta0,
-              const float* walk, const float* prior, float* th_rec,
-              float* chi_rec, float* ar_rec, int C, int K, int nits,
-              int burnin, unsigned int seed, unsigned int stride,
+              const float* walk, const float* prior, const float* state_in,
+              float* state_out, float* th_rec, float* chi_rec, float* ar_rec,
+              int C, int K, int it_base, int it_end, int rec0, int burnin,
+              unsigned int seed, unsigned int stride,
               int last_gi, int use_priors, int use_adapt, float rwalk_std,
               float adapt_rate, float target, float log_k, float inv_k,
               void* stream) {
 #ifdef ODE_HAS_DIFFUSION
-  if (K < 1 || K > PF_KMAX || C < 1) return (int)cudaErrorInvalidValue;
-  const PfArgs a{pi, pf, theta0, walk, prior, th_rec, chi_rec, ar_rec,
-                 C, K, nits, burnin, seed, stride, last_gi, use_priors,
-                 use_adapt, rwalk_std, adapt_rate, target, log_k, inv_k};
+  if (K < 1 || K > PF_KMAX || C < 1 || it_base < 0 || it_end <= it_base)
+    return (int)cudaErrorInvalidValue;
+  const PfArgs a{pi, pf, theta0, walk, prior, state_in, state_out, th_rec,
+                 chi_rec, ar_rec, C, K, it_base, it_end, rec0, burnin, seed,
+                 stride, last_gi, use_priors, use_adapt, rwalk_std,
+                 adapt_rate, target, log_k, inv_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // particles per lane: the least power of two with 32 PPT >= K
   if (K <= 32) return launch_pf<1>(a, s);

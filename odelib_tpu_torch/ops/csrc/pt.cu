@@ -1,7 +1,7 @@
 // Fused parallel-tempering (replica-exchange MH) kernel for Hopper (sm_90a).
 //
 // Replaces, in odelib_tpu/ops/pallas_pt.py:
-//   pt_kernel <- _cached_pt_grid, whole-run mode (public
+//   pt_kernel <- _cached_pt_grid, whole-run and chunk mode (public
 //                parallel_tempering_fused)
 //
 // Semantics. Every chain carries a ladder of K rungs (inverse temperatures
@@ -54,6 +54,16 @@
 // is cosf's slow-path argument reduction (|x| > 105615, never 2 pi u), as
 // in mh_kernel.
 //
+// Chunk mode (pallas_pt.py:60-67, :106-115, :134-142, :220-225): a launch
+// covers the proposals it_base + 1 .. it_end - 1. The ladder state is the
+// JAX kernel's K (P + 3) + 2 planes of C: rung k's log-theta at k P + p,
+// its chi at K P + k, R^2 at K P + K + k and log prior (0 without priors)
+// at K P + 2 K + k, then the cold rung's accept count and the cold pair's
+// swap count. With state_in each lane loads its rung's planes instead of
+// scoring theta0; with state_out each live rung writes its planes and lane
+// 0 the two counts. The swap parity and swap_every read the global it, so a
+// run cut into launches gives the records of one launch, bitwise.
+//
 // Numerics: as mh.cu (-fmad=false, no fast math, constants rounded to
 // float32 on the host where the JAX kernel's Python doubles meet float32),
 // so it rounds like its torch twin pt_plain (ops/cuda_pt.py).
@@ -78,11 +88,13 @@ template <int STEPPER, bool PRIORS>
 __global__ void __launch_bounds__(PT_BLOCK, 1)
 pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
           const float* __restrict__ theta0, const float* __restrict__ ladder,
-          const float* __restrict__ prior, float* __restrict__ th_rec, float* __restrict__ chi_rec,
+          const float* __restrict__ prior,
+          const float* __restrict__ state_in, float* __restrict__ state_out,
+          float* __restrict__ th_rec, float* __restrict__ chi_rec,
           float* __restrict__ rsq_rec, float* __restrict__ aic_rec,
           float* __restrict__ ar_rec, float* __restrict__ sw_rec, int C,
-          int K, int G, int nits, int burnin, int swap_every, uint32_t seed,
-          float aic_const) {
+          int K, int G, int it_base, int it_end, int rec0, int swap_every,
+          uint32_t seed, float aic_const) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int c_own = t / G;
   const int k = t % G;
@@ -101,17 +113,32 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
   for (int p = 0; p < ODE_P; ++p) n_walked += walked[p] != 0.0f;
   const uint32_t per_rung = 2u * (uint32_t)n_walked + 1u;
   float lt[ODE_P], prop[ODE_P], thp[ODE_P];
-#pragma unroll
-  for (int p = 0; p < ODE_P; ++p) thp[p] = theta0[(size_t)p * C + c];
-  float chi, rsq;
-  score<STEPPER>(pl, thp, chi, rsq);
+  float chi, rsq, acc, sw;
   float lp = 0.0f;   // this rung's log prior
-  if constexpr (PRIORS) lp = log_prior_sum<ODE_P>(prior, thp);
+  // the state planes: rung k's log-theta, chi, R^2, log prior, then the
+  // cold counts (idle lanes read rung 0's)
+  const int kr = rung ? k : 0;
+  const size_t P_ = ODE_P, K_ = K;
+  if (state_in) {
 #pragma unroll
-  for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
-  float acc = 0.0f, sw = 0.0f;
+    for (int p = 0; p < ODE_P; ++p) lt[p] = state_in[(kr * P_ + p) * C + c];
+    chi = state_in[(K_ * P_ + kr) * C + c];
+    rsq = state_in[(K_ * P_ + K_ + kr) * C + c];
+    if constexpr (PRIORS) lp = state_in[(K_ * P_ + 2 * K_ + kr) * C + c];
+    acc = state_in[(K_ * (P_ + 3)) * C + c];
+    sw = state_in[(K_ * (P_ + 3) + 1) * C + c];
+  } else {
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) thp[p] = theta0[(size_t)p * C + c];
+    score<STEPPER>(pl, thp, chi, rsq);
+    if constexpr (PRIORS) lp = log_prior_sum<ODE_P>(prior, thp);
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
+    acc = 0.0f;
+    sw = 0.0f;
+  }
   const uint32_t key = mix(seed * 0x9E3779B1u + (uint32_t)c);
-  for (int it = 1; it < nits; ++it) {
+  for (int it = it_base + 1; it < it_end; ++it) {
     // walk phase: this lane's rung, from its closed-form first slot
     uint32_t ctr = (uint32_t)it * 1024u + (uint32_t)k * per_rung;
 #pragma unroll
@@ -176,7 +203,7 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
         if (k == 0) sw = sw + 1.0f;
       }
     }
-    const int r = it - 1 - burnin;
+    const int r = it - 1 - rec0;
     if (r >= 0 && k == 0 && live) {
       const size_t row = (size_t)r * C + c;
 #pragma unroll
@@ -189,20 +216,37 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
       sw_rec[row] = sw;
     }
   }
+  if (state_out && rung && live) {
+#pragma unroll
+    for (int p = 0; p < ODE_P; ++p) state_out[(k * P_ + p) * C + c] = lt[p];
+    state_out[(K_ * P_ + k) * C + c] = chi;
+    state_out[(K_ * P_ + K_ + k) * C + c] = rsq;
+    state_out[(K_ * P_ + 2 * K_ + k) * C + c] = lp;
+    if (k == 0) {
+      state_out[(K_ * (P_ + 3)) * C + c] = acc;
+      state_out[(K_ * (P_ + 3) + 1) * C + c] = sw;
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// prior: P table entries of PRIOR_WIDTH floats, or null for none.
+// prior: P table entries of PRIOR_WIDTH floats, or null for none. The
+// launch runs iterations it_base + 1 .. it_end - 1 and records iteration it
+// in row it - 1 - rec0 where that is >= 0 (a whole run: it_base = 0,
+// it_end = nits, rec0 = burnin; a chunk: rec0 = it_base). state_in (or
+// null: score theta0) and state_out (or null) are K (P + 3) + 2 planes of C.
 int odelib_pt(const int* pi, const float* pf, const float* theta0,
-              const float* ladder, const float* prior, float* th_rec,
-              float* chi_rec, float* rsq_rec, float* aic_rec, float* ar_rec,
-              float* sw_rec, int C, int K, int nits, int burnin,
+              const float* ladder, const float* prior, const float* state_in,
+              float* state_out, float* th_rec, float* chi_rec,
+              float* rsq_rec, float* aic_rec, float* ar_rec, float* sw_rec,
+              int C, int K, int it_base, int it_end, int rec0,
               int swap_every, unsigned int seed, float aic_const,
               int stepper, void* stream) {
-  if (K < 2 || K > PT_KMAX || swap_every < 1 || C < 1)
+  if (K < 2 || K > PT_KMAX || swap_every < 1 || C < 1 || it_base < 0
+      || it_end <= it_base)
     return (int)cudaErrorInvalidValue;
   int G = 2;
   while (G < K) G <<= 1;
@@ -212,10 +256,10 @@ int odelib_pt(const int* pi, const float* pf, const float* theta0,
   auto kernel =
       stepper == 0 ? (prior ? &pt_kernel<0, true> : &pt_kernel<0, false>)
                    : (prior ? &pt_kernel<1, true> : &pt_kernel<1, false>);
-  kernel<<<grid, PT_BLOCK, 0, s>>>(pi, pf, theta0, ladder, prior, th_rec,
-                                   chi_rec, rsq_rec, aic_rec, ar_rec, sw_rec,
-                                   C, K, G, nits, burnin, swap_every, seed,
-                                   aic_const);
+  kernel<<<grid, PT_BLOCK, 0, s>>>(pi, pf, theta0, ladder, prior, state_in,
+                                   state_out, th_rec, chi_rec, rsq_rec,
+                                   aic_rec, ar_rec, sw_rec, C, K, G, it_base,
+                                   it_end, rec0, swap_every, seed, aic_const);
   return (int)cudaGetLastError();
 }
 

@@ -25,7 +25,7 @@ import torch
 from ..rhs import trace_rhs
 from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
                       _as_f32_tensor, _build_plan, _check_stepper,
-                      _check_unported, _normalize_substeps, _prior_tensor,
+                      _check_mesh, _normalize_substeps, _prior_tensor,
                       make_scorer, plan_tables)
 from .priors import checked_priors, logprior_plain
 from .runge_kutta import const
@@ -184,7 +184,12 @@ def joint_metropolis_hastings_fused(
     ignored; checkpointing and meshes are not ported yet and raise
     ``NotImplementedError``."""
     from .build import JOINT_DMAX, JOINT_KMAX
-    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
+    if checkpoint_every is not None or resume_from is not None \
+            or checkpoint_path is not None:
+        raise NotImplementedError(
+            "the joint kernel's chunked checkpoint/resume is not ported yet "
+            "(ROADMAP queue 1, item 11)")
+    _check_mesh(mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)

@@ -28,6 +28,7 @@ import torch
 
 from ..model import ModelSpec, ObsData, obsdata_from_arrays
 from ..rhs import torch_evaluator, trace_rhs
+from . import chunked
 from .priors import checked_priors, logprior_plain
 from .runge_kutta import DP_C, FIXED_STEPPERS, const
 
@@ -303,29 +304,50 @@ def survey_plain(spec, plan, y0_base, thetas, stepper="dopri5"):
     return score(list(thetas))[0]
 
 
+def chunk_range(nits: int, burnin: int, R_chunk, it_base: int):
+    """(it_end, rec0) of one kernel launch: it runs the proposals
+    ``it_base + 1 .. it_end - 1`` and records iteration ``it`` in row
+    ``it - 1 - rec0`` where that is >= 0. A whole run (``R_chunk`` None)
+    is ``(nits, burnin)``; a chunk of ``R_chunk`` proposals records every
+    one (the JAX kernels' chunk mode, burn-in sliced on the host)."""
+    if R_chunk is None:
+        return nits, burnin
+    return it_base + R_chunk + 1, it_base
+
+
 def mh_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, walk,
-             walked, num, stepper="dopri5", prior=None):
+             walked, num, stepper="dopri5", prior=None, R_chunk=None,
+             it_base=0, state=None):
     """Twin of the MH kernel: ``theta0`` (P, C) float32; returns the
     chain-minor records theta (R, P, C) and chi, rsq, aic, acceptance
     ratio (R, C), R = nits - 1 - burnin. ``walk`` is the per-slot walk
     scale ``rwalk_std * walk_mask`` and ``walked`` marks the slots that
     draw a normal (``walk_mask != 0``); ``prior`` a
-    :func:`~.priors.prior_table` or None."""
+    :func:`~.priors.prior_table` or None.
+
+    Chunk mode (``R_chunk`` proposals, :func:`chunk_range`): the
+    proposals ``it_base + 1 .. it_base + R_chunk``, every one recorded,
+    from ``state`` ((P + 4, C): log-theta, chi, R^2, the accept count and
+    the log prior, 0 without priors; None scores theta0); returns
+    (records, the state after the chunk)."""
     score = make_scorer(spec, plan, y0_base, stepper)
     P, C = theta0.shape
-    R = nits - 1 - burnin
+    it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+    R = it_end - 1 - rec0
     rng = Rng(seed, torch.arange(C, device=theta0.device))
-    theta = list(theta0)
-    chi, rsq = score(theta)
-    lp = None if prior is None else logprior_plain(prior, theta)
-    lt = [torch.log(th) for th in theta]
-    acc = torch.zeros_like(chi)
-    recs = [torch.empty((R, P, C), dtype=torch.float32,
-                        device=theta0.device)] + [
-        torch.empty((R, C), dtype=torch.float32, device=theta0.device)
-        for _ in range(4)]
+    if state is None:
+        theta = list(theta0)
+        chi, rsq = score(theta)
+        lp = None if prior is None else logprior_plain(prior, theta)
+        lt = [torch.log(th) for th in theta]
+        acc = torch.zeros_like(chi)
+    else:
+        lt = list(state[:P])
+        chi, rsq, acc = state[P], state[P + 1], state[P + 2]
+        lp = None if prior is None else state[P + 3]
+    recs = _records(R, P, C, theta0.device)
     two, aic_c = const(2.0, chi), const(2.0 * num, chi)
-    for it in range(1, nits):
+    for it in range(it_base + 1, it_end):
         rng.start(it)
         prop = [lt[p] + const(walk[p], chi) * rng.normal()
                 if walked[p] else lt[p] for p in range(P)]
@@ -343,14 +365,17 @@ def mh_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, walk,
         if prior is not None:
             lp = torch.where(accept, lp_new, lp)
         acc = acc + accept.to(torch.float32)
-        r = it - 1 - burnin
+        r = it - 1 - rec0
         if r >= 0:
             recs[0][r] = torch.stack([torch.exp(v) for v in lt])
             recs[1][r] = chi
             recs[2][r] = rsq
             recs[3][r] = two * chi + aic_c
             recs[4][r] = acc / torch.full_like(acc, float(it))
-    return tuple(recs)
+    if R_chunk is None:
+        return recs
+    return recs, torch.stack(
+        lt + [chi, rsq, acc, torch.zeros_like(chi) if lp is None else lp])
 
 
 def pick_tile_chains(C: int) -> int:
@@ -407,17 +432,20 @@ def ensemble_halves(W: int, tile: int, device):
 
 
 def ensemble_plain(spec, plan, y0_base, theta0, seed, *, tile, nits, burnin,
-                   a, walk, walked, num, W0, stepper="dopri5", prior=None):
+                   a, walk, walked, num, W0, stepper="dopri5", prior=None,
+                   R_chunk=None, it_base=0, state=None):
     """Twin of the ensemble kernel: ``theta0`` (P, W) float32 walkers (W a
     multiple of ``tile``); returns the records of the first ``W0`` walkers,
     theta (R, P, W0) and chi, rsq, aic, acceptance ratio (R, W0),
     R = nits - 1 - burnin. ``walk`` is the per-slot walk mask and
     ``walked`` marks its non-zero slots; ``prior`` a
-    :func:`~.priors.prior_table` or None."""
+    :func:`~.priors.prior_table` or None. Chunk mode as
+    :func:`mh_plain`'s, the state (P + 4, W) over all W walkers."""
     score = make_scorer(spec, plan, y0_base, stepper)
     P, W = theta0.shape
     dev = theta0.device
-    R = nits - 1 - burnin
+    it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+    R = it_end - 1 - rec0
     half = tile // 256
     n_walked = sum(walked)
     s = int(np.uint32(np.int64(seed) & _M32))
@@ -425,18 +453,21 @@ def ensemble_plain(spec, plan, y0_base, theta0, seed, *, tile, nits, burnin,
     scal_base = mix((s * 0x7FEB352D + torch.arange(W // tile, device=dev)
                      * tile + 0xE75) & _M32)
     rng = Rng(seed, torch.arange(W, device=dev))
-    chi, rsq = score(list(theta0))
-    lp = None if prior is None else logprior_plain(prior, list(theta0))
-    lt = [torch.log(th) for th in theta0]
-    acc = torch.zeros_like(chi)
+    if state is None:
+        chi, rsq = score(list(theta0))
+        lp = None if prior is None else logprior_plain(prior, list(theta0))
+        lt = [torch.log(th) for th in theta0]
+        acc = torch.zeros_like(chi)
+    else:   # updated in place below: copies of the state's rows
+        lt = [v.clone() for v in state[:P]]
+        chi, rsq, acc = (state[P + i].clone() for i in range(3))
+        lp = None if prior is None else state[P + 3].clone()
     one, am1, a_c = (const(v, chi) for v in (1.0, a - 1.0, a))
     nw1 = const(float(n_walked - 1), chi)
     wc = [const(w, chi) for w in walk]
-    recs = [torch.empty((R, P, W0), dtype=torch.float32, device=dev)] + [
-        torch.empty((R, W0), dtype=torch.float32, device=dev)
-        for _ in range(4)]
+    recs = _records(R, P, W0, dev)
     two, aic_c = const(2.0, chi), const(2.0 * num, chi)
-    for it in range(1, nits):
+    for it in range(it_base + 1, it_end):
         rng.start(it)
         draws = [rng.uniform() for _ in range(4)]   # slots 0-3, all walkers
         for hb, (idx, e, r, lane) in enumerate(halves):
@@ -468,14 +499,17 @@ def ensemble_plain(spec, plan, y0_base, theta0, seed, *, tile, nits, burnin,
             chi[idx] = torch.where(accept, chi_new, chi[idx])
             rsq[idx] = torch.where(accept, rsq_new, rsq[idx])
             acc[idx] = acc[idx] + accept.to(torch.float32)
-        r = it - 1 - burnin
+        r = it - 1 - rec0
         if r >= 0:
             recs[0][r] = torch.stack([torch.exp(v[:W0]) for v in lt])
             recs[1][r] = chi[:W0]
             recs[2][r] = rsq[:W0]
             recs[3][r] = two * chi[:W0] + aic_c
             recs[4][r] = acc[:W0] / torch.full_like(acc[:W0], float(it))
-    return tuple(recs)
+    if R_chunk is None:
+        return recs
+    return recs, torch.stack(
+        lt + [chi, rsq, acc, torch.zeros_like(chi) if lp is None else lp])
 
 
 # --------------------------------------------------------------------------
@@ -489,13 +523,8 @@ def _as_f32_tensor(x):
     return torch.as_tensor(np.asarray(x, np.float32))
 
 
-def _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh):
-    """Raise for the fused kernels' options that are not ported yet."""
-    if checkpoint_every is not None or resume_from is not None \
-            or checkpoint_path is not None:
-        raise NotImplementedError(
-            "chunked checkpoint/resume is not ported yet (ROADMAP queue 1, "
-            "item 11)")
+def _check_mesh(mesh):
+    """Raise for a chain mesh, which is not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
             "multi-GPU chain split is not ported yet (ROADMAP queue 1, "
@@ -546,57 +575,85 @@ def _prior_tensor(prior, dev):
         np.ascontiguousarray(prior, np.float32), device=dev)
 
 
+def _ptr(t):
+    """A tensor's device address, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def _records(R, P, C, dev, n_rows=4):
+    """Chain-minor records: theta (R, P, C), then ``n_rows`` of (R, C)."""
+    return (torch.empty((R, P, C), dtype=torch.float32, device=dev),) \
+        + tuple(torch.empty((R, C), dtype=torch.float32, device=dev)
+                for _ in range(n_rows))
+
+
+def twin_launcher(plain):
+    """A chain launcher that runs the twin ``plain`` on the launcher's
+    arguments (``launch(**chunk)`` calls it; nothing is launched or
+    counted): the CPU path of the wrappers, and ``ops.plain_launchers``."""
+    def launcher(*args, **kw):
+        *head, stepper, th0, seed = args
+        return lambda **ck: plain(*head, th0, seed, stepper=stepper, **kw,
+                                  **ck)
+    return launcher
+
+
 def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
-                walk, walked, num, prior=None):
+                walk, walked, num, prior=None, R_chunk=None):
     """Prepare the MH kernel for chains ``th0`` (P, C) on the card and
     return ``launch() -> records`` (theta (R, P, C); chi, rsq, aic,
     acceptance ratio (R, C)); each call launches the kernel once (and
-    counts it). ``prior``: a :func:`~.priors.prior_table` or None."""
+    counts it). ``prior``: a :func:`~.priors.prior_table` or None. With
+    ``R_chunk`` it is ``launch(it_base, state) -> (records, state)``, a
+    chunk of :func:`mh_plain`'s chunk mode, state a (P + 4, C) tensor on
+    the card (None on the first chunk)."""
     from . import build
     lib = build.load_kernels(spec)
     dev = th0.device
     P, C = th0.shape
-    R = nits - 1 - burnin
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
                                   str(dev))
     # per slot: the walk scale, then the walked flag
     walk_t = torch.as_tensor(np.asarray(
         walk + tuple(float(w) for w in walked), np.float32), device=dev)
     prior_t = _prior_tensor(prior, dev)
-    recs = (torch.empty((R, P, C), dtype=torch.float32, device=dev),) \
-        + tuple(torch.empty((R, C), dtype=torch.float32, device=dev)
-                for _ in range(4))
-    args = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
+    head = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
             plan_f.numel(), th0.data_ptr(), walk_t.data_ptr(),
-            None if prior_t is None else prior_t.data_ptr(),
-            *(r.data_ptr() for r in recs), C, int(nits), int(burnin),
-            int(np.uint32(np.int64(seed) & _M32)),
+            _ptr(prior_t))
+    tail = (int(np.uint32(np.int64(seed) & _M32)),
             float(np.float32(2.0 * num)), _STEPPER_ID[stepper],
             build.stream(dev))
 
-    def launch():
-        build.check(lib, lib.odelib_mh(*args), "mh")
+    def launch(it_base=0, state=None):
+        it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+        recs = _records(it_end - 1 - rec0, P, C, dev)
+        out = None if R_chunk is None else torch.empty(
+            (P + 4, C), dtype=torch.float32, device=dev)
+        build.check(lib, lib.odelib_mh(
+            *head, _ptr(state), _ptr(out), *(r.data_ptr() for r in recs),
+            C, int(it_base), int(it_end), int(rec0), *tail), "mh")
         LAUNCHES["metropolis_hastings_fused"] += 1
-        return recs
+        return recs if R_chunk is None else (recs, out)
     launch.keep = (walk_t, prior_t)   # alive as long as the launcher
     return launch
 
 
 def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
                       nits, burnin, a, walk, walked, num, W0, blocks=None,
-                      prior=None):
+                      prior=None, R_chunk=None):
     """Prepare the ensemble kernel for walkers ``th0`` (P, W) on the card
     and return ``launch() -> records`` (theta (R, P, W0); chi, rsq, aic,
     acceptance ratio (R, W0)). Each call makes one device launch, which
-    runs the whole run, and counts it. ``blocks`` caps the grid (default:
-    as many blocks as can be co-resident; with fewer threads than the W/2
-    columns each thread loops over several). ``prior``: a
+    runs the whole run (or, with ``R_chunk``, one chunk: ``launch(it_base,
+    state) -> (records, state)`` as :func:`mh_launcher`'s, the state
+    (P + 4, W)), and counts it. ``blocks`` caps the grid (default: as many
+    blocks as can be co-resident; with fewer threads than the W/2 columns
+    each thread loops over several). ``prior``: a
     :func:`~.priors.prior_table` or None."""
     from . import build
     lib = build.load_kernels(spec)
     dev = th0.device
     P, W = th0.shape
-    R = nits - 1 - burnin
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
                                   str(dev))
     sizes = (plan_i.numel(), plan_f.numel())
@@ -611,28 +668,28 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
         tuple(walk) + tuple(float(w) for w in walked), np.float32),
         device=dev)
     prior_t = _prior_tensor(prior, dev)
-    # log-theta, chi, R^2, the accept count and, with priors, the log prior
-    state = torch.empty((P + 3 + (prior is not None), W),
-                        dtype=torch.float32, device=dev)
     bar = torch.empty(2, dtype=torch.int32, device=dev)  # zeroed per launch
-    recs = (torch.empty((R, P, W0), dtype=torch.float32, device=dev),) \
-        + tuple(torch.empty((R, W0), dtype=torch.float32, device=dev)
-                for _ in range(4))
     # a - 1, a, n_walked - 1 and the AIC term, rounded as JAX rounds them
-    consts = (float(np.float32(v)) for v in (a - 1.0, a, sum(walked) - 1,
-                                             2.0 * num))
-    args = (plan_i.data_ptr(), sizes[0], plan_f.data_ptr(), sizes[1],
-            th0.data_ptr(), walk_t.data_ptr(),
-            None if prior_t is None else prior_t.data_ptr(), state.data_ptr(),
-            bar.data_ptr(), *(r.data_ptr() for r in recs), W, W0, int(tile),
-            int(nits), int(burnin), int(np.uint32(np.int64(seed) & _M32)),
-            *consts, _STEPPER_ID[stepper], int(blocks), build.stream(dev))
+    consts = tuple(float(np.float32(v)) for v in (a - 1.0, a,
+                                                  sum(walked) - 1, 2.0 * num))
+    head = (plan_i.data_ptr(), sizes[0], plan_f.data_ptr(), sizes[1],
+            th0.data_ptr(), walk_t.data_ptr(), _ptr(prior_t))
+    tail = (int(np.uint32(np.int64(seed) & _M32)), *consts,
+            _STEPPER_ID[stepper], int(blocks), build.stream(dev))
 
-    def launch():
-        build.check(lib, lib.odelib_ensemble(*args), "ensemble")
+    def launch(it_base=0, state=None):
+        it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+        recs = _records(it_end - 1 - rec0, P, W0, dev)
+        # the walkers' state, which the kernel works in: log-theta, chi,
+        # R^2, the accept count and the log prior (0 without priors)
+        buf = torch.zeros((P + 4, W), dtype=torch.float32, device=dev)
+        build.check(lib, lib.odelib_ensemble(
+            *head, _ptr(state), buf.data_ptr(), bar.data_ptr(),
+            *(r.data_ptr() for r in recs), W, W0, int(tile), int(it_base),
+            int(it_end), int(rec0), *tail), "ensemble")
         LAUNCHES["ensemble_fused"] += 1
-        return recs
-    launch.keep = (walk_t, prior_t, state, bar)   # alive with the launcher
+        return recs if R_chunk is None else (recs, buf)
+    launch.keep = (walk_t, prior_t, bar)   # alive with the launcher
     return launch
 
 
@@ -670,7 +727,8 @@ def metropolis_hastings_fused(
         tile_chains: Optional[int] = None, interpret: bool = False,
         mesh=None, priors=None, checkpoint_every: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
-        resume_from: Optional[str] = None, config_token: str = ""):
+        resume_from: Optional[str] = None, config_token: str = "",
+        _stop_after_chunks: Optional[int] = None):
     """Run C chains of reference-semantics MH in one kernel launch.
 
     ``theta0`` is (C, P) float32; a CUDA tensor launches the MH kernel,
@@ -681,11 +739,18 @@ def metropolis_hastings_fused(
     no padding is needed. ``priors``: one distribution (or None) per theta
     slot, added to the acceptance in the kernel (all None: no priors; a
     family without an in-kernel form raises ``ValueError``).
-    ``tile_chains``/``interpret``/``config_token`` are accepted and
-    ignored; checkpointing and meshes are not ported yet and raise
-    ``NotImplementedError``."""
+
+    ``checkpoint_every`` runs the proposals in chunks of that many, one
+    launch each (:mod:`.chunked`), bitwise the records of one launch;
+    with ``checkpoint_path`` the state and records are persisted after
+    each chunk, and ``resume_from`` (alone: one chunk of ``nits``)
+    continues from such a file, raising ``ValueError`` if it was written
+    by a different configuration (``config_token`` is part of it).
+    ``_stop_after_chunks`` returns None after that many chunks, as a
+    killed run. ``tile_chains``/``interpret`` are accepted and ignored; a
+    ``mesh`` raises ``NotImplementedError``."""
     from ..samplers.mh import MHOutput
-    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
+    _check_mesh(mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)
@@ -712,14 +777,23 @@ def metropolis_hastings_fused(
     plan = _build_plan(spec, obs, times, substeps)
     th0 = theta0.t().contiguous()
     iteration = torch.arange(1, nits, device=theta0.device)[burnin:]
-    if not _check_cuda(spec, th0):
-        recs = mh_plain(spec, plan, y0_base, th0, seed, nits=nits,
+    launcher = mh_launcher if _check_cuda(spec, th0) \
+        else twin_launcher(mh_plain)
+
+    def make(R_chunk=None):
+        return launcher(spec, plan, y0_base, stepper, th0, seed, nits=nits,
                         burnin=burnin, walk=walk, walked=walked, num=num,
-                        stepper=stepper, prior=prior)
-    else:
-        recs = mh_launcher(spec, plan, y0_base, stepper, th0, seed,
-                           nits=nits, burnin=burnin, walk=walk,
-                           walked=walked, num=num, prior=prior)()
+                        prior=prior, R_chunk=R_chunk)
+    static = ("mh", spec.pnames, P, C, nits, burnin, walk, num, stepper,
+              substeps, int(seed), chunked.prior_key(prior),
+              str(config_token))
+    recs = chunked.run(make, "MCMC", static, nits=int(nits),
+                       burnin=int(burnin), device=th0.device,
+                       checkpoint_every=checkpoint_every,
+                       checkpoint_path=checkpoint_path,
+                       resume_from=resume_from, stop_after=_stop_after_chunks)
+    if recs is None:
+        return None
     th_r, chi_r, rsq_r, aic_r, ar_r = recs
     return MHOutput(theta=th_r.permute(2, 0, 1), chi=chi_r.t(),
                     rsquared=rsq_r.t(), aic=aic_r.t(),
@@ -735,7 +809,8 @@ def ensemble_fused(
         mesh=None, priors=None, init_jitter: float = 0.01,
         checkpoint_every: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
-        resume_from: Optional[str] = None, config_token: str = ""):
+        resume_from: Optional[str] = None, config_token: str = "",
+        _stop_after_chunks: Optional[int] = None):
     """Affine-invariant ensemble sampler (Goodman-Weare stretch moves).
 
     ``theta0`` is (W0, P) float32 walkers; a CUDA tensor launches the
@@ -745,11 +820,12 @@ def ensemble_fused(
     one independent ensemble, so the tile is part of the result (default:
     :func:`pick_tile_chains`, the JAX rule; any multiple of 256). Returns
     ``MHOutput`` for the first W0 walkers, as
-    :func:`metropolis_hastings_fused`, with ``priors`` as there.
-    ``interpret``/``config_token`` are accepted and ignored; checkpointing
-    and meshes are not ported yet and raise ``NotImplementedError``."""
+    :func:`metropolis_hastings_fused`, with ``priors`` and the chunked
+    checkpointing options as there (the first chunk scores the start
+    walkers, later ones load the state of all W). ``interpret`` is
+    accepted and ignored; a ``mesh`` raises ``NotImplementedError``."""
     from ..samplers.mh import MHOutput
-    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
+    _check_mesh(mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)
@@ -781,14 +857,25 @@ def ensemble_fused(
     plan = _build_plan(spec, obs, times, substeps)
     th0 = torch.as_tensor(np.ascontiguousarray(th_np.T), device=dev)
     iteration = torch.arange(1, nits, device=dev)[burnin:]
-    kw = dict(tile=tile, nits=nits, burnin=burnin, a=float(a), walk=walk,
-              walked=walked, num=num, W0=W0, prior=prior)
-    if not _check_cuda(spec, th0):
-        recs = ensemble_plain(spec, plan, y0_base, th0, seed,
-                              stepper=stepper, **kw)
-    else:
-        recs = ensemble_launcher(spec, plan, y0_base, stepper, th0, seed,
-                                 **kw)()
+    launcher = ensemble_launcher if _check_cuda(spec, th0) \
+        else twin_launcher(ensemble_plain)
+
+    def make(R_chunk=None):
+        return launcher(spec, plan, y0_base, stepper, th0, seed, tile=tile,
+                        nits=nits, burnin=burnin, a=float(a), walk=walk,
+                        walked=walked, num=num, W0=W0, prior=prior,
+                        R_chunk=R_chunk)
+    static = ("ensemble", spec.pnames, P, tile, th0.shape[1], nits, burnin,
+              walk, float(a), num, stepper, substeps, W0, int(seed),
+              float(init_jitter), chunked.prior_key(prior),
+              str(config_token))
+    recs = chunked.run(make, "MCMC", static, nits=int(nits),
+                       burnin=int(burnin), device=th0.device,
+                       checkpoint_every=checkpoint_every,
+                       checkpoint_path=checkpoint_path,
+                       resume_from=resume_from, stop_after=_stop_after_chunks)
+    if recs is None:
+        return None
     th_r, chi_r, rsq_r, aic_r, ar_r = recs
     return MHOutput(theta=th_r.permute(2, 0, 1), chi=chi_r.t(),
                     rsquared=rsq_r.t(), aic=aic_r.t(),

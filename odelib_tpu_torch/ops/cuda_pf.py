@@ -15,9 +15,10 @@ runs the plain torch twin :func:`pmmh_plain`, which performs the kernel's
 float32 operations in the same order, sums the weights in the same order
 and draws the same counter-RNG words. Chain c keys its streams on its
 global index, so the JAX kernel's padding to 128-chain tiles changes
-nothing and is not done here. Milstein, chunked resume, meshes and more
-than 512 particles are not ported (ROADMAP queue 1, items 3, 11 and 18,
-queue 2, item 6).
+nothing and is not done here. Chunked checkpointing and resume follow
+``_pf_fused_chunked`` (:mod:`.chunked`). Milstein, meshes and more than
+512 particles are not ported (ROADMAP queue 1, items 3 and 18, queue 2,
+item 6).
 """
 from __future__ import annotations
 
@@ -29,9 +30,11 @@ import torch
 
 from ..model import ModelSpec, ObsData
 from ..rhs import RhsTraceError, torch_evaluator, trace_rhs
+from . import chunked
 from .cuda_mh import (_M32, LAUNCHES, _as_f32_tensor, _build_plan,
-                      _check_unported, _device_plan, _key,
-                      _normalize_substeps, mix, obs_terms, uniform_of)
+                      _check_mesh, _device_plan, _key, _normalize_substeps,
+                      _ptr, _records, chunk_range, mix, obs_terms,
+                      uniform_of)
 from .build import PF_KMAX
 from .priors import checked_priors, logprior_plain, prior_table
 from .runge_kutta import const
@@ -230,28 +233,34 @@ class _Filter:
 
 def pmmh_plain(spec, plan, y0_base, theta0, seed, *, K, nits, burnin, walk,
                walked, rwalk_std, prior=None, adapt=False, target=0.3,
-               adapt_rate=0.05):
+               adapt_rate=0.05, R_chunk=None, it_base=0, state=None):
     """Twin of the PMMH kernel: ``theta0`` (P, C) float32; returns the
     chain-minor records theta (R, P, C), chi and acceptance ratio (R, C),
     R = nits - 1 - burnin. ``walk`` is the walk mask, ``walked`` its
-    non-zero slots, ``prior`` a :func:`~.priors.prior_table` or None."""
+    non-zero slots, ``prior`` a :func:`~.priors.prior_table` or None.
+    Chunk mode as ``cuda_mh.mh_plain``'s, the state (P + 3, C): log-theta,
+    chi, the accept count and the log proposal scale; the scale adapts
+    while ``it <= burnin``, the run's burn-in."""
     P, C = theta0.shape
     dev = theta0.device
-    R = nits - 1 - burnin
+    it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+    R = it_end - 1 - rec0
     stride = slot_stride(plan, len(spec.snames), sum(walked))
     key0, keys = pf_keys(seed, K, torch.arange(C, device=dev))
     filt = _Filter(spec, plan, y0_base, K, keys, key0)
-    theta = list(theta0)
-    chi, _ = filt.run(theta, 0, 0)
-    lt = [torch.log(th) for th in theta]
-    acc = torch.zeros_like(chi)
-    lsc = torch.zeros_like(chi)
+    if state is None:
+        theta = list(theta0)
+        chi, _ = filt.run(theta, 0, 0)
+        lt = [torch.log(th) for th in theta]
+        acc = torch.zeros_like(chi)
+        lsc = torch.zeros_like(chi)
+    else:
+        lt = list(state[:P])
+        chi, acc, lsc = state[P], state[P + 1], state[P + 2]
     rw, ar_c, tg_c = (const(v, chi) for v in (rwalk_std, adapt_rate, target))
     wc = [const(float(w), chi) for w in walk]
-    recs = (torch.empty((R, P, C), dtype=torch.float32, device=dev),
-            torch.empty((R, C), dtype=torch.float32, device=dev),
-            torch.empty((R, C), dtype=torch.float32, device=dev))
-    for it in range(1, nits):
+    recs = _records(R, P, C, dev, n_rows=2)
+    for it in range(it_base + 1, it_end):
         ctr = (it * stride) & _M32
         slot = 0
         std = rw * torch.exp(lsc)
@@ -278,25 +287,28 @@ def pmmh_plain(spec, plan, y0_base, theta0, seed, *, K, nits, burnin, walk,
         acc = acc + a
         if adapt and it <= burnin:
             lsc = lsc + ar_c * (a - tg_c)
-        r = it - 1 - burnin
+        r = it - 1 - rec0
         if r >= 0:
             recs[0][r] = torch.stack([torch.exp(v) for v in lt])
             recs[1][r] = chi
             recs[2][r] = acc / torch.full_like(acc, float(it))
-    return recs
+    if R_chunk is None:
+        return recs
+    return recs, torch.stack(lt + [chi, acc, lsc])
 
 
 def pmmh_launcher(spec, plan, y0_base, th0, seed, *, K, nits, burnin, walk,
                   walked, rwalk_std, prior=None, adapt=False, target=0.3,
-                  adapt_rate=0.05):
+                  adapt_rate=0.05, R_chunk=None):
     """Prepare the PMMH kernel for chains ``th0`` (P, C) on the card and
     return ``launch() -> records`` (as :func:`pmmh_plain`); each call
-    launches the kernel once (and counts it)."""
+    launches the kernel once (and counts it). With ``R_chunk`` it is
+    ``launch(it_base, state) -> (records, state)``, a chunk of
+    :func:`pmmh_plain`'s chunk mode."""
     from . import build
     lib = build.load_kernels(spec, diffusion=True)
     dev = th0.device
     P, C = th0.shape
-    R = nits - 1 - burnin
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), "euler",
                                   str(dev))
     gis = obs_grid_indices(plan)
@@ -305,23 +317,26 @@ def pmmh_launcher(spec, plan, y0_base, th0, seed, *, K, nits, burnin, walk,
         np.float32), device=dev)
     table = prior_table([None] * P) if prior is None else prior
     prior_t = torch.as_tensor(np.ascontiguousarray(table), device=dev)
-    recs = (torch.empty((R, P, C), dtype=torch.float32, device=dev),
-            torch.empty((R, C), dtype=torch.float32, device=dev),
-            torch.empty((R, C), dtype=torch.float32, device=dev))
     stride = slot_stride(plan, len(spec.snames), sum(walked))
-    args = (plan_i.data_ptr(), plan_f.data_ptr(), th0.data_ptr(),
-            walk_t.data_ptr(), prior_t.data_ptr(),
-            *(r.data_ptr() for r in recs), C, int(K), int(nits),
-            int(burnin), int(np.uint32(np.int64(seed) & _M32)), stride,
+    head = (plan_i.data_ptr(), plan_f.data_ptr(), th0.data_ptr(),
+            walk_t.data_ptr(), prior_t.data_ptr())
+    tail = (int(burnin), int(np.uint32(np.int64(seed) & _M32)), stride,
             gis[-1] if gis else -1, int(prior is not None), int(adapt),
             *(float(np.float32(v)) for v in (rwalk_std, adapt_rate, target,
                                              math.log(K), 1.0 / K)),
             build.stream(dev))
 
-    def launch():
-        build.check(lib, lib.odelib_pf(*args), "particle filter")
+    def launch(it_base=0, state=None):
+        it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+        recs = _records(it_end - 1 - rec0, P, C, dev, n_rows=2)
+        out = None if R_chunk is None else torch.empty(
+            (P + 3, C), dtype=torch.float32, device=dev)
+        build.check(lib, lib.odelib_pf(
+            *head, _ptr(state), _ptr(out), *(r.data_ptr() for r in recs), C,
+            int(K), int(it_base), int(it_end), int(rec0), *tail),
+            "particle filter")
         LAUNCHES["pmmh_fused"] += 1
-        return recs
+        return recs if R_chunk is None else (recs, out)
     launch.keep = (walk_t, prior_t)   # alive as long as the launcher
     return launch
 
@@ -336,16 +351,21 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
                interpret: bool = False, mesh=None,
                checkpoint_every: Optional[int] = None,
                checkpoint_path: Optional[str] = None,
-               resume_from: Optional[str] = None, config_token: str = ""):
+               resume_from: Optional[str] = None, config_token: str = "",
+               _stop_after_chunks: Optional[int] = None):
     """Run C chains of particle-marginal MH in one kernel launch.
 
     ``theta0`` is (C, P) float32; a CUDA tensor launches the PMMH kernel, a
     CPU one runs its twin. ``substeps`` Euler-Maruyama steps per interval
     of ``times``; ``priors`` one distribution (or None) per theta slot,
     LogNormal, Normal or Uniform. Returns :class:`PMMHOutput` with
-    ``aic = 2 chi + 2 count_nonzero(theta0[0])``. ``interpret``/
-    ``config_token`` are accepted and ignored; Milstein, checkpointing and
-    meshes are not ported yet and raise ``NotImplementedError``."""
+    ``aic = 2 chi + 2 count_nonzero(theta0[0])``. ``checkpoint_every``/
+    ``checkpoint_path``/``resume_from``/``config_token``/
+    ``_stop_after_chunks`` as in ``cuda_mh.metropolis_hastings_fused``
+    (the chunks carry the proposal scale; the adaptation and the RNG
+    counter's range follow the run's ``burnin`` and ``nits``).
+    ``interpret`` is accepted and ignored; Milstein and meshes are not
+    ported yet and raise ``NotImplementedError``."""
     if spec.diffusion is None:
         raise ValueError("pmmh_fused requires a spec with diffusion=")
     if sde_method == "milstein":
@@ -361,7 +381,7 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
         raise ValueError(f"fused PMMH needs n_particles in [8, {PF_KMAX}] and "
                          "a multiple of 8 (lifting it is ROADMAP queue 2, "
                          "item 6)")
-    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
+    _check_mesh(mesh)
     if burnin is None:
         burnin = int(nits / 2)
     if nits - 1 <= burnin:
@@ -388,11 +408,27 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
               adapt=bool(adapt_proposal), target=float(target_accept),
               adapt_rate=float(adapt_rate))
     if th0.device.type != "cuda":
-        recs = pmmh_plain(spec, plan, y0_base, th0, seed, **kw)
+        def make(R_chunk=None):
+            return lambda **ck: pmmh_plain(spec, plan, y0_base, th0, seed,
+                                           R_chunk=R_chunk, **kw, **ck)
     else:
         for f in (spec.rhs, spec.diffusion):   # raises RhsTraceError for a
             trace_rhs(f, len(spec.snames), P)  # function the kernel can't
-        recs = pmmh_launcher(spec, plan, y0_base, th0, seed, **kw)()
+
+        def make(R_chunk=None):
+            return pmmh_launcher(spec, plan, y0_base, th0, seed,
+                                 R_chunk=R_chunk, **kw)
+    static = ("pmmh", spec.pnames, P, K, th0.shape[1], int(nits),
+              int(burnin), walk, float(rwalk_std), num, substeps, int(seed),
+              chunked.prior_key(prior), bool(adapt_proposal),
+              float(target_accept), float(adapt_rate), str(config_token))
+    recs = chunked.run(make, "PMMH", static, nits=int(nits),
+                       burnin=int(burnin), device=th0.device,
+                       checkpoint_every=checkpoint_every,
+                       checkpoint_path=checkpoint_path,
+                       resume_from=resume_from, stop_after=_stop_after_chunks)
+    if recs is None:
+        return None
     th_r, chi_r, ar_r = recs
     chi = chi_r.t()
     return PMMHOutput(theta=th_r.permute(2, 0, 1), chi=chi,

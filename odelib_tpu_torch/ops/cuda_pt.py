@@ -23,10 +23,12 @@ import torch
 
 from ..model import ModelSpec, ObsData
 from ..samplers.pt import swap_attempts
+from . import chunked
 from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
-                      _as_f32_tensor, _build_plan, _check_cuda,
-                      _check_stepper, _check_unported, _device_plan, _key,
-                      _normalize_substeps, _prior_tensor, make_scorer)
+                      _as_f32_tensor, _build_plan, _check_cuda, _check_mesh,
+                      _check_stepper, _device_plan, _key,
+                      _normalize_substeps, _prior_tensor, _ptr, _records,
+                      chunk_range, make_scorer, twin_launcher)
 from .priors import checked_priors, logprior_plain
 from .build import PT_KMAX
 from .runge_kutta import const
@@ -47,35 +49,53 @@ def ladder_constants(temperatures, rwalk_std: float, walk_mask):
     return scales, np.asarray(betas, np.float32), dbetas
 
 
+def state_planes(K: int, P: int) -> int:
+    """The PT chunk state's planes: per rung log-theta, chi, R^2 and log
+    prior, then the cold rung's accept count and the cold pair's swap
+    count (the JAX kernel's K (P + 3) + 2)."""
+    return K * (P + 3) + 2
+
+
 def pt_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, scales,
              walked, betas, dbetas, swap_every, num, stepper="dopri5",
-             prior=None):
+             prior=None, R_chunk=None, it_base=0, state=None):
     """Twin of the PT kernel: ``theta0`` (P, C) float32; returns the T=1
     rung's records theta (R, P, C) and chi, rsq, aic, acceptance ratio and
     the running count of accepted (0,1) swaps (R, C),
     R = nits - 1 - burnin. ``prior``: a :func:`~.priors.prior_table` or
-    None; with one each rung carries its log prior."""
+    None; with one each rung carries its log prior. Chunk mode as
+    ``cuda_mh.mh_plain``'s, the state (:func:`state_planes`, C): rung k's
+    log-theta at k P + p, chi at K P + k, R^2 at K P + K + k, log prior
+    (0 without priors) at K P + 2 K + k, then the two counts."""
     score = make_scorer(spec, plan, y0_base, stepper)
     P, C = theta0.shape
     K = len(betas)
     dev = theta0.device
-    R = nits - 1 - burnin
+    it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+    R = it_end - 1 - rec0
     rng = Rng(seed, torch.arange(C, device=dev))
-    chi0, rsq0 = score(list(theta0))
-    lt = [[torch.log(th) for th in theta0] for _ in range(K)]
-    chi, rsq = [chi0] * K, [rsq0] * K
-    lp = None if prior is None else \
-        [logprior_plain(prior, list(theta0))] * K
-    acc = torch.zeros_like(chi0)
-    sw = torch.zeros_like(chi0)
+    if state is None:
+        chi0, rsq0 = score(list(theta0))
+        lt = [[torch.log(th) for th in theta0] for _ in range(K)]
+        chi, rsq = [chi0] * K, [rsq0] * K
+        lp = None if prior is None else \
+            [logprior_plain(prior, list(theta0))] * K
+        acc = torch.zeros_like(chi0)
+        sw = torch.zeros_like(chi0)
+    else:
+        lt = [list(state[k * P:(k + 1) * P]) for k in range(K)]
+        chi = list(state[K * P:K * P + K])
+        rsq = list(state[K * P + K:K * P + 2 * K])
+        lp = None if prior is None else \
+            list(state[K * P + 2 * K:K * P + 3 * K])
+        acc, sw = state[-2], state[-1]
+        chi0 = chi[0]
     sc = [[const(float(v), chi0) for v in row] for row in scales]
     bc = [const(float(b), chi0) for b in betas]
     dc = [const(float(d), chi0) for d in dbetas]
-    recs = [torch.empty((R, P, C), dtype=torch.float32, device=dev)] + [
-        torch.empty((R, C), dtype=torch.float32, device=dev)
-        for _ in range(5)]
+    recs = _records(R, P, C, dev, n_rows=5)
     two, aic_c = const(2.0, chi0), const(2.0 * num, chi0)
-    for it in range(1, nits):
+    for it in range(it_base + 1, it_end):
         rng.start(it)
         for k in range(K):
             prop = [lt[k][p] + sc[k][p] * rng.normal() if walked[p]
@@ -113,7 +133,7 @@ def pt_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, scales,
                                       torch.where(flag, arr[k], arr[k + 1]))
             if k == 0:
                 sw = sw + flag.to(torch.float32)
-        r = it - 1 - burnin
+        r = it - 1 - rec0
         if r >= 0:
             recs[0][r] = torch.stack([torch.exp(v) for v in lt[0]])
             recs[1][r] = chi[0]
@@ -121,20 +141,26 @@ def pt_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, scales,
             recs[3][r] = two * chi[0] + aic_c
             recs[4][r] = acc / torch.full_like(acc, float(it))
             recs[5][r] = sw
-    return tuple(recs)
+    if R_chunk is None:
+        return recs
+    lp = [torch.zeros_like(acc)] * K if lp is None else lp
+    return recs, torch.stack(
+        [v for rung in lt for v in rung] + chi + rsq + lp + [acc, sw])
 
 
 def pt_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
-                scales, walked, betas, dbetas, swap_every, num, prior=None):
+                scales, walked, betas, dbetas, swap_every, num, prior=None,
+                R_chunk=None):
     """Prepare the PT kernel for chains ``th0`` (P, C) on the card and
     return ``launch() -> records`` (as :func:`pt_plain`); each call
-    launches the kernel once (and counts it)."""
+    launches the kernel once (and counts it). With ``R_chunk`` it is
+    ``launch(it_base, state) -> (records, state)``, a chunk of
+    :func:`pt_plain`'s chunk mode."""
     from . import build
     lib = build.load_kernels(spec)
     dev = th0.device
     P, C = th0.shape
     K = len(betas)
-    R = nits - 1 - burnin
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
                                   str(dev))
     ladder = torch.as_tensor(np.concatenate([
@@ -142,21 +168,23 @@ def pt_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
         np.asarray(walked, np.float32), betas, dbetas]).astype(np.float32),
         device=dev)
     prior_t = _prior_tensor(prior, dev)
-    recs = (torch.empty((R, P, C), dtype=torch.float32, device=dev),) \
-        + tuple(torch.empty((R, C), dtype=torch.float32, device=dev)
-                for _ in range(5))
-    args = (plan_i.data_ptr(), plan_f.data_ptr(), th0.data_ptr(),
-            ladder.data_ptr(), None if prior_t is None else prior_t.data_ptr(),
-            *(r.data_ptr() for r in recs), C, K,
-            int(nits), int(burnin), int(swap_every),
-            int(np.uint32(np.int64(seed) & _M32)),
+    head = (plan_i.data_ptr(), plan_f.data_ptr(), th0.data_ptr(),
+            ladder.data_ptr(), _ptr(prior_t))
+    tail = (int(swap_every), int(np.uint32(np.int64(seed) & _M32)),
             float(np.float32(2.0 * num)), _STEPPER_ID[stepper],
             build.stream(dev))
 
-    def launch():
-        build.check(lib, lib.odelib_pt(*args), "parallel tempering")
+    def launch(it_base=0, state=None):
+        it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+        recs = _records(it_end - 1 - rec0, P, C, dev, n_rows=5)
+        out = None if R_chunk is None else torch.empty(
+            (state_planes(K, P), C), dtype=torch.float32, device=dev)
+        build.check(lib, lib.odelib_pt(
+            *head, _ptr(state), _ptr(out), *(r.data_ptr() for r in recs), C,
+            K, int(it_base), int(it_end), int(rec0), *tail),
+            "parallel tempering")
         LAUNCHES["parallel_tempering_fused"] += 1
-        return recs
+        return recs if R_chunk is None else (recs, out)
     launch.keep = (ladder, prior_t)   # alive as long as the launcher
     return launch
 
@@ -170,7 +198,8 @@ def parallel_tempering_fused(
         tile_chains: Optional[int] = None, interpret: bool = False,
         mesh=None, priors=None, checkpoint_every: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
-        resume_from: Optional[str] = None, config_token: str = ""):
+        resume_from: Optional[str] = None, config_token: str = "",
+        _stop_after_chunks: Optional[int] = None):
     """Run C tempered ladders in one kernel launch.
 
     ``theta0`` is (C, P) float32; a CUDA tensor launches the PT kernel, a
@@ -180,11 +209,14 @@ def parallel_tempering_fused(
     cold pair's accepted swaps per proposal. ``priors``: one distribution
     (or None) per theta slot, in the tempered acceptance and the swaps as
     in the JAX kernel (a family without an in-kernel form raises
-    ``ValueError``). ``tile_chains``/``interpret``/``config_token`` are
-    accepted and ignored; checkpointing and meshes are not ported yet and
-    raise ``NotImplementedError``."""
+    ``ValueError``). ``checkpoint_every``/``checkpoint_path``/
+    ``resume_from``/``config_token``/``_stop_after_chunks`` as in
+    ``cuda_mh.metropolis_hastings_fused``: the chunks carry the whole
+    ladder's state, and the swap parity follows the global iteration.
+    ``tile_chains``/``interpret`` are accepted and ignored; a ``mesh``
+    raises ``NotImplementedError``."""
     from ..samplers.mh import MHOutput
-    _check_unported(checkpoint_every, checkpoint_path, resume_from, mesh)
+    _check_mesh(mesh)
     _check_stepper(stepper)
     if burnin is None:
         burnin = int(nits / 2)
@@ -222,14 +254,26 @@ def parallel_tempering_fused(
     substeps = _normalize_substeps(substeps, len(np.asarray(times)) - 1)
     plan = _build_plan(spec, obs, times, substeps)
     th0 = theta0.t().contiguous()
-    kw = dict(nits=int(nits), burnin=int(burnin), scales=scales,
-              walked=walked, betas=betas, dbetas=dbetas,
-              swap_every=int(swap_every), num=num, prior=prior)
-    if not _check_cuda(spec, th0):
-        recs = pt_plain(spec, plan, y0_base, th0, seed, stepper=stepper,
-                        **kw)
-    else:
-        recs = pt_launcher(spec, plan, y0_base, stepper, th0, seed, **kw)()
+    launcher = pt_launcher if _check_cuda(spec, th0) \
+        else twin_launcher(pt_plain)
+
+    def make(R_chunk=None):
+        return launcher(spec, plan, y0_base, stepper, th0, seed,
+                        nits=int(nits), burnin=int(burnin), scales=scales,
+                        walked=walked, betas=betas, dbetas=dbetas,
+                        swap_every=int(swap_every), num=num, prior=prior,
+                        R_chunk=R_chunk)
+    static = ("pt", spec.pnames, P, C, int(nits), int(burnin),
+              tuple(float(w) for w in walk_mask), float(rwalk_std), num,
+              stepper, substeps, int(seed), temperatures, int(swap_every),
+              chunked.prior_key(prior), str(config_token))
+    recs = chunked.run(make, "MCMC", static, nits=int(nits),
+                       burnin=int(burnin), device=th0.device,
+                       checkpoint_every=checkpoint_every,
+                       checkpoint_path=checkpoint_path,
+                       resume_from=resume_from, stop_after=_stop_after_chunks)
+    if recs is None:
+        return None
     th_r, chi_r, rsq_r, aic_r, ar_r, sw_r = recs
     att0 = max(float(swap_attempts(nits, swap_every, 1)[0]), 1.0)
     swap_rate = sw_r[-1] / const(att0, sw_r)

@@ -123,8 +123,6 @@ def test_lhs_seeding_path(monkeypatch):
 def test_unported_options_raise():
     fw = _framework(odelib_tpu_torch, device="cpu")
     for kw, item in ((dict(sampler="hmc"), "item 16"),
-                     (dict(checkpoint_every=5), "item 11"),
-                     (dict(until_rhat=1.1), "item 11"),
                      (dict(backend="xla"), "item 8"),
                      (dict(method="auto"), "item 8"),
                      (dict(method="kvaerno5"), "item 8"),
@@ -142,6 +140,14 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="ladder tuple"):
         fw.MCMC(chain_inits=_INITS, iterations_per_chain=6, sampler="pt",
                 temperatures="hot", print_report=False)
+    # checkpointing and run-length extension are ported: the reference's
+    # ValueErrors for what it refuses
+    for kw, msg in ((dict(checkpoint_every=5), "requires checkpoint_path"),
+                    (dict(sampler="pt", until_rhat=1.1),
+                     "until_rhat/until_min_ess")):
+        with pytest.raises(ValueError, match=msg):
+            fw.MCMC(chain_inits=_INITS, iterations_per_chain=6,
+                    print_report=False, **kw)
     # a prior without an in-kernel form: the reference's XLA samplers
     fw_dn = _framework(odelib_tpu_torch, device="cpu")
     fw_dn.set_parameters(mu=odelib_tpu_torch.parameter(

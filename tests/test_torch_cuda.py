@@ -546,3 +546,56 @@ def test_mh_kernel_fits_an_sde_drift():
     want = ode.MCMC(**kw)
     pd.testing.assert_frame_equal(got, want)
     assert np.isfinite(got["chi"]).all()
+
+
+def _chunk_case(card, sampler):
+    """(wrapper, args, kw) of a small run of each chunk-mode kernel on the
+    card: MH and PT on 203 chains, the ensemble on 300 walkers padded to
+    two ensembles of 256, PMMH on 202 chains x 40 particles adapting for
+    its 9 burn-in proposals."""
+    from odelib_tpu_torch.ops import cuda_pf as TF
+    if sampler == "pmmh":
+        spec, obs, tf, y0 = _gbm_inputs()
+        th0 = torch.as_tensor(np.exp(np.random.default_rng(1).normal(
+            np.log(0.4), 0.3, (202, 1))).astype(np.float32), device="cuda")
+        return TF.pmmh_fused, (spec, obs, tf, y0, th0, 3), dict(
+            nits=20, burnin=9, rwalk_std=0.3, n_particles=40, substeps=5,
+            adapt_proposal=True, adapt_rate=0.15)
+    spec, obs, tf, y0 = card
+    n = 300 if sampler == "ensemble" else 203
+    th0 = torch.as_tensor(_draws(n, sd=0.05), device="cuda")
+    fn, extra = {"mh": (T.metropolis_hastings_fused, {}),
+                 "ensemble": (T.ensemble_fused, dict(tile_chains=256)),
+                 "pt": (TP.parallel_tempering_fused,
+                        dict(temperatures=(1.0, 2.0, 4.0), swap_every=2))
+                 }[sampler]
+    return fn, (spec, obs, tf, y0, th0, 11), dict(nits=40, burnin=10,
+                                                 substeps=4, **extra)
+
+
+def _outputs(res):
+    """Every array of a wrapper's result (PT: the records, the swap rate)."""
+    parts = (res,) if hasattr(res, "_fields") else res
+    return [v.cpu().numpy() for p in parts
+            for v in (p if hasattr(p, "_fields") else (p,))]
+
+
+@pytest.mark.parametrize("sampler", ["mh", "ensemble", "pt", "pmmh"])
+def test_chunked_kernel_equals_whole(card, sampler, tmp_path):
+    """Chunk mode on the card: the proposals in chunks of 7 (a short last
+    chunk; MH rounds cut mid-tree; PMMH's burn-in crosses a boundary),
+    one launch each, and a run killed after two chunks and
+    resumed from its file: every output bitwise that of one launch."""
+    fn, args, kw = _chunk_case(card, sampler)
+    whole = _outputs(fn(*args, **kw))
+    before = T.LAUNCHES[fn.__name__]
+    got = _outputs(fn(*args, checkpoint_every=7, **kw))
+    assert T.LAUNCHES[fn.__name__] == before + -(-(kw["nits"] - 1) // 7)
+    path = str(tmp_path / "run.progress")
+    assert fn(*args, checkpoint_every=7, checkpoint_path=path,
+              _stop_after_chunks=2, **kw) is None
+    res = _outputs(fn(*args, checkpoint_every=7, checkpoint_path=path,
+                      resume_from=path, **kw))
+    for a, b, c in zip(whole, got, res):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)

@@ -287,8 +287,7 @@ def test_ensemble_rejects_bad_arguments(setup):  # noqa: F811
                          (dict(priors=[None, DiscreteNormal(0.0, 1.0),
                                        None]), ValueError,
                           "unsupported prior family"),
-                         (dict(checkpoint_every=4), NotImplementedError,
-                          "item 11")):
+                         (dict(checkpoint_every=0), ValueError, ">= 1")):
         with pytest.raises(err, match=msg):
             T.ensemble_fused(tspec, obs, times_fit, y0, th0, 0, nits=8,
                              **{"burnin": 2, **kw})

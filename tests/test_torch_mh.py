@@ -113,9 +113,10 @@ def test_mh_twin_rejects_unported_options(setup):  # noqa: F811
     _, tspec, obs_fit, times_fit, y0 = setup
     obs = T.obsdata_from_arrays(obs_fit)
     th0 = torch.as_tensor(_theta0(4))
-    for kw, item in ((dict(checkpoint_every=4), "item 11"),
-                     (dict(stepper="kvaerno3"), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw, err, msg in ((dict(checkpoint_every=0), ValueError, ">= 1"),
+                         (dict(stepper="kvaerno3"), NotImplementedError,
+                          "item 14")):
+        with pytest.raises(err, match=msg):
             T.metropolis_hastings_fused(tspec, obs, times_fit, y0, th0, 0,
                                         nits=8, burnin=2, **kw)
     # a prior without an in-kernel form: the reference's ValueError

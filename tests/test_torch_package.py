@@ -23,7 +23,9 @@ def test_import_leaves_jax_out():
             "odelib_tpu_torch.joint, "
             "odelib_tpu_torch.ops.build, odelib_tpu_torch.samplers.pt, "
             "odelib_tpu_torch.samplers.joint, "
-            "odelib_tpu_torch.models, odelib_tpu_torch.dispatch; "
+            "odelib_tpu_torch.models, odelib_tpu_torch.dispatch, "
+            "odelib_tpu_torch.ops.chunked, odelib_tpu_torch.utils.checkpoint, "
+            "odelib_tpu_torch.utils.diagnostics; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'odelib_tpu.'))"
             " or m == 'odelib_tpu']; print(bad); sys.exit(1 if bad else 0)")

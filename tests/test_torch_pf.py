@@ -405,8 +405,8 @@ def test_pmmh_options_raise():
              NotImplementedError, "item 3"),
             (dict(sampler="pmmh", backend="xla"), NotImplementedError,
              "item 15"),
-            (dict(sampler="pmmh", checkpoint_every=3), NotImplementedError,
-             "item 11"),
+            (dict(sampler="pmmh", checkpoint_every=3), ValueError,
+             "requires checkpoint_path"),
             (dict(sampler="pmmh", sde_method="srk"), ValueError,
              "Euler-Maruyama"),
             (dict(sampler="pmmh", n_particles=100), ValueError,

@@ -345,7 +345,7 @@ def test_pt_rejects_bad_arguments(setup):  # noqa: F811
             (dict(burnin=7), ValueError, "no recorded"),
             (dict(priors=[None, DiscreteNormal(0.0, 1.0), None]),
              ValueError, "unsupported prior family"),
-            (dict(resume_from="x"), NotImplementedError, "item 11")):
+            (dict(checkpoint_every=0), ValueError, ">= 1")):
         with pytest.raises(err, match=msg):
             TP.parallel_tempering_fused(tspec, obs, times_fit, y0, th0, 0,
                                         nits=8, **{"burnin": 2, **kw})
