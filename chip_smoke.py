@@ -18,7 +18,7 @@ Phases, each failing the script if it fails:
    ensembles of 1024) x 200 iterations, in one launch of as many blocks as
    can be co-resident and again on 7 blocks of 32 threads, so each thread
    loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
-   1024 chains x 200 iterations, and with 3 (an idle lane in each chain's
+   1024 chains x 100 iterations, and with 3 (an idle lane in each chain's
    group of 4) and 8 rungs on 1000 chains x 60 (identical accept
    sequences and swap counts),
    the joint kernel on the heterogeneous pair zero_i + one_i, 256
@@ -29,9 +29,9 @@ Phases, each failing the script if it fails:
    in shared memory, so both kernels read their tables from global
    memory, and with in-kernel priors: four assignments over zero_i's
    slots that together cover the ten in-kernel families (``prior_sets``),
-   each through MH (1024 chains x 50), the ensemble (2048 walkers x 20),
-   PT (1024 chains x 4 rungs x 50) and the joint pair zero_i + one_i (256
-   chains x 50), from start points around the fit (all bitwise records);
+   each through MH (1024 chains x 25), the ensemble (2048 walkers x 20),
+   PT (1024 chains x 4 rungs x 25) and the joint pair zero_i + one_i (256
+   chains x 25), from start points around the fit (all bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after (each launching survey_fused and its chain kernel's wrapper
    once; Python's garbage collections per stage, and for MH the chains
@@ -96,7 +96,34 @@ Phases, each failing the script if it fails:
    MCMC(sampler='mh', until_min_ess=1.5 x a first run's least ESS) at
    2,000 chains x 200 iterations: at least one extension, the iteration
    column rising without a reset, acceptance_ratio x iteration integral,
-   and the target met or the cap's warning given;
+   and the target met or the cap's warning given. Then the scoring
+   phases (every observation model, censoring and doses): (1) the Tobit
+   device functions (probe kernel ``odelib_tobit``) against float64: log
+   Phi within 2e-6 relative on z in [-37, 8], the t log-CDF within 1e-5
+   for nu in {1, 2, 4, 10, 30, 100} on z in [-50, 50]; (2) every kernel
+   against its twin (``plain_launchers``) on each compiled scoring branch
+   of zero_i on the demo data (``SCORING``: lognormal censored and/or
+   dosed, Student-t, Poisson on the counts / 1e5, negbinom r = 10, with
+   and without a virus dose; host points below 1.5e6 left-, virus points
+   above 2.5e8 right-censored): the survey on 1,000 draws, MH on 512
+   chains, the ensemble on 512 walkers, PT on 256 chains x 3 rungs and the
+   joint kernel (two experiments of the branch sharing phi and beta, so
+   the branch's own library) on 128 chains, 5 proposals each, substeps 1,
+   and the particle filter on the PMMH path's GBM under four branches
+   (``PF_SCORING``), 512 chains x 128 particles x 5 proposals: equal
+   accept sequences, every record bitwise (the Tobit branches within 1e-6
+   relative); (3) paths (a)-(e) at full width, each
+   with launch counts reset just before and read just after: (a)
+   MCMC(sampler='mh', use_priors=True) on pk_oral with six doses and its
+   points under the LLOQ left-censored, (b) sampler='pt' on zero_i with
+   Student-t nu = 4 and four host points left-censored, (c)
+   sampler='ensemble' on the demo as negbinom counts (12,288 walkers),
+   (d) JointFit of zero_i (Poisson) and one_i (lognormal, censored), (e)
+   sampler='pmmh' on the GBM with Student-t and a dose: the reference's
+   posterior columns, finite chi, acceptance in (0, 1), the path's kernel
+   launched once; (4) paths (a)-(c)'s wrapper calls against the demo
+   paths' (CUDA events around the call) and each kernel's time on each
+   scoring branch at the main paths' shapes beside the demo's;
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MH, ensemble, PT and joint kernels with the demo's priors, with flat
@@ -676,6 +703,551 @@ def chunk_phases(calls, framework, chains, nits):
     return times
 
 
+# -- the scorer's branches: every observation model, censoring and doses ----
+
+# (observation model, censoring, dosed): each compiled branch beside the
+# demo's (lognormal, exact, undosed); the count models take no censoring in
+# the kernels (tests/test_torch_scoring.py SCORING)
+SCORING = (("lognormal", ("left", "right"), False),
+           ("lognormal", (), True),
+           ("lognormal", ("left", "right"), True),
+           ("student_t", (), False),
+           ("student_t", ("left", "right"), False),
+           ("student_t", (), True),
+           ("student_t", ("left", "right"), True),
+           ("poisson", (), False), ("poisson", (), True),
+           ("negbinom", (), False), ("negbinom", (), True))
+FAMILY_PARAM = {"lognormal": None, "student_t": 4.0, "poisson": None,
+                "negbinom": 10.0}
+# Poisson counts: the demo's / 1e5 (15 to 3,000); at the demo's 1e7 a
+# Poisson chi of ~-1e9 has float32 steps of ~100 nats
+POISSON_SCALE = 1e5
+LOD_HOST, ULOQ_VIRUS = 1.5e6, 2.5e8
+ZERO_I_DOSE = (1.0, "V", 2.0e7)     # a virus inoculum at t = 1
+PK_DOSES = tuple((12.0 * i, "A_gut", 100.0) for i in range(6))
+# the particle filter's branches, on the PMMH path's GBM (counts are 50 N);
+# the first is path (e)'s, whose library it shares
+PF_SCORING = (("student_t", (), True), ("lognormal", ("left",), False),
+              ("poisson", (), False), ("negbinom", (), True))
+
+
+def scoring_label(case):
+    fam, censor, dosed = case
+    return "+".join([fam] + (["censored"] if censor else [])
+                    + (["dosed"] if dosed else []))
+
+
+def demo_frame(fam="lognormal", censor=(), scale=1.0, host="S"):
+    """The demo data as ``fam`` sees it: counts (divided by ``scale``,
+    rounded) for the count models; 'left' censors host points below 1.5e6
+    at that limit, 'right' virus points above 2.5e8."""
+    import numpy as np
+    from odelib_tpu_torch.data import load_demo_dataframe
+    df = load_demo_dataframe(host=host, virus="V")
+    if fam in ("poisson", "negbinom"):
+        df["abundance"] = np.round(df["abundance"] / scale)
+    if censor:
+        labels = np.full(len(df), "", object)
+        for side, org, hit in (
+                ("left", host, lambda a: a < LOD_HOST),
+                ("right", "V", lambda a: a > ULOQ_VIRUS)):
+            if side in censor:
+                m = (df["organism"] == org) & hit(df["abundance"])
+                df.loc[m, "abundance"] = (LOD_HOST if side == "left"
+                                          else ULOQ_VIRUS)
+                labels[m.to_numpy()] = side
+        df["censored"] = labels
+    return df
+
+
+def scoring_inputs(case, t_steps=288):
+    """zero_i on the demo data as ``case`` scores it (counts and the dose
+    divided by the Poisson scale): (spec, host obs on the compact grid,
+    the grid, y0, the fit's centre)."""
+    import numpy as np
+    from odelib_tpu_torch.data import (build_obsdata_host,
+                                       compact_observation_grid,
+                                       format_dataframe)
+    from odelib_tpu_torch.model import make_spec
+    from odelib_tpu_torch.models import zero_i
+    from odelib_tpu_torch.rhs import adapt_rhs
+    fam, censor, dosed = case
+    scale = POISSON_SCALE if fam == "poisson" else 1.0
+    spec = make_spec(adapt_rhs(zero_i.rhs, "jax"), zero_i.pnames,
+                     zero_i.snames, obs_model=fam,
+                     obs_param=FAMILY_PARAM[fam],
+                     dose_events=((ZERO_I_DOSE[0], ZERO_I_DOSE[1],
+                                   ZERO_I_DOSE[2] / scale),)
+                     if dosed else None)
+    df = format_dataframe(demo_frame(fam, censor, scale), zero_i.snames)
+    times = np.linspace(0, df["time"].max(), t_steps)
+    obs, _ = build_obsdata_host(df, times, spec.post_snames)
+    tf, obs = compact_observation_grid(
+        obs, times, extra_times=[t for t, _, _ in spec.dose_events or ()])
+    y0 = np.array([df.loc["S"].iloc[0]["abundance"],
+                   df.loc["V"].iloc[0]["abundance"]])
+    return spec, obs, tf, y0, np.array([0.6, 2.4e-8 * scale, 24.0])
+
+
+def pk_frame(seed=0):
+    """pk_oral (ka 1.2, ke 0.25, V 30) under six 100-unit doses into A_gut
+    every 12 h: concentrations every 2 h to 72 h with log-normal noise of
+    sd 0.2 (numpy ``seed``); the points under the LLOQ, the 20th
+    percentile, recorded at it and left-censored (7 of 36)."""
+    import numpy as np
+    import pandas as pd
+    from scipy.integrate import solve_ivp
+    ka, ke, V = 1.2, 0.25, 30.0
+
+    def f(t, u):
+        return [-ka * u[0], ka * u[0] / V - ke * u[1]]
+    t_obs = np.arange(2.0, 73.0, 2.0)
+    y, conc = np.array([0.0, 0.0]), []
+    for k in range(6):
+        y = y + [100.0, 0.0]
+        t1 = 12.0 * (k + 1) if k < 5 else 72.0
+        seg = t_obs[(t_obs > 12.0 * k) & (t_obs <= t1)]
+        sol = solve_ivp(f, (12.0 * k, t1), y, t_eval=np.r_[seg, t1]
+                        if seg[-1] < t1 else seg, rtol=1e-10, atol=1e-12)
+        conc.extend(sol.y[1][:len(seg)])
+        y = sol.y[:, -1]
+    ab = np.asarray(conc) * np.exp(
+        0.2 * np.random.default_rng(seed).normal(size=len(t_obs)))
+    lloq = float(np.quantile(ab, 0.2))
+    return pd.DataFrame({"organism": "C", "time": t_obs,
+                         "abundance": np.maximum(ab, lloq),
+                         "log_sigma": 0.2, "censored": ab < lloq})
+
+
+def pf_variant(case, spec, obs, y0):
+    """The PMMH path's GBM (its spec, host obs and y0) as ``case`` scores
+    it: counts of 50 N for the count models, the second and sixth
+    observations left-censored, a dose after the block at t = 2."""
+    import dataclasses
+    import numpy as np
+    fam, censor, dosed = case
+    if fam in ("poisson", "negbinom"):
+        ab = np.round(50.0 * np.asarray(obs.abundance))
+        obs, y0 = obs._replace(log_abundance=np.log(ab), abundance=ab), \
+            50.0 * np.asarray(y0)
+    if censor:
+        cen = np.zeros(len(obs.abundance), np.int32)
+        cen[[1, 5]] = 1
+        obs = obs._replace(censor=cen)
+    spec = dataclasses.replace(
+        spec, obs_model=fam,
+        obs_param=float(FAMILY_PARAM[fam] or 0.0),
+        dose_events=((2.0, 0, 75.0 if fam in ("poisson", "negbinom")
+                      else 1.5),) if dosed else None)
+    return spec, obs, np.asarray(y0, float)
+
+
+def scoring_builds(pf_fw):
+    """load_kernels arguments of the libraries of each zero_i branch and
+    of the particle filter's branches on the PMMH path's framework."""
+    from odelib_tpu_torch.ops import cuda_mh
+    out = []
+    for case in SCORING:
+        spec, obs, tf, _, _ = scoring_inputs(case)
+        out.append((spec, (), False,
+                    [cuda_mh.scoring(cuda_mh._build_plan(spec, obs, tf, 1))]))
+    for case in PF_SCORING:
+        spec, obs, _ = pf_variant(case, pf_fw._spec, pf_fw._obsdata_fit_host,
+                                  pf_fw.get_inits())
+        out.append((spec, (), True, [cuda_mh.scoring(
+            cuda_mh._build_plan(spec, obs, pf_fw._times_fit, 1))]))
+    return out
+
+
+def _gbm(y, t, ps):
+    import numpy as np
+    return np.array([ps[0] * y[0]])
+
+
+def _gnoise(y, t, ps):
+    import numpy as np
+    return np.array([SIG * y[0]])
+
+
+def held(name, case, rec_k, rec_t, nits, labels, burnin=0):
+    """Kernel against twin records (chain-minor, from iteration burnin +
+    1): the accept sequences equal; bitwise (compare_records), but for a
+    Tobit case (double erfc/erfcx/log1p of two libraries, rounded to
+    float32 once) within rtol 1e-6. Returns chi's max abs error."""
+    import numpy as np
+    if not case[1]:
+        return compare_records(name, rec_k, rec_t, nits, labels=labels,
+                               burnin=burnin)
+    rec_k = [r.cpu().numpy() for r in rec_k]
+    rec_t = [r.cpu().numpy() for r in rec_t]
+    ar = labels.index("ar")
+    if not (rec_k[ar] == rec_t[ar]).all():
+        fail(f"{name}: accept sequences differ")
+    err = 0.0
+    for label, a, b in zip(labels, rec_k, rec_t):
+        if not (np.isfinite(a) == np.isfinite(b)).all():
+            fail(f"{name}: {label} kernel and twin disagree on finiteness")
+        m = np.isfinite(b)
+        rel = float(np.max(np.abs(a[m] - b[m]) / np.maximum(np.abs(b[m]),
+                                                            1e-30)))
+        print(f"{name} {label}: max rel err {rel:.3g}, bitwise equal "
+              f"{np.mean(a[m] == b[m]):.4f}")
+        if rel > 1e-6:
+            fail(f"{name}: {label} max rel err {rel:.3g} above 1e-6")
+        if label == "chi":
+            err = float(np.max(np.abs(a[m] - b[m])))
+    return err
+
+
+def slice_paths(framework, device="cuda"):
+    """The frameworks of paths (a)-(e) (the module docstring) on
+    ``device``; ``framework(df, **kw)`` builds zero_i there with the demo
+    paths' priors. (d) is the pair of its two frameworks."""
+    import numpy as np
+    import pandas as pd
+    import scipy.stats
+    from odelib_tpu_torch import ModelFramework, parameter
+    from odelib_tpu_torch.models import one_i, pk_oral, zero_i
+    t_obs, log_o = gbm_data()
+    hdf = demo_frame("lognormal", ("left",), host="H")
+    h0 = float(hdf[(hdf["organism"] == "H") & (hdf["time"] == 0)]
+               ["abundance"].iloc[0])
+    return {
+        "a": pk_oral.framework(pk_frame(), dose_events=list(PK_DOSES),
+                               t_steps=145, device=device),
+        "b": framework(demo_frame("student_t", ("left",)),
+                       obs_model="student_t", obs_param=4.0),
+        "c": framework(demo_frame("negbinom"), obs_model="negbinom",
+                       obs_param=10.0),
+        "d": (zero_i.framework(
+            demo_frame("poisson", scale=POISSON_SCALE),
+            obs_model="poisson", t_steps=288, device=device,
+            phi=parameter(scipy.stats.lognorm,
+                          {"s": 3, "scale": 1e-8 * POISSON_SCALE},
+                          random_seed=2)),
+            one_i.framework(hdf, t_steps=288, device=device, S=h0)),
+        "e": ModelFramework(
+            ODE=_gbm, diffusion=_gnoise, parameter_names=["mu"],
+            state_names=["N"], dataframe=pd.DataFrame({
+                "organism": "N", "time": t_obs,
+                "abundance": np.exp(log_o), "log_sigma": S_OBS}),
+            t_steps=41, N=2.0,
+            mu=parameter(scipy.stats.lognorm, {"s": PRI_SD,
+                                               "scale": PRI_MU}),
+            obs_model="student_t", obs_param=4.0,
+            dose_events=[(2.0, "N", 1.5)], device=device)}
+
+
+def path_builds(paths):
+    """load_kernels arguments of the libraries paths (a)-(e) load."""
+    from odelib_tpu_torch.ops import cuda_mh
+
+    def sc(fw):
+        return cuda_mh.scoring(cuda_mh._build_plan(
+            fw._spec, fw._obsdata_fit_host, fw._times_fit, 1))
+    pois, cens = paths["d"]
+    return [(paths[k]._spec, (), False, [sc(paths[k])]) for k in "abc"] + [
+        (pois._spec, (cens._spec,), False, [sc(pois), sc(cens)]),
+        (paths["e"]._spec, (), True, [sc(paths["e"])])]
+
+
+def scoring_phases(paths, calls, pf_call):
+    """The phases of every observation model, censoring and doses (see
+    the module docstring): ``paths`` from :func:`slice_paths`, ``calls``
+    the demo MH, PT and ensemble paths' captured wrapper calls,
+    ``pf_call`` the PMMH path's. Returns each kernel's max abs error of
+    chi against its twin."""
+    import numpy as np
+    import scipy.special
+    import scipy.stats
+    import torch
+    from odelib_tpu_torch import JointFit
+    from odelib_tpu_torch.models import pk_oral, zero_i
+    from odelib_tpu_torch.ops import (build, cuda_joint, cuda_mh, cuda_pf,
+                                      cuda_pt, plain_launchers)
+    from odelib_tpu_torch.ops.priors import prior_table
+    dev = torch.device("cuda")
+    errs = dict.fromkeys(cuda_mh.LAUNCHES, 0.0)
+
+    phase("scoring (1): the Tobit device functions against float64")
+    lib = build.load_kernels(scoring_inputs(SCORING[0])[0])
+
+    def probe(z, which, tc):
+        zt = torch.as_tensor(z, device=dev)
+        out = torch.empty_like(zt)
+        build.check(lib, lib.odelib_tobit(
+            zt.data_ptr(), zt.numel(), which, tc["nu"], tc["a"],
+            tc["thresh"], tc["ka"], tc["kb"], out.data_ptr(),
+            build.stream(dev)), "tobit")
+        return out.cpu().numpy().astype(np.float64)
+    z = np.linspace(-37.0, 8.0, 45001).astype(np.float32)
+    want = scipy.special.log_ndtr(z.astype(np.float64))
+    rel = np.abs(probe(z, 0, cuda_mh.t_constants(1.0)) - want) / np.abs(want)
+    print(f"log Phi on z in [-37, 8] (45,001 points): max rel err "
+          f"{rel.max():.3g} at z = {z[rel.argmax()]:.4f} (bound 2e-6)")
+    if not rel.max() <= 2e-6:
+        fail(f"log Phi max rel err {rel.max():.3g} above 2e-6")
+    z = np.linspace(-50.0, 50.0, 40001).astype(np.float32)
+    for nu in (1.0, 2.0, 4.0, 10.0, 30.0, 100.0):
+        want = scipy.stats.t.logcdf(z.astype(np.float64), nu)
+        got = probe(z, 1, cuda_mh.t_constants(nu))
+        normal = np.abs(want) >= np.finfo(np.float32).tiny
+        rel = np.abs(got - want)[normal] / np.abs(want[normal])
+        tail = np.abs(got - want)[~normal]
+        print(f"t log-CDF, nu = {nu:g}: max rel err {rel.max():.3g} "
+              f"(bound 1e-5) over {normal.sum()} points; below float32's "
+              f"normals ({(~normal).sum()} points) max abs err "
+              f"{tail.max() if tail.size else 0.0:.3g}")
+        if not rel.max() <= 1e-5 or (tail.size and tail.max()
+                                     >= np.finfo(np.float32).tiny):
+            fail(f"t log-CDF nu = {nu}: max rel err {rel.max():.3g}")
+
+    phase("scoring (2): each kernel vs its twin on each scoring branch")
+    rng = np.random.default_rng(0)
+    for case in SCORING:
+        label = scoring_label(case)
+        spec, obs, tf, y0, centre = scoring_inputs(case)
+
+        def draws(n, sd):
+            return torch.as_tensor((centre * np.exp(rng.normal(
+                0, sd, (n, 3)))).astype(np.float32), device=dev)
+        th = draws(1000, 0.2)
+        chi_k = cuda_mh.survey_fused(spec, obs, tf, y0, th, substeps=1)
+        chi_t = cuda_mh.survey_plain(spec, cuda_mh._build_plan(
+            spec, obs, tf, 1), y0, th.t().contiguous())
+        torch.cuda.synchronize()
+        errs["survey_fused"] = max(errs["survey_fused"],
+                                   _survey_held(label, case, chi_k, chi_t))
+        # (run, chains, iterations) of each chain kernel's wrapper
+        runs = {
+            "metropolis_hastings_fused": (lambda th0, n: (
+                cuda_mh.metropolis_hastings_fused(
+                    spec, obs, tf, y0, th0, 11, nits=n, burnin=0,
+                    substeps=1),), 512, 6),
+            "ensemble_fused": (lambda th0, n: (cuda_mh.ensemble_fused(
+                spec, obs, tf, y0, th0, 11, nits=n, burnin=0, substeps=1,
+                tile_chains=256),), 512, 6),
+            "parallel_tempering_fused": (lambda th0, n: cuda_pt.
+                                         parallel_tempering_fused(
+                spec, obs, tf, y0, th0, 11, nits=n, burnin=0, substeps=1,
+                temperatures=(1.0, 2.0, 4.0)), 256, 6),
+            # two experiments of the branch sharing phi and beta (one
+            # model, so the branch's own library): D = 4
+            "joint_metropolis_hastings_fused": (lambda th0, n: (
+                cuda_joint.joint_metropolis_hastings_fused(
+                    (spec, spec), ((0, 1, 2), (3, 1, 2)), (obs, obs),
+                    (tf, tf), (y0, y0), torch.cat([th0, th0[:, :1]], 1),
+                    11, nits=n, burnin=0, substeps_list=[1, 1]),), 128, 6)}
+        for name, (run, n, nits) in runs.items():
+            th0 = draws(n, 0.03)
+            n0 = dict(cuda_mh.LAUNCHES)
+            out_k = run(th0, nits)
+            torch.cuda.synchronize()
+            if cuda_mh.LAUNCHES[name] != n0[name] + 1:
+                fail(f"{label} {name}: the kernel was not launched once")
+            with plain_launchers():
+                out_t = run(th0, nits)
+            torch.cuda.synchronize()
+            if sum(cuda_mh.LAUNCHES.values()) != sum(n0.values()) + 1:
+                fail(f"{label} {name}: the twin run launched a kernel")
+            (ok_, ot_) = out_k[0], out_t[0]
+            if len(out_k) > 1 and not torch.equal(out_k[1], out_t[1]):
+                fail(f"{label} {name}: swap counts differ")
+            acc = float(ok_.acceptance_ratio[:, -1].mean())
+            if not np.isfinite(ok_.chi.cpu().numpy()).all() or acc <= 0.0:
+                fail(f"{label} {name}: non-finite chi or no accept ({acc})")
+            errs[name] = max(errs[name], held(
+                f"{label} {name}", case,
+                [ok_.theta.movedim(0, -1), ok_.chi.t(),
+                 ok_.acceptance_ratio.t()],
+                [ot_.theta.movedim(0, -1), ot_.chi.t(),
+                 ot_.acceptance_ratio.t()], nits, ("theta", "chi", "ar")))
+    pspec, pobs, ptf, py0, pth0 = pf_call["args"]
+    pkw = pf_call["kw"]
+    for case in PF_SCORING:
+        label = scoring_label(case)
+        spec, obs, y0 = pf_variant(case, pspec, pobs, py0)
+        th0 = pth0[:512].contiguous()
+        kw = dict(nits=6, burnin=2, rwalk_std=0.4, n_particles=PF_K,
+                  substeps=pkw["substeps"])
+        n0 = cuda_mh.LAUNCHES["pmmh_fused"]
+        out = cuda_pf.pmmh_fused(spec, obs, ptf, y0, th0, 3, **kw)
+        torch.cuda.synchronize()
+        if cuda_mh.LAUNCHES["pmmh_fused"] != n0 + 1:
+            fail(f"{label} pmmh_fused: the kernel was not launched once")
+        plan = cuda_mh._build_plan(spec, obs, ptf, pkw["substeps"])
+        rec_t = cuda_pf.pmmh_plain(spec, plan, y0, th0.t().contiguous(), 3,
+                                   K=PF_K, nits=6, burnin=2, walk=(1.0,),
+                                   walked=(True,), rwalk_std=0.4)
+        torch.cuda.synchronize()
+        if not np.isfinite(out.chi.cpu().numpy()).all():
+            fail(f"{label} pmmh_fused: non-finite chi")
+        errs["pmmh_fused"] = max(errs["pmmh_fused"], held(
+            f"{label} pmmh_fused (GBM, {th0.shape[0]} chains x {PF_K})",
+            case, [out.theta.permute(1, 2, 0), out.chi.t(),
+                   out.acceptance_ratio.t()], rec_t, 6,
+            ("theta", "chi", "ar"), burnin=2))
+
+    phase("scoring (3): the slice's paths at full width")
+    cols = ["chi", "rsquared", "aic", "iteration", "acceptance_ratio",
+            "chain#", "all_rejected"]
+    captured = {}
+
+    def drive(label, model, kernel, pnames, n_chains, survey=True, **kw):
+        cuda_mh.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            post = model.MCMC(iterations_per_chain=kw.pop("nits", NITS),
+                              profile=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_mh.LAUNCHES)
+        want = list(pnames) + cols
+        if isinstance(model, JointFit):
+            want = list(model.columns) + ["chi"] + [
+                f"chi:{k}" for k in model.frameworks] + cols[3:]
+        if list(post.columns) != want:
+            fail(f"{label}: posterior columns {list(post.columns)}")
+        if post["chain#"].nunique() != n_chains:
+            fail(f"{label}: {post['chain#'].nunique()} chains")
+        finite = float(np.isfinite(post.chi.to_numpy()).mean())
+        last = post[post.iteration == post.iteration.max()]
+        acc = float(last.acceptance_ratio.mean())
+        print(f"{label}: wall {wall:.3f} s; stages " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in model.last_profile.items())
+            + f"; launches {launches}; finite chi {finite}, mean final "
+            f"acceptance {acc:.4f}; {len(post)} rows", flush=True)
+        if finite != 1.0 or not 0.0 < acc < 1.0:
+            fail(f"{label}: finite chi {finite}, acceptance {acc}")
+        if launches[kernel] != 1 or (survey and
+                                     launches["survey_fused"] != 1):
+            fail(f"{label}: launches {launches}")
+        if "Fitting Report" not in out.getvalue() and not isinstance(
+                model, JointFit):
+            fail(f"{label}: the Fitting Report did not print")
+        return post
+
+    with recording(cuda_mh, "metropolis_hastings_fused",
+                   captured.setdefault("a", {})):
+        drive("(a) MCMC(sampler='mh', use_priors=True) on pk_oral, six "
+              "doses, Tobit lognormal", paths["a"],
+              "metropolis_hastings_fused", pk_oral.pnames, CHAINS,
+              chain_inits=CHAINS, fitsurvey_samples=1000,
+              sd_fitdistance=6.0, use_priors=True)
+    with recording(cuda_pt, "parallel_tempering_fused",
+                   captured.setdefault("b", {})):
+        drive("(b) MCMC(sampler='pt') on zero_i, student_t nu = 4, four "
+              "host points left-censored at 1.5e6", paths["b"],
+              "parallel_tempering_fused", zero_i.pnames, CHAINS,
+              chain_inits=CHAINS, fitsurvey_samples=1000,
+              sd_fitdistance=6.0, sampler="pt", temperatures=TEMPS)
+    with recording(cuda_mh, "ensemble_fused", captured.setdefault("c", {})):
+        drive("(c) MCMC(sampler='ensemble') on zero_i, the demo as "
+              "counts, negbinom r = 10", paths["c"], "ensemble_fused",
+              zero_i.pnames, 12288, chain_inits=12288,
+              fitsurvey_samples=1000, sd_fitdistance=6.0,
+              sampler="ensemble")
+    drive("(d) JointFit({'a': zero_i poisson (counts / 1e5), 'b': one_i "
+          "lognormal, host left-censored}, shared=['mu', 'beta']).MCMC()",
+          JointFit(dict(zip("ab", paths["d"])), shared=["mu", "beta"],
+                   random_seed=0), "joint_metropolis_hastings_fused", (),
+          CHAINS, survey=False, chain_inits=CHAINS, fitsurvey_samples=1000)
+    drive("(e) MCMC(sampler='pmmh') on the GBM SDE, student_t nu = 4, a "
+          "dose of 1.5 at t = 2", paths["e"], "pmmh_fused", ["mu"],
+          PF_CHAINS, survey=False, nits=PF_NITS, sampler="pmmh",
+          chain_inits=PF_CHAINS, fitsurvey_samples=1000, n_particles=PF_K,
+          sde_substeps=PF_SUB, rwalk_std=0.4, use_priors=True,
+          adapt_proposal=True, target_accept=0.3, adapt_rate=0.15)
+
+    phase("scoring (4): each kernel's time on each scoring branch at the "
+          "main paths' shapes, and paths (a)-(c)'s wrapper calls against "
+          "the demo's")
+    for key, wrapper, demo in (
+            ("a", cuda_mh.metropolis_hastings_fused, calls["mh"]),
+            ("b", cuda_pt.parallel_tempering_fused, calls["pt"]),
+            ("c", cuda_mh.ensemble_fused, calls["ensemble"])):
+        ms = [events_ms(lambda c=c: wrapper(*c["args"], **c["kw"]))
+              for c in (captured[key], demo)]
+        print(f"path ({key}) {wrapper.__name__}: {ms[0]:.3f} ms a call "
+              f"against the demo path's {ms[1]:.3f} ms (CUDA events around "
+              "the wrapper call, host part included)", flush=True)
+    seeds = np.random.default_rng(5).normal(0, 0.05, (CHAINS, 3))
+    walk, walked = (0.05,) * 3, (True,) * 3
+    sc, bt, db = cuda_pt.ladder_constants(TEMPS, 0.05, [1.0] * 3)
+    base = {}
+    print("branch | survey (1,000) | MH | ensemble (12,288) | PT (4 rungs) "
+          "| joint (two experiments of the branch, D = 4) ms")
+    for case in (("lognormal", (), False),) + SCORING:
+        spec, obs, tf, y0, centre = scoring_inputs(case)
+        plan = cuda_mh._build_plan(spec, obs, tf, 4)
+        th = (centre * np.exp(seeds)).astype(np.float32)
+        th_t = torch.as_tensor(th.T.copy(), device=dev)
+        th_j = torch.cat([th_t, th_t[:1]]).contiguous()
+        th_e = torch.as_tensor(cuda_mh.ensemble_init(
+            th, 5, 4096, (1.0,) * 3, 0.01).T.copy(), device=dev)
+        ms = (
+            events_ms(cuda_mh.survey_launcher(spec, plan, y0, "dopri5",
+                                              th_t[:, :1000].contiguous()),
+                      reps=20),
+            events_ms(cuda_mh.mh_launcher(
+                spec, plan, y0, "dopri5", th_t, 5, nits=NITS, burnin=BURNIN,
+                walk=walk, walked=walked, num=3)),
+            events_ms(cuda_mh.ensemble_launcher(
+                spec, plan, y0, "dopri5", th_e, 5, tile=4096, nits=NITS,
+                burnin=BURNIN, a=2.0, walk=(1.0,) * 3, walked=walked, num=3,
+                W0=CHAINS)),
+            events_ms(cuda_pt.pt_launcher(
+                spec, plan, y0, "dopri5", th_t, 5, nits=NITS, burnin=BURNIN,
+                scales=sc, walked=walked, betas=bt, dbetas=db, swap_every=1,
+                num=3)),
+            events_ms(cuda_joint.joint_launcher(
+                (spec, spec), (plan, plan), (y0, y0),
+                ((0, 1, 2), (3, 1, 2)), "dopri5", th_j, 5, nits=NITS,
+                burnin=BURNIN, walk=walk + walk[:1],
+                walked=walked + walked[:1])))
+        base.setdefault("demo", ms)
+        rel = " ".join(f"({100 * (m / b - 1):+.1f} %)"
+                       for m, b in zip(ms, base["demo"]))
+        print(f"{scoring_label(case)} | " + " | ".join(
+            f"{m:.4f}" for m in ms) + f" | vs demo {rel}", flush=True)
+    pf_plan0 = cuda_mh._build_plan(pspec, pobs, ptf, pkw["substeps"])
+    pf_walk = tuple(float(w) for w in pkw["walk_mask"])
+    pf_run = dict(K=pkw["n_particles"], walk=pf_walk,
+                  walked=tuple(w != 0.0 for w in pf_walk),
+                  rwalk_std=pkw["rwalk_std"], prior=prior_table(pkw["priors"]),
+                  adapt=pkw["adapt_proposal"], target=pkw["target_accept"],
+                  adapt_rate=pkw["adapt_rate"])
+    pth_all = pth0.t().contiguous()
+    for case in (("lognormal", (), False),) + PF_SCORING:
+        spec, obs, y0 = pf_variant(case, pspec, pobs, py0)
+        plan = pf_plan0 if case[0] == "lognormal" and not case[1] else \
+            cuda_mh._build_plan(spec, obs, ptf, pkw["substeps"])
+        ms = events_ms(cuda_pf.pmmh_launcher(
+            spec, plan, y0, pth_all, pkw["seed"], nits=PF_NITS,
+            burnin=PF_NITS // 2, **pf_run))
+        print(f"pf_kernel {scoring_label(case)}: {ms:.3f} ms "
+              f"({PF_CHAINS} x {PF_K} particles x {PF_NITS})", flush=True)
+    return errs
+
+
+def _survey_held(label, case, chi_k, chi_t):
+    """The survey's chi, kernel against twin: bitwise (compare_chi), or
+    for a Tobit case within rtol 1e-6."""
+    import numpy as np
+    a, b = chi_k.cpu().numpy(), chi_t.cpu().numpy()
+    if not case[1]:
+        return compare_chi(f"{label} survey", a, b)
+    fin = np.isfinite(b)
+    rel = np.abs(a[fin] - b[fin]) / np.abs(b[fin])
+    print(f"{label} survey chi: max rel err {rel.max():.3g}, bitwise equal "
+          f"{np.mean(a[fin] == b[fin]):.4f}")
+    if not (np.isfinite(a) == fin).all() or rel.max() > 1e-6:
+        fail(f"{label} survey: kernel and twin differ (max rel err "
+             f"{rel.max():.3g})")
+    return float(np.max(np.abs(a[fin] - b[fin])))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -778,21 +1350,26 @@ def main():
         obs1, np.linspace(0, df1["time"].max(), 288))
     y01 = np.array([df1.loc["H"].iloc[0]["abundance"], 0.0,
                     df1.loc["V"].iloc[0]["abundance"]])
-    pf_spec = pmmh_framework()._spec
+    pf_fw0 = pmmh_framework()
+    pf_spec = pf_fw0._spec
+    paths = slice_paths(framework)
 
     # -- 2. build -------------------------------------------------------------
     phase("build")
     from concurrent.futures import ThreadPoolExecutor
     shutil.rmtree(build.BUILD_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:       # three nvcc processes at once
-        libs = list(ex.map(lambda a: build.load_kernels(*a),
-                           [(spec,), (spec, (spec1,)),
-                            (pf_spec, (), True)]))
+    builds = ([(spec,), (spec, (spec1,)), (pf_spec, (), True)]
+              + scoring_builds(pf_fw0) + path_builds(paths))
+    with ThreadPoolExecutor(8) as ex:       # eight nvcc processes at once
+        libs = list(ex.map(lambda a: build.load_kernels(*a), builds))
     build_s = time.perf_counter() - t0
     logs = ""
-    for label, lib in zip(("zero_i", "zero_i + one_i (joint)", "GBM SDE"),
-                          libs):
+    labels = (["zero_i", "zero_i + one_i (joint)", "GBM SDE"]
+              + [f"zero_i {scoring_label(c)}" for c in SCORING]
+              + [f"GBM SDE {scoring_label(c)}" for c in PF_SCORING]
+              + [f"path ({k})" for k in "abcde"])
+    for label, lib in zip(labels, libs):
         log = open(os.path.join(os.path.dirname(lib._name),
                                 "nvcc.log")).read()
         logs += log
@@ -808,8 +1385,8 @@ def main():
                  "joint_kernel", "pf_kernel"):
         if name not in logs:
             fail(f"build: {name} is missing from nvcc.log")
-    print(f"build seconds (three libraries in parallel): {build_s:.3f}",
-          flush=True)
+    print(f"build seconds ({len(builds)} libraries, eight at a time): "
+          f"{build_s:.3f}", flush=True)
 
     # -- 3. kernel versus twin --------------------------------------------
     phase("survey kernel vs twin")
@@ -877,7 +1454,7 @@ def main():
     # block of 128 threads is part empty; the twin's time grows with the
     # rungs, so these two take fewer iterations
     for temps, n_c, n_it in (
-            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
+            (TEMPS, C, 100), ((1.0, 2.0, 4.0), 1000, 60),
             (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
@@ -984,11 +1561,12 @@ def main():
                              * np.exp(np.random.default_rng(10).normal(
                                  0, 0.05, (256, 5)))).astype(np.float32).T
                             .copy(), device=dev)
+    P_NITS = 25      # iterations a kernel: the twins are launch-bound
     pri_walk = (0.1,) * 3
     for label, pri in prior_sets().items():
         table = prior_table(pri)
-        mh_kw = dict(nits=50, burnin=0, walk=pri_walk, walked=(True,) * 3,
-                     num=3, prior=table)
+        mh_kw = dict(nits=P_NITS, burnin=0, walk=pri_walk,
+                     walked=(True,) * 3, num=3, prior=table)
         rec_k = cuda_mh.mh_launcher(spec, plan, y0, "dopri5",
                                     near_t[:, :1024].contiguous(), seed,
                                     **mh_kw)()
@@ -996,7 +1574,7 @@ def main():
         rec_t = cuda_mh.mh_plain(spec, plan, y0,
                                  near_t[:, :1024].contiguous(), seed, **mh_kw)
         torch.cuda.synchronize()
-        compare_records(f"MH, priors {label}", rec_k, rec_t, 50)
+        compare_records(f"MH, priors {label}", rec_k, rec_t, P_NITS)
         acc_mh = float(rec_k[4][-1].mean())
         start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
             near, seed, 1024, mask, 0.01).T), device=dev)
@@ -1010,7 +1588,7 @@ def main():
         compare_records(f"ensemble, priors {label}", rec_k, rec_t, 20)
         acc_ens = float(rec_k[4][-1].mean())
         sc, bt, db = cuda_pt.ladder_constants(TEMPS, 0.1, mask)
-        p_kw = dict(nits=50, burnin=0, scales=sc, walked=(True,) * 3,
+        p_kw = dict(nits=P_NITS, burnin=0, scales=sc, walked=(True,) * 3,
                     betas=bt, dbetas=db, swap_every=1, num=3, prior=table)
         rec_k = cuda_pt.pt_launcher(spec, plan, y0, "dopri5",
                                     near_t[:, :1024].contiguous(), seed,
@@ -1019,13 +1597,14 @@ def main():
         rec_t = cuda_pt.pt_plain(spec, plan, y0,
                                  near_t[:, :1024].contiguous(), seed, **p_kw)
         torch.cuda.synchronize()
-        compare_records(f"PT 4 rungs, priors {label}", rec_k, rec_t, 50)
+        compare_records(f"PT 4 rungs, priors {label}", rec_k, rec_t,
+                        P_NITS)
         acc_pt = float(rec_k[4][-1].mean())
         # the zero_i + one_i pair: joint slots phi, beta, mu (zero_i), mu
         # (one_i), one_i's fourth parameter (no prior)
         jtab = prior_table((pri[1], pri[2], pri[0], pri[0], None))
-        j_kw = dict(nits=50, burnin=0, walk=(0.1,) * 5, walked=(True,) * 5,
-                    prior=jtab)
+        j_kw = dict(nits=P_NITS, burnin=0, walk=(0.1,) * 5,
+                    walked=(True,) * 5, prior=jtab)
         rec_k = cuda_joint.joint_launcher(hspecs[:2], hplans[:2], [y0, y01],
                                           hidx[:2], "dopri5", jnear, seed,
                                           **j_kw)()
@@ -1034,9 +1613,11 @@ def main():
                                        hidx[:2], jnear, seed, **j_kw)
         torch.cuda.synchronize()
         compare_records(f"joint (zero_i + one_i), priors {label}", rec_k,
-                        rec_t, 50, labels=("theta", "chi", "chi parts", "ar"))
-        print(f"priors {label}: MH 1024 chains x 50, ensemble 2048 walkers "
-              f"x 20, PT 1024 x 4 rungs x 50, joint 256 x 50: mean "
+                        rec_t, P_NITS,
+                        labels=("theta", "chi", "chi parts", "ar"))
+        print(f"priors {label}: MH 1024 chains x {P_NITS}, ensemble 2048 "
+              f"walkers x 20, PT 1024 x 4 rungs x {P_NITS}, joint 256 x "
+              f"{P_NITS}: mean "
               f"acceptance {acc_mh:.4f}, {acc_ens:.4f}, {acc_pt:.4f}, "
               f"{float(rec_k[3][-1].mean()):.4f}", flush=True)
         if min(acc_mh, acc_ens, acc_pt) <= 0.0:
@@ -1751,6 +2332,18 @@ def main():
         ("PMMH", pf_fused, pf_in["args"], pf_in["kw"], 64)],
         framework, CHAINS, NITS)
 
+    # every observation model, censoring and doses: kernels against twins
+    # on each scoring branch, the paths (a)-(e), times against the demo's
+    s_errs = scoring_phases(paths, {
+        "mh": mh_in, "pt": pt_in, "ensemble": {
+            "args": (spec, obs, tf, y0, torch.as_tensor(
+                ens_in["theta0"], device=dev), ens_in["seed"]),
+            "kw": dict(nits=ens_cfg.nits, burnin=ens_cfg.burnin,
+                       a=float(ens_cfg.stretch_a), walk_mask=ens_cfg.mask,
+                       substeps=ens_cfg.substeps,
+                       stepper=dispatch.fused_stepper(ens_cfg.method),
+                       tile_chains=ens_cfg.tile_chains)}}, pf_in)
+
     # -- 5. times -----------------------------------------------------------
     phase("times")
     short = 6        # the twins over 5 proposals, scaled per iteration
@@ -1999,7 +2592,8 @@ def main():
     def row(name, src, replaces, sampler, err, ms, plain_ms, b):
         return {"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": replaces, "launches": runs[sampler][1][name],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": max(err, s_errs[name]), "ms": ms,
+                "plain_ms": plain_ms,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
     print(json.dumps({"kernels": [
         row("survey_fused", "mh.cu", "odelib_tpu/ops/pallas_mh.py:1765",

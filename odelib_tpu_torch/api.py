@@ -2,7 +2,9 @@
 
 Counterpart of ``odelib_tpu/api.py`` for the main path: construction from
 a dataframe (optionally with a ``diffusion=`` making the model an SDE),
-accessors, ``integrate`` (adaptive Dopri5), the fit statistics, the LHS
+accessors, ``integrate`` (adaptive Dopri5, with doses), the fit
+statistics of every observation model (censored points scored by Tobit
+terms and left out of R^2), the LHS
 prescreen, ``fit_survey`` and ``MCMC`` with ``sampler='mh'``,
 ``'ensemble'``, ``'pt'`` and ``'pmmh'`` — prescreen scored by the survey
 kernel (by ``fit_survey``'s batched solve of the drift for 'pmmh'),
@@ -34,7 +36,7 @@ from . import data as _data
 from . import dispatch as _dispatch
 from . import distributions as _dist
 from . import stats as tstats
-from .model import make_spec, state_func
+from .model import dose_matrix, make_spec, state_func
 from .ops.integrate import odeint_grid
 from .rhs import adapt_rhs
 from .samplers.lhs import sample_lhs
@@ -122,7 +124,10 @@ class ModelFramework:
     """Bayesian ODE fitting framework (reference API) on PyTorch.
 
     Same construction and semantics as ``odelib_tpu.ModelFramework`` for
-    scalar-parameter models, plus ``device``: where tensors live and
+    scalar-parameter models (``obs_model`` 'lognormal', 'student_t',
+    'poisson' or 'negbinom' with ``obs_param``; a ``censored`` dataframe
+    column of detection limits, scored by Tobit terms; bolus
+    ``dose_events``), plus ``device``: where tensors live and
     kernels run (default ``cuda``; ``cpu`` runs the kernels' torch twins
     and must be asked for). Solver
     knobs: ``method`` 'dopri5' | 'rk4' (fixed-step kernels), ``rtol``/
@@ -173,7 +178,9 @@ class ModelFramework:
             obs, _ = _data.build_obsdata_host(self.df, self.times,
                                               self._spec.post_snames)
             self._times_fit, self._obsdata_fit_host = \
-                _data.compact_observation_grid(obs, self.times)
+                _data.compact_observation_grid(
+                    obs, self.times, extra_times=[
+                        t for t, _, _ in self._spec.dose_events or ()])
         else:
             self.df = None
             self.times = np.linspace(0, t_end, t_steps)
@@ -226,7 +233,7 @@ class ModelFramework:
             if np.ndim(self.parameters[p].val):
                 raise NotImplementedError(
                     f"parameter {p!r} is array-valued; array parameters "
-                    "are not ported yet (ROADMAP queue 1, item 13)")
+                    "are not ported yet (ROADMAP queue 1, item 13b)")
 
     def set_inits(self, **kwargs):
         s_set, ss_set = set(self._snames), set(self._spec.post_snames)
@@ -303,7 +310,8 @@ class ModelFramework:
                   as_dataframe=True, sum_subpopulations=True, route="auto",
                   **solver_kw):
         """Adaptive Dopri5 solve on ``self.times`` in float64 on the
-        framework's device (``route`` is accepted and ignored)."""
+        framework's device, with the model's doses (pre-dose values at
+        the dose times; ``route`` is accepted and ignored)."""
         initials = self.get_inits() if inits is None \
             else np.asarray(inits, float)
         if parameters is None:
@@ -322,7 +330,8 @@ class ModelFramework:
             state_func(self._spec),
             torch.as_tensor(initials, dtype=torch.float64,
                             device=self.device),
-            self.times, list(th), rtol=rtol, atol=atol, max_steps=max_steps)
+            self.times, list(th), rtol=rtol, atol=atol, max_steps=max_steps,
+            dose=dose_matrix(self._spec, self.times))
         mod = sol.ys.cpu().numpy()
         if sum_subpopulations and self._spec.sum_matrix is not None:
             mod = mod @ np.asarray(self._spec.sum_matrix)
@@ -348,24 +357,41 @@ class ModelFramework:
         return mod
 
     # -- goodness of fit ---------------------------------------------------
+    def _obs_censor_dict(self):
+        """Per-state censoring flags of the dataframe's 'censored' column,
+        or {} when nothing is censored."""
+        if self.df is None:
+            return {}
+        return _data.censor_by_state(self.df, dict.fromkeys(self.df.index))
+
     def get_chi(self, mod_dict):
-        O, C, S = [], [], []
+        """The model's observation score of predictions ``mod_dict``
+        (state -> values at its observation times), censored points by
+        their Tobit terms."""
+        O, C, S, cen = [], [], [], []
+        cdict = self._obs_censor_dict()
         for sname in mod_dict:
             O.append(self._obs_logabundance[sname])
             C.append(np.asarray(mod_dict[sname], float))
             S.append(self._obs_logsigma[sname])
+            cen.append(cdict.get(sname, np.zeros(len(O[-1]), np.int32)))
         O, C, S = np.concatenate(O), np.concatenate(C), np.concatenate(S)
         with np.errstate(divide="ignore", invalid="ignore"):
             logC = np.log(C)
         return float(tstats.obs_negloglik(
-            self._spec.obs_model, self._spec.obs_param, O, logC, S))
+            self._spec.obs_model, self._spec.obs_param, O, logC, S,
+            np.exp(O), C, censor=np.concatenate(cen) if cdict else None))
 
     def get_Rsqrd(self, mod_dict):
+        """R^2 of predictions ``mod_dict`` over the exact (uncensored)
+        observations."""
+        cdict = self._obs_censor_dict()
         abundance, model = {}, {}
         for el in self._obs_logabundance:
-            abundance[el] = np.exp(self._obs_logabundance[el])
+            keep = cdict[el] == 0 if el in cdict else slice(None)
+            abundance[el] = np.exp(self._obs_logabundance[el])[keep]
             if el in mod_dict:
-                model[el] = np.asarray(mod_dict[el], float)
+                model[el] = np.asarray(mod_dict[el], float)[keep]
         return float(tstats.Rsqrd(model, abundance))
 
     def get_AIC(self, chi):
@@ -576,6 +602,15 @@ class ModelFramework:
             raise NotImplementedError(
                 f"backend={backend!r}: the port runs the fused kernels "
                 f"({_XLA_SAMPLER_ITEM[sampler]})")
+        if (backend == "auto" and sampler != "pmmh"
+                and self._obsdata_fit_host is not None
+                and self._obsdata_fit_host.censor is not None
+                and self._spec.obs_model not in ("lognormal", "student_t")):
+            # the kernels score censored lognormal and Student-t data; the
+            # reference runs censored counts on its XLA samplers
+            raise NotImplementedError(
+                f"censored {self._spec.obs_model!r} observations run on the "
+                f"XLA sampler, not ported yet ({_XLA_SAMPLER_ITEM[sampler]})")
         n_req = chain_inits if isinstance(chain_inits, int) \
             else len(chain_inits)
         if sampler == "ensemble" and backend == "auto" \
@@ -753,15 +788,17 @@ class ModelFramework:
     def _stable_config_token(self, method, substeps, include_priors=False):
         """A process-stable sha1 of what the chains' target density bakes
         in: the parameter names, method and substeps, the observation
-        model, the initial states, the time grid and the observation
-        arrays, and with ``include_priors`` each parameter's prior family
-        and hyperparameters (``odelib_tpu``'s ``_stable_config_token`` in
-        the port's terms). Part of a checkpoint's signature, so a resume
-        against edited data or priors raises."""
+        model, the doses, the initial states, the time grid and the
+        observation arrays, and with ``include_priors`` each parameter's
+        prior family and hyperparameters (``odelib_tpu``'s
+        ``_stable_config_token`` in the port's terms). Part of a
+        checkpoint's signature, so a resume against edited data or priors
+        raises."""
         h = hashlib.sha1()
         spec = self._spec
         h.update(repr((tuple(spec.pnames), str(method), substeps,
-                       spec.obs_model, spec.obs_param)).encode())
+                       spec.obs_model, spec.obs_param,
+                       spec.dose_events)).encode())
         h.update(np.asarray(self.get_inits(), float).tobytes())
         h.update(np.asarray(self._times_fit, float).tobytes())
         for leaf in self._obsdata_fit_host:

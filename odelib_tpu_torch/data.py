@@ -2,7 +2,8 @@
 
 Counterpart of ``odelib_tpu/data.py``: both input schemas of the reference
 ``_formatdf`` (replicates aggregated in log space, or direct
-abundance/log_sigma rows), nearest-grid-point indexing, the flat
+abundance/log_sigma rows), the ``censored`` column, nearest-grid-point
+indexing, the flat
 :class:`~odelib_tpu_torch.model.ObsData` and the compact observation grid
 the MCMC hot loop integrates on.
 """
@@ -65,21 +66,63 @@ def fit_setup(df: pd.DataFrame, times: np.ndarray):
     return pred_tindex, obs_logabundance, obs_logsigma
 
 
+_CENSOR_NAMES = {"": 0, "none": 0, "exact": 0, "no": 0,
+                 "left": 1, "lod": 1, "below": 1,
+                 "right": 2, "upper": 2, "above": 2}
+
+
+def parse_censor_column(col) -> np.ndarray:
+    """A user 'censored' column as int32 flags (0 exact, 1 left, 2 right):
+    booleans (True = left-censored, the detection-limit case), integers
+    {0, 1, 2}, or labels ('left'/'lod'/'below', 'right'/'upper'/'above',
+    ''/'none'/'exact'/'no'); None and NaN are exact."""
+    vals = np.atleast_1d(np.asarray(col, object))
+    out = np.zeros(len(vals), np.int32)
+    for i, v in enumerate(vals):
+        if isinstance(v, str):
+            key = v.strip().lower()
+            if key not in _CENSOR_NAMES:
+                raise ValueError(f"unknown censoring label {v!r}; use one "
+                                 f"of {sorted(set(_CENSOR_NAMES))}")
+            out[i] = _CENSOR_NAMES[key]
+        elif isinstance(v, (bool, np.bool_)):
+            out[i] = 1 if v else 0
+        elif v is None or (isinstance(v, float) and np.isnan(v)):
+            out[i] = 0
+        else:
+            iv = int(v)
+            if iv not in (0, 1, 2):
+                raise ValueError(f"censoring flag must be 0 (exact), "
+                                 f"1 (left) or 2 (right), got {v!r}")
+            out[i] = iv
+    return out
+
+
+def censor_by_state(df: pd.DataFrame, states) -> Dict[str, np.ndarray]:
+    """Per-state censoring flags of the dataframe's 'censored' column, or
+    {} when it has none or nothing is censored."""
+    if "censored" not in df.columns:
+        return {}
+    out = {s: parse_censor_column(df.loc[[s]]["censored"].to_numpy())
+           for s in states}
+    return out if any(c.any() for c in out.values()) else {}
+
+
 def build_obsdata_host(df: pd.DataFrame, times: np.ndarray,
                        post_snames) -> Tuple[ObsData, Tuple[str, ...]]:
     """Flatten per-state observations (``post_snames`` order) into one
-    host :class:`ObsData`. Returns (obsdata, observed_state_names)."""
-    if "censored" in df.columns:
-        raise NotImplementedError(
-            "censored observations are not ported yet (ROADMAP queue 1, "
-            "item 13)")
+    host :class:`ObsData`. Returns (obsdata, observed_state_names). Rows of
+    a ``censored`` column (:func:`parse_censor_column`) hold a detection
+    limit, not a measurement: they are scored by the Tobit likelihood and
+    left out of the R^2 sums (``sstot`` here)."""
     pred_tindex, logab, logsig = fit_setup(df, np.asarray(times))
     observed = tuple(s for s in post_snames if s in pred_tindex)
     if not observed:
         raise ValueError(
             f"No dataframe organisms match model states {post_snames}; "
             f"found organisms {sorted(pred_tindex)}")
-    la, ls, ti, si = [], [], [], []
+    cen = censor_by_state(df, observed)
+    la, ls, ti, si, ce = [], [], [], [], []
     sstot = 0.0
     for s in observed:
         la.append(logab[s])
@@ -87,19 +130,24 @@ def build_obsdata_host(df: pd.DataFrame, times: np.ndarray,
         ti.append(pred_tindex[s])
         si.append(np.full(len(logab[s]), post_snames.index(s), np.int32))
         ab = np.exp(logab[s])
+        if cen:
+            ce.append(cen[s])
+            ab = ab[cen[s] == 0]
         if ab.size:
             sstot += ab.shape[0] * np.var(ab)
     la = np.concatenate(la)
     return ObsData(log_abundance=la, log_sigma=np.concatenate(ls),
                    abundance=np.exp(la), t_index=np.concatenate(ti),
                    state_index=np.concatenate(si),
-                   sstot=np.asarray(sstot)), observed
+                   sstot=np.asarray(sstot),
+                   censor=np.concatenate(ce) if cen else None), observed
 
 
 def compact_observation_grid(obs: ObsData, times,
                              extra_times=None) -> Tuple[np.ndarray, ObsData]:
     """Shrink the integration grid to the observed times (plus the origin
-    and any ``extra_times``, snapped to the full grid first). Returns
+    and any ``extra_times``, snapped to the full grid first: the dose
+    times, so that a dose lands where a full-grid solve puts it). Returns
     (compact_times, obs with remapped t_index)."""
     times = np.asarray(times)
     obs_times = times[np.asarray(obs.t_index)]

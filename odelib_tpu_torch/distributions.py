@@ -488,7 +488,7 @@ def from_scipy(stats_gen, hyperparameters=None):
         if np.ndim(v) != 0:
             raise NotImplementedError(
                 f"array-valued hyperparameter {k!r} is not ported yet "
-                "(ROADMAP queue 1, item 13)")
+                "(ROADMAP queue 1, item 13b)")
     return cls(**{k: float(v) for k, v in hp.items()})
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``odelib_tpu/joint.py`` for complete pooling (``shared``)
 and no pooling (the default) of scalar parameters: ``JointFit`` ties named
 parameters across several ``ModelFramework`` instances (the same or
-different models, each with its own data) and samples the joint posterior
+different models, each with its own data, observation model, censoring
+and doses) and samples the joint posterior
 with every experiment scored in one kernel per iteration
 (:mod:`odelib_tpu_torch.ops.cuda_joint`; its torch twin on a CPU
 framework). The joint layout, LHS survey, seeding, posterior frame and
@@ -239,6 +240,16 @@ class JointFit:
             raise NotImplementedError(
                 "backend='xla': the XLA samplers/joint.py is not ported yet "
                 "(ROADMAP queue 1, item 15)")
+        counted = [nm for nm, fw in self.frameworks.items()
+                   if fw._obsdata_fit_host.censor is not None
+                   and fw._spec.obs_model not in ("lognormal", "student_t")]
+        if counted and backend == "auto":
+            # the joint kernel scores censored lognormal and Student-t
+            # data; the reference runs censored counts on its XLA sampler
+            raise NotImplementedError(
+                f"experiment(s) {counted} hold censored count data, which "
+                "runs on the XLA samplers/joint.py, not ported yet (ROADMAP "
+                "queue 1, item 15)")
         priors = None
         if use_priors:
             from .ops.priors import require_kernel_priors

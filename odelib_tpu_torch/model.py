@@ -3,9 +3,10 @@
 Counterpart of ``odelib_tpu/model.py``: :class:`ModelSpec` is the static,
 hashable description of the problem (RHS, names, state summations, the
 ``<sname>0`` init-parameter wiring, the diagonal diffusion of an SDE
-model) and :class:`ObsData` holds the flat per-observation arrays as host
-numpy. Scalar parameters only: forcings, dose events and array parameters
-raise ``NotImplementedError`` (ROADMAP queue 1, item 13).
+model, its bolus dose events) and :class:`ObsData` holds the flat
+per-observation arrays as host numpy. Scalar parameters only: forcings and
+array parameters raise ``NotImplementedError`` (ROADMAP queue 1, item
+13b).
 """
 from __future__ import annotations
 
@@ -57,6 +58,10 @@ class ModelSpec:
     init_pidx: Tuple[int, ...] = None            # theta slot of '<s>0' or -1
     obs_model: str = "lognormal"
     obs_param: float = 0.0
+    # bolus doses ((time, raw_state_index, amount), ...) sorted by time:
+    # each amount joins its state when the solve leaves the grid point
+    # nearest its time, so reported states are pre-dose left limits
+    dose_events: Optional[Tuple[Tuple[float, int, float], ...]] = None
     # diagonal process noise ``g(t, y, ps)`` (same convention as ``rhs``):
     # the model is the SDE dy = f dt + g dW, fitted by sampler='pmmh';
     # None for an ODE
@@ -82,7 +87,7 @@ class ModelSpec:
             if a.size != 1:
                 raise NotImplementedError(
                     f"parameter {p!r} is array-valued; array parameters are "
-                    "not ported yet (ROADMAP queue 1, item 13)")
+                    "not ported yet (ROADMAP queue 1, item 13b)")
             out.append(a[0])
         return np.asarray(out, np.float64)
 
@@ -113,19 +118,23 @@ OBS_MODELS = ("lognormal", "student_t", "poisson", "negbinom")
 def make_spec(rhs, pnames, snames, state_summations=None, pshapes=None,
               obs_model="lognormal", obs_param=None, dose_events=None,
               forcings=None, diffusion=None) -> ModelSpec:
-    """Build a ModelSpec, validating summations like ``odelib_tpu``."""
+    """Build a ModelSpec, validating summations, the observation model
+    and ``dose_events`` (``(time, state name or raw index, amount)``
+    triples) like ``odelib_tpu``."""
     if any(s for s in (pshapes or ())):
         raise NotImplementedError(
-            "array parameters are not ported yet (ROADMAP queue 1, item 13)")
-    if dose_events or forcings:
+            "array parameters are not ported yet (ROADMAP queue 1, item 13b)")
+    if forcings:
         raise NotImplementedError(
-            "dose_events and forcings are not ported yet (ROADMAP queue 1, "
-            "item 13)")
+            "forcings are not ported yet (ROADMAP queue 1, item 13b)")
     if obs_model not in OBS_MODELS:
         raise ValueError(f"obs_model must be one of {OBS_MODELS}, "
                          f"got {obs_model!r}")
     if obs_model == "student_t":
         obs_param = 4.0 if obs_param is None else float(obs_param)
+        if obs_param <= 0:
+            raise ValueError("student_t obs_param (degrees of freedom) "
+                             "must be > 0")
     elif obs_model == "negbinom":
         if obs_param is None or float(obs_param) <= 0:
             raise ValueError("negbinom requires obs_param = dispersion r "
@@ -134,6 +143,22 @@ def make_spec(rhs, pnames, snames, state_summations=None, pshapes=None,
     else:
         obs_param = 0.0
     pnames, snames = tuple(pnames), tuple(snames)
+    if dose_events:
+        evs = []
+        for t, s, amt in dose_events:
+            if isinstance(s, str):
+                if s not in snames:
+                    raise ValueError(f"dose_events state {s!r} is not a "
+                                     f"valid state name {snames}")
+                s = snames.index(s)
+            s = int(s)
+            if not 0 <= s < len(snames):
+                raise ValueError(f"dose_events state index {s} out of "
+                                 f"range for {len(snames)} states")
+            evs.append((float(t), s, float(amt)))
+        dose_events = tuple(sorted(evs))
+    else:
+        dose_events = None
     sum_matrix, post_snames = None, snames
     if state_summations:
         sname_i = {s: i for i, s in enumerate(snames)}
@@ -170,7 +195,7 @@ def make_spec(rhs, pnames, snames, state_summations=None, pshapes=None,
     return ModelSpec(rhs=rhs, pnames=pnames, snames=snames,
                      sum_matrix=sum_matrix, post_snames=post_snames,
                      obs_model=obs_model, obs_param=obs_param,
-                     diffusion=diffusion)
+                     dose_events=dose_events, diffusion=diffusion)
 
 
 # --------------------------------------------------------------------------
@@ -184,24 +209,41 @@ def state_func(spec: ModelSpec):
     return lambda t, y, ps: torch.stack(f(t, list(y), ps))
 
 
+def dose_matrix(spec: ModelSpec, times) -> Optional[np.ndarray]:
+    """(T, S_raw) float64 impulse matrix of the spec's dose events on the
+    grid ``times``: each event snaps to the nearest grid point (the first
+    of a tie) and its amount adds into ``D[grid index, state]``. None
+    without events."""
+    if not spec.dose_events:
+        return None
+    times = np.asarray(times, np.float64)
+    D = np.zeros((len(times), len(spec.snames)))
+    for t, s, amt in spec.dose_events:
+        D[int(np.argmin(np.abs(times - t))), s] += amt
+    return D
+
+
 def integrate_theta(spec: ModelSpec, thetas, y0, times, *, method="dopri5",
                     rtol=1e-6, atol=1e-4, max_steps=4096, substeps=4):
     """Solve the ODE for N flat parameter vectors ``thetas`` (N, P) from
     per-lane initial states ``y0`` (S, N), on the tensor's device and
-    dtype. Returns raw-state ys (T, S, N), NaN from a failed adaptive
-    lane on. ``method``: 'dopri5' (adaptive), 'rk4' or 'fixed_dopri5'
-    (fixed steps, ``substeps`` per interval)."""
+    dtype, with the spec's doses (:func:`dose_matrix`; pre-dose outputs).
+    Returns raw-state ys (T, S, N), NaN from a failed adaptive lane on.
+    ``method``: 'dopri5' (adaptive), 'rk4' or 'fixed_dopri5' (fixed
+    steps, ``substeps`` per interval)."""
     from .ops.integrate import odeint_fixed, odeint_grid
     f = state_func(spec)
     ps = spec.unpack_theta(thetas)
+    dose = dose_matrix(spec, times)
     if method in ("rk4", "fixed_dopri5"):
         return odeint_fixed(f, y0, times, ps, substeps=substeps,
-                            method="rk4" if method == "rk4" else "dopri5").ys
+                            method="rk4" if method == "rk4" else "dopri5",
+                            dose=dose).ys
     if method != "dopri5":
         raise NotImplementedError(
             f"method={method!r} is not ported yet (ROADMAP queue 1, item 14)")
     return odeint_grid(f, y0, times, ps, rtol=rtol, atol=atol,
-                       max_steps=max_steps, method=method).ys
+                       max_steps=max_steps, method=method, dose=dose).ys
 
 
 def observe(spec: ModelSpec, obs: ObsData, ys):
@@ -217,13 +259,16 @@ def observe(spec: ModelSpec, obs: ObsData, ys):
 
 def score_pred(spec: ModelSpec, obs: ObsData, pred):
     """Chi of linear-space predictions (N, n_obs) under the spec's
-    observation model -> (N,)."""
+    observation model and the observations' censoring -> (N,)."""
     from . import stats
     dt, dev = pred.dtype, pred.device
-    la = torch.as_tensor(np.asarray(obs.log_abundance), dtype=dt, device=dev)
-    ls = torch.as_tensor(np.asarray(obs.log_sigma), dtype=dt, device=dev)
-    return stats.obs_negloglik(spec.obs_model, spec.obs_param, la,
-                               torch.log(pred), ls, censor=obs.censor)
+
+    def col(a, dtype=dt):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    return stats.obs_negloglik(
+        spec.obs_model, spec.obs_param, col(obs.log_abundance),
+        torch.log(pred), col(obs.log_sigma), col(obs.abundance), pred,
+        censor=None if obs.censor is None else col(obs.censor, torch.int64))
 
 
 def chi_of_theta(spec: ModelSpec, obs: ObsData, thetas, y0, times, **ikw):

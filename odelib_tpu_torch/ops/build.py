@@ -5,8 +5,11 @@ plain C interface and loaded with ``ctypes``; no PyTorch headers are
 involved, so a build takes seconds. The build input is the sources in
 ``csrc/`` (``mh.cu``, ``ensemble.cu``, ``pt.cu``, ``joint.cu``, ``pf.cu``
 and their shared ``common.cuh``) plus ``odelib_gen.cuh``, generated here
-from the traced RHS (:meth:`odelib_tpu_torch.rhs.RhsProgram.cuda_source`)
-and the fixed-step Dopri5/RK4 steppers, all in one nvcc call. The
+from the traced RHS (:meth:`odelib_tpu_torch.rhs.RhsProgram.cuda_source`),
+the fixed-step Dopri5/RK4 steppers and the model's scoring constants (its
+observation model with ``nu`` or ``r``, whether any observation is
+censored, whether it is dosed: each kernel compiles that one branch of
+the scorer), all in one nvcc call. The
 particle filter's library of an SDE model adds its traced diffusion to
 the header; a joint fit of different models adds each further model as a
 ``ModelN`` type for the joint kernel. The
@@ -90,9 +93,50 @@ def stepper_source(n_states: int, size: str = "ODE_S") -> str:
     return "\n".join(lines)
 
 
-def _model_source(i: int, program) -> str:
+# the observation models as the scorer numbers them (csrc/common.cuh)
+OBS_FAMILY = {"lognormal": 0, "student_t": 1, "poisson": 2, "negbinom": 3}
+PLAIN_SCORING = ("lognormal", 0.0, False, False)
+
+
+def spec_scoring(spec):
+    """The scoring of ``spec``'s model without a plan: its observation
+    model, nothing censored, dosed if it has dose events (the launchers
+    pass their plan's, ``cuda_mh.scoring``)."""
+    return (spec.obs_model, float(spec.obs_param), False,
+            bool(spec.dose_events))
+
+
+def obs_source(i: int, scoring) -> str:
+    """``ObsModel<i>``: the scoring constants of model ``i`` as
+    ``static constexpr`` members, float32 where the JAX kernel's Python
+    doubles meet float32 (``C1 = 0.5 (nu + 1)``, ``NU``, ``R``) and
+    double for the Student-t log CDF of censored points (``T_*``, from
+    ``cuda_mh.t_constants``)."""
+    from .cuda_mh import t_constants
+    family, param, censored, dosed = scoring
+    nu = param if family == "student_t" else 1.0
+    tc = t_constants(nu)
+    f32 = [("NU", nu if family == "student_t" else 0.0),
+           ("C1", 0.5 * (nu + 1.0) if family == "student_t" else 0.0),
+           ("R", param if family == "negbinom" else 0.0)]
+    f64 = [("T_NU", tc["nu"]), ("T_A", tc["a"]), ("T_THRESH", tc["thresh"]),
+           ("T_KA", tc["ka"]), ("T_KB", tc["kb"])]
+    return "\n".join(
+        [f"struct ObsModel{i} {{",
+         f"  static constexpr int FAMILY = {OBS_FAMILY[family]};  "
+         f"// {family}",
+         f"  static constexpr bool CENSORED = {str(bool(censored)).lower()};",
+         f"  static constexpr bool DOSED = {str(bool(dosed)).lower()};"]
+        + [f"  static constexpr float {k} = {_f32_literal(v)};"
+           for k, v in f32]
+        + [f"  static constexpr double {k} = {float(v)!r};"
+           for k, v in f64] + ["};", ""])
+
+
+def _model_source(i: int, program, scoring) -> str:
     """A further model of a joint fit: its RHS and steppers in namespace
-    ``odelib_m<i>`` and the ``Model<i>`` type the joint kernel scores."""
+    ``odelib_m<i>``, its scoring constants and the ``Model<i>`` type the
+    joint kernel scores."""
     ns, S, P = f"odelib_m{i}", program.n_states, program.n_params
     fwd = [(f"rhs(float t, const float* y, const float* p, float* dy)",
             "rhs(t, y, p, dy)"),
@@ -103,27 +147,34 @@ def _model_source(i: int, program) -> str:
     return "\n".join(
         [f"// model {i}: traced from {program.name}", f"namespace {ns} {{",
          program.cuda_function("rhs"), stepper_source(S, str(S)), "}",
-         f"struct Model{i} {{", f"  static constexpr int S = {S};",
+         obs_source(i, scoring),
+         f"struct Model{i} : ObsModel{i} {{",
+         f"  static constexpr int S = {S};",
          f"  static constexpr int P = {P};"]
         + [f"  static __device__ __forceinline__ void {sig} {{ "
            f"{ns}::{call}; }}" for sig, call in fwd] + ["};", ""])
 
 
-def generated_header(program, diffusion=None, extra=()) -> str:
+def generated_header(program, diffusion=None, extra=(), scoring=()) -> str:
     """``odelib_gen.cuh`` for a traced RHS program; with the traced
-    ``diffusion`` of an SDE model, and with the ``extra`` programs of a
-    joint fit's other models."""
+    ``diffusion`` of an SDE model, with the ``extra`` programs of a joint
+    fit's other models, and with each model's ``scoring`` (a tuple per
+    model, :data:`PLAIN_SCORING` where missing)."""
     import math
+    scoring = tuple(scoring) + (PLAIN_SCORING,) * (1 + len(extra)
+                                                  - len(scoring))
     parts = ["// generated by odelib_tpu_torch/ops/build.py; do not edit",
              "#pragma once",
              f"#define ODELIB_TWO_PI {_f32_literal(2.0 * math.pi)}",
-             program.cuda_source(), stepper_source(program.n_states)]
+             program.cuda_source(), stepper_source(program.n_states),
+             obs_source(0, scoring[0])]
     if diffusion is not None:
         parts += ["#define ODE_HAS_DIFFUSION 1",
                   f"// diffusion traced from {diffusion.name}",
                   diffusion.cuda_function("diffusion")]
     if extra:
-        parts += [_model_source(i + 1, p) for i, p in enumerate(extra)]
+        parts += [_model_source(i + 1, p, scoring[i + 1])
+                  for i, p in enumerate(extra)]
         parts += ["#define ODE_MODELS(X) " + " ".join(
                       f"X({i})" for i in range(len(extra) + 1)),
                   "#define ODE_PMAX " + str(max(
@@ -141,12 +192,12 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(program, diffusion=None, extra=()) -> Path:
-    """Compile the kernels for ``program`` (with an SDE's ``diffusion`` and
-    a joint fit's ``extra`` programs; cached by content hash); returns the
-    shared library's path. The compiler's output and the build's seconds
-    are kept beside it in ``nvcc.log``."""
-    header = generated_header(program, diffusion, extra)
+def build(program, diffusion=None, extra=(), scoring=()) -> Path:
+    """Compile the kernels for ``program`` (with an SDE's ``diffusion``, a
+    joint fit's ``extra`` programs and each model's ``scoring``; cached by
+    content hash); returns the shared library's path. The compiler's
+    output and the build's seconds are kept beside it in ``nvcc.log``."""
+    header = generated_header(program, diffusion, extra, scoring)
     h = hashlib.sha256()
     for part in (header, *((CSRC / s).read_text()
                            for s in SOURCES + HEADERS),
@@ -180,14 +231,16 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 
 
-def distinct_programs(specs):
+def distinct_programs(specs, scoring=None):
     """The traced RHS programs of ``specs`` without repeats (two specs
-    whose RHS emits the same device code share one), and each spec's
-    index into them: the model of each experiment of a joint fit."""
+    whose RHS emits the same device code, and with the same ``scoring``
+    where given, one per spec, share one), and each spec's index into
+    them: the model of each experiment of a joint fit."""
     programs, index, model_of = [], {}, []
-    for sp in specs:
+    for k, sp in enumerate(specs):
         prog = trace_rhs(sp.rhs, len(sp.snames), sp.theta_size)
-        text = prog.cuda_function("rhs")
+        text = (prog.cuda_function("rhs"),
+                None if scoring is None else scoring[k])
         if text not in index:
             index[text] = len(programs)
             programs.append(prog)
@@ -195,20 +248,26 @@ def distinct_programs(specs):
     return programs, model_of
 
 
-def load_kernels(spec, others=(), diffusion=False):
+def load_kernels(spec, others=(), diffusion=False, scoring=None):
     """The loaded kernel library for ``spec``'s RHS, with the models of
-    ``others`` compiled in for the joint kernel (build at first use). With
-    ``diffusion`` it holds an SDE model's traced diffusion too, which only
-    the particle filter reads; every other kernel integrates the drift, so
-    the drift of an SDE model shares the library of the same ODE."""
-    programs, _ = distinct_programs((spec, *others))
+    ``others`` compiled in for the joint kernel (build at first use), each
+    model scored as its entry of ``scoring`` says (default
+    :func:`spec_scoring`). With ``diffusion`` it holds an SDE model's
+    traced diffusion too, which only the particle filter reads; every
+    other kernel integrates the drift, so the drift of an SDE model shares
+    the library of the same ODE."""
+    specs = (spec, *others)
+    scoring = tuple(spec_scoring(sp) for sp in specs) if scoring is None \
+        else tuple(tuple(k) for k in scoring)
+    programs, model_of = distinct_programs(specs, scoring)
+    keys = tuple(scoring[model_of.index(i)] for i in range(len(programs)))
     diffusion = None if not diffusion or spec.diffusion is None else \
         trace_rhs(spec.diffusion, len(spec.snames), spec.theta_size)
-    key = (tuple(programs), diffusion)
+    key = (tuple(programs), keys, diffusion)
     lib = _BY_PROGRAM.get(key)
     if lib is not None:
         return lib
-    path = str(build(programs[0], diffusion, tuple(programs[1:])))
+    path = str(build(programs[0], diffusion, tuple(programs[1:]), keys))
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)
@@ -232,6 +291,9 @@ def load_kernels(spec, others=(), diffusion=False):
         lib.odelib_pf.argtypes = [_P] * 10 + [_I] * 6 + [_U] * 2 + [_I] * 3 \
             + [_F] * 5 + [_P]
         lib.odelib_pf.restype = _I
+        lib.odelib_tobit.argtypes = [_P, _I, _I] + [ctypes.c_double] * 5 \
+            + [_P, _P]
+        lib.odelib_tobit.restype = _I
         lib.odelib_error_string.argtypes = [_I]
         lib.odelib_error_string.restype = ctypes.c_char_p
         _LIBS[path] = lib

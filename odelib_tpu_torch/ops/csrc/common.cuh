@@ -3,20 +3,24 @@
 // memory), the scorer, the counter RNG and the in-kernel priors.
 //
 // Counterparts in odelib_tpu/ops/pallas_mh.py: _build_plan (the plan, laid
-// out as flat tables by ops/cuda_mh.py plan_tables), _make_scorer
-// (lognormal, uncensored) with the fixed steppers, _mix/_Rng, and
-// _kernel_logpdf for its ten in-kernel prior families.
+// out as flat tables by ops/cuda_mh.py plan_tables), _make_scorer (every
+// observation model, Tobit terms of censored observations, bolus doses)
+// with the fixed steppers, _mix/_Rng, and _kernel_logpdf for its ten
+// in-kernel prior families.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "odelib_gen.cuh"  // rhs(), step_dopri5(), step_rk4(), ODE_S, ODE_P
+#include "odelib_gen.cuh"  // rhs(), step_dopri5(), step_rk4(), ODE_S, ODE_P,
+                           // ObsModel0
 
 // The model of the generated header as a type, so the scorer can be
 // instantiated per model: a joint fit of different models adds Model1, ...
-// to the header (ops/build.py) and lists them all in ODE_MODELS.
-struct Model0 {
+// to the header (ops/build.py) and lists them all in ODE_MODELS. Its
+// scoring constants (ObsModel0: FAMILY, CENSORED, DOSED and the family's
+// constants) select at compile time the one branch of the scorer it runs.
+struct Model0 : ObsModel0 {
   static constexpr int S = ODE_S;
   static constexpr int P = ODE_P;
   static __device__ __forceinline__ void rhs(float t, const float* y,
@@ -44,8 +48,12 @@ namespace odelib {
 enum : int {
   H_NSTEPS = 0, H_NGRID, H_NOBS, H_STEPPER,
   H_STEP_GI, H_STEP_OBS, H_OBS_PTR, H_OBS_MASK, H_INIT_PIDX,
-  H_F_STEPS, H_F_LAB, H_F_DEN, H_F_AB, H_F_Y0
+  H_F_STEPS, H_F_LAB, H_F_DEN, H_F_AB, H_F_Y0,
+  H_CEN, H_DOSE_PTR, H_DOSE_STATE, H_F_LSIG, H_F_DOSE_AMT
 };
+
+// Observation models (ops/build.py OBS_FAMILY).
+enum : int { OBS_LOGNORMAL = 0, OBS_STUDENT_T, OBS_POISSON, OBS_NEGBINOM };
 
 // Observations are flat: observation o reads its member mask (the states
 // its prediction sums, bit s for state s), lab, den and ab at index o, and
@@ -64,6 +72,11 @@ struct Plan {
   const float* den;    // 2 * log_sigma^2
   const float* ab;
   const float* y0;
+  const int* cen;         // per observation: 0 exact, 1 left, 2 right
+  const float* lsig;      // per observation: log sigma
+  const int* dose_ptr;    // per grid point: first dose (CSR)
+  const int* dose_state;  // per dose: the raw state it joins
+  const float* dose_amt;  // per dose: the amount (one entry per state)
 };
 
 __device__ __forceinline__ Plan load_plan(const int* __restrict__ pi,
@@ -81,6 +94,11 @@ __device__ __forceinline__ Plan load_plan(const int* __restrict__ pi,
   p.den = pf + pi[H_F_DEN];
   p.ab = pf + pi[H_F_AB];
   p.y0 = pf + pi[H_F_Y0];
+  p.cen = pi + pi[H_CEN];
+  p.lsig = pf + pi[H_F_LSIG];
+  p.dose_ptr = pi + pi[H_DOSE_PTR];
+  p.dose_state = pi + pi[H_DOSE_STATE];
+  p.dose_amt = pf + pi[H_F_DOSE_AMT];
   return p;
 }
 
@@ -129,10 +147,100 @@ __device__ __forceinline__ float pick(const float* v, int i) {
   return r;
 }
 
-// Observation terms of observations [o0, o1) (lognormal, uncensored) for
-// a model of S states. The prediction sums the masked states in ascending
-// order, the members' order of the twin's obs_terms.
-template <int S>
+// The Tobit terms run in double and round once to float32: in float32 the
+// t log-CDF's upper tail loses ~1.5e-5 relative at nu = 100. Their torch
+// twins are ops/cuda_mh.py log_ndtr, betacf and t_logcdf, the same double
+// operations in the same order. They are called, not inlined: inlined into
+// every instantiation of the five kernels (pf_kernel's ten), they made a
+// library's build take minutes.
+constexpr double RSQRT2 = 0.7071067811865476;
+
+// log Phi(z): log1p(-erfc(z/sqrt2)/2) for z >= 0, and
+// log(erfcx(-z/sqrt2)/2) - z^2/2 below (exact in the deep tail, where
+// XLA's log_ndtr uses its asymptotic series). NaN stays NaN.
+static __device__ __noinline__ float log_ndtr(float z) {
+  const double zd = z;
+  const double r = zd >= 0.0
+                       ? log1p(-0.5 * erfc(zd * RSQRT2))
+                       : log(0.5 * erfcx(-zd * RSQRT2)) - 0.5 * (zd * zd);
+  return (float)r;
+}
+
+// The continued fraction of the regularized incomplete beta by modified
+// Lentz (Numerical Recipes betacf), iterated until the last factor is
+// within 1e-10 of 1, at most 300 times; valid for x < (a+1)/(a+b+2).
+static __device__ __noinline__ double betacf(double a, double b,
+                                              double x) {
+  constexpr double FPMIN = 1e-300, EPS = 1e-10;
+  const double qab = a + b, qap = a + 1.0, qam = a - 1.0;
+  double c = 1.0;
+  double d = 1.0 - (qab * x) / qap;
+  d = 1.0 / (fabs(d) < FPMIN ? FPMIN : d);
+  double h = d;
+  for (int m = 1; m <= 300; ++m) {
+    const double md = m;
+    double aa = ((md * (b - md)) * x) / ((qam + 2.0 * md) * (a + 2.0 * md));
+    d = 1.0 + aa * d;
+    d = 1.0 / (fabs(d) < FPMIN ? FPMIN : d);
+    c = 1.0 + aa / c;
+    c = fabs(c) < FPMIN ? FPMIN : c;
+    h = h * (d * c);
+    aa = ((-(a + md) * (qab + md)) * x) /
+         ((a + 2.0 * md) * (qap + 2.0 * md));
+    d = 1.0 + aa * d;
+    d = 1.0 / (fabs(d) < FPMIN ? FPMIN : d);
+    c = 1.0 + aa / c;
+    c = fabs(c) < FPMIN ? FPMIN : c;
+    const double del = d * c;
+    h = h * del;
+    if (fabs(del - 1.0) < EPS) break;
+  }
+  return h;
+}
+
+// The Student-t log CDF's constants, in double from the host
+// (ops/cuda_mh.py t_constants): nu, a = nu/2, the continued fraction's
+// switch (a + 1)/(a + 5/2), and the two branches' constant terms.
+struct TCdf {
+  double nu, a, thresh, ka, kb;
+};
+
+template <class M>
+__host__ __device__ constexpr TCdf t_cdf_of() {
+  return TCdf{M::T_NU, M::T_A, M::T_THRESH, M::T_KA, M::T_KB};
+}
+
+// log T_nu(z): u = z^2/nu, x = 1/(1 + u), log x = -log1p(u), log(1 - x) =
+// -log1p(1/u); below the switch log(I_x(a, 1/2)/2) by the direct
+// continued fraction, above it by I_x(a, b) = 1 - I_{1-x}(b, a); T = I_x/2
+// for z < 0 and 1 - I_x/2 otherwise. A NaN z (a failed prediction) is
+// returned at once: the fraction would run its 300 steps on NaN, and the
+// ensemble's grid barrier waits for its slowest walker (92 x the kernel's
+// time on censored Student-t data before this check).
+static __device__ __noinline__ float t_logcdf(float z, const TCdf c) {
+  if (z != z) return z;
+  const double zd = z;
+  const double u = (zd * zd) / c.nu;
+  const double x = 1.0 / (1.0 + u);
+  const double lx = -log1p(u);
+  const double lomx = -log1p(1.0 / u);
+  double log_half;
+  if (x < c.thresh) {
+    log_half = ((c.a * lx + 0.5 * lomx) + c.ka) + log(betacf(c.a, 0.5, x));
+  } else {
+    const double omx = u / (1.0 + u);
+    const double J =
+        exp((0.5 * lomx + c.a * lx) + c.kb) * betacf(0.5, c.a, omx);
+    log_half = log(0.5 * (1.0 - J));
+  }
+  return (float)(zd < 0.0 ? log_half : log1p(-exp(log_half)));
+}
+
+// Observation terms of observations [o0, o1) of model M (its S states and
+// scoring constants). The prediction sums the masked states in ascending
+// order, the members' order of the twin's obs_terms; each family's
+// operations are the JAX kernel's contrib, in its order.
+template <class M>
 __device__ __forceinline__ void obs_terms(const Plan& pl, int o0, int o1,
                                           const float* y, float& chi,
                                           float& ssres) {
@@ -142,31 +250,73 @@ __device__ __forceinline__ void obs_terms(const Plan& pl, int o0, int o1,
     float pred = 0.0f;
     bool first = true;
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < M::S; ++s) {
       if ((mask >> s) & 1) {
         pred = first ? y[s] : pred + y[s];
         first = false;
       }
     }
     // no floor on pred: a blown-up trajectory gives a non-finite chi
-    const float d = lab - logf(pred);
-    chi = chi + (d * d) / den;
+    if constexpr (M::CENSORED) {
+      const int cen = pl.cen[o];
+      if (cen != 0) {   // Tobit: -log F(z) of the log-space model
+        float z = (lab - logf(pred)) / pl.lsig[o];
+        if (cen == 2) z = -z;
+        if constexpr (M::FAMILY == OBS_STUDENT_T) {
+          chi = chi - t_logcdf(z, t_cdf_of<M>());
+        } else {
+          chi = chi - log_ndtr(z);
+        }
+        continue;       // a limit is not a measurement: no R^2 term
+      }
+    }
+    if constexpr (M::FAMILY == OBS_LOGNORMAL) {
+      const float d = lab - logf(pred);
+      chi = chi + (d * d) / den;
+    } else if constexpr (M::FAMILY == OBS_STUDENT_T) {
+      const float t = (lab - logf(pred)) / pl.lsig[o];
+      chi = chi + M::C1 * log1pf((t * t) / M::NU);
+    } else {
+      float term;
+      if constexpr (M::FAMILY == OBS_POISSON) {
+        term = ab > 0.0f ? pred - ab * logf(pred) : pred - 0.0f;
+      } else {          // negbinom, dispersion R
+        term = M::R * log1pf(pred / M::R);
+        if (ab > 0.0f) term = term + ab * log1pf(M::R / pred);
+      }
+      chi = chi + (pred >= 0.0f ? term : NAN);
+    }
     const float e = pred - ab;
     ssres = ssres + e * e;
   }
 }
 
 // Observation terms scored at grid point gi.
-template <int S>
+template <class M>
 __device__ __forceinline__ void contrib(const Plan& pl, int gi,
                                         const float* y, float& chi,
                                         float& ssres) {
-  obs_terms<S>(pl, pl.obs_ptr[gi], pl.obs_ptr[gi + 1], y, chi, ssres);
+  obs_terms<M>(pl, pl.obs_ptr[gi], pl.obs_ptr[gi + 1], y, chi, ssres);
 }
 
-// The fixed-step solve of model M over the plan's steps, scored. Step k's
-// observation range is read before its arithmetic, so its latency hides
-// behind the step.
+// The doses leaving grid point gi (one entry per state, summed on the
+// host), added by an unrolled select so y stays in registers.
+template <int S>
+__device__ __forceinline__ void apply_doses(const Plan& pl, int gi,
+                                            float* y) {
+  for (int d = pl.dose_ptr[gi]; d < pl.dose_ptr[gi + 1]; ++d) {
+    const int st = pl.dose_state[d];
+    const float amt = pl.dose_amt[d];
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (st == s) y[s] = y[s] + amt;
+  }
+}
+
+// The fixed-step solve of model M over the plan's steps, scored; a dosed
+// model's doses join after each grid point's terms (grid point 0's
+// included). Step k's observation range is read before its arithmetic, so
+// its latency hides behind the step.
 template <class M, int STEPPER>
 __device__ __forceinline__ void score_model(const Plan& pl,
                                             const float* theta,
@@ -178,7 +328,8 @@ __device__ __forceinline__ void score_model(const Plan& pl,
     y[s] = ip >= 0 ? pick<M::P>(theta, ip) : pl.y0[s];
   }
   float chi = 0.0f, ssres = 0.0f;
-  contrib<M::S>(pl, 0, y, chi, ssres);
+  contrib<M>(pl, 0, y, chi, ssres);
+  if constexpr (M::DOSED) apply_doses<M::S>(pl, 0, y);
   for (int k = 0; k < pl.n_steps; ++k) {
     const int o0 = pl.step_obs[2 * k], o1 = pl.step_obs[2 * k + 1];
     const float* sf = pl.steps + 8 * k;
@@ -187,7 +338,11 @@ __device__ __forceinline__ void score_model(const Plan& pl,
     } else {
       M::step_rk4(y, sf, theta);
     }
-    obs_terms<M::S>(pl, o0, o1, y, chi, ssres);
+    obs_terms<M>(pl, o0, o1, y, chi, ssres);
+    if constexpr (M::DOSED) {
+      const int gi = pl.step_gi[k];
+      if (gi >= 0) apply_doses<M::S>(pl, gi, y);
+    }
   }
   chi_out = chi;
   rsq_out = 1.0f - ssres / pl.sstot;

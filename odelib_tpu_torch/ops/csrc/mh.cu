@@ -326,6 +326,17 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
 
 }  // namespace
 
+namespace {
+
+__global__ void tobit_kernel(const float* __restrict__ z, int n, int which,
+                             odelib::TCdf c, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    out[i] = which ? odelib::t_logcdf(z[i], c) : odelib::log_ndtr(z[i]);
+}
+
+}  // namespace
+
 extern "C" {
 
 int odelib_survey(const int* pi, int n_i, const float* pf, int n_f,
@@ -377,6 +388,19 @@ int odelib_mh(const int* pi, int n_i, const float* pf, int n_f,
       kernels[stepper != 0][prior != nullptr]
              [state_in != nullptr || state_out != nullptr];
   kernel<<<grid, MH_BLOCK, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The Tobit terms' device functions on n float32 z (common.cuh): log Phi
+// (which = 0) or the Student-t log CDF with the constants nu .. kb
+// (which = 1), one thread each; an accuracy probe, on no sampler's path.
+int odelib_tobit(const float* z, int n, int which, double nu, double a,
+                 double thresh, double ka, double kb, float* out,
+                 void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  tobit_kernel<<<(n + 127) / 128, 128, 0, s>>>(
+      z, n, which, odelib::TCdf{nu, a, thresh, ka, kb}, out);
   return (int)cudaGetLastError();
 }
 

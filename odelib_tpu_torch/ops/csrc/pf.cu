@@ -12,13 +12,16 @@
 // likelihood: particles start from y0 (with the '<s>0' overrides) and run
 // the plan's steps, y <- (y + h f) + (sqrt_h g) xi (:281-288); after each
 // observed grid point the particles are weighed (:214-257): per-particle chi
-// of the lognormal terms, a dead particle (NaN or chi >= 1e30) at weight 0,
-// m = max log w, w = exp(log w - m) where that exceeds -60,
+// of the model's observation terms (common.cuh obs_terms: every family,
+// Tobit terms of censored points), a dead particle (NaN or chi >= 1e30)
+// at weight 0, m = max log w, w = exp(log w - m) where that exceeds -60,
 // loglik = ((loglik + m) + log sum w) - log K, and, except at the last
 // observed grid point, systematic resampling: cum is the inclusive
 // Hillis-Steele prefix sum of w (d = 1, 2, 4, ...), pos_i =
 // ((i + u) (1/K)) cum[K-1], and slot i copies particle j iff
-// cum[j-1] <= pos_i < cum[j] (cum[-1] = 0). chi_new = -loglik, so all
+// cum[j-1] <= pos_i < cum[j] (cum[-1] = 0); then the doses leaving the
+// grid point join every particle (:205-212, :280, :312; grid point 0's
+// after its block too). chi_new = -loglik, so all
 // particles dead gives +inf and a rejection. Accept when
 // exp(chi - chi_new [+ lp(theta') - lp(theta)]) > u; during burn-in
 // (it <= burnin) lsc += adapt_rate (accept - target) (:393-396).
@@ -179,7 +182,7 @@ __device__ __forceinline__ void resample_block(const Plan& pl,
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
     float chi_b = 0.0f, ssres = 0.0f;
-    contrib<ODE_S>(pl, gi, y[i], chi_b, ssres);
+    contrib<Model0>(pl, gi, y[i], chi_b, ssres);
     const bool finite = chi_b == chi_b && chi_b < 1e30f;
     w[i] = finite && k0 + i < F.K ? -chi_b : -INFINITY;
     m = fmaxf(m, w[i]);
@@ -316,6 +319,10 @@ __device__ __forceinline__ float particle_filter(const Plan& pl,
   for (int i = 0; i < PPT; ++i) stash[i] = 0.0f;
   if (pl.obs_ptr[1] > pl.obs_ptr[0])
     resample_block<PPT>(pl, F, 0, y, loglik, ctr, slot);
+  if constexpr (Model0::DOSED) {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) apply_doses<ODE_S>(pl, 0, y[i]);
+  }
   for (int n = 0; n < pl.n_steps; ++n) {
     const float* sf = pl.steps + 8 * n;   // h, t, f32(sqrt h)
     const float h = sf[0], t = sf[1], sq = sf[2];
@@ -348,6 +355,13 @@ __device__ __forceinline__ float particle_filter(const Plan& pl,
     const int gi = pl.step_gi[n];
     if (gi >= 0 && pl.obs_ptr[gi + 1] > pl.obs_ptr[gi])
       resample_block<PPT>(pl, F, gi, y, loglik, ctr, slot);
+    if constexpr (Model0::DOSED) {
+      // the doses leaving gi join the resampled cloud (pallas_pf.py:312)
+      if (gi >= 0) {
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) apply_doses<ODE_S>(pl, gi, y[i]);
+      }
+    }
   }
   return -loglik;
 }

@@ -26,7 +26,7 @@ from ..rhs import trace_rhs
 from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
                       _as_f32_tensor, _build_plan, _check_stepper,
                       _check_mesh, _normalize_substeps, _prior_tensor,
-                      make_scorer, plan_tables)
+                      make_scorer, plan_tables, scoring)
 from .priors import checked_priors, logprior_plain
 from .runge_kutta import const
 
@@ -106,7 +106,8 @@ def joint_tables(specs, plans, y0s, idx_maps, stepper):
     :func:`~odelib_tpu_torch.ops.build.distinct_programs`) and its idx map
     padded to the widest model. Returns (plan_i, plan_f, exp_tab, width)."""
     from .build import distinct_programs
-    programs, model_of = distinct_programs(specs)
+    programs, model_of = distinct_programs(specs,
+                                           [scoring(pl) for pl in plans])
     width = 3 + max(p.n_params for p in programs)
     tabs = [plan_tables(sp, pl, y0, stepper)
             for sp, pl, y0 in zip(specs, plans, y0s)]
@@ -126,7 +127,8 @@ def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
     return ``launch() -> records`` (as :func:`joint_plain`); each call
     launches the kernel once (and counts it)."""
     from . import build
-    lib = build.load_kernels(specs[0], specs[1:])
+    lib = build.load_kernels(specs[0], specs[1:],
+                             scoring=[scoring(pl) for pl in plans])
     dev = th0.device
     D, C = th0.shape
     K = len(specs)

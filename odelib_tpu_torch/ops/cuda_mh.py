@@ -3,7 +3,8 @@
 Counterpart of the parts of ``odelib_tpu/ops/pallas_mh.py`` on the main
 path: the static plan (``_StaticPlan``/``_normalize_substeps``/
 ``_build_plan``), the counter RNG (``_mix``/``_Rng``), the scorer
-(``_make_scorer``, lognormal and uncensored) and the public
+(``_make_scorer``: every observation model, Tobit terms for censored
+log-space data, bolus doses) and the public
 ``survey_fused``, ``metropolis_hastings_fused`` and ``ensemble_fused``
 with the JAX package's arguments and ``MHOutput``.
 
@@ -55,9 +56,13 @@ class _StaticPlan(NamedTuple):
     """Everything the kernels need besides the RHS."""
     step_ts: tuple      # (t, h, gi) per sub-step; gi = grid index scored
     #                     after the step, or -1 mid-interval
-    obs_after: tuple    # per grid index: ((members, log_ab, log_sig, ab),)
+    obs_after: tuple    # per grid index: ((members, log_ab, log_sig, ab,
+    #                     censor flag),)
     sstot: float
     n_grid: int
+    dose_after: tuple = ()   # per grid index: ((raw state, amount),)
+    obs_model: str = "lognormal"
+    obs_param: float = 0.0
 
 
 def _normalize_substeps(substeps, n_intervals: int):
@@ -78,29 +83,46 @@ def _normalize_substeps(substeps, n_intervals: int):
 
 
 def _build_plan(spec: ModelSpec, obs: ObsData, times, substeps):
-    if spec.obs_model != "lognormal" or obs.censor is not None:
-        raise NotImplementedError(
-            "the kernels score uncensored lognormal observations only "
-            "(ROADMAP queue 1, item 13)")
     times = np.asarray(times, np.float64)
     t_index = np.asarray(obs.t_index)
     state_index = np.asarray(obs.state_index)
     log_ab = np.asarray(obs.log_abundance, np.float64)
     log_sig = np.asarray(obs.log_sigma, np.float64)
     abund = np.asarray(obs.abundance, np.float64)
+    censor = (np.zeros(len(log_ab), np.int32) if obs.censor is None
+              else np.asarray(obs.censor, np.int32))
+    if censor.any() and spec.obs_model not in ("lognormal", "student_t"):
+        # the -log CDF of a count model needs an incomplete gamma or beta
+        # at a data-dependent order; the reference scores such data on its
+        # XLA samplers, which are not ported yet (ROADMAP queue 1, items 8
+        # and 15)
+        raise ValueError(
+            "the fused kernel scores censored observations for "
+            "obs_model='lognormal' and 'student_t' only; censored "
+            f"{spec.obs_model!r} data runs on the XLA samplers, not ported "
+            "yet (ROADMAP queue 1, items 8 and 15)")
     if spec.sum_matrix is not None:
         m = np.asarray(spec.sum_matrix)
         members = tuple(tuple(int(i) for i in np.where(m[:, j])[0])
                         for j in range(m.shape[1]))
     else:
         members = tuple((j,) for j in range(len(spec.snames)))
+    # drop what the likelihood masks out: an invalid log abundance for the
+    # log-space models, an invalid abundance for the count models (where
+    # O = 0, log O = -inf, is a valid count)
+    keep = np.isfinite(abund) if spec.obs_model in ("poisson", "negbinom") \
+        else np.isfinite(log_ab)
     obs_after = [[] for _ in range(len(times))]
     for o in range(len(log_ab)):
-        if not np.isfinite(log_ab[o]):
+        if not keep[o]:
             continue
         obs_after[int(t_index[o])].append(
             (members[int(state_index[o])], float(log_ab[o]),
-             float(log_sig[o]), float(abund[o])))
+             float(log_sig[o]), float(abund[o]), int(censor[o])))
+    dose_after = [[] for _ in range(len(times))]
+    for t, s, amt in spec.dose_events or ():
+        dose_after[int(np.argmin(np.abs(times - t)))].append(
+            (int(s), float(amt)))
     substeps = _normalize_substeps(substeps, len(times) - 1)
     step_ts = []
     for i in range(len(times) - 1):
@@ -112,12 +134,35 @@ def _build_plan(spec: ModelSpec, obs: ObsData, times, substeps):
     return _StaticPlan(step_ts=tuple(step_ts),
                        obs_after=tuple(tuple(x) for x in obs_after),
                        sstot=float(np.asarray(obs.sstot)),
-                       n_grid=len(times))
+                       n_grid=len(times),
+                       dose_after=tuple(tuple(x) for x in dose_after),
+                       obs_model=spec.obs_model,
+                       obs_param=float(spec.obs_param))
+
+
+def plan_doses(plan: _StaticPlan, gi: int):
+    """The doses leaving grid point ``gi`` as ((raw state, amount),) with
+    one entry per state, the amounts summed in double and each state in
+    ascending order (the JAX kernel's ``apply_dose``)."""
+    adds = {}
+    for s, amt in plan.dose_after[gi] if plan.dose_after else ():
+        adds[s] = adds.get(s, 0.0) + amt
+    return tuple((s, adds[s]) for s in sorted(adds) if adds[s] != 0.0)
+
+
+def scoring(plan: _StaticPlan):
+    """What the kernels compile in for a plan's model: (observation
+    model, its parameter, whether any observation is censored, whether
+    any dose is given). ``ops/build.py`` writes it into the generated
+    header, so each kernel compiles one scoring branch."""
+    return (plan.obs_model, float(plan.obs_param),
+            any(o[4] for grid in plan.obs_after for o in grid),
+            any(plan_doses(plan, gi) for gi in range(plan.n_grid)))
 
 
 _STEPPER_ID = {"dopri5": 0, "rk4": 1}
 _EULER = 2  # header stepper id of the particle filter's step layout
-_HDR = 14  # int header of plan_i (see csrc/common.cuh)
+_HDR = 19  # int header of plan_i (see csrc/common.cuh)
 _MAX_MASK_STATES = 32  # an observation's members are a bit mask of states
 
 
@@ -130,14 +175,18 @@ def _check_stepper(stepper):
 
 def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     """The plan as two flat arrays the kernels read at run time:
-    ``plan_i`` (int32: a 14-entry header of sizes and offsets, then the
-    step grid indices, each step's range of observations, the
-    per-grid-point observation CSR, each observation's member mask and
-    the init-parameter wiring) and ``plan_f`` (float32: sstot, then 8
-    floats per step, the per-observation constants and y0). Floats are
-    rounded to float32 on the host exactly where the JAX kernel's Python
-    scalars meet float32 arrays. ``stepper`` 'euler' lays each step out
-    for the particle filter as (h, t, f32(sqrt h))."""
+    ``plan_i`` (int32: a 19-entry header of sizes and offsets, then the
+    per-observation censor flags, the per-grid-point dose CSR and each
+    dose's state, the step grid indices, each step's range of
+    observations, the per-grid-point observation CSR, each observation's
+    member mask and the init-parameter wiring) and ``plan_f`` (float32:
+    sstot, each observation's log sigma, the dose amounts, then 8 floats
+    per step, the per-observation constants and y0). The tables added with
+    censoring and doses come first, so the others keep the places they
+    had. Floats are rounded to float32 on the host exactly where the JAX
+    kernel's Python scalars meet float32 arrays (a grid point's doses of
+    one state summed in double first). ``stepper`` 'euler' lays each step
+    out for the particle filter as (h, t, f32(sqrt h))."""
     if stepper != "euler":
         _check_stepper(stepper)
     if len(spec.snames) > _MAX_MASK_STATES:
@@ -149,10 +198,14 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     obs_ptr = np.cumsum([0] + [len(g) for g in plan.obs_after])
     step_obs = [(obs_ptr[gi], obs_ptr[gi + 1]) if gi >= 0 else (0, 0)
                 for _, _, gi in plan.step_ts]
-    ints = [np.asarray([gi for _, _, gi in plan.step_ts]),
+    doses = [plan_doses(plan, gi) for gi in range(n_grid)]
+    ints = [np.asarray([o[4] for o in obs]),
+            np.cumsum([0] + [len(d) for d in doses]),
+            np.asarray([s for d in doses for s, _ in d]),
+            np.asarray([gi for _, _, gi in plan.step_ts]),
             np.asarray(step_obs).ravel(),
             obs_ptr,
-            np.asarray([sum(1 << m for m in mem) for mem, *_ in obs]),
+            np.asarray([sum(1 << m for m in o[0]) for o in obs]),
             np.asarray(spec.init_pidx)]
     steps = np.zeros((n_steps, 8))
     for k, (t, h, _) in enumerate(plan.step_ts):
@@ -162,17 +215,22 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
             steps[k, :3] = [h, t, float(np.sqrt(h))]
         else:
             steps[k, :6] = [h, 0.5 * h, h / 6.0, t, t + 0.5 * h, t + h]
-    floats = [np.asarray([plan.sstot]), steps.ravel(),
-              np.asarray([lab for _, lab, _, _ in obs]),
-              np.asarray([2.0 * ls * ls for _, _, ls, _ in obs]),
-              np.asarray([ab for _, _, _, ab in obs]),
+    floats = [np.asarray([plan.sstot]),
+              np.asarray([o[2] for o in obs]),
+              np.asarray([a for d in doses for _, a in d]),
+              steps.ravel(),
+              np.asarray([o[1] for o in obs]),
+              np.asarray([2.0 * o[2] * o[2] for o in obs]),
+              np.asarray([o[3] for o in obs]),
               np.asarray(y0_base, np.float64)]
     offs_i = np.cumsum([_HDR] + [len(a) for a in ints])[:-1]
     offs_f = np.cumsum([0] + [len(a) for a in floats])[:-1]
     header = np.zeros(_HDR, np.int64)
     header[:4] = [n_steps, n_grid, len(obs), _STEPPER_ID.get(stepper, _EULER)]
-    header[4:9] = offs_i
-    header[9:14] = offs_f[1:]
+    header[4:9] = offs_i[3:]
+    header[9:14] = offs_f[3:]
+    header[14:17] = offs_i[:3]
+    header[17:19] = offs_f[1:3]
     plan_i = np.concatenate([header] + [np.asarray(a, np.int64)
                                         for a in ints]).astype(np.int32)
     plan_f = np.concatenate(floats).astype(np.float32)
@@ -252,33 +310,170 @@ class Rng:
 # scorer and twins
 # --------------------------------------------------------------------------
 
-def obs_terms(obs_at, y, chi, ssres=None):
-    """Add the lognormal chi terms (and, unless ``ssres`` is None, the
-    squared residuals) of one grid point's observations ``obs_at`` for
-    states ``y``; returns (chi, ssres)."""
-    for mem, lab, lsig, ab in obs_at:
+# The Tobit terms are computed in double and rounded to float32 once: in
+# float32 the upper tail of the t log-CDF loses ~1.5e-5 relative at
+# nu = 100 (the a log x term of ~60 nats carries the rounding of u = z^2/nu
+# a = nu/2 times over), above the 1e-5 the port holds it to.
+_RSQRT2 = 0.7071067811865476
+_CF_EPS, _CF_MAXIT, _CF_FPMIN = 1e-10, 300, 1e-300
+
+
+def t_constants(nu: float):
+    """The constants of the Student-t log CDF with ``nu`` dof
+    (:func:`t_logcdf`), in double: a = nu/2, the continued fraction's
+    switch (a + 1)/(a + 5/2), and the two branches' constant terms
+    -log a - log B(a, 1/2) - log 2 and -log(1/2) - log B(a, 1/2)."""
+    a = 0.5 * float(nu)
+    lbeta = math.lgamma(a) + math.lgamma(0.5) - math.lgamma(a + 0.5)
+    return {"nu": float(nu), "a": a, "thresh": (a + 1.0) / (a + 2.5),
+            "ka": -math.log(a) - lbeta - math.log(2.0),
+            "kb": -math.log(0.5) - lbeta}
+
+
+def betacf(a: float, b: float, x):
+    """The continued fraction of the regularized incomplete beta by
+    modified Lentz (Numerical Recipes ``betacf``), elementwise on a
+    float64 ``x``, each element iterating until its last factor is within
+    1e-10 of 1 (at most 300 times): ``common.cuh`` ``betacf``'s
+    operations in its order (divisors as tensors: torch's CUDA division
+    by a Python scalar multiplies by its reciprocal). Valid for
+    x < (a + 1)/(a + b + 2)."""
+    qab, qap, qam = a + b, a + 1.0, a - 1.0
+    one = const(1.0, x)
+
+    def tiny(v):
+        return torch.where(torch.abs(v) < _CF_FPMIN, _CF_FPMIN, v)
+    c = torch.ones_like(x)
+    d = one / tiny(one - (qab * x) / const(qap, x))
+    h = d
+    done = torch.zeros_like(x, dtype=torch.bool)
+    for m in range(1, _CF_MAXIT + 1):
+        aa = (m * (b - m) * x) / const((qam + 2 * m) * (a + 2 * m), x)
+        d1 = one / tiny(one + aa * d)
+        c1 = tiny(one + aa / c)
+        h1 = h * (d1 * c1)
+        aa = (-(a + m) * (qab + m) * x) / const((a + 2 * m) * (qap + 2 * m),
+                                               x)
+        d2 = one / tiny(one + aa * d1)
+        c2 = tiny(one + aa / c1)
+        dl = d2 * c2
+        h = torch.where(done, h, h1 * dl)
+        d = torch.where(done, d, d2)
+        c = torch.where(done, c, c2)
+        done = done | (torch.abs(dl - one) < _CF_EPS)
+        if bool(done.all()):
+            break
+    return h
+
+
+def t_logcdf(z, tc):
+    """log T_nu(z) of float32 ``z`` with the constants ``tc`` of
+    :func:`t_constants`, computed in double and returned in float32
+    (``common.cuh`` ``t_logcdf``): with u = z^2/nu, x = 1/(1 + u),
+    log x = -log1p(u) and log(1 - x) = -log1p(1/u); below the switch
+    log(I_x(a, 1/2)/2) by the direct continued fraction, above it by the
+    symmetry I_x(a, b) = 1 - I_{1-x}(b, a); T = I_x/2 for z < 0,
+    1 - I_x/2 otherwise. A NaN z is returned as it is, without the
+    fraction (the kernel's early return); z = +-inf gives 0 and -inf."""
+    nan = torch.isnan(z)
+    zd = torch.where(nan, torch.zeros_like(z), z).to(torch.float64)
+    a, one = tc["a"], const(1.0, zd)
+    u = (zd * zd) / const(tc["nu"], zd)
+    x = one / (one + u)
+    lx = -torch.log1p(u)
+    lomx = -torch.log1p(one / u)
+    direct = x < tc["thresh"]
+    # each branch on its own side (the other side's lanes take x = 0)
+    xa = torch.where(direct, x, torch.zeros_like(x))
+    log_a = ((a * lx + 0.5 * lomx) + tc["ka"]) \
+        + torch.log(betacf(a, 0.5, xa))
+    omx = torch.where(direct, torch.zeros_like(x), u / (one + u))
+    J = torch.exp((0.5 * lomx + a * lx) + tc["kb"]) * betacf(0.5, a, omx)
+    log_b = torch.log(0.5 * (1.0 - J))
+    log_half = torch.where(direct, log_a, log_b)
+    out = torch.where(zd < 0.0, log_half, torch.log1p(-torch.exp(log_half)))
+    return torch.where(nan, z, out.to(torch.float32))
+
+
+def log_ndtr(z):
+    """log Phi(z) of float32 ``z``, computed in double and returned in
+    float32 (``common.cuh`` ``log_ndtr``): log1p(-erfc(z/sqrt2)/2) for
+    z >= 0, log(erfcx(-z/sqrt2)/2) - z^2/2 below. NaN stays NaN."""
+    zd = z.to(torch.float64)
+    right = torch.log1p(-0.5 * torch.erfc(zd * _RSQRT2))
+    left = torch.log(0.5 * torch.special.erfcx(-zd * _RSQRT2)) \
+        - 0.5 * (zd * zd)
+    return torch.where(zd >= 0.0, right, left).to(torch.float32)
+
+
+def obs_terms(obs_at, y, chi, ssres=None, obs_model="lognormal",
+              obs_param=0.0):
+    """Add the terms of one grid point's observations ``obs_at`` for
+    states ``y`` under ``obs_model`` (and, unless ``ssres`` is None, the
+    squared residuals of the exact ones); returns (chi, ssres). A
+    censored observation adds -log F(z) (left) or -log F(-z) (right) of
+    its log-space model, z = (lab - log pred)/lsig (:func:`log_ndtr`,
+    :func:`t_logcdf`). The JAX kernel's operations, in its order, with
+    its Python constants rounded to float32 where they meet the arrays."""
+    tc = t_constants(obs_param) if obs_model == "student_t" else None
+    for mem, lab, lsig, ab, cen in obs_at:
         pred = y[mem[0]]
         for m in mem[1:]:
             pred = pred + y[m]
-        d = const(lab, pred) - torch.log(pred)
-        chi = chi + (d * d) / const(2.0 * lsig * lsig, pred)
+        if cen:
+            z = (const(lab, pred) - torch.log(pred)) / const(lsig, pred)
+            if cen == 2:
+                z = -z
+            chi = chi - (t_logcdf(z, tc) if tc is not None
+                         else log_ndtr(z))
+            continue
+        if obs_model == "lognormal":
+            d = const(lab, pred) - torch.log(pred)
+            chi = chi + (d * d) / const(2.0 * lsig * lsig, pred)
+        elif obs_model == "student_t":
+            t = (const(lab, pred) - torch.log(pred)) / const(lsig, pred)
+            chi = chi + const(0.5 * (obs_param + 1.0), pred) * torch.log1p(
+                (t * t) / const(obs_param, pred))
+        else:
+            if obs_model == "poisson":
+                term = pred - const(ab, pred) * torch.log(pred) if ab > 0 \
+                    else pred - const(0.0, pred)
+            else:   # negbinom, dispersion r
+                r = const(obs_param, pred)
+                term = r * torch.log1p(pred / r)
+                if ab > 0:
+                    term = term + const(ab, pred) * torch.log1p(r / pred)
+            chi = chi + torch.where(pred >= const(0.0, pred), term,
+                                    const(math.nan, pred))
         if ssres is not None:
             e = pred - const(ab, pred)
             ssres = ssres + e * e
     return chi, ssres
 
 
+def apply_doses(plan, gi, y):
+    """``y`` (S tensors) after the doses leaving grid point ``gi``."""
+    y = list(y)
+    for s, amt in plan_doses(plan, gi):
+        y[s] = y[s] + const(amt, y[s])
+    return y
+
+
 def make_scorer(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     """``score(theta_list) -> (chi, rsq)``: the fixed-step solve over the
-    plan's steps with the static per-observation terms, on a list of P
-    per-slot float32 tensors."""
+    plan's steps with the static per-observation terms of the plan's
+    observation model, each grid point's doses after its terms, on a list
+    of P per-slot float32 tensors."""
     y0_base = tuple(float(v) for v in np.asarray(y0_base))
     S, P = len(spec.snames), spec.theta_size
     f = torch_evaluator(spec.rhs, S, P)
     step = FIXED_STEPPERS[stepper]
+    dosed = scoring(plan)[3]
 
     def contrib(y, gi, chi, ssres):
-        return obs_terms(plan.obs_after[gi], y, chi, ssres)
+        chi, ssres = obs_terms(plan.obs_after[gi], y, chi, ssres,
+                               plan.obs_model, plan.obs_param)
+        return chi, ssres, (apply_doses(plan, gi, y) if dosed else y)
 
     def score(theta):
         ref = theta[0]
@@ -287,11 +482,11 @@ def make_scorer(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
              for s, i in enumerate(spec.init_pidx)]
         chi = torch.zeros_like(ref)
         ssres = torch.zeros_like(ref)
-        chi, ssres = contrib(y, 0, chi, ssres)
+        chi, ssres, y = contrib(y, 0, chi, ssres)
         for t, h, gi in plan.step_ts:
             y = step(f, t, y, h, theta)
             if gi >= 0:
-                chi, ssres = contrib(y, gi, chi, ssres)
+                chi, ssres, y = contrib(y, gi, chi, ssres)
         rsq = const(1.0, ref) - ssres / const(plan.sstot, ref)
         return chi, rsq
 
@@ -552,7 +747,7 @@ def survey_launcher(spec, plan, y0_base, stepper, th):
     return ``launch() -> chi (N,)``; each call launches the kernel once
     (and counts it)."""
     from . import build
-    lib = build.load_kernels(spec)
+    lib = build.load_kernels(spec, scoring=[scoring(plan)])
     dev = th.device
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
                                   str(dev))
@@ -608,7 +803,7 @@ def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
     chunk of :func:`mh_plain`'s chunk mode, state a (P + 4, C) tensor on
     the card (None on the first chunk)."""
     from . import build
-    lib = build.load_kernels(spec)
+    lib = build.load_kernels(spec, scoring=[scoring(plan)])
     dev = th0.device
     P, C = th0.shape
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
@@ -651,7 +846,7 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
     each thread loops over several). ``prior``: a
     :func:`~.priors.prior_table` or None."""
     from . import build
-    lib = build.load_kernels(spec)
+    lib = build.load_kernels(spec, scoring=[scoring(plan)])
     dev = th0.device
     P, W = th0.shape
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,

@@ -5,7 +5,9 @@ Counterpart of ``odelib_tpu/ops/pallas_pf.py`` (Euler-Maruyama): the public
 ``pmmh_supported``, and ``PMMHOutput`` (``odelib_tpu/samplers/pf.py``).
 Each proposal of each chain is scored by a K-particle bootstrap filter
 over the model's SDE, with systematic resampling at every observed grid
-point, in-kernel priors (:mod:`.priors`) and Robbins-Monro
+point (the plan's observation model, Tobit terms of censored log-space
+data, bolus doses after each grid point's block), in-kernel priors
+(:mod:`.priors`) and Robbins-Monro
 proposal-scale adaptation during burn-in (``csrc/pf.cu`` states the
 semantics and every parity trap with the JAX line it mirrors).
 
@@ -33,8 +35,8 @@ from ..rhs import RhsTraceError, torch_evaluator, trace_rhs
 from . import chunked
 from .cuda_mh import (_M32, LAUNCHES, _as_f32_tensor, _build_plan,
                       _check_mesh, _device_plan, _key, _normalize_substeps,
-                      _ptr, _records, chunk_range, mix, obs_terms,
-                      uniform_of)
+                      _ptr, _records, apply_doses, chunk_range, mix,
+                      obs_terms, scoring, uniform_of)
 from .build import PF_KMAX
 from .priors import checked_priors, logprior_plain, prior_table
 from .runge_kutta import const
@@ -179,11 +181,13 @@ class _Filter:
         self.keys, self.key0 = keys, key0
         gis = obs_grid_indices(plan)
         self.last_gi = gis[-1] if gis else -1
+        self.dosed = scoring(plan)[3]
 
     def resample(self, y, gi, loglik, ctr, slot):
         ref = y[0]
         chi_b, _ = obs_terms(self.plan.obs_after[gi], y,
-                             torch.zeros_like(ref))
+                             torch.zeros_like(ref), None,
+                             self.plan.obs_model, self.plan.obs_param)
         finite = (chi_b == chi_b) & (chi_b < const(1e30, ref))
         logw = torch.where(finite, -chi_b, const(-math.inf, ref))
         m = logw.amax(dim=0)
@@ -210,6 +214,8 @@ class _Filter:
         stash = None
         if self.plan.obs_after[0]:
             y, loglik, slot = self.resample(y, 0, loglik, ctr, slot)
+        if self.dosed:
+            y = apply_doses(self.plan, 0, y)
         for t, h, gi in self.plan.step_ts:
             f = self.f(t, y, theta)
             g = self.g(t, y, theta)
@@ -228,6 +234,8 @@ class _Filter:
                  for s in range(self.S)]
             if gi >= 0 and self.plan.obs_after[gi]:
                 y, loglik, slot = self.resample(y, gi, loglik, ctr, slot)
+            if gi >= 0 and self.dosed:
+                y = apply_doses(self.plan, gi, y)
         return -loglik, slot
 
 
@@ -306,7 +314,7 @@ def pmmh_launcher(spec, plan, y0_base, th0, seed, *, K, nits, burnin, walk,
     ``launch(it_base, state) -> (records, state)``, a chunk of
     :func:`pmmh_plain`'s chunk mode."""
     from . import build
-    lib = build.load_kernels(spec, diffusion=True)
+    lib = build.load_kernels(spec, diffusion=True, scoring=[scoring(plan)])
     dev = th0.device
     P, C = th0.shape
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), "euler",

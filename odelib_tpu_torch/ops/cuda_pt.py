@@ -28,7 +28,7 @@ from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
                       _as_f32_tensor, _build_plan, _check_cuda, _check_mesh,
                       _check_stepper, _device_plan, _key,
                       _normalize_substeps, _prior_tensor, _ptr, _records,
-                      chunk_range, make_scorer, twin_launcher)
+                      chunk_range, make_scorer, scoring, twin_launcher)
 from .priors import checked_priors, logprior_plain
 from .build import PT_KMAX
 from .runge_kutta import const
@@ -157,7 +157,7 @@ def pt_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
     ``launch(it_base, state) -> (records, state)``, a chunk of
     :func:`pt_plain`'s chunk mode."""
     from . import build
-    lib = build.load_kernels(spec)
+    lib = build.load_kernels(spec, scoring=[scoring(plan)])
     dev = th0.device
     P, C = th0.shape
     K = len(betas)

@@ -9,8 +9,10 @@ taking the place of the per-lane ``while_loop``: a lane that reached its
 output time, failed or spent ``max_steps`` keeps its state exactly while
 the others advance.
 Step control (safety 0.9, factor clip [0.2, 10], RMS error norm, Hairer's
-initial step) and the failure model (NaN from the failure on, ``ok`` False)
-are the JAX package's.
+initial step), the failure model (NaN from the failure on, ``ok`` False)
+and bolus doses (``dose[i]`` joins the state when the solve leaves
+``ts[i]``; a dosed adaptive solve steps to the output points) are the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -52,15 +54,31 @@ def _initial_step(func, t0, y0, f0, args, rtol, atol):
     return torch.minimum(100.0 * h0, h1)
 
 
+def _dose_rows(dose, ts, y):
+    """``dose`` (T, S) as (S, 1) rows in ``y``'s dtype and device, or
+    None."""
+    if dose is None:
+        return None
+    d = torch.as_tensor(dose, dtype=y.dtype, device=y.device)
+    if d.shape != (len(ts), y.shape[0]):
+        raise ValueError(f"dose must be (len(ts), S) = ({len(ts)}, "
+                         f"{y.shape[0]}), got {tuple(d.shape)}")
+    return [row[:, None] for row in d]
+
+
 def odeint_grid(func, y0, ts, args=(), *, rtol=1e-7, atol=1e-9,
-                max_steps=4096, method="dopri5"):
+                max_steps=4096, method="dopri5", dose=None):
     """Integrate dy/dt = func(t, y, args) and report y at every time in
     ``ts`` (increasing, ``ts[0]`` the initial time).
 
     ``y0`` is (S,) for one solve or (S, N) for N lanes; ``func`` receives
     ``t`` of shape (N,) and ``y`` of shape (S, N) and returns (S, N).
     ``args`` are passed through (per-lane parameters broadcast against
-    (N,)). Returns :class:`ODESolution` with ``ys`` (T, S[, N]).
+    (N,)). ``dose`` (optional, (len(ts), S)): ``dose[i]`` is added when
+    the solve leaves ``ts[i]`` (the RHS is evaluated again there), so
+    ``ys[i]`` is the pre-dose left limit; a dosed solve steps exactly to
+    each output point. Returns :class:`ODESolution` with ``ys``
+    (T, S[, N]).
     """
     if method != "dopri5":
         raise NotImplementedError(
@@ -70,6 +88,7 @@ def odeint_grid(func, y0, ts, args=(), *, rtol=1e-7, atol=1e-9,
     y = y0[:, None] if single else y0
     dtype, dev = y.dtype, y.device
     ts = torch.as_tensor(ts, dtype=dtype, device=dev)
+    doses = _dose_rows(dose, ts, y)
     N = y.shape[1]
     tiny = torch.finfo(dtype).tiny ** 0.5
     err_exp = -1.0 / Dopri5.ERROR_ORDER
@@ -83,12 +102,18 @@ def odeint_grid(func, y0, ts, args=(), *, rtol=1e-7, atol=1e-9,
     nacc = torch.zeros_like(nsteps)
     ok = torch.ones(N, dtype=torch.bool, device=dev)
     ys, acc_at = [y.clone()], [nacc.clone()]
-    for target in ts[1:]:
+    for i, target in enumerate(ts[1:]):
+        if doses is not None:
+            y = y + doses[i]
+            f = Dopri5.first_stage(func, t, y, args)
         while True:
             active = ok & (t < target) & (nsteps < max_steps)
             if not bool(active.any()):
                 break
-            y_new, f_new, err, dense_new = Dopri5.step(func, t, y, f, h,
+            # a dosed solve steps to the output point: the impulse there
+            # ends every dense polynomial
+            h_try = h if doses is None else torch.minimum(h, target - t)
+            y_new, f_new, err, dense_new = Dopri5.step(func, t, y, f, h_try,
                                                        args)
             scale = atol + rtol * torch.maximum(torch.abs(y),
                                                 torch.abs(y_new))
@@ -103,12 +128,15 @@ def odeint_grid(func, y0, ts, args=(), *, rtol=1e-7, atol=1e-9,
                 torch.clamp(_SAFETY * ratio ** err_exp, _MIN_FACTOR,
                             _MAX_FACTOR))
             factor = torch.where(accept, factor, torch.clamp(factor, max=1.0))
-            h_next = h * factor
+            h_next = h_try * factor
+            if doses is not None:
+                # an accepted truncated step keeps the controller's h
+                h_next = torch.where(accept & (h_try < h), h, h_next)
             still_ok = ok & (h_next > tiny) & torch.isfinite(h_next)
             take = active & accept
             t_prev = torch.where(take, t, t_prev)
-            h_prev = torch.where(take, h, h_prev)
-            t = torch.where(take, t + h, t)
+            h_prev = torch.where(take, h_try, h_prev)
+            t = torch.where(take, t + h_try, t)
             y = torch.where(take, y_new, y)
             f = torch.where(take, f_new, f)
             dense = torch.where(take, dense_new, dense)
@@ -131,11 +159,13 @@ def odeint_grid(func, y0, ts, args=(), *, rtol=1e-7, atol=1e-9,
     return ODESolution(ys=ys, ok=ok, num_steps=nsteps, accepted_at=acc_at)
 
 
-def odeint_fixed(func, y0, ts, args=(), *, substeps=1, method="rk4"):
+def odeint_fixed(func, y0, ts, args=(), *, substeps=1, method="rk4",
+                 dose=None):
     """Fixed-step integration on the grid ``ts``, every interval split into
     ``substeps`` equal steps (an int, or one int per interval: a static
     schedule). ``method`` is 'rk4' or 'dopri5' (its error estimate
-    unused). Shapes and ``func`` as :func:`odeint_grid`; the step sizes and
+    unused). Shapes, ``func`` and ``dose`` as :func:`odeint_grid` (the dose
+    joins before an interval's first substep); the step sizes and
     times are computed in the state's dtype as ``odelib_tpu``'s
     ``odeint_fixed`` computes them. Returns :class:`ODESolution` with
     ``ok`` False where a value is not finite and ``accepted_at`` None."""
@@ -164,8 +194,11 @@ def odeint_fixed(func, y0, ts, args=(), *, substeps=1, method="rk4"):
     if len(sched) != n_int or min(sched, default=1) < 1:
         raise ValueError(f"substeps must be >= 1, one per interval "
                          f"({n_int})")
+    doses = _dose_rows(dose, ts, y)
     ys = [y]
     for i in range(n_int):
+        if doses is not None:
+            y = y + doses[i]
         h = (ts[i + 1] - ts[i]) / sched[i]
         for k in range(sched[i]):
             y = substep(ts[i] + k * h, y, h)

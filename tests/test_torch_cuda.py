@@ -22,6 +22,7 @@ from odelib_tpu_torch.ops import cuda_pt as TP
 from odelib_tpu_torch.ops.priors import prior_table
 from odelib_tpu_torch.rhs import RhsTraceError, adapt_rhs
 
+from test_torch_scoring import SCORING, scoring_id
 from test_torch_mh_prefetch import CASES as MH_CASES
 from test_torch_mh_prefetch import PRIOR_SETS, assert_bitwise, run_case
 
@@ -599,3 +600,168 @@ def test_chunked_kernel_equals_whole(card, sampler, tmp_path):
     for a, b, c in zip(whole, got, res):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
+
+
+# -- every observation model, censoring and doses ---------------------------
+
+def _scoring_inputs(case):
+    from test_torch_scoring import COUNT_SCALE, zero_i_case
+    fam, censor, dosed = case
+    scale = COUNT_SCALE.get(fam, 1.0)
+    spec, obs, tf, y0 = zero_i_case(fam, censor, dosed, scale=scale)
+    return spec, obs, tf, y0, np.array([0.6, 2.4e-8 * scale, 24.0])
+
+
+def _held(case, got, want):
+    """Kernel against twin: bitwise, but for the Tobit terms (double
+    erfc/erfcx/log1p of two libraries, rounded to float32 once) within
+    1e-6 relative, with the same accept sequences."""
+    for a, b in zip(got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if case[1]:
+            np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+            np.testing.assert_allclose(a, b, rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+_SCORING_KERNELS = ("survey", "mh", "ensemble", "pt", "joint")
+
+
+@pytest.mark.parametrize("kernel", _SCORING_KERNELS)
+@pytest.mark.parametrize("case", SCORING, ids=[scoring_id(c)
+                                              for c in SCORING])
+def test_scoring_branch_kernel_matches_twin(case, kernel):
+    """Each kernel, through its wrapper, on each compiled scoring branch
+    (zero_i on the demo data: the family, left- and right-censored points,
+    a virus dose at t = 1) against its twin on the same tensors (the twin
+    by ``plain_launchers``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    from odelib_tpu_torch.ops import plain_launchers
+    spec, obs, tf, y0, centre = _scoring_inputs(case)
+    rng = np.random.default_rng(0)
+
+    def draws(n, sd):
+        return torch.as_tensor((centre * np.exp(rng.normal(0, sd, (n, 3))))
+                               .astype(np.float32), device="cuda")
+    if kernel == "survey":
+        th = draws(1000, 0.2)
+        k = T.survey_fused(spec, obs, tf, y0, th, substeps=2)
+        plan = T._build_plan(spec, obs, tf, 2)
+        _held(case, [k], [T.survey_plain(spec, plan, y0, th.t().contiguous())])
+        return
+    kw = dict(nits=24, burnin=4, substeps=2)
+    if kernel == "mh":
+        th0 = draws(256, 0.03)
+
+        def run():
+            return T.metropolis_hastings_fused(spec, obs, tf, y0, th0, 11,
+                                               **kw)
+    elif kernel == "ensemble":
+        th0 = draws(512, 0.03)
+
+        def run():
+            return T.ensemble_fused(spec, obs, tf, y0, th0, 11,
+                                    tile_chains=256, **kw)
+    elif kernel == "pt":
+        th0 = draws(256, 0.03)
+
+        def run():
+            return TP.parallel_tempering_fused(
+                spec, obs, tf, y0, th0, 11, temperatures=(1.0, 2.0, 4.0),
+                **kw)[0]
+    else:
+        th0 = draws(128, 0.03)
+        lspec, lobs, ltf, ly0, _ = _scoring_inputs(("lognormal", (), False))
+        if case[0] == "poisson":          # the same (scaled) data, exact
+            lobs, ltf, ly0 = obs._replace(censor=None), tf, y0
+
+        def run():
+            return TJ.joint_metropolis_hastings_fused(
+                (spec, lspec), ((0, 1, 2), (0, 1, 2)), (obs, lobs),
+                (tf, ltf), (y0, ly0), th0, 11, nits=24, burnin=4,
+                substeps_list=[2, 2])
+    n0 = sum(T.LAUNCHES.values())
+    k = run()
+    assert sum(T.LAUNCHES.values()) == n0 + 1
+    with plain_launchers():
+        t = run()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k.acceptance_ratio.cpu().numpy(),
+                                  t.acceptance_ratio.cpu().numpy())
+    _held(case, [k.theta, k.chi], [t.theta, t.chi])
+    assert np.isfinite(k.chi.cpu().numpy()).all()
+    assert 0 < float(k.acceptance_ratio[:, -1].mean()) < 1
+
+
+@pytest.mark.parametrize("case", [("student_t", ("left",), True),
+                                  ("poisson", (), False),
+                                  ("negbinom", (), True)],
+                         ids=["student_t-censored-dosed", "poisson",
+                              "negbinom-dosed"])
+def test_pf_kernel_scoring_branches_match_twin(case):
+    """The particle filter on the GBM with the family's terms through
+    ``contrib``, a left-censored point and a dose after the block at
+    t = 2 (the particles take it after resampling)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from odelib_tpu_torch.ops import cuda_pf as TF
+    fam, censor, dosed = case
+    spec, obs, tf, y0 = _gbm_inputs()
+    if fam != "student_t":       # counts: 50 N from N0 = 100
+        ab = np.round(50.0 * obs.abundance)
+        obs = obs._replace(log_abundance=np.log(ab), abundance=ab)
+        y0 = 50.0 * y0
+    if censor:
+        obs = obs._replace(censor=np.array([0, 0, 1, 0, 0, 0, 1, 0],
+                                           np.int32))
+    spec = dataclasses.replace(
+        spec, obs_model=fam, obs_param={"student_t": 4.0, "poisson": 0.0,
+                                        "negbinom": 10.0}[fam],
+        dose_events=((2.0, 0, 1.5 if fam == "student_t" else 75.0),)
+        if dosed else None)
+    th0 = torch.as_tensor(np.exp(np.random.default_rng(1).normal(
+        np.log(0.4), 0.3, (202, 1))).astype(np.float32), device="cuda")
+    k = TF.pmmh_fused(spec, obs, tf, y0, th0, 3, nits=6, burnin=2,
+                      rwalk_std=0.3, n_particles=128, substeps=5)
+    plan = T._build_plan(spec, obs, tf, 5)
+    tw = TF.pmmh_plain(spec, plan, y0, th0.t().contiguous(), 3, K=128,
+                       nits=6, burnin=2, walk=(1.0,), walked=(True,),
+                       rwalk_std=0.3)
+    torch.cuda.synchronize()
+    _held(case, [k.theta.permute(1, 2, 0), k.chi.t(),
+                 k.acceptance_ratio.t()], tw)
+    assert np.isfinite(k.chi.cpu().numpy()).all()
+
+
+def test_tobit_device_functions_against_float64(card):
+    """log Phi within 2e-6 relative of float64 over z in [-37, 8]; the
+    t log-CDF within 1e-5 for nu in {1, 2, 4, 10, 30, 100}, z in
+    [-50, 50], where the float64 value is a normal float32 (the probe
+    kernel odelib_tobit)."""
+    import scipy.special as sp
+    import scipy.stats as ss
+    from odelib_tpu_torch.ops import build
+    lib = build.load_kernels(card[0])
+
+    def probe(z, which, tc=None):
+        zt = torch.as_tensor(z, device="cuda")
+        out = torch.empty_like(zt)
+        tc = tc or T.t_constants(1.0)
+        build.check(lib, lib.odelib_tobit(
+            zt.data_ptr(), zt.numel(), which, tc["nu"], tc["a"],
+            tc["thresh"], tc["ka"], tc["kb"], out.data_ptr(),
+            build.stream(zt.device)), "tobit")
+        return out.cpu().numpy().astype(np.float64)
+    z = np.linspace(-37.0, 8.0, 20001).astype(np.float32)
+    np.testing.assert_allclose(probe(z, 0), sp.log_ndtr(z.astype(float)),
+                               rtol=2e-6, atol=0)
+    z = np.linspace(-50.0, 50.0, 20001).astype(np.float32)
+    for nu in (1.0, 2.0, 4.0, 10.0, 30.0, 100.0):
+        want = ss.t.logcdf(z.astype(float), nu)
+        got = probe(z, 1, T.t_constants(nu))
+        normal = np.abs(want) >= np.finfo(np.float32).tiny
+        np.testing.assert_allclose(got[normal], want[normal], rtol=1e-5)
