@@ -3,7 +3,8 @@ the grid point nearest its time, so reported values are pre-dose troughs.
 The port's integrators against the closed form and ``odelib_tpu``'s, the
 spec's normalisation and the compact grid, and dosed pk_oral through the
 survey twin and the MH, ensemble, PT, joint and PMMH twins against the JAX
-kernels in interpret mode (the same accept sequences)."""
+kernels in interpret mode (the same accept sequences; PMMH on pk_oral with
+a diffusion and on the GBM)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +19,12 @@ from odelib_tpu.model import integrate_theta as j_integrate
 from odelib_tpu.model import make_spec as j_make_spec
 from odelib_tpu.ops import pallas_joint as JJ
 from odelib_tpu.ops import pallas_mh as J
+from odelib_tpu.ops import pallas_pf as JF
 from odelib_tpu_torch.data import compact_observation_grid
 from odelib_tpu_torch.model import dose_matrix, integrate_theta, make_spec
 from odelib_tpu_torch.ops import cuda_joint as TJ
 from odelib_tpu_torch.ops import cuda_mh as T
+from odelib_tpu_torch.ops import cuda_pf as TF
 from odelib_tpu_torch.rhs import adapt_rhs
 
 from test_torch_obs_models import (assert_same_chains, assert_same_filters,
@@ -180,6 +183,30 @@ def test_joint_twin_on_dosed_pk_oral():
     got = TJ.joint_metropolis_hastings_fused(
         (tspec, tspec), *args, torch.as_tensor(th0), 4, **kw)
     assert_same_chains(got, ref)
+
+
+def _pk_noise(t, y, ps):
+    return jnp.stack([0.1 * y[0], 0.1 * y[1]])
+
+
+def test_pmmh_twin_on_dosed_pk_oral():
+    """pk_oral as an SDE (10 % multiplicative noise on both states) under
+    its six doses: the particles take each dose after their block; the
+    JAX kernel's accept sequences (128 chains, 16 particles, 4 Euler
+    steps an interval)."""
+    tspec, obs, tf, y0 = pk_case(censored=False)
+    jspec = j_make_spec(jmodels.pk_oral.rhs, tspec.pnames, tspec.snames,
+                        dose_events=tspec.dose_events, diffusion=_pk_noise)
+    tspec = make_spec(tspec.rhs, tspec.pnames, tspec.snames,
+                      dose_events=tspec.dose_events,
+                      diffusion=adapt_rhs(_pk_noise))
+    th0 = draws(PK_CENTRE, 128, 0.05)
+    kw = dict(nits=7, burnin=3, rwalk_std=0.1, n_particles=16, substeps=4)
+    ref = JF.pmmh_fused(jspec, obs, tf, y0.astype(np.float32), th0, seed=3,
+                        interpret=True, **kw)
+    got = TF.pmmh_fused(tspec, obs, tf, y0, torch.as_tensor(th0), 3, **kw)
+    assert np.isfinite(got.chi.numpy()).all()
+    assert_same_filters(got, ref)
 
 
 def test_pmmh_twin_with_a_dose():
