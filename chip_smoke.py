@@ -18,7 +18,7 @@ Phases, each failing the script if it fails:
    ensembles of 1024) x 200 iterations, in one launch of as many blocks as
    can be co-resident and again on 7 blocks of 32 threads, so each thread
    loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
-   1024 chains x 100 iterations, and with 3 (an idle lane in each chain's
+   1024 chains x 200 iterations, and with 3 (an idle lane in each chain's
    group of 4) and 8 rungs on 1000 chains x 60 (identical accept
    sequences and swap counts),
    the joint kernel on the heterogeneous pair zero_i + one_i, 256
@@ -29,9 +29,9 @@ Phases, each failing the script if it fails:
    in shared memory, so both kernels read their tables from global
    memory, and with in-kernel priors: four assignments over zero_i's
    slots that together cover the ten in-kernel families (``prior_sets``),
-   each through MH (1024 chains x 25), the ensemble (2048 walkers x 20),
-   PT (1024 chains x 4 rungs x 25) and the joint pair zero_i + one_i (256
-   chains x 25), from start points around the fit (all bitwise records);
+   each through MH (1024 chains x 50), the ensemble (2048 walkers x 20),
+   PT (1024 chains x 4 rungs x 50) and the joint pair zero_i + one_i (256
+   chains x 50), from start points around the fit (all bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after (each launching survey_fused and its chain kernel's wrapper
    once; Python's garbage collections per stage, and for MH the chains
@@ -121,7 +121,11 @@ Phases, each failing the script if it fails:
    (d) JointFit of zero_i (Poisson) and one_i (lognormal, censored), (e)
    sampler='pmmh' on the GBM with Student-t and a dose: the reference's
    posterior columns, finite chi, acceptance in (0, 1), the path's kernel
-   launched once; (4) paths (a)-(c)'s wrapper calls against the demo
+   launched once; (4) each of those paths' wrapper calls, captured where
+   the path made it (all chains), through its kernel and through its twin
+   for 20 proposals (PMMH: 10 of them adapting): equal accept sequences,
+   every record bitwise (the Tobit paths (a), (b) and (d) within 1e-6
+   relative); (5) paths (a)-(c)'s wrapper calls against the demo
    paths' (CUDA events around the call) and each kernel's time on each
    scoring branch at the main paths' shapes beside the demo's;
 5. times: each kernel against its plain torch twin on the card at the main
@@ -401,12 +405,13 @@ def recording(module, name, store):
         setattr(module, name, real)
 
 
-def kernel_vs_twin_at(label, wrapper, call, nits):
+def kernel_vs_twin_at(label, wrapper, call, nits, tobit=False):
     """A main path's captured wrapper call, cut to ``nits`` iterations
     without burn-in, through its kernel (one launch) and through its twin
-    (``plain_launchers``, no launch): identical accept sequences,
-    every record and PT's swap rates bitwise. Returns chi's max abs error
-    and the kernel's output."""
+    (``plain_launchers``, no launch): identical accept sequences, every
+    record (with ``tobit``, censored data: within rtol 1e-6, ``held``) and
+    PT's swap rates bitwise. Returns chi's max abs error and the kernel's
+    output."""
     import torch
     from odelib_tpu_torch.ops import cuda_mh, plain_launchers
     kw = {**call["kw"], "nits": nits, "burnin": 0}
@@ -424,12 +429,50 @@ def kernel_vs_twin_at(label, wrapper, call, nits):
         (r, None) if hasattr(r, "_fields") else r for r in (res_k, res_t))
     names = [f for f in out_k._fields if f != "iteration"]
     labels = tuple("ar" if f == "acceptance_ratio" else f for f in names)
-    err = compare_records(label, *([getattr(o, f).movedim(0, -1)
-                                    for f in names] for o in (out_k, out_t)),
-                          nits, labels=labels)
+    err = held(label, tobit, *([getattr(o, f).movedim(0, -1)
+                                for f in names] for o in (out_k, out_t)),
+               nits, labels)
     if rate_k is not None and not torch.equal(rate_k, rate_t):
         fail(f"{label}: kernel and twin swap counts differ")
     return err, out_k
+
+
+def pmmh_twin_kw(kw):
+    """``pmmh_plain``'s keywords for a captured ``pmmh_fused`` call's."""
+    from odelib_tpu_torch.ops.priors import prior_table
+    walk = tuple(float(w) for w in kw["walk_mask"])
+    return dict(K=kw["n_particles"], walk=walk,
+                walked=tuple(w != 0.0 for w in walk),
+                rwalk_std=kw["rwalk_std"], prior=prior_table(kw["priors"]),
+                adapt=kw["adapt_proposal"], target=kw["target_accept"],
+                adapt_rate=kw["adapt_rate"])
+
+
+def pmmh_vs_twin(label, call, nits, burnin):
+    """A PMMH path's captured ``pmmh_fused`` call, cut to ``nits``
+    iterations (``burnin`` of them adapting), through the kernel (one
+    launch) and through ``pmmh_plain``: every record bitwise. Returns
+    chi's max abs error and the kernel's output."""
+    import torch
+    from odelib_tpu_torch.ops import cuda_mh, cuda_pf
+    spec, obs, tf, y0, th0 = call["args"]
+    kw = call["kw"]
+    n0 = sum(cuda_mh.LAUNCHES.values())
+    out = cuda_pf.pmmh_fused(*call["args"],
+                             **{**kw, "nits": nits, "burnin": burnin})
+    torch.cuda.synchronize()
+    if sum(cuda_mh.LAUNCHES.values()) != n0 + 1:
+        fail(f"{label}: the kernel run did not launch one kernel")
+    plan = cuda_mh._build_plan(spec, obs, tf, cuda_mh._normalize_substeps(
+        kw["substeps"], len(tf) - 1))
+    rec_t = cuda_pf.pmmh_plain(spec, plan, y0, th0.t().contiguous(),
+                               kw["seed"], nits=nits, burnin=burnin,
+                               **pmmh_twin_kw(kw))
+    torch.cuda.synchronize()
+    err = compare_records(label, [out.theta.permute(1, 2, 0), out.chi.t(),
+                                  out.acceptance_ratio.t()], rec_t, nits,
+                          labels=("theta", "chi", "ar"), burnin=burnin)
+    return err, out
 
 
 # csrc/mh.cu's speculation trees: per tree and node, the node after a
@@ -705,118 +748,21 @@ def chunk_phases(calls, framework, chains, nits):
 
 # -- the scorer's branches: every observation model, censoring and doses ----
 
-# (observation model, censoring, dosed): each compiled branch beside the
-# demo's (lognormal, exact, undosed); the count models take no censoring in
-# the kernels (tests/test_torch_scoring.py SCORING)
-SCORING = (("lognormal", ("left", "right"), False),
-           ("lognormal", (), True),
-           ("lognormal", ("left", "right"), True),
-           ("student_t", (), False),
-           ("student_t", ("left", "right"), False),
-           ("student_t", (), True),
-           ("student_t", ("left", "right"), True),
-           ("poisson", (), False), ("poisson", (), True),
-           ("negbinom", (), False), ("negbinom", (), True))
-FAMILY_PARAM = {"lognormal": None, "student_t": 4.0, "poisson": None,
-                "negbinom": 10.0}
-# Poisson counts: the demo's / 1e5 (15 to 3,000); at the demo's 1e7 a
-# Poisson chi of ~-1e9 has float32 steps of ~100 nats
-POISSON_SCALE = 1e5
-LOD_HOST, ULOQ_VIRUS = 1.5e6, 2.5e8
-ZERO_I_DOSE = (1.0, "V", 2.0e7)     # a virus inoculum at t = 1
-PK_DOSES = tuple((12.0 * i, "A_gut", 100.0) for i in range(6))
 # the particle filter's branches, on the PMMH path's GBM (counts are 50 N);
 # the first is path (e)'s, whose library it shares
 PF_SCORING = (("student_t", (), True), ("lognormal", ("left",), False),
               ("poisson", (), False), ("negbinom", (), True))
 
 
-def scoring_label(case):
-    fam, censor, dosed = case
-    return "+".join([fam] + (["censored"] if censor else [])
-                    + (["dosed"] if dosed else []))
-
-
-def demo_frame(fam="lognormal", censor=(), scale=1.0, host="S"):
-    """The demo data as ``fam`` sees it: counts (divided by ``scale``,
-    rounded) for the count models; 'left' censors host points below 1.5e6
-    at that limit, 'right' virus points above 2.5e8."""
-    import numpy as np
-    from odelib_tpu_torch.data import load_demo_dataframe
-    df = load_demo_dataframe(host=host, virus="V")
-    if fam in ("poisson", "negbinom"):
-        df["abundance"] = np.round(df["abundance"] / scale)
-    if censor:
-        labels = np.full(len(df), "", object)
-        for side, org, hit in (
-                ("left", host, lambda a: a < LOD_HOST),
-                ("right", "V", lambda a: a > ULOQ_VIRUS)):
-            if side in censor:
-                m = (df["organism"] == org) & hit(df["abundance"])
-                df.loc[m, "abundance"] = (LOD_HOST if side == "left"
-                                          else ULOQ_VIRUS)
-                labels[m.to_numpy()] = side
-        df["censored"] = labels
-    return df
-
-
-def scoring_inputs(case, t_steps=288):
+def scoring_inputs(case):
     """zero_i on the demo data as ``case`` scores it (counts and the dose
     divided by the Poisson scale): (spec, host obs on the compact grid,
     the grid, y0, the fit's centre)."""
     import numpy as np
-    from odelib_tpu_torch.data import (build_obsdata_host,
-                                       compact_observation_grid,
-                                       format_dataframe)
-    from odelib_tpu_torch.model import make_spec
-    from odelib_tpu_torch.models import zero_i
-    from odelib_tpu_torch.rhs import adapt_rhs
-    fam, censor, dosed = case
-    scale = POISSON_SCALE if fam == "poisson" else 1.0
-    spec = make_spec(adapt_rhs(zero_i.rhs, "jax"), zero_i.pnames,
-                     zero_i.snames, obs_model=fam,
-                     obs_param=FAMILY_PARAM[fam],
-                     dose_events=((ZERO_I_DOSE[0], ZERO_I_DOSE[1],
-                                   ZERO_I_DOSE[2] / scale),)
-                     if dosed else None)
-    df = format_dataframe(demo_frame(fam, censor, scale), zero_i.snames)
-    times = np.linspace(0, df["time"].max(), t_steps)
-    obs, _ = build_obsdata_host(df, times, spec.post_snames)
-    tf, obs = compact_observation_grid(
-        obs, times, extra_times=[t for t, _, _ in spec.dose_events or ()])
-    y0 = np.array([df.loc["S"].iloc[0]["abundance"],
-                   df.loc["V"].iloc[0]["abundance"]])
-    return spec, obs, tf, y0, np.array([0.6, 2.4e-8 * scale, 24.0])
-
-
-def pk_frame(seed=0):
-    """pk_oral (ka 1.2, ke 0.25, V 30) under six 100-unit doses into A_gut
-    every 12 h: concentrations every 2 h to 72 h with log-normal noise of
-    sd 0.2 (numpy ``seed``); the points under the LLOQ, the 20th
-    percentile, recorded at it and left-censored (7 of 36)."""
-    import numpy as np
-    import pandas as pd
-    from scipy.integrate import solve_ivp
-    ka, ke, V = 1.2, 0.25, 30.0
-
-    def f(t, u):
-        return [-ka * u[0], ka * u[0] / V - ke * u[1]]
-    t_obs = np.arange(2.0, 73.0, 2.0)
-    y, conc = np.array([0.0, 0.0]), []
-    for k in range(6):
-        y = y + [100.0, 0.0]
-        t1 = 12.0 * (k + 1) if k < 5 else 72.0
-        seg = t_obs[(t_obs > 12.0 * k) & (t_obs <= t1)]
-        sol = solve_ivp(f, (12.0 * k, t1), y, t_eval=np.r_[seg, t1]
-                        if seg[-1] < t1 else seg, rtol=1e-10, atol=1e-12)
-        conc.extend(sol.y[1][:len(seg)])
-        y = sol.y[:, -1]
-    ab = np.asarray(conc) * np.exp(
-        0.2 * np.random.default_rng(seed).normal(size=len(t_obs)))
-    lloq = float(np.quantile(ab, 0.2))
-    return pd.DataFrame({"organism": "C", "time": t_obs,
-                         "abundance": np.maximum(ab, lloq),
-                         "log_sigma": 0.2, "censored": ab < lloq})
+    from scoring_cases import COUNT_SCALE, zero_i_case
+    scale = COUNT_SCALE.get(case[0], 1.0)
+    return (*zero_i_case(*case, scale=scale),
+            np.array([0.6, 2.4e-8 * scale, 24.0]))
 
 
 def pf_variant(case, spec, obs, y0):
@@ -825,6 +771,7 @@ def pf_variant(case, spec, obs, y0):
     observations left-censored, a dose after the block at t = 2."""
     import dataclasses
     import numpy as np
+    from scoring_cases import FAMILIES
     fam, censor, dosed = case
     if fam in ("poisson", "negbinom"):
         ab = np.round(50.0 * np.asarray(obs.abundance))
@@ -836,7 +783,7 @@ def pf_variant(case, spec, obs, y0):
         obs = obs._replace(censor=cen)
     spec = dataclasses.replace(
         spec, obs_model=fam,
-        obs_param=float(FAMILY_PARAM[fam] or 0.0),
+        obs_param=float(FAMILIES[fam] or 0.0),
         dose_events=((2.0, 0, 75.0 if fam in ("poisson", "negbinom")
                       else 1.5),) if dosed else None)
     return spec, obs, np.asarray(y0, float)
@@ -846,6 +793,7 @@ def scoring_builds(pf_fw):
     """load_kernels arguments of the libraries of each zero_i branch and
     of the particle filter's branches on the PMMH path's framework."""
     from odelib_tpu_torch.ops import cuda_mh
+    from scoring_cases import SCORING
     out = []
     for case in SCORING:
         spec, obs, tf, _, _ = scoring_inputs(case)
@@ -869,13 +817,14 @@ def _gnoise(y, t, ps):
     return np.array([SIG * y[0]])
 
 
-def held(name, case, rec_k, rec_t, nits, labels, burnin=0):
+def held(name, tobit, rec_k, rec_t, nits, labels, burnin=0):
     """Kernel against twin records (chain-minor, from iteration burnin +
-    1): the accept sequences equal; bitwise (compare_records), but for a
-    Tobit case (double erfc/erfcx/log1p of two libraries, rounded to
-    float32 once) within rtol 1e-6. Returns chi's max abs error."""
+    1): the accept sequences equal; bitwise (compare_records), but with
+    ``tobit`` (censored data: double erfc/erfcx/log1p of two libraries,
+    rounded to float32 once) within rtol 1e-6. Returns chi's max abs
+    error."""
     import numpy as np
-    if not case[1]:
+    if not tobit:
         return compare_records(name, rec_k, rec_t, nits, labels=labels,
                                burnin=burnin)
     rec_k = [r.cpu().numpy() for r in rec_k]
@@ -908,6 +857,8 @@ def slice_paths(framework, device="cuda"):
     import scipy.stats
     from odelib_tpu_torch import ModelFramework, parameter
     from odelib_tpu_torch.models import one_i, pk_oral, zero_i
+    from scoring_cases import COUNT_SCALE, PK_DOSES, demo_frame, pk_frame
+    scale = COUNT_SCALE["poisson"]
     t_obs, log_o = gbm_data()
     hdf = demo_frame("lognormal", ("left",), host="H")
     h0 = float(hdf[(hdf["organism"] == "H") & (hdf["time"] == 0)]
@@ -920,10 +871,10 @@ def slice_paths(framework, device="cuda"):
         "c": framework(demo_frame("negbinom"), obs_model="negbinom",
                        obs_param=10.0),
         "d": (zero_i.framework(
-            demo_frame("poisson", scale=POISSON_SCALE),
+            demo_frame("poisson", scale=scale),
             obs_model="poisson", t_steps=288, device=device,
             phi=parameter(scipy.stats.lognorm,
-                          {"s": 3, "scale": 1e-8 * POISSON_SCALE},
+                          {"s": 3, "scale": 1e-8 * scale},
                           random_seed=2)),
             one_i.framework(hdf, t_steps=288, device=device, S=h0)),
         "e": ModelFramework(
@@ -938,13 +889,16 @@ def slice_paths(framework, device="cuda"):
             dose_events=[(2.0, "N", 1.5)], device=device)}
 
 
+def fw_scoring(fw):
+    """The scoring (``cuda_mh.scoring``) of a framework's plan."""
+    from odelib_tpu_torch.ops import cuda_mh
+    return cuda_mh.scoring(cuda_mh._build_plan(
+        fw._spec, fw._obsdata_fit_host, fw._times_fit, 1))
+
+
 def path_builds(paths):
     """load_kernels arguments of the libraries paths (a)-(e) load."""
-    from odelib_tpu_torch.ops import cuda_mh
-
-    def sc(fw):
-        return cuda_mh.scoring(cuda_mh._build_plan(
-            fw._spec, fw._obsdata_fit_host, fw._times_fit, 1))
+    sc = fw_scoring
     pois, cens = paths["d"]
     return [(paths[k]._spec, (), False, [sc(paths[k])]) for k in "abc"] + [
         (pois._spec, (cens._spec,), False, [sc(pois), sc(cens)]),
@@ -965,12 +919,14 @@ def scoring_phases(paths, calls, pf_call):
     from odelib_tpu_torch.models import pk_oral, zero_i
     from odelib_tpu_torch.ops import (build, cuda_joint, cuda_mh, cuda_pf,
                                       cuda_pt, plain_launchers)
-    from odelib_tpu_torch.ops.priors import prior_table
+    from scoring_cases import SCORING, scoring_id
     dev = torch.device("cuda")
     errs = dict.fromkeys(cuda_mh.LAUNCHES, 0.0)
 
     phase("scoring (1): the Tobit device functions against float64")
-    lib = build.load_kernels(scoring_inputs(SCORING[0])[0])
+    spec, obs, tf, _, _ = scoring_inputs(SCORING[0])
+    lib = build.load_kernels(spec, scoring=[cuda_mh.scoring(
+        cuda_mh._build_plan(spec, obs, tf, 1))])
 
     def probe(z, which, tc):
         zt = torch.as_tensor(z, device=dev)
@@ -1005,7 +961,7 @@ def scoring_phases(paths, calls, pf_call):
     phase("scoring (2): each kernel vs its twin on each scoring branch")
     rng = np.random.default_rng(0)
     for case in SCORING:
-        label = scoring_label(case)
+        label = scoring_id(case)
         spec, obs, tf, y0, centre = scoring_inputs(case)
 
         def draws(n, sd):
@@ -1057,7 +1013,7 @@ def scoring_phases(paths, calls, pf_call):
             if not np.isfinite(ok_.chi.cpu().numpy()).all() or acc <= 0.0:
                 fail(f"{label} {name}: non-finite chi or no accept ({acc})")
             errs[name] = max(errs[name], held(
-                f"{label} {name}", case,
+                f"{label} {name}", bool(case[1]),
                 [ok_.theta.movedim(0, -1), ok_.chi.t(),
                  ok_.acceptance_ratio.t()],
                 [ot_.theta.movedim(0, -1), ot_.chi.t(),
@@ -1065,7 +1021,7 @@ def scoring_phases(paths, calls, pf_call):
     pspec, pobs, ptf, py0, pth0 = pf_call["args"]
     pkw = pf_call["kw"]
     for case in PF_SCORING:
-        label = scoring_label(case)
+        label = scoring_id(case)
         spec, obs, y0 = pf_variant(case, pspec, pobs, py0)
         th0 = pth0[:512].contiguous()
         kw = dict(nits=6, burnin=2, rwalk_std=0.4, n_particles=PF_K,
@@ -1084,7 +1040,7 @@ def scoring_phases(paths, calls, pf_call):
             fail(f"{label} pmmh_fused: non-finite chi")
         errs["pmmh_fused"] = max(errs["pmmh_fused"], held(
             f"{label} pmmh_fused (GBM, {th0.shape[0]} chains x {PF_K})",
-            case, [out.theta.permute(1, 2, 0), out.chi.t(),
+            bool(case[1]), [out.theta.permute(1, 2, 0), out.chi.t(),
                    out.acceptance_ratio.t()], rec_t, 6,
             ("theta", "chi", "ar"), burnin=2))
 
@@ -1148,19 +1104,47 @@ def scoring_phases(paths, calls, pf_call):
               zero_i.pnames, 12288, chain_inits=12288,
               fitsurvey_samples=1000, sd_fitdistance=6.0,
               sampler="ensemble")
-    drive("(d) JointFit({'a': zero_i poisson (counts / 1e5), 'b': one_i "
-          "lognormal, host left-censored}, shared=['mu', 'beta']).MCMC()",
-          JointFit(dict(zip("ab", paths["d"])), shared=["mu", "beta"],
-                   random_seed=0), "joint_metropolis_hastings_fused", (),
-          CHAINS, survey=False, chain_inits=CHAINS, fitsurvey_samples=1000)
-    drive("(e) MCMC(sampler='pmmh') on the GBM SDE, student_t nu = 4, a "
-          "dose of 1.5 at t = 2", paths["e"], "pmmh_fused", ["mu"],
-          PF_CHAINS, survey=False, nits=PF_NITS, sampler="pmmh",
-          chain_inits=PF_CHAINS, fitsurvey_samples=1000, n_particles=PF_K,
-          sde_substeps=PF_SUB, rwalk_std=0.4, use_priors=True,
-          adapt_proposal=True, target_accept=0.3, adapt_rate=0.15)
+    with recording(cuda_joint, "joint_metropolis_hastings_fused",
+                   captured.setdefault("d", {})):
+        drive("(d) JointFit({'a': zero_i poisson (counts / 1e5), 'b': "
+              "one_i lognormal, host left-censored}, shared=['mu', "
+              "'beta']).MCMC()",
+              JointFit(dict(zip("ab", paths["d"])), shared=["mu", "beta"],
+                       random_seed=0), "joint_metropolis_hastings_fused",
+              (), CHAINS, survey=False, chain_inits=CHAINS,
+              fitsurvey_samples=1000)
+    with recording(cuda_pf, "pmmh_fused", captured.setdefault("e", {})):
+        drive("(e) MCMC(sampler='pmmh') on the GBM SDE, student_t nu = 4, "
+              "a dose of 1.5 at t = 2", paths["e"], "pmmh_fused", ["mu"],
+              PF_CHAINS, survey=False, nits=PF_NITS, sampler="pmmh",
+              chain_inits=PF_CHAINS, fitsurvey_samples=1000,
+              n_particles=PF_K, sde_substeps=PF_SUB, rwalk_std=0.4,
+              use_priors=True, adapt_proposal=True, target_accept=0.3,
+              adapt_rate=0.15)
 
-    phase("scoring (4): each kernel's time on each scoring branch at the "
+    phase("scoring (4): paths (a)-(e)'s kernels vs their twins at the "
+          "paths' own inputs (all chains)")
+    for key, wrapper, tobit, its in (
+            ("a", cuda_mh.metropolis_hastings_fused, True, 21),
+            ("b", cuda_pt.parallel_tempering_fused, True, 21),
+            ("c", cuda_mh.ensemble_fused, False, 21),
+            ("d", cuda_joint.joint_metropolis_hastings_fused, True, 21)):
+        call = captured[key]
+        err, out = kernel_vs_twin_at(f"path ({key}) {wrapper.__name__}",
+                                     wrapper, call, its, tobit=tobit)
+        errs[wrapper.__name__] = max(errs[wrapper.__name__], err)
+        print(f"path ({key}) {wrapper.__name__} at its own inputs: "
+              f"{out.chi.shape[0]} chains x {its - 1} iterations, seed "
+              f"{call['kw']['seed']}, mean acceptance "
+              f"{float(out.acceptance_ratio[:, -1].mean()):.4f}", flush=True)
+    err, out = pmmh_vs_twin("path (e) pmmh_fused", captured["e"], 21, 10)
+    errs["pmmh_fused"] = max(errs["pmmh_fused"], err)
+    print(f"path (e) pmmh_fused at its own inputs: {out.chi.shape[0]} "
+          f"chains x {captured['e']['kw']['n_particles']} particles x 20 "
+          f"proposals (10 adapting), mean acceptance "
+          f"{float(out.acceptance_ratio[:, -1].mean()):.4f}", flush=True)
+
+    phase("scoring (5): each kernel's time on each scoring branch at the "
           "main paths' shapes, and paths (a)-(c)'s wrapper calls against "
           "the demo's")
     for key, wrapper, demo in (
@@ -1209,15 +1193,10 @@ def scoring_phases(paths, calls, pf_call):
         base.setdefault("demo", ms)
         rel = " ".join(f"({100 * (m / b - 1):+.1f} %)"
                        for m, b in zip(ms, base["demo"]))
-        print(f"{scoring_label(case)} | " + " | ".join(
+        print(f"{scoring_id(case)} | " + " | ".join(
             f"{m:.4f}" for m in ms) + f" | vs demo {rel}", flush=True)
     pf_plan0 = cuda_mh._build_plan(pspec, pobs, ptf, pkw["substeps"])
-    pf_walk = tuple(float(w) for w in pkw["walk_mask"])
-    pf_run = dict(K=pkw["n_particles"], walk=pf_walk,
-                  walked=tuple(w != 0.0 for w in pf_walk),
-                  rwalk_std=pkw["rwalk_std"], prior=prior_table(pkw["priors"]),
-                  adapt=pkw["adapt_proposal"], target=pkw["target_accept"],
-                  adapt_rate=pkw["adapt_rate"])
+    pf_run = pmmh_twin_kw(pkw)
     pth_all = pth0.t().contiguous()
     for case in (("lognormal", (), False),) + PF_SCORING:
         spec, obs, y0 = pf_variant(case, pspec, pobs, py0)
@@ -1226,7 +1205,7 @@ def scoring_phases(paths, calls, pf_call):
         ms = events_ms(cuda_pf.pmmh_launcher(
             spec, plan, y0, pth_all, pkw["seed"], nits=PF_NITS,
             burnin=PF_NITS // 2, **pf_run))
-        print(f"pf_kernel {scoring_label(case)}: {ms:.3f} ms "
+        print(f"pf_kernel {scoring_id(case)}: {ms:.3f} ms "
               f"({PF_CHAINS} x {PF_K} particles x {PF_NITS})", flush=True)
     return errs
 
@@ -1273,6 +1252,7 @@ def main():
                                       cuda_pt, schedule)
     from odelib_tpu_torch.model import chi_of_theta
     from odelib_tpu_torch.ops.priors import prior_table
+    from scoring_cases import SCORING, scoring_id
     if "jax" in sys.modules:
         fail("jax was imported")
     import gc
@@ -1359,15 +1339,21 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     shutil.rmtree(build.BUILD_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
-    builds = ([(spec,), (spec, (spec1,)), (pf_spec, (), True)]
+    demo_sc = fw_scoring(fw)
+    builds = ([(spec, (), False, [demo_sc]),
+               (spec, (spec1,), False, [demo_sc, cuda_mh.scoring(
+                   cuda_mh._build_plan(spec1, obs1, tf1, 1))]),
+               (pf_spec, (), True, [fw_scoring(pf_fw0)])]
               + scoring_builds(pf_fw0) + path_builds(paths))
     with ThreadPoolExecutor(8) as ex:       # eight nvcc processes at once
-        libs = list(ex.map(lambda a: build.load_kernels(*a), builds))
+        libs = list(ex.map(lambda a: build.load_kernels(*a[:3],
+                                                        scoring=a[3]),
+                           builds))
     build_s = time.perf_counter() - t0
     logs = ""
     labels = (["zero_i", "zero_i + one_i (joint)", "GBM SDE"]
-              + [f"zero_i {scoring_label(c)}" for c in SCORING]
-              + [f"GBM SDE {scoring_label(c)}" for c in PF_SCORING]
+              + [f"zero_i {scoring_id(c)}" for c in SCORING]
+              + [f"GBM SDE {scoring_id(c)}" for c in PF_SCORING]
               + [f"path ({k})" for k in "abcde"])
     for label, lib in zip(labels, libs):
         log = open(os.path.join(os.path.dirname(lib._name),
@@ -1454,7 +1440,7 @@ def main():
     # block of 128 threads is part empty; the twin's time grows with the
     # rungs, so these two take fewer iterations
     for temps, n_c, n_it in (
-            (TEMPS, C, 100), ((1.0, 2.0, 4.0), 1000, 60),
+            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
             (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
@@ -1561,7 +1547,7 @@ def main():
                              * np.exp(np.random.default_rng(10).normal(
                                  0, 0.05, (256, 5)))).astype(np.float32).T
                             .copy(), device=dev)
-    P_NITS = 25      # iterations a kernel: the twins are launch-bound
+    P_NITS = 50      # iterations a kernel: the twins are launch-bound
     pri_walk = (0.1,) * 3
     for label, pri in prior_sets().items():
         table = prior_table(pri)
@@ -2288,29 +2274,15 @@ def main():
     pf_plan = cuda_mh._build_plan(pspec, pobs, ptf,
                                   cuda_mh._normalize_substeps(
                                       pkw["substeps"], len(ptf) - 1))
-    pf_walk = tuple(float(w) for w in pkw["walk_mask"])
-    pf_run = dict(K=n_part, walk=pf_walk,
-                  walked=tuple(w != 0.0 for w in pf_walk),
-                  rwalk_std=pkw["rwalk_std"], prior=prior_table(pkw["priors"]),
-                  adapt=pkw["adapt_proposal"], target=pkw["target_accept"],
-                  adapt_rate=pkw["adapt_rate"])
+    pf_run = pmmh_twin_kw(pkw)
     pth_all = pth0.t().contiguous()
     p_nits, p_burn = 21, 10
-    pout = cuda_pf.pmmh_fused(*pf_in["args"],
-                              **{**pkw, "nits": p_nits, "burnin": p_burn})
-    torch.cuda.synchronize()
-    rec_k = [pout.theta.permute(1, 2, 0), pout.chi.t(),
-             pout.acceptance_ratio.t()]
-    rec_t = cuda_pf.pmmh_plain(pspec, pf_plan, py0, pth_all, pseed,
-                               nits=p_nits, burnin=p_burn, **pf_run)
-    torch.cuda.synchronize()
-    pf_err = compare_records("PMMH (main path's inputs)", rec_k, rec_t,
-                             p_nits, labels=("theta", "chi", "ar"),
-                             burnin=p_burn)
+    pf_err, pout = pmmh_vs_twin("PMMH (main path's inputs)", pf_in, p_nits,
+                                p_burn)
     print(f"PMMH at the main path's inputs: pmmh_fused on all "
           f"{pth_all.shape[1]} chains x {n_part} particles x {p_nits - 1} "
           f"proposals ({p_burn} adapting), seed {pseed}, mean acceptance "
-          f"{float(rec_k[2][-1].mean()):.4f}", flush=True)
+          f"{float(pout.acceptance_ratio[:, -1].mean()):.4f}", flush=True)
     if (pth_all.shape[1], n_part) != (PF_CHAINS, PF_K):
         fail(f"PMMH main path ran {pth_all.shape[1]} chains x {n_part} "
              f"particles, not {PF_CHAINS} x {PF_K}")

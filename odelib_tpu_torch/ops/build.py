@@ -95,15 +95,6 @@ def stepper_source(n_states: int, size: str = "ODE_S") -> str:
 
 # the observation models as the scorer numbers them (csrc/common.cuh)
 OBS_FAMILY = {"lognormal": 0, "student_t": 1, "poisson": 2, "negbinom": 3}
-PLAIN_SCORING = ("lognormal", 0.0, False, False)
-
-
-def spec_scoring(spec):
-    """The scoring of ``spec``'s model without a plan: its observation
-    model, nothing censored, dosed if it has dose events (the launchers
-    pass their plan's, ``cuda_mh.scoring``)."""
-    return (spec.obs_model, float(spec.obs_param), False,
-            bool(spec.dose_events))
 
 
 def obs_source(i: int, scoring) -> str:
@@ -155,14 +146,15 @@ def _model_source(i: int, program, scoring) -> str:
            f"{ns}::{call}; }}" for sig, call in fwd] + ["};", ""])
 
 
-def generated_header(program, diffusion=None, extra=(), scoring=()) -> str:
+def generated_header(program, diffusion, extra, scoring) -> str:
     """``odelib_gen.cuh`` for a traced RHS program; with the traced
-    ``diffusion`` of an SDE model, with the ``extra`` programs of a joint
-    fit's other models, and with each model's ``scoring`` (a tuple per
-    model, :data:`PLAIN_SCORING` where missing)."""
+    ``diffusion`` of an SDE model (or None), with the ``extra`` programs
+    of a joint fit's other models, and with each model's ``scoring`` (one
+    ``cuda_mh.scoring`` tuple per model)."""
     import math
-    scoring = tuple(scoring) + (PLAIN_SCORING,) * (1 + len(extra)
-                                                  - len(scoring))
+    if len(scoring) != 1 + len(extra):
+        raise ValueError(f"{len(scoring)} scorings for {1 + len(extra)} "
+                         "models")
     parts = ["// generated by odelib_tpu_torch/ops/build.py; do not edit",
              "#pragma once",
              f"#define ODELIB_TWO_PI {_f32_literal(2.0 * math.pi)}",
@@ -192,7 +184,7 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(program, diffusion=None, extra=(), scoring=()) -> Path:
+def build(program, diffusion, extra, scoring) -> Path:
     """Compile the kernels for ``program`` (with an SDE's ``diffusion``, a
     joint fit's ``extra`` programs and each model's ``scoring``; cached by
     content hash); returns the shared library's path. The compiler's
@@ -231,16 +223,15 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 
 
-def distinct_programs(specs, scoring=None):
+def distinct_programs(specs, scoring):
     """The traced RHS programs of ``specs`` without repeats (two specs
-    whose RHS emits the same device code, and with the same ``scoring``
-    where given, one per spec, share one), and each spec's index into
-    them: the model of each experiment of a joint fit."""
+    whose RHS emits the same device code and have the same ``scoring``,
+    one per spec, share one), and each spec's index into them: the model
+    of each experiment of a joint fit."""
     programs, index, model_of = [], {}, []
     for k, sp in enumerate(specs):
         prog = trace_rhs(sp.rhs, len(sp.snames), sp.theta_size)
-        text = (prog.cuda_function("rhs"),
-                None if scoring is None else scoring[k])
+        text = (prog.cuda_function("rhs"), tuple(scoring[k]))
         if text not in index:
             index[text] = len(programs)
             programs.append(prog)
@@ -248,17 +239,16 @@ def distinct_programs(specs, scoring=None):
     return programs, model_of
 
 
-def load_kernels(spec, others=(), diffusion=False, scoring=None):
+def load_kernels(spec, others=(), diffusion=False, *, scoring):
     """The loaded kernel library for ``spec``'s RHS, with the models of
     ``others`` compiled in for the joint kernel (build at first use), each
-    model scored as its entry of ``scoring`` says (default
-    :func:`spec_scoring`). With ``diffusion`` it holds an SDE model's
+    model scored as its entry of ``scoring`` says (one ``cuda_mh.scoring``
+    of its plan per model). With ``diffusion`` it holds an SDE model's
     traced diffusion too, which only the particle filter reads; every
     other kernel integrates the drift, so the drift of an SDE model shares
     the library of the same ODE."""
     specs = (spec, *others)
-    scoring = tuple(spec_scoring(sp) for sp in specs) if scoring is None \
-        else tuple(tuple(k) for k in scoring)
+    scoring = tuple(tuple(k) for k in scoring)
     programs, model_of = distinct_programs(specs, scoring)
     keys = tuple(scoring[model_of.index(i)] for i in range(len(programs)))
     diffusion = None if not diffusion or spec.diffusion is None else \

@@ -23,9 +23,9 @@ from odelib_tpu_torch import data as tdata
 from odelib_tpu_torch.joint import JointFit
 from odelib_tpu_torch.ops import cuda_mh as T
 
-from test_torch_obs_models import (assert_same_chains, draws, fam_case,
-                                   run_mh, xla_survey)
-from test_torch_scoring import demo_frame
+from test_torch_obs_models import (THIN, assert_same_chains, draws,
+                                   fam_case, run_mh, xla_survey)
+from scoring_cases import demo_frame
 
 
 def test_parse_censor_column_matches_odelib_tpu():
@@ -170,9 +170,11 @@ def test_survey_twin_on_censored_data_matches_xla_survey(fam):
 def test_mh_twin_on_censored_student_t_matches_pallas_interpret():
     """Censored Student-t data: the JAX kernel's t log-CDF (40 Lentz steps
     in float32) and the port's (to convergence, in double) agree closely
-    enough that the accept sequences are equal."""
-    jspec, tspec, obs, tf, y0, centre = fam_case("student_t",
-                                                 ("left", "right"))
+    enough that the accept sequences are equal (the thinned demo: two
+    host points left-, one virus point right-censored)."""
+    jspec, tspec, obs, tf, y0, centre = fam_case(
+        "student_t", ("left", "right"), thin=THIN)
+    assert set(np.asarray(obs.censor)) == {0, 1, 2}
     got, ref = run_mh(jspec, tspec, obs, tf, y0, draws(centre, 128, 0.03),
                       nits=16, burnin=6, substeps=1)
     assert_same_chains(got, ref)

@@ -22,7 +22,7 @@ from odelib_tpu_torch.ops import cuda_pt as TP
 from odelib_tpu_torch.ops.priors import prior_table
 from odelib_tpu_torch.rhs import RhsTraceError, adapt_rhs
 
-from test_torch_scoring import SCORING, scoring_id
+from scoring_cases import SCORING, scoring_id
 from test_torch_mh_prefetch import CASES as MH_CASES
 from test_torch_mh_prefetch import PRIOR_SETS, assert_bitwise, run_case
 
@@ -534,11 +534,14 @@ def test_mh_kernel_fits_an_sde_drift():
     kw = dict(chain_inits=256, iterations_per_chain=40,
               fitsurvey_samples=256, sampler="mh", print_report=False)
     sde, ode = framework(True), framework(False)
-    lib = build.load_kernels(sde._spec)
-    assert lib._name == build.load_kernels(ode._spec)._name
+    sc = [T.scoring(T._build_plan(sde._spec, sde._obsdata_fit_host,
+                                  sde._times_fit, 1))]
+    lib = build.load_kernels(sde._spec, scoring=sc)
+    assert lib._name == build.load_kernels(ode._spec, scoring=sc)._name
     assert "ODE_HAS_DIFFUSION" not in open(os.path.join(os.path.dirname(
         lib._name), "odelib_gen.cuh")).read()
-    assert build.load_kernels(sde._spec, diffusion=True)._name != lib._name
+    assert build.load_kernels(sde._spec, diffusion=True,
+                              scoring=sc)._name != lib._name
     T.reset_launch_counts()
     with pytest.warns(UserWarning, match="DRIFT ONLY"):
         got = sde.MCMC(**kw)
@@ -605,7 +608,7 @@ def test_chunked_kernel_equals_whole(card, sampler, tmp_path):
 # -- every observation model, censoring and doses ---------------------------
 
 def _scoring_inputs(case):
-    from test_torch_scoring import COUNT_SCALE, zero_i_case
+    from scoring_cases import COUNT_SCALE, zero_i_case
     fam, censor, dosed = case
     scale = COUNT_SCALE.get(fam, 1.0)
     spec, obs, tf, y0 = zero_i_case(fam, censor, dosed, scale=scale)
@@ -745,7 +748,8 @@ def test_tobit_device_functions_against_float64(card):
     import scipy.special as sp
     import scipy.stats as ss
     from odelib_tpu_torch.ops import build
-    lib = build.load_kernels(card[0])
+    lib = build.load_kernels(card[0], scoring=[T.scoring(T._build_plan(
+        *card[:3], 1))])
 
     def probe(z, which, tc=None):
         zt = torch.as_tensor(z, device="cuda")

@@ -27,11 +27,12 @@ from odelib_tpu_torch.ops import cuda_mh as T
 from odelib_tpu_torch.ops import cuda_pf as TF
 from odelib_tpu_torch.rhs import adapt_rhs
 
-from test_torch_obs_models import (assert_same_chains, assert_same_filters,
-                                   draws, gbm_case, jax_twin_spec, run_mh,
-                                   run_pmmh, xla_survey)
+from test_torch_obs_models import (THIN, assert_same_chains,
+                                   assert_same_filters, draws, gbm_case,
+                                   jax_twin_spec, run_mh, run_pmmh,
+                                   xla_survey)
 from test_torch_obs_models_ensemble_pt import run_ensemble, run_pt
-from test_torch_scoring import PK_DOSES, pk_case, pk_frame
+from scoring_cases import PK_DOSES, pk_case, pk_frame
 
 K = 0.7
 DOSES = ((0.0, "A", 10.0), (2.0, "A", 10.0), (4.0, "A", 10.0))
@@ -170,7 +171,7 @@ def test_joint_twin_on_dosed_pk_oral():
     """Two dosed pk_oral studies (noise seeds 0 and 1) sharing ka and V,
     each with its own ke: the JAX kernel's accept sequences."""
     jspec, tspec, obs, tf, y0, _ = pk_twin_case()
-    from test_torch_scoring import fit_inputs
+    from scoring_cases import fit_inputs
     from odelib_tpu_torch.data import format_dataframe
     obs1, tf1 = fit_inputs(tspec, format_dataframe(
         pk_frame(False, seed=1), ("A_gut", "C")), 145)
@@ -193,8 +194,8 @@ def test_pmmh_twin_on_dosed_pk_oral():
     """pk_oral as an SDE (10 % multiplicative noise on both states) under
     its six doses: the particles take each dose after their block; the
     JAX kernel's accept sequences (128 chains, 16 particles, 4 Euler
-    steps an interval)."""
-    tspec, obs, tf, y0 = pk_case(censored=False)
+    steps an interval; every 4 h, ``THIN``)."""
+    tspec, obs, tf, y0 = pk_case(censored=False, thin=THIN)
     jspec = j_make_spec(jmodels.pk_oral.rhs, tspec.pnames, tspec.snames,
                         dose_events=tspec.dose_events, diffusion=_pk_noise)
     tspec = make_spec(tspec.rhs, tspec.pnames, tspec.snames,

@@ -29,7 +29,7 @@ from odelib_tpu_torch.ops import cuda_pt as TP
 from odelib_tpu_torch.rhs import adapt_rhs
 
 from helpers import zero_i
-from test_torch_scoring import COUNT_SCALE, FAMILIES, zero_i_case
+from scoring_cases import COUNT_SCALE, FAMILIES, zero_i_case
 
 _PARAMS = [("lognormal", 0.0), ("student_t", 1.0), ("student_t", 4.0),
            ("student_t", 100.0), ("poisson", 0.0), ("negbinom", 0.5),
@@ -123,11 +123,18 @@ def jax_twin_spec(tspec, rhs=zero_i):
                        dose_events=tspec.dose_events)
 
 
-def fam_case(fam, censor=(), dosed=False):
+# the MH, joint and PT parity cases keep every other sampling time of the
+# demo (scoring_cases.demo_frame): the interpret-mode JAX kernels' programs
+# grow with the grid, and on 9 points they compile ~8x faster than on 18
+THIN = 2
+
+
+def fam_case(fam, censor=(), dosed=False, thin=1):
     """(JAX spec, port spec, obs, grid, y0, theta centre) of zero_i on
-    the demo data under ``fam``."""
+    the demo data under ``fam`` (``thin``: scoring_cases.demo_frame)."""
     scale = COUNT_SCALE.get(fam, 1.0)
-    tspec, obs, tf, y0 = zero_i_case(fam, censor, dosed, scale=scale)
+    tspec, obs, tf, y0 = zero_i_case(fam, censor, dosed, scale=scale,
+                                     thin=thin)
     return (jax_twin_spec(tspec), tspec, obs, tf, y0,
             np.array([0.6, 2.4e-8 * scale, 24.0]))
 
@@ -199,8 +206,9 @@ _MH_KW = dict(nits=16, burnin=6, substeps=1)
 
 @pytest.mark.parametrize("fam", ["student_t", "poisson", "negbinom"])
 def test_mh_twin_matches_pallas_interpret(fam):
-    """MH on each family: the JAX kernel's accept sequences."""
-    jspec, tspec, obs, tf, y0, centre = fam_case(fam)
+    """MH on each family (the thinned demo): the JAX kernel's accept
+    sequences."""
+    jspec, tspec, obs, tf, y0, centre = fam_case(fam, thin=THIN)
     got, ref = run_mh(jspec, tspec, obs, tf, y0, draws(centre, 128, 0.03),
                       **_MH_KW)
     assert_same_chains(got, ref)
@@ -210,9 +218,10 @@ def test_mh_twin_matches_pallas_interpret(fam):
 def test_joint_twin_matches_pallas_interpret(fam):
     """Two experiments of one model with their own observation models
     (``fam`` and lognormal) tied in all three parameters: each is scored
-    by its own branch, and the accept sequences are the JAX kernel's."""
-    jspec, tspec, obs, tf, y0, centre = fam_case(fam)
-    jl, tl, obs_l, tf_l, y0_l, _ = fam_case("lognormal")
+    by its own branch, and the accept sequences are the JAX kernel's
+    (the thinned demo)."""
+    jspec, tspec, obs, tf, y0, centre = fam_case(fam, thin=THIN)
+    jl, tl, obs_l, tf_l, y0_l, _ = fam_case("lognormal", thin=THIN)
     if fam == "poisson":   # the lognormal member on the same scaled data
         obs_l = obs._replace(censor=None)
         tf_l, y0_l = tf, y0

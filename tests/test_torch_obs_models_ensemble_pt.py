@@ -1,7 +1,7 @@
 """The ensemble and parallel-tempering twins against the JAX kernels in
 interpret mode on Student-t, Poisson and negative-binomial data: the same
 accept sequences (and, for PT, swap counts) over short runs. The cases
-are tests/test_torch_obs_models.py's."""
+are tests/test_torch_obs_models.py's; PT's on its thinned demo."""
 import numpy as np
 import pytest
 import torch
@@ -11,7 +11,7 @@ from odelib_tpu.ops import pallas_pt as JP
 from odelib_tpu_torch.ops import cuda_mh as T
 from odelib_tpu_torch.ops import cuda_pt as TP
 
-from test_torch_obs_models import assert_same_chains, draws, fam_case
+from test_torch_obs_models import THIN, assert_same_chains, draws, fam_case
 
 
 def run_ensemble(jspec, tspec, obs, tf, y0, th0, **kw):
@@ -43,7 +43,7 @@ def test_ensemble_twin_matches_pallas_interpret(fam):
 
 @pytest.mark.parametrize("fam", ["student_t", "poisson", "negbinom"])
 def test_pt_twin_matches_pallas_interpret(fam):
-    jspec, tspec, obs, tf, y0, centre = fam_case(fam)
+    jspec, tspec, obs, tf, y0, centre = fam_case(fam, thin=THIN)
     got, ref = run_pt(jspec, tspec, obs, tf, y0, draws(centre, 128, 0.03),
                       nits=10, burnin=4, substeps=1,
                       temperatures=(1.0, 2.0, 4.0))

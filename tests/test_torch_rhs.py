@@ -14,6 +14,9 @@ from odelib_tpu_torch.rhs import RhsTraceError, adapt_rhs, trace_rhs
 
 from helpers import one_i, synthetic_df, zero_i, zero_i_refstyle
 
+# the scoring of an uncensored, undosed lognormal model (cuda_mh.scoring)
+LOGNORMAL = ("lognormal", 0.0, False, False)
+
 _CASES = [  # (fn, style, S, P)
     (zero_i, "jax", 2, 3),                  # jnp.stack, S, V = y
     (zero_i_refstyle, "reference", 2, 3),   # np.array, f(y, t, ps)
@@ -73,7 +76,7 @@ def test_cuda_source_golden_zero_i():
     """Python's evaluation order, structural CSE (phi*S*V once)."""
     prog = trace_rhs(adapt_rhs(zero_i, "jax"), 2, 3)
     assert prog.cuda_source() == _GOLDEN_ZERO_I
-    header = build.generated_header(prog)
+    header = build.generated_header(prog, None, (), [LOGNORMAL])
     assert "#define ODELIB_TWO_PI 6.2831855f" in header
     assert "step_dopri5" in header and "step_rk4" in header
 
@@ -144,13 +147,17 @@ def test_generated_header_per_set_of_models():
     z2 = make_spec(adapt_rhs(zero_i), ("mu", "phi", "beta"), ("S", "V"))
     o = make_spec(adapt_rhs(one_i), ("mu", "phi", "beta", "lam"),
                   ("S", "I1", "V"))
-    progs, model_of = build.distinct_programs([z1, z2, o, z1])
+    progs, model_of = build.distinct_programs([z1, z2, o, z1],
+                                              [LOGNORMAL] * 4)
     assert model_of == [0, 0, 1, 0] and len(progs) == 2
-    single = build.generated_header(trace_rhs(z1.rhs, 2, 3))
-    same, _ = build.distinct_programs([z1, z2])
-    assert build.generated_header(same[0], None, tuple(same[1:])) == single
+    single = build.generated_header(trace_rhs(z1.rhs, 2, 3), None, (),
+                                    [LOGNORMAL])
+    same, _ = build.distinct_programs([z1, z2], [LOGNORMAL] * 2)
+    assert build.generated_header(same[0], None, tuple(same[1:]),
+                                  [LOGNORMAL]) == single
     assert "diffusion" not in single and "ODE_MODELS" not in single
-    joint = build.generated_header(progs[0], None, tuple(progs[1:]))
+    joint = build.generated_header(progs[0], None, tuple(progs[1:]),
+                                   [LOGNORMAL] * 2)
     assert joint.startswith(single)
     assert "struct Model1" in joint and "namespace odelib_m1" in joint
     assert "#define ODE_MODELS(X) X(0) X(1)" in joint
@@ -159,6 +166,28 @@ def test_generated_header_per_set_of_models():
                     diffusion=adapt_rhs(lambda t, y, ps: [0.3 * y[0],
                                                           0.1 * y[1]]))
     header = build.generated_header(trace_rhs(sde.rhs, 2, 3),
-                                    trace_rhs(sde.diffusion, 2, 3))
+                                    trace_rhs(sde.diffusion, 2, 3), (),
+                                    [LOGNORMAL])
     assert header.startswith(single) and "#define ODE_HAS_DIFFUSION" in header
     assert "void diffusion(float t" in header and "0.3f * y[0]" in header
+
+
+def test_scoring_is_given_per_model():
+    """Each model's scoring is given, one per model: one RHS under two
+    scorings is two models of a joint library, and a missing scoring
+    raises rather than defaulting to an uncensored model."""
+    z = make_spec(adapt_rhs(zero_i), ("mu", "phi", "beta"), ("S", "V"))
+    censored = ("lognormal", 0.0, True, False)
+    progs, model_of = build.distinct_programs([z, z, z],
+                                              [LOGNORMAL, censored,
+                                               LOGNORMAL])
+    assert model_of == [0, 1, 0] and len(progs) == 2
+    header = build.generated_header(progs[0], None, tuple(progs[1:]),
+                                    [LOGNORMAL, censored])
+    assert "static constexpr bool CENSORED = false;" in header
+    assert "static constexpr bool CENSORED = true;" in header
+    with pytest.raises(ValueError, match="1 scorings for 2 models"):
+        build.generated_header(progs[0], None, tuple(progs[1:]),
+                               [LOGNORMAL])
+    with pytest.raises(TypeError):
+        build.load_kernels(z)

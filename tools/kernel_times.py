@@ -104,9 +104,14 @@ def main():
             "log_sigma": 0.15}), t_steps=41, N=2.0,
         mu=parameter(scipy.stats.lognorm, {"s": 0.5, "scale": 0.4}),
         device="cuda")
+    def load(f, diffusion=False):
+        # a tree from before the observation models builds without scoring
+        kw = {"scoring": [cuda_mh.scoring(cuda_mh._build_plan(
+            f._spec, f._obsdata_fit_host, f._times_fit, 1))]} \
+            if hasattr(cuda_mh, "scoring") else {}
+        return build.load_kernels(f._spec, (), diffusion, **kw)
     with ThreadPoolExecutor(2) as ex:       # two nvcc processes at once
-        libs = list(ex.map(lambda a: build.load_kernels(*a),
-                           [(spec,), (pfw._spec, (), True)]))
+        libs = list(ex.map(lambda a: load(*a), [(fw,), (pfw, True)]))
     for lib in libs:
         log = open(os.path.join(os.path.dirname(lib._name),
                                 "nvcc.log")).read()
