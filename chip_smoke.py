@@ -7,19 +7,21 @@ Phases, each failing the script if it fails:
 1. device: the card's name and power limit (nvidia-smi); exits non-zero
    without CUDA;
 2. build: all six kernels (ops/csrc/*.cu) from the checkout's sources
-   into a clean build directory, three libraries started together: the
-   main-path model's, a joint fit of two different models' (zero_i and
-   one_i) and the PMMH path's SDE model's; the builds' seconds and each
-   kernel's registers, stack and spills;
+   into a clean build directory, every library the run loads started
+   together, eight at a time: the main-path model's, a joint fit of two
+   different models' (zero_i and one_i), the PMMH path's SDE model's,
+   each scoring branch's and path's, and the stiff path's two (zero_i's
+   and Robertson's, with the kvaerno3 instantiations); the builds'
+   seconds and each kernel's registers, stack and spills;
 3. kernel versus twin on the card, at the main-path model (zero_i on the
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
    on 1024 chains x 200 iterations (the kernel's rounds counted by the
    iterations each completes), the ensemble on 2048 walkers (two
-   ensembles of 1024) x 200 iterations, in one launch of as many blocks as
+   ensembles of 1024) x 100 iterations, in one launch of as many blocks as
    can be co-resident and again on 7 blocks of 32 threads, so each thread
    loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
    1024 chains x 200 iterations, and with 3 (an idle lane in each chain's
-   group of 4) and 8 rungs on 1000 chains x 60 (identical accept
+   group of 4) and 8 rungs on 1000 chains x 30 (identical accept
    sequences and swap counts),
    the joint kernel on the heterogeneous pair zero_i + one_i, 256
    chains x 20 iterations, and with a third experiment (K = 3, blocks of
@@ -29,9 +31,9 @@ Phases, each failing the script if it fails:
    in shared memory, so both kernels read their tables from global
    memory, and with in-kernel priors: four assignments over zero_i's
    slots that together cover the ten in-kernel families (``prior_sets``),
-   each through MH (1024 chains x 50), the ensemble (2048 walkers x 20),
-   PT (1024 chains x 4 rungs x 50) and the joint pair zero_i + one_i (256
-   chains x 50), from start points around the fit (all bitwise records);
+   each through MH (1024 chains x 25), the ensemble (2048 walkers x 20),
+   PT (1024 chains x 4 rungs x 25) and the joint pair zero_i + one_i (256
+   chains x 25), from start points around the fit (all bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after (each launching survey_fused and its chain kernel's wrapper
    once; Python's garbage collections per stage, and for MH the chains
@@ -57,7 +59,7 @@ Phases, each failing the script if it fails:
    chains, so the last warp's group of 8 chains is part empty; rounds of
    2 and 3 iterations must both occur), ensemble_fused (its 10,000
    walkers and seed, the default tile of 4096, padded to 12,288 walkers;
-   200 iterations; the tile sets each walker's partners, so this is the
+   100 iterations; the tile sets each walker's partners, so this is the
    geometry the main path runs),
    parallel_tempering_fused (all 10,000 chains x 4 rungs x 20 iterations:
    40,000 threads, so the last block of 128 is part empty; identical swap
@@ -128,6 +130,33 @@ Phases, each failing the script if it fails:
    relative); (5) paths (a)-(c)'s wrapper calls against the demo
    paths' (CUDA events around the call) and each kernel's time on each
    scoring branch at the main paths' shapes beside the demo's;
+Then the stiff path (the survey, MH, ensemble and PT kernels'
+   kvaerno3 instantiations, built from a library with ODE_KVAERNO3): (b)
+   bench/suite.py's config 6 through the user API,
+   ModelFramework(zero_i, the demo).MCMC(method='kvaerno3', substeps=4)
+   with 10,240 chains x 1,000, and the ensemble (12,288 walkers) and PT
+   (10,000 chains x 4 rungs) on it, each with the survey and its chain
+   kernel launched once with stepper kvaerno3, finite chi 1.0 and the
+   sampler's acceptance band; then MH with substeps='auto' (calibrated by
+   Kvaerno5), printing the schedule and its step count; (c) the
+   Robertson fit (``scoring_cases.robertson_frame``: y1 at config 5's
+   grid with log-normal noise, the framework's grid spaced 1e-3, atol
+   1e-12; the observation times that snap to other grid points printed)
+   with MCMC(sampler='mh', method='kvaerno3', substeps='auto') at 10,240
+   chains x 1,000, and its gates: fixed Kvaerno3 x 8 on config 5's grid
+   on the card within 1e-3 relative of LSODA, fixed Dopri5 at the same
+   steps not finite; (a) each of the four kernels against its twin at
+   the wrapper calls (b) and (c) made (the survey's draws of config 6,
+   of its 'auto' run and of the Robertson fit; MH at config 6, on its
+   'auto' schedule and on Robertson's, S = 3, all chains x 20 proposals;
+   the ensemble and PT, all chains x 10), bitwise, and MH in 4 chunks of
+   250 against its whole run, bitwise; (d) config 5's 4,096 Robertson
+   solves on the card through the port's torch solvers (fixed Kvaerno3,
+   adaptive Kvaerno5, auto_stiff_grid and the two-pass
+   odeint_grid_batch), each with bench/suite.py's gate; (e) each
+   kvaerno3 kernel's time against its dopri5 instantiation at config 6's
+   shapes (CUDA events), its twin's and its bound (``kernel_costs``, as
+   phase 5 times the dopri5 kernels);
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MH, ensemble, PT and joint kernels with the demo's priors, with flat
@@ -174,6 +203,9 @@ PF_CHAINS, PF_NITS, PF_K, PF_SUB = 10240, 200, 128, 40
 MU, SIG, S_OBS = 0.4, 0.3, 0.15
 PRI_MU, PRI_SD = 0.4, 0.5          # mu ~ lognorm(s=PRI_SD, scale=PRI_MU)
 CENTRE = (0.6, 2.4e-8, 24.0)       # zero_i's fit region: mu, phi, beta
+# the stiff path: bench/suite.py's config 6 (10,240 chains), the ensemble
+# main path's 12,288 walkers, config 5's batch of 4,096 Robertson solves
+STIFF_CHAINS, STIFF_WALKERS, CONFIG5_N = 10240, 12288, 4096
 
 
 def prior_sets():
@@ -848,6 +880,55 @@ def held(name, tobit, rec_k, rec_t, nits, labels, burnin=0):
     return err
 
 
+def drive(label, model, kernel, pnames, n_chains, survey=True,
+          report=True, **kw):
+    """One path's ``MCMC`` call at full width (``NITS`` iterations unless
+    ``nits`` is given), with launch counts reset just before and read just
+    after: the reference's posterior columns, every chain, finite chi 1.0,
+    mean final acceptance in (0, 1), ``kernel`` (and, with ``survey``, the
+    survey kernel) launched once, and with ``report`` the Fitting Report
+    printed. Returns the posterior and the launch counts."""
+    import numpy as np
+    import torch
+    from odelib_tpu_torch import JointFit
+    from odelib_tpu_torch.ops import cuda_mh
+    cols = ["chi", "rsquared", "aic", "iteration", "acceptance_ratio",
+            "chain#", "all_rejected"]
+    cuda_mh.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        post = model.MCMC(iterations_per_chain=kw.pop("nits", NITS),
+                          profile=True, print_report=report, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_mh.LAUNCHES)
+    want = list(pnames) + cols
+    if isinstance(model, JointFit):
+        want = list(model.columns) + ["chi"] + [
+            f"chi:{k}" for k in model.frameworks] + cols[3:]
+    if list(post.columns) != want:
+        fail(f"{label}: posterior columns {list(post.columns)}")
+    if post["chain#"].nunique() != n_chains:
+        fail(f"{label}: {post['chain#'].nunique()} chains")
+    finite = float(np.isfinite(post.chi.to_numpy()).mean())
+    last = post[post.iteration == post.iteration.max()]
+    acc = float(last.acceptance_ratio.mean())
+    print(f"{label}: wall {wall:.3f} s; stages " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in model.last_profile.items())
+        + f"; launches {launches}; finite chi {finite}, mean final "
+        f"acceptance {acc:.4f}; {len(post)} rows", flush=True)
+    if finite != 1.0 or not 0.0 < acc < 1.0:
+        fail(f"{label}: finite chi {finite}, acceptance {acc}")
+    if launches[kernel] != 1 or (survey and
+                                 launches["survey_fused"] != 1):
+        fail(f"{label}: launches {launches}")
+    if report and "Fitting Report" not in out.getvalue() and not isinstance(
+            model, JointFit):
+        fail(f"{label}: the Fitting Report did not print")
+    return post, launches
+
+
 def slice_paths(framework, device="cuda"):
     """The frameworks of paths (a)-(e) (the module docstring) on
     ``device``; ``framework(df, **kw)`` builds zero_i there with the demo
@@ -1045,45 +1126,7 @@ def scoring_phases(paths, calls, pf_call):
             ("theta", "chi", "ar"), burnin=2))
 
     phase("scoring (3): the slice's paths at full width")
-    cols = ["chi", "rsquared", "aic", "iteration", "acceptance_ratio",
-            "chain#", "all_rejected"]
     captured = {}
-
-    def drive(label, model, kernel, pnames, n_chains, survey=True, **kw):
-        cuda_mh.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as out:
-            post = model.MCMC(iterations_per_chain=kw.pop("nits", NITS),
-                              profile=True, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(cuda_mh.LAUNCHES)
-        want = list(pnames) + cols
-        if isinstance(model, JointFit):
-            want = list(model.columns) + ["chi"] + [
-                f"chi:{k}" for k in model.frameworks] + cols[3:]
-        if list(post.columns) != want:
-            fail(f"{label}: posterior columns {list(post.columns)}")
-        if post["chain#"].nunique() != n_chains:
-            fail(f"{label}: {post['chain#'].nunique()} chains")
-        finite = float(np.isfinite(post.chi.to_numpy()).mean())
-        last = post[post.iteration == post.iteration.max()]
-        acc = float(last.acceptance_ratio.mean())
-        print(f"{label}: wall {wall:.3f} s; stages " + ", ".join(
-            f"{k} {v:.3f} s" for k, v in model.last_profile.items())
-            + f"; launches {launches}; finite chi {finite}, mean final "
-            f"acceptance {acc:.4f}; {len(post)} rows", flush=True)
-        if finite != 1.0 or not 0.0 < acc < 1.0:
-            fail(f"{label}: finite chi {finite}, acceptance {acc}")
-        if launches[kernel] != 1 or (survey and
-                                     launches["survey_fused"] != 1):
-            fail(f"{label}: launches {launches}")
-        if "Fitting Report" not in out.getvalue() and not isinstance(
-                model, JointFit):
-            fail(f"{label}: the Fitting Report did not print")
-        return post
-
     with recording(cuda_mh, "metropolis_hastings_fused",
                    captured.setdefault("a", {})):
         drive("(a) MCMC(sampler='mh', use_priors=True) on pk_oral, six "
@@ -1210,6 +1253,410 @@ def scoring_phases(paths, calls, pf_call):
     return errs
 
 
+# -- the stiff path: the kernels' kvaerno3 instantiations -------------------
+
+def robertson_framework(device="cuda"):
+    """The Robertson fit: ``models.get('robertson').framework`` on
+    ``scoring_cases.robertson_frame`` (y1 at bench/suite.py config 5's
+    grid, numpy seed 5), its grid spaced 1e-3 (``ROBERTSON_T_STEPS``; on
+    the default grid, spaced ~1, no draw's chi is finite, in odelib_tpu's
+    kernels as in the port's: tools/robertson_default_grid.py) and the
+    solver's atol 1e-12: y2 stays below 4e-5, so the default 1e-4 leaves
+    it unresolved, and schedules calibrated at looser tolerances left some
+    prescreened draws' chi non-finite. Each observation time moves to the
+    nearest grid point, by at most 4.9e-4: the seven below 5e-4 to t = 0,
+    7.4e-4 and 1.4e-3 both to 1e-3, 2.5e-3 to 3e-3 (19 % relative), 4.6e-3
+    and 8.6e-3 by 8 and 5 %, the times from 0.016 on by under 1 %."""
+    from odelib_tpu_torch.models import get
+    from scoring_cases import ROBERTSON_T_STEPS, robertson_frame
+    return get("robertson").framework(robertson_frame(),
+                                      t_steps=ROBERTSON_T_STEPS, atol=1e-12,
+                                      device=device)
+
+
+def lsoda_robertson(times, rates=(0.04, 3e7, 1e4)):
+    """Robertson from (1, 0, 0) by scipy's LSODA at rtol 1e-10, atol 1e-14
+    (bench/suite.py's reference)."""
+    from scipy.integrate import odeint
+    k1, k2, k3 = rates
+    return odeint(lambda y, t: [-k1 * y[0] + k3 * y[1] * y[2],
+                                k1 * y[0] - k2 * y[1] ** 2
+                                - k3 * y[1] * y[2], k2 * y[1] ** 2],
+                  [1.0, 0.0, 0.0], times, rtol=1e-10, atol=1e-14,
+                  mxstep=1000000)
+
+
+def max_rel(got, ref):
+    """bench/suite.py's final-state error: max |got - ref| / max(|ref|,
+    1e-10)."""
+    import numpy as np
+    return float(np.max(np.abs(np.asarray(got, np.float64) - ref)
+                        / np.maximum(np.abs(ref), 1e-10)))
+
+
+def launch_args(call, sampler):
+    """A captured wrapper call's arguments (or a ``survey_fused`` call's,
+    ``sampler`` 'survey') as its launcher and its twin take them: (spec,
+    plan, y0, theta (P, C), seed, run keywords); the ensemble's theta is
+    its walkers' start (P, W), prior-free."""
+    import numpy as np
+    import torch
+    from odelib_tpu_torch.ops import cuda_mh, cuda_pt
+    spec, obs, tf, y0, th = call["args"][:5]
+    kw = call["kw"]
+    plan = cuda_mh._build_plan(spec, obs, tf, cuda_mh._normalize_substeps(
+        kw["substeps"], len(tf) - 1))
+    if sampler == "survey":
+        return spec, plan, y0, th.t().contiguous(), None, {}
+    seed = call["args"][5] if len(call["args"]) > 5 else kw["seed"]
+    mask = kw.get("walk_mask")
+    mask = [1.0] * spec.theta_size if mask is None \
+        else [float(w) for w in mask]
+    walked = tuple(w != 0.0 for w in mask)
+    if sampler == "ensemble":
+        th_np = th.cpu().numpy()
+        tile = kw.get("tile_chains") or cuda_mh.pick_tile_chains(len(th_np))
+        start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
+            th_np, seed, tile, tuple(mask), 0.01).T), device=th.device)
+        return spec, plan, y0, start, seed, dict(
+            tile=tile, a=float(kw.get("a", 2.0)), walk=tuple(mask),
+            walked=walked, num=int(np.count_nonzero(th_np[0])),
+            W0=len(th_np))
+    num = int(torch.count_nonzero(th[0]))
+    if sampler == "pt":
+        sc, bt, db = cuda_pt.ladder_constants(
+            tuple(kw["temperatures"]), kw["rwalk_std"], mask)
+        run = dict(scales=sc, walked=walked, betas=bt, dbetas=db,
+                   swap_every=int(kw["swap_every"]), num=num)
+    else:
+        run = dict(walk=tuple(float(kw["rwalk_std"]) * w for w in mask),
+                   walked=walked, num=num)
+    return spec, plan, y0, th.t().contiguous(), seed, run
+
+
+def kernel_costs(sampler, stepper, args, reps=1, short=None):
+    """The survey's or a chain kernel's (``sampler``) ``stepper``
+    instantiation on ``args`` (``launch_args``'s tuple): the card time of
+    its launcher (CUDA events; a chain kernel's whole run of ``NITS``
+    iterations, ``BURNIN`` of them unrecorded), and with ``short`` its
+    twin's on the card (a chain kernel's over ``short - 1`` proposals,
+    scaled to ``NITS - 1``), its bound and the float32 operations behind
+    it (the twin counted on the CPU, on one chain or one ensemble of 256
+    walkers, ``per_iteration_ops``): (ms, plain_ms, (bound_ms, bound_by),
+    ops), the last three None without ``short``."""
+    import torch
+    from odelib_tpu_torch.ops import cuda_mh, cuda_pt
+    spec, plan, y0, th, seed, run = args
+    if sampler == "survey":
+        ms = events_ms(cuda_mh.survey_launcher(spec, plan, y0, stepper, th),
+                       reps=reps)
+    else:
+        launcher = {"mh": cuda_mh.mh_launcher,
+                    "ensemble": cuda_mh.ensemble_launcher,
+                    "pt": cuda_pt.pt_launcher}[sampler]
+        ms = events_ms(launcher(spec, plan, y0, stepper, th, seed, nits=NITS,
+                                burnin=BURNIN, **run), reps=reps)
+    if short is None:
+        return ms, None, None, None
+    twin = {"survey": cuda_mh.survey_plain, "mh": cuda_mh.mh_plain,
+            "ensemble": cuda_mh.ensemble_plain,
+            "pt": cuda_pt.pt_plain}[sampler]
+    nbytes = th.numel() * 4 + sum(a.nbytes for a in cuda_mh.plan_tables(
+        spec, plan, y0, stepper))
+    C = th.shape[1]
+    if sampler == "survey":
+        plain_ms = events_ms(lambda: twin(spec, plan, y0, th, stepper))
+        ops = C * fp32_ops(lambda: twin(spec, plan, y0,
+                                        th[:, :1].cpu().contiguous(), stepper))
+        return ms, plain_ms, bound(ops, nbytes + C * 4), ops
+    plain_ms = events_ms(lambda: twin(
+        spec, plan, y0, th, seed, nits=short, burnin=0, stepper=stepper,
+        **run)) / (short - 1) * (NITS - 1)
+    R = NITS - 1 - BURNIN
+    if sampler == "ensemble":
+        one_run = dict(run, tile=256, W0=256)
+        one = torch.as_tensor(cuda_mh.ensemble_init(
+            th[:, :256].t().cpu().numpy(), seed, 256, run["walk"], 0.01).T
+            .copy())
+        init, step, rec = per_iteration_ops(lambda n, b: twin(
+            spec, plan, y0, one, seed, nits=n, burnin=b, stepper=stepper,
+            **one_run))
+        C = run["W0"]            # walkers recorded; th holds the padded
+        ops = (th.shape[1] * (init + (NITS - 1) * step) + C * R * rec) / 256
+    else:
+        one = th[:, :1].cpu().contiguous()
+        init, step, rec = per_iteration_ops(lambda n, b: twin(
+            spec, plan, y0, one, seed, nits=n, burnin=b, stepper=stepper,
+            **run))
+        ops = C * (init + (NITS - 1) * step + R * rec)
+    nbytes += R * C * (th.shape[0] + 4 + (sampler == "pt")) * 4
+    return ms, plain_ms, bound(ops, nbytes), ops
+
+
+def survey_vs_twin(label, call):
+    """A captured ``survey_fused`` call through its kernel and its twin on
+    the card: every chi bitwise (``compare_chi``); returns its error."""
+    import torch
+    from odelib_tpu_torch.ops import cuda_mh
+    chi_k = cuda_mh.survey_fused(*call["args"], **call["kw"])
+    torch.cuda.synchronize()
+    spec, plan, y0, th, _, _ = launch_args(call, "survey")
+    chi_t = cuda_mh.survey_plain(spec, plan, y0, th, call["kw"]["stepper"])
+    torch.cuda.synchronize()
+    return compare_chi(label, chi_k.cpu().numpy(), chi_t.cpu().numpy())
+
+
+def stiff_phases(framework, rfw, smi_line):
+    """The stiff path (the module docstring's phase stiff) on ``rfw``, the
+    Robertson fit's framework: (b) config 6 and the ensemble and PT on it
+    through the user API, with 'auto'; (c) the Robertson fit and its two
+    gates; (a) each kvaerno3 kernel against its twin at the wrapper calls
+    (b) and (c) made, and MH chunked against its whole run; (d) config 5's
+    batch through the torch solvers; (e) each kvaerno3 kernel's time
+    against its dopri5 instantiation. Returns the four kernels' rows of
+    the JSON line."""
+    import numpy as np
+    import torch
+    from odelib_tpu_torch.data import nearest_grid_indices
+    from odelib_tpu_torch.model import state_func, state_jac
+    from odelib_tpu_torch.models import robertson
+    from odelib_tpu_torch.ops import cuda_mh, cuda_pt, schedule
+    from odelib_tpu_torch.ops.integrate import (odeint_fixed, odeint_grid,
+                                                odeint_grid_batch)
+    from scoring_cases import ROBERTSON_TIMES
+    dev = rfw.device
+    pnames = ("mu", "phi", "beta")
+    wrapper = {"mh": (cuda_mh, "metropolis_hastings_fused"),
+               "ensemble": (cuda_mh, "ensemble_fused"),
+               "pt": (cuda_pt, "parallel_tempering_fused")}
+    calls, launches = {}, {}
+
+    @contextlib.contextmanager
+    def recorded(key, sampler="mh"):
+        """Record ``sampler``'s and the survey's wrapper calls under
+        ``key`` and ``'survey ' + key``."""
+        mod, name = wrapper[sampler]
+        with recording(mod, name, calls.setdefault(key, {})), \
+                recording(cuda_mh, "survey_fused",
+                          calls.setdefault(f"survey {key}", {})):
+            yield
+
+    phase("stiff (b): bench/suite.py's config 6 through the user API, "
+          "MCMC(method='kvaerno3', substeps=4) on zero_i and the demo, "
+          "10,240 chains x 1,000; the ensemble (12,288 walkers) and PT "
+          "(10,000 x 4 rungs) on it")
+    for sampler, n_chains in (("mh", STIFF_CHAINS),
+                              ("ensemble", STIFF_WALKERS), ("pt", CHAINS)):
+        extra = dict(temperatures=TEMPS) if sampler == "pt" else {}
+        with recorded(sampler, sampler):
+            post, launches[sampler] = drive(
+                f"stiff (b) MCMC(sampler={sampler!r}, method='kvaerno3', "
+                "substeps=4)", framework(), wrapper[sampler][1], pnames,
+                n_chains, chain_inits=n_chains, fitsurvey_samples=1000,
+                sd_fitdistance=6.0, sampler=sampler, method="kvaerno3",
+                substeps=4, **extra)
+        steppers = (calls[sampler]["kw"]["stepper"],
+                    calls[f"survey {sampler}"]["kw"]["stepper"])
+        last = post[post.iteration == post.iteration.max()]
+        acc = float(last.acceptance_ratio.mean())
+        lo, hi = BANDS[sampler]
+        if steppers != ("kvaerno3", "kvaerno3") or not lo <= acc <= hi:
+            fail(f"stiff (b) {sampler}: steppers {steppers}, mean final "
+                 f"acceptance {acc} outside [{lo}, {hi}]")
+    fw = framework()
+    t0 = time.perf_counter()
+    with recorded("auto"):
+        drive("stiff (b) MCMC(sampler='mh', method='kvaerno3', "
+              "substeps='auto')", fw, "metropolis_hastings_fused", pnames,
+              STIFF_CHAINS, chain_inits=STIFF_CHAINS, fitsurvey_samples=1000,
+              sd_fitdistance=6.0, method="kvaerno3", substeps="auto")
+    sched = fw._auto_schedule
+    print(f"stiff (b) substeps='auto' (Kvaerno5 calibration): schedule "
+          f"{list(sched)}, {schedule.schedule_cost(sched)} Kvaerno3 steps a "
+          f"solve against substeps=4's {4 * len(sched)}; calibration "
+          f"{fw.last_profile['calibration']:.3f} s of "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    phase("stiff (c): Robertson, a stiff fit: models.get('robertson')"
+          ".framework(df).MCMC(sampler='mh', method='kvaerno3', "
+          "substeps='auto', 10,240 chains x 1,000)")
+    snapped = rfw.times[nearest_grid_indices(ROBERTSON_TIMES, rfw.times)]
+    moved = snapped != ROBERTSON_TIMES
+    print(f"Robertson framework: {len(rfw.times)} grid points, compact "
+          f"grid {len(rfw._times_fit)} points, y0 "
+          f"{[float(v) for v in rfw.get_inits()]}; {int(moved.sum())} of "
+          f"{len(ROBERTSON_TIMES)} observation times snapped to the grid: "
+          + ", ".join(f"{t:.3g} -> {g:.3g}" for t, g in
+                      zip(ROBERTSON_TIMES[moved], snapped[moved])),
+          flush=True)
+    with recorded("robertson"):
+        drive("stiff (c) Robertson MCMC(sampler='mh', method='kvaerno3', "
+              "substeps='auto'; no report: its adaptive solve steps to each "
+              "of 1,000,001 grid points)", rfw, "metropolis_hastings_fused",
+              robertson.pnames, STIFF_CHAINS, report=False,
+              chain_inits=STIFF_CHAINS,
+              method="kvaerno3", substeps="auto")
+    rsched = rfw._auto_schedule
+    print(f"stiff (c) calibrated schedule {list(rsched)}: "
+          f"{schedule.schedule_cost(rsched)} Kvaerno3 steps a solve",
+          flush=True)
+    rspec = rfw._spec
+    f_s, jac_s = state_func(rspec), state_jac(rspec)
+    ref = lsoda_robertson(ROBERTSON_TIMES)[-1]
+
+    def default_lane(n=1):
+        return ([torch.full((n,), v, dtype=torch.float32, device=dev)
+                 for v in robertson.default_theta],
+                torch.tensor([[1.0], [0.0], [0.0]], dtype=torch.float32,
+                             device=dev).expand(-1, n).contiguous())
+    k1, y01 = default_lane()
+    kv = odeint_fixed(f_s, y01, ROBERTSON_TIMES, k1, substeps=8,
+                      method="kvaerno3", jac=jac_s)
+    dp = odeint_fixed(f_s, y01, ROBERTSON_TIMES, k1, substeps=8,
+                      method="dopri5")
+    err1 = max_rel(kv.ys[-1, :, 0].cpu().numpy(), ref)
+    dp_fin = bool(dp.ok.all())
+    print(f"stiff (c) gate 1: odeint_fixed(method='kvaerno3', substeps=8) "
+          f"on the card, float32, final state {kv.ys[-1, :, 0].tolist()} "
+          f"against LSODA {ref.tolist()}: max rel err {err1:.3e} (bound "
+          f"1e-3); gate 2: dopri5 at the same steps finite: {dp_fin}",
+          flush=True)
+    if not err1 < 1e-3 or dp_fin:
+        fail(f"stiff (c): gate 1 err {err1}, gate 2 dopri5 finite {dp_fin}")
+
+    phase("stiff (a): each kvaerno3 kernel against its twin at the wrapper "
+          "calls (b) and (c) made (zero_i at substeps 4 and on its 'auto' "
+          "schedule, Robertson on its), and MH in 4 chunks against its "
+          "whole run")
+    errs = {name: 0.0 for _, name in wrapper.values()}
+    errs["survey_fused"] = 0.0
+    for key, what in (("mh", "zero_i, substeps 4"),
+                      ("auto", f"zero_i, {schedule.schedule_cost(sched)} "
+                               "steps"),
+                      ("robertson", f"Robertson, "
+                                    f"{schedule.schedule_cost(rsched)} "
+                                    "steps")):
+        call = calls[f"survey {key}"]
+        if call["kw"]["stepper"] != "kvaerno3":
+            fail(f"stiff (a): the {what} survey ran {call['kw']['stepper']}")
+        errs["survey_fused"] = max(errs["survey_fused"], survey_vs_twin(
+            f"stiff survey ({what}, {call['args'][4].shape[0]} draws)",
+            call))
+    for key, sampler, nits, what in (
+            ("mh", "mh", 21, "zero_i, substeps 4"),
+            ("auto", "mh", 21, "zero_i, 'auto'"),
+            ("robertson", "mh", 21, "Robertson, 'auto'"),
+            ("ensemble", "ensemble", 11, "zero_i, substeps 4"),
+            ("pt", "pt", 11, "zero_i, substeps 4")):
+        mod, name = wrapper[sampler]
+        call = calls[key]
+        if call["kw"]["stepper"] != "kvaerno3":
+            fail(f"stiff (a): {key} ran {call['kw']['stepper']}")
+        err, _ = kernel_vs_twin_at(
+            f"stiff {sampler} ({what}, kvaerno3, all "
+            f"{call['args'][4].shape[0]} chains, {nits - 1} proposals)",
+            getattr(mod, name), call, nits)
+        errs[name] = max(errs[name], err)
+    args, kw = calls["mh"]["args"], calls["mh"]["kw"]
+    n0 = cuda_mh.LAUNCHES["metropolis_hastings_fused"]
+    whole = cuda_mh.metropolis_hastings_fused(*args, **kw)
+    chunk = cuda_mh.metropolis_hastings_fused(*args, **{
+        **kw, "checkpoint_every": 250})
+    torch.cuda.synchronize()
+    n_chunks = -(-(kw["nits"] - 1) // 250)
+    if cuda_mh.LAUNCHES["metropolis_hastings_fused"] - n0 != 1 + n_chunks:
+        fail(f"stiff MH chunked: not 1 + {n_chunks} launches")
+    same_bits(f"stiff MH (kvaerno3) in {n_chunks} chunks of 250", chunk,
+              whole)
+    print(f"stiff MH (kvaerno3): {args[4].shape[0]} chains x {kw['nits']} in "
+          f"{n_chunks} chunks of 250: bitwise the whole run", flush=True)
+
+    phase("stiff (d): bench/suite.py's config 5 on the card: 4,096 "
+          "Robertson solves through the port's torch solvers (float32)")
+    N = CONFIG5_N
+    ks_np = (np.array(robertson.default_theta) * np.exp(
+        np.random.default_rng(0).normal(0, 0.1, (N, 3)))).astype(np.float32)
+    ks = list(torch.as_tensor(ks_np.T.copy(), device=dev))
+    y0 = torch.tensor([[1.0], [0.0], [0.0]], dtype=torch.float32,
+                      device=dev).expand(-1, N).contiguous()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+    sol, s_fix = timed(lambda: odeint_fixed(f_s, y0, ROBERTSON_TIMES, ks,
+                                            substeps=8, method="kvaerno3",
+                                            jac=jac_s))
+    sol_a, s_ad = timed(lambda: odeint_grid(
+        f_s, y0, ROBERTSON_TIMES, ks, rtol=1e-5, atol=1e-8,
+        method="kvaerno5", max_steps=4096, jac=jac_s))
+    ad1 = odeint_grid(f_s, y01, ROBERTSON_TIMES, k1, rtol=1e-5, atol=1e-8,
+                      method="kvaerno5", max_steps=4096, jac=jac_s)
+    err_ad = max_rel(ad1.ys[-1, :, 0].cpu().numpy(), ref)
+    naive = np.linspace(0.0, 1e3, 32)
+    (grid, gsched, oidx), s_cal = timed(lambda: schedule.auto_stiff_grid(
+        f_s, [1.0, 0.0, 0.0], naive, [k[:8] for k in ks], rtol=1e-5,
+        atol=1e-8, max_steps=4096))
+    sol_g, s_grid = timed(lambda: odeint_fixed(
+        f_s, y0, grid, ks, substeps=gsched, method="kvaerno3", jac=jac_s))
+    g1 = odeint_fixed(f_s, y01, grid, k1, substeps=gsched,
+                      method="kvaerno3", jac=jac_s)
+    err_g = max_rel(g1.ys[oidx[-1], :, 0].cpu().numpy(),
+                    lsoda_robertson(naive)[-1])
+    sol_b, s_b = timed(lambda: odeint_grid_batch(
+        f_s, [1.0, 0.0, 0.0], naive, ks, rtol=1e-5, atol=1e-8,
+        max_steps=4096, jac=jac_s))
+    ok_b = float(sol_b.ok.float().mean())
+    print(f"stiff (d) fixed Kvaerno3 x 8 on the geomspace grid: {s_fix:.3f} "
+          f"s for {N} solves, finite {float(sol.ok.float().mean())}; "
+          f"adaptive Kvaerno5 (rtol 1e-5, atol 1e-8): {s_ad:.3f} s, ok "
+          f"{float(sol_a.ok.float().mean())}, steps max "
+          f"{int(sol_a.num_steps.max())}, default lane's final state max "
+          f"rel err {err_ad:.3e} against LSODA; auto_stiff_grid on "
+          f"linspace(0, 1e3, 32) from 8 pilot lanes: {s_cal:.3f} s, "
+          f"{len(grid)} nodes, {schedule.schedule_cost(gsched)} steps, then "
+          f"{s_grid:.3f} s for {N} solves, default lane's max rel err "
+          f"{err_g:.3e}; odeint_grid_batch (Dopri5 probe, Kvaerno5 for the "
+          f"failed lanes): {s_b:.3f} s, ok fraction {ok_b}", flush=True)
+    if not (err_ad < 1e-3 and err_g < 1e-3 and ok_b > 0.99):
+        fail(f"stiff (d): adaptive err {err_ad}, auto grid err {err_g}, "
+             f"batch ok {ok_b}")
+
+    phase("stiff (e): each kvaerno3 kernel's time against its dopri5 "
+          "instantiation at config 6's shapes, substeps 4 (CUDA "
+          f"events; {smi_line})")
+    rows = []
+    for sampler, name, src, replaces in (
+            ("survey", "survey_fused", "mh.cu",
+             "odelib_tpu/ops/pallas_mh.py:1765"),
+            ("mh", "metropolis_hastings_fused", "mh.cu",
+             "odelib_tpu/ops/pallas_mh.py:1017"),
+            ("ensemble", "ensemble_fused", "ensemble.cu",
+             "odelib_tpu/ops/pallas_mh.py:1514"),
+            ("pt", "parallel_tempering_fused", "pt.cu",
+             "odelib_tpu/ops/pallas_pt.py:49")):
+        args = launch_args(calls["survey mh" if sampler == "survey"
+                                 else sampler], sampler)
+        reps = 20 if sampler == "survey" else 1
+        dp_ms = kernel_costs(sampler, "dopri5", args, reps)[0]
+        # the twin over 2 proposals, scaled
+        ms, plain_ms, b, ops = kernel_costs(sampler, "kvaerno3", args, reps,
+                                            short=3)
+        print(f"{name} kvaerno3 {ms:.4f} ms, dopri5 {dp_ms:.4f} ms "
+              f"({ms / dp_ms:.2f} x); twin {plain_ms:.1f} ms; bound "
+              f"{b[0]:.4f} ms by {b[1]} ({ops:.3g} ops)", flush=True)
+        launch_of = launches["mh" if sampler == "survey" else sampler]
+        rows.append({
+            "name": f"{name}:kvaerno3", "route": "cuda",
+            "source": "odelib_tpu_torch/ops/csrc/" + src,
+            "replaces": replaces, "launches": launch_of[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+    return rows
+
+
 def _survey_held(label, case, chi_k, chi_t):
     """The survey's chi, kernel against twin: bitwise (compare_chi), or
     for a Tobit case within rtol 1e-6."""
@@ -1333,6 +1780,7 @@ def main():
     pf_fw0 = pmmh_framework()
     pf_spec = pf_fw0._spec
     paths = slice_paths(framework)
+    rob_fw = robertson_framework()
 
     # -- 2. build -------------------------------------------------------------
     phase("build")
@@ -1344,17 +1792,25 @@ def main():
                (spec, (spec1,), False, [demo_sc, cuda_mh.scoring(
                    cuda_mh._build_plan(spec1, obs1, tf1, 1))]),
                (pf_spec, (), True, [fw_scoring(pf_fw0)])]
-              + scoring_builds(pf_fw0) + path_builds(paths))
-    with ThreadPoolExecutor(8) as ex:       # eight nvcc processes at once
-        libs = list(ex.map(lambda a: build.load_kernels(*a[:3],
-                                                        scoring=a[3]),
-                           builds))
+              + scoring_builds(pf_fw0) + path_builds(paths)
+              # the stiff path's libraries: the kvaerno3 instantiations
+              + [(spec, (), False, [demo_sc], True),
+                 (rob_fw._spec, (), False, [fw_scoring(rob_fw)], True)])
+    # eight nvcc processes at once, the SDE libraries (their five
+    # pf_kernel instantiations take 1-2 minutes each) submitted first
+    with ThreadPoolExecutor(8) as ex:
+        futs = {i: ex.submit(build.load_kernels, *a[:3], scoring=a[3],
+                             stiff=a[4] if len(a) > 4 else False)
+                for i, a in sorted(enumerate(builds),
+                                   key=lambda x: not x[1][2])}
+        libs = [futs[i].result() for i in range(len(builds))]
     build_s = time.perf_counter() - t0
     logs = ""
     labels = (["zero_i", "zero_i + one_i (joint)", "GBM SDE"]
               + [f"zero_i {scoring_id(c)}" for c in SCORING]
               + [f"GBM SDE {scoring_id(c)}" for c in PF_SCORING]
-              + [f"path ({k})" for k in "abcde"])
+              + [f"path ({k})" for k in "abcde"]
+              + ["zero_i, stiff (kvaerno3)", "Robertson, stiff (kvaerno3)"])
     for label, lib in zip(labels, libs):
         log = open(os.path.join(os.path.dirname(lib._name),
                                 "nvcc.log")).read()
@@ -1414,17 +1870,18 @@ def main():
 
     phase("ensemble kernel vs twin")
     W, tile, mask = 2048, 1024, (1.0, 1.0, 1.0)
+    e_nits = 100
     start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
         seeds[:W], seed, tile, mask, 0.01).T), device=dev)
-    ens_kw = dict(tile=tile, nits=nits, burnin=0, a=2.0, walk=mask,
+    ens_kw = dict(tile=tile, nits=e_nits, burnin=0, a=2.0, walk=mask,
                   walked=(True,) * 3, num=3, W0=W)
     rec_k = cuda_mh.ensemble_launcher(spec, plan, y0, "dopri5", start, seed,
                                       **ens_kw)()
     torch.cuda.synchronize()
     rec_t = cuda_mh.ensemble_plain(spec, plan, y0, start, seed, **ens_kw)
     torch.cuda.synchronize()
-    compare_records("ensemble", rec_k, rec_t, nits)
-    print(f"ensemble: {W} walkers ({W // tile} ensembles) x {nits} "
+    compare_records("ensemble", rec_k, rec_t, e_nits)
+    print(f"ensemble: {W} walkers ({W // tile} ensembles) x {e_nits} "
           f"iterations in one device launch, mean acceptance "
           f"{float(rec_k[4][-1].mean()):.4f}", flush=True)
     # the same run on 7 blocks of 32 threads: 1,024 columns, 4-5 a thread
@@ -1432,7 +1889,7 @@ def main():
                                       blocks=7, **ens_kw)()
     torch.cuda.synchronize()
     compare_records("ensemble (7 blocks, columns looped)", rec_k, rec_t,
-                    nits)
+                    e_nits)
 
     phase("PT kernel vs twin")
     # the main path's ladder, then 3 rungs (an idle lane in each chain's
@@ -1440,8 +1897,8 @@ def main():
     # block of 128 threads is part empty; the twin's time grows with the
     # rungs, so these two take fewer iterations
     for temps, n_c, n_it in (
-            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
-            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
+            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 30),
+            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 30)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
         pt_kw = dict(nits=n_it, burnin=0, scales=sc, walked=(True,) * 3,
@@ -1547,7 +2004,7 @@ def main():
                              * np.exp(np.random.default_rng(10).normal(
                                  0, 0.05, (256, 5)))).astype(np.float32).T
                             .copy(), device=dev)
-    P_NITS = 50      # iterations a kernel: the twins are launch-bound
+    P_NITS = 25      # iterations a kernel: the twins are launch-bound
     pri_walk = (0.1,) * 3
     for label, pri in prior_sets().items():
         table = prior_table(pri)
@@ -2100,17 +2557,9 @@ def main():
 
     phase("survey and MH kernels vs twin at the MH main path's inputs")
     sv_args, sv_kw = sv_in["mh"]
-    sv_spec, sv_obs, sv_tf, sv_y0, sv_th = sv_args
-    chi_k = cuda_mh.survey_fused(*sv_args, **sv_kw)
-    torch.cuda.synchronize()
-    sv_plan = cuda_mh._build_plan(sv_spec, sv_obs, sv_tf,
-                                  cuda_mh._normalize_substeps(
-                                      sv_kw["substeps"], len(sv_tf) - 1))
-    chi_t = cuda_mh.survey_plain(sv_spec, sv_plan, sv_y0,
-                                 sv_th.t().contiguous(), sv_kw["stepper"])
-    torch.cuda.synchronize()
-    survey_err = compare_chi("survey (main path's inputs)",
-                             chi_k.cpu().numpy(), chi_t.cpu().numpy())
+    sv_th = sv_args[4]
+    survey_err = survey_vs_twin("survey (main path's inputs)",
+                                {"args": sv_args, "kw": sv_kw})
     print(f"survey at the main path's inputs: survey_fused on its "
           f"{sv_th.shape[0]} draws, {sv_kw['stepper']}, substeps "
           f"{sv_kw['substeps']}", flush=True)
@@ -2163,7 +2612,7 @@ def main():
 
     phase("ensemble kernel vs twin at the main path's inputs")
     ens_th0, cfg, ens_seed = ens_in["theta0"], ens_in["cfg"], ens_in["seed"]
-    ens_nits = 200
+    ens_nits = 100
     tile_main = cfg.tile_chains or cuda_mh.pick_tile_chains(len(ens_th0))
     ens_walk = tuple(float(w) for w in cfg.mask)
     ens_sub = cuda_mh._normalize_substeps(cfg.substeps, len(tf) - 1)
@@ -2316,38 +2765,30 @@ def main():
                        stepper=dispatch.fused_stepper(ens_cfg.method),
                        tile_chains=ens_cfg.tile_chains)}}, pf_in)
 
+    # the stiff path: the kernels' kvaerno3 instantiations
+    stiff_rows = stiff_phases(framework, rob_fw, smi_line)
+
     # -- 5. times -----------------------------------------------------------
     phase("times")
     short = 6        # the twins over 5 proposals, scaled per iteration
     th_main_t = torch.as_tensor(seeds, device=dev).t().contiguous()
-    mh_ms = events_ms(cuda_mh.mh_launcher(
-        spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
-        walk=walk, walked=(True,) * 3, num=3))
-    tw_ms = events_ms(lambda: cuda_mh.mh_plain(
-        spec, plan, y0, th_main_t, seed, nits=short, burnin=0, walk=walk,
-        walked=(True,) * 3, num=3))
-    mh_plain_ms = tw_ms / (short - 1) * (NITS - 1)
     th_s = torch.as_tensor(draws[:1000], device=dev).t().contiguous()
-    sv_ms = events_ms(cuda_mh.survey_launcher(spec, plan, y0, "dopri5",
-                                              th_s), reps=50)
-    sv_plain_ms = events_ms(lambda: cuda_mh.survey_plain(
-        spec, plan, y0, th_s), reps=3)
     launch_kw = {k: v for k, v in ens_main.items() if k != "stepper"}
-    ens_ms = events_ms(cuda_mh.ensemble_launcher(
-        spec, ens_plan, y0, stepper, ens_start, ens_seed, nits=NITS,
-        burnin=BURNIN, **launch_kw))
-    ens_tw_ms = events_ms(lambda: cuda_mh.ensemble_plain(
-        spec, ens_plan, y0, ens_start, ens_seed, nits=short, burnin=0,
-        **ens_main))
-    ens_plain_ms = ens_tw_ms / (short - 1) * (NITS - 1)
     pt_main = dict(scales=scales, walked=(True,) * 3, betas=betas,
                    dbetas=dbetas, swap_every=1, num=3)
-    pt_ms = events_ms(cuda_pt.pt_launcher(
-        spec, plan, y0, "dopri5", th_main_t, seed, nits=NITS, burnin=BURNIN,
-        **pt_main))
-    pt_tw_ms = events_ms(lambda: cuda_pt.pt_plain(
-        spec, plan, y0, th_main_t, seed, nits=short, burnin=0, **pt_main))
-    pt_plain_ms = pt_tw_ms / (short - 1) * (NITS - 1)
+    sv_ms, sv_plain_ms, sv_bound, _ = kernel_costs(
+        "survey", "dopri5", (spec, plan, y0, th_s, None, {}), reps=50,
+        short=short)
+    mh_ms, mh_plain_ms, mh_bound, _ = kernel_costs(
+        "mh", "dopri5", (spec, plan, y0, th_main_t, seed,
+                         dict(walk=walk, walked=(True,) * 3, num=3)),
+        short=short)
+    ens_ms, ens_plain_ms, ens_bound, _ = kernel_costs(
+        "ensemble", stepper, (spec, ens_plan, y0, ens_start, ens_seed,
+                              launch_kw), short=short)
+    pt_ms, pt_plain_ms, pt_bound, _ = kernel_costs(
+        "pt", "dopri5", (spec, plan, y0, th_main_t, seed, pt_main),
+        short=short)
     joint_ms = events_ms(cuda_joint.joint_launcher(
         jspecs, jplans, jy0s, jidx, jstep, jth_all, jseed, nits=NITS,
         burnin=BURNIN, **jl_kw))
@@ -2447,22 +2888,11 @@ def main():
               + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
     print(f"build {build_s:.3f} s ({smi_line})")
 
-    # bounds: float32 operations from the twins on the CPU, bytes from the
-    # main path's shapes
-    cpu = torch.device("cpu")
-    plan_bytes = sum(a.nbytes for a in cuda_mh.plan_tables(spec, plan, y0,
-                                                           "dopri5"))
-    one = torch.as_tensor(seeds[:1].T.copy(), device=cpu)
-    sv_ops = 1000 * fp32_ops(lambda: cuda_mh.survey_plain(spec, plan, y0,
-                                                          one))
-    sv_bound = bound(sv_ops, plan_bytes + 1000 * (3 + 1) * 4)
+    # bounds (survey, MH, ensemble and PT: kernel_costs): float32
+    # operations from the twins on the CPU, bytes from the main path's shapes
     R = NITS - 1 - BURNIN
-    init, step, rec = per_iteration_ops(lambda n, b: cuda_mh.mh_plain(
-        spec, plan, y0, one, seed, nits=n, burnin=b, walk=walk,
-        walked=(True,) * 3, num=3))
-    mh_bound = bound(CHAINS * (init + (NITS - 1) * step + R * rec),
-                     plan_bytes + CHAINS * 3 * 4 + R * CHAINS * (3 + 4) * 4)
-    # and on the schedule the MH path's substeps='auto' calibrated
+    one = torch.as_tensor(seeds[:1].T.copy())
+    # MH on the schedule the MH path's substeps='auto' calibrated
     init, step, rec = per_iteration_ops(lambda n, b: cuda_mh.mh_plain(
         spec, auto_plan, y0, one, seed, nits=n, burnin=b, walk=walk,
         walked=(True,) * 3, num=3))
@@ -2471,18 +2901,6 @@ def main():
         sum(a.nbytes for a in cuda_mh.plan_tables(spec, auto_plan, y0,
                                                   "dopri5"))
         + CHAINS * 3 * 4 + R * CHAINS * (3 + 4) * 4)
-    ens_one = torch.as_tensor(cuda_mh.ensemble_init(
-        seeds[:256], seed, 256, mask, 0.01).T.copy(), device=cpu)
-    init, step, rec = per_iteration_ops(lambda n, b: cuda_mh.ensemble_plain(
-        spec, plan, y0, ens_one, seed, tile=256, nits=n, burnin=b, a=2.0,
-        walk=mask, walked=(True,) * 3, num=3, W0=256))
-    ens_bound = bound(
-        (W_main * (init + (NITS - 1) * step) + CHAINS * R * rec) / 256,
-        plan_bytes + W_main * 3 * 4 + R * CHAINS * (3 + 4) * 4)
-    init, step, rec = per_iteration_ops(lambda n, b: cuda_pt.pt_plain(
-        spec, plan, y0, one, seed, nits=n, burnin=b, **pt_main))
-    pt_bound = bound(CHAINS * (init + (NITS - 1) * step + R * rec),
-                     plan_bytes + CHAINS * 3 * 4 + R * CHAINS * (3 + 5) * 4)
     jone = jth_all[:, :1].cpu().contiguous()
     init, step, rec = per_iteration_ops(lambda n, b: cuda_joint.joint_plain(
         jspecs, jplans, jy0s, jidx, jone, jseed, nits=n, burnin=b,
@@ -2585,7 +3003,7 @@ def main():
             max(joint_err, auto_err["joint"]), joint_ms, joint_plain_ms,
             joint_bound),
         row("pmmh_fused", "pf.cu", "odelib_tpu/ops/pallas_pf.py:130",
-            "pmmh", pf_err, pf_ms, pf_plain_ms, pf_bound)]}))
+            "pmmh", pf_err, pf_ms, pf_plain_ms, pf_bound)] + stiff_rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,7 +2,8 @@
 
 Counterpart of ``odelib_tpu/api.py`` for the main path: construction from
 a dataframe (optionally with a ``diffusion=`` making the model an SDE),
-accessors, ``integrate`` (adaptive Dopri5, with doses), the fit
+accessors, ``integrate`` (adaptive Dopri5, Kvaerno3/5 or 'auto', with
+doses), the fit
 statistics of every observation model (censored points scored by Tobit
 terms and left out of R^2), the LHS
 prescreen, ``fit_survey`` and ``MCMC`` with ``sampler='mh'``,
@@ -36,7 +37,7 @@ from . import data as _data
 from . import dispatch as _dispatch
 from . import distributions as _dist
 from . import stats as tstats
-from .model import dose_matrix, make_spec, state_func
+from .model import dose_matrix, make_spec, state_func, state_jac
 from .ops.integrate import odeint_grid
 from .rhs import adapt_rhs
 from .samplers.lhs import sample_lhs
@@ -130,7 +131,9 @@ class ModelFramework:
     ``dose_events``), plus ``device``: where tensors live and
     kernels run (default ``cuda``; ``cpu`` runs the kernels' torch twins
     and must be asked for). Solver
-    knobs: ``method`` 'dopri5' | 'rk4' (fixed-step kernels), ``rtol``/
+    knobs: ``method`` 'dopri5' | 'rk4' | 'kvaerno3' (the fixed-step
+    kernels' stepper; 'kvaerno5' and 'auto' for the adaptive
+    ``integrate`` only), ``rtol``/
     ``atol``/``max_steps`` for the adaptive ``integrate``, ``substeps``
     (int or per-interval schedule) for the kernels. ``diffusion`` is the
     diagonal process noise ``g`` of ``dy = f dt + g dW``, with the RHS's
@@ -309,9 +312,11 @@ class ModelFramework:
     def integrate(self, inits=None, parameters=None, predict_obs=False,
                   as_dataframe=True, sum_subpopulations=True, route="auto",
                   **solver_kw):
-        """Adaptive Dopri5 solve on ``self.times`` in float64 on the
-        framework's device, with the model's doses (pre-dose values at
-        the dose times; ``route`` is accepted and ignored)."""
+        """Adaptive solve on ``self.times`` in float64 on the framework's
+        device with the configured method (Dopri5, also for 'rk4';
+        'kvaerno3', 'kvaerno5' or 'auto'), with the model's doses
+        (pre-dose values at the dose times; ``route`` is accepted and
+        ignored)."""
         initials = self.get_inits() if inits is None \
             else np.asarray(inits, float)
         if parameters is None:
@@ -321,17 +326,15 @@ class ModelFramework:
                 parameters = parameters[0]
             theta = self._spec.pack_theta(list(parameters))
         method, rtol, atol, max_steps, _ = self._solver_args(solver_kw)
-        if method not in ("dopri5", "rk4"):
-            raise NotImplementedError(
-                f"method={method!r}: adaptive Kvaerno/auto are not ported "
-                "yet (ROADMAP queue 1, item 14)")
         th = torch.as_tensor(theta, dtype=torch.float64, device=self.device)
         sol = odeint_grid(
             state_func(self._spec),
             torch.as_tensor(initials, dtype=torch.float64,
                             device=self.device),
             self.times, list(th), rtol=rtol, atol=atol, max_steps=max_steps,
-            dose=dose_matrix(self._spec, self.times))
+            method="dopri5" if method == "rk4" else method,
+            dose=dose_matrix(self._spec, self.times),
+            jac=state_jac(self._spec))
         mod = sol.ys.cpu().numpy()
         if sum_subpopulations and self._spec.sum_matrix is not None:
             mod = mod @ np.asarray(self._spec.sum_matrix)
@@ -528,14 +531,17 @@ class ModelFramework:
         ignored, and so is ``pallas_tile_chains`` for 'mh' and 'pt'.
         ``profile=True`` records each stage's wall seconds in
         ``last_profile``, with a device synchronize at each stage
-        boundary. ``backend='pallas'`` runs the fused kernel and warns if
-        the configured method is not dopri5/rk4; ``backend='auto'`` raises
-        for such a method, since its JAX counterpart takes the XLA sampler
-        there. Not ported yet, each raising ``NotImplementedError``: the
-        other samplers, ``backend='xla'`` (and what
-        ``backend='auto'`` sends to an XLA sampler), ``temperatures=
-        'auto'`` (with ``n_temps``/``pilot_iters``/``ladder_rounds``),
-        the kvaerno3 kernel stepper and ``sde_method='milstein'``.
+        boundary. ``method='kvaerno3'`` runs the kernels' implicit
+        fixed-step Kvaerno3 (the stiff path; ``substeps='auto'``
+        calibrates it with Kvaerno5). ``backend='pallas'`` runs the fused
+        kernel and warns if the configured method is not
+        dopri5/rk4/kvaerno3; ``backend='auto'`` raises for such a method
+        ('kvaerno5', 'auto'), since its JAX counterpart takes the XLA
+        sampler there. Not ported yet, each raising
+        ``NotImplementedError``: the other samplers, ``backend='xla'``
+        (and what ``backend='auto'`` sends to an XLA sampler),
+        ``temperatures='auto'`` (with ``n_temps``/``pilot_iters``/
+        ``ladder_rounds``) and ``sde_method='milstein'``.
         """
         until = until_rhat is not None or until_min_ess is not None
         if until and sampler != "mh":
@@ -629,19 +635,17 @@ class ModelFramework:
             # uniform default on the first call); the chains' schedule is
             # calibrated below from this run's own seeding draws
             substeps = self._resolve_substeps("auto", n_fit_intervals)
-        if method == "kvaerno3" and sampler != "pmmh":
-            raise NotImplementedError(
-                "the kvaerno3 kernel stepper is not ported yet (ROADMAP "
-                "queue 1, item 14)")
-        if method not in ("dopri5", "rk4") and sampler != "pmmh":
+        if method not in ("dopri5", "rk4", "kvaerno3") \
+                and sampler != "pmmh":
             if backend == "auto":
                 raise NotImplementedError(
                     f"method={method!r} runs on the XLA sampler, not "
                     f"ported yet ({_XLA_SAMPLER_ITEM[sampler]}); pass "
                     "backend='pallas' to run fixed-step dopri5 instead")
             warnings.warn(
-                f"backend='pallas' integrates fixed-step dopri5/rk4; the "
-                f"configured method={method!r} is not honored there")
+                f"backend='pallas' integrates fixed-step dopri5/rk4/"
+                f"kvaerno3; the configured method={method!r} is not "
+                "honored there")
         nits = iterations_per_chain
         if burnin is None:
             burnin = int(nits / 2)

@@ -54,7 +54,7 @@ class RunConfig:
 
 def fused_stepper(method: str) -> str:
     """Fixed-step kernel stepper for a configured method name."""
-    return "rk4" if method == "rk4" else "dopri5"
+    return method if method in ("rk4", "kvaerno3") else "dopri5"
 
 
 def _progress_path(cfg: RunConfig) -> Optional[str]:

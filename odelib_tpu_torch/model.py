@@ -209,6 +209,21 @@ def state_func(spec: ModelSpec):
     return lambda t, y, ps: torch.stack(f(t, list(y), ps))
 
 
+def state_jac(spec: ModelSpec):
+    """``jac(t, y (S, N), ps) -> (S, S, N)``: the RHS's Jacobian in the
+    states from the traced DAG's forward-mode columns
+    (:meth:`~odelib_tpu_torch.rhs.RhsProgram.jacobian`), for the implicit
+    integrators."""
+    from .rhs import jacobian_evaluator
+    S = len(spec.snames)
+    J = jacobian_evaluator(spec.rhs, S, spec.theta_size)
+
+    def jac(t, y, ps):
+        cols = J(t, list(y), ps)
+        return torch.stack(cols).reshape((S, S) + cols[0].shape)
+    return jac
+
+
 def dose_matrix(spec: ModelSpec, times) -> Optional[np.ndarray]:
     """(T, S_raw) float64 impulse matrix of the spec's dose events on the
     grid ``times``: each event snaps to the nearest grid point (the first
@@ -229,21 +244,23 @@ def integrate_theta(spec: ModelSpec, thetas, y0, times, *, method="dopri5",
     per-lane initial states ``y0`` (S, N), on the tensor's device and
     dtype, with the spec's doses (:func:`dose_matrix`; pre-dose outputs).
     Returns raw-state ys (T, S, N), NaN from a failed adaptive lane on.
-    ``method``: 'dopri5' (adaptive), 'rk4' or 'fixed_dopri5' (fixed
-    steps, ``substeps`` per interval)."""
+    ``method``: adaptive 'dopri5', 'kvaerno3', 'kvaerno5' or 'auto', or
+    fixed steps ('rk4', 'fixed_dopri5', 'fixed_kvaerno3'; ``substeps``
+    per interval); the implicit ones take the traced RHS's Jacobian
+    (:func:`state_jac`)."""
     from .ops.integrate import odeint_fixed, odeint_grid
     f = state_func(spec)
     ps = spec.unpack_theta(thetas)
     dose = dose_matrix(spec, times)
-    if method in ("rk4", "fixed_dopri5"):
+    fixed = {"rk4": "rk4", "fixed_dopri5": "dopri5",
+             "fixed_kvaerno3": "kvaerno3"}
+    if method in fixed:
         return odeint_fixed(f, y0, times, ps, substeps=substeps,
-                            method="rk4" if method == "rk4" else "dopri5",
-                            dose=dose).ys
-    if method != "dopri5":
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP queue 1, item 14)")
+                            method=fixed[method], dose=dose,
+                            jac=state_jac(spec)).ys
     return odeint_grid(f, y0, times, ps, rtol=rtol, atol=atol,
-                       max_steps=max_steps, method=method, dose=dose).ys
+                       max_steps=max_steps, method=method, dose=dose,
+                       jac=state_jac(spec)).ys
 
 
 def observe(spec: ModelSpec, obs: ObsData, ys):

@@ -15,7 +15,9 @@ class ModelDef:
     """A packaged ODE model family member (see ``odelib_tpu``'s
     ``ModelDef``): ``rhs(t, y, ps)`` with elementwise operations only,
     canonical parameter/state orderings, literature defaults and a
-    factory of default priors."""
+    factory of default priors. ``stiff`` models default to the implicit
+    solvers (:attr:`recommended_method`, :attr:`recommended_fixed_stepper`,
+    and ``method='kvaerno5'`` in :meth:`framework`)."""
     name: str
     rhs: Callable
     pnames: Tuple[str, ...]
@@ -44,10 +46,21 @@ class ModelDef:
     def times(self, n: int = 200) -> np.ndarray:
         return np.linspace(0.0, self.default_t_end, n)
 
+    @property
+    def recommended_method(self) -> str:
+        """Adaptive solver matched to the model's stiffness."""
+        return "kvaerno5" if self.stiff else "dopri5"
+
+    @property
+    def recommended_fixed_stepper(self) -> str:
+        """Fixed stepper of the fused kernels."""
+        return "kvaerno3" if self.stiff else "dopri5"
+
     def framework(self, dataframe, *, use_default_priors: bool = True,
                   random_seed: int = 0, **kwargs):
         """A ready :class:`odelib_tpu_torch.ModelFramework` fitting this
-        model to ``dataframe``."""
+        model to ``dataframe`` (a stiff model's solver defaults to
+        ``method='kvaerno5'``)."""
         from ..api import ModelFramework, parameter
 
         kw = dict(kwargs)
@@ -59,6 +72,8 @@ class ModelDef:
         for pname, v in zip(self.pnames, self.default_theta):
             kw.setdefault(pname, float(v))
         kw.setdefault("state_summations", self.state_summations)
+        if self.stiff:
+            kw.setdefault("method", "kvaerno5")
         return ModelFramework(ODE=self.rhs, parameter_names=list(self.pnames),
                               state_names=list(self.snames),
                               dataframe=dataframe, random_seed=random_seed,

@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 from ..rhs import _f32_literal, trace_rhs
-from .runge_kutta import DP_A
+from .runge_kutta import DP_A, KV3_A, KV3_NEWTON
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("mh.cu", "ensemble.cu", "pt.cu", "joint.cu", "pf.cu")
@@ -93,6 +93,67 @@ def stepper_source(n_states: int, size: str = "ODE_S") -> str:
     return "\n".join(lines)
 
 
+def kvaerno3_source(program) -> str:
+    """The RHS's Jacobian ``jac()`` (:meth:`~odelib_tpu_torch.rhs.
+    RhsProgram.jacobian`) and the fixed-step Kvaerno3 ``step_kvaerno3``
+    over ``y[ODE_S]`` with the step's constants ``sf`` (h, f32(h gamma),
+    then the times of stages 1-4; ``plan_tables``): I - h gamma J in
+    registers, its elimination without pivoting and the triangular solves
+    unrolled in the order of ``odelib_tpu/ops/runge_kutta.py``
+    ``kvaerno3_fixed_step``, ``KV3_NEWTON`` chord-Newton iterations a
+    stage, the last stage returned. The twin is
+    :func:`~.runge_kutta.kvaerno3_fixed_step`."""
+    S = program.n_states
+    a = [[f"a{i}_{j}" for j in range(S)] for i in range(S)]
+    lines = [program.jacobian().cuda_function("jac"),
+             "__device__ __forceinline__ void step_kvaerno3(float* y, "
+             "const float* sf, const float* p) {",
+             "  const float h = sf[0], hg = sf[1];",
+             "  float k0[ODE_S], k1[ODE_S], k2[ODE_S], b[ODE_S], z[ODE_S], "
+             f"fz[ODE_S], J[{S * S}];",
+             "  rhs(sf[2], y, p, k0);",
+             "  jac(sf[2], y, p, J);"]
+    for i in range(S):
+        for j in range(S):
+            lines.append(f"  float {a[i][j]} = {'1.0f' if i == j else '0.0f'}"
+                         f" - hg * J[{i * S + j}];")
+    for k in range(S - 1):  # in-place LU, no pivoting
+        lines.append(f"  const float inv{k} = 1.0f / {a[k][k]};")
+        for i in range(k + 1, S):
+            lines.append(f"  {a[i][k]} = {a[i][k]} * inv{k};")
+            for j in range(k + 1, S):
+                lines.append(f"  {a[i][j]} = {a[i][j]} - {a[i][k]} * "
+                             f"{a[k][j]};")
+    ks = ["k0", "k1", "k2"]
+    for st in range(1, len(KV3_A)):
+        for s in range(S):
+            lines.append(f"  b[{s}] = y[{s}] + h * "
+                         f"({_stage_sum(KV3_A[st][:-1], ks, s)});")
+        for s in range(S):
+            lines.append(f"  z[{s}] = b[{s}] + hg * {ks[st - 1]}[{s}];")
+        lines += [f"  for (int it = 0; it < {KV3_NEWTON}; ++it) {{",
+                  f"    rhs(sf[{st + 2}], z, p, fz);"]
+        for s in range(S):
+            lines.append(f"    float x{s} = z[{s}] - hg * fz[{s}] - b[{s}];")
+        for i in range(S):          # forward substitution (unit lower)
+            for j in range(i):
+                lines.append(f"    x{i} = x{i} - {a[i][j]} * x{j};")
+        for i in reversed(range(S)):
+            for j in range(i + 1, S):
+                lines.append(f"    x{i} = x{i} - {a[i][j]} * x{j};")
+            lines.append(f"    x{i} = x{i} / {a[i][i]};")
+        for s in range(S):
+            lines.append(f"    z[{s}] = z[{s}] - x{s};")
+        lines.append("  }")
+        if st < len(KV3_A) - 1:
+            for s in range(S):
+                lines.append(f"  {ks[st]}[{s}] = (z[{s}] - b[{s}]) / hg;")
+    for s in range(S):
+        lines.append(f"  y[{s}] = z[{s}];")
+    lines += ["}", ""]
+    return "\n".join(lines)
+
+
 # the observation models as the scorer numbers them (csrc/common.cuh)
 OBS_FAMILY = {"lognormal": 0, "student_t": 1, "poisson": 2, "negbinom": 3}
 
@@ -146,11 +207,14 @@ def _model_source(i: int, program, scoring) -> str:
            f"{ns}::{call}; }}" for sig, call in fwd] + ["};", ""])
 
 
-def generated_header(program, diffusion, extra, scoring) -> str:
+def generated_header(program, diffusion, extra, scoring,
+                     stiff: bool = False) -> str:
     """``odelib_gen.cuh`` for a traced RHS program; with the traced
     ``diffusion`` of an SDE model (or None), with the ``extra`` programs
-    of a joint fit's other models, and with each model's ``scoring`` (one
-    ``cuda_mh.scoring`` tuple per model)."""
+    of a joint fit's other models, with each model's ``scoring`` (one
+    ``cuda_mh.scoring`` tuple per model), and with ``stiff`` the RHS's
+    Jacobian and the Kvaerno3 stepper (``ODE_KVAERNO3``: the survey, MH,
+    ensemble and PT kernels then hold kvaerno3 instantiations)."""
     import math
     if len(scoring) != 1 + len(extra):
         raise ValueError(f"{len(scoring)} scorings for {1 + len(extra)} "
@@ -160,6 +224,8 @@ def generated_header(program, diffusion, extra, scoring) -> str:
              f"#define ODELIB_TWO_PI {_f32_literal(2.0 * math.pi)}",
              program.cuda_source(), stepper_source(program.n_states),
              obs_source(0, scoring[0])]
+    if stiff:
+        parts += ["#define ODE_KVAERNO3 1", kvaerno3_source(program)]
     if diffusion is not None:
         parts += ["#define ODE_HAS_DIFFUSION 1",
                   f"// diffusion traced from {diffusion.name}",
@@ -184,12 +250,13 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(program, diffusion, extra, scoring) -> Path:
+def build(program, diffusion, extra, scoring, stiff: bool = False) -> Path:
     """Compile the kernels for ``program`` (with an SDE's ``diffusion``, a
-    joint fit's ``extra`` programs and each model's ``scoring``; cached by
-    content hash); returns the shared library's path. The compiler's
-    output and the build's seconds are kept beside it in ``nvcc.log``."""
-    header = generated_header(program, diffusion, extra, scoring)
+    joint fit's ``extra`` programs, each model's ``scoring`` and, with
+    ``stiff``, the Kvaerno3 instantiations; cached by content hash);
+    returns the shared library's path. The compiler's output and the
+    build's seconds are kept beside it in ``nvcc.log``."""
+    header = generated_header(program, diffusion, extra, scoring, stiff)
     h = hashlib.sha256()
     for part in (header, *((CSRC / s).read_text()
                            for s in SOURCES + HEADERS),
@@ -239,25 +306,29 @@ def distinct_programs(specs, scoring):
     return programs, model_of
 
 
-def load_kernels(spec, others=(), diffusion=False, *, scoring):
+def load_kernels(spec, others=(), diffusion=False, *, scoring,
+                 stiff: bool = False):
     """The loaded kernel library for ``spec``'s RHS, with the models of
     ``others`` compiled in for the joint kernel (build at first use), each
     model scored as its entry of ``scoring`` says (one ``cuda_mh.scoring``
     of its plan per model). With ``diffusion`` it holds an SDE model's
     traced diffusion too, which only the particle filter reads; every
     other kernel integrates the drift, so the drift of an SDE model shares
-    the library of the same ODE."""
+    the library of the same ODE. With ``stiff`` the survey, MH, ensemble
+    and PT kernels also hold their kvaerno3 instantiations (a library of
+    its own: the explicit steppers' libraries stay as they were)."""
     specs = (spec, *others)
     scoring = tuple(tuple(k) for k in scoring)
     programs, model_of = distinct_programs(specs, scoring)
     keys = tuple(scoring[model_of.index(i)] for i in range(len(programs)))
     diffusion = None if not diffusion or spec.diffusion is None else \
         trace_rhs(spec.diffusion, len(spec.snames), spec.theta_size)
-    key = (tuple(programs), keys, diffusion)
+    key = (tuple(programs), keys, diffusion, bool(stiff))
     lib = _BY_PROGRAM.get(key)
     if lib is not None:
         return lib
-    path = str(build(programs[0], diffusion, tuple(programs[1:]), keys))
+    path = str(build(programs[0], diffusion, tuple(programs[1:]), keys,
+                     bool(stiff)))
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)

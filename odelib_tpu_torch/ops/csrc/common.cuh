@@ -13,7 +13,26 @@
 #include <cuda_runtime.h>
 
 #include "odelib_gen.cuh"  // rhs(), step_dopri5(), step_rk4(), ODE_S, ODE_P,
-                           // ObsModel0
+                           // ObsModel0; with ODE_KVAERNO3, jac() and
+                           // step_kvaerno3()
+
+// The fixed steppers by id (ops/cuda_mh.py _STEPPER_ID; 2 is the particle
+// filter's Euler step layout). A library built for a stiff path
+// (ops/build.py, ODE_KVAERNO3) holds the kvaerno3 instantiations of the
+// survey, MH, ensemble and PT kernels; in another, ODE_KV3(x) is a null
+// entry of their launch tables and the launch returns an error.
+enum : int { STEP_DOPRI5 = 0, STEP_RK4 = 1, STEP_KVAERNO3 = 3 };
+#ifdef ODE_KVAERNO3
+#define ODE_KV3(x) x
+#else
+#define ODE_KV3(x) nullptr
+#endif
+
+// A stepper id's row in a launch table {dopri5, rk4, kvaerno3}, or -1.
+inline int stepper_row(int stepper) {
+  return stepper == STEP_DOPRI5 ? 0 : stepper == STEP_RK4 ? 1
+         : stepper == STEP_KVAERNO3 ? 2 : -1;
+}
 
 // The model of the generated header as a type, so the scorer can be
 // instantiated per model: a joint fit of different models adds Model1, ...
@@ -36,6 +55,13 @@ struct Model0 : ObsModel0 {
                                                   const float* p) {
     ::step_rk4(y, sf, p);
   }
+#ifdef ODE_KVAERNO3
+  static __device__ __forceinline__ void step_kvaerno3(float* y,
+                                                       const float* sf,
+                                                       const float* p) {
+    ::step_kvaerno3(y, sf, p);
+  }
+#endif
 };
 #ifndef ODE_MODELS
 #define ODE_MODELS(X) X(0)
@@ -333,10 +359,12 @@ __device__ __forceinline__ void score_model(const Plan& pl,
   for (int k = 0; k < pl.n_steps; ++k) {
     const int o0 = pl.step_obs[2 * k], o1 = pl.step_obs[2 * k + 1];
     const float* sf = pl.steps + 8 * k;
-    if (STEPPER == 0) {
+    if constexpr (STEPPER == STEP_DOPRI5) {
       M::step_dopri5(y, sf, theta);
-    } else {
+    } else if constexpr (STEPPER == STEP_RK4) {
       M::step_rk4(y, sf, theta);
+    } else {
+      M::step_kvaerno3(y, sf, theta);
     }
     obs_terms<M>(pl, o0, o1, y, chi, ssres);
     if constexpr (M::DOSED) {

@@ -279,9 +279,13 @@ extern "C" {
 // largest grid a cooperative launch of it accepts.
 int odelib_ensemble_blocks(int n_i, int n_f, int stepper, int priors,
                            int* blocks) {
-  void (*kernel)(const EnsArgs) =
-      stepper == 0 ? (priors ? &ens_kernel<0, true> : &ens_kernel<0, false>)
-                   : (priors ? &ens_kernel<1, true> : &ens_kernel<1, false>);
+  void (*kernels[3][2])(const EnsArgs) = {
+      {&ens_kernel<0, false>, &ens_kernel<0, true>},
+      {&ens_kernel<1, false>, &ens_kernel<1, true>},
+      {ODE_KV3((&ens_kernel<3, false>)), ODE_KV3((&ens_kernel<3, true>))}};
+  const int row = stepper_row(stepper);
+  if (row < 0 || !kernels[row][priors != 0]) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const EnsArgs) = kernels[row][priors != 0];
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -319,11 +323,14 @@ int odelib_ensemble(const int* pi, int n_i, const float* pf, int n_f,
                      it_base, it_end, rec0, n_i, n_f, seed, am1, a, nw1,
                      aic_const};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (prior)
-    return stepper == 0 ? run<0, true>(args, blocks, s)
-                        : run<1, true>(args, blocks, s);
-  return stepper == 0 ? run<0, false>(args, blocks, s)
-                      : run<1, false>(args, blocks, s);
+  int (*runs[3][2])(EnsArgs, int, cudaStream_t) = {
+      {&run<0, false>, &run<0, true>},
+      {&run<1, false>, &run<1, true>},
+      {ODE_KV3((&run<3, false>)), ODE_KV3((&run<3, true>))}};
+  const int row = stepper_row(stepper);
+  if (row < 0 || !runs[row][prior != nullptr])
+    return (int)cudaErrorInvalidValue;
+  return runs[row][prior != nullptr](args, blocks, s);
 }
 
 }  // extern "C"

@@ -89,8 +89,16 @@
 //
 // Numerics: built with -fmad=false and without fast math, so every
 // operation rounds like its torch twin (ops/cuda_mh.py) and the JAX
-// kernel: same order of the Dopri5/RK4 stage sums, constants rounded to
-// float32 on the host, and the same counter RNG words.
+// kernel: same order of the Dopri5/RK4 stage sums and of the Kvaerno3
+// stepper's elimination and Newton updates, constants rounded to float32
+// on the host, and the same counter RNG words.
+//
+// The stiff path (pallas_mh.py:87-91's kvaerno3 stepper): a library built
+// with ODE_KVAERNO3 adds the STEPPER = 3 instantiations, which step with
+// the generated step_kvaerno3 (ops/build.py kvaerno3_source: one traced
+// Jacobian a step, I - h gamma J eliminated in registers, four
+// chord-Newton iterations a stage). Everything else is the same kernel:
+// in mh_kernel each of a chain's four lanes runs the stepper on its node.
 #include "common.cuh"  // staged_plan, score<STEPPER>, mix, uniform, normal
 
 #define SURVEY_BLOCK 32
@@ -347,13 +355,15 @@ int odelib_survey(const int* pi, int n_i, const float* pf, int n_f,
   if (smem == 0) n_i = n_f = 0;
   const int grid = (N + SURVEY_BLOCK - 1) / SURVEY_BLOCK;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stepper == 0) {
-    survey_kernel<0><<<grid, SURVEY_BLOCK, smem, s>>>(pi, n_i, pf, n_f,
-                                                      theta, chi, N);
-  } else {
-    survey_kernel<1><<<grid, SURVEY_BLOCK, smem, s>>>(pi, n_i, pf, n_f,
-                                                      theta, chi, N);
-  }
+  using Survey = void (*)(const int*, int, const float*, int, const float*,
+                          float*, int);
+  const Survey kernels[3] = {&survey_kernel<STEP_DOPRI5>,
+                             &survey_kernel<STEP_RK4>,
+                             ODE_KV3(&survey_kernel<STEP_KVAERNO3>)};
+  const int row = stepper_row(stepper);
+  if (row < 0 || !kernels[row]) return (int)cudaErrorInvalidValue;
+  kernels[row]<<<grid, SURVEY_BLOCK, smem, s>>>(pi, n_i, pf, n_f, theta, chi,
+                                                N);
   return (int)cudaGetLastError();
 }
 
@@ -379,14 +389,21 @@ int odelib_mh(const int* pi, int n_i, const float* pf, int n_f,
   const long long threads = (long long)C * MH_GROUP;
   const int grid = (int)((threads + MH_BLOCK - 1) / MH_BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void (*kernels[2][2][2])(const MhArgs) = {
+  void (*kernels[3][2][2])(const MhArgs) = {
       {{&mh_kernel<0, false, false>, &mh_kernel<0, false, true>},
        {&mh_kernel<0, true, false>, &mh_kernel<0, true, true>}},
       {{&mh_kernel<1, false, false>, &mh_kernel<1, false, true>},
-       {&mh_kernel<1, true, false>, &mh_kernel<1, true, true>}}};
+       {&mh_kernel<1, true, false>, &mh_kernel<1, true, true>}},
+      {{ODE_KV3((&mh_kernel<3, false, false>)),
+        ODE_KV3((&mh_kernel<3, false, true>))},
+       {ODE_KV3((&mh_kernel<3, true, false>)),
+        ODE_KV3((&mh_kernel<3, true, true>))}}};
+  const int row = stepper_row(stepper);
+  if (row < 0) return (int)cudaErrorInvalidValue;
   void (*kernel)(const MhArgs) =
-      kernels[stepper != 0][prior != nullptr]
+      kernels[row][prior != nullptr]
              [state_in != nullptr || state_out != nullptr];
+  if (!kernel) return (int)cudaErrorInvalidValue;
   kernel<<<grid, MH_BLOCK, smem, s>>>(a);
   return (int)cudaGetLastError();
 }

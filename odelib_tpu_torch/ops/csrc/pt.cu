@@ -253,9 +253,15 @@ int odelib_pt(const int* pi, const float* pf, const float* theta0,
   const long long threads = (long long)C * G;
   const int grid = (int)((threads + PT_BLOCK - 1) / PT_BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel =
-      stepper == 0 ? (prior ? &pt_kernel<0, true> : &pt_kernel<0, false>)
-                   : (prior ? &pt_kernel<1, true> : &pt_kernel<1, false>);
+  using Kernel = decltype(&pt_kernel<0, false>);
+  const Kernel kernels[3][2] = {
+      {&pt_kernel<0, false>, &pt_kernel<0, true>},
+      {&pt_kernel<1, false>, &pt_kernel<1, true>},
+      {ODE_KV3((&pt_kernel<3, false>)), ODE_KV3((&pt_kernel<3, true>))}};
+  const int row = stepper_row(stepper);
+  if (row < 0 || !kernels[row][prior != nullptr])
+    return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kernels[row][prior != nullptr];
   kernel<<<grid, PT_BLOCK, 0, s>>>(pi, pf, theta0, ladder, prior, state_in,
                                    state_out, th_rec, chi_rec, rsq_rec,
                                    aic_rec, ar_rec, sw_rec, C, K, G, it_base,

@@ -192,7 +192,9 @@ def joint_metropolis_hastings_fused(
             "the joint kernel's chunked checkpoint/resume is not ported yet "
             "(ROADMAP queue 1, item 11)")
     _check_mesh(mesh)
-    _check_stepper(stepper)
+    # JointFit integrates dopri5 or rk4 under every method (kvaerno3 too,
+    # as odelib_tpu/joint.py does): the joint kernel holds those two
+    _check_stepper(stepper, ("dopri5", "rk4"))
     if burnin is None:
         burnin = int(nits / 2)
     theta0 = _as_f32_tensor(theta0)

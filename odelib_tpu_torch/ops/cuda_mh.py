@@ -28,10 +28,11 @@ import numpy as np
 import torch
 
 from ..model import ModelSpec, ObsData, obsdata_from_arrays
-from ..rhs import torch_evaluator, trace_rhs
+from ..rhs import jacobian_evaluator, torch_evaluator, trace_rhs
 from . import chunked
 from .priors import checked_priors, logprior_plain
-from .runge_kutta import DP_C, FIXED_STEPPERS, const
+from .runge_kutta import (DP_C, FIXED_STEPPERS, KV3_C, KV3_GAMMA, const,
+                          kvaerno3_fixed_step)
 
 _M32 = 0xFFFFFFFF
 _SLOT_BUDGET = 1024
@@ -160,17 +161,17 @@ def scoring(plan: _StaticPlan):
             any(plan_doses(plan, gi) for gi in range(plan.n_grid)))
 
 
-_STEPPER_ID = {"dopri5": 0, "rk4": 1}
+# the fixed steppers' ids (csrc/common.cuh STEP_*)
+_STEPPER_ID = {"dopri5": 0, "rk4": 1, "kvaerno3": 3}
 _EULER = 2  # header stepper id of the particle filter's step layout
 _HDR = 19  # int header of plan_i (see csrc/common.cuh)
 _MAX_MASK_STATES = 32  # an observation's members are a bit mask of states
 
 
-def _check_stepper(stepper):
-    if stepper not in _STEPPER_ID:
-        raise NotImplementedError(
-            f"stepper={stepper!r}: the kernels run dopri5 and rk4 "
-            "(kvaerno3: ROADMAP queue 1, item 14)")
+def _check_stepper(stepper, allowed=tuple(_STEPPER_ID)):
+    if stepper not in allowed:
+        raise ValueError(f"stepper={stepper!r}: the kernels run "
+                         f"{', '.join(allowed)}")
 
 
 def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
@@ -185,8 +186,10 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     censoring and doses come first, so the others keep the places they
     had. Floats are rounded to float32 on the host exactly where the JAX
     kernel's Python scalars meet float32 arrays (a grid point's doses of
-    one state summed in double first). ``stepper`` 'euler' lays each step
-    out for the particle filter as (h, t, f32(sqrt h))."""
+    one state summed in double first). A step's 8 floats are, for
+    'dopri5', h and its stage times; 'rk4' h, h/2, h/6 and its times;
+    'kvaerno3' h, h gamma and the times of its four stages; 'euler' (the
+    particle filter) h, t and f32(sqrt h)."""
     if stepper != "euler":
         _check_stepper(stepper)
     if len(spec.snames) > _MAX_MASK_STATES:
@@ -213,6 +216,8 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
             steps[k, :7] = [h] + [t + DP_C[i] * h for i in range(6)]
         elif stepper == "euler":
             steps[k, :3] = [h, t, float(np.sqrt(h))]
+        elif stepper == "kvaerno3":
+            steps[k, :6] = [h, h * KV3_GAMMA] + [t + c * h for c in KV3_C]
         else:
             steps[k, :6] = [h, 0.5 * h, h / 6.0, t, t + 0.5 * h, t + h]
     floats = [np.asarray([plan.sstot]),
@@ -467,7 +472,13 @@ def make_scorer(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     y0_base = tuple(float(v) for v in np.asarray(y0_base))
     S, P = len(spec.snames), spec.theta_size
     f = torch_evaluator(spec.rhs, S, P)
-    step = FIXED_STEPPERS[stepper]
+    if stepper == "kvaerno3":   # the traced Jacobian, as the kernel's
+        jac = jacobian_evaluator(spec.rhs, S, P)
+
+        def step(f, t, y, h, ps):
+            return kvaerno3_fixed_step(f, t, y, h, ps, jac)
+    else:
+        step = FIXED_STEPPERS[stepper]
     dosed = scoring(plan)[3]
 
     def contrib(y, gi, chi, ssres):
@@ -747,7 +758,8 @@ def survey_launcher(spec, plan, y0_base, stepper, th):
     return ``launch() -> chi (N,)``; each call launches the kernel once
     (and counts it)."""
     from . import build
-    lib = build.load_kernels(spec, scoring=[scoring(plan)])
+    lib = build.load_kernels(spec, scoring=[scoring(plan)],
+                             stiff=stepper == "kvaerno3")
     dev = th.device
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
                                   str(dev))
@@ -803,7 +815,8 @@ def mh_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
     chunk of :func:`mh_plain`'s chunk mode, state a (P + 4, C) tensor on
     the card (None on the first chunk)."""
     from . import build
-    lib = build.load_kernels(spec, scoring=[scoring(plan)])
+    lib = build.load_kernels(spec, scoring=[scoring(plan)],
+                             stiff=stepper == "kvaerno3")
     dev = th0.device
     P, C = th0.shape
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
@@ -846,7 +859,8 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
     each thread loops over several). ``prior``: a
     :func:`~.priors.prior_table` or None."""
     from . import build
-    lib = build.load_kernels(spec, scoring=[scoring(plan)])
+    lib = build.load_kernels(spec, scoring=[scoring(plan)],
+                             stiff=stepper == "kvaerno3")
     dev = th0.device
     P, W = th0.shape
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,

@@ -157,7 +157,8 @@ def pt_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
     ``launch(it_base, state) -> (records, state)``, a chunk of
     :func:`pt_plain`'s chunk mode."""
     from . import build
-    lib = build.load_kernels(spec, scoring=[scoring(plan)])
+    lib = build.load_kernels(spec, scoring=[scoring(plan)],
+                             stiff=stepper == "kvaerno3")
     dev = th0.device
     P, C = th0.shape
     K = len(betas)

@@ -11,6 +11,10 @@ arithmetic operation records a node. Two things are emitted from the DAG:
 * :meth:`RhsProgram.cuda_source` — a ``__device__`` function compiled into
   the survey and MH kernels (``ops/csrc/mh.cu``).
 
+:meth:`RhsProgram.jacobian` differentiates the DAG in forward mode into a
+program of its own (the Jacobian columns of the stiff stepper, in place
+of the JAX kernel's ``jax.jvp`` calls), emitted in both forms.
+
 Both keep Python's evaluation order, and constants are rounded to float32
 exactly as JAX rounds a weakly-typed Python scalar against a float32 array,
 so the kernel, its twin and the JAX reference perform the same float32
@@ -344,10 +348,88 @@ def _f32_literal(v: float) -> str:
     return f"{s}f" if not s.startswith("-") else f"({s}f)"
 
 
+def _tangent(g, n, tan, one):
+    """Forward-mode rule of node ``n``: its tangent from its operands'
+    (``tan``: node id -> tangent node, absent where the tangent is zero),
+    or None where it is zero. ``one`` is the constant 1.0 node, the seed
+    tangent, folded out of products."""
+    op, a = n.op, n.args
+    ta = [tan.get(x.id) for x in a]
+    if op in ("const", "t", "p", "y") or op in _BOOL_OPS:
+        return None        # leaves are seeded by the caller; tests: 0
+    if all(d is None for d in ta):
+        return None
+    zero = g.lift(0.0)
+
+    def mul(d, x):                  # d * x, a unit tangent folded
+        return x if d is one else g.node("mul", (d, x))
+
+    def z(d):
+        return zero if d is None else d
+    if op == "add":
+        if ta[0] is None or ta[1] is None:
+            return ta[0] if ta[1] is None else ta[1]
+        return g.node("add", (ta[0], ta[1]))
+    if op == "sub":
+        if ta[1] is None:
+            return ta[0]
+        if ta[0] is None:
+            return g.node("neg", (ta[1],))
+        return g.node("sub", (ta[0], ta[1]))
+    if op == "neg":
+        return g.node("neg", (ta[0],))
+    if op == "mul":
+        terms = [mul(d, x) for d, x in ((ta[0], a[1]), (ta[1], a[0]))
+                 if d is not None]
+        return terms[0] if len(terms) == 1 else g.node("add", tuple(terms))
+    if op == "div":                 # (da - (a / b) db) / b
+        if ta[1] is None:
+            return g.node("div", (ta[0], a[1]))
+        q = mul(ta[1], n)
+        num = g.node("neg", (q,)) if ta[0] is None \
+            else g.node("sub", (ta[0], q))
+        return g.node("div", (num, a[1]))
+    if op == "exp":
+        return mul(ta[0], n)
+    if op == "log":
+        return g.node("div", (ta[0], a[0]))
+    if op == "sqrt":
+        return g.node("div", (g.node("mul", (ta[0], g.lift(0.5))), n))
+    if op == "pow":                 # b a^(b - 1) da + log(a) a^b db
+        terms = []
+        if ta[0] is not None:
+            if a[1].op == "const":
+                dpow = g.node("mul", (a[1], g.node(
+                    "pow", (a[0], g.lift(a[1].value - 1.0)))))
+            else:
+                dpow = g.node("mul", (a[1], g.node(
+                    "pow", (a[0], g.node("sub", (a[1], one))))))
+            terms.append(mul(ta[0], dpow))
+        if ta[1] is not None:
+            terms.append(mul(ta[1], g.node("mul", (g.node("log", (a[0],)),
+                                                   n))))
+        return terms[0] if len(terms) == 1 else g.node("add", tuple(terms))
+    if op == "abs":                 # JAX's rule: da where a >= 0, else -da
+        return g.node("where", (g.node("ge", (a[0], zero)), ta[0],
+                                g.node("neg", (ta[0],))))
+    if op in ("minimum", "maximum"):
+        # the operand taken, half of each at a tie (JAX's balanced rule)
+        cmp = "lt" if op == "minimum" else "gt"
+        half = g.node("mul", (g.node("add", (z(ta[0]), z(ta[1]))),
+                              g.lift(0.5)))
+        return g.node("where", (
+            g.node(cmp, (a[0], a[1])), z(ta[0]),
+            g.node("where", (g.node(cmp, (a[1], a[0])), z(ta[1]), half))))
+    if op == "where":
+        return g.node("where", (a[0], z(ta[1]), z(ta[2])))
+    raise RhsTraceError(f"no derivative rule for the RHS operation {op!r}")
+
+
 class RhsProgram:
     """A traced RHS: ``n_states`` outputs over states, parameters and t."""
 
     def __init__(self, graph, outputs, n_states, n_params, name="rhs"):
+        self._graph = graph
         self.nodes = graph.nodes
         self.outputs = tuple(outputs)
         self.n_states, self.n_params, self.name = n_states, n_params, name
@@ -387,6 +469,34 @@ class RhsProgram:
             *(v.shape for v in y),
             *(val[n.id].shape for n in self.order if n.op == "p"))
         return [torch.broadcast_to(val[o.id], shape) for o in self.outputs]
+
+    def jacobian(self) -> "RhsProgram":
+        """The Jacobian of the RHS in the states, d f_i / d y_j, as a
+        program of S * S outputs in row-major order (output i S + j), by
+        forward-mode differentiation of the DAG: one tangent sweep per
+        state j (the JAX kernel's ``jax.jvp`` columns), zero tangents
+        folded so that column j touches only the nodes that depend on
+        y_j. Its :meth:`evaluate` and :meth:`cuda_function` run the same
+        expressions in the same order. Cached; an operation without a
+        rule raises :class:`RhsTraceError`."""
+        jac = getattr(self, "_jacobian", None)
+        if jac is not None:
+            return jac
+        g, S = self._graph, self.n_states
+        one = g.lift(1.0)
+        cols = []
+        for j in range(S):
+            tan = {}
+            for n in self.order:
+                d = one if n.op == "y" and n.value == j \
+                    else _tangent(g, n, tan, one)
+                if d is not None:
+                    tan[n.id] = d
+            cols.append([tan.get(o.id, g.lift(0.0)) for o in self.outputs])
+        self._jacobian = RhsProgram(
+            g, [cols[j][i] for i in range(S) for j in range(S)], S,
+            self.n_params, f"jacobian of {self.name}")
+        return self._jacobian
 
     def cuda_source(self) -> str:
         """The RHS as ``__device__ void rhs(float t, const float* y,
@@ -479,3 +589,34 @@ def torch_evaluator(rhs, n_states: int, n_params: int):
         return trace_rhs(rhs, n_states, n_params).evaluate
     except RhsTraceError:
         return lambda t, y, ps: list(rhs(t, y, ps))
+
+
+def jacobian_evaluator(rhs, n_states: int, n_params: int):
+    """``jac(t, y, ps)``: the S * S Jacobian entries d f_i / d y_j
+    (row-major) of a traced RHS (:meth:`RhsProgram.jacobian`); for an RHS
+    that does not trace, the forward-mode columns of the eager RHS
+    (:func:`jvp_columns`, CPU twins only)."""
+    try:
+        return trace_rhs(rhs, n_states, n_params).jacobian().evaluate
+    except RhsTraceError:
+        f = torch_evaluator(rhs, n_states, n_params)
+
+        def jac(t, y, ps):
+            cols = jvp_columns(lambda yy: torch.stack(f(t, list(yy), ps)),
+                               torch.stack(list(y)))
+            return [cols[j][i] for i in range(n_states)
+                    for j in range(n_states)]
+        return jac
+
+
+def jvp_columns(f, y):
+    """The Jacobian columns of a state map ``f`` at ``y`` (S, ...): column
+    j is the forward-mode derivative along the one-hot tangent of state j
+    on every lane, as the JAX package takes them (``jax.jvp``); returns S
+    tensors of ``f(y)``'s shape."""
+    cols = []
+    for j in range(y.shape[0]):
+        e = torch.zeros_like(y)
+        e[j] = 1.0
+        cols.append(torch.func.jvp(f, (y,), (e,))[1])
+    return cols

@@ -3,8 +3,9 @@
 card tests): each compiled scoring branch, the demo data as each
 observation model sees it (counts rounded, host points below 1.5e6
 left-censored there, virus points above 2.5e8 right-censored there),
-zero_i with a virus inoculum, and pk_oral with six oral doses and points
-under the LLOQ. Imports neither jax nor the JAX package."""
+zero_i with a virus inoculum, pk_oral with six oral doses and points
+under the LLOQ, and the stiff Robertson system on ``bench/suite.py``'s
+config-5 grid. Imports neither jax nor the JAX package."""
 import numpy as np
 import pandas as pd
 
@@ -12,7 +13,7 @@ from odelib_tpu_torch.data import (build_obsdata_host,
                                    compact_observation_grid,
                                    format_dataframe, load_demo_dataframe)
 from odelib_tpu_torch.model import make_spec
-from odelib_tpu_torch.models import pk_oral, zero_i
+from odelib_tpu_torch.models import pk_oral, robertson, zero_i
 from odelib_tpu_torch.rhs import adapt_rhs
 
 FAMILIES = {"lognormal": None, "student_t": 4.0, "poisson": None,
@@ -152,3 +153,42 @@ def pk_case(censored=True, obs_model="lognormal", t_steps=145, thin=1):
     df = format_dataframe(pk_frame(censored, thin=thin), pk_oral.snames)
     obs, tf = fit_inputs(spec, df, t_steps)
     return spec, obs, tf, np.zeros(2)
+
+
+# Robertson as bench/suite.py's config 5 solves it: its rates, y0 and grid
+ROBERTSON_TIMES = np.concatenate([[0.0], np.geomspace(1e-5, 1e3, 31)])
+# the framework snaps observations to linspace(0, 1e3, t_steps): spaced
+# 1e-3, the first interval is [0, 1e-3], and four fixed Kvaerno3 steps
+# from y2 = y3 = 0 converge there (the step's one Jacobian, taken where
+# y2 = 0, holds none of the -2 k2 y2 stiffness the stage meets; at the
+# default t_steps the first interval is [0, 1] and its chord Newton
+# diverges, in odelib_tpu as in the port). Each time moves to the nearest
+# grid point, by at most 4.9e-4: the seven below 5e-4 to t = 0, 7.4e-4 and
+# 1.4e-3 both to 1e-3, 2.5e-3 to 3e-3, those from 0.016 on by under 1 %
+ROBERTSON_T_STEPS = 1_000_001
+
+
+def robertson_frame(seed=5):
+    """Robertson's states at ``ROBERTSON_TIMES`` from (1, 0, 0) at the
+    default rates (scipy LSODA, rtol 1e-10, atol 1e-14) with log-normal
+    noise of sd 0.1 (numpy ``seed``) on the states positive at every
+    time: y1 (y2 and y3 start at 0)."""
+    from scipy.integrate import odeint
+    k1, k2, k3 = robertson.default_theta
+
+    def f(y, t):
+        return [-k1 * y[0] + k3 * y[1] * y[2],
+                k1 * y[0] - k2 * y[1] ** 2 - k3 * y[1] * y[2],
+                k2 * y[1] ** 2]
+    ys = odeint(f, list(robertson.default_y0), ROBERTSON_TIMES, rtol=1e-10,
+                atol=1e-14, mxstep=1000000)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for s, name in enumerate(robertson.snames):
+        if (ys[:, s] > 0).all():
+            rows.append(pd.DataFrame({
+                "organism": name, "time": ROBERTSON_TIMES,
+                "abundance": ys[:, s] * np.exp(
+                    0.1 * rng.normal(size=len(ROBERTSON_TIMES))),
+                "log_sigma": 0.1}))
+    return pd.concat(rows, ignore_index=True)

@@ -126,7 +126,7 @@ def test_unported_options_raise():
                      (dict(backend="xla"), "item 8"),
                      (dict(method="auto"), "item 8"),
                      (dict(method="kvaerno5"), "item 8"),
-                     (dict(method="kvaerno3"), "item 14"),
+                     (dict(sampler="pt", method="kvaerno5"), "item 15"),
                      (dict(sampler="pt", temperatures="auto"), "item 15"),
                      (dict(sampler="pt", backend="xla"), "item 15"),
                      # fewer walkers than a tile: the reference's XLA

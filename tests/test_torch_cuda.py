@@ -769,3 +769,86 @@ def test_tobit_device_functions_against_float64(card):
         got = probe(z, 1, T.t_constants(nu))
         normal = np.abs(want) >= np.finfo(np.float32).tiny
         np.testing.assert_allclose(got[normal], want[normal], rtol=1e-5)
+
+
+# -- the stiff path: the kernels' kvaerno3 instantiations -------------------
+
+def _stiff_inputs(card, model):
+    """(spec, host obs, grid, y0, draws) of zero_i on the demo (S = 2) or
+    of the Robertson fit on its config-5 data (S = 3, ``scoring_cases``):
+    draws around the fit."""
+    if model == "zero_i":
+        return (*card, _draws(1000, sd=0.05))
+    from odelib_tpu_torch.models import robertson
+    from scoring_cases import ROBERTSON_T_STEPS, robertson_frame
+    fw = robertson.framework(robertson_frame(), t_steps=ROBERTSON_T_STEPS,
+                             device="cpu")
+    rng = np.random.default_rng(3)
+    draws = (np.array(robertson.default_theta)
+             * np.exp(rng.normal(0, 0.05, (1000, 3)))).astype(np.float32)
+    return (fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits(),
+            draws)
+
+
+@pytest.mark.parametrize("model", ["zero_i", "robertson"])
+def test_kvaerno3_kernels_match_twins(card, model):
+    """The survey, MH, ensemble and PT kernels with stepper='kvaerno3' (a
+    library built with ODE_KVAERNO3) against their twins, whose steps are
+    kvaerno3_fixed_step with the traced Jacobian, bitwise, each launched
+    once; and MH in chunks of 7 bitwise its whole run."""
+    spec, obs, tf, y0, draws = _stiff_inputs(card, model)
+    plan = T._build_plan(spec, obs, tf, 4)
+    th = torch.as_tensor(draws, device="cuda")
+    kw = dict(substeps=4, stepper="kvaerno3")
+    T.reset_launch_counts()
+    chi = T.survey_fused(spec, obs, tf, y0, th, **kw)
+    chi_t = T.survey_plain(spec, plan, y0, th.t().contiguous(), "kvaerno3")
+    torch.cuda.synchronize()
+    assert np.isfinite(chi.cpu().numpy()).all()
+    np.testing.assert_array_equal(chi.cpu().numpy(), chi_t.cpu().numpy())
+    th0 = th[:256]
+    mh = T.metropolis_hastings_fused(spec, obs, tf, y0, th0, 11, nits=30,
+                                     burnin=5, **kw)
+    tw = T.mh_plain(spec, plan, y0, th0.t().contiguous(), 11, nits=30,
+                    burnin=5, walk=(0.05,) * 3, walked=(True,) * 3, num=3,
+                    stepper="kvaerno3")
+    torch.cuda.synchronize()
+    assert_bitwise((mh.theta.permute(1, 2, 0), mh.chi.t(), mh.rsquared.t(),
+                    mh.aic.t(), mh.acceptance_ratio.t()), tw)
+    chunked = T.metropolis_hastings_fused(spec, obs, tf, y0, th0, 11,
+                                          nits=30, burnin=5,
+                                          checkpoint_every=7, **kw)
+    assert_bitwise([v.permute(1, 2, 0) if v.ndim == 3 else v.t()
+                    for v in (chunked.theta, chunked.chi, chunked.rsquared,
+                              chunked.aic, chunked.acceptance_ratio)],
+                   [v.permute(1, 2, 0) if v.ndim == 3 else v.t()
+                    for v in (mh.theta, mh.chi, mh.rsquared, mh.aic,
+                              mh.acceptance_ratio)])
+    ens = T.ensemble_fused(spec, obs, tf, y0, th[:512], 11, nits=10,
+                           burnin=2, tile_chains=256, **kw)
+    start = torch.as_tensor(T.ensemble_init(draws[:512], 11, 256,
+                                            (1.0,) * 3, 0.01).T.copy(),
+                            device="cuda")
+    tw = T.ensemble_plain(spec, plan, y0, start, 11, tile=256, nits=10,
+                          burnin=2, a=2.0, walk=(1.0,) * 3,
+                          walked=(True,) * 3, num=3, W0=512,
+                          stepper="kvaerno3")
+    torch.cuda.synchronize()
+    assert_bitwise((ens.theta.permute(1, 2, 0), ens.chi.t(),
+                    ens.rsquared.t(), ens.aic.t(),
+                    ens.acceptance_ratio.t()), tw)
+    temps = (1.0, 2.0, 4.0, 8.0)
+    pt, rate = TP.parallel_tempering_fused(spec, obs, tf, y0, th0, 11,
+                                           temperatures=temps, nits=10,
+                                           burnin=2, **kw)
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.05, [1, 1, 1])
+    tw = TP.pt_plain(spec, plan, y0, th0.t().contiguous(), 11, nits=10,
+                     burnin=2, scales=scales, walked=(True,) * 3,
+                     betas=betas, dbetas=dbetas, swap_every=1, num=3,
+                     stepper="kvaerno3")
+    torch.cuda.synchronize()
+    assert_bitwise((pt.theta.permute(1, 2, 0), pt.chi.t(), pt.rsquared.t(),
+                    pt.aic.t(), pt.acceptance_ratio.t()), tw[:5])
+    assert {k: v for k, v in T.LAUNCHES.items() if v} == {
+        "survey_fused": 1, "metropolis_hastings_fused": 1 + -(-29 // 7),
+        "ensemble_fused": 1, "parallel_tempering_fused": 1}

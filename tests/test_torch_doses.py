@@ -77,12 +77,24 @@ def test_dosed_decay_matches_closed_form(method, kw):
 
 
 def test_dosed_kvaerno5_raises():
-    """The stiff solvers with doses wait for ROADMAP queue 1, item 14."""
+    """Dosed adaptive Kvaerno5 (it raised until the stiff solvers were
+    ported): three boluses against the closed form (rtol 1e-5) and the
+    JAX package's solve of the same spec (the same steps, to 1e-10), the
+    trough at a dose time."""
     spec = make_spec(adapt_rhs(_decay), ("k",), ("A",), dose_events=DOSES)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        integrate_theta(spec, torch.tensor([[K]], dtype=torch.float64),
-                        torch.zeros((1, 1), dtype=torch.float64),
-                        np.linspace(0, 6, 61), method="kvaerno5")
+    ts = np.linspace(0.0, 6.0, 61)
+    kw = dict(method="kvaerno5", rtol=1e-8, atol=1e-10)
+    ys = integrate_theta(spec, torch.tensor([[K]], dtype=torch.float64),
+                         torch.zeros((1, 1), dtype=torch.float64), ts,
+                         **kw)[:, 0, 0].numpy()
+    np.testing.assert_allclose(ys, _exact_pre_dose(ts), rtol=1e-5,
+                               atol=1e-8)
+    i2 = np.argmin(np.abs(ts - 2.0))
+    assert abs(ys[i2] - 10.0 * np.exp(-2 * K)) < 1e-4
+    ref = np.asarray(j_integrate(
+        j_make_spec(_decay, ("k",), ("A",), dose_events=DOSES),
+        jnp.array([K]), jnp.array([0.0]), jnp.asarray(ts), **kw))[:, 0]
+    np.testing.assert_allclose(ys, ref, rtol=1e-10, atol=1e-14)
 
 
 def test_dose_snaps_to_nearest_grid_point():

@@ -114,8 +114,8 @@ def test_mh_twin_rejects_unported_options(setup):  # noqa: F811
     obs = T.obsdata_from_arrays(obs_fit)
     th0 = torch.as_tensor(_theta0(4))
     for kw, err, msg in ((dict(checkpoint_every=0), ValueError, ">= 1"),
-                         (dict(stepper="kvaerno3"), NotImplementedError,
-                          "item 14")):
+                         (dict(stepper="kvaerno5"), ValueError,
+                          "the kernels run dopri5, rk4, kvaerno3")):
         with pytest.raises(err, match=msg):
             T.metropolis_hastings_fused(tspec, obs, times_fit, y0, th0, 0,
                                         nits=8, burnin=2, **kw)

@@ -69,9 +69,10 @@ def test_calibrate_substeps_falls_back_when_nothing_integrates(demo):
 
 
 def test_calibrate_substeps_fn_matches_odelib_tpu():
-    """The generic-RHS calibration (dopri5) on a logistic family with
-    per-lane rates, against the JAX package's vmapped one; its default
-    method, kvaerno5, is not ported."""
+    """The generic-RHS calibration on a logistic family with per-lane
+    rates, against the JAX package's vmapped one: with dopri5, and with
+    its default method, Kvaerno5 (the forward-mode Jacobian columns of
+    the plain RHS)."""
     times = np.linspace(0.0, 6.0, 9)
     rates = np.linspace(0.5, 4.0, 12)
 
@@ -87,8 +88,11 @@ def test_calibrate_substeps_fn_matches_odelib_tpu():
     got = S.calibrate_substeps_fn(tfunc, [0.01], times,
                                   torch.as_tensor(rates), **kw)
     assert got == ref and len(got) == 8 and max(got) > min(got)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        S.calibrate_substeps_fn(tfunc, [0.01], times, torch.as_tensor(rates))
+    ref = JS.calibrate_substeps_fn(jfunc, jnp.array([0.01]),
+                                   jnp.asarray(times), jnp.asarray(rates))
+    got = S.calibrate_substeps_fn(tfunc, [0.01], times,
+                                  torch.as_tensor(rates))
+    assert got == ref and len(got) == 8
 
 
 def test_mcmc_auto_substeps_calibrates_and_caches(demo, monkeypatch):
