@@ -11,8 +11,9 @@ Phases, each failing the script if it fails:
    together, eight at a time: the main-path model's, a joint fit of two
    different models' (zero_i and one_i), the PMMH path's SDE model's,
    each scoring branch's and path's, and the stiff path's two (zero_i's
-   and Robertson's, with the kvaerno3 instantiations); the builds'
-   seconds and each kernel's registers, stack and spills;
+   and Robertson's, with the kvaerno3 instantiations) and the PMMH
+   path's Milstein library; the builds' seconds and each kernel's
+   registers, stack and spills;
 3. kernel versus twin on the card, at the main-path model (zero_i on the
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
    on 1024 chains x 200 iterations (the kernel's rounds counted by the
@@ -84,8 +85,9 @@ Phases, each failing the script if it fails:
    'auto' resolves to 4), through its kernel and through its twin
    (every launcher swapped for its twin), bitwise: MH, ensemble and
    joint x 50 iterations, PT x 20. Then chunked checkpointing, on the MH,
-   ensemble, PT and PMMH paths' captured wrapper calls at their full run
-   lengths: (a) each wrapper with checkpoint_every (250; PMMH 64, so its
+   ensemble, PT and PMMH paths' and both joint paths' (with and without
+   priors) captured wrapper calls at their full run lengths: (a) each
+   wrapper with checkpoint_every (250; PMMH 64, so its
    burn-in of 100 spans two boundaries while the scale adapts) against
    its whole run, bitwise, one launch a chunk, both timed (CUDA events
    around the wrapper call); (b) each run killed after its first chunk
@@ -98,7 +100,23 @@ Phases, each failing the script if it fails:
    MCMC(sampler='mh', until_min_ess=1.5 x a first run's least ESS) at
    2,000 chains x 200 iterations: at least one extension, the iteration
    column rising without a reset, acceptance_ratio x iteration integral,
-   and the target met or the cap's warning given. Then the scoring
+   and the target met or the cap's warning given; (e) the joint kernel's
+   chunk instantiation against the twin's chunk mode at both joint paths'
+   inputs (all chains, 50 proposals in chunks of 20), bitwise; (f)
+   JointFit.MCMC at the joint path's shape with checkpoint_every=250 and
+   a file (four chunk launches, the posterior equal to the joint path's),
+   then killed after its first chunk and resumed (equal again); (g)
+   JointFit.MCMC(until_min_ess=1.5 x the joint path's least ESS,
+   max_extensions=1) at the joint path's shape, with (d)'s checks and
+   chi = chi:a + chi:b (NaN where NaN: a chain restarted where its solve
+   fails keeps a NaN chi). Then
+   PMMH's Milstein step on config 14: MCMC(sampler='pmmh',
+   sde_method='milstein') at the Euler path's shape with its bands (log
+   mu against kalman_posterior, frozen-phase acceptance), the Milstein
+   pf_kernel (a library built with ODE_MILSTEIN) against its twin at
+   every chain (3 proposals, 1 adapting), 4 chunks of 64 against the
+   whole run bitwise, and its time beside Euler's on the same chains
+   (Euler, Milstein, Euler). Then the scoring
    phases (every observation model, censoring and doses): (1) the Tobit
    device functions (probe kernel ``odelib_tobit``) against float64: log
    Phi within 2e-6 relative on z in [-37, 8], the t log-CDF within 1e-5
@@ -477,7 +495,8 @@ def pmmh_twin_kw(kw):
                 walked=tuple(w != 0.0 for w in walk),
                 rwalk_std=kw["rwalk_std"], prior=prior_table(kw["priors"]),
                 adapt=kw["adapt_proposal"], target=kw["target_accept"],
-                adapt_rate=kw["adapt_rate"])
+                adapt_rate=kw["adapt_rate"],
+                milstein=kw.get("sde_method") == "milstein")
 
 
 def pmmh_vs_twin(label, call, nits, burnin):
@@ -640,7 +659,8 @@ def chunk_phases(calls, framework, chains, nits):
         chunk_ms = events_ms(lambda: wrapper(
             *args, **{**kw, "checkpoint_every": E}), reps=3)
         times[label] = (whole_ms, chunk_ms, n_chunks)
-        print(f"{label}: {args[4].shape[0]} chains x {kw['nits']} "
+        th0 = next(a for a in args if isinstance(a, torch.Tensor))
+        print(f"{label}: {th0.shape[0]} chains x {kw['nits']} "
               f"iterations (burn-in {kw['burnin']}) in {n_chunks} chunks of "
               f"{E}: bitwise the whole run; wrapper call whole {whole_ms:.3f}"
               f" ms, chunked {chunk_ms:.3f} ms ({chunk_ms - whole_ms:+.3f} "
@@ -754,28 +774,268 @@ def chunk_phases(calls, framework, chains, nits):
                                 fitsurvey_samples=1000, sd_fitdistance=6.0,
                                 print_report=False, until_min_ess=target,
                                 max_extensions=3)
-    n_ext = cuda_mh.LAUNCHES["metropolis_hastings_fused"] - 1
+    extension_checks("until_min_ess", post, target, min_ess, n_it,
+                     cuda_mh.LAUNCHES["metropolis_hastings_fused"] - 1,
+                     caught)
+    return times
+
+
+def extension_checks(label, post, target, min_ess, nits, n_ext, caught):
+    """An ``until_min_ess`` run's posterior (``n_ext`` extensions, the
+    warnings ``caught``): at least one extension, the iteration column
+    rising without a reset to its last extension's end, acceptance_ratio
+    x iteration integral, and the target met or the cap's warning
+    given."""
+    import numpy as np
     capped = any("extension cap" in str(w.message) for w in caught)
     got = min_ess(post)
     its = post[post["chain#"] == 0]["iteration"].to_numpy()
     counts = (post["acceptance_ratio"].to_numpy(float)
               * post["iteration"].to_numpy(float))
-    print(f"until_min_ess {target:.1f} (1.5 x the single run's "
+    print(f"{label} {target:.1f} (1.5 x the single run's "
           f"{target / 1.5:.1f}): {n_ext} extension(s), min ESS {got:.1f}, "
           f"{len(its)} records a chain, iterations {its[0]}..{its[-1]}, "
           f"cap warning {capped}", flush=True)
     if n_ext < 1:
-        fail("until_min_ess: no extension ran")
-    if not (np.diff(its) > 0).all() or its[-1] != n_it - 1 + n_ext * (
-            n_it - 1):
-        fail("until_min_ess: the iteration column resets or stops short")
+        fail(f"{label}: no extension ran")
+    if not (np.diff(its) > 0).all() or its[-1] != nits - 1 + n_ext * (
+            nits - 1):
+        fail(f"{label}: the iteration column resets or stops short")
     # float32 ratios: counts to a few float32 ulps of their size
     if (np.abs(counts - np.round(counts))
             > 1e-6 * np.maximum(counts, 1.0)).any():
-        fail("until_min_ess: acceptance_ratio x iteration is not integral")
+        fail(f"{label}: acceptance_ratio x iteration is not integral")
     if not (got >= target or capped):
-        fail("until_min_ess: the target was missed without a warning")
-    return times
+        fail(f"{label}: the target was missed without a warning")
+
+
+def joint_chunk_phases(joint_fit, jpost_plain, calls, nits):
+    """The joint kernel's chunk mode beyond chunks (a)-(b): its CHUNK
+    instantiation against the twin's chunk mode at the joint paths'
+    captured calls (``calls``: (label, call), all chains, 50 proposals in
+    chunks of 20), then ``JointFit.MCMC`` at the joint path's shape with
+    a checkpoint file, killed after its first chunk and resumed, and with
+    ``until_min_ess``. Returns (chi's max abs error, the checkpointed
+    run's launches, {label: seconds})."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import pandas as pd
+    import torch
+    from odelib_tpu_torch.ops import cuda_joint, cuda_mh, plain_launchers
+    from odelib_tpu_torch.utils.diagnostics import effective_sample_size
+
+    name = "joint_metropolis_hastings_fused"
+    phase("chunks (e): the joint kernel's chunk mode against the twin's at "
+          "the joint paths' inputs (all chains, 50 proposals in chunks of "
+          "20)")
+    err = 0.0
+    for label, call in calls:
+        kw = {**call["kw"], "nits": 51, "burnin": 0, "checkpoint_every": 20}
+        n0 = cuda_mh.LAUNCHES[name]
+        out_k = cuda_joint.joint_metropolis_hastings_fused(*call["args"],
+                                                           **kw)
+        torch.cuda.synchronize()
+        n1 = cuda_mh.LAUNCHES[name]
+        with plain_launchers():
+            out_t = cuda_joint.joint_metropolis_hastings_fused(
+                *call["args"], **kw)
+        torch.cuda.synchronize()
+        if (n1 - n0, cuda_mh.LAUNCHES[name] - n1) != (3, 0):
+            fail(f"{label}: the chunked kernel run made {n1 - n0} launches "
+                 "(not 3) or the twin run launched")
+        err = max(err, compare_records(
+            f"{label} in chunks, kernel vs twin",
+            *([o.theta.permute(1, 2, 0), o.chi.t(),
+               o.chi_parts.permute(1, 2, 0), o.acceptance_ratio.t()]
+              for o in (out_k, out_t)), 51,
+            labels=("theta", "chi", "chi parts", "ar")))
+        print(f"{label}: all {call['args'][5].shape[0]} chains x 50 "
+              "proposals in 3 chunk launches, records bitwise the twin's "
+              "chunk mode", flush=True)
+
+    phase("chunks (f): JointFit.MCMC checkpointed every 250 iterations at "
+          "the joint path's shape, killed after its first chunk and "
+          "resumed")
+    kw = dict(chain_inits=CHAINS, iterations_per_chain=nits,
+              fitsurvey_samples=1000, substeps=4, backend="pallas",
+              print_report=False)
+    secs = {}
+    real = cuda_joint.joint_metropolis_hastings_fused
+
+    class Killed(Exception):
+        pass
+
+    def killed(*a, **k):
+        if real(*a, _stop_after_chunks=1, **k) is None:
+            raise Killed
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "joint.npz")
+        cuda_mh.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = joint_fit().MCMC(checkpoint_every=250, checkpoint_path=ckpt,
+                                **kw)
+        torch.cuda.synchronize()
+        secs["checkpointed"] = time.perf_counter() - t0
+        launches = cuda_mh.LAUNCHES[name]
+        n_chunks = -(-(nits - 1) // 250)
+        if launches != n_chunks:
+            fail(f"JointFit checkpointed: {launches} joint launches, not "
+                 f"{n_chunks}")
+        size = os.path.getsize(ckpt + ".progress")
+        pd.testing.assert_frame_equal(post, jpost_plain)
+        cuda_joint.joint_metropolis_hastings_fused = killed
+        try:
+            joint_fit().MCMC(checkpoint_every=250, checkpoint_path=ckpt,
+                             **kw)
+            fail("JointFit: the killed run finished")
+        except Killed:
+            pass
+        finally:
+            cuda_joint.joint_metropolis_hastings_fused = real
+        with np.load(ckpt + ".progress") as z:
+            if int(z["next_chunk"]) != 1:
+                fail("JointFit: the killed run's file is at chunk "
+                     f"{int(z['next_chunk'])}")
+        t0 = time.perf_counter()
+        res = joint_fit().MCMC(checkpoint_every=250, checkpoint_path=ckpt,
+                               resume_from=ckpt + ".progress", **kw)
+        torch.cuda.synchronize()
+        secs["resumed"] = time.perf_counter() - t0
+        pd.testing.assert_frame_equal(res, jpost_plain)
+    print(f"JointFit.MCMC checkpointed every 250: {launches} chunk "
+          f"launches, posterior equal to the joint path's, wall "
+          f"{secs['checkpointed']:.3f} s, progress file "
+          f"{size / 2 ** 20:.1f} MiB; killed after chunk 1 and resumed "
+          f"({secs['resumed']:.3f} s): the joint path's posterior",
+          flush=True)
+
+    phase("chunks (g): JointFit.MCMC(until_min_ess=...) at the joint "
+          "path's shape")
+
+    def min_ess(p):
+        return min(effective_sample_size(np.log(np.stack(
+            [g[c].to_numpy(float) for _, g in p.groupby("chain#")])))
+            for c in ("phi", "beta", "a:mu", "b:mu"))
+    target = 1.5 * min_ess(jpost_plain)
+    cuda_mh.reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        post = joint_fit().MCMC(until_min_ess=target, max_extensions=1,
+                                **kw)
+    secs["until"] = time.perf_counter() - t0
+    extension_checks("JointFit until_min_ess", post, target, min_ess, nits,
+                     cuda_mh.LAUNCHES[name] - 1, caught)
+    # an extension restarts a chain at its recorded theta, whose chi can be
+    # NaN where the solve fails (the reference restarts the same way)
+    chi = post["chi"].to_numpy()
+    print(f"JointFit until_min_ess wall {secs['until']:.3f} s; chains with "
+          f"a non-finite chi: {post['chain#'][~np.isfinite(chi)].nunique()}",
+          flush=True)
+    if not np.array_equal(chi, post["chi:a"].to_numpy()
+                          + post["chi:b"].to_numpy(), equal_nan=True):
+        fail("JointFit until_min_ess: chi is not chi:a + chi:b")
+    return err, launches, secs
+
+
+def milstein_phases(pmmh_framework):
+    """PMMH's Milstein step on config 14 (``sde_method='milstein'``): the
+    path through ``MCMC`` with the Euler path's bands, its kernel against
+    its twin at every chain, 4 chunks of 64 against the whole run, and
+    the Milstein kernel's time beside Euler's on the same chains. Returns
+    (chi's max abs error, the path's launches, the captured call, the
+    path's (wall, launches, stages), the kernel's ms: Euler, Milstein,
+    Euler)."""
+    import numpy as np
+    import torch
+    from odelib_tpu_torch.ops import cuda_mh, cuda_pf
+
+    phase("PMMH Milstein: ModelFramework(GBM, diffusion=...).MCMC("
+          "sampler='pmmh', sde_method='milstein')")
+    call = {}
+    real = cuda_pf.pmmh_fused
+    out = io.StringIO()
+    pfw = pmmh_framework()
+    cuda_mh.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), \
+            recording(cuda_pf, "pmmh_fused", call):
+        post = pfw.MCMC(sampler="pmmh", chain_inits=PF_CHAINS,
+                        iterations_per_chain=PF_NITS, fitsurvey_samples=1000,
+                        n_particles=PF_K, sde_substeps=PF_SUB, rwalk_std=0.4,
+                        use_priors=True, adapt_proposal=True,
+                        target_accept=0.3, adapt_rate=0.15, profile=True,
+                        sde_method="milstein")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(cuda_mh.LAUNCHES)
+    print(f"MCMC(pmmh, milstein) wall seconds: {wall_s:.3f}; launches "
+          f"{launches}; stages " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in pfw.last_profile.items()))
+    if call["kw"].get("sde_method") != "milstein" \
+            or launches["pmmh_fused"] != 1:
+        fail(f"pmmh (milstein): the wrapper ran {call['kw'].get('sde_method')}"
+             f" with {launches['pmmh_fused']} launches")
+    pf_R = PF_NITS - 1 - PF_NITS // 2
+    if len(post) != PF_CHAINS * pf_R or not post["rsquared"].isna().all():
+        fail(f"pmmh (milstein): posterior of {len(post)} rows")
+    finite = float(np.isfinite(post.chi.to_numpy()).mean())
+    ar = post.acceptance_ratio.to_numpy().reshape(PF_CHAINS, pf_R)
+    its = np.arange(1, PF_NITS)[PF_NITS // 2:].astype(float)
+    frozen = float(np.mean((ar[:, -1] * its[-1] - ar[:, 0] * its[0])
+                           / (its[-1] - its[0])))
+    z = np.log(post.mu.to_numpy(np.float64))
+    exact_mean, exact_std = kalman_posterior(*gbm_data())
+    print(f"pmmh (milstein): finite chi fraction {finite}, frozen-phase "
+          f"acceptance {frozen:.4f}; log mu posterior mean {z.mean():.4f} "
+          f"(exact {exact_mean:.4f}), std {z.std():.4f} (exact "
+          f"{exact_std:.4f})", flush=True)
+    if finite != 1.0:
+        fail(f"pmmh (milstein): finite chi fraction {finite}")
+    if not 0.15 <= frozen <= 0.5:
+        fail(f"pmmh (milstein): frozen-phase acceptance {frozen} outside "
+             "[0.15, 0.5]")
+    if not abs(z.mean() - exact_mean) < 0.02 \
+            or not abs(z.std() - exact_std) <= 0.05 * exact_std:
+        fail("pmmh (milstein): the log mu posterior misses the exact one")
+
+    phase("PMMH Milstein: the kernel vs its twin at the path's inputs (all "
+          "chains, 3 proposals, 1 adapting), and 4 chunks of 64 against "
+          "the whole run")
+    err, _ = pmmh_vs_twin("PMMH Milstein (path's inputs)", call, 4, 1)
+    kw = call["kw"]
+    n0 = cuda_mh.LAUNCHES["pmmh_fused"]
+    whole = real(*call["args"], **kw)
+    chunk = real(*call["args"], **{**kw, "checkpoint_every": 64})
+    torch.cuda.synchronize()
+    n_chunks = -(-(PF_NITS - 1) // 64)
+    if cuda_mh.LAUNCHES["pmmh_fused"] - n0 != 1 + n_chunks:
+        fail("PMMH Milstein chunked: wrong launch count")
+    same_bits("PMMH Milstein chunked (every 64)", chunk, whole)
+    print(f"PMMH Milstein: {PF_CHAINS} chains x {PF_NITS} in {n_chunks} "
+          "chunks of 64: bitwise the whole run", flush=True)
+
+    phase("PMMH Milstein: the kernel's time beside Euler's on the same "
+          "chains")
+    spec, obs, tf, y0, th0 = call["args"]
+    plan = cuda_mh._build_plan(spec, obs, tf, cuda_mh._normalize_substeps(
+        kw["substeps"], len(tf) - 1))
+    th = th0.t().contiguous()
+    run = {**pmmh_twin_kw(kw), "nits": PF_NITS, "burnin": PF_NITS // 2}
+    times = [events_ms(cuda_pf.pmmh_launcher(
+        spec, plan, y0, th, kw["seed"], **{**run, "milstein": m}))
+        for m in (False, True, False)]
+    print(f"pf_kernel {PF_CHAINS} chains x {PF_K} particles x {PF_NITS} "
+          f"on the Milstein path's chains: Euler {times[0]:.3f} ms, "
+          f"Milstein {times[1]:.3f} ms, Euler again {times[2]:.3f} ms "
+          f"(Milstein / Euler {2 * times[1] / (times[0] + times[2]):.4f})",
+          flush=True)
+    return err, launches["pmmh_fused"], call, (
+        wall_s, launches, dict(pfw.last_profile)), times
 
 
 # -- the scorer's branches: every observation model, censoring and doses ----
@@ -1795,12 +2055,15 @@ def main():
               + scoring_builds(pf_fw0) + path_builds(paths)
               # the stiff path's libraries: the kvaerno3 instantiations
               + [(spec, (), False, [demo_sc], True),
-                 (rob_fw._spec, (), False, [fw_scoring(rob_fw)], True)])
+                 (rob_fw._spec, (), False, [fw_scoring(rob_fw)], True),
+                 # the PMMH path's Milstein instantiations
+                 (pf_spec, (), True, [fw_scoring(pf_fw0)], False, True)])
     # eight nvcc processes at once, the SDE libraries (their five
     # pf_kernel instantiations take 1-2 minutes each) submitted first
     with ThreadPoolExecutor(8) as ex:
         futs = {i: ex.submit(build.load_kernels, *a[:3], scoring=a[3],
-                             stiff=a[4] if len(a) > 4 else False)
+                             stiff=a[4] if len(a) > 4 else False,
+                             milstein=a[5] if len(a) > 5 else False)
                 for i, a in sorted(enumerate(builds),
                                    key=lambda x: not x[1][2])}
         libs = [futs[i].result() for i in range(len(builds))]
@@ -1810,7 +2073,8 @@ def main():
               + [f"zero_i {scoring_id(c)}" for c in SCORING]
               + [f"GBM SDE {scoring_id(c)}" for c in PF_SCORING]
               + [f"path ({k})" for k in "abcde"]
-              + ["zero_i, stiff (kvaerno3)", "Robertson, stiff (kvaerno3)"])
+              + ["zero_i, stiff (kvaerno3)", "Robertson, stiff (kvaerno3)",
+                 "GBM SDE (Milstein)"])
     for label, lib in zip(labels, libs):
         log = open(os.path.join(os.path.dirname(lib._name),
                                 "nvcc.log")).read()
@@ -2750,8 +3014,18 @@ def main():
               stepper=dispatch.fused_stepper(ens_cfg.method),
               tile_chains=ens_cfg.tile_chains), 250),
         ("PT", pt_fused, pt_in["args"], pt_in["kw"], 250),
-        ("PMMH", pf_fused, pf_in["args"], pf_in["kw"], 64)],
+        ("PMMH", pf_fused, pf_in["args"], pf_in["kw"], 64),
+        ("joint", joint_fused, joint_in["args"], joint_in["kw"], 250),
+        ("joint (priors)", joint_fused, auto_in["joint"]["args"],
+         auto_in["joint"]["kw"], 250)],
         framework, CHAINS, NITS)
+    # the joint kernel's chunk mode against its twin's, and through
+    # JointFit.MCMC; then PMMH's Milstein step
+    jc_err, jc_launches, jc_secs = joint_chunk_phases(
+        joint_fit, jpost_plain, [("joint", joint_in),
+                                 ("joint (priors)", auto_in["joint"])], NITS)
+    (mil_err, mil_launches, mil_call, runs["pmmh:milstein"],
+     mil_times) = milstein_phases(pmmh_framework)
 
     # every observation model, censoring and doses: kernels against twins
     # on each scoring branch, the paths (a)-(e), times against the demo's
@@ -2796,6 +3070,29 @@ def main():
         jspecs, jplans, jy0s, jidx, jth_all, jseed, nits=short, burnin=0,
         stepper=jstep, **jl_kw))
     joint_plain_ms = jt_ms / (short - 1) * (NITS - 1)
+    # chunk mode: the path's four launches of 250, 250, 250 and 249, each
+    # chunk from the state the one before left on the card
+    j_chunks = [(b, min(250, NITS - 1 - b)) for b in range(0, NITS - 1, 250)]
+    j_launch = {R: cuda_joint.joint_launcher(
+        jspecs, jplans, jy0s, jidx, jstep, jth_all, jseed, nits=NITS,
+        burnin=BURNIN, R_chunk=R, **jl_kw) for _, R in j_chunks}
+
+    def joint_in_chunks():
+        state = None
+        for b, R in j_chunks:
+            _, state = j_launch[R](it_base=b, state=state)
+    joint_chunk_ms = events_ms(joint_in_chunks)
+    state_250 = j_launch[250](it_base=0)[1]
+    jtc_ms = events_ms(lambda: cuda_joint.joint_plain(
+        jspecs, jplans, jy0s, jidx, jth_all, jseed, nits=NITS, burnin=BURNIN,
+        stepper=jstep, R_chunk=short - 1, it_base=250, state=state_250,
+        **jl_kw))
+    joint_chunk_plain_ms = jtc_ms / (short - 1) * (NITS - 1)
+    print(f"joint kernel in {len(j_chunks)} chunk launches at the main "
+          f"path's shape: {joint_chunk_ms:.3f} ms (whole run {joint_ms:.3f} "
+          f"ms, {(joint_chunk_ms - joint_ms) / (len(j_chunks) - 1):+.3f} ms "
+          f"a boundary); the twin's chunk mode scaled from {short - 1} "
+          f"proposals {joint_chunk_plain_ms:.1f} ms")
     pf_burn = PF_NITS // 2
     pf_ms = events_ms(cuda_pf.pmmh_launcher(
         pspec, pf_plan, py0, pth_all, pseed, nits=PF_NITS, burnin=pf_burn,
@@ -2902,13 +3199,14 @@ def main():
                                                   "dopri5"))
         + CHAINS * 3 * 4 + R * CHAINS * (3 + 4) * 4)
     jone = jth_all[:, :1].cpu().contiguous()
-    init, step, rec = per_iteration_ops(lambda n, b: cuda_joint.joint_plain(
-        jspecs, jplans, jy0s, jidx, jone, jseed, nits=n, burnin=b,
-        stepper=jstep, **jl_kw))
+    init_j, step_j, rec_j = per_iteration_ops(
+        lambda n, b: cuda_joint.joint_plain(
+            jspecs, jplans, jy0s, jidx, jone, jseed, nits=n, burnin=b,
+            stepper=jstep, **jl_kw))
     D, K_exp = jth_all.shape[0], len(jspecs)
     jplan_bytes = sum(a.nbytes for a in cuda_joint.joint_tables(
         jspecs, jplans, jy0s, jidx, jstep)[:3])
-    joint_bound = bound(CHAINS * (init + (NITS - 1) * step + R * rec),
+    joint_bound = bound(CHAINS * (init_j + (NITS - 1) * step_j + R * rec_j),
                         jplan_bytes + CHAINS * D * 4
                         + R * CHAINS * (D + K_exp + 2) * 4)
     # the selection's work depends on the data (a masked sum, K * K * S
@@ -2927,12 +3225,49 @@ def main():
     pf_bound = bound(n_pf * (init + (PF_NITS - 1) * step + pf_R * rec),
                      pf_plan_bytes + (n_pf + 7) * P_pf * 4
                      + pf_R * n_pf * (P_pf + 2) * 4)
+    # the joint kernel in chunks: the same work, every row recorded (the
+    # host drops burn-in), the state read and written at each boundary
+    n_jc = len(j_chunks)
+    joint_chunk_bound = bound(
+        CHAINS * (init_j + (NITS - 1) * step_j + (NITS - 1) * rec_j),
+        jplan_bytes + CHAINS * D * 4
+        + (NITS - 1) * CHAINS * (D + K_exp + 2) * 4
+        + (2 * n_jc - 1) * CHAINS * (D + K_exp + 3) * 4)
+    # Milstein: the twin's float32 operations (with the diagonal's) on the
+    # Milstein path's chains, 8 averaged as for Euler
+    mspec, mobs, mtf, my0, mth0 = mil_call["args"]
+    mkw = mil_call["kw"]
+    mil_plan = cuda_mh._build_plan(mspec, mobs, mtf,
+                                   cuda_mh._normalize_substeps(
+                                       mkw["substeps"], len(mtf) - 1))
+    mil_run = pmmh_twin_kw(mkw)
+    mth_all = mth0.t().contiguous()
+    m_counts = [per_iteration_ops(lambda n, b, c=c: cuda_pf.pmmh_plain(
+        mspec, mil_plan, my0, mth_all[:, c:c + 1].cpu().contiguous(),
+        mkw["seed"], nits=n, burnin=b, **mil_run)) for c in range(8)]
+    init, step, rec = (sum(v) / len(m_counts) for v in zip(*m_counts))
+    mil_bound = bound(n_pf * (init + (PF_NITS - 1) * step + pf_R * rec),
+                      pf_plan_bytes + (n_pf + 7) * P_pf * 4
+                      + pf_R * n_pf * (P_pf + 2) * 4)
+    mil_ms = mil_times[1]
+    mt_ms = events_ms(lambda: cuda_pf.pmmh_plain(
+        mspec, mil_plan, my0, mth_all, mkw["seed"], nits=pf_short, burnin=0,
+        **mil_run))
+    mil_plain_ms = mt_ms / (pf_short - 1) * (PF_NITS - 1)
+    print(f"PMMH Milstein kernel: {mil_ms:.3f} ms; twin scaled from "
+          f"{pf_short - 1} proposals {mil_plain_ms:.1f} ms; float32 "
+          f"operations per iteration of 8 chains "
+          f"{sorted(c[1] for c in m_counts)} (Euler "
+          f"{sorted(c[1] for c in pf_counts)})")
     for label, (b_ms, by) in (("survey", sv_bound), ("MH", mh_bound),
                               ("MH, calibrated schedule "
                                f"({len(auto_plan.step_ts)} steps)",
                                mh_auto_bound),
                               ("ensemble", ens_bound), ("PT", pt_bound),
-                              ("joint", joint_bound), ("PMMH", pf_bound)):
+                              ("joint", joint_bound),
+                              ("joint in chunks", joint_chunk_bound),
+                              ("PMMH", pf_bound),
+                              ("PMMH Milstein", mil_bound)):
         print(f"{label} bound: {b_ms:.4f} ms, by {by}")
 
     from torch.profiler import ProfilerActivity, profile
@@ -3003,7 +3338,18 @@ def main():
             max(joint_err, auto_err["joint"]), joint_ms, joint_plain_ms,
             joint_bound),
         row("pmmh_fused", "pf.cu", "odelib_tpu/ops/pallas_pf.py:130",
-            "pmmh", pf_err, pf_ms, pf_plain_ms, pf_bound)] + stiff_rows}))
+            "pmmh", pf_err, pf_ms, pf_plain_ms, pf_bound),
+        {"name": "joint:chunk", "route": "cuda", "source": csrc + "joint.cu",
+         "replaces": "odelib_tpu/ops/pallas_joint.py:212",
+         "launches": jc_launches, "max_abs_err": jc_err,
+         "ms": joint_chunk_ms, "plain_ms": joint_chunk_plain_ms,
+         "bound_ms": joint_chunk_bound[0], "bound_by": joint_chunk_bound[1],
+         "library_ms": None},
+        {"name": "pmmh:milstein", "route": "cuda", "source": csrc + "pf.cu",
+         "replaces": "odelib_tpu/ops/pallas_pf.py:289",
+         "launches": mil_launches, "max_abs_err": mil_err, "ms": mil_ms,
+         "plain_ms": mil_plain_ms, "bound_ms": mil_bound[0],
+         "bound_by": mil_bound[1], "library_ms": None}] + stiff_rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

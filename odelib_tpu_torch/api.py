@@ -491,8 +491,10 @@ class ModelFramework:
           (logger ``odelib_tpu_torch``);
         * ``'pmmh'``: particle-marginal MH for a model built with
           ``diffusion=``: each proposal is scored by an ``n_particles``
-          bootstrap particle filter over the SDE (Euler-Maruyama,
-          ``sde_substeps`` steps per observation interval), chains seeded
+          bootstrap particle filter over the SDE (``sde_method``
+          'euler', Euler-Maruyama, or 'milstein', which adds the Milstein
+          correction with the same draws; ``sde_substeps`` steps per
+          observation interval), chains seeded
           from :meth:`fit_survey` (the drift's chi). During burn-in the
           proposal scale adapts (``adapt_proposal``, default True) toward
           ``target_accept`` (default 0.3) with gain ``adapt_rate``. The
@@ -539,9 +541,9 @@ class ModelFramework:
         ('kvaerno5', 'auto'), since its JAX counterpart takes the XLA
         sampler there. Not ported yet, each raising
         ``NotImplementedError``: the other samplers, ``backend='xla'``
-        (and what ``backend='auto'`` sends to an XLA sampler),
+        (and what ``backend='auto'`` sends to an XLA sampler) and
         ``temperatures='auto'`` (with ``n_temps``/``pilot_iters``/
-        ``ladder_rounds``) and ``sde_method='milstein'``.
+        ``ladder_rounds``).
         """
         until = until_rhat is not None or until_min_ess is not None
         if until and sampler != "mh":
@@ -593,12 +595,7 @@ class ModelFramework:
                  else None for p in self._pnames), backend,
                 _XLA_SAMPLER_ITEM[sampler])
         if sampler == "pmmh":
-            if sde_method == "milstein":
-                raise NotImplementedError(
-                    "sde_method='milstein' needs the diffusion's diagonal "
-                    "derivative from the RHS front end, not ported yet "
-                    "(ROADMAP queue 1, item 3)")
-            if sde_method != "euler":
+            if sde_method not in ("euler", "milstein"):
                 raise ValueError("the fused PMMH kernel integrates "
                                  "Euler-Maruyama or Milstein, got "
                                  f"sde_method={sde_method!r}")
@@ -744,6 +741,7 @@ class ModelFramework:
             temperatures=tuple(temperatures), swap_every=int(swap_every),
             stretch_a=float(stretch_a), priors=priors,
             n_particles=int(n_particles), sde_substeps=int(sde_substeps),
+            sde_method=str(sde_method),
             adapt_proposal=(sampler == "pmmh" if adapt_proposal is None
                             else bool(adapt_proposal)),
             adapt_rate=float(adapt_rate),
@@ -758,7 +756,8 @@ class ModelFramework:
                 return _dispatch.run_fused_mh(
                     self, th_last, dataclasses.replace(
                         cfg, burnin=0, seed_offset=104729 * salt))
-            out = self._extend_until(
+            from .utils.diagnostics import extend_until
+            out = extend_until(
                 out, run_more, nits=nits, mask=mask, until_rhat=until_rhat,
                 until_min_ess=until_min_ess,
                 max_extensions=int(max_extensions))
@@ -809,86 +808,9 @@ class ModelFramework:
             if leaf is not None:
                 h.update(np.asarray(leaf).tobytes())
         if include_priors:
-            for name in sorted(self.parameters):
-                par = self.parameters[name]
-                d = getattr(par, "dist", None)
-                if d is None:
-                    h.update(repr((name, None)).encode())
-                    continue
-                fam = getattr(d, "name", None) or type(d).__name__
-                hp = getattr(par, "hp", None) or {}
-                items = tuple(sorted(
-                    (str(k), repr(np.asarray(v, float).tolist()))
-                    for k, v in hp.items()))
-                h.update(repr((name, str(fam), items)).encode())
+            from .ops.chunked import digest_priors
+            digest_priors(h, self.parameters)
         return h.hexdigest()
-
-    def _extend_until(self, out, run_more, *, nits, mask, until_rhat,
-                      until_min_ess, max_extensions):
-        """Extend a finished MH run in whole-run increments until the
-        pooled posterior meets the split-R-hat / ESS targets or
-        ``max_extensions`` is spent (``odelib_tpu``'s ``_extend_until``).
-        Each extension restarts every chain from its last state with a
-        fresh stream (``run_more(theta_last, salt)``, no burn-in) and
-        appends its records with exact global running acceptance ratios
-        and a continuing ``iteration`` column."""
-        from .samplers.mh import MHOutput
-        from .utils.diagnostics import effective_sample_size, split_rhat
-
-        def host(x):
-            return x.cpu().numpy()
-        theta, chi, rsq, aic, ar, iteration = (host(v) for v in out)
-        total = int(iteration[-1])          # global proposals so far
-        counts = ar[:, -1] * total          # accepts, burn-in included
-        mask_flat = np.ravel(np.asarray(mask, float))
-        walked = [j for j in range(theta.shape[-1]) if mask_flat[j] != 0]
-
-        def worst():
-            max_rh, min_ess = 0.0, float("inf")
-            for j in walked:
-                x = theta[:, :, j].astype(float)
-                if np.allclose(x, x.flat[0]):   # a pinned slot
-                    continue
-                z = np.log(x) if np.all(x > 0) else x
-                max_rh = max(max_rh, float(split_rhat(z)))
-                min_ess = min(min_ess, float(effective_sample_size(z)))
-            return max_rh, min_ess
-
-        for ext in range(max_extensions + 1):
-            max_rh, min_ess = worst()
-            if ((until_rhat is None or max_rh <= until_rhat)
-                    and (until_min_ess is None or min_ess >= until_min_ess)):
-                if ext:
-                    _dispatch.log.info(
-                        "converged after %d extension(s): max split-rhat "
-                        "%.4f, min ESS %.0f", ext, max_rh, min_ess)
-                break
-            if ext == max_extensions:
-                warnings.warn(
-                    f"run-length extension cap reached (max_extensions="
-                    f"{max_extensions}) without meeting the targets: max "
-                    f"split-rhat {max_rh:.4f} (target {until_rhat}), min "
-                    f"ESS {min_ess:.0f} (target {until_min_ess}) — the "
-                    "returned posterior holds everything sampled so far")
-                break
-            _dispatch.log.info(
-                "extending run (%d/%d): max split-rhat %.4f, min ESS %.0f",
-                ext + 1, max_extensions, max_rh, min_ess)
-            more = run_more(theta[:, -1, :], ext + 1)
-            its = np.arange(1, nits)
-            m_counts = host(more.acceptance_ratio) * its[None, :]
-            ar = np.concatenate(
-                [ar, (counts[:, None] + m_counts) / (total + its)[None, :]],
-                axis=1)
-            theta = np.concatenate([theta, host(more.theta)], axis=1)
-            chi = np.concatenate([chi, host(more.chi)], axis=1)
-            rsq = np.concatenate([rsq, host(more.rsquared)], axis=1)
-            aic = np.concatenate([aic, host(more.aic)], axis=1)
-            iteration = np.concatenate([iteration, total + its])
-            counts = counts + m_counts[:, -1]
-            total += nits - 1
-        return MHOutput(*(torch.as_tensor(v) for v in (
-            theta, chi, rsq, aic, ar, iteration)))
 
     def _posterior_to_df(self, out, n_chains, static_parameters):
         """Records -> the reference's long DataFrame, one block of rows

@@ -43,6 +43,7 @@ class RunConfig:
     priors: Optional[Tuple[Any, ...]] = None   # per slot, or None
     n_particles: int = 128
     sde_substeps: int = 4
+    sde_method: str = "euler"
     adapt_proposal: bool = False
     adapt_rate: float = 0.05
     target_accept: float = 0.3
@@ -116,9 +117,10 @@ def run_fused_pt(fw, theta0, cfg: RunConfig):
 
 
 def run_pmmh(fw, theta0, cfg: RunConfig):
-    """The fused particle-marginal MH kernel (or its twin), as an
-    ``MHOutput`` whose ``rsquared`` is NaN: a noisy likelihood estimate
-    has no single trajectory to take R^2 of."""
+    """The fused particle-marginal MH kernel (or its twin), Euler-Maruyama
+    or Milstein (``cfg.sde_method``: ``odelib_tpu/dispatch.py`` routes both
+    to the fused kernel), as an ``MHOutput`` whose ``rsquared`` is NaN: a
+    noisy likelihood estimate has no single trajectory to take R^2 of."""
     from .ops.cuda_pf import pmmh_fused
     from .samplers.mh import MHOutput
     th0 = torch.as_tensor(np.asarray(theta0, np.float32), device=fw.device)
@@ -127,7 +129,7 @@ def run_pmmh(fw, theta0, cfg: RunConfig):
         seed=int(fw.random_seed) + cfg.seed_offset, nits=cfg.nits,
         burnin=cfg.burnin, walk_mask=cfg.mask, rwalk_std=cfg.rwalk_std,
         n_particles=cfg.n_particles, substeps=cfg.sde_substeps,
-        priors=cfg.priors, adapt_proposal=cfg.adapt_proposal,
+        sde_method=cfg.sde_method, priors=cfg.priors, adapt_proposal=cfg.adapt_proposal,
         target_accept=cfg.target_accept, adapt_rate=cfg.adapt_rate,
         **_checkpoint_args(cfg))
     return MHOutput(theta=out.theta, chi=out.chi,

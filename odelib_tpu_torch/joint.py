@@ -8,14 +8,16 @@ and doses) and samples the joint posterior
 with every experiment scored in one kernel per iteration
 (:mod:`odelib_tpu_torch.ops.cuda_joint`; its torch twin on a CPU
 framework). The joint layout, LHS survey, seeding, posterior frame and
-report are the JAX package's. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: ``hierarchical=``,
-array parameters, stochastic experiments (joint PMMH), ``sampler='hmc'``,
-``backend='xla'`` (and priors without an in-kernel form, which the
-reference runs there), checkpointing and ``until_rhat``/``until_min_ess``.
+report are the JAX package's, and so are chunked checkpointing with a
+bit-exact resume and ``until_rhat``/``until_min_ess`` run-length
+extension. Not ported yet, each raising ``NotImplementedError`` naming its
+ROADMAP item: ``hierarchical=``, array parameters, stochastic experiments
+(joint PMMH), ``sampler='hmc'`` and ``backend='xla'`` (and priors without
+an in-kernel form, which the reference runs there).
 """
 from __future__ import annotations
 
+import hashlib
 import time
 import warnings
 
@@ -218,10 +220,44 @@ class JointFit:
         the kernel, once per proposal. ``profile=True`` records each
         stage's wall seconds in ``last_profile`` (synchronising the device
         at each boundary).
+        ``checkpoint_every`` (with ``checkpoint_path``) runs the joint
+        kernel in chunks of that many proposals and persists the chain
+        state and records after each to ``<checkpoint_path>.progress``;
+        ``resume_from`` (with the same ``checkpoint_every``) continues a
+        killed run from that file, bitwise the uninterrupted run's
+        posterior, and raises ``ValueError`` for a file of another
+        configuration, data or (with ``use_priors``) priors, or one that
+        ``odelib_tpu`` wrote. ``until_rhat``/``until_min_ess`` (not with
+        checkpointing): after the run, while the pooled posterior's worst
+        split-R-hat or least ESS over the walked joint slots misses the
+        target, every chain continues from its last state for another
+        ``iterations_per_chain`` proposals (a fresh stream, no burn-in),
+        at most ``max_extensions`` times (then a warning).
         ``pallas_tile_chains``, ``pallas_interpret`` and the HMC and SDE
         knobs are accepted; the options that are not ported raise
         ``NotImplementedError`` naming their ROADMAP item.
         """
+        until = until_rhat is not None or until_min_ess is not None
+        if until and sampler != "mh":
+            raise ValueError(
+                "until_rhat/until_min_ess run-length extension is "
+                "supported for sampler='mh'")
+        if until and (checkpoint_every is not None
+                      or resume_from is not None):
+            raise ValueError(
+                "until_rhat/until_min_ess cannot be combined with "
+                "checkpointing (the extension count is data-dependent)")
+        if checkpoint_every is not None and checkpoint_path is None:
+            # resume_from alone is not enough: without a path the resumed
+            # run would silently stop persisting
+            raise ValueError(
+                "checkpoint_every requires checkpoint_path (chain state "
+                "is persisted to <checkpoint_path>.progress)")
+        if resume_from is not None and checkpoint_every is None:
+            raise ValueError(
+                "resume_from requires checkpoint_every (and "
+                "checkpoint_path) — restate the checkpointing "
+                "configuration the run was started with")
         if backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"backend must be 'auto', 'pallas' or 'xla', "
                              f"got {backend!r}")
@@ -256,14 +292,6 @@ class JointFit:
             priors = require_kernel_priors(
                 self._dists(), backend,
                 "the XLA samplers/joint.py is ROADMAP queue 1, item 15")
-        if checkpoint_every is not None or checkpoint_path is not None \
-                or resume_from is not None:
-            raise NotImplementedError(
-                "checkpointing is not ported yet (ROADMAP queue 1, item 11)")
-        if until_rhat is not None or until_min_ess is not None:
-            raise NotImplementedError(
-                "until_rhat/until_min_ess run-length extension is not "
-                "ported yet (ROADMAP queue 1, item 11)")
         stages, clock = {}, [time.perf_counter()]
 
         def stage_done(name):
@@ -292,15 +320,38 @@ class JointFit:
             self._device_args(solver_kw)
         stage_done("seeding")
 
+        # a digest of the data, solver and (with use_priors) priors in the
+        # resume signature: a resume against edited data must fail
+        config_token = "" if checkpoint_every is None else \
+            self._stable_config_token(method, subs,
+                                      include_priors=use_priors)
+
         from .ops.cuda_joint import joint_metropolis_hastings_fused
-        out = joint_metropolis_hastings_fused(
-            specs, idxs, obs, times, y0s,
-            torch.as_tensor(np.asarray(theta0, np.float32),
-                            device=self.device),
-            seed=int(self.random_seed), nits=nits, burnin=int(burnin),
-            walk_mask=mask, rwalk_std=float(rwalk_std),
-            stepper="rk4" if method == "rk4" else "dopri5",
-            substeps_list=subs, priors=priors)
+
+        def run(th0, seed, burnin, **ck):
+            return joint_metropolis_hastings_fused(
+                specs, idxs, obs, times, y0s,
+                torch.as_tensor(np.asarray(th0, np.float32),
+                                device=self.device),
+                seed=seed, nits=nits, burnin=int(burnin), walk_mask=mask,
+                rwalk_std=float(rwalk_std),
+                stepper="rk4" if method == "rk4" else "dopri5",
+                substeps_list=subs, priors=priors, **ck)
+        out = run(theta0, int(self.random_seed), burnin,
+                  checkpoint_every=checkpoint_every,
+                  checkpoint_path=(None if checkpoint_every is None
+                                   else checkpoint_path + ".progress"),
+                  resume_from=resume_from, config_token=config_token)
+        if until:
+            # each extension reseeds with random_seed + 104729 * salt, no
+            # burn-in (odelib_tpu/joint.py:1076-1095)
+            from .utils.diagnostics import extend_until
+            out = extend_until(
+                out, lambda th_last, salt: run(
+                    th_last, int(self.random_seed) + 104729 * salt, 0),
+                nits=nits, mask=mask, until_rhat=until_rhat,
+                until_min_ess=until_min_ess,
+                max_extensions=int(max_extensions), what="joint run")
         stage_done("chains")
         posterior = self._posterior_to_df(out, n_chains)
         stage_done("posterior")
@@ -310,6 +361,32 @@ class JointFit:
         if profile:
             self.last_profile = stages
         return posterior
+
+    def _stable_config_token(self, method, subs, include_priors=False):
+        """A process-stable sha1 of what the joint target bakes in: the
+        experiment order, the joint columns, the solver method and
+        substeps, the pooling layout, each experiment's inits, time grid,
+        observation model and doses and observation arrays, and with
+        ``include_priors`` each parameter's prior family and
+        hyperparameters (``odelib_tpu``'s ``JointFit._stable_config_token``
+        in the port's terms). Part of a checkpoint's signature, so a resume
+        against edited data or priors raises."""
+        from .ops.chunked import digest_priors
+        h = hashlib.sha1()
+        h.update(repr((tuple(self.frameworks), tuple(self.columns),
+                       method, subs, tuple(self.hierarchical))).encode())
+        for fw in self.frameworks.values():
+            h.update(np.asarray(fw.get_inits(), float).tobytes())
+            h.update(np.asarray(fw._times_fit, float).tobytes())
+            h.update(repr((fw._spec.obs_model, fw._spec.obs_param,
+                           fw._spec.dose_events)).encode())
+            for leaf in fw._obsdata_fit_host:
+                if leaf is not None:
+                    h.update(np.asarray(leaf).tobytes())
+        if include_priors:
+            for fw in self.frameworks.values():
+                digest_priors(h, fw.parameters)
+        return h.hexdigest()
 
     def _posterior_to_df(self, out, n_chains):
         """Records -> the joint posterior DataFrame, one block of rows per

@@ -11,8 +11,10 @@ observation model with ``nu`` or ``r``, whether any observation is
 censored, whether it is dosed: each kernel compiles that one branch of
 the scorer), all in one nvcc call. The
 particle filter's library of an SDE model adds its traced diffusion to
-the header; a joint fit of different models adds each further model as a
-``ModelN`` type for the joint kernel. The
+the header (and, for the Milstein step, the diffusion's diagonal
+derivative ``diffusion_diag()``, in a library of its own); a joint fit of
+different models adds each further model as a ``ModelN`` type for the
+joint kernel. The
 inputs and the flags are hashed into a directory under
 ``odelib_tpu_torch/_build/`` (gitignored), so each model (or set of
 models) builds once, at first use, and every later process loads it.
@@ -208,13 +210,16 @@ def _model_source(i: int, program, scoring) -> str:
 
 
 def generated_header(program, diffusion, extra, scoring,
-                     stiff: bool = False) -> str:
+                     stiff: bool = False, milstein: bool = False) -> str:
     """``odelib_gen.cuh`` for a traced RHS program; with the traced
     ``diffusion`` of an SDE model (or None), with the ``extra`` programs
     of a joint fit's other models, with each model's ``scoring`` (one
-    ``cuda_mh.scoring`` tuple per model), and with ``stiff`` the RHS's
+    ``cuda_mh.scoring`` tuple per model), with ``stiff`` the RHS's
     Jacobian and the Kvaerno3 stepper (``ODE_KVAERNO3``: the survey, MH,
-    ensemble and PT kernels then hold kvaerno3 instantiations)."""
+    ensemble and PT kernels then hold kvaerno3 instantiations), and with
+    ``milstein`` the diffusion's diagonal derivative ``diffusion_diag()``
+    (:meth:`~odelib_tpu_torch.rhs.RhsProgram.diagonal`; ``ODE_MILSTEIN``:
+    the particle filter's instantiations then take the Milstein step)."""
     import math
     if len(scoring) != 1 + len(extra):
         raise ValueError(f"{len(scoring)} scorings for {1 + len(extra)} "
@@ -230,6 +235,9 @@ def generated_header(program, diffusion, extra, scoring,
         parts += ["#define ODE_HAS_DIFFUSION 1",
                   f"// diffusion traced from {diffusion.name}",
                   diffusion.cuda_function("diffusion")]
+        if milstein:
+            parts += ["#define ODE_MILSTEIN 1",
+                      diffusion.diagonal().cuda_function("diffusion_diag")]
     if extra:
         parts += [_model_source(i + 1, p, scoring[i + 1])
                   for i, p in enumerate(extra)]
@@ -250,13 +258,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(program, diffusion, extra, scoring, stiff: bool = False) -> Path:
+def build(program, diffusion, extra, scoring, stiff: bool = False,
+          milstein: bool = False) -> Path:
     """Compile the kernels for ``program`` (with an SDE's ``diffusion``, a
-    joint fit's ``extra`` programs, each model's ``scoring`` and, with
-    ``stiff``, the Kvaerno3 instantiations; cached by content hash);
-    returns the shared library's path. The compiler's output and the
-    build's seconds are kept beside it in ``nvcc.log``."""
-    header = generated_header(program, diffusion, extra, scoring, stiff)
+    joint fit's ``extra`` programs, each model's ``scoring``, with
+    ``stiff`` the Kvaerno3 instantiations and with ``milstein`` the
+    particle filter's Milstein step; cached by content hash); returns the
+    shared library's path. The compiler's output and the build's seconds
+    are kept beside it in ``nvcc.log``."""
+    header = generated_header(program, diffusion, extra, scoring, stiff,
+                              milstein)
     h = hashlib.sha256()
     for part in (header, *((CSRC / s).read_text()
                            for s in SOURCES + HEADERS),
@@ -307,7 +318,7 @@ def distinct_programs(specs, scoring):
 
 
 def load_kernels(spec, others=(), diffusion=False, *, scoring,
-                 stiff: bool = False):
+                 stiff: bool = False, milstein: bool = False):
     """The loaded kernel library for ``spec``'s RHS, with the models of
     ``others`` compiled in for the joint kernel (build at first use), each
     model scored as its entry of ``scoring`` says (one ``cuda_mh.scoring``
@@ -316,19 +327,23 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
     other kernel integrates the drift, so the drift of an SDE model shares
     the library of the same ODE. With ``stiff`` the survey, MH, ensemble
     and PT kernels also hold their kvaerno3 instantiations (a library of
-    its own: the explicit steppers' libraries stay as they were)."""
+    its own: the explicit steppers' libraries stay as they were). With
+    ``diffusion`` and ``milstein`` the particle filter takes the Milstein
+    step (a library of its own too, whose ``odelib_pf`` refuses an Euler
+    launch, as the Euler library's refuses a Milstein one)."""
     specs = (spec, *others)
     scoring = tuple(tuple(k) for k in scoring)
     programs, model_of = distinct_programs(specs, scoring)
     keys = tuple(scoring[model_of.index(i)] for i in range(len(programs)))
     diffusion = None if not diffusion or spec.diffusion is None else \
         trace_rhs(spec.diffusion, len(spec.snames), spec.theta_size)
-    key = (tuple(programs), keys, diffusion, bool(stiff))
+    milstein = bool(milstein) and diffusion is not None
+    key = (tuple(programs), keys, diffusion, bool(stiff), milstein)
     lib = _BY_PROGRAM.get(key)
     if lib is not None:
         return lib
     path = str(build(programs[0], diffusion, tuple(programs[1:]), keys,
-                     bool(stiff)))
+                     bool(stiff), milstein))
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)
@@ -346,10 +361,10 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
         lib.odelib_pt.argtypes = [_P] * 13 + [_I] * 6 + [
             ctypes.c_uint, ctypes.c_float, _I, _P]
         lib.odelib_pt.restype = _I
-        lib.odelib_joint.argtypes = [_P, _I, _P, _I, _P, _I] + [_P] * 7 \
-            + [_I] * 5 + [_U, _I, _P]
+        lib.odelib_joint.argtypes = [_P, _I, _P, _I, _P, _I] + [_P] * 9 \
+            + [_I] * 6 + [_U, _I, _P]
         lib.odelib_joint.restype = _I
-        lib.odelib_pf.argtypes = [_P] * 10 + [_I] * 6 + [_U] * 2 + [_I] * 3 \
+        lib.odelib_pf.argtypes = [_P] * 10 + [_I] * 6 + [_U] * 2 + [_I] * 4 \
             + [_F] * 5 + [_P]
         lib.odelib_pf.restype = _I
         lib.odelib_tobit.argtypes = [_P, _I, _I] + [ctypes.c_double] * 5 \

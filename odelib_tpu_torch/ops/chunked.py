@@ -2,7 +2,8 @@
 
 Counterpart of ``_mh_fused_chunked`` (``odelib_tpu/ops/pallas_mh.py``),
 ``_ens_fused_chunked`` (same file), ``_pt_fused_chunked``
-(``ops/pallas_pt.py``) and ``_pf_fused_chunked`` (``ops/pallas_pf.py``).
+(``ops/pallas_pt.py``), ``_joint_fused_chunked`` (``ops/pallas_joint.py``)
+and ``_pf_fused_chunked`` (``ops/pallas_pf.py``).
 A run of ``nits - 1`` proposals is cut into chunks of ``checkpoint_every``;
 each chunk is one kernel launch (or one twin call) in chunk mode, which
 starts from the chain state the previous chunk left and keys every random
@@ -32,6 +33,24 @@ def prior_key(prior):
     return None if prior is None else np.asarray(prior, np.float64).tolist()
 
 
+def digest_priors(h, parameters):
+    """Feed each parameter's prior family and hyperparameters, by name,
+    into the hash ``h``: the prior part of ``ModelFramework``'s and
+    ``JointFit``'s config tokens (``odelib_tpu``'s
+    ``_stable_config_token``), so a resume against edited priors raises."""
+    for name in sorted(parameters):
+        par = parameters[name]
+        d = getattr(par, "dist", None)
+        if d is None:
+            h.update(repr((name, None)).encode())
+            continue
+        fam = getattr(d, "name", None) or type(d).__name__
+        hp = getattr(par, "hp", None) or {}
+        items = tuple(sorted((str(k), repr(np.asarray(v, float).tolist()))
+                             for k, v in hp.items()))
+        h.update(repr((name, str(fam), items)).encode())
+
+
 def write_checkpoint(path: str, sig: str, next_chunk: int, state, recs):
     """One atomic progress write: ``path + '.tmp'``, then a rename."""
     tmp = path + ".tmp"
@@ -52,7 +71,8 @@ def run(launcher: Callable, label: str, static: tuple, *, nits: int,
 
     ``launcher(R_chunk)`` prepares a chunk length once and returns
     ``launch(it_base=, state=) -> (records, state)``, chain-minor records
-    of all ``R_chunk`` rows. The rows of burn-in iterations are dropped as
+    of all ``R_chunk`` rows, each with the row axis first (any number of
+    them: MH's five, the joint's four with its (R, K, C) parts). The rows of burn-in iterations are dropped as
     each chunk arrives, which leaves the whole run's post-burn-in rows.
     With ``checkpoint_path`` the records so far and the state are written
     after every chunk; ``resume_from`` starts from such a file, and one

@@ -2,8 +2,9 @@
 // (sm_90a).
 //
 // Replaces, in odelib_tpu/ops/pallas_joint.py:
-//   joint_kernel <- _cached_joint_grid, whole-run mode (public
-//                   joint_metropolis_hastings_fused)
+//   joint_kernel <- _cached_joint_grid, whole-run and chunk mode
+//                   (public joint_metropolis_hastings_fused;
+//                   _cached_joint_run_chunk, _joint_fused_chunked)
 //
 // Semantics. Each chain walks a D-dimensional joint log-theta. Per
 // iteration it draws two Box-Muller slots per walked joint dimension, in
@@ -19,10 +20,27 @@
 // lp of its joint theta, one table entry per joint dimension, and accepts
 // when exp((chi - chi_new) + (lp_new - lp)) > u: the prior enters the total
 // once, not once per experiment part. Every warp evaluates lp_new itself
-// from the proposal in shared memory, in dimension order, so all K warps
-// hold the same value and make the same decision without another barrier. The RNG is the MH kernel's
+// from the proposal in shared memory, in dimension order, before the
+// barrier that ends the scoring (past it a warp may draw its next
+// proposal), so all K warps hold the same value and make the same
+// decision without another barrier. The RNG is the MH kernel's
 // (key mix(seed * 0x9E3779B1 + c) on the global chain index c, counter
 // it * 1024 + slot), so no block layout changes a chain's draws.
+//
+// Chunk mode (pallas_joint.py:212-345, :389-470): a launch covers the
+// proposals it_base + 1 .. it_end - 1 and records iteration it in row
+// it - 1 - rec0 (a whole run: it_base = 0, it_end = nits, rec0 = burnin,
+// so burn-in rows are not written; a chunk: rec0 = it_base). With
+// state_in the D + K + 3 planes of the JAX kernel's state block (D
+// log-thetas, the total chi, the K parts, the accept count, the log
+// prior: 0 without priors) replace the scoring of theta0; warp k loads
+// its dimensions and its part, and a block barrier follows, so every warp
+// starts the first proposal from the loaded state. At the end warp k
+// writes its dimensions and part to state_out, and the warp that records
+// chi the chain's scalars. The counters and acc / it read the global it,
+// so a run cut into launches gives one launch's records. The CHUNK
+// template flag compiles the state's load and store in; the whole run is
+// the false instantiation, the code without chunks.
 //
 // What bounds it on the card: K fixed-step solves per chain and iteration,
 // long chains of dependent float32 operations as in mh_kernel; the bytes
@@ -72,11 +90,15 @@ struct JointArgs {
   const float* theta0;
   const float* walk;     // D scales f32(rwalk_std * mask_d), D walked flags
   const float* prior;    // D prior table entries (PRIORS instantiations)
+  const float* state_in; // (D + K + 3) x C chain state, or null: score theta0
+  float* state_out;      // (D + K + 3) x C chain state at the end, or null
   float* th_rec;
   float* chi_rec;
   float* parts_rec;
   float* ar_rec;
-  int ew, C, D, K, nits, burnin;
+  int ew, C, D, K;
+  int it_base, it_end;   // the launch's proposals: it_base + 1 .. it_end - 1
+  int rec0;              // row it - 1 - rec0 records iteration it (if >= 0)
   int n_i, n_f;          // plan words staged in shared memory (0: none)
   uint32_t seed;
 };
@@ -122,8 +144,9 @@ __host__ __device__ constexpr int state_words(int D, int K, int ew) {
 
 // One block per SM named as the least, so ptxas does not trade registers
 // for resident blocks (with the block size alone it held the one-state GBM
-// model's builds to 48 registers and spilled 16 bytes).
-template <int STEPPER, bool PRIORS>
+// model's builds to 48 registers and spilled 16 bytes). CHUNK reads
+// it_base and the state in and out.
+template <int STEPPER, bool PRIORS, bool CHUNK>
 __global__ void __launch_bounds__(32 * JOINT_KMAX, 1)
 joint_kernel(const JointArgs a) {
   extern __shared__ uint32_t smem[];
@@ -156,23 +179,32 @@ joint_kernel(const JointArgs a) {
   const int model = e[2];
   const int* idx = e + 3;
 
-  float part_k = score_experiment<STEPPER>(pl, model, [&](int j) {
-    return a.theta0[(size_t)idx[j] * C + c];
-  });
-  part[k * 32 + lane] = part_k;
-  for (int d = k; d < D; d += K)
-    lt[d * 32 + lane] = logf(a.theta0[(size_t)d * C + c]);
-  __syncthreads();
-  float chi = part[lane];
-  for (int kk = 1; kk < K; ++kk) chi = chi + part[kk * 32 + lane];
-  float lp = 0.0f;
-  if constexpr (PRIORS)
-    lp = joint_log_prior(a.prior, D, [&](int d) {
-      return a.theta0[(size_t)d * C + c];
+  float part_k, chi, lp = 0.0f, acc = 0.0f;
+  if (CHUNK && a.state_in) {
+    const float* st = a.state_in;
+    for (int d = k; d < D; d += K) lt[d * 32 + lane] = st[(size_t)d * C + c];
+    part_k = st[(size_t)(D + 1 + k) * C + c];
+    chi = st[(size_t)D * C + c];
+    acc = st[(size_t)(D + K + 1) * C + c];
+    if constexpr (PRIORS) lp = st[(size_t)(D + K + 2) * C + c];
+    __syncthreads();   // every warp holds the loaded state
+  } else {
+    part_k = score_experiment<STEPPER>(pl, model, [&](int j) {
+      return a.theta0[(size_t)idx[j] * C + c];
     });
-  float acc = 0.0f;
+    part[k * 32 + lane] = part_k;
+    for (int d = k; d < D; d += K)
+      lt[d * 32 + lane] = logf(a.theta0[(size_t)d * C + c]);
+    __syncthreads();
+    chi = part[lane];
+    for (int kk = 1; kk < K; ++kk) chi = chi + part[kk * 32 + lane];
+    if constexpr (PRIORS)
+      lp = joint_log_prior(a.prior, D, [&](int d) {
+        return a.theta0[(size_t)d * C + c];
+      });
+  }
   const uint32_t key = mix(a.seed * 0x9E3779B1u + (uint32_t)c);
-  for (int it = 1; it < a.nits; ++it) {
+  for (int it = (CHUNK ? a.it_base : 0) + 1; it < a.it_end; ++it) {
     const uint32_t base = (uint32_t)it * 1024u;
     for (int d = k; d < D; d += K) {
       const float l0 = lt[d * 32 + lane];
@@ -185,18 +217,20 @@ joint_kernel(const JointArgs a) {
       return expf(prop[idx[j] * 32 + lane]);
     });
     part[k * 32 + lane] = part_new;
+    // the proposal's log prior reads every dimension of prop: before the
+    // barrier, since past it a warp that runs ahead draws the next
+    // proposal of its dimensions into prop
+    float lp_new = 0.0f;
+    if constexpr (PRIORS)
+      lp_new = joint_log_prior(a.prior, D, [&](int d) {
+        return expf(prop[d * 32 + lane]);
+      });
     __syncthreads();   // every part is scored
     float chi_new = part[lane];
     for (int kk = 1; kk < K; ++kk) chi_new = chi_new + part[kk * 32 + lane];
     const float u = uniform(key, base + 2u * (uint32_t)n_walked);
     float log_ratio = chi - chi_new;
-    float lp_new = 0.0f;
-    if constexpr (PRIORS) {
-      lp_new = joint_log_prior(a.prior, D, [&](int d) {
-        return expf(prop[d * 32 + lane]);
-      });
-      log_ratio = log_ratio + (lp_new - lp);
-    }
+    if constexpr (PRIORS) log_ratio = log_ratio + (lp_new - lp);
     // NaN or -inf log ratio compares false: rejected
     if (expf(log_ratio) > u) {
       for (int d = k; d < D; d += K) lt[d * 32 + lane] = prop[d * 32 + lane];
@@ -205,7 +239,7 @@ joint_kernel(const JointArgs a) {
       if constexpr (PRIORS) lp = lp_new;
       acc = acc + 1.0f;
     }
-    const int r = it - 1 - a.burnin;
+    const int r = it - 1 - a.rec0;
     if (r >= 0 && live) {
       for (int d = k; d < D; d += K)
         a.th_rec[((size_t)r * D + d) * C + c] = expf(lt[d * 32 + lane]);
@@ -214,21 +248,36 @@ joint_kernel(const JointArgs a) {
       if (k == (D + 1) % K) a.ar_rec[(size_t)r * C + c] = acc / (float)it;
     }
   }
+  if (CHUNK && a.state_out && live) {
+    float* st = a.state_out;
+    for (int d = k; d < D; d += K) st[(size_t)d * C + c] = lt[d * 32 + lane];
+    st[(size_t)(D + 1 + k) * C + c] = part_k;
+    if (k == D % K) {
+      st[(size_t)D * C + c] = chi;
+      st[(size_t)(D + K + 1) * C + c] = acc;
+      st[(size_t)(D + K + 2) * C + c] = lp;
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// prior: D table entries of PRIOR_WIDTH floats, or null for none.
+// prior: D table entries of PRIOR_WIDTH floats, or null for none. The
+// launch runs iterations it_base + 1 .. it_end - 1 and records iteration
+// it in row it - 1 - rec0 where that is >= 0 (a whole run: it_base = 0,
+// it_end = nits, rec0 = burnin; a chunk: rec0 = it_base). state_in (or
+// null: score theta0) and state_out (or null) are (D + K + 3) x C.
 int odelib_joint(const int* pi_all, int n_i, const float* pf_all, int n_f,
                  const int* exp_tab, int ew, const float* theta0,
-                 const float* walk, const float* prior, float* th_rec,
-                 float* chi_rec, float* parts_rec, float* ar_rec, int C,
-                 int D, int K, int nits, int burnin, unsigned int seed,
+                 const float* walk, const float* prior, const float* state_in,
+                 float* state_out, float* th_rec, float* chi_rec,
+                 float* parts_rec, float* ar_rec, int C, int D, int K,
+                 int it_base, int it_end, int rec0, unsigned int seed,
                  int stepper, void* stream) {
   if (D < 1 || D > JOINT_DMAX || K < 1 || K > JOINT_KMAX || C < 1
-      || ew < 3 + ODE_PMAX)
+      || ew < 3 + ODE_PMAX || it_base < 0 || it_end <= it_base)
     return (int)cudaErrorInvalidValue;
   size_t smem = sizeof(int) * (size_t)state_words(D, K, ew);
   const size_t plans = sizeof(int) * ((size_t)n_i + (size_t)n_f);
@@ -237,16 +286,20 @@ int odelib_joint(const int* pi_all, int n_i, const float* pf_all, int n_f,
   } else {
     n_i = n_f = 0;
   }
-  const JointArgs a{pi_all, pf_all, exp_tab, theta0, walk, prior, th_rec,
-                    chi_rec, parts_rec, ar_rec, ew, C, D, K, nits, burnin,
-                    n_i, n_f, seed};
+  const JointArgs a{pi_all, pf_all, exp_tab, theta0, walk, prior, state_in,
+                    state_out, th_rec, chi_rec, parts_rec, ar_rec, ew, C, D,
+                    K, it_base, it_end, rec0, n_i, n_f, seed};
   const int grid = (C + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void (*kernel)(const JointArgs) =
-      stepper == 0
-          ? (prior ? &joint_kernel<0, true> : &joint_kernel<0, false>)
-          : (prior ? &joint_kernel<1, true> : &joint_kernel<1, false>);
-  kernel<<<grid, 32 * K, smem, s>>>(a);
+  // [stepper][priors][chunk]
+  void (*const kernels[2][2][2])(const JointArgs) = {
+      {{&joint_kernel<0, false, false>, &joint_kernel<0, false, true>},
+       {&joint_kernel<0, true, false>, &joint_kernel<0, true, true>}},
+      {{&joint_kernel<1, false, false>, &joint_kernel<1, false, true>},
+       {&joint_kernel<1, true, false>, &joint_kernel<1, true, true>}}};
+  kernels[stepper != 0][prior != nullptr]
+         [state_in != nullptr || state_out != nullptr]<<<grid, 32 * K, smem,
+                                                          s>>>(a);
   return (int)cudaGetLastError();
 }
 

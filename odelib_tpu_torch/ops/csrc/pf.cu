@@ -2,7 +2,7 @@
 //
 // Replaces, in odelib_tpu/ops/pallas_pf.py:
 //   pf_kernel <- _cached_pf_grid, whole-run and chunk mode,
-//                Euler-Maruyama (public pmmh_fused)
+//                Euler-Maruyama and Milstein (public pmmh_fused)
 //
 // Semantics (pallas_pf.py:130-469, read for its function). Per chain: the
 // log-theta, chi, the accept count and the log proposal scale lsc. Per
@@ -25,6 +25,16 @@
 // particles dead gives +inf and a rejection. Accept when
 // exp(chi - chi_new [+ lp(theta') - lp(theta)]) > u; during burn-in
 // (it <= burnin) lsc += adapt_rate (accept - target) (:393-396).
+//
+// Milstein (pallas_pf.py:289-308): after a step's Euler update, state s
+// adds (((0.5 h) g_s) g'_s) (xi_s xi_s - 1), g and g'_s = d g_s / d y_s
+// (the generated diffusion_diag(): the diagonal of the diffusion's
+// forward-mode Jacobian, rhs.py RhsProgram.diagonal) both at the state
+// before the step, f32(0.5 h) from the plan. The draws are Euler's: the
+// same slots, the same stash, so Euler's bitstream and slot count stay.
+// The MILSTEIN template flag compiles the term in; a library built with
+// ODE_MILSTEIN (ops/build.py) holds only those instantiations, the Euler
+// libraries only the others, whose code the flag leaves as it was.
 //
 // Chunk mode (pallas_pf.py:136-142, :352-355, :368-376, :415-418): a
 // launch covers the proposals it_base + 1 .. it_end - 1; with state_in the
@@ -298,7 +308,7 @@ __device__ __forceinline__ void resample_block(const Plan& pl,
 }
 
 // -loglik of one bootstrap filter at theta (every lane of the warp).
-template <int PPT>
+template <int PPT, bool MILSTEIN>
 __device__ __forceinline__ float particle_filter(const Plan& pl,
                                                  const Lane<PPT>& F,
                                                  const float* theta,
@@ -324,7 +334,7 @@ __device__ __forceinline__ float particle_filter(const Plan& pl,
     for (int i = 0; i < PPT; ++i) apply_doses<ODE_S>(pl, 0, y[i]);
   }
   for (int n = 0; n < pl.n_steps; ++n) {
-    const float* sf = pl.steps + 8 * n;   // h, t, f32(sqrt h)
+    const float* sf = pl.steps + 8 * n;   // h, t, f32(sqrt h), f32(h / 2)
     const float h = sf[0], t = sf[1], sq = sf[2];
     float xi[PPT][ODE_S];
 #pragma unroll
@@ -348,9 +358,23 @@ __device__ __forceinline__ float particle_filter(const Plan& pl,
       float f[ODE_S], g[ODE_S];
       rhs(t, y[i], theta, f);
       diffusion(t, y[i], theta, g);
+      if constexpr (MILSTEIN) {
+#ifdef ODE_MILSTEIN
+        float dg[ODE_S];
+        diffusion_diag(t, y[i], theta, dg);   // at the pre-step state
+        const float hh = sf[3];
 #pragma unroll
-      for (int s = 0; s < ODE_S; ++s)
-        y[i][s] = (y[i][s] + h * f[s]) + (sq * g[s]) * xi[i][s];
+        for (int s = 0; s < ODE_S; ++s) {
+          const float x = xi[i][s];
+          y[i][s] = ((y[i][s] + h * f[s]) + (sq * g[s]) * x)
+                    + ((hh * g[s]) * dg[s]) * (x * x - 1.0f);
+        }
+#endif
+      } else {
+#pragma unroll
+        for (int s = 0; s < ODE_S; ++s)
+          y[i][s] = (y[i][s] + h * f[s]) + (sq * g[s]) * xi[i][s];
+      }
     }
     const int gi = pl.step_gi[n];
     if (gi >= 0 && pl.obs_ptr[gi + 1] > pl.obs_ptr[gi])
@@ -366,7 +390,7 @@ __device__ __forceinline__ float particle_filter(const Plan& pl,
   return -loglik;
 }
 
-template <int PPT, bool CHUNK>
+template <int PPT, bool CHUNK, bool MILSTEIN>
 __global__ void __launch_bounds__(32 * PF_WARPS) pf_kernel(const PfArgs a) {
   extern __shared__ float smem[];
   constexpr int KP = 32 * PPT;
@@ -405,7 +429,7 @@ __global__ void __launch_bounds__(32 * PF_WARPS) pf_kernel(const PfArgs a) {
   } else {
 #pragma unroll
     for (int p = 0; p < ODE_P; ++p) thp[p] = a.theta0[(size_t)p * C + c];
-    chi = particle_filter<PPT>(pl, F, thp, 0u, slot);
+    chi = particle_filter<PPT, MILSTEIN>(pl, F, thp, 0u, slot);
 #pragma unroll
     for (int p = 0; p < ODE_P; ++p) lt[p] = logf(thp[p]);
     acc = 0.0f;
@@ -427,7 +451,8 @@ __global__ void __launch_bounds__(32 * PF_WARPS) pf_kernel(const PfArgs a) {
     }
     const float u = uniform(F.key0, ctr + slot);
     slot += 1;
-    const float chi_new = particle_filter<PPT>(pl, F, thp, ctr, slot);
+    const float chi_new = particle_filter<PPT, MILSTEIN>(pl, F, thp, ctr,
+                                                         slot);
     float log_ratio = chi - chi_new;
     if (a.use_priors) {
       float lp_new = 0.0f, lp_old = 0.0f;
@@ -471,6 +496,13 @@ __global__ void __launch_bounds__(32 * PF_WARPS) pf_kernel(const PfArgs a) {
   }
 }
 
+// the library's SDE scheme: Milstein where it was built with ODE_MILSTEIN
+#ifdef ODE_MILSTEIN
+constexpr bool kMilstein = true;
+#else
+constexpr bool kMilstein = false;
+#endif
+
 template <int PPT>
 int launch_pf(const PfArgs& a, cudaStream_t s) {
   const size_t per_warp = sizeof(float) * (1 + ODE_S) * 32 * PPT;
@@ -480,9 +512,9 @@ int launch_pf(const PfArgs& a, cudaStream_t s) {
   const size_t smem = warps * per_warp;
   const int grid = (a.C + warps - 1) / warps;
   if (a.state_in || a.state_out)
-    pf_kernel<PPT, true><<<grid, 32 * warps, smem, s>>>(a);
+    pf_kernel<PPT, true, kMilstein><<<grid, 32 * warps, smem, s>>>(a);
   else
-    pf_kernel<PPT, false><<<grid, 32 * warps, smem, s>>>(a);
+    pf_kernel<PPT, false, kMilstein><<<grid, 32 * warps, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -496,17 +528,19 @@ extern "C" {
 // iteration it in row it - 1 - rec0 where that is >= 0 (a whole run:
 // it_base = 0, it_end = nits, rec0 = burnin; a chunk: rec0 = it_base);
 // burnin is the run's. state_in (or null: filter theta0) and state_out (or
-// null) are (P + 3) x C.
+// null) are (P + 3) x C. milstein must name the library's scheme (1 for a
+// library built with ODE_MILSTEIN, else 0): another is refused.
 int odelib_pf(const int* pi, const float* pf, const float* theta0,
               const float* walk, const float* prior, const float* state_in,
               float* state_out, float* th_rec, float* chi_rec, float* ar_rec,
               int C, int K, int it_base, int it_end, int rec0, int burnin,
               unsigned int seed, unsigned int stride,
-              int last_gi, int use_priors, int use_adapt, float rwalk_std,
-              float adapt_rate, float target, float log_k, float inv_k,
-              void* stream) {
+              int last_gi, int use_priors, int use_adapt, int milstein,
+              float rwalk_std, float adapt_rate, float target, float log_k,
+              float inv_k, void* stream) {
 #ifdef ODE_HAS_DIFFUSION
-  if (K < 1 || K > PF_KMAX || C < 1 || it_base < 0 || it_end <= it_base)
+  if (K < 1 || K > PF_KMAX || C < 1 || it_base < 0 || it_end <= it_base
+      || (milstein != 0) != kMilstein)
     return (int)cudaErrorInvalidValue;
   const PfArgs a{pi, pf, theta0, walk, prior, state_in, state_out, th_rec,
                  chi_rec, ar_rec, C, K, it_base, it_end, rec0, burnin, seed,

@@ -13,7 +13,8 @@ raises; a CPU tensor runs the plain torch twin :func:`joint_plain`, which
 performs the kernel's float32 operations in the same order and draws the
 same counter-RNG words. Chain c keys its stream on its global index, so
 the JAX kernel's padding to a tile changes nothing and is not done here;
-``tile_chains`` is accepted and ignored.
+``tile_chains`` is accepted and ignored. Chunked checkpointing and resume
+follow ``_joint_fused_chunked`` (:mod:`.chunked`).
 """
 from __future__ import annotations
 
@@ -23,10 +24,12 @@ import numpy as np
 import torch
 
 from ..rhs import trace_rhs
+from . import chunked
 from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
                       _as_f32_tensor, _build_plan, _check_stepper,
-                      _check_mesh, _normalize_substeps, _prior_tensor,
-                      make_scorer, plan_tables, scoring)
+                      _check_mesh, _normalize_substeps, _prior_tensor, _ptr,
+                      chunk_range, make_scorer, plan_tables, scoring,
+                      twin_launcher)
 from .priors import checked_priors, logprior_plain
 from .runge_kutta import const
 
@@ -40,14 +43,28 @@ class JointFusedOutput(NamedTuple):
     iteration: Any         # (R,)
 
 
+def _joint_records(R, D, K, C, dev):
+    """Chain-minor joint records: theta (R, D, C), chi (R, C), the parts
+    (R, K, C) and the acceptance ratio (R, C)."""
+    return tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                 for shape in ((R, D, C), (R, C), (R, K, C), (R, C)))
+
+
 def joint_plain(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
-                walk, walked, stepper="dopri5", prior=None):
+                walk, walked, stepper="dopri5", prior=None, R_chunk=None,
+                it_base=0, state=None):
     """Twin of the joint kernel: ``theta0`` (D, C) float32; returns the
     chain-minor records theta (R, D, C), chi (R, C), chi parts (R, K, C)
     and acceptance ratio (R, C), R = nits - 1 - burnin. ``walk`` is the
     per-dimension scale ``rwalk_std * walk_mask`` and ``walked`` marks the
     dimensions that draw a normal; ``prior`` a :func:`~.priors.prior_table`
-    of one entry per joint dimension, or None."""
+    of one entry per joint dimension, or None.
+
+    Chunk mode (``R_chunk`` proposals, ``cuda_mh.chunk_range``): the
+    proposals ``it_base + 1 .. it_base + R_chunk``, every one recorded,
+    from ``state`` ((D + K + 3, C): log-theta, the total chi, the K parts,
+    the accept count and the log prior, 0 without priors; None scores
+    theta0); returns (records, the state after the chunk)."""
     scorers = [make_scorer(sp, pl, y0, stepper)
                for sp, pl, y0 in zip(specs, plans, y0s)]
 
@@ -62,17 +79,21 @@ def joint_plain(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
     D, C = theta0.shape
     K = len(specs)
     dev = theta0.device
-    R = nits - 1 - burnin
+    it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+    R = it_end - 1 - rec0
     rng = Rng(seed, torch.arange(C, device=dev))
-    chi, parts = joint_score(list(theta0))
-    lp = None if prior is None else logprior_plain(prior, list(theta0))
-    lt = [torch.log(th) for th in theta0]
-    acc = torch.zeros_like(chi)
-    recs = (torch.empty((R, D, C), dtype=torch.float32, device=dev),
-            torch.empty((R, C), dtype=torch.float32, device=dev),
-            torch.empty((R, K, C), dtype=torch.float32, device=dev),
-            torch.empty((R, C), dtype=torch.float32, device=dev))
-    for it in range(1, nits):
+    if state is None:
+        chi, parts = joint_score(list(theta0))
+        lp = None if prior is None else logprior_plain(prior, list(theta0))
+        lt = [torch.log(th) for th in theta0]
+        acc = torch.zeros_like(chi)
+    else:
+        lt = list(state[:D])
+        chi, parts = state[D], list(state[D + 1:D + 1 + K])
+        acc = state[D + K + 1]
+        lp = None if prior is None else state[D + K + 2]
+    recs = _joint_records(R, D, K, C, dev)
+    for it in range(it_base + 1, it_end):
         rng.start(it)
         prop = [lt[d] + const(walk[d], chi) * rng.normal() if walked[d]
                 else lt[d] for d in range(D)]
@@ -90,13 +111,17 @@ def joint_plain(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
         chi = torch.where(accept, chi_new, chi)
         parts = [torch.where(accept, a, b) for a, b in zip(parts_new, parts)]
         acc = acc + accept.to(torch.float32)
-        r = it - 1 - burnin
+        r = it - 1 - rec0
         if r >= 0:
             recs[0][r] = torch.stack([torch.exp(v) for v in lt])
             recs[1][r] = chi
             recs[2][r] = torch.stack(parts)
             recs[3][r] = acc / torch.full_like(acc, float(it))
-    return recs
+    if R_chunk is None:
+        return recs
+    return recs, torch.stack(
+        lt + [chi] + parts + [acc, torch.zeros_like(chi) if lp is None
+                              else lp])
 
 
 def joint_tables(specs, plans, y0s, idx_maps, stepper):
@@ -122,17 +147,19 @@ def joint_tables(specs, plans, y0s, idx_maps, stepper):
 
 
 def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
-                   nits, burnin, walk, walked, prior=None):
+                   nits, burnin, walk, walked, prior=None, R_chunk=None):
     """Prepare the joint kernel for chains ``th0`` (D, C) on the card and
     return ``launch() -> records`` (as :func:`joint_plain`); each call
-    launches the kernel once (and counts it)."""
+    launches the kernel once (and counts it). With ``R_chunk`` it is
+    ``launch(it_base, state) -> (records, state)``, a chunk of
+    :func:`joint_plain`'s chunk mode, state a (D + K + 3, C) tensor on the
+    card (None on the first chunk)."""
     from . import build
     lib = build.load_kernels(specs[0], specs[1:],
                              scoring=[scoring(pl) for pl in plans])
     dev = th0.device
     D, C = th0.shape
     K = len(specs)
-    R = nits - 1 - burnin
     plan_i, plan_f, exp_tab, width = joint_tables(specs, plans, y0s,
                                                   idx_maps, stepper)
     plan_i, exp_tab = (torch.as_tensor(a, device=dev)
@@ -143,22 +170,22 @@ def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
         tuple(walk) + tuple(float(w) for w in walked), np.float32),
         device=dev)
     prior_t = _prior_tensor(prior, dev)
-    recs = (torch.empty((R, D, C), dtype=torch.float32, device=dev),
-            torch.empty((R, C), dtype=torch.float32, device=dev),
-            torch.empty((R, K, C), dtype=torch.float32, device=dev),
-            torch.empty((R, C), dtype=torch.float32, device=dev))
-    args = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
-            plan_f.numel(), exp_tab.data_ptr(), width,
-            th0.data_ptr(), walk_t.data_ptr(),
-            None if prior_t is None else prior_t.data_ptr(),
-            *(r.data_ptr() for r in recs), C, D, K, int(nits), int(burnin),
-            int(np.uint32(np.int64(seed) & _M32)), _STEPPER_ID[stepper],
+    head = (plan_i.data_ptr(), plan_i.numel(), plan_f.data_ptr(),
+            plan_f.numel(), exp_tab.data_ptr(), width, th0.data_ptr(),
+            walk_t.data_ptr(), _ptr(prior_t))
+    tail = (int(np.uint32(np.int64(seed) & _M32)), _STEPPER_ID[stepper],
             build.stream(dev))
 
-    def launch():
-        build.check(lib, lib.odelib_joint(*args), "joint")
+    def launch(it_base=0, state=None):
+        it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
+        recs = _joint_records(it_end - 1 - rec0, D, K, C, dev)
+        out = None if R_chunk is None else torch.empty(
+            (D + K + 3, C), dtype=torch.float32, device=dev)
+        build.check(lib, lib.odelib_joint(
+            *head, _ptr(state), _ptr(out), *(r.data_ptr() for r in recs),
+            C, D, K, int(it_base), int(it_end), int(rec0), *tail), "joint")
         LAUNCHES["joint_metropolis_hastings_fused"] += 1
-        return recs
+        return recs if R_chunk is None else (recs, out)
     # alive as long as the launcher
     launch.keep = (plan_i, plan_f, exp_tab, walk_t, prior_t)
     return launch
@@ -173,7 +200,8 @@ def joint_metropolis_hastings_fused(
         interpret: bool = False, mesh=None, priors=None,
         checkpoint_every: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
-        resume_from: Optional[str] = None, config_token: str = ""):
+        resume_from: Optional[str] = None, config_token: str = "",
+        _stop_after_chunks: Optional[int] = None):
     """Run C joint chains over K experiments in one kernel launch.
 
     ``theta0`` is (C, D) float32 joint thetas; a CUDA tensor launches the
@@ -182,15 +210,17 @@ def joint_metropolis_hastings_fused(
     substeps (default 4 each). ``priors``: one distribution (or None) per
     joint dimension, added once to the acceptance (a family without an
     in-kernel form raises ``ValueError``). Returns ``JointFusedOutput``.
-    ``tile_chains``/``interpret``/``config_token`` are accepted and
-    ignored; checkpointing and meshes are not ported yet and raise
-    ``NotImplementedError``."""
+
+    ``checkpoint_every``/``checkpoint_path``/``resume_from``/
+    ``config_token``/``_stop_after_chunks`` as in
+    ``cuda_mh.metropolis_hastings_fused`` (``_joint_fused_chunked``): the
+    proposals in chunks, one launch each, bitwise one launch's records;
+    the chunks carry the joint state (log-theta, chi, the parts, the
+    accept count, the log prior), and a progress file of another joint
+    configuration, or of ``odelib_tpu``, fails the resume with
+    ``ValueError``. ``tile_chains``/``interpret`` are accepted and
+    ignored; a ``mesh`` raises ``NotImplementedError``."""
     from .build import JOINT_DMAX, JOINT_KMAX
-    if checkpoint_every is not None or resume_from is not None \
-            or checkpoint_path is not None:
-        raise NotImplementedError(
-            "the joint kernel's chunked checkpoint/resume is not ported yet "
-            "(ROADMAP queue 1, item 11)")
     _check_mesh(mesh)
     # JointFit integrates dopri5 or rk4 under every method (kvaerno3 too,
     # as odelib_tpu/joint.py does): the joint kernel holds those two
@@ -226,22 +256,34 @@ def joint_metropolis_hastings_fused(
             "draw sites (walked parameters) for the fused kernel")
     if substeps_list is None:
         substeps_list = [4] * K
-    plans = tuple(_build_plan(sp, obs, tm, _normalize_substeps(
-        sub, len(np.asarray(tm)) - 1))
-        for sp, obs, tm, sub in zip(specs, obs_list, times_list,
-                                    substeps_list))
+    subs = tuple(_normalize_substeps(sub, len(np.asarray(tm)) - 1)
+                 for sub, tm in zip(substeps_list, times_list))
+    plans = tuple(_build_plan(sp, obs, tm, sub)
+                  for sp, obs, tm, sub in zip(specs, obs_list, times_list,
+                                              subs))
     y0s = tuple(np.asarray(y0, np.float64) for y0 in y0_list)
     th0 = theta0.t().contiguous()
-    kw = dict(nits=int(nits), burnin=int(burnin), walk=walk, walked=walked,
-              prior=prior)
-    if th0.device.type != "cuda":
-        recs = joint_plain(specs, plans, y0s, idx_maps, th0, seed,
-                           stepper=stepper, **kw)
-    else:
+    if th0.device.type == "cuda":
         for sp in specs:   # raises RhsTraceError for an RHS the kernel
             trace_rhs(sp.rhs, len(sp.snames), sp.theta_size)  # cannot take
-        recs = joint_launcher(specs, plans, y0s, idx_maps, stepper, th0,
-                              seed, **kw)()
+        launcher = joint_launcher
+    else:
+        launcher = twin_launcher(joint_plain)
+
+    def make(R_chunk=None):
+        return launcher(specs, plans, y0s, idx_maps, stepper, th0, seed,
+                        nits=int(nits), burnin=int(burnin), walk=walk,
+                        walked=walked, prior=prior, R_chunk=R_chunk)
+    static = ("joint", tuple(sp.pnames for sp in specs), idx_maps, D, K, C,
+              int(nits), int(burnin), walk, stepper, subs, int(seed),
+              chunked.prior_key(prior), str(config_token))
+    recs = chunked.run(make, "joint MCMC", static, nits=int(nits),
+                       burnin=int(burnin), device=th0.device,
+                       checkpoint_every=checkpoint_every,
+                       checkpoint_path=checkpoint_path,
+                       resume_from=resume_from, stop_after=_stop_after_chunks)
+    if recs is None:
+        return None
     th_r, chi_r, parts_r, ar_r = recs
     return JointFusedOutput(
         theta=th_r.permute(2, 0, 1), chi=chi_r.t(),

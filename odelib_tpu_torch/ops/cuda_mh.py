@@ -189,7 +189,8 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     one state summed in double first). A step's 8 floats are, for
     'dopri5', h and its stage times; 'rk4' h, h/2, h/6 and its times;
     'kvaerno3' h, h gamma and the times of its four stages; 'euler' (the
-    particle filter) h, t and f32(sqrt h)."""
+    particle filter) h, t, f32(sqrt h) and f32(h / 2), the Milstein
+    term's factor."""
     if stepper != "euler":
         _check_stepper(stepper)
     if len(spec.snames) > _MAX_MASK_STATES:
@@ -215,7 +216,7 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
         if stepper == "dopri5":
             steps[k, :7] = [h] + [t + DP_C[i] * h for i in range(6)]
         elif stepper == "euler":
-            steps[k, :3] = [h, t, float(np.sqrt(h))]
+            steps[k, :4] = [h, t, float(np.sqrt(h)), 0.5 * h]
         elif stepper == "kvaerno3":
             steps[k, :6] = [h, h * KV3_GAMMA] + [t + c * h for c in KV3_C]
         else:

@@ -1,15 +1,18 @@
 """Fused particle-marginal MH (PMMH): the CUDA kernel and its torch twin.
 
-Counterpart of ``odelib_tpu/ops/pallas_pf.py`` (Euler-Maruyama): the public
-``pmmh_fused`` with the JAX package's arguments and validation,
-``pmmh_supported``, and ``PMMHOutput`` (``odelib_tpu/samplers/pf.py``).
-Each proposal of each chain is scored by a K-particle bootstrap filter
-over the model's SDE, with systematic resampling at every observed grid
-point (the plan's observation model, Tobit terms of censored log-space
-data, bolus doses after each grid point's block), in-kernel priors
-(:mod:`.priors`) and Robbins-Monro
-proposal-scale adaptation during burn-in (``csrc/pf.cu`` states the
-semantics and every parity trap with the JAX line it mirrors).
+Counterpart of ``odelib_tpu/ops/pallas_pf.py`` (Euler-Maruyama and
+Milstein): the public ``pmmh_fused`` with the JAX package's arguments and
+validation, ``pmmh_supported``, and ``PMMHOutput``
+(``odelib_tpu/samplers/pf.py``). Each proposal of each chain is scored by
+a K-particle bootstrap filter over the model's SDE
+(``sde_method='milstein'`` adds the Milstein correction after each Euler
+step, with the diffusion's diagonal derivative from the RHS front end,
+``RhsProgram.diagonal``, and Euler's draws), with systematic resampling at
+every observed grid point (the plan's observation model, Tobit terms of
+censored log-space data, bolus doses after each grid point's block),
+in-kernel priors (:mod:`.priors`) and Robbins-Monro proposal-scale
+adaptation during burn-in (``csrc/pf.cu`` states the semantics and every
+parity trap with the JAX line it mirrors).
 
 A CUDA tensor launches the hand-written kernel (``csrc/pf.cu``, built by
 :mod:`.build` with the traced drift and diffusion) or raises; a CPU tensor
@@ -18,9 +21,8 @@ float32 operations in the same order, sums the weights in the same order
 and draws the same counter-RNG words. Chain c keys its streams on its
 global index, so the JAX kernel's padding to 128-chain tiles changes
 nothing and is not done here. Chunked checkpointing and resume follow
-``_pf_fused_chunked`` (:mod:`.chunked`). Milstein, meshes and more than
-512 particles are not ported (ROADMAP queue 1, items 3 and 18, queue 2,
-item 6).
+``_pf_fused_chunked`` (:mod:`.chunked`). Meshes and more than 512
+particles are not ported (ROADMAP queue 1, item 18, queue 2, item 6).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ import numpy as np
 import torch
 
 from ..model import ModelSpec, ObsData
-from ..rhs import RhsTraceError, torch_evaluator, trace_rhs
+from ..rhs import (RhsTraceError, diagonal_evaluator, torch_evaluator,
+                   trace_rhs)
 from . import chunked
 from .cuda_mh import (_M32, LAUNCHES, _as_f32_tensor, _build_plan,
                       _check_mesh, _device_plan, _key, _normalize_substeps,
@@ -54,19 +57,30 @@ class PMMHOutput(NamedTuple):
 def pmmh_supported(spec: ModelSpec, n_particles: int,
                    sde_method: str) -> bool:
     """Whether the fused kernel runs this PMMH configuration: a diffusion
-    that traces like the drift, Euler-Maruyama, and 8 to 512 particles in
-    multiples of 8."""
-    if spec.diffusion is None or sde_method != "euler":
+    that traces like the drift (for Milstein, with a derivative rule for
+    each of its operations), Euler-Maruyama or Milstein, and 8 to 512
+    particles in multiples of 8."""
+    if spec.diffusion is None or sde_method not in ("euler", "milstein"):
         return False
     K = int(n_particles)
     if not (8 <= K <= PF_KMAX and K % 8 == 0):
         return False
     try:
-        for f in (spec.rhs, spec.diffusion):
-            trace_rhs(f, len(spec.snames), spec.theta_size)
+        _trace_sde(spec, sde_method == "milstein")
     except RhsTraceError:
         return False
     return True
+
+
+def _trace_sde(spec: ModelSpec, milstein: bool):
+    """Trace the drift and the diffusion (and, for Milstein, the
+    diffusion's diagonal derivative) as the kernel's build does: raises
+    ``RhsTraceError`` for a function the kernel cannot take."""
+    S, P = len(spec.snames), spec.theta_size
+    trace_rhs(spec.rhs, S, P)
+    g = trace_rhs(spec.diffusion, S, P)
+    if milstein:
+        g.diagonal()
 
 
 def obs_grid_indices(plan):
@@ -172,11 +186,13 @@ class _Filter:
     """The bootstrap particle filter of :func:`pmmh_plain` for one model,
     plan and particle count; ``run`` estimates -loglik for every chain."""
 
-    def __init__(self, spec, plan, y0_base, K, keys, key0):
+    def __init__(self, spec, plan, y0_base, K, keys, key0, milstein=False):
         S, P = len(spec.snames), spec.theta_size
         self.spec, self.plan, self.K, self.S = spec, plan, K, S
         self.f = torch_evaluator(spec.rhs, S, P)
         self.g = torch_evaluator(spec.diffusion, S, P)
+        self.dg = diagonal_evaluator(spec.diffusion, S, P) if milstein \
+            else None
         self.y0 = tuple(float(v) for v in np.asarray(y0_base))
         self.keys, self.key0 = keys, key0
         gis = obs_grid_indices(plan)
@@ -219,6 +235,8 @@ class _Filter:
         for t, h, gi in self.plan.step_ts:
             f = self.f(t, y, theta)
             g = self.g(t, y, theta)
+            # Milstein: d g_s / d y_s at the pre-step state
+            dg = None if self.dg is None else self.dg(t, y, theta)
             xi = []
             for _ in range(self.S):
                 if stash is not None:
@@ -232,6 +250,10 @@ class _Filter:
             sq = const(float(np.sqrt(h)), ref)
             y = [(y[s] + hc * f[s]) + (sq * g[s]) * xi[s]
                  for s in range(self.S)]
+            if dg is not None:
+                hh, one = const(0.5 * h, ref), const(1.0, ref)
+                y = [y[s] + ((hh * g[s]) * dg[s]) * (xi[s] * xi[s] - one)
+                     for s in range(self.S)]
             if gi >= 0 and self.plan.obs_after[gi]:
                 y, loglik, slot = self.resample(y, gi, loglik, ctr, slot)
             if gi >= 0 and self.dosed:
@@ -241,11 +263,13 @@ class _Filter:
 
 def pmmh_plain(spec, plan, y0_base, theta0, seed, *, K, nits, burnin, walk,
                walked, rwalk_std, prior=None, adapt=False, target=0.3,
-               adapt_rate=0.05, R_chunk=None, it_base=0, state=None):
+               adapt_rate=0.05, milstein=False, R_chunk=None, it_base=0,
+               state=None):
     """Twin of the PMMH kernel: ``theta0`` (P, C) float32; returns the
     chain-minor records theta (R, P, C), chi and acceptance ratio (R, C),
     R = nits - 1 - burnin. ``walk`` is the walk mask, ``walked`` its
-    non-zero slots, ``prior`` a :func:`~.priors.prior_table` or None.
+    non-zero slots, ``prior`` a :func:`~.priors.prior_table` or None;
+    ``milstein`` takes the Milstein step (Euler's draws).
     Chunk mode as ``cuda_mh.mh_plain``'s, the state (P + 3, C): log-theta,
     chi, the accept count and the log proposal scale; the scale adapts
     while ``it <= burnin``, the run's burn-in."""
@@ -255,7 +279,7 @@ def pmmh_plain(spec, plan, y0_base, theta0, seed, *, K, nits, burnin, walk,
     R = it_end - 1 - rec0
     stride = slot_stride(plan, len(spec.snames), sum(walked))
     key0, keys = pf_keys(seed, K, torch.arange(C, device=dev))
-    filt = _Filter(spec, plan, y0_base, K, keys, key0)
+    filt = _Filter(spec, plan, y0_base, K, keys, key0, milstein)
     if state is None:
         theta = list(theta0)
         chi, _ = filt.run(theta, 0, 0)
@@ -307,14 +331,16 @@ def pmmh_plain(spec, plan, y0_base, theta0, seed, *, K, nits, burnin, walk,
 
 def pmmh_launcher(spec, plan, y0_base, th0, seed, *, K, nits, burnin, walk,
                   walked, rwalk_std, prior=None, adapt=False, target=0.3,
-                  adapt_rate=0.05, R_chunk=None):
+                  adapt_rate=0.05, milstein=False, R_chunk=None):
     """Prepare the PMMH kernel for chains ``th0`` (P, C) on the card and
     return ``launch() -> records`` (as :func:`pmmh_plain`); each call
     launches the kernel once (and counts it). With ``R_chunk`` it is
     ``launch(it_base, state) -> (records, state)``, a chunk of
-    :func:`pmmh_plain`'s chunk mode."""
+    :func:`pmmh_plain`'s chunk mode. ``milstein`` launches the Milstein
+    instantiations, from a library of their own."""
     from . import build
-    lib = build.load_kernels(spec, diffusion=True, scoring=[scoring(plan)])
+    lib = build.load_kernels(spec, diffusion=True, scoring=[scoring(plan)],
+                             milstein=milstein)
     dev = th0.device
     P, C = th0.shape
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), "euler",
@@ -330,6 +356,7 @@ def pmmh_launcher(spec, plan, y0_base, th0, seed, *, K, nits, burnin, walk,
             walk_t.data_ptr(), prior_t.data_ptr())
     tail = (int(burnin), int(np.uint32(np.int64(seed) & _M32)), stride,
             gis[-1] if gis else -1, int(prior is not None), int(adapt),
+            int(milstein),
             *(float(np.float32(v)) for v in (rwalk_std, adapt_rate, target,
                                              math.log(K), 1.0 / K)),
             build.stream(dev))
@@ -372,18 +399,16 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
     ``_stop_after_chunks`` as in ``cuda_mh.metropolis_hastings_fused``
     (the chunks carry the proposal scale; the adaptation and the RNG
     counter's range follow the run's ``burnin`` and ``nits``).
-    ``interpret`` is accepted and ignored; Milstein and meshes are not
-    ported yet and raise ``NotImplementedError``."""
+    ``sde_method='milstein'`` adds the Milstein correction
+    ``0.5 h g_s (d g_s / d y_s) (xi_s^2 - 1)`` after each Euler step, with
+    Euler's draws. ``interpret`` is accepted and ignored; a ``mesh``
+    raises ``NotImplementedError``."""
     if spec.diffusion is None:
         raise ValueError("pmmh_fused requires a spec with diffusion=")
-    if sde_method == "milstein":
-        raise NotImplementedError(
-            "sde_method='milstein' needs the diffusion's diagonal "
-            "derivative from the RHS front end, not ported yet (ROADMAP "
-            "queue 1, item 3)")
-    if sde_method != "euler":
+    if sde_method not in ("euler", "milstein"):
         raise ValueError("the fused PMMH kernel integrates Euler-Maruyama "
                          f"or Milstein, not sde_method={sde_method!r}")
+    milstein = sde_method == "milstein"
     K = int(n_particles)
     if not (8 <= K <= PF_KMAX and K % 8 == 0):
         raise ValueError(f"fused PMMH needs n_particles in [8, {PF_KMAX}] and "
@@ -414,14 +439,14 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
     kw = dict(K=K, nits=int(nits), burnin=int(burnin), walk=walk,
               walked=walked, rwalk_std=float(rwalk_std), prior=prior,
               adapt=bool(adapt_proposal), target=float(target_accept),
-              adapt_rate=float(adapt_rate))
+              adapt_rate=float(adapt_rate), milstein=milstein)
     if th0.device.type != "cuda":
         def make(R_chunk=None):
             return lambda **ck: pmmh_plain(spec, plan, y0_base, th0, seed,
                                            R_chunk=R_chunk, **kw, **ck)
     else:
-        for f in (spec.rhs, spec.diffusion):   # raises RhsTraceError for a
-            trace_rhs(f, len(spec.snames), P)  # function the kernel can't
+        # raises RhsTraceError for a function the kernel cannot take
+        _trace_sde(spec, milstein)
 
         def make(R_chunk=None):
             return pmmh_launcher(spec, plan, y0_base, th0, seed,
@@ -429,7 +454,8 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
     static = ("pmmh", spec.pnames, P, K, th0.shape[1], int(nits),
               int(burnin), walk, float(rwalk_std), num, substeps, int(seed),
               chunked.prior_key(prior), bool(adapt_proposal),
-              float(target_accept), float(adapt_rate), str(config_token))
+              float(target_accept), float(adapt_rate), str(config_token),
+              str(sde_method))
     recs = chunked.run(make, "PMMH", static, nits=int(nits),
                        burnin=int(burnin), device=th0.device,
                        checkpoint_every=checkpoint_every,

@@ -13,7 +13,9 @@ arithmetic operation records a node. Two things are emitted from the DAG:
 
 :meth:`RhsProgram.jacobian` differentiates the DAG in forward mode into a
 program of its own (the Jacobian columns of the stiff stepper, in place
-of the JAX kernel's ``jax.jvp`` calls), emitted in both forms.
+of the JAX kernel's ``jax.jvp`` calls), emitted in both forms;
+:meth:`RhsProgram.diagonal` keeps its diagonal (a diffusion's d g_s / d y_s
+for the Milstein step of the particle filter).
 
 Both keep Python's evaluation order, and constants are rounded to float32
 exactly as JAX rounds a weakly-typed Python scalar against a float32 array,
@@ -498,6 +500,22 @@ class RhsProgram:
             self.n_params, f"jacobian of {self.name}")
         return self._jacobian
 
+    def diagonal(self) -> "RhsProgram":
+        """The Jacobian's diagonal, d f_s / d y_s for s < S, as a program
+        of S outputs: the diagonal entries of :meth:`jacobian`'s tangent
+        sweeps (the JAX kernel's S one-hot ``jax.jvp`` columns, each
+        keeping its own state's entry; for a diffusion g, the Milstein
+        step's d g_s / d y_s). Only the nodes those entries reach are
+        evaluated or emitted. An operation without a rule raises
+        :class:`RhsTraceError`."""
+        diag = getattr(self, "_diagonal", None)
+        if diag is None:
+            jac, S = self.jacobian(), self.n_states
+            diag = self._diagonal = RhsProgram(
+                self._graph, [jac.outputs[s * S + s] for s in range(S)], S,
+                self.n_params, f"diagonal of the jacobian of {self.name}")
+        return diag
+
     def cuda_source(self) -> str:
         """The RHS as ``__device__ void rhs(float t, const float* y,
         const float* p, float* dy)`` after the ``ODE_S``/``ODE_P``
@@ -607,6 +625,23 @@ def jacobian_evaluator(rhs, n_states: int, n_params: int):
             return [cols[j][i] for i in range(n_states)
                     for j in range(n_states)]
         return jac
+
+
+def diagonal_evaluator(fn, n_states: int, n_params: int):
+    """``diag(t, y, ps)``: the S entries d f_s / d y_s of a traced
+    function's Jacobian (:meth:`RhsProgram.diagonal`); for one that does
+    not trace, the diagonal of the eager function's forward-mode columns
+    (:func:`jvp_columns`, CPU twins only)."""
+    try:
+        return trace_rhs(fn, n_states, n_params).diagonal().evaluate
+    except RhsTraceError:
+        f = torch_evaluator(fn, n_states, n_params)
+
+        def diag(t, y, ps):
+            cols = jvp_columns(lambda yy: torch.stack(f(t, list(yy), ps)),
+                               torch.stack(list(y)))
+            return [cols[s][s] for s in range(n_states)]
+        return diag
 
 
 def jvp_columns(f, y):

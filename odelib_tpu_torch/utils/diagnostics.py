@@ -4,11 +4,18 @@ A numpy copy of ``odelib_tpu/utils/diagnostics.py``'s ``split_rhat`` and
 ``effective_sample_size`` (Gelman et al., *Bayesian Data Analysis* 3rd ed.
 §11.4-11.5), over the (chains, draws) layout of the posterior records.
 They run on the host once per posterior, as the run-length extension of
-``ModelFramework.MCMC(until_rhat=..., until_min_ess=...)`` calls them.
+``ModelFramework.MCMC`` and ``JointFit.MCMC`` (``until_rhat=...``,
+``until_min_ess=...``; :func:`extend_until`) calls them.
 """
 from __future__ import annotations
 
+import logging
+import warnings
+
 import numpy as np
+import torch
+
+log = logging.getLogger("odelib_tpu_torch")
 
 
 def _split_chains(x: np.ndarray) -> np.ndarray:
@@ -74,3 +81,71 @@ def effective_sample_size(x) -> float:
         tau += 2.0 * pair
         t += 2
     return float(C * N / max(tau, 1.0))
+
+
+def extend_until(out, run_more, *, nits, mask, until_rhat, until_min_ess,
+                 max_extensions, what="run"):
+    """Extend a finished run in whole-run increments until the pooled
+    posterior meets the split-R-hat / ESS targets or ``max_extensions``
+    is spent, then warn (``odelib_tpu``'s ``_extend_until`` of
+    ``ModelFramework`` and of ``JointFit``). ``out`` is the run's records
+    (a NamedTuple with ``theta`` (C, R, P), ``acceptance_ratio`` (C, R),
+    ``iteration`` (R,) and further (C, R, ...) records); each extension
+    restarts every chain from its last state with a fresh stream
+    (``run_more(theta_last, salt)``, no burn-in) and appends its records,
+    with exact global running acceptance ratios and a continuing
+    ``iteration`` column. Returns the stitched records, of ``out``'s type,
+    as CPU tensors."""
+    def host(x):
+        return x.cpu().numpy()
+    recs = {k: host(v) for k, v in out._asdict().items()}
+    ar, iteration = recs.pop("acceptance_ratio"), recs.pop("iteration")
+    total = int(iteration[-1])          # global proposals so far
+    counts = ar[:, -1] * total          # accepts, burn-in included
+    mask_flat = np.ravel(np.asarray(mask, float))
+    walked = [j for j in range(recs["theta"].shape[-1]) if mask_flat[j] != 0]
+
+    def worst():
+        max_rh, min_ess = 0.0, float("inf")
+        for j in walked:
+            x = recs["theta"][:, :, j].astype(float)
+            if np.allclose(x, x.flat[0]):   # a pinned slot
+                continue
+            z = np.log(x) if np.all(x > 0) else x
+            max_rh = max(max_rh, float(split_rhat(z)))
+            min_ess = min(min_ess, float(effective_sample_size(z)))
+        return max_rh, min_ess
+
+    for ext in range(max_extensions + 1):
+        max_rh, min_ess = worst()
+        if ((until_rhat is None or max_rh <= until_rhat)
+                and (until_min_ess is None or min_ess >= until_min_ess)):
+            if ext:
+                log.info("%s converged after %d extension(s): max "
+                         "split-rhat %.4f, min ESS %.0f", what, ext, max_rh,
+                         min_ess)
+            break
+        if ext == max_extensions:
+            warnings.warn(
+                f"{what}-length extension cap reached (max_extensions="
+                f"{max_extensions}) without meeting the targets: max "
+                f"split-rhat {max_rh:.4f} (target {until_rhat}), min ESS "
+                f"{min_ess:.0f} (target {until_min_ess}) — the returned "
+                "posterior holds everything sampled so far")
+            break
+        log.info("extending %s (%d/%d): max split-rhat %.4f, min ESS %.0f",
+                 what, ext + 1, max_extensions, max_rh, min_ess)
+        more = run_more(recs["theta"][:, -1, :], ext + 1)
+        its = np.arange(1, nits)
+        m_counts = host(more.acceptance_ratio) * its[None, :]
+        ar = np.concatenate(
+            [ar, (counts[:, None] + m_counts) / (total + its)[None, :]],
+            axis=1)
+        recs = {k: np.concatenate([v, host(getattr(more, k))], axis=1)
+                for k, v in recs.items()}
+        iteration = np.concatenate([iteration, total + its])
+        counts = counts + m_counts[:, -1]
+        total += nits - 1
+    return type(out)(**{k: torch.as_tensor(v) for k, v in recs.items()},
+                     acceptance_ratio=torch.as_tensor(ar),
+                     iteration=torch.as_tensor(iteration))

@@ -555,16 +555,33 @@ def test_mh_kernel_fits_an_sde_drift():
 def _chunk_case(card, sampler):
     """(wrapper, args, kw) of a small run of each chunk-mode kernel on the
     card: MH and PT on 203 chains, the ensemble on 300 walkers padded to
-    two ensembles of 256, PMMH on 202 chains x 40 particles adapting for
-    its 9 burn-in proposals."""
+    two ensembles of 256, PMMH (Euler and Milstein) on 202 chains x 40
+    particles adapting for its 9 burn-in proposals, the joint pair on 203
+    chains (a last block of 11 live lanes) with priors on its four
+    dimensions."""
+    from odelib_tpu_torch import distributions as D
+    from odelib_tpu_torch.ops import cuda_joint as TJ
     from odelib_tpu_torch.ops import cuda_pf as TF
-    if sampler == "pmmh":
+    if sampler in ("pmmh", "pmmh milstein"):
         spec, obs, tf, y0 = _gbm_inputs()
         th0 = torch.as_tensor(np.exp(np.random.default_rng(1).normal(
             np.log(0.4), 0.3, (202, 1))).astype(np.float32), device="cuda")
         return TF.pmmh_fused, (spec, obs, tf, y0, th0, 3), dict(
             nits=20, burnin=9, rwalk_std=0.3, n_particles=40, substeps=5,
-            adapt_proposal=True, adapt_rate=0.15)
+            adapt_proposal=True, adapt_rate=0.15,
+            sde_method="milstein" if sampler.endswith("milstein")
+            else "euler")
+    if sampler == "joint":
+        specs, obs, tfs, y0s, idxs = _joint_inputs(card)
+        rng = np.random.default_rng(2)
+        th0 = (np.array([2.4e-8, 24.0, 0.6, 0.6])
+               * np.exp(rng.normal(0, 0.05, (203, 4)))).astype(np.float32)
+        pri = (D.LogNormal(s=0.2, scale=2.4e-8), D.Normal(loc=24.0, scale=2.0),
+               None, D.Gamma(a=100.0, scale=0.006))
+        return TJ.joint_metropolis_hastings_fused, (
+            specs, idxs, obs, tfs, y0s, torch.as_tensor(th0, device="cuda"),
+            11), dict(nits=40, burnin=10, substeps_list=[4, 4],
+                      rwalk_std=0.05, priors=pri)
     spec, obs, tf, y0 = card
     n = 300 if sampler == "ensemble" else 203
     th0 = torch.as_tensor(_draws(n, sd=0.05), device="cuda")
@@ -584,12 +601,14 @@ def _outputs(res):
             for v in (p if hasattr(p, "_fields") else (p,))]
 
 
-@pytest.mark.parametrize("sampler", ["mh", "ensemble", "pt", "pmmh"])
+@pytest.mark.parametrize("sampler", ["mh", "ensemble", "pt", "pmmh",
+                                     "pmmh milstein", "joint"])
 def test_chunked_kernel_equals_whole(card, sampler, tmp_path):
     """Chunk mode on the card: the proposals in chunks of 7 (a short last
-    chunk; MH rounds cut mid-tree; PMMH's burn-in crosses a boundary),
-    one launch each, and a run killed after two chunks and
-    resumed from its file: every output bitwise that of one launch."""
+    chunk; MH rounds cut mid-tree; PMMH's burn-in crosses a boundary; the
+    joint kernel's state carries its parts and log prior), one launch
+    each, and a run killed after two chunks and resumed from its file:
+    every output bitwise that of one launch."""
     fn, args, kw = _chunk_case(card, sampler)
     whole = _outputs(fn(*args, **kw))
     before = T.LAUNCHES[fn.__name__]
@@ -603,6 +622,92 @@ def test_chunked_kernel_equals_whole(card, sampler, tmp_path):
     for a, b, c in zip(whole, got, res):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
+
+
+def test_joint_chunk_kernel_matches_chunked_twin(card):
+    """The joint kernel's CHUNK instantiation against the twin's chunk
+    mode, launcher by launcher: three chunks (7, 7 and 5 proposals) from
+    the first chunk's scoring of theta0, each chunk's records and its
+    state (D log-thetas, chi, K parts, accept count, log prior) bitwise,
+    with priors and without."""
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    fn, args, kw = _chunk_case(card, "joint")
+    specs, idxs, obs, tfs, y0s, th0, seed = args
+    plans = [T._build_plan(sp, ob, tf, 4) for sp, ob, tf in
+             zip(specs, obs, tfs)]
+    th = th0.t().contiguous()
+    for pri in (prior_table(kw["priors"]), None):
+        run = dict(nits=20, burnin=4, walk=(0.05,) * 4,
+                   walked=(True,) * 4, prior=pri)
+        state_k = state_t = None
+        for it_base, R in ((0, 7), (7, 7), (14, 5)):
+            rec_k, state_k = TJ.joint_launcher(
+                specs, plans, y0s, idxs, "dopri5", th, seed, R_chunk=R,
+                **run)(it_base=it_base, state=state_k)
+            rec_t, state_t = TJ.joint_plain(
+                specs, plans, y0s, idxs, th, seed, R_chunk=R,
+                it_base=it_base, state=state_t, **run)
+            torch.cuda.synchronize()
+            for a, b in zip(rec_k + (state_k,), rec_t + (state_t,)):
+                np.testing.assert_array_equal(a.cpu().numpy(),
+                                              b.cpu().numpy())
+        assert 0 < float(rec_k[3][-1].mean()) < 1
+
+
+@pytest.mark.parametrize("K,two_state", [(128, False), (40, True)])
+def test_pf_kernel_milstein_matches_twin(K, two_state):
+    """The Milstein pf_kernel (a library built with ODE_MILSTEIN) against
+    pmmh_plain(milstein=True) at 256 chains: the main path's GBM with 128
+    particles, and a two-state SDE whose diffusion couples the states
+    with 40 (2 a lane): every record bitwise; Euler's run on the same
+    chains differs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from odelib_tpu_torch.model import ObsData
+    from odelib_tpu_torch.ops import cuda_pf as TF
+    spec, obs, tf, y0 = _gbm_inputs()
+    P = 1
+    if two_state:
+        def drift(t, y, ps):
+            return [ps[0] * y[0], (ps[0] - 0.2) * y[1]]
+
+        def noise(t, y, ps):
+            return [0.3 * y[0] * np.sqrt(y[1]),
+                    0.2 * y[1] + 0.05 * y[0] * y[1] / (1.0 + y[0])]
+        spec = make_spec(adapt_rhs(drift), ("mu", "B0"), ("A", "B"),
+                         diffusion=adapt_rhs(noise))
+        obs = ObsData(
+            log_abundance=np.r_[obs.log_abundance, obs.log_abundance[:4]
+                                - 0.5],
+            log_sigma=np.full(12, 0.15), abundance=np.r_[
+                obs.abundance, np.exp(obs.log_abundance[:4] - 0.5)],
+            t_index=np.r_[obs.t_index, np.arange(1, 5)],
+            state_index=np.r_[np.zeros(8), np.ones(4)].astype(np.int32),
+            sstot=obs.sstot)
+        y0, P = np.array([2.0, 1.0]), 2
+    rng = np.random.default_rng(1)
+    th = np.exp(rng.normal(np.log(0.4), 0.3, (256, 1)))
+    if two_state:
+        th = np.c_[th, np.exp(rng.normal(0.0, 0.1, (256, 1)))]
+    th0 = torch.as_tensor(th.astype(np.float32), device="cuda")
+    kw = dict(nits=6, burnin=2, rwalk_std=0.3, n_particles=K, substeps=5,
+              adapt_proposal=True, adapt_rate=0.15)
+    before = T.LAUNCHES["pmmh_fused"]
+    k = TF.pmmh_fused(spec, obs, tf, y0, th0, 3, sde_method="milstein",
+                      **kw)
+    assert T.LAUNCHES["pmmh_fused"] == before + 1
+    plan = T._build_plan(spec, obs, tf, 5)
+    tw = TF.pmmh_plain(spec, plan, y0, th0.t().contiguous(), 3, K=K,
+                       nits=6, burnin=2, walk=(1.0,) * P,
+                       walked=(True,) * P, rwalk_std=0.3, adapt=True,
+                       target=0.3, adapt_rate=0.15, milstein=True)
+    torch.cuda.synchronize()
+    got = [k.theta.permute(1, 2, 0), k.chi.t(), k.acceptance_ratio.t()]
+    for a, b in zip(got, tw):        # bitwise: the same float32 operations
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert np.isfinite(k.chi.cpu().numpy()).all()
+    euler = TF.pmmh_fused(spec, obs, tf, y0, th0, 3, **kw)
+    assert (euler.chi != k.chi).any()
 
 
 # -- every observation model, censoring and doses ---------------------------

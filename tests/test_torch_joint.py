@@ -477,12 +477,20 @@ def test_joint_mcmc_use_priors_matches_odelib_tpu(monkeypatch):
 
 
 def test_joint_unported_options_raise():
+    """The options not ported raise naming their ROADMAP item; the
+    checkpoint and run-length options, ported, raise the reference's
+    ValueErrors where misused (tests/test_torch_joint_checkpoint.py runs
+    them)."""
     _, jf = _fits("zero_i-pair")
-    for kw, item in ((dict(sampler="hmc"), "item 16"),
-                     (dict(backend="xla"), "item 15"),
-                     (dict(checkpoint_every=5), "item 11"),
-                     (dict(until_rhat=1.1), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw, exc, match in (
+            (dict(sampler="hmc"), NotImplementedError, "item 16"),
+            (dict(backend="xla"), NotImplementedError, "item 15"),
+            (dict(checkpoint_every=5), ValueError,
+             "requires checkpoint_path"),
+            (dict(until_rhat=1.1, checkpoint_every=5,
+                  checkpoint_path="x.npz"), ValueError,
+             "cannot be combined")):
+        with pytest.raises(exc, match=match):
             jf.MCMC(chain_inits=4, iterations_per_chain=6,
                     fitsurvey_samples=16, print_report=False, **kw)
     # a prior without an in-kernel form: the reference's XLA joint sampler

@@ -400,9 +400,15 @@ def test_pmmh_options_raise():
     fw = _gbm_framework(odelib_tpu_torch, device="cpu")
     kw = dict(chain_inits=[{"mu": 0.4}], iterations_per_chain=6,
               print_report=False)
+    # Milstein runs (tests/test_torch_milstein.py holds it to the JAX
+    # kernel): the reference's columns, finite chi
+    post = fw.MCMC(sampler="pmmh", sde_method="milstein", n_particles=8,
+                   sde_substeps=2, **kw)
+    assert list(post.columns) == ["mu", "chi", "rsquared", "aic",
+                                  "iteration", "acceptance_ratio", "chain#",
+                                  "all_rejected"]
+    assert np.isfinite(post["chi"]).all()
     for extra, exc, match in (
-            (dict(sampler="pmmh", sde_method="milstein"),
-             NotImplementedError, "item 3"),
             (dict(sampler="pmmh", backend="xla"), NotImplementedError,
              "item 15"),
             (dict(sampler="pmmh", checkpoint_every=3), ValueError,
@@ -422,7 +428,8 @@ def test_pmmh_options_raise():
     assert TP.pmmh_supported(fw._spec, 128, "euler")
     assert not TP.pmmh_supported(fw._spec, 100, "euler")
     assert not TP.pmmh_supported(fw._spec, 520, "euler")
-    assert not TP.pmmh_supported(fw._spec, 128, "milstein")
+    assert TP.pmmh_supported(fw._spec, 128, "milstein")
+    assert not TP.pmmh_supported(fw._spec, 128, "srk")
     assert not TP.pmmh_supported(ode._spec, 128, "euler")
 
 
