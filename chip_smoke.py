@@ -22,7 +22,7 @@ Phases, each failing the script if it fails:
    can be co-resident and again on 7 blocks of 32 threads, so each thread
    loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
    1024 chains x 200 iterations, and with 3 (an idle lane in each chain's
-   group of 4) and 8 rungs on 1000 chains x 30 (identical accept
+   group of 4) and 8 rungs on 1000 chains x 60 (identical accept
    sequences and swap counts),
    the joint kernel on the heterogeneous pair zero_i + one_i, 256
    chains x 20 iterations, and with a third experiment (K = 3, blocks of
@@ -174,7 +174,25 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    odeint_grid_batch), each with bench/suite.py's gate; (e) each
    kvaerno3 kernel's time against its dopri5 instantiation at config 6's
    shapes (CUDA events), its twin's and its bound (``kernel_costs``, as
-   phase 5 times the dopri5 kernels);
+   phase 5 times the dopri5 kernels). Then forcings and array
+   parameters, each path through the user API at full width with its
+   launch counts reset just before and read just after, its sampler's
+   band, and its wrapper calls (the survey's and the chain kernel's,
+   captured where the path made them) through kernel and twin at all
+   chains for 20 proposals (PMMH: 10 of them adapting), bitwise: forcings
+   (a) MCMC(sampler='mh') on zero_i with its growth scaled by g = ((0,
+   1.5, 3.2), (0.8, 1.4, 0.9)) in 'linear' mode (10,000 x 1,000, the
+   demo data), (b) the ensemble (12,288 walkers) with g in 'cubic' mode,
+   (c) PT (10,000 x 4 rungs) with g in 'hold' mode and
+   MCMC(method='kvaerno3') MH (10,240 chains), (d) JointFit.MCMC of
+   zero_i on the demo and forced zero_i on it perturbed (numpy seed 7),
+   (e) PMMH on config 14's GBM, its drift scaled by a linear forcing;
+   g = 1: the forced MH and PMMH paths' seeds and records bitwise the
+   unforced main paths'; array (a) MCMC(use_priors=True) on zero_i with
+   mu a 2-vector (per-slot priors), (b) with mu = [mu0, 0], the pinned
+   entry exactly 0 in every row; and each forced kernel's time beside the
+   unforced one on the same chains in the same call (the kernels line's
+   ``:forced``, ``:forced-kvaerno3`` and ``:array`` rows);
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MH, ensemble, PT and joint kernels with the demo's priors, with flat
@@ -190,7 +208,7 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    depend on the data but for the particle filter's selection, which
    twin and kernel make by a search, one add per particle and state,
    or by a masked sum where rounding made the prefix sum dip: averaged
-   over 8 chains) over the FP32 peak and its
+   over PF_OPS_CHAINS chains) over the FP32 peak and its
    bytes (inputs read once, outputs written once) over the memory rate.
 
 Each phase's header gives the seconds since the start; the twins on the
@@ -218,6 +236,9 @@ BANDS = {"mh": (0.1, 0.6), "ensemble": (0.1, 0.8), "pt": (0.1, 0.6),
          "joint": (0.1, 0.6)}
 # the PMMH path: bench/suite.py's config 14 as a user would call it
 PF_CHAINS, PF_NITS, PF_K, PF_SUB = 10240, 200, 128, 40
+# chains whose twins' float32 operations (counted on the host CPU, a few
+# seconds each) average into the particle filter's bound
+PF_OPS_CHAINS = 2
 MU, SIG, S_OBS = 0.4, 0.3, 0.15
 PRI_MU, PRI_SD = 0.4, 0.5          # mu ~ lognorm(s=PRI_SD, scale=PRI_MU)
 CENTRE = (0.6, 2.4e-8, 24.0)       # zero_i's fit region: mu, phi, beta
@@ -1856,8 +1877,11 @@ def stiff_phases(framework, rfw, smi_line):
                       method="kvaerno5", max_steps=4096, jac=jac_s)
     err_ad = max_rel(ad1.ys[-1, :, 0].cpu().numpy(), ref)
     naive = np.linspace(0.0, 1e3, 32)
+    # the grid's adaptive pilot over 8 lanes runs on the host CPU, where
+    # its step loop's small operations cost no launch (9.6 s on the card,
+    # PR 10); the 4,096 solves on that grid run on the card
     (grid, gsched, oidx), s_cal = timed(lambda: schedule.auto_stiff_grid(
-        f_s, [1.0, 0.0, 0.0], naive, [k[:8] for k in ks], rtol=1e-5,
+        f_s, [1.0, 0.0, 0.0], naive, [k[:8].cpu() for k in ks], rtol=1e-5,
         atol=1e-8, max_steps=4096))
     sol_g, s_grid = timed(lambda: odeint_fixed(
         f_s, y0, grid, ks, substeps=gsched, method="kvaerno3", jac=jac_s))
@@ -1875,7 +1899,8 @@ def stiff_phases(framework, rfw, smi_line):
           f"{float(sol_a.ok.float().mean())}, steps max "
           f"{int(sol_a.num_steps.max())}, default lane's final state max "
           f"rel err {err_ad:.3e} against LSODA; auto_stiff_grid on "
-          f"linspace(0, 1e3, 32) from 8 pilot lanes: {s_cal:.3f} s, "
+          f"linspace(0, 1e3, 32) from 8 pilot lanes on the host CPU: "
+          f"{s_cal:.3f} s, "
           f"{len(grid)} nodes, {schedule.schedule_cost(gsched)} steps, then "
           f"{s_grid:.3f} s for {N} solves, default lane's max rel err "
           f"{err_g:.3e}; odeint_grid_batch (Dopri5 probe, Kvaerno5 for the "
@@ -1901,9 +1926,9 @@ def stiff_phases(framework, rfw, smi_line):
                                  else sampler], sampler)
         reps = 20 if sampler == "survey" else 1
         dp_ms = kernel_costs(sampler, "dopri5", args, reps)[0]
-        # the twin over 2 proposals, scaled
+        # the twin over 1 proposal (and its initial scoring), scaled
         ms, plain_ms, b, ops = kernel_costs(sampler, "kvaerno3", args, reps,
-                                            short=3)
+                                            short=2)
         print(f"{name} kvaerno3 {ms:.4f} ms, dopri5 {dp_ms:.4f} ms "
               f"({ms / dp_ms:.2f} x); twin {plain_ms:.1f} ms; bound "
               f"{b[0]:.4f} ms by {b[1]} ({ops:.3g} ops)", flush=True)
@@ -1913,6 +1938,374 @@ def stiff_phases(framework, rfw, smi_line):
             "source": "odelib_tpu_torch/ops/csrc/" + src,
             "replaces": replaces, "launches": launch_of[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+    return rows
+
+
+# -- forcings and array parameters --------------------------------------------
+
+# the forcing of the forced paths: zero_i's growth scaled by g(t)
+G_TABLE = ((0.0, 1.5, 3.2), (0.8, 1.4, 0.9))
+G_ONE = ((0.0, 3.2), (1.0, 1.0))          # g = 1: the unforced model
+A_TABLE = ((0.0, 2.0, 4.0), (1.2, 0.6, 1.0))   # the PMMH drift's scale
+
+
+def _forced_zero_i(t, y, ps, u):
+    mu, phi, beta = ps
+    S, V = y
+    return [mu * u["g"] * S - phi * S * V, beta * phi * S * V - phi * S * V]
+
+
+def _forced_gbm(y, t, ps, u):
+    import numpy as np
+    return np.array([ps[0] * u["a"] * y[0]])
+
+
+def _vec_zero_i(t, y, ps):
+    """zero_i with a 2-vector mu: mu[0] grows S, mu[1] clears V (the
+    reference's tests/test_array_params.py vec_model)."""
+    mu, phi, beta = ps
+    S, V = y
+    return [mu[0] * S - phi * S * V,
+            beta * phi * S * V - phi * S * V - mu[1] * V]
+
+
+def forcing_frameworks(framework, pmmh_framework):
+    """The forced paths' frameworks: zero_i with g in each mode on the
+    demo data, g = 1, the forced GBM (and a = 1), and the array
+    parameter's two templates; their specs feed the build phase."""
+    import numpy as np
+    import scipy.stats
+    from odelib_tpu_torch import parameter
+
+    def forced(mode, table=G_TABLE, df=None, **kw):
+        return framework(df, ode=_forced_zero_i,
+                         forcings={"g": table + (mode,)}, **kw)
+
+    def forced_gbm(table):
+        return pmmh_framework(ode=_forced_gbm,
+                              forcings={"a": table + ("linear",)})
+
+    def vec(template):
+        return framework(ode=_vec_zero_i, mu=parameter(
+            scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
+            init_value=np.array(template), random_seed=1))
+    return forced, forced_gbm, vec
+
+
+def forcing_builds(fa, spec, demo_sc, pf_sc):
+    """load_kernels arguments of the libraries the forcing and array
+    phases load (``fa``: :func:`forcing_frameworks`; ``spec``: zero_i's):
+    the forced zero_i (explicit and kvaerno3; every mode and g = 1 share
+    one library, the tables being plan data), the joint fit of zero_i and
+    forced zero_i, the forced GBM's SDE library and the array model's."""
+    forced, forced_gbm, vec = fa
+    f = forced("linear")._spec
+    return [(f, (), False, [demo_sc]), (f, (), False, [demo_sc], True),
+            (spec, (f,), False, [demo_sc, demo_sc]),
+            (forced_gbm(A_TABLE)._spec, (), True, [pf_sc]),
+            (vec([0.5, 0.1])._spec, (), False, [demo_sc])]
+
+
+def forced_costs(sampler, stepper, call, plain_spec, keep=None):
+    """A forced (or array) path's captured wrapper call, timed through its
+    kernel beside the plain model's kernel on the same chains and plan
+    (``plain_spec``: the same grid and observations, no forcing table; for
+    an array parameter zero_i on the slots ``keep``), in one call: (ms,
+    plain model's ms, twin ms, (bound_ms, bound_by)) by ``kernel_costs``
+    (the twin over 1 proposal and its initial scoring, scaled)."""
+    import torch
+    args = launch_args(call, sampler)
+    reps = 20 if sampler == "survey" else 1
+    ms, plain_ms, b, _ = kernel_costs(sampler, stepper, args, reps, short=2)
+    spec, plan, y0, th, seed, run = args
+    if keep is not None:
+        th = th[list(keep)].contiguous()
+        run = dict(run, walk=tuple(run["walk"][k] for k in keep),
+                   walked=tuple(run["walked"][k] for k in keep),
+                   num=int(torch.count_nonzero(th[:, 0])))
+    u_ms = kernel_costs(sampler, stepper,
+                        (plain_spec, plan, y0, th, seed, run), reps)[0]
+    return ms, u_ms, plain_ms, b
+
+
+def joint_costs(call, plain_specs):
+    """The joint path's captured call through its kernel (whole run) and
+    with the experiments' specs swapped for ``plain_specs`` (the same
+    plans' unforced models), its twin over 1 proposal (scaled) and its
+    bound (float32 operations of one chain's twin on the CPU)."""
+    from odelib_tpu_torch.ops import cuda_joint, cuda_mh
+    specs, idx, obs, times, y0s, th0 = call["args"][:6]
+    kw = call["kw"]
+    plans = [cuda_mh._build_plan(sp, ob, tm, cuda_mh._normalize_substeps(
+        sub, len(tm) - 1)) for sp, ob, tm, sub in
+        zip(specs, obs, times, kw["substeps_list"])]
+    run = dict(walk=tuple(float(kw["rwalk_std"]) * float(w)
+                          for w in kw["walk_mask"]),
+               walked=tuple(float(w) != 0.0 for w in kw["walk_mask"]))
+    th = th0.t().contiguous()
+    seed, step = kw["seed"], kw["stepper"]
+    ms = events_ms(cuda_joint.joint_launcher(
+        specs, plans, y0s, idx, step, th, seed, nits=NITS, burnin=BURNIN,
+        **run))
+    u_ms = events_ms(cuda_joint.joint_launcher(
+        plain_specs, plans, y0s, idx, step, th, seed, nits=NITS,
+        burnin=BURNIN, **run))
+    plain_ms = events_ms(lambda: cuda_joint.joint_plain(
+        specs, plans, y0s, idx, th, seed, nits=2, burnin=0, stepper=step,
+        **run)) * (NITS - 1)
+    one = th[:, :1].cpu().contiguous()
+    init, walk, rec = per_iteration_ops(lambda n, b: cuda_joint.joint_plain(
+        specs, plans, y0s, idx, one, seed, nits=n, burnin=b, stepper=step,
+        **run))
+    C, D, K = th.shape[1], th.shape[0], len(specs)
+    R = NITS - 1 - BURNIN
+    nbytes = sum(a.nbytes for a in cuda_joint.joint_tables(
+        specs, plans, y0s, idx, step)[:3]) + C * D * 4 \
+        + R * C * (D + K + 2) * 4
+    return ms, u_ms, plain_ms, bound(
+        C * (init + (NITS - 1) * walk + R * rec), nbytes)
+
+
+def pf_costs(call, plain_spec, chains=2):
+    """The forced PMMH path's captured call through its kernel (whole
+    run) and with the plain GBM's spec on the same chains, its twin over 1
+    proposal (scaled) and its bound (float32 operations of ``chains``
+    chains' twins on the CPU, averaged: the selection's work depends on
+    the data)."""
+    from odelib_tpu_torch.ops import cuda_mh, cuda_pf
+    spec, obs, tf, y0, th0 = call["args"]
+    kw = call["kw"]
+    plan = cuda_mh._build_plan(spec, obs, tf, cuda_mh._normalize_substeps(
+        kw["substeps"], len(tf) - 1))
+    run = pmmh_twin_kw(kw)
+    th = th0.t().contiguous()
+    burn = PF_NITS // 2
+    ms = events_ms(cuda_pf.pmmh_launcher(spec, plan, y0, th, kw["seed"],
+                                         nits=PF_NITS, burnin=burn, **run))
+    u_ms = events_ms(cuda_pf.pmmh_launcher(plain_spec, plan, y0, th,
+                                           kw["seed"], nits=PF_NITS,
+                                           burnin=burn, **run))
+    plain_ms = events_ms(lambda: cuda_pf.pmmh_plain(
+        spec, plan, y0, th, kw["seed"], nits=2, burnin=0, **run)) \
+        * (PF_NITS - 1)
+    counts = [per_iteration_ops(lambda n, b, c=c: cuda_pf.pmmh_plain(
+        spec, plan, y0, th[:, c:c + 1].cpu().contiguous(), kw["seed"],
+        nits=n, burnin=b, **run)) for c in range(chains)]
+    init, walk, rec = (sum(v) / len(counts) for v in zip(*counts))
+    C, P = th.shape[1], th.shape[0]
+    R = PF_NITS - 1 - burn
+    nbytes = sum(a.nbytes for a in cuda_mh.plan_tables(
+        spec, plan, y0, "euler")) + (C + 7) * P * 4 + R * C * (P + 2) * 4
+    return ms, u_ms, plain_ms, bound(
+        C * (init + (PF_NITS - 1) * walk + R * rec), nbytes)
+
+
+def frozen_acceptance(post):
+    """PMMH's mean acceptance after burn-in's adaptation, from a path's
+    posterior (the running ratios at its first and last records)."""
+    import numpy as np
+    pf_R = PF_NITS - 1 - PF_NITS // 2
+    ar = post.acceptance_ratio.to_numpy().reshape(-1, pf_R)
+    its = np.arange(1, PF_NITS)[PF_NITS // 2:].astype(float)
+    return float(np.mean((ar[:, -1] * its[-1] - ar[:, 0] * its[0])
+                         / (its[-1] - its[0])))
+
+
+def forcing_phases(fa, joint_pair, plain, mh_in, pf_in, smi_line):
+    """The forcing phases (a)-(e), g = 1 and the array phases (the module
+    docstring), on ``fa`` (:func:`forcing_frameworks`), ``joint_pair(fw)``
+    (the joint path's pair with ``fw`` as its perturbed experiment),
+    ``plain`` (the unforced zero_i and GBM specs) and the unforced MH and
+    PMMH main paths' captured calls. Returns the forced instantiations'
+    rows of the JSON line."""
+    import numpy as np
+    import torch
+    from odelib_tpu_torch import JointFit
+    from odelib_tpu_torch.ops import cuda_joint, cuda_mh, cuda_pf, cuda_pt
+    forced, forced_gbm, vec = fa
+    pnames = ("mu", "phi", "beta")
+    wrapper = {"mh": (cuda_mh, "metropolis_hastings_fused"),
+               "ensemble": (cuda_mh, "ensemble_fused"),
+               "pt": (cuda_pt, "parallel_tempering_fused"),
+               "joint": (cuda_joint, "joint_metropolis_hastings_fused"),
+               "pmmh": (cuda_pf, "pmmh_fused")}
+    calls, launches, errs = {}, {}, {}
+
+    def path(key, sampler, model, n_chains, label, survey=True, **kw):
+        """Drive one forced path through ``MCMC(sampler=...)``, recording
+        its chain wrapper's call (and the survey's) under ``key``; checks
+        its sampler's band."""
+        mod, name = wrapper[sampler]
+        if sampler in ("ensemble", "pt", "pmmh"):
+            kw["sampler"] = sampler
+        with recording(mod, name, calls.setdefault(key, {})), \
+                recording(cuda_mh, "survey_fused",
+                          calls.setdefault(f"survey {key}", {})):
+            post, launches[key] = drive(
+                label, model, name, () if sampler == "joint" else
+                model._pnames, n_chains, survey=survey,
+                chain_inits=n_chains, fitsurvey_samples=1000, **kw)
+        if sampler == "pmmh":
+            acc, (lo, hi) = frozen_acceptance(post), (0.15, 0.5)
+        else:
+            last = post[post.iteration == post.iteration.max()]
+            acc, (lo, hi) = (float(last.acceptance_ratio.mean()),
+                             BANDS[sampler])
+        if not lo <= acc <= hi:
+            fail(f"{label}: acceptance {acc} outside [{lo}, {hi}]")
+        print(f"{label}: {'frozen-phase' if sampler == 'pmmh' else 'mean'}"
+              f" acceptance {acc:.4f} in [{lo}, {hi}]", flush=True)
+        return post
+
+    def held_at(key, sampler, nits=21, burnin=10):
+        """The path's wrapper call through kernel and twin at all chains
+        (bitwise); keeps chi's max abs error per wrapper."""
+        mod, name = wrapper[sampler]
+        call = calls[key]
+        n = call["args"][4 if sampler != "joint" else 5].shape[0]
+        if sampler == "pmmh":
+            err, _ = pmmh_vs_twin(f"{key}: pmmh_fused (all {n} chains, "
+                                  f"{nits - 1} proposals, {burnin} "
+                                  "adapting)", call, nits, burnin)
+        else:
+            err, _ = kernel_vs_twin_at(f"{key}: {name} (all {n} chains, "
+                                       f"{nits - 1} proposals)",
+                                       getattr(mod, name), call, nits)
+        errs[key] = err
+
+    phase("forcings (a): MCMC(sampler='mh') on forced zero_i (g linear), "
+          "10,000 chains x 1,000, the demo data")
+    path("a", "mh", forced("linear"), CHAINS, "forcings (a) MH, linear",
+         sd_fitdistance=6.0)
+    errs["survey a"] = survey_vs_twin("forcings (a) survey (1,000 draws)",
+                                      calls["survey a"])
+    held_at("a", "mh")
+
+    phase("forcings (b): MCMC(sampler='ensemble') on forced zero_i (g "
+          "cubic), 12,288 walkers")
+    path("b", "ensemble", forced("cubic"), STIFF_WALKERS,
+         "forcings (b) ensemble, cubic", sd_fitdistance=6.0)
+    held_at("b", "ensemble")
+
+    phase("forcings (c): MCMC(sampler='pt') on forced zero_i (g hold), "
+          "10,000 chains x 4 rungs, and MCMC(method='kvaerno3') MH, 10,240 "
+          "chains")
+    path("c", "pt", forced("hold"), CHAINS, "forcings (c) PT, hold",
+         sd_fitdistance=6.0, temperatures=TEMPS)
+    held_at("c", "pt")
+    path("c kv3", "mh", forced("hold"), STIFF_CHAINS,
+         "forcings (c) MH, hold, kvaerno3", sd_fitdistance=6.0,
+         method="kvaerno3")
+    if calls["c kv3"]["kw"]["stepper"] != "kvaerno3":
+        fail("forcings (c): the kvaerno3 path ran another stepper")
+    errs["survey c kv3"] = survey_vs_twin(
+        "forcings (c) survey, kvaerno3 (1,000 draws)", calls["survey c kv3"])
+    held_at("c kv3", "mh")
+
+    phase("forcings (d): JointFit.MCMC of zero_i on the demo and forced "
+          "zero_i (g linear) on it perturbed, 10,000 chains x 1,000")
+    path("d", "joint", JointFit(joint_pair(lambda df, **kw: forced(
+        "linear", df=df, **kw)), shared=["phi", "beta"], random_seed=0),
+        CHAINS, "forcings (d) JointFit, zero_i + forced zero_i",
+        survey=False)
+    held_at("d", "joint")
+
+    phase("forcings (e): MCMC(sampler='pmmh') on config 14's GBM, its "
+          "drift scaled by a linear forcing, 10,240 chains x 128 particles "
+          "x 200")
+    pf_kw = dict(nits=PF_NITS, n_particles=PF_K,
+                 sde_substeps=PF_SUB, rwalk_std=0.4, use_priors=True,
+                 adapt_proposal=True, target_accept=0.3, adapt_rate=0.15)
+    path("e", "pmmh", forced_gbm(A_TABLE), PF_CHAINS,
+         "forcings (e) PMMH, forced GBM drift", survey=False, **pf_kw)
+    held_at("e", "pmmh")
+
+    phase("forcings: g = 1, the MH and PMMH paths against the unforced "
+          "main paths, bitwise")
+    for key, sampler, model, main_in, kw in (
+            ("g1 mh", "mh", forced("linear", G_ONE), mh_in,
+             dict(sd_fitdistance=6.0)),
+            ("g1 pmmh", "pmmh", forced_gbm(G_ONE), pf_in, pf_kw)):
+        path(key, sampler, model, PF_CHAINS if sampler == "pmmh" else
+             CHAINS, f"g = 1: {sampler}", survey=sampler != "pmmh", **kw)
+        mod, name = wrapper[sampler]
+        call, fn = calls[key], getattr(mod, name)
+        th_g1, th_main = call["args"][4], main_in["args"][4]
+        if not torch.equal(th_g1, th_main):
+            fail(f"g = 1 {sampler}: the seeds differ from the unforced "
+                 "main path's")
+        out_g1 = fn(*call["args"], **call["kw"])
+        out_main = fn(*main_in["args"], **main_in["kw"])
+        torch.cuda.synchronize()
+        same_bits(f"g = 1 {sampler}: records against the unforced main "
+                  "path's", out_g1, out_main)
+        print(f"g = 1 {sampler}: seeds and every record bitwise the "
+              "unforced main path's", flush=True)
+
+    phase("array parameters (a): MCMC(sampler='mh', use_priors=True) on "
+          "zero_i with mu a 2-vector, 10,000 chains x 1,000")
+    post = path("array a", "mh", vec([0.5, 0.1]), CHAINS,
+                "array (a) MH, mu = [mu0, mu1], priors", sd_fitdistance=6.0,
+                use_priors=True)
+    mu = np.stack(post["mu"].to_numpy())
+    if mu.shape != (len(post), 2) or not (np.std(mu, axis=0) > 0).all():
+        fail(f"array (a): mu cells of shape {mu.shape}, not walked")
+    held_at("array a", "mh")
+    phase("array parameters (b): the same with mu = [mu0, 0], the zero "
+          "entry pinned")
+    post = path("array b", "mh", vec([0.5, 0.0]), CHAINS,
+                "array (b) MH, mu = [mu0, 0], priors", sd_fitdistance=6.0,
+                use_priors=True)
+    mu = np.stack(post["mu"].to_numpy())
+    if not (mu[:, 1] == 0.0).all():
+        fail("array (b): the pinned entry moved")
+    print(f"array (b): mu[1] is exactly 0 in all {len(mu)} rows", flush=True)
+    held_at("array b", "mh")
+
+    phase("forcings: each forced kernel's time beside the unforced one on "
+          f"the same chains (CUDA events; {smi_line})")
+    rows = []
+    csrc = "odelib_tpu_torch/ops/csrc/"
+    spec_u, gbm_u = plain
+    for name, key, sampler, stepper, src, replaces, what in (
+            ("survey_fused", "survey a", "survey", "dopri5", "mh.cu",
+             "odelib_tpu/ops/pallas_mh.py:1765", "1,000 draws"),
+            ("metropolis_hastings_fused", "a", "mh", "dopri5", "mh.cu",
+             "odelib_tpu/ops/pallas_mh.py:1017", "10,000 x 1,000"),
+            ("ensemble_fused", "b", "ensemble", "dopri5", "ensemble.cu",
+             "odelib_tpu/ops/pallas_mh.py:1514", "12,288 x 1,000"),
+            ("parallel_tempering_fused", "c", "pt", "dopri5", "pt.cu",
+             "odelib_tpu/ops/pallas_pt.py:49", "10,000 x 4 x 1,000"),
+            ("metropolis_hastings_fused", "c kv3", "mh", "kvaerno3", "mh.cu",
+             "odelib_tpu/ops/pallas_mh.py:1017", "10,240 x 1,000"),
+            ("joint_metropolis_hastings_fused", "d", "joint", "dopri5",
+             "joint.cu", "odelib_tpu/ops/pallas_joint.py:347",
+             "10,000 x 1,000, K = 2"),
+            ("pmmh_fused", "e", "pmmh", "euler", "pf.cu",
+             "odelib_tpu/ops/pallas_pf.py:130", "10,240 x 128 x 200"),
+            ("metropolis_hastings_fused", "array a", "mh", "dopri5", "mh.cu",
+             "odelib_tpu/ops/pallas_mh.py:1017", "10,000 x 1,000, P = 4")):
+        if sampler == "joint":
+            ms, u_ms, plain_ms, b = joint_costs(calls[key], (spec_u, spec_u))
+        elif sampler == "pmmh":
+            ms, u_ms, plain_ms, b = pf_costs(calls[key], gbm_u)
+        else:
+            ms, u_ms, plain_ms, b = forced_costs(
+                sampler, stepper, calls[key], spec_u,
+                (0, 2, 3) if key.startswith("array") else None)
+        tag = "array" if key.startswith("array") else "forced" + (
+            "-kvaerno3" if stepper == "kvaerno3" else "")
+        print(f"{name} {tag} ({what}): {ms:.4f} ms, unforced scalar zero_i "
+              f"{u_ms:.4f} ms on the same chains ({100 * (ms / u_ms - 1):+.2f}"
+              f" %); twin {plain_ms:.1f} ms; bound {b[0]:.4f} ms by {b[1]}",
+              flush=True)
+        lkey = key.split()[-1] if sampler == "survey" else key
+        rows.append({
+            "name": f"{name}:{tag}", "route": "cuda",
+            "source": csrc + src, "replaces": replaces,
+            "launches": launches[lkey if lkey in launches else key][name],
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
     return rows
 
@@ -1978,31 +2371,40 @@ def main():
           f"device: {kind}", flush=True)
     dev = torch.device("cuda")
 
-    def framework(df=None, **kw):
-        return ModelFramework(
-            ODE=zero_i.rhs, parameter_names=list(zero_i.pnames),
-            state_names=list(zero_i.snames),
-            dataframe=(load_demo_dataframe(host="S", virus="V")
-                       if df is None else df),
+    def framework(df=None, ode=None, **kw):
+        """zero_i (or ``ode`` with its names) on the demo data with the
+        main paths' priors (``kw`` may replace one)."""
+        pri = dict(
             mu=parameter(scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
                          random_seed=1),
             phi=parameter(scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
                           random_seed=2),
             beta=parameter(scipy.stats.lognorm, {"s": 1, "scale": 25},
-                           random_seed=3),
-            t_steps=288, device="cuda", ode_style="jax", **kw)
+                           random_seed=3))
+        pri.update(kw)
+        return ModelFramework(
+            ODE=zero_i.rhs if ode is None else ode,
+            parameter_names=list(zero_i.pnames),
+            state_names=list(zero_i.snames),
+            dataframe=(load_demo_dataframe(host="S", virus="V")
+                       if df is None else df),
+            t_steps=288, device="cuda", ode_style="jax", **pri)
 
-    def joint_fit():
-        """zero_i on the demo data (a) and on the same frame with its log
-        abundances perturbed (numpy seed 7, sd 0.1) and both initial
-        abundances x 1.13 (b), sharing phi and beta: D = 4."""
+    def joint_pair(make_b=framework):
+        """zero_i on the demo data (a) and ``make_b`` (zero_i) on the same
+        frame with its log abundances perturbed (numpy seed 7, sd 0.1) and
+        both initial abundances x 1.13 (b)."""
         fw_a = framework()
         df = load_demo_dataframe(host="S", virus="V")
         df["abundance"] = df["abundance"] * np.exp(
             np.random.default_rng(7).normal(0, 0.1, len(df)))
         y0_a = fw_a.get_inits(as_dict=True)
-        fw_b = framework(df, **{s: 1.13 * float(v) for s, v in y0_a.items()})
-        return JointFit({"a": fw_a, "b": fw_b}, shared=["phi", "beta"],
+        return {"a": fw_a, "b": make_b(df, **{s: 1.13 * float(v)
+                                              for s, v in y0_a.items()})}
+
+    def joint_fit():
+        """joint_pair() sharing phi and beta: D = 4."""
+        return JointFit(joint_pair(), shared=["phi", "beta"],
                         random_seed=0)
 
     def gbm(y, t, ps):
@@ -2011,16 +2413,16 @@ def main():
     def gnoise(y, t, ps):
         return np.array([SIG * y[0]])
 
-    def pmmh_framework():
+    def pmmh_framework(ode=gbm, **kw):
         t_obs, log_o = gbm_data()
         df = pd.DataFrame({"organism": "N", "time": t_obs,
                            "abundance": np.exp(log_o), "log_sigma": S_OBS})
         return ModelFramework(
-            ODE=gbm, diffusion=gnoise, parameter_names=["mu"],
+            ODE=ode, diffusion=gnoise, parameter_names=["mu"],
             state_names=["N"], dataframe=df, t_steps=41, N=2.0,
             mu=parameter(scipy.stats.lognorm, {"s": PRI_SD,
                                                "scale": PRI_MU}),
-            device="cuda")
+            device="cuda", **kw)
 
     fw = framework()
     spec, obs, tf, y0 = (fw._spec, fw._obsdata_fit_host, fw._times_fit,
@@ -2041,6 +2443,7 @@ def main():
     pf_spec = pf_fw0._spec
     paths = slice_paths(framework)
     rob_fw = robertson_framework()
+    fa = forcing_frameworks(framework, pmmh_framework)
 
     # -- 2. build -------------------------------------------------------------
     phase("build")
@@ -2057,7 +2460,8 @@ def main():
               + [(spec, (), False, [demo_sc], True),
                  (rob_fw._spec, (), False, [fw_scoring(rob_fw)], True),
                  # the PMMH path's Milstein instantiations
-                 (pf_spec, (), True, [fw_scoring(pf_fw0)], False, True)])
+                 (pf_spec, (), True, [fw_scoring(pf_fw0)], False, True)]
+              + forcing_builds(fa, spec, demo_sc, fw_scoring(pf_fw0)))
     # eight nvcc processes at once, the SDE libraries (their five
     # pf_kernel instantiations take 1-2 minutes each) submitted first
     with ThreadPoolExecutor(8) as ex:
@@ -2074,7 +2478,10 @@ def main():
               + [f"GBM SDE {scoring_id(c)}" for c in PF_SCORING]
               + [f"path ({k})" for k in "abcde"]
               + ["zero_i, stiff (kvaerno3)", "Robertson, stiff (kvaerno3)",
-                 "GBM SDE (Milstein)"])
+                 "GBM SDE (Milstein)", "forced zero_i",
+                 "forced zero_i, stiff (kvaerno3)",
+                 "zero_i + forced zero_i (joint)", "forced GBM SDE",
+                 "zero_i, mu a 2-vector"])
     for label, lib in zip(labels, libs):
         log = open(os.path.join(os.path.dirname(lib._name),
                                 "nvcc.log")).read()
@@ -2158,11 +2565,10 @@ def main():
     phase("PT kernel vs twin")
     # the main path's ladder, then 3 rungs (an idle lane in each chain's
     # group of 4 lanes) and 8 (a full group), on 1000 chains so the last
-    # block of 128 threads is part empty; the twin's time grows with the
-    # rungs, so these two take fewer iterations
+    # block of 128 threads is part empty
     for temps, n_c, n_it in (
-            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 30),
-            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 30)):
+            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
+            (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
         pt_kw = dict(nits=n_it, burnin=0, scales=sc, walked=(True,) * 3,
@@ -3041,6 +3447,9 @@ def main():
 
     # the stiff path: the kernels' kvaerno3 instantiations
     stiff_rows = stiff_phases(framework, rob_fw, smi_line)
+    # forcings and array parameters through every kernel
+    fa_rows = forcing_phases(fa, joint_pair, (spec, pf_spec), mh_in, pf_in,
+                             smi_line)
 
     # -- 5. times -----------------------------------------------------------
     phase("times")
@@ -3210,12 +3619,14 @@ def main():
                         jplan_bytes + CHAINS * D * 4
                         + R * CHAINS * (D + K_exp + 2) * 4)
     # the selection's work depends on the data (a masked sum, K * K * S
-    # adds, in each block whose ladder dipped), so average 8 chains' counts
+    # adds, in each block whose ladder dipped), so average PF_OPS_CHAINS
+    # chains' counts
     pf_counts = [per_iteration_ops(lambda n, b, c=c: cuda_pf.pmmh_plain(
         pspec, pf_plan, py0, pth_all[:, c:c + 1].cpu().contiguous(), pseed,
-        nits=n, burnin=b, **pf_run)) for c in range(8)]
+        nits=n, burnin=b, **pf_run)) for c in range(PF_OPS_CHAINS)]
     init, step, rec = (sum(v) / len(pf_counts) for v in zip(*pf_counts))
-    print("PMMH float32 operations per iteration of 8 chains: "
+    print(f"PMMH float32 operations per iteration of {PF_OPS_CHAINS} "
+          "chains: "
           f"{sorted(c[1] for c in pf_counts)} (a masked sum adds "
           f"{n_part ** 2 * len(pspec.snames)})")
     pf_R = PF_NITS - 1 - pf_burn
@@ -3234,7 +3645,7 @@ def main():
         + (NITS - 1) * CHAINS * (D + K_exp + 2) * 4
         + (2 * n_jc - 1) * CHAINS * (D + K_exp + 3) * 4)
     # Milstein: the twin's float32 operations (with the diagonal's) on the
-    # Milstein path's chains, 8 averaged as for Euler
+    # Milstein path's chains, averaged as for Euler
     mspec, mobs, mtf, my0, mth0 = mil_call["args"]
     mkw = mil_call["kw"]
     mil_plan = cuda_mh._build_plan(mspec, mobs, mtf,
@@ -3244,7 +3655,8 @@ def main():
     mth_all = mth0.t().contiguous()
     m_counts = [per_iteration_ops(lambda n, b, c=c: cuda_pf.pmmh_plain(
         mspec, mil_plan, my0, mth_all[:, c:c + 1].cpu().contiguous(),
-        mkw["seed"], nits=n, burnin=b, **mil_run)) for c in range(8)]
+        mkw["seed"], nits=n, burnin=b, **mil_run))
+        for c in range(PF_OPS_CHAINS)]
     init, step, rec = (sum(v) / len(m_counts) for v in zip(*m_counts))
     mil_bound = bound(n_pf * (init + (PF_NITS - 1) * step + pf_R * rec),
                       pf_plan_bytes + (n_pf + 7) * P_pf * 4
@@ -3256,7 +3668,7 @@ def main():
     mil_plain_ms = mt_ms / (pf_short - 1) * (PF_NITS - 1)
     print(f"PMMH Milstein kernel: {mil_ms:.3f} ms; twin scaled from "
           f"{pf_short - 1} proposals {mil_plain_ms:.1f} ms; float32 "
-          f"operations per iteration of 8 chains "
+          f"operations per iteration of {PF_OPS_CHAINS} chains "
           f"{sorted(c[1] for c in m_counts)} (Euler "
           f"{sorted(c[1] for c in pf_counts)})")
     for label, (b_ms, by) in (("survey", sv_bound), ("MH", mh_bound),
@@ -3349,7 +3761,8 @@ def main():
          "replaces": "odelib_tpu/ops/pallas_pf.py:289",
          "launches": mil_launches, "max_abs_err": mil_err, "ms": mil_ms,
          "plain_ms": mil_plain_ms, "bound_ms": mil_bound[0],
-         "bound_by": mil_bound[1], "library_ms": None}] + stiff_rows}))
+         "bound_by": mil_bound[1], "library_ms": None}]
+        + stiff_rows + fa_rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """Reference-compatible user API: ``ModelFramework`` + ``parameter``.
 
 Counterpart of ``odelib_tpu/api.py`` for the main path: construction from
-a dataframe (optionally with a ``diffusion=`` making the model an SDE),
+a dataframe (optionally with a ``diffusion=`` making the model an SDE,
+``forcings=`` giving the RHS a fourth argument of time-varying covariates,
+and array-valued parameters, one theta slot per entry),
 accessors, ``integrate`` (adaptive Dopri5, Kvaerno3/5 or 'auto', with
 doses), the fit
 statistics of every observation model (censored points scored by Tobit
@@ -124,11 +126,14 @@ _XLA_SAMPLER_ITEM = {
 class ModelFramework:
     """Bayesian ODE fitting framework (reference API) on PyTorch.
 
-    Same construction and semantics as ``odelib_tpu.ModelFramework`` for
-    scalar-parameter models (``obs_model`` 'lognormal', 'student_t',
-    'poisson' or 'negbinom' with ``obs_param``; a ``censored`` dataframe
-    column of detection limits, scored by Tobit terms; bolus
-    ``dose_events``), plus ``device``: where tensors live and
+    Same construction and semantics as ``odelib_tpu.ModelFramework``
+    (``obs_model`` 'lognormal', 'student_t', 'poisson' or 'negbinom' with
+    ``obs_param``; a ``censored`` dataframe column of detection limits,
+    scored by Tobit terms; bolus ``dose_events``; ``forcings``, the
+    reference's linear, hold or cubic covariate tables, which the RHS
+    takes as a fourth argument, a dict of their values at t; array-valued
+    parameters, whose non-zero entries walk and zero entries stay 0),
+    plus ``device``: where tensors live and
     kernels run (default ``cuda``; ``cpu`` runs the kernels' torch twins
     and must be asked for). Solver
     knobs: ``method`` 'dopri5' | 'rk4' | 'kvaerno3' (the fixed-step
@@ -165,6 +170,7 @@ class ModelFramework:
         self.parameters = {el: None for el in self._pnames}
         self.istates = {el: 0 for el in self._snames}
         self.random_seed = random_seed
+        self._state_summations = state_summations
         self._spec = make_spec(adapt_rhs(ODE, ode_style), self._pnames,
                                self._snames, state_summations,
                                obs_model=obs_model, obs_param=obs_param,
@@ -233,10 +239,21 @@ class ModelFramework:
                 self.parameters[p].val = np.array(v)
             else:
                 self.parameters[p] = parameter(init_value=v, name=p)
-            if np.ndim(self.parameters[p].val):
-                raise NotImplementedError(
-                    f"parameter {p!r} is array-valued; array parameters "
-                    "are not ported yet (ROADMAP queue 1, item 13b)")
+        self._refresh_pshapes()
+
+    def _refresh_pshapes(self):
+        """Rebuild the spec when a parameter's value shape changes (an
+        array parameter is one theta slot per entry); the RHS is reused."""
+        shapes = tuple(
+            tuple(np.shape(self.parameters[p].val))
+            if self.parameters[p] is not None else () for p in self._pnames)
+        if shapes != self._spec.pshapes:
+            sp = self._spec
+            self._spec = make_spec(
+                sp.rhs, self._pnames, self._snames, self._state_summations,
+                pshapes=shapes, obs_model=sp.obs_model,
+                obs_param=sp.obs_param or None, dose_events=sp.dose_events,
+                forcings=sp.forcings, diffusion=sp.diffusion)
 
     def set_inits(self, **kwargs):
         s_set, ss_set = set(self._snames), set(self._spec.post_snames)
@@ -259,23 +276,66 @@ class ModelFramework:
                 else 0.0 for p in self._pnames]
         return self._spec.pack_theta(vals)
 
-    def _walk_mask(self, static_parameters=()):
-        """Flat walk mask: 1.0 for walked slots, 0.0 for static ones."""
-        mask = np.ones(self._spec.theta_size)
-        for p in static_parameters:
-            mask[self._pnames.index(p)] = 0.0
+    def _templates(self):
+        """Per parameter: the flat current value of an array parameter
+        (zero entries never walk and draw no LHS dimension, the
+        reference's convention), None for a scalar."""
+        out = []
+        for p, shp in zip(self._pnames, self._spec.pshapes):
+            par = self.parameters[p]
+            out.append(None if not shp else np.ravel(np.asarray(
+                par.val if par is not None else np.zeros(shp), float)))
+        return out
+
+    def _pin_zero_templates(self, mask):
+        """Zero the flat-mask entries of array parameters whose template
+        value is 0 (``odelib_tpu``'s ``_pin_zero_templates``)."""
+        for off, tmpl in zip(self._spec.theta_offsets, self._templates()):
+            if tmpl is not None:
+                sl = slice(off, off + tmpl.size)
+                mask[sl] = np.where(tmpl != 0, mask[sl], 0.0)
         return mask
 
-    def _theta_from_df(self, df: pd.DataFrame):
-        """(N, P) float64 thetas from a parameter dataframe, missing
-        columns filled with the current values."""
-        cols = []
-        for p in self._pnames:
-            if p in df:
-                cols.append(np.asarray(df[p].to_numpy(), float)[:, None])
+    def _walk_mask(self, static_parameters=()):
+        """Flat walk mask: 1.0 for walked slots; 0.0 for static
+        parameters' slots and zero-template entries of array parameters."""
+        offsets = self._spec.theta_offsets
+        mask = np.ones(self._spec.theta_size)
+        for p in static_parameters:
+            i = self._pnames.index(p)
+            shp = self._spec.pshapes[i]
+            mask[offsets[i]:offsets[i] + (int(np.prod(shp)) if shp
+                                          else 1)] = 0.0
+        return self._pin_zero_templates(mask)
+
+    def _slot_priors(self):
+        """The prior of every theta slot: an array parameter's per
+        non-zero entry, None on a zero-template entry (it never walks, and
+        its log density would be -inf on both sides of the ratio)."""
+        out = []
+        for p, tmpl in zip(self._pnames, self._templates()):
+            par = self.parameters[p]
+            d = par.tdist if par is not None else None
+            if tmpl is None:
+                out.append(d)
             else:
-                v = float(np.asarray(self.parameters[p].val, float))
-                cols.append(np.full((len(df), 1), v))
+                out.extend(d if v != 0 else None for v in tmpl)
+        return out
+
+    def _theta_from_df(self, df: pd.DataFrame):
+        """(N, P) float64 thetas from a parameter dataframe (array
+        parameters' cells hold their arrays), missing columns filled with
+        the current values."""
+        cols = []
+        for p, shp in zip(self._pnames, self._spec.pshapes):
+            if p in df and not shp:
+                cols.append(np.asarray(df[p].to_numpy(), float)[:, None])
+            elif p in df and len(df):
+                cols.append(np.stack([np.ravel(np.asarray(v, float))
+                                      for v in df[p].to_numpy()]))
+            else:
+                v = np.ravel(np.asarray(self.parameters[p].val, float))
+                cols.append(np.tile(v, (len(df), 1)))
         return np.concatenate(cols, axis=1)
 
     def _solver_args(self, overrides, n_intervals=None, keep_auto=False):
@@ -427,12 +487,36 @@ class ModelFramework:
             int(self.random_seed if seed is None else seed))
         df = pd.DataFrame(index=range(samples))
         if pdists:
-            dists = [par.tdist if isinstance(par, parameter)
-                     else _dist.from_scipy(par) for par in pdists.values()]
+            # an array parameter draws one dimension per non-zero entry
+            # of its template (array hyperparameters: that entry's)
+            dists, dims = [], []
+            for par in pdists.values():
+                d = par.tdist if isinstance(par, parameter) \
+                    else _dist.from_scipy(par)
+                tmpl = np.asarray(par.val, float) \
+                    if isinstance(par, parameter) and np.ndim(par.val) \
+                    else None
+                if tmpl is None:
+                    dists.append(d)
+                    dims.append(None)
+                    continue
+                nz = np.flatnonzero(tmpl)
+                dists.extend(d.element(int(k)) if isinstance(
+                    d, _dist.ArrayHyper) else d for k in nz)
+                dims.append((tmpl, nz))
             draws = sample_lhs(gen, dists, samples).numpy()
             df = pd.DataFrame()
-            for i, p in enumerate(pdists):
-                df[p] = draws[:, i]
+            off = 0
+            for p, dim in zip(pdists, dims):
+                if dim is None:
+                    df[p] = draws[:, off]
+                    off += 1
+                    continue
+                tmpl, nz = dim
+                rows = np.tile(tmpl.ravel(), (samples, 1))
+                rows[:, nz] = draws[:, off:off + len(nz)]
+                df[p] = list(rows.reshape((samples,) + tmpl.shape))
+                off += len(nz)
         for p in pstatic:
             df[p] = [pstatic[p]] * samples
         return df
@@ -576,6 +660,8 @@ class ModelFramework:
                 "temperatures='auto' tunes the ladder with the XLA PT "
                 "sampler (tune_ladder), not ported yet (ROADMAP queue 1, "
                 "item 15)")
+        _dispatch.require_traced(self._spec, sampler,
+                                 _XLA_SAMPLER_ITEM[sampler])
         if sampler == "pmmh" and self._spec.diffusion is None:
             raise ValueError(
                 "sampler='pmmh' targets the STOCHASTIC model: construct the "
@@ -589,11 +675,10 @@ class ModelFramework:
                 "sampler='pmmh' for the exact stochastic posterior.")
         priors = None
         if use_priors:
+            # per slot: an array parameter's prior on each non-zero entry
             from .ops.priors import require_kernel_priors
-            priors = require_kernel_priors(
-                (self.parameters[p].tdist if self.parameters[p] is not None
-                 else None for p in self._pnames), backend,
-                _XLA_SAMPLER_ITEM[sampler])
+            priors = require_kernel_priors(self._slot_priors(), backend,
+                                           _XLA_SAMPLER_ITEM[sampler])
         if sampler == "pmmh":
             if sde_method not in ("euler", "milstein"):
                 raise ValueError("the fused PMMH kernel integrates "
@@ -770,7 +855,15 @@ class ModelFramework:
 
         if print_report:
             report = ["\nFitting Report\n==============="]
-            for col in self.get_pnames():
+            for col, shp in zip(self.get_pnames(), self._spec.pshapes):
+                if shp:     # per entry of an array parameter
+                    vals = np.stack(posterior[col].to_numpy()).reshape(
+                        len(posterior), -1).astype(float)
+                    med, sd = tstats.rawstats(vals, dim=0)
+                    report.append(f"parameter: {col}\n\tmedian = "
+                                  f"{med.numpy()}, Standard deviation = "
+                                  f"{sd.numpy()}")
+                    continue
                 median, std = rawstats(posterior[col])
                 if (median != 0.0) and (std != 0.0):
                     report.append(
@@ -801,7 +894,8 @@ class ModelFramework:
         spec = self._spec
         h.update(repr((tuple(spec.pnames), str(method), substeps,
                        spec.obs_model, spec.obs_param,
-                       spec.dose_events)).encode())
+                       spec.dose_events, spec.pshapes,
+                       spec.forcings)).encode())
         h.update(np.asarray(self.get_inits(), float).tobytes())
         h.update(np.asarray(self._times_fit, float).tobytes())
         for leaf in self._obsdata_fit_host:
@@ -819,8 +913,15 @@ class ModelFramework:
         C, R, P = theta.shape
         ar = out.acceptance_ratio[:n_chains].cpu().numpy()
         all_rejected = ar[:, -1] == 0.0 if R else np.zeros(C, bool)
-        cols = {p: theta[:, :, i].reshape(-1)
-                for i, p in enumerate(self._pnames)}
+        cols = {}
+        for p, off, shp in zip(self._pnames, self._spec.theta_offsets,
+                               self._spec.pshapes):
+            if shp:     # a cell holds the parameter's array
+                n = int(np.prod(shp))
+                cols[p] = list(theta[:, :, off:off + n].reshape(
+                    (C * R,) + tuple(shp)))
+            else:
+                cols[p] = theta[:, :, off].reshape(-1)
         for name, rec in (("chi", out.chi), ("rsquared", out.rsquared),
                           ("aic", out.aic)):
             cols[name] = rec[:n_chains].cpu().numpy().reshape(-1)

@@ -10,7 +10,10 @@ and :mod:`~odelib_tpu_torch.ops.cuda_pf`, which pick kernel or twin from
 the tensor's device. With ``checkpoint_every`` each arm runs its kernel
 in chunks and persists the chain state to ``<checkpoint_path>.progress``
 (:mod:`~odelib_tpu_torch.ops.chunked`). The other samplers are ROADMAP
-queue 1, item 16.
+queue 1, item 16. A model whose RHS (or, for PMMH, diffusion) does not
+trace into the kernels (:func:`require_traced`: linear algebra on an array
+parameter, Python control flow on a value) raises ``NotImplementedError``:
+the reference runs it on its XLA sampler (``rhs_supports_tiles``).
 """
 from __future__ import annotations
 
@@ -51,6 +54,24 @@ class RunConfig:
     checkpoint_path: Optional[str] = None
     resume_from: Optional[str] = None
     config_token: str = ""
+
+
+def require_traced(spec, sampler: str, item: str):
+    """Raise ``NotImplementedError`` naming ``item`` (the ROADMAP item that
+    ports the XLA sampler, ``odelib_tpu``'s route for such a model) when
+    the spec's RHS, or for ``sampler='pmmh'`` its diffusion, does not
+    trace into the kernels; the twins never stand in for the kernels."""
+    from .model import diffusion_program, rhs_program
+    from .rhs import RhsTraceError
+    try:
+        rhs_program(spec)
+        if sampler == "pmmh" and spec.diffusion is not None:
+            diffusion_program(spec)
+    except RhsTraceError as e:
+        raise NotImplementedError(
+            f"the model does not trace into the fused kernels ({e}); the "
+            f"reference runs it on its XLA sampler, not ported yet ({item})"
+        ) from e
 
 
 def fused_stepper(method: str) -> str:

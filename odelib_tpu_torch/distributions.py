@@ -8,6 +8,9 @@ Counterpart of ``odelib_tpu/distributions.py``: ``Normal``, ``LogNormal``,
 ``parameter(scipy.stats.gamma, {...})`` works. Hyperparameters are plain
 floats (frozen, hashable dataclasses); inputs may be numpy arrays or
 tensors and are computed in float64 unless a tensor brings its own dtype.
+Array-valued hyperparameters (an array parameter's per-entry priors) give
+an :class:`ArrayHyper`, one scalar distribution per entry, for host use
+(the LHS ``ppf``, ``logpdf``); it has no in-kernel form.
 The formulas are the JAX package's, so Latin-hypercube draws pushed
 through ``ppf`` agree: Gamma's ``ppf`` is Wilson-Hilferty plus Newton in
 log space on ``torch.special.gammainc``, Beta's is Newton in logit space
@@ -447,6 +450,44 @@ class DiscreteNormal(Distribution):
 # the JAX package keeps the name of the ready-made gamma instance
 gamma = Gamma
 
+
+@dataclasses.dataclass(frozen=True)
+class ArrayHyper(Distribution):
+    """A family with array-valued hyperparameters: ``elems`` holds one
+    scalar-hyperparameter distribution per entry of ``shape`` (row-major),
+    the hyperparameters broadcast to it. Each method works elementwise on
+    values whose trailing axes are ``shape`` (the JAX package broadcasts
+    its array hyperparameters the same way). :meth:`element` is entry
+    k's distribution, which the LHS draws that entry from."""
+    family: str
+    shape: tuple
+    elems: tuple
+
+    def element(self, k: int) -> Distribution:
+        return self.elems[k]
+
+    def _each(self, fn, x):
+        x = _t(x)
+        nd = len(self.shape)
+        x = torch.broadcast_to(x, tuple(x.shape[:x.ndim - nd]) + self.shape)
+        flat = x.reshape(tuple(x.shape[:x.ndim - nd]) + (len(self.elems),))
+        out = torch.stack([fn(d, flat[..., k])
+                           for k, d in enumerate(self.elems)], dim=-1)
+        return out.reshape(x.shape)
+
+    def logpdf(self, x):
+        return self._each(lambda d, v: d.logpdf(v), x)
+
+    def cdf(self, x):
+        return self._each(lambda d, v: d.cdf(v), x)
+
+    def ppf(self, q):
+        return self._each(lambda d, v: d.ppf(v), q)
+
+    @property
+    def name(self):
+        return self.family
+
 _SCIPY_NAME_MAP = {
     "norm": Normal,
     "lognorm": LogNormal,
@@ -484,11 +525,13 @@ def from_scipy(stats_gen, hyperparameters=None):
     unknown = set(hp) - field_names
     if unknown:
         raise ValueError(f"Unknown hyperparameters {unknown} for {name}")
-    for k, v in hp.items():
-        if np.ndim(v) != 0:
-            raise NotImplementedError(
-                f"array-valued hyperparameter {k!r} is not ported yet "
-                "(ROADMAP queue 1, item 13b)")
+    if any(np.ndim(v) for v in hp.values()):
+        keys = list(hp)
+        vals = np.broadcast_arrays(*(np.asarray(hp[k], np.float64)
+                                     for k in keys))
+        return ArrayHyper(cls.__name__.lower(), tuple(vals[0].shape), tuple(
+            cls(**{k: float(v.flat[i]) for k, v in zip(keys, vals)})
+            for i in range(vals[0].size)))
     return cls(**{k: float(v) for k, v in hp.items()})
 
 

@@ -1,19 +1,20 @@
 """User-facing joint multi-experiment fitting: ``JointFit``.
 
 Counterpart of ``odelib_tpu/joint.py`` for complete pooling (``shared``)
-and no pooling (the default) of scalar parameters: ``JointFit`` ties named
-parameters across several ``ModelFramework`` instances (the same or
-different models, each with its own data, observation model, censoring
-and doses) and samples the joint posterior
+and no pooling (the default): ``JointFit`` ties named parameters (scalar
+or array-valued, one joint slot per entry) across several
+``ModelFramework`` instances (the same or different models, each with its
+own data, observation model, censoring, doses and forcings) and samples
+the joint posterior
 with every experiment scored in one kernel per iteration
 (:mod:`odelib_tpu_torch.ops.cuda_joint`; its torch twin on a CPU
 framework). The joint layout, LHS survey, seeding, posterior frame and
 report are the JAX package's, and so are chunked checkpointing with a
 bit-exact resume and ``until_rhat``/``until_min_ess`` run-length
 extension. Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP item: ``hierarchical=``, array parameters, stochastic experiments
-(joint PMMH), ``sampler='hmc'`` and ``backend='xla'`` (and priors without
-an in-kernel form, which the reference runs there).
+ROADMAP item: ``hierarchical=``, stochastic experiments (joint PMMH),
+``sampler='hmc'`` and ``backend='xla'`` (and what the reference runs
+there: priors without an in-kernel form, an RHS that does not trace).
 """
 from __future__ import annotations
 
@@ -41,7 +42,9 @@ class JointFit:
     must exist in every framework); the others are per-experiment.
 
     Joint layout: ``[shared..., <name>:<p> for each experiment's free
-    parameters...]``; posterior columns use the same naming. Priors for
+    parameters...]``, an array parameter one slot per entry (a shared one
+    must have one shape in every experiment); posterior columns use the
+    same naming, an array parameter's cells holding its array. Priors for
     shared parameters come from the first framework.
     """
 
@@ -75,38 +78,73 @@ class JointFit:
         self.device = devices.pop()
         first = next(iter(self.frameworks.values()))
 
-        # joint layout: one slot per (scalar) parameter
+        def pshape(fw, p):
+            return fw._spec.pshapes[list(fw._pnames).index(p)]
+
+        for p in self.shared:
+            shp0 = pshape(first, p)
+            for nm, fw in self.frameworks.items():
+                if pshape(fw, p) != shp0:
+                    raise ValueError(
+                        f"shared parameter {p!r} has shape {shp0} in the "
+                        f"first experiment but {pshape(fw, p)} in {nm!r}")
+
+        # joint flat layout: one slot per scalar parameter or array entry;
+        # ``columns`` has one label per parameter
         self.columns = []        # labels, layout order
-        self._col_offsets = {}   # label -> slot
+        self._col_shapes = {}    # label -> () or the array's shape
+        self._col_offsets = {}   # label -> first slot
         self._col_params = {}    # label -> (owning framework, pname)
         self.dim = 0
 
-        def add_column(lab, fw, p):
+        def add_column(lab, shp, fw, p):
             self.columns.append(lab)
+            self._col_shapes[lab] = shp
             self._col_offsets[lab] = self.dim
             self._col_params[lab] = (fw, p)
-            self.dim += 1
+            self.dim += int(np.prod(shp)) if shp else 1
 
         for p in self.shared:
-            add_column(p, first, p)
+            add_column(p, pshape(first, p), first, p)
         self._idx_maps = {}
         for nm, fw in self.frameworks.items():
             idx = []
-            for p in fw._pnames:
+            for p, shp in zip(fw._pnames, fw._spec.pshapes):
                 if p not in self.shared:
-                    add_column(f"{nm}:{p}", fw, p)
-                idx.append(self._col_offsets[p if p in self.shared
-                                             else f"{nm}:{p}"])
+                    add_column(f"{nm}:{p}", shp, fw, p)
+                off = self._col_offsets[p if p in self.shared
+                                        else f"{nm}:{p}"]
+                idx.extend(range(off, off + (int(np.prod(shp)) if shp
+                                             else 1)))
             self._idx_maps[nm] = tuple(idx)
 
+    def _template(self, lab):
+        """The flat current value of an array column (None for a scalar):
+        its zero entries never walk and draw no LHS dimension."""
+        shp = self._col_shapes[lab]
+        if not shp:
+            return None
+        fw, p = self._col_params[lab]
+        par = fw.parameters[p]
+        return np.ravel(np.asarray(
+            par.val if par is not None else np.zeros(shp), float))
+
     def _dists(self):
-        """Prior distribution (or None) per joint slot."""
+        """Prior distribution (or None) per joint slot: an array
+        parameter's on each non-zero template entry."""
         out = [None] * self.dim
         for lab in self.columns:
             fw, p = self._col_params[lab]
             par = fw.parameters[p]
-            if par is not None and par.has_distribution():
-                out[self._col_offsets[lab]] = par.tdist
+            d = par.tdist if par is not None and par.has_distribution() \
+                else None
+            off = self._col_offsets[lab]
+            tmpl = self._template(lab)
+            if tmpl is None:
+                out[off] = d
+            else:
+                for i, v in enumerate(tmpl):
+                    out[off + i] = d if v != 0 else None
         return out
 
     def _current_joint_theta(self):
@@ -115,16 +153,24 @@ class JointFit:
             fw, p = self._col_params[lab]
             par = fw.parameters[p]
             if par is not None:
-                th[self._col_offsets[lab]] = float(np.asarray(par.val, float))
+                v = np.ravel(np.asarray(par.val, float))
+                off = self._col_offsets[lab]
+                th[off:off + v.size] = v
         return th
 
     def _df_from_thetas(self, thetas, base=None):
-        """(N, dim) joint thetas -> DataFrame with one float64 column per
-        parameter label."""
+        """(N, dim) joint thetas -> DataFrame with one column per
+        parameter label: float64, an array parameter's cells its arrays."""
         thetas = np.asarray(thetas, float)
         data = {} if base is None else dict(base)
         for lab in self.columns:
-            data[lab] = thetas[:, self._col_offsets[lab]]
+            off, shp = self._col_offsets[lab], self._col_shapes[lab]
+            if shp:
+                n = int(np.prod(shp))
+                data[lab] = list(thetas[:, off:off + n].reshape(
+                    (len(thetas),) + tuple(shp)))
+            else:
+                data[lab] = thetas[:, off]
         return pd.DataFrame(data)
 
     def _thetas_from_df(self, df):
@@ -132,8 +178,15 @@ class JointFit:
         the current framework values."""
         th = np.tile(self._current_joint_theta(), (len(df), 1))
         for lab in self.columns:
-            if lab in df:
-                th[:, self._col_offsets[lab]] = np.asarray(df[lab], float)
+            if lab not in df or not len(df):
+                continue
+            off = self._col_offsets[lab]
+            if self._col_shapes[lab]:
+                vals = np.stack([np.ravel(np.asarray(v, float))
+                                 for v in df[lab].to_numpy()])
+            else:
+                vals = np.asarray(df[lab], float)[:, None]
+            th[:, off:off + vals.shape[1]] = vals
         return th
 
     def _device_args(self, solver_kw):
@@ -160,14 +213,34 @@ class JointFit:
                 tuple(y0s), method, tuple(subs))
 
     def _walk_mask(self, static_parameters=()):
-        """Static parameters stay fixed."""
+        """Static parameters stay fixed, and so do zero-template entries
+        of array parameters."""
         mask = np.ones(self.dim)
         for p in static_parameters:
             if p not in self.columns:
                 raise ValueError(f"unknown static parameter {p!r} "
                                  f"(joint columns: {self.columns})")
-            mask[self._col_offsets[p]] = 0.0
+            off, shp = self._col_offsets[p], self._col_shapes[p]
+            mask[off:off + (int(np.prod(shp)) if shp else 1)] = 0.0
+        for lab in self.columns:
+            tmpl = self._template(lab)
+            if tmpl is not None:
+                sl = slice(self._col_offsets[lab],
+                           self._col_offsets[lab] + tmpl.size)
+                mask[sl] = np.where(tmpl != 0, mask[sl], 0.0)
         return mask
+
+    def _slot_dist(self, j):
+        """Slot ``j``'s prior for the LHS: an array hyperparameter's entry
+        for an array parameter's slot."""
+        from .distributions import ArrayHyper
+        d = self._dists()[j]
+        if isinstance(d, ArrayHyper):
+            lab = max((lab for lab in self.columns
+                       if self._col_offsets[lab] <= j),
+                      key=lambda lab: self._col_offsets[lab])
+            d = d.element(j - self._col_offsets[lab])
+        return d
 
     def _seed_hyper_slots(self, theta0):
         """Hyperparameter slots of hierarchical pooling (not ported): no-op."""
@@ -185,7 +258,8 @@ class JointFit:
         if draw_dims:
             gen = torch.Generator().manual_seed(int(self.random_seed))
             thetas[:, draw_dims] = sample_lhs(
-                gen, [dists[j] for j in draw_dims], samples).numpy()
+                gen, [self._slot_dist(j) for j in draw_dims],
+                samples).numpy()
         specs, idxs, obs, times, y0s, method, subs = \
             self._device_args(solver_kw)
         chis = joint_survey(
@@ -269,6 +343,10 @@ class JointFit:
                 f"stochastic experiment(s) {sorted(self._stoch)}: joint "
                 "PMMH runs on the XLA samplers/joint.py, not ported yet "
                 "(ROADMAP queue 1, item 15)")
+        from .dispatch import require_traced
+        for fw in self.frameworks.values():
+            require_traced(fw._spec, "mh", "the XLA samplers/joint.py is "
+                           "ROADMAP queue 1, item 15")
         if sampler == "hmc":
             raise NotImplementedError(
                 "sampler='hmc' is not ported yet (ROADMAP queue 1, item 16)")
@@ -379,7 +457,8 @@ class JointFit:
             h.update(np.asarray(fw.get_inits(), float).tobytes())
             h.update(np.asarray(fw._times_fit, float).tobytes())
             h.update(repr((fw._spec.obs_model, fw._spec.obs_param,
-                           fw._spec.dose_events)).encode())
+                           fw._spec.dose_events, fw._spec.pshapes,
+                           fw._spec.forcings)).encode())
             for leaf in fw._obsdata_fit_host:
                 if leaf is not None:
                     h.update(np.asarray(leaf).tobytes())
@@ -396,8 +475,15 @@ class JointFit:
         parts = out.chi_parts[:n_chains].cpu().numpy()
         ar = out.acceptance_ratio[:n_chains].cpu().numpy()
         all_rejected = ar[:, -1] == 0.0 if R else np.zeros(C, bool)
-        cols = {lab: theta[:, :, self._col_offsets[lab]].reshape(-1)
-                .astype(np.float64) for lab in self.columns}
+        cols = {}
+        for lab in self.columns:
+            off, shp = self._col_offsets[lab], self._col_shapes[lab]
+            if shp:     # a cell holds the parameter's array
+                n = int(np.prod(shp))
+                cols[lab] = list(theta[:, :, off:off + n].astype(
+                    np.float64).reshape((C * R,) + tuple(shp)))
+            else:
+                cols[lab] = theta[:, :, off].reshape(-1).astype(np.float64)
         cols["chi"] = out.chi[:n_chains].cpu().numpy().reshape(-1)
         for k, nm in enumerate(self.frameworks):
             cols[f"chi:{nm}"] = parts[:, :, k].reshape(-1)
@@ -415,6 +501,13 @@ class JointFit:
     def _report(self, posterior):
         report = ["\nJoint Fitting Report\n===================="]
         for col in self.columns:
+            if self._col_shapes[col]:
+                median, std = tstats.rawstats(np.stack(
+                    posterior[col].to_numpy()).astype(float), dim=0)
+                report.append(f"parameter: {col}\n\tmedian = "
+                              f"{median.numpy()}, Standard deviation "
+                              f"= {std.numpy()}")
+                continue
             median, std = tstats.rawstats(np.array(posterior[col], float))
             report.append(f"parameter: {col}\n\tmedian = "
                           f"{float(median):0.3e}, Standard "
@@ -430,7 +523,10 @@ class JointFit:
         """Push the min-chi joint sample back into every framework."""
         best = posterior.loc[posterior["chi"].idxmin()]
         for nm, fw in self.frameworks.items():
-            fw.set_parameters(**{
-                p: float(best[p if p in self.shared else f"{nm}:{p}"])
-                for p in fw._pnames})
+            vals = {}
+            for p, shp in zip(fw._pnames, fw._spec.pshapes):
+                v = best[p if p in self.shared else f"{nm}:{p}"]
+                vals[p] = np.asarray(v, float).reshape(shp) if shp \
+                    else float(v)
+            fw.set_parameters(**vals)
         return best

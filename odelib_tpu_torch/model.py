@@ -3,14 +3,17 @@
 Counterpart of ``odelib_tpu/model.py``: :class:`ModelSpec` is the static,
 hashable description of the problem (RHS, names, state summations, the
 ``<sname>0`` init-parameter wiring, the diagonal diffusion of an SDE
-model, its bolus dose events) and :class:`ObsData` holds the flat
-per-observation arrays as host numpy. Scalar parameters only: forcings and
-array parameters raise ``NotImplementedError`` (ROADMAP queue 1, item
-13b).
+model, its bolus dose events, its forcings and the parameters' shapes)
+and :class:`ObsData` holds the flat per-observation arrays as host numpy.
+Array parameters flatten into one theta slot per entry; forcings are the
+reference's linear, hold and PCHIP tables (:func:`normalize_forcings`,
+:func:`eval_forcings`), which the kernels read as a per-stage table of
+the forcing columns (:func:`spec_columns`, :func:`forcing_rows`).
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,13 +49,16 @@ def obsdata_from_arrays(obs) -> ObsData:
 class ModelSpec:
     """Static problem description.
 
-    ``rhs`` has the signature ``f(t, y, ps)``: ``y`` indexes states on its
-    leading axis and ``ps`` is the list of parameter values in ``pnames``
-    order (see :mod:`odelib_tpu_torch.rhs`).
+    ``rhs`` has the signature ``f(t, y, ps)``, or ``f(t, y, ps, u)`` with
+    ``forcings`` (``u`` the dict of forcing values at ``t``): ``y`` indexes
+    states on its leading axis and ``ps`` is the list of parameter values
+    in ``pnames`` order, an array parameter as an array of its ``pshapes``
+    shape (see :mod:`odelib_tpu_torch.rhs`).
     """
     rhs: Callable
     pnames: Tuple[str, ...]
     snames: Tuple[str, ...]
+    pshapes: Tuple[Tuple[int, ...], ...] = None  # () == scalar
     sum_matrix: Optional[tuple] = None           # (S_raw, S_post) 0/1
     post_snames: Tuple[str, ...] = None
     init_pidx: Tuple[int, ...] = None            # theta slot of '<s>0' or -1
@@ -66,33 +72,58 @@ class ModelSpec:
     # the model is the SDE dy = f dt + g dW, fitted by sampler='pmmh';
     # None for an ODE
     diffusion: Optional[Callable] = None
+    # time-varying covariates ((name, times, values, mode), ...), mode
+    # 'linear', 'hold' or 'cubic' (:func:`normalize_forcings`); None
+    forcings: Optional[Tuple[Tuple[str, tuple, tuple, str], ...]] = None
 
     def __post_init__(self):
+        if self.pshapes is None:
+            object.__setattr__(self, "pshapes", tuple(() for _ in self.pnames))
         if self.post_snames is None:
             object.__setattr__(self, "post_snames", tuple(self.snames))
         if self.init_pidx is None:
-            idx = tuple(self.pnames.index(s + "0") if s + "0" in self.pnames
-                        else -1 for s in self.snames)
+            offs = self.theta_offsets
+            idx = tuple(offs[self.pnames.index(s + "0")]
+                        if s + "0" in self.pnames else -1
+                        for s in self.snames)
             object.__setattr__(self, "init_pidx", idx)
+
+    # ---- theta (flat parameter vector) layout ---------------------------
+    @property
+    def theta_offsets(self) -> Tuple[int, ...]:
+        offs, o = [], 0
+        for shp in self.pshapes:
+            offs.append(o)
+            o += int(np.prod(shp)) if shp else 1
+        return tuple(offs)
 
     @property
     def theta_size(self) -> int:
-        return len(self.pnames)
+        return sum(int(np.prod(s)) if s else 1 for s in self.pshapes)
 
     def pack_theta(self, values: Sequence) -> np.ndarray:
-        """Per-parameter scalar values (pnames order) -> flat theta."""
-        out = []
-        for p, v in zip(self.pnames, values):
-            a = np.ravel(np.asarray(v, np.float64))
-            if a.size != 1:
-                raise NotImplementedError(
-                    f"parameter {p!r} is array-valued; array parameters are "
-                    "not ported yet (ROADMAP queue 1, item 13b)")
-            out.append(a[0])
-        return np.asarray(out, np.float64)
+        """Per-parameter values (pnames order) -> flat float64 theta, an
+        array parameter row-major."""
+        parts = [np.ravel(np.asarray(v, np.float64)) for v in values]
+        return np.concatenate(parts) if parts else np.zeros((0,))
 
     def unpack_theta(self, theta):
-        """(..., P) theta -> list of per-parameter (...,) values."""
+        """Flat ``theta`` (..., P) -> per-parameter values in ``pnames``
+        order: a scalar's (...,) slot, an array parameter's slots as
+        (..., *shape)."""
+        ps = []
+        for off, shp in zip(self.theta_offsets, self.pshapes):
+            if shp:
+                n = int(np.prod(shp))
+                v = theta[..., off:off + n]
+                ps.append(v.reshape(tuple(v.shape[:-1]) + tuple(shp)))
+            else:
+                ps.append(theta[..., off])
+        return ps
+
+    def slots(self, theta):
+        """(..., P) theta -> the list of its P per-slot (...,) values, the
+        form the traced RHS and the kernels' twins take."""
         return [theta[..., j] for j in range(self.theta_size)]
 
     def apply_summations(self, ys):
@@ -114,19 +145,181 @@ class ModelSpec:
 
 OBS_MODELS = ("lognormal", "student_t", "poisson", "negbinom")
 
+FORCING_MODES = ("linear", "hold", "cubic")
+
+
+@lru_cache(maxsize=256)
+def _pchip_slopes(ft: tuple, fv: tuple) -> np.ndarray:
+    """Knot derivatives of the shape-preserving (PCHIP, Fritsch-Carlson)
+    cubic interpolant of a forcing table: monotone data never overshoots
+    between knots. Cached per table (the spec keeps tables as tuples)."""
+    t = np.asarray(ft, np.float64)
+    v = np.asarray(fv, np.float64)
+    n = t.size
+    if n == 1:
+        return np.zeros(1)
+    h = np.diff(t)
+    delta = np.diff(v) / h
+    if n == 2:
+        return np.array([delta[0], delta[0]])
+    d = np.zeros(n)
+    # interior: weighted harmonic mean where the secants agree in sign
+    d0, d1 = delta[:-1], delta[1:]
+    h0, h1 = h[:-1], h[1:]
+    w1 = 2.0 * h1 + h0
+    w2 = h1 + 2.0 * h0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        hm = (w1 + w2) / (w1 / d0 + w2 / d1)
+    d[1:-1] = np.where((d0 * d1) > 0.0, hm, 0.0)
+
+    def edge(h_a, h_b, del_a, del_b):
+        # one-sided three-point estimate, clamped for shape preservation
+        s = ((2.0 * h_a + h_b) * del_a - h_a * del_b) / (h_a + h_b)
+        if np.sign(s) != np.sign(del_a):
+            return 0.0
+        if np.sign(del_a) != np.sign(del_b) and abs(s) > 3.0 * abs(del_a):
+            return 3.0 * del_a
+        return s
+
+    d[0] = edge(h[0], h[1], delta[0], delta[1])
+    d[-1] = edge(h[-1], h[-2], delta[-1], delta[-2])
+    return d
+
+
+def _hermite_eval(tq, ft, fv, d, xp):
+    """The cubic Hermite interpolant (knots ``ft``/``fv``, slopes ``d``) at
+    ``tq``, clamped to the table's span; ``xp`` is numpy (concrete times)
+    or a namespace of torch functions (tensor times)."""
+    tq = xp.clip(tq, ft[0], ft[-1])
+    i = xp.clip(xp.searchsorted(ft, tq, side="right") - 1, 0, len(ft) - 2)
+    t0, t1 = ft[i], ft[i + 1]
+    hseg = t1 - t0
+    s = tq - t0
+    dl = (fv[i + 1] - fv[i]) / hseg
+    c2 = (3.0 * dl - 2.0 * d[i] - d[i + 1]) / hseg
+    c3 = (d[i] + d[i + 1] - 2.0 * dl) / (hseg * hseg)
+    return fv[i] + s * (d[i] + s * (c2 + s * c3))
+
+
+def normalize_forcings(forcings):
+    """A user forcings mapping in the spec's static tuple form.
+
+    Accepts ``{name: (times, values)}``, ``{name: (times, values, mode)}``
+    or ``{name: {'t': ..., 'v': ..., 'mode': ...}}``, and the normalised
+    tuple itself (``odelib_tpu``'s too), which passes through. Times must
+    be strictly increasing and as many as the values; queries outside the
+    table take the endpoint values. Modes: ``'linear'`` (default),
+    ``'hold'`` (the previous knot's value) and ``'cubic'`` (PCHIP,
+    :func:`_pchip_slopes`)."""
+    if not forcings:
+        return None
+    if isinstance(forcings, tuple) and forcings and \
+            isinstance(forcings[0], tuple) and len(forcings[0]) == 4:
+        return forcings  # already normalized (spec rebuilds)
+    out = []
+    for name, table in dict(forcings).items():
+        if isinstance(table, dict):
+            ft, fv = table["t"], table["v"]
+            mode = table.get("mode", "linear")
+        else:
+            if len(table) == 3:
+                ft, fv, mode = table
+            else:
+                ft, fv = table
+                mode = "linear"
+        if mode not in FORCING_MODES:
+            raise ValueError(f"forcing {name!r}: mode must be one of "
+                             f"{FORCING_MODES}, got {mode!r}")
+        ft = np.asarray(ft, np.float64).ravel()
+        fv = np.asarray(fv, np.float64).ravel()
+        if ft.size == 0 or ft.size != fv.size:
+            raise ValueError(
+                f"forcing {name!r}: times and values must be equal-length "
+                f"and non-empty (got {ft.size} times, {fv.size} values)")
+        if not np.all(np.isfinite(ft)) or not np.all(np.isfinite(fv)):
+            raise ValueError(f"forcing {name!r}: times/values must be finite")
+        if ft.size > 1 and not np.all(np.diff(ft) > 0):
+            raise ValueError(
+                f"forcing {name!r}: times must be strictly increasing")
+        out.append((str(name), tuple(float(t) for t in ft),
+                    tuple(float(v) for v in fv), str(mode)))
+    return tuple(out)
+
+
+class _TorchXp:
+    """The numpy functions :func:`_hermite_eval` calls, on tensors."""
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return torch.clamp(x, min=lo, max=hi)
+
+    @staticmethod
+    def searchsorted(a, v, side="left"):
+        return torch.searchsorted(a, v, right=side == "right")
+
+
+def eval_forcings(forcings, t):
+    """Every forcing at time ``t`` -> ``{name: value}``.
+
+    At a concrete time (a Python or numpy float) the values are Python
+    floats computed in double, as ``odelib_tpu`` folds them into its
+    kernels; at a tensor ``t`` they are tensors of its dtype and shape,
+    each table lookup a ``torch.searchsorted`` (the torch solvers)."""
+    out = {}
+    if not isinstance(t, torch.Tensor):
+        tc = float(t)
+        for name, ft, fv, mode in forcings:
+            if mode == "hold":
+                i = int(np.clip(np.searchsorted(ft, tc, side="right") - 1,
+                                0, len(fv) - 1))
+                out[name] = float(fv[i])
+            elif mode == "cubic" and len(ft) > 1:
+                out[name] = float(_hermite_eval(
+                    tc, np.asarray(ft), np.asarray(fv),
+                    _pchip_slopes(ft, fv), np))
+            else:
+                out[name] = float(np.interp(tc, ft, fv))
+        return out
+    dt, dev = t.dtype, t.device
+    for name, ft, fv, mode in forcings:
+        ftt = torch.as_tensor(ft, dtype=dt, device=dev)
+        fvt = torch.as_tensor(fv, dtype=dt, device=dev)
+        if len(ft) == 1:
+            out[name] = torch.full_like(t, fv[0])
+        elif mode == "hold":
+            i = torch.clamp(torch.searchsorted(ftt, t.contiguous(),
+                                               right=True) - 1, 0, len(fv) - 1)
+            out[name] = fvt[i]
+        elif mode == "cubic":
+            d = torch.as_tensor(_pchip_slopes(ft, fv), dtype=dt, device=dev)
+            out[name] = _hermite_eval(t.contiguous(), ftt, fvt, d, _TorchXp)
+        else:   # jnp.interp: linear inside, the end values outside
+            tq = torch.clamp(t, ft[0], ft[-1]).contiguous()
+            i = torch.clamp(torch.searchsorted(ftt, tq, right=True) - 1,
+                            0, len(ft) - 2)
+            t0, t1 = ftt[i], ftt[i + 1]
+            v0, v1 = fvt[i], fvt[i + 1]
+            out[name] = v0 + (tq - t0) * ((v1 - v0) / (t1 - t0))
+    return out
+
 
 def make_spec(rhs, pnames, snames, state_summations=None, pshapes=None,
               obs_model="lognormal", obs_param=None, dose_events=None,
               forcings=None, diffusion=None) -> ModelSpec:
-    """Build a ModelSpec, validating summations, the observation model
-    and ``dose_events`` (``(time, state name or raw index, amount)``
-    triples) like ``odelib_tpu``."""
-    if any(s for s in (pshapes or ())):
-        raise NotImplementedError(
-            "array parameters are not ported yet (ROADMAP queue 1, item 13b)")
-    if forcings:
-        raise NotImplementedError(
-            "forcings are not ported yet (ROADMAP queue 1, item 13b)")
+    """Build a ModelSpec, validating summations, the observation model,
+    ``dose_events`` (``(time, state name or raw index, amount)``
+    triples) and ``forcings`` (:func:`normalize_forcings`) like
+    ``odelib_tpu``. ``pshapes`` gives each parameter's shape (``()`` for a
+    scalar). With forcings ``rhs`` takes a fourth argument, the dict of
+    forcing values; ``diffusion`` takes it if it has four arguments."""
+    forcings = normalize_forcings(forcings)
+    if forcings and diffusion is not None:
+        from .rhs import takes_forcings
+        if not takes_forcings(diffusion):
+            base_g = diffusion
+
+            def diffusion(t, y, ps, u, _g=base_g):
+                return _g(t, y, ps)
     if obs_model not in OBS_MODELS:
         raise ValueError(f"obs_model must be one of {OBS_MODELS}, "
                          f"got {obs_model!r}")
@@ -192,21 +385,100 @@ def make_spec(rhs, pnames, snames, state_summations=None, pshapes=None,
             m[list(idxs), j] = 1.0
         sum_matrix = tuple(tuple(row) for row in m)
         post_snames = tuple(post)
-    return ModelSpec(rhs=rhs, pnames=pnames, snames=snames,
+    if pshapes is not None:
+        pshapes = tuple(tuple(int(d) for d in s) for s in pshapes)
+        if len(pshapes) != len(pnames):
+            raise ValueError(f"pshapes has {len(pshapes)} entries for "
+                             f"{len(pnames)} parameters")
+    return ModelSpec(rhs=rhs, pnames=pnames, snames=snames, pshapes=pshapes,
                      sum_matrix=sum_matrix, post_snames=post_snames,
                      obs_model=obs_model, obs_param=obs_param,
-                     dose_events=dose_events, diffusion=diffusion)
+                     dose_events=dose_events, diffusion=diffusion,
+                     forcings=forcings)
 
 
 # --------------------------------------------------------------------------
 # batched integration and scoring (torch, any device and dtype)
 # --------------------------------------------------------------------------
 
+def rhs_program(spec: ModelSpec):
+    """The spec's traced RHS (:func:`~odelib_tpu_torch.rhs.trace_rhs`);
+    raises ``RhsTraceError`` for one that does not trace."""
+    from .rhs import trace_rhs
+    return trace_rhs(spec.rhs, len(spec.snames), spec.pshapes, spec.forcings)
+
+
+def diffusion_program(spec: ModelSpec):
+    """The spec's traced diffusion, as :func:`rhs_program`."""
+    from .rhs import trace_rhs
+    return trace_rhs(spec.diffusion, len(spec.snames), spec.pshapes,
+                     spec.forcings)
+
+
+@lru_cache(maxsize=256)
+def spec_columns(spec: ModelSpec) -> tuple:
+    """The forcing columns of every kernel of the spec's model, in the
+    order of the plan's forcing table (:func:`~odelib_tpu_torch.rhs.
+    forcing_columns` of its traced RHS and diffusion); () without forcings
+    or where nothing traces (the CPU twins then run the functions
+    eagerly, which evaluate the forcings themselves)."""
+    if not spec.forcings:
+        return ()
+    from .rhs import RhsTraceError, forcing_columns
+    try:
+        prog = rhs_program(spec)
+    except RhsTraceError:
+        return ()
+    diff = None
+    if spec.diffusion is not None:
+        try:
+            diff = diffusion_program(spec)
+        except RhsTraceError:
+            diff = None
+    return forcing_columns(prog, diff)
+
+
+def forcing_rows(spec: ModelSpec, times) -> np.ndarray:
+    """(len(times), F) float64: each forcing column of
+    :func:`spec_columns` at each concrete time, folded in double as
+    ``odelib_tpu``'s kernels fold it (:func:`~odelib_tpu_torch.rhs.
+    fold_host`); the kernels' table rounds it to float32 once."""
+    from .rhs import fold_host
+    cols = spec_columns(spec)
+    out = np.zeros((len(times), len(cols)))
+    for i, t in enumerate(times):
+        raw = eval_forcings(spec.forcings, float(t))
+        out[i] = [fold_host(c, raw) for c in cols]
+    return out
+
+
+def column_values(spec: ModelSpec, t, like=None) -> dict:
+    """Each forcing column of the spec at time ``t``: folded in double at
+    a concrete time, at a tensor time in its dtype (the torch solvers);
+    keyed by column, as :meth:`~odelib_tpu_torch.rhs.RhsProgram.evaluate`
+    takes them."""
+    from .rhs import fold_host, fold_torch
+    cols = spec_columns(spec)
+    if not isinstance(t, torch.Tensor):
+        raw = eval_forcings(spec.forcings, float(t))
+        return {c: fold_host(c, raw) for c in cols}
+    if like is not None and t.dtype != like.dtype:
+        t = t.to(like.dtype)
+    raw = eval_forcings(spec.forcings, t)
+    return {c: fold_torch(c, raw) for c in cols}
+
+
 def state_func(spec: ModelSpec):
-    """``func(t, y (S, N), ps) -> (S, N)`` for the integrators."""
+    """``func(t, y (S, N), ps) -> (S, N)`` for the integrators, ``ps`` the
+    per-slot values; a forced model's columns at ``t`` (float or tensor,
+    :func:`column_values`)."""
     from .rhs import torch_evaluator
-    f = torch_evaluator(spec.rhs, len(spec.snames), spec.theta_size)
-    return lambda t, y, ps: torch.stack(f(t, list(y), ps))
+    f = torch_evaluator(spec.rhs, len(spec.snames), spec.pshapes,
+                        spec.forcings)
+    if not spec_columns(spec):
+        return lambda t, y, ps: torch.stack(f(t, list(y), ps))
+    return lambda t, y, ps: torch.stack(
+        f(t, list(y), ps, column_values(spec, t, y)))
 
 
 def state_jac(spec: ModelSpec):
@@ -216,10 +488,12 @@ def state_jac(spec: ModelSpec):
     integrators."""
     from .rhs import jacobian_evaluator
     S = len(spec.snames)
-    J = jacobian_evaluator(spec.rhs, S, spec.theta_size)
+    J = jacobian_evaluator(spec.rhs, S, spec.pshapes, spec.forcings)
+    forced = bool(spec_columns(spec))
 
     def jac(t, y, ps):
-        cols = J(t, list(y), ps)
+        u = column_values(spec, t, y) if forced else None
+        cols = J(t, list(y), ps, u)
         return torch.stack(cols).reshape((S, S) + cols[0].shape)
     return jac
 
@@ -250,7 +524,7 @@ def integrate_theta(spec: ModelSpec, thetas, y0, times, *, method="dopri5",
     (:func:`state_jac`)."""
     from .ops.integrate import odeint_fixed, odeint_grid
     f = state_func(spec)
-    ps = spec.unpack_theta(thetas)
+    ps = spec.slots(thetas)
     dose = dose_matrix(spec, times)
     fixed = {"rk4": "rk4", "fixed_dopri5": "dopri5",
              "fixed_kvaerno3": "kvaerno3"}

@@ -33,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from ..rhs import _f32_literal, trace_rhs
+from ..rhs import _f32_literal, forcing_columns
 from .runge_kutta import DP_A, KV3_A, KV3_NEWTON
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -59,35 +59,47 @@ def _stage_sum(coefs, ks, s):
     return " + ".join(terms)
 
 
-def stepper_source(n_states: int, size: str = "ODE_S") -> str:
+def _row(r: int, n_forc: int) -> str:
+    """The forcing row of distinct stage time ``r`` in a step's rows
+    ``uf`` (``cuda_mh.STAGE_C``)."""
+    return f"uf + {r * n_forc}" if r and n_forc else "uf"
+
+
+def stepper_source(n_states: int, size: str = "ODE_S",
+                   n_forc: int = 0) -> str:
     """Fixed-step Dopri5 and RK4 over ``y[size]`` with the step's
-    constants ``sf`` (see ``plan_tables``), unrolled with literal float32
-    tableau entries in the JAX kernel's summation order."""
-    S = n_states
+    constants ``sf`` (see ``plan_tables``) and its forcing rows ``uf``
+    (``n_forc`` columns per distinct stage time, ``cuda_mh.
+    forcing_table``), unrolled with literal float32 tableau entries in the
+    JAX kernel's summation order."""
+    S, F = n_states, n_forc
     ks = [f"k{i}" for i in range(6)]
     lines = ["__device__ __forceinline__ void step_dopri5(float* y, "
-             "const float* sf, const float* p) {",
+             "const float* sf, const float* p, const float* uf) {",
              "  const float h = sf[0];",
              f"  float {', '.join(f'{k}[{size}]' for k in ks)}, yi[{size}];",
-             "  rhs(sf[1], y, p, k0);"]
+             "  (void)uf;",
+             "  rhs(sf[1], y, p, uf, k0);"]
     for i in range(1, 6):
         for s in range(S):
             lines.append(f"  yi[{s}] = y[{s}] + h * "
                          f"({_stage_sum(DP_A[i], ks, s)});")
-        lines.append(f"  rhs(sf[{i + 1}], yi, p, k{i});")
+        lines.append(f"  rhs(sf[{i + 1}], yi, p, {_row(i, F)}, k{i});")
     for s in range(S):
         lines.append(f"  y[{s}] = y[{s}] + h * ({_stage_sum(DP_A[6], ks, s)});")
     lines += ["}", "",
               "__device__ __forceinline__ void step_rk4(float* y, "
-              "const float* sf, const float* p) {",
+              "const float* sf, const float* p, const float* uf) {",
               f"  float k0[{size}], k1[{size}], k2[{size}], k3[{size}], "
               f"yi[{size}];",
-              "  rhs(sf[3], y, p, k0);"]
-    for src, coef, t_idx, dst in (("k0", 1, 4, "k1"), ("k1", 1, 4, "k2"),
-                                  ("k2", 0, 5, "k3")):
+              "  (void)uf;",
+              "  rhs(sf[3], y, p, uf, k0);"]
+    for src, coef, t_idx, dst, r in (("k0", 1, 4, "k1", 1),
+                                     ("k1", 1, 4, "k2", 1),
+                                     ("k2", 0, 5, "k3", 2)):
         for s in range(S):
             lines.append(f"  yi[{s}] = y[{s}] + sf[{coef}] * {src}[{s}];")
-        lines.append(f"  rhs(sf[{t_idx}], yi, p, {dst});")
+        lines.append(f"  rhs(sf[{t_idx}], yi, p, {_row(r, F)}, {dst});")
     for s in range(S):
         lines.append(f"  y[{s}] = y[{s}] + sf[2] * (k0[{s}] + 2.0f * k1[{s}]"
                      f" + 2.0f * k2[{s}] + k3[{s}]);")
@@ -95,26 +107,31 @@ def stepper_source(n_states: int, size: str = "ODE_S") -> str:
     return "\n".join(lines)
 
 
-def kvaerno3_source(program) -> str:
+def kvaerno3_source(program, columns=None) -> str:
     """The RHS's Jacobian ``jac()`` (:meth:`~odelib_tpu_torch.rhs.
-    RhsProgram.jacobian`) and the fixed-step Kvaerno3 ``step_kvaerno3``
-    over ``y[ODE_S]`` with the step's constants ``sf`` (h, f32(h gamma),
-    then the times of stages 1-4; ``plan_tables``): I - h gamma J in
+    RhsProgram.jacobian`, reading the forcing ``columns``) and the
+    fixed-step Kvaerno3 ``step_kvaerno3`` over ``y[ODE_S]`` with the step's
+    constants ``sf`` (h, f32(h gamma), then the times of stages 1-4;
+    ``plan_tables``) and forcing rows ``uf`` (t, t + 2 gamma h, t + h):
+    I - h gamma J in
     registers, its elimination without pivoting and the triangular solves
     unrolled in the order of ``odelib_tpu/ops/runge_kutta.py``
     ``kvaerno3_fixed_step``, ``KV3_NEWTON`` chord-Newton iterations a
     stage, the last stage returned. The twin is
     :func:`~.runge_kutta.kvaerno3_fixed_step`."""
     S = program.n_states
+    columns = forcing_columns(program) if columns is None else columns
+    F = len(columns)
     a = [[f"a{i}_{j}" for j in range(S)] for i in range(S)]
-    lines = [program.jacobian().cuda_function("jac"),
+    lines = [program.jacobian().cuda_function("jac", columns),
              "__device__ __forceinline__ void step_kvaerno3(float* y, "
-             "const float* sf, const float* p) {",
+             "const float* sf, const float* p, const float* uf) {",
              "  const float h = sf[0], hg = sf[1];",
              "  float k0[ODE_S], k1[ODE_S], k2[ODE_S], b[ODE_S], z[ODE_S], "
              f"fz[ODE_S], J[{S * S}];",
-             "  rhs(sf[2], y, p, k0);",
-             "  jac(sf[2], y, p, J);"]
+             "  (void)uf;",
+             "  rhs(sf[2], y, p, uf, k0);",
+             "  jac(sf[2], y, p, uf, J);"]
     for i in range(S):
         for j in range(S):
             lines.append(f"  float {a[i][j]} = {'1.0f' if i == j else '0.0f'}"
@@ -134,7 +151,7 @@ def kvaerno3_source(program) -> str:
         for s in range(S):
             lines.append(f"  z[{s}] = b[{s}] + hg * {ks[st - 1]}[{s}];")
         lines += [f"  for (int it = 0; it < {KV3_NEWTON}; ++it) {{",
-                  f"    rhs(sf[{st + 2}], z, p, fz);"]
+                  f"    rhs(sf[{st + 2}], z, p, {_row(min(st, 2), F)}, fz);"]
         for s in range(S):
             lines.append(f"    float x{s} = z[{s}] - hg * fz[{s}] - b[{s}];")
         for i in range(S):          # forward substitution (unit lower)
@@ -187,30 +204,43 @@ def obs_source(i: int, scoring) -> str:
            for k, v in f64] + ["};", ""])
 
 
-def _model_source(i: int, program, scoring) -> str:
+def _columns_comment(columns) -> str:
+    """The forcing columns as a comment (so the forcing names, never
+    their values, are part of the library's hash)."""
+    from ..rhs import column_text
+    return "\n".join(f"// u[{k}] = {column_text(c)}"
+                     for k, c in enumerate(columns))
+
+
+def _model_source(i: int, program, scoring, columns=None) -> str:
     """A further model of a joint fit: its RHS and steppers in namespace
     ``odelib_m<i>``, its scoring constants and the ``Model<i>`` type the
-    joint kernel scores."""
+    joint kernel scores (``F`` forcing columns a stage row)."""
     ns, S, P = f"odelib_m{i}", program.n_states, program.n_params
-    fwd = [(f"rhs(float t, const float* y, const float* p, float* dy)",
-            "rhs(t, y, p, dy)"),
-           ("step_dopri5(float* y, const float* sf, const float* p)",
-            "step_dopri5(y, sf, p)"),
-           ("step_rk4(float* y, const float* sf, const float* p)",
-            "step_rk4(y, sf, p)")]
+    columns = forcing_columns(program) if columns is None else columns
+    fwd = [("rhs(float t, const float* y, const float* p, const float* u, "
+            "float* dy)", "rhs(t, y, p, u, dy)"),
+           ("step_dopri5(float* y, const float* sf, const float* p, "
+            "const float* uf)", "step_dopri5(y, sf, p, uf)"),
+           ("step_rk4(float* y, const float* sf, const float* p, "
+            "const float* uf)", "step_rk4(y, sf, p, uf)")]
     return "\n".join(
-        [f"// model {i}: traced from {program.name}", f"namespace {ns} {{",
-         program.cuda_function("rhs"), stepper_source(S, str(S)), "}",
+        [f"// model {i}: traced from {program.name}",
+         _columns_comment(columns), f"namespace {ns} {{",
+         program.cuda_function("rhs", columns),
+         stepper_source(S, str(S), len(columns)), "}",
          obs_source(i, scoring),
          f"struct Model{i} : ObsModel{i} {{",
          f"  static constexpr int S = {S};",
-         f"  static constexpr int P = {P};"]
+         f"  static constexpr int P = {P};",
+         f"  static constexpr int F = {len(columns)};"]
         + [f"  static __device__ __forceinline__ void {sig} {{ "
            f"{ns}::{call}; }}" for sig, call in fwd] + ["};", ""])
 
 
 def generated_header(program, diffusion, extra, scoring,
-                     stiff: bool = False, milstein: bool = False) -> str:
+                     stiff: bool = False, milstein: bool = False,
+                     columns=None) -> str:
     """``odelib_gen.cuh`` for a traced RHS program; with the traced
     ``diffusion`` of an SDE model (or None), with the ``extra`` programs
     of a joint fit's other models, with each model's ``scoring`` (one
@@ -219,27 +249,39 @@ def generated_header(program, diffusion, extra, scoring,
     ensemble and PT kernels then hold kvaerno3 instantiations), and with
     ``milstein`` the diffusion's diagonal derivative ``diffusion_diag()``
     (:meth:`~odelib_tpu_torch.rhs.RhsProgram.diagonal`; ``ODE_MILSTEIN``:
-    the particle filter's instantiations then take the Milstein step)."""
+    the particle filter's instantiations then take the Milstein step).
+    ``columns`` gives each model's forcing columns (the plan's forcing
+    table, ``model.spec_columns``; model 0's cover its diffusion); by
+    default each program's own (:func:`~odelib_tpu_torch.rhs.
+    forcing_columns`)."""
     import math
     if len(scoring) != 1 + len(extra):
         raise ValueError(f"{len(scoring)} scorings for {1 + len(extra)} "
                          "models")
+    if columns is None:
+        columns = (forcing_columns(program, diffusion),) + tuple(
+            forcing_columns(p) for p in extra)
+    c0 = columns[0]
     parts = ["// generated by odelib_tpu_torch/ops/build.py; do not edit",
              "#pragma once",
-             f"#define ODELIB_TWO_PI {_f32_literal(2.0 * math.pi)}",
-             program.cuda_source(), stepper_source(program.n_states),
-             obs_source(0, scoring[0])]
+             f"#define ODELIB_TWO_PI {_f32_literal(2.0 * math.pi)}"]
+    if c0:
+        parts.append(_columns_comment(c0))
+    parts += [program.cuda_source(c0),
+              stepper_source(program.n_states, n_forc=len(c0)),
+              obs_source(0, scoring[0])]
     if stiff:
-        parts += ["#define ODE_KVAERNO3 1", kvaerno3_source(program)]
+        parts += ["#define ODE_KVAERNO3 1", kvaerno3_source(program, c0)]
     if diffusion is not None:
         parts += ["#define ODE_HAS_DIFFUSION 1",
                   f"// diffusion traced from {diffusion.name}",
-                  diffusion.cuda_function("diffusion")]
+                  diffusion.cuda_function("diffusion", c0)]
         if milstein:
             parts += ["#define ODE_MILSTEIN 1",
-                      diffusion.diagonal().cuda_function("diffusion_diag")]
+                      diffusion.diagonal().cuda_function("diffusion_diag",
+                                                         c0)]
     if extra:
-        parts += [_model_source(i + 1, p, scoring[i + 1])
+        parts += [_model_source(i + 1, p, scoring[i + 1], columns[i + 1])
                   for i, p in enumerate(extra)]
         parts += ["#define ODE_MODELS(X) " + " ".join(
                       f"X({i})" for i in range(len(extra) + 1)),
@@ -259,7 +301,7 @@ def nvcc() -> str:
 
 
 def build(program, diffusion, extra, scoring, stiff: bool = False,
-          milstein: bool = False) -> Path:
+          milstein: bool = False, columns=None) -> Path:
     """Compile the kernels for ``program`` (with an SDE's ``diffusion``, a
     joint fit's ``extra`` programs, each model's ``scoring``, with
     ``stiff`` the Kvaerno3 instantiations and with ``milstein`` the
@@ -267,7 +309,7 @@ def build(program, diffusion, extra, scoring, stiff: bool = False,
     shared library's path. The compiler's output and the build's seconds
     are kept beside it in ``nvcc.log``."""
     header = generated_header(program, diffusion, extra, scoring, stiff,
-                              milstein)
+                              milstein, columns)
     h = hashlib.sha256()
     for part in (header, *((CSRC / s).read_text()
                            for s in SOURCES + HEADERS),
@@ -301,19 +343,26 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 
 
-def distinct_programs(specs, scoring):
+def distinct_programs(specs, scoring, with_columns=False):
     """The traced RHS programs of ``specs`` without repeats (two specs
-    whose RHS emits the same device code and have the same ``scoring``,
-    one per spec, share one), and each spec's index into them: the model
-    of each experiment of a joint fit."""
-    programs, index, model_of = [], {}, []
+    whose RHS emits the same device code, reading the same forcing
+    columns, and have the same ``scoring``, one per spec, share one), and
+    each spec's index into them: the model of each experiment of a joint
+    fit. With ``with_columns`` also each program's forcing columns
+    (``model.spec_columns`` of its first spec)."""
+    from ..model import rhs_program, spec_columns
+    programs, index, model_of, columns = [], {}, [], []
     for k, sp in enumerate(specs):
-        prog = trace_rhs(sp.rhs, len(sp.snames), sp.theta_size)
-        text = (prog.cuda_function("rhs"), tuple(scoring[k]))
+        prog = rhs_program(sp)
+        cols = spec_columns(sp)
+        text = (prog.cuda_function("rhs", cols), cols, tuple(scoring[k]))
         if text not in index:
             index[text] = len(programs)
             programs.append(prog)
+            columns.append(cols)
         model_of.append(index[text])
+    if with_columns:
+        return programs, model_of, tuple(columns)
     return programs, model_of
 
 
@@ -331,19 +380,20 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
     ``diffusion`` and ``milstein`` the particle filter takes the Milstein
     step (a library of its own too, whose ``odelib_pf`` refuses an Euler
     launch, as the Euler library's refuses a Milstein one)."""
+    from ..model import diffusion_program
     specs = (spec, *others)
     scoring = tuple(tuple(k) for k in scoring)
-    programs, model_of = distinct_programs(specs, scoring)
+    programs, model_of, columns = distinct_programs(specs, scoring, True)
     keys = tuple(scoring[model_of.index(i)] for i in range(len(programs)))
     diffusion = None if not diffusion or spec.diffusion is None else \
-        trace_rhs(spec.diffusion, len(spec.snames), spec.theta_size)
+        diffusion_program(spec)
     milstein = bool(milstein) and diffusion is not None
-    key = (tuple(programs), keys, diffusion, bool(stiff), milstein)
+    key = (tuple(programs), keys, diffusion, bool(stiff), milstein, columns)
     lib = _BY_PROGRAM.get(key)
     if lib is not None:
         return lib
     path = str(build(programs[0], diffusion, tuple(programs[1:]), keys,
-                     bool(stiff), milstein))
+                     bool(stiff), milstein, columns))
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)

@@ -13,8 +13,8 @@
 #include <cuda_runtime.h>
 
 #include "odelib_gen.cuh"  // rhs(), step_dopri5(), step_rk4(), ODE_S, ODE_P,
-                           // ObsModel0; with ODE_KVAERNO3, jac() and
-                           // step_kvaerno3()
+                           // ODE_F, ObsModel0; with ODE_KVAERNO3, jac()
+                           // and step_kvaerno3()
 
 // The fixed steppers by id (ops/cuda_mh.py _STEPPER_ID; 2 is the particle
 // filter's Euler step layout). A library built for a stiff path
@@ -34,32 +34,46 @@ inline int stepper_row(int stepper) {
          : stepper == STEP_KVAERNO3 ? 2 : -1;
 }
 
+// Rows of the forcing table per step: one per distinct stage time of the
+// stepper (ops/cuda_mh.py STAGE_C; 2, the particle filter's Euler step, 1).
+// Each row holds the model's F forcing columns.
+__host__ __device__ constexpr int forc_rows(int stepper) {
+  return stepper == STEP_DOPRI5 ? 6 : stepper == 2 ? 1 : 3;
+}
+
 // The model of the generated header as a type, so the scorer can be
 // instantiated per model: a joint fit of different models adds Model1, ...
 // to the header (ops/build.py) and lists them all in ODE_MODELS. Its
 // scoring constants (ObsModel0: FAMILY, CENSORED, DOSED and the family's
 // constants) select at compile time the one branch of the scorer it runs.
+// A step's forcing rows uf (forc_rows of its stepper, F floats each) are
+// passed to the steppers, which hand each stage its row.
 struct Model0 : ObsModel0 {
   static constexpr int S = ODE_S;
   static constexpr int P = ODE_P;
+  static constexpr int F = ODE_F;
   static __device__ __forceinline__ void rhs(float t, const float* y,
-                                             const float* p, float* dy) {
-    ::rhs(t, y, p, dy);
+                                             const float* p, const float* u,
+                                             float* dy) {
+    ::rhs(t, y, p, u, dy);
   }
   static __device__ __forceinline__ void step_dopri5(float* y,
                                                      const float* sf,
-                                                     const float* p) {
-    ::step_dopri5(y, sf, p);
+                                                     const float* p,
+                                                     const float* uf) {
+    ::step_dopri5(y, sf, p, uf);
   }
   static __device__ __forceinline__ void step_rk4(float* y, const float* sf,
-                                                  const float* p) {
-    ::step_rk4(y, sf, p);
+                                                  const float* p,
+                                                  const float* uf) {
+    ::step_rk4(y, sf, p, uf);
   }
 #ifdef ODE_KVAERNO3
   static __device__ __forceinline__ void step_kvaerno3(float* y,
                                                        const float* sf,
-                                                       const float* p) {
-    ::step_kvaerno3(y, sf, p);
+                                                       const float* p,
+                                                       const float* uf) {
+    ::step_kvaerno3(y, sf, p, uf);
   }
 #endif
 };
@@ -75,7 +89,7 @@ enum : int {
   H_NSTEPS = 0, H_NGRID, H_NOBS, H_STEPPER,
   H_STEP_GI, H_STEP_OBS, H_OBS_PTR, H_OBS_MASK, H_INIT_PIDX,
   H_F_STEPS, H_F_LAB, H_F_DEN, H_F_AB, H_F_Y0,
-  H_CEN, H_DOSE_PTR, H_DOSE_STATE, H_F_LSIG, H_F_DOSE_AMT
+  H_CEN, H_DOSE_PTR, H_DOSE_STATE, H_F_LSIG, H_F_DOSE_AMT, H_F_FORC
 };
 
 // Observation models (ops/build.py OBS_FAMILY).
@@ -103,6 +117,7 @@ struct Plan {
   const int* dose_ptr;    // per grid point: first dose (CSR)
   const int* dose_state;  // per dose: the raw state it joins
   const float* dose_amt;  // per dose: the amount (one entry per state)
+  const float* forc;      // per step: forc_rows(stepper) rows of F columns
 };
 
 __device__ __forceinline__ Plan load_plan(const int* __restrict__ pi,
@@ -125,6 +140,7 @@ __device__ __forceinline__ Plan load_plan(const int* __restrict__ pi,
   p.dose_ptr = pi + pi[H_DOSE_PTR];
   p.dose_state = pi + pi[H_DOSE_STATE];
   p.dose_amt = pf + pi[H_F_DOSE_AMT];
+  p.forc = pf + pi[H_F_FORC];
   return p;
 }
 
@@ -359,12 +375,13 @@ __device__ __forceinline__ void score_model(const Plan& pl,
   for (int k = 0; k < pl.n_steps; ++k) {
     const int o0 = pl.step_obs[2 * k], o1 = pl.step_obs[2 * k + 1];
     const float* sf = pl.steps + 8 * k;
+    const float* uf = pl.forc + k * (forc_rows(STEPPER) * M::F);
     if constexpr (STEPPER == STEP_DOPRI5) {
-      M::step_dopri5(y, sf, theta);
+      M::step_dopri5(y, sf, theta, uf);
     } else if constexpr (STEPPER == STEP_RK4) {
-      M::step_rk4(y, sf, theta);
+      M::step_rk4(y, sf, theta, uf);
     } else {
-      M::step_kvaerno3(y, sf, theta);
+      M::step_kvaerno3(y, sf, theta, uf);
     }
     obs_terms<M>(pl, o0, o1, y, chi, ssres);
     if constexpr (M::DOSED) {

@@ -335,6 +335,7 @@ __device__ __forceinline__ float particle_filter(const Plan& pl,
   }
   for (int n = 0; n < pl.n_steps; ++n) {
     const float* sf = pl.steps + 8 * n;   // h, t, f32(sqrt h), f32(h / 2)
+    const float* u = pl.forc + n * ODE_F;  // the forcings at t
     const float h = sf[0], t = sf[1], sq = sf[2];
     float xi[PPT][ODE_S];
 #pragma unroll
@@ -356,12 +357,12 @@ __device__ __forceinline__ float particle_filter(const Plan& pl,
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       float f[ODE_S], g[ODE_S];
-      rhs(t, y[i], theta, f);
-      diffusion(t, y[i], theta, g);
+      rhs(t, y[i], theta, u, f);
+      diffusion(t, y[i], theta, u, g);
       if constexpr (MILSTEIN) {
 #ifdef ODE_MILSTEIN
         float dg[ODE_S];
-        diffusion_diag(t, y[i], theta, dg);   // at the pre-step state
+        diffusion_diag(t, y[i], theta, u, dg);   // at the pre-step state
         const float hh = sf[3];
 #pragma unroll
         for (int s = 0; s < ODE_S; ++s) {

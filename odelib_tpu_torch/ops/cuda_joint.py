@@ -23,7 +23,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..rhs import trace_rhs
+from ..model import rhs_program
 from . import chunked
 from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
                       _as_f32_tensor, _build_plan, _check_stepper,
@@ -265,7 +265,7 @@ def joint_metropolis_hastings_fused(
     th0 = theta0.t().contiguous()
     if th0.device.type == "cuda":
         for sp in specs:   # raises RhsTraceError for an RHS the kernel
-            trace_rhs(sp.rhs, len(sp.snames), sp.theta_size)  # cannot take
+            rhs_program(sp)  # cannot take
         launcher = joint_launcher
     else:
         launcher = twin_launcher(joint_plain)

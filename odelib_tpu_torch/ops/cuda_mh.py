@@ -27,8 +27,9 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..model import ModelSpec, ObsData, obsdata_from_arrays
-from ..rhs import jacobian_evaluator, torch_evaluator, trace_rhs
+from ..model import (ModelSpec, ObsData, forcing_rows, obsdata_from_arrays,
+                     rhs_program, spec_columns)
+from ..rhs import jacobian_evaluator, torch_evaluator
 from . import chunked
 from .priors import checked_priors, logprior_plain
 from .runge_kutta import (DP_C, FIXED_STEPPERS, KV3_C, KV3_GAMMA, const,
@@ -164,7 +165,55 @@ def scoring(plan: _StaticPlan):
 # the fixed steppers' ids (csrc/common.cuh STEP_*)
 _STEPPER_ID = {"dopri5": 0, "rk4": 1, "kvaerno3": 3}
 _EULER = 2  # header stepper id of the particle filter's step layout
-_HDR = 19  # int header of plan_i (see csrc/common.cuh)
+_HDR = 20  # int header of plan_i (see csrc/common.cuh)
+# each stepper's distinct stage offsets c (stage time t + c h): one row of
+# the forcing table per offset and step (csrc/common.cuh forc_rows). RK4's
+# two middle stages share t + h/2, Kvaerno3's last two t + h.
+STAGE_C = {"dopri5": DP_C[:6], "rk4": (0.0, 0.5, 1.0),
+           "kvaerno3": (0.0, KV3_C[1], 1.0), "euler": (0.0,)}
+
+
+def stage_time(t: float, h: float, c: float) -> float:
+    """A stage's time as the steppers compute it: t + c h in double (t
+    itself at c = 0)."""
+    return t if c == 0.0 else t + c * h
+
+
+@lru_cache(maxsize=64)
+def forcing_table(spec: ModelSpec, plan: "_StaticPlan", stepper: str):
+    """(n_steps, len(STAGE_C[stepper]), F) float32: every forcing column
+    (:func:`~odelib_tpu_torch.model.spec_columns`) at every distinct stage
+    time of every step, folded in double at the time in double and rounded
+    to float32 once (the JAX kernel's Python floats, where they meet a
+    tile). F is 0 for an unforced model."""
+    cs = STAGE_C[stepper]
+    F = len(spec_columns(spec))
+    if not F:
+        return np.zeros((len(plan.step_ts), len(cs), 0), np.float32)
+    times = [stage_time(t, h, c) for t, h, _ in plan.step_ts for c in cs]
+    return forcing_rows(spec, times).astype(np.float32).reshape(
+        len(plan.step_ts), len(cs), F)
+
+
+def stage_forcings(spec: ModelSpec, plan, stepper: str, device=None):
+    """Per step, the forcing values each stage time reads, as the twins'
+    steppers ask for them: ``{stage time: {column: float32 tensor}}`` (the
+    rows of :func:`forcing_table`); None for an unforced model."""
+    cols = spec_columns(spec)
+    if not cols:
+        return None
+    tab = torch.as_tensor(forcing_table(spec, plan, stepper), device=device)
+    return [{stage_time(t, h, c): dict(zip(cols, tab[k, r]))
+             for r, c in enumerate(STAGE_C[stepper])}
+            for k, (t, h, _) in enumerate(plan.step_ts)]
+
+
+def with_forcings(f, at):
+    """``f(t, y, ps)`` reading the forcing values of its stage time from
+    ``at`` (one step's :func:`stage_forcings`), or ``f`` itself."""
+    if at is None:
+        return f
+    return lambda t, y, ps: f(t, y, ps, at[t])
 _MAX_MASK_STATES = 32  # an observation's members are a bit mask of states
 
 
@@ -182,9 +231,11 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     observations, the per-grid-point observation CSR, each observation's
     member mask and the init-parameter wiring) and ``plan_f`` (float32:
     sstot, each observation's log sigma, the dose amounts, then 8 floats
-    per step, the per-observation constants and y0). The tables added with
-    censoring and doses come first, so the others keep the places they
-    had. Floats are rounded to float32 on the host exactly where the JAX
+    per step, the per-observation constants, y0 and the forcing table of
+    :func:`forcing_table`, step-major). The tables added with censoring
+    and doses come first and the forcing table last, so the others keep
+    the places they had. Floats are rounded to float32 on the host exactly
+    where the JAX
     kernel's Python scalars meet float32 arrays (a grid point's doses of
     one state summed in double first). A step's 8 floats are, for
     'dopri5', h and its stage times; 'rk4' h, h/2, h/6 and its times;
@@ -212,6 +263,7 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
             np.asarray([sum(1 << m for m in o[0]) for o in obs]),
             np.asarray(spec.init_pidx)]
     steps = np.zeros((n_steps, 8))
+    forc = forcing_table(spec, plan, stepper)
     for k, (t, h, _) in enumerate(plan.step_ts):
         if stepper == "dopri5":
             steps[k, :7] = [h] + [t + DP_C[i] * h for i in range(6)]
@@ -228,15 +280,17 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
               np.asarray([o[1] for o in obs]),
               np.asarray([2.0 * o[2] * o[2] for o in obs]),
               np.asarray([o[3] for o in obs]),
-              np.asarray(y0_base, np.float64)]
+              np.asarray(y0_base, np.float64),
+              forc.ravel()]
     offs_i = np.cumsum([_HDR] + [len(a) for a in ints])[:-1]
     offs_f = np.cumsum([0] + [len(a) for a in floats])[:-1]
     header = np.zeros(_HDR, np.int64)
     header[:4] = [n_steps, n_grid, len(obs), _STEPPER_ID.get(stepper, _EULER)]
     header[4:9] = offs_i[3:]
-    header[9:14] = offs_f[3:]
+    header[9:14] = offs_f[3:8]
     header[14:17] = offs_i[:3]
     header[17:19] = offs_f[1:3]
+    header[19] = offs_f[8]
     plan_i = np.concatenate([header] + [np.asarray(a, np.int64)
                                         for a in ints]).astype(np.int32)
     plan_f = np.concatenate(floats).astype(np.float32)
@@ -471,16 +525,20 @@ def make_scorer(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     observation model, each grid point's doses after its terms, on a list
     of P per-slot float32 tensors."""
     y0_base = tuple(float(v) for v in np.asarray(y0_base))
-    S, P = len(spec.snames), spec.theta_size
-    f = torch_evaluator(spec.rhs, S, P)
+    S = len(spec.snames)
+    f = torch_evaluator(spec.rhs, S, spec.pshapes, spec.forcings)
     if stepper == "kvaerno3":   # the traced Jacobian, as the kernel's
-        jac = jacobian_evaluator(spec.rhs, S, P)
+        jac = jacobian_evaluator(spec.rhs, S, spec.pshapes, spec.forcings)
 
-        def step(f, t, y, h, ps):
-            return kvaerno3_fixed_step(f, t, y, h, ps, jac)
+        def step(f, t, y, h, ps, at):
+            return kvaerno3_fixed_step(f, t, y, h, ps, with_forcings(jac, at))
     else:
-        step = FIXED_STEPPERS[stepper]
+        fixed = FIXED_STEPPERS[stepper]
+
+        def step(f, t, y, h, ps, at):
+            return fixed(f, t, y, h, ps)
     dosed = scoring(plan)[3]
+    forc = {}     # the stage tables, per device
 
     def contrib(y, gi, chi, ssres):
         chi, ssres = obs_terms(plan.obs_after[gi], y, chi, ssres,
@@ -495,8 +553,12 @@ def make_scorer(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
         chi = torch.zeros_like(ref)
         ssres = torch.zeros_like(ref)
         chi, ssres, y = contrib(y, 0, chi, ssres)
-        for t, h, gi in plan.step_ts:
-            y = step(f, t, y, h, theta)
+        if ref.device not in forc:
+            forc[ref.device] = stage_forcings(spec, plan, stepper, ref.device)
+        at = forc[ref.device]
+        for k, (t, h, gi) in enumerate(plan.step_ts):
+            ak = None if at is None else at[k]
+            y = step(with_forcings(f, ak), t, y, h, theta, ak)
             if gi >= 0:
                 chi, ssres, y = contrib(y, gi, chi, ssres)
         rsq = const(1.0, ref) - ssres / const(plan.sstot, ref)
@@ -742,7 +804,7 @@ def _check_cuda(spec, t: torch.Tensor):
     if t.device.type != "cuda":
         return False
     # raises RhsTraceError for an RHS the kernels cannot compile
-    trace_rhs(spec.rhs, len(spec.snames), spec.theta_size)
+    rhs_program(spec)
     return True
 
 

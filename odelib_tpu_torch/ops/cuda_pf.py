@@ -32,14 +32,13 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..model import ModelSpec, ObsData
-from ..rhs import (RhsTraceError, diagonal_evaluator, torch_evaluator,
-                   trace_rhs)
+from ..model import ModelSpec, ObsData, diffusion_program, rhs_program
+from ..rhs import RhsTraceError, diagonal_evaluator, torch_evaluator
 from . import chunked
 from .cuda_mh import (_M32, LAUNCHES, _as_f32_tensor, _build_plan,
                       _check_mesh, _device_plan, _key, _normalize_substeps,
                       _ptr, _records, apply_doses, chunk_range, mix,
-                      obs_terms, scoring, uniform_of)
+                      obs_terms, scoring, stage_forcings, uniform_of)
 from .build import PF_KMAX
 from .priors import checked_priors, logprior_plain, prior_table
 from .runge_kutta import const
@@ -76,9 +75,8 @@ def _trace_sde(spec: ModelSpec, milstein: bool):
     """Trace the drift and the diffusion (and, for Milstein, the
     diffusion's diagonal derivative) as the kernel's build does: raises
     ``RhsTraceError`` for a function the kernel cannot take."""
-    S, P = len(spec.snames), spec.theta_size
-    trace_rhs(spec.rhs, S, P)
-    g = trace_rhs(spec.diffusion, S, P)
+    rhs_program(spec)
+    g = diffusion_program(spec)
     if milstein:
         g.diagonal()
 
@@ -187,12 +185,13 @@ class _Filter:
     plan and particle count; ``run`` estimates -loglik for every chain."""
 
     def __init__(self, spec, plan, y0_base, K, keys, key0, milstein=False):
-        S, P = len(spec.snames), spec.theta_size
+        S, shapes, forc = len(spec.snames), spec.pshapes, spec.forcings
         self.spec, self.plan, self.K, self.S = spec, plan, K, S
-        self.f = torch_evaluator(spec.rhs, S, P)
-        self.g = torch_evaluator(spec.diffusion, S, P)
-        self.dg = diagonal_evaluator(spec.diffusion, S, P) if milstein \
-            else None
+        self.f = torch_evaluator(spec.rhs, S, shapes, forc)
+        self.g = torch_evaluator(spec.diffusion, S, shapes, forc)
+        self.dg = diagonal_evaluator(spec.diffusion, S, shapes, forc) \
+            if milstein else None
+        self.forc = {}      # the Euler rows of the forcing table, by device
         self.y0 = tuple(float(v) for v in np.asarray(y0_base))
         self.keys, self.key0 = keys, key0
         gis = obs_grid_indices(plan)
@@ -232,11 +231,17 @@ class _Filter:
             y, loglik, slot = self.resample(y, 0, loglik, ctr, slot)
         if self.dosed:
             y = apply_doses(self.plan, 0, y)
-        for t, h, gi in self.plan.step_ts:
-            f = self.f(t, y, theta)
-            g = self.g(t, y, theta)
+        dev = ref.device
+        if dev not in self.forc:
+            self.forc[dev] = stage_forcings(self.spec, self.plan, "euler",
+                                            dev)
+        at = self.forc[dev]
+        for k, (t, h, gi) in enumerate(self.plan.step_ts):
+            u = None if at is None else at[k][t]   # the forcings at t
+            f = self.f(t, y, theta, u)
+            g = self.g(t, y, theta, u)
             # Milstein: d g_s / d y_s at the pre-step state
-            dg = None if self.dg is None else self.dg(t, y, theta)
+            dg = None if self.dg is None else self.dg(t, y, theta, u)
             xi = []
             for _ in range(self.S):
                 if stash is not None:

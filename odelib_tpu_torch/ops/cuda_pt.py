@@ -97,12 +97,22 @@ def pt_plain(spec, plan, y0_base, theta0, seed, *, nits, burnin, scales,
     two, aic_c = const(2.0, chi0), const(2.0 * num, chi0)
     for it in range(it_base + 1, it_end):
         rng.start(it)
+        # every rung's proposal and accept uniform in the kernel's slot
+        # order, then all rungs scored in one call on (K C,) tensors: the
+        # same elementwise float32 operations, a K-th of the launches
+        props, us = [], []
         for k in range(K):
-            prop = [lt[k][p] + sc[k][p] * rng.normal() if walked[p]
-                    else lt[k][p] for p in range(P)]
-            thp = [torch.exp(v) for v in prop]
-            chi_new, rsq_new = score(thp)
-            u = rng.uniform()
+            props.append([lt[k][p] + sc[k][p] * rng.normal() if walked[p]
+                          else lt[k][p] for p in range(P)])
+            us.append(rng.uniform())
+        thp_all = [torch.exp(torch.cat([pr[p] for pr in props]))
+                   for p in range(P)]
+        chi_all, rsq_all = score(thp_all)
+        for k in range(K):
+            prop, u = props[k], us[k]
+            thp = [v[k * C:(k + 1) * C] for v in thp_all]
+            chi_new = chi_all[k * C:(k + 1) * C]
+            rsq_new = rsq_all[k * C:(k + 1) * C]
             log_ratio = chi[k] - chi_new
             if prior is not None:
                 lp_new = logprior_plain(prior, thp)

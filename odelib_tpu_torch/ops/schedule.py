@@ -80,7 +80,7 @@ def calibrate_substeps(spec, y0, times, thetas, *, rtol: float = 1e-6,
         np.asarray(y0, np.float64), dtype=torch.float64, device=th.device),
         th)
     sol = odeint_grid(state_func(spec), y0_i, np.asarray(times, np.float64),
-                      spec.unpack_theta(th), rtol=rtol, atol=atol,
+                      spec.slots(th), rtol=rtol, atol=atol,
                       max_steps=max_steps, method=method,
                       dose=dose_matrix(spec, times), jac=state_jac(spec))
     return _schedule(sol.accepted_at.t().cpu().numpy(),

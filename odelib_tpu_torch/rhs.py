@@ -17,6 +17,18 @@ of the JAX kernel's ``jax.jvp`` calls), emitted in both forms;
 :meth:`RhsProgram.diagonal` keeps its diagonal (a diffusion's d g_s / d y_s
 for the Milstein step of the particle filter).
 
+Array parameters (``pshapes``) reach the RHS as indexable proxies of one
+leaf per theta slot: ``mu[0]``, ``A[i, j]``, ``A[i][j]``, iteration,
+``len`` and elementwise arithmetic, the JAX kernel's stacked slot tiles;
+linear algebra on them (``A @ y``) raises :class:`RhsTraceError`, as the
+JAX package's ``rhs_supports_tiles`` refuses it. A forced RHS takes a
+fourth argument, a dict of forcing leaves. Every node that depends on
+forcings and constants only is folded into a leaf of its own, a forcing
+*column* keyed by its expression (:func:`fold_host` evaluates it at a
+concrete time in double, as the JAX kernel's Python floats fold at trace
+time), so the kernels read each column from a table and never do that
+arithmetic in float32.
+
 Both keep Python's evaluation order, and constants are rounded to float32
 exactly as JAX rounds a weakly-typed Python scalar against a float32 array,
 so the kernel, its twin and the JAX reference perform the same float32
@@ -37,6 +49,7 @@ from __future__ import annotations
 
 import inspect
 import math
+import operator
 import types
 from functools import lru_cache
 
@@ -61,6 +74,12 @@ class _Graph:
         self._index = {}
 
     def node(self, op, args=(), value=None):
+        if args and all(a.op in ("u", "const") for a in args) and any(
+                a.op == "u" for a in args):
+            # forcings and constants only: one folded column leaf
+            return self.node("u", value=(op,) + tuple(
+                a.value if a.op == "u" else ("c", a.value.hex())
+                for a in args))
         key = (op, tuple(a.id for a in args),
                value.hex() if isinstance(value, float) else value)
         n = self._index.get(key)
@@ -150,36 +169,111 @@ class Expr:
         "converting a traced value to a Python number (float(), int(), "
         "math.* functions)")
     __len__ = __iter__ = __getitem__ = _no(
-        "indexing or iterating a scalar state or parameter (array "
-        "parameters)")
+        "indexing or iterating a scalar state or parameter")
     __matmul__ = __rmatmul__ = _no("the matrix product '@'")
     __floordiv__ = __rfloordiv__ = __mod__ = __rmod__ = _no(
         "floor division and modulo")
 
 
 class _Vec:
-    """The traced state vector: supports ``y[i]``, unpacking and len()."""
+    """A traced array: the state vector, or an array parameter (one leaf
+    per theta slot, row-major): ``v[i]``, ``A[i, j]``, ``A[i][j]``,
+    slices of the first axis, unpacking, ``len`` and elementwise
+    arithmetic, broadcast against scalars and arrays of its shape, as the
+    JAX kernel's stacked slot tiles. Linear algebra raises."""
 
-    def __init__(self, items):
+    def __init__(self, items, shape=None):
         self._items = list(items)
+        self.shape = (len(self._items),) if shape is None else tuple(shape)
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    def _row(self, i):
+        n = self.shape[0]
+        if not -n <= i < n:
+            raise RhsTraceError(f"index {i} is out of range for an array "
+                                f"of shape {self.shape}")
+        i %= n
+        if len(self.shape) == 1:
+            return self._items[i]
+        w = len(self._items) // n
+        return _Vec(self._items[i * w:(i + 1) * w], self.shape[1:])
 
     def __getitem__(self, i):
+        if isinstance(i, tuple):
+            out = self
+            for k in i:
+                if not isinstance(out, _Vec):
+                    raise RhsTraceError(f"too many indices for an array of "
+                                        f"shape {self.shape}")
+                out = out[k]
+            return out
         if isinstance(i, slice):
-            return _Vec(self._items[i])
-        if isinstance(i, (int, np.integer)):
-            return self._items[int(i)]
-        raise RhsTraceError("indexing the state vector with a "
+            rows = [self._row(k) for k in range(*i.indices(self.shape[0]))]
+            if len(self.shape) == 1:
+                return _Vec(rows)
+            return _Vec([x for r in rows for x in r._items],
+                        (len(rows),) + self.shape[1:])
+        if isinstance(i, (int, np.integer)) and not isinstance(i, bool):
+            return self._row(int(i))
+        raise RhsTraceError("indexing a traced array with a "
                             f"{type(i).__name__} is not supported")
 
     def __iter__(self):
-        return iter(self._items)
+        return iter([self._row(i) for i in range(self.shape[0])])
 
     def __len__(self):
-        return len(self._items)
+        return self.shape[0]
+
+    def _map(self, fn, other=None, rev=False):
+        if other is None:
+            return _Vec([fn(a) for a in self._items], self.shape)
+        if isinstance(other, _Vec):
+            if other.shape != self.shape:
+                raise RhsTraceError(f"arrays of shapes {self.shape} and "
+                                    f"{other.shape} do not combine "
+                                    "elementwise in the RHS tracer")
+            pairs = zip(other._items, self._items) if rev \
+                else zip(self._items, other._items)
+        elif isinstance(other, (list, tuple)):
+            return self._map(fn, _Vec(other), rev)
+        else:
+            pairs = ((other, a) for a in self._items) if rev \
+                else ((a, other) for a in self._items)
+        return _Vec([fn(a, b) for a, b in pairs], self.shape)
+
+    def __add__(self, o): return self._map(lambda a, b: a + b, o)
+    def __radd__(self, o): return self._map(lambda a, b: a + b, o, True)
+    def __sub__(self, o): return self._map(lambda a, b: a - b, o)
+    def __rsub__(self, o): return self._map(lambda a, b: a - b, o, True)
+    def __mul__(self, o): return self._map(lambda a, b: a * b, o)
+    def __rmul__(self, o): return self._map(lambda a, b: a * b, o, True)
+    def __truediv__(self, o): return self._map(lambda a, b: a / b, o)
+    def __rtruediv__(self, o): return self._map(lambda a, b: a / b, o, True)
+    def __pow__(self, o): return self._map(lambda a, b: a ** b, o)
+    def __rpow__(self, o): return self._map(lambda a, b: a ** b, o, True)
+    def __neg__(self): return self._map(lambda a: -a)
+    def __pos__(self): return self
+    def __abs__(self): return self._map(abs)
+
+    __array_ufunc__ = None
+    __matmul__ = __rmatmul__ = _no("the matrix product '@' (linear algebra "
+                                   "on an array parameter)")
+    __bool__ = _no("Python control flow on a traced array")
 
     @property
-    def shape(self):
-        return (len(self._items),)
+    def T(self):
+        raise RhsTraceError("transposing an array parameter (linear "
+                            "algebra) is not supported by the RHS tracer")
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        raise RhsTraceError(f"the array method or attribute {name!r} is not "
+                            "supported by the RHS tracer (only indexing, "
+                            "iteration, len and elementwise arithmetic)")
 
 
 def _exprs(args):
@@ -218,6 +312,8 @@ class _Shim:
 
     def _unary(op, torch_fn):
         def f(self, x):
+            if isinstance(x, _Vec):
+                return x._map(lambda a: f(self, a))
             if isinstance(x, Expr):
                 return x.g.node(op, (x,))
             return torch_fn(torch.as_tensor(x))
@@ -231,6 +327,10 @@ class _Shim:
 
     def _binary(op, torch_fn):
         def f(self, a, b):
+            if isinstance(a, _Vec):
+                return a._map(lambda p, q: f(self, p, q), b)
+            if isinstance(b, _Vec):
+                return b._map(lambda p, q: f(self, q, p), a)
             x = _first_expr(a, b)
             if x is not None:
                 return x.g.node(op, (x.g.lift(a), x.g.lift(b)))
@@ -243,6 +343,14 @@ class _Shim:
     del _binary
 
     def where(self, c, a, b):
+        vec = next((v for v in (c, a, b) if isinstance(v, _Vec)), None)
+        if vec is not None:
+            parts = [v._items if isinstance(v, _Vec) else
+                     [v] * len(vec._items) for v in (c, a, b)]
+            if any(len(p) != len(vec._items) for p in parts):
+                raise RhsTraceError("np.where on arrays of different shapes "
+                                    "is not supported by the RHS tracer")
+            return _Vec([self.where(*abc) for abc in zip(*parts)], vec.shape)
         x = _first_expr(c, a, b)
         if x is not None:
             return x.g.node("where", tuple(x.g.lift(v) for v in (c, a, b)))
@@ -257,6 +365,8 @@ class _Shim:
         return _eager_stack(seq)
 
     def array(self, seq, dtype=None, **kw):
+        if isinstance(seq, _Vec) and seq.ndim > 1:
+            return seq
         if isinstance(seq, (list, tuple, _Vec)):
             return self.stack(seq)
         return seq if isinstance(seq, Expr) else torch.as_tensor(seq)
@@ -316,13 +426,24 @@ def infer_style(f) -> str:
 
 
 def adapt_rhs(f, style="auto"):
-    """The user's RHS as ``g(t, y, ps)`` with rebound globals."""
+    """The user's RHS as ``g(t, y, ps[, u])`` with rebound globals; ``u``,
+    a forced model's dict of forcing values, is passed through. The
+    adapter records whether the user's function takes it
+    (:func:`takes_forcings`)."""
     if style == "auto":
         style = infer_style(f)
     rf = rebind_globals(f)
     if style == "reference":
-        return lambda t, y, ps: rf(y, t, ps)
-    return lambda t, y, ps: rf(t, y, ps)
+        def g(t, y, ps, *rest):
+            return rf(y, t, ps, *rest)
+    else:
+        def g(t, y, ps, *rest):
+            return rf(t, y, ps, *rest)
+    try:
+        g._odelib_takes_u = len(inspect.signature(f).parameters) >= 4
+    except (TypeError, ValueError):
+        g._odelib_takes_u = False
+    return g
 
 
 _PY_OPS = {"add": "+", "sub": "-", "mul": "*", "div": "/", "lt": "<",
@@ -357,7 +478,7 @@ def _tangent(g, n, tan, one):
     tangent, folded out of products."""
     op, a = n.op, n.args
     ta = [tan.get(x.id) for x in a]
-    if op in ("const", "t", "p", "y") or op in _BOOL_OPS:
+    if op in ("const", "t", "p", "y", "u") or op in _BOOL_OPS:
         return None        # leaves are seeded by the caller; tests: 0
     if all(d is None for d in ta):
         return None
@@ -427,8 +548,13 @@ def _tangent(g, n, tan, one):
     raise RhsTraceError(f"no derivative rule for the RHS operation {op!r}")
 
 
+def _is_bool_column(key) -> bool:
+    return key[0] in _BOOL_OPS
+
+
 class RhsProgram:
-    """A traced RHS: ``n_states`` outputs over states, parameters and t."""
+    """A traced RHS: ``n_states`` outputs over states, parameters (one
+    leaf per theta slot), t and the forcing columns (:attr:`columns`)."""
 
     def __init__(self, graph, outputs, n_states, n_params, name="rhs"):
         self._graph = graph
@@ -444,9 +570,18 @@ class RhsProgram:
         self.order = [n for n in self.nodes if n.id in live]
         self._consts = {}
 
-    def evaluate(self, t, y, ps):
+    @property
+    def columns(self):
+        """The forcing columns this program reads, in node order: each a
+        folded expression key over the raw forcings (:func:`fold_host`)."""
+        return tuple(n.value for n in self.order if n.op == "u")
+
+    def evaluate(self, t, y, ps, u=None):
         """Torch evaluation: ``y`` is a sequence of S tensors, ``ps`` of P
-        tensors (or scalars); returns S tensors of the broadcast shape."""
+        per-slot tensors (or scalars), ``u`` maps each forcing column
+        (:attr:`columns`) to its value (a tensor or float; a boolean
+        column's as 1.0 or 0.0); returns S tensors of the broadcast
+        shape."""
         ref = y[0]
         key = (ref.dtype, ref.device)
         consts = self._consts.setdefault(key, {})
@@ -464,12 +599,17 @@ class RhsProgram:
                                     device=ref.device)
             elif n.op == "t":
                 v = torch.as_tensor(t, dtype=ref.dtype, device=ref.device)
+            elif n.op == "u":
+                v = torch.as_tensor(u[n.value], dtype=ref.dtype,
+                                    device=ref.device)
+                if _is_bool_column(n.value):
+                    v = v != 0
             else:
                 v = _TORCH_FN[n.op](*(val[a.id] for a in n.args))
             val[n.id] = v
         shape = torch.broadcast_shapes(
             *(v.shape for v in y),
-            *(val[n.id].shape for n in self.order if n.op == "p"))
+            *(val[n.id].shape for n in self.order if n.op in ("p", "u")))
         return [torch.broadcast_to(val[o.id], shape) for o in self.outputs]
 
     def jacobian(self) -> "RhsProgram":
@@ -516,18 +656,24 @@ class RhsProgram:
                 self.n_params, f"diagonal of the jacobian of {self.name}")
         return diag
 
-    def cuda_source(self) -> str:
+    def cuda_source(self, columns=None) -> str:
         """The RHS as ``__device__ void rhs(float t, const float* y,
-        const float* p, float* dy)`` after the ``ODE_S``/``ODE_P``
-        defines, one SSA statement per node."""
+        const float* p, const float* u, float* dy)`` after the ``ODE_S``/
+        ``ODE_P``/``ODE_F`` defines, one SSA statement per node; ``u``
+        holds the forcing ``columns`` (default :attr:`columns`)."""
+        columns = self.columns if columns is None else tuple(columns)
         return "\n".join([f"// traced from {self.name}",
                           f"#define ODE_S {self.n_states}",
                           f"#define ODE_P {self.n_params}",
-                          self.cuda_function("rhs")])
+                          f"#define ODE_F {len(columns)}",
+                          self.cuda_function("rhs", columns)])
 
-    def cuda_function(self, fn_name: str) -> str:
+    def cuda_function(self, fn_name: str, columns=None) -> str:
         """The traced function as ``__device__ void <fn_name>(float t,
-        const float* y, const float* p, float* dy)``."""
+        const float* y, const float* p, const float* u, float* dy)``, column
+        ``columns[k]`` read from ``u[k]`` (default :attr:`columns`)."""
+        columns = self.columns if columns is None else tuple(columns)
+        col = {c: k for k, c in enumerate(columns)}
         names, lines, k = {}, [], 0
         for n in self.order:
             a = [names[x.id] for x in n.args]
@@ -536,6 +682,10 @@ class RhsProgram:
                 continue
             if n.op in ("y", "p"):
                 names[n.id] = f"{n.op}[{n.value}]"
+                continue
+            if n.op == "u":
+                names[n.id] = f"(u[{col[n.value]}] != 0.0f)" \
+                    if _is_bool_column(n.value) else f"u[{col[n.value]}]"
                 continue
             if n.op == "t":
                 names[n.id] = "t"
@@ -562,20 +712,68 @@ class RhsProgram:
             lines.append(f"  dy[{s}] = {names[o.id]};")
         return "\n".join(
             [f"__device__ __forceinline__ void {fn_name}(float t, "
-             "const float* y, const float* p, float* dy) {",
-             "  (void)t; (void)y; (void)p;"] + lines + ["}", ""])
+             "const float* y, const float* p, const float* u, float* dy) {",
+             "  (void)t; (void)y; (void)p; (void)u;"] + lines + ["}", ""])
+
+
+def pshapes_of(params):
+    """Parameter shapes from a count of scalar parameters or from shapes
+    (``()`` for a scalar), as a hashable tuple."""
+    if isinstance(params, (int, np.integer)):
+        return tuple(() for _ in range(int(params)))
+    return tuple(tuple(int(d) for d in shp) for shp in params)
+
+
+def forcing_names(forcings) -> tuple:
+    """The names of a spec's forcings: from its normalised tables
+    (``(name, times, values, mode)`` entries) or from names."""
+    return tuple(f[0] if isinstance(f, tuple) else str(f)
+                 for f in forcings or ())
+
+
+def takes_forcings(fn) -> bool:
+    """Whether ``fn`` takes the forcing dict as a fourth argument: an
+    adapted function says so for the user's (:func:`adapt_rhs`), another
+    by its arity."""
+    flag = getattr(fn, "_odelib_takes_u", None)
+    if flag is not None:
+        return bool(flag)
+    try:
+        return len(inspect.signature(fn).parameters) >= 4
+    except (TypeError, ValueError):
+        return False
+
+
+def _call(fn, t, y, ps, u):
+    return fn(t, y, ps) if u is None else fn(t, y, ps, u)
+
+
+def trace_rhs(rhs, n_states: int, params, forcings=()) -> RhsProgram:
+    """Trace ``rhs(t, y, ps[, u])`` (already adapted, see
+    :func:`adapt_rhs`) into an :class:`RhsProgram`, or raise
+    :class:`RhsTraceError`. ``params`` is the number of scalar parameters
+    or the parameters' shapes (``pshapes``: an array parameter is one
+    leaf per slot, :class:`_Vec`); with ``forcings`` (names, or a spec's
+    tables) the function gets a dict of forcing leaves as its fourth
+    argument. Cached on the function, the shapes and the forcing names."""
+    return _trace(rhs, int(n_states), pshapes_of(params),
+                  forcing_names(forcings))
 
 
 @lru_cache(maxsize=64)
-def trace_rhs(rhs, n_states: int, n_params: int) -> RhsProgram:
-    """Trace ``rhs(t, y, ps)`` (already adapted, see :func:`adapt_rhs`)
-    into an :class:`RhsProgram`, or raise :class:`RhsTraceError`."""
+def _trace(rhs, n_states, pshapes, names) -> RhsProgram:
     g = _Graph()
     t = g.node("t")
     y = _Vec(g.node("y", value=i) for i in range(n_states))
-    ps = [g.node("p", value=j) for j in range(n_params)]
+    ps, off = [], 0
+    for shp in pshapes:
+        n = int(np.prod(shp)) if shp else 1
+        leaves = [g.node("p", value=off + k) for k in range(n)]
+        ps.append(_Vec(leaves, shp) if shp else leaves[0])
+        off += n
+    u = {nm: g.node("u", value=("f", nm)) for nm in names} if names else None
     try:
-        out = rhs(t, y, ps)
+        out = _call(rhs, t, y, ps, u)
     except RhsTraceError:
         raise
     except Exception as e:
@@ -597,29 +795,151 @@ def trace_rhs(rhs, n_states: int, n_params: int) -> RhsProgram:
             if callable(fn) and hasattr(fn, "__qualname__"):
                 name = fn.__qualname__
                 break
-    return RhsProgram(g, out, n_states, n_params, name)
+    return RhsProgram(g, out, n_states, off, name)
 
 
-def torch_evaluator(rhs, n_states: int, n_params: int):
-    """The DAG evaluator when the RHS traces; otherwise the RHS itself,
-    run eagerly on torch tensors (CPU twins only)."""
+def forcing_columns(program: RhsProgram, diffusion=None) -> tuple:
+    """Every forcing column the kernels of a model may read, in a fixed
+    order: the RHS's, its Jacobian's (the Kvaerno3 step), the diffusion's
+    and its diagonal's (the particle filter, Milstein); () unforced. The
+    plan's forcing table holds one value per column and stage time."""
+    cols = []
+    progs = [program] + ([program.jacobian()] if program.columns else [])
+    if diffusion is not None:
+        progs += [diffusion] + ([diffusion.diagonal()]
+                                if diffusion.columns else [])
+    for p in progs:
+        cols += [c for c in p.columns if c not in cols]
+    return tuple(cols)
+
+
+_PY_CMP = {"lt": operator.lt, "le": operator.le, "gt": operator.gt,
+           "ge": operator.ge, "eq": operator.eq, "ne": operator.ne}
+_FOLD_F32 = {"exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt,
+             "abs": torch.abs}
+
+
+def column_text(key) -> str:
+    """A forcing column as the expression it folds, over forcing names."""
+    op = key[0]
+    if op == "f":
+        return key[1]
+    if op == "c":
+        return repr(float.fromhex(key[1]))
+    args = [column_text(k) for k in key[1:]]
+    if op in _PY_OPS:
+        return f"({args[0]} {_PY_OPS[op]} {args[1]})"
+    if op == "neg":
+        return f"(-{args[0]})"
+    return f"{op}({', '.join(args)})"
+
+
+def fold_host(key, raw) -> float:
+    """A forcing column's value from the raw forcing values ``raw`` (by
+    name, :func:`~odelib_tpu_torch.model.eval_forcings`) at one concrete
+    time, as the JAX kernel folds it at trace
+    time: Python's arithmetic and comparisons in double (a comparison as
+    1.0 or 0.0), ``exp``/``log``/``sqrt``/``abs`` in float32, as ``jnp``
+    computes them on a Python scalar."""
+    op = key[0]
+    if op == "f":
+        return float(raw[key[1]])
+    if op == "c":
+        return float.fromhex(key[1])
+    a = [fold_host(k, raw) for k in key[1:]]
+    if op in _FOLD_F32:
+        return float(_FOLD_F32[op](torch.tensor(a[0], dtype=torch.float32)))
+    with np.errstate(all="ignore"):
+        x = [np.float64(v) for v in a]
+        if op == "where":
+            return float(x[1] if x[0] != 0 else x[2])
+        if op == "minimum":
+            return float(np.minimum(x[0], x[1]))
+        if op == "maximum":
+            return float(np.maximum(x[0], x[1]))
+        if op == "neg":
+            return float(-x[0])
+        if op in _BOOL_OPS:
+            return 1.0 if _PY_CMP[op](x[0], x[1]) else 0.0
+        return float({"add": np.add, "sub": np.subtract,
+                      "mul": np.multiply, "div": np.divide,
+                      "pow": np.power}[op](x[0], x[1]))
+
+
+def fold_torch(key, raw):
+    """A forcing column's value from raw forcing tensors ``raw`` (by name,
+    at tensor times, :func:`~odelib_tpu_torch.model.eval_forcings`), every
+    operation in their dtype: the adaptive and fixed torch solvers'."""
+    op = key[0]
+    if op == "f":
+        return raw[key[1]]
+    ref = next(iter(raw.values()))
+    if op == "c":
+        return torch.tensor(float.fromhex(key[1]), dtype=ref.dtype,
+                            device=ref.device)
+    a = [fold_torch(k, raw) for k in key[1:]]
+    if op == "where":
+        return torch.where(a[0] != 0, a[1], a[2])
+    v = _TORCH_FN[op](*a)
+    return v.to(ref.dtype) if op in _BOOL_OPS else v
+
+
+def assemble_params(pshapes, ps):
+    """Per-parameter values from per-slot values ``ps``: an array
+    parameter's slots stacked to ``shape + batch`` (the JAX kernel's
+    ``_assemble_params``), a scalar's slot as it is."""
+    out, off = [], 0
+    for shp in pshapes:
+        if shp:
+            n = int(np.prod(shp))
+            st = torch.stack([torch.as_tensor(v) for v in ps[off:off + n]])
+            out.append(st.reshape(tuple(shp) + st.shape[1:]))
+            off += n
+        else:
+            out.append(ps[off])
+            off += 1
+    return out
+
+
+def eager_function(fn, params, forcings=None):
+    """``fn`` run eagerly on torch values with per-slot ``ps``: array
+    parameters assembled, and a forced function given the raw forcing dict
+    at ``t`` (Python floats at a float time, tensors at tensor times)."""
+    pshapes = pshapes_of(params)
+    arrays = any(pshapes)
+
+    def run(t, y, ps, u=None):
+        if arrays:
+            ps = assemble_params(pshapes, ps)
+        raw = None
+        if forcings:
+            from .model import eval_forcings
+            raw = eval_forcings(forcings, t)
+        return list(_call(fn, t, y, ps, raw))
+    return run
+
+
+def torch_evaluator(rhs, n_states: int, params, forcings=None):
+    """``f(t, y, ps, u=None)``: the DAG evaluator when the RHS traces;
+    otherwise the RHS itself, run eagerly on torch tensors (CPU twins
+    only; :func:`eager_function`, which computes the forcings itself)."""
     try:
-        return trace_rhs(rhs, n_states, n_params).evaluate
+        return trace_rhs(rhs, n_states, params, forcings).evaluate
     except RhsTraceError:
-        return lambda t, y, ps: list(rhs(t, y, ps))
+        return eager_function(rhs, params, forcings)
 
 
-def jacobian_evaluator(rhs, n_states: int, n_params: int):
-    """``jac(t, y, ps)``: the S * S Jacobian entries d f_i / d y_j
+def jacobian_evaluator(rhs, n_states: int, params, forcings=None):
+    """``jac(t, y, ps, u=None)``: the S * S Jacobian entries d f_i / d y_j
     (row-major) of a traced RHS (:meth:`RhsProgram.jacobian`); for an RHS
     that does not trace, the forward-mode columns of the eager RHS
     (:func:`jvp_columns`, CPU twins only)."""
     try:
-        return trace_rhs(rhs, n_states, n_params).jacobian().evaluate
+        return trace_rhs(rhs, n_states, params, forcings).jacobian().evaluate
     except RhsTraceError:
-        f = torch_evaluator(rhs, n_states, n_params)
+        f = eager_function(rhs, params, forcings)
 
-        def jac(t, y, ps):
+        def jac(t, y, ps, u=None):
             cols = jvp_columns(lambda yy: torch.stack(f(t, list(yy), ps)),
                                torch.stack(list(y)))
             return [cols[j][i] for i in range(n_states)
@@ -627,17 +947,17 @@ def jacobian_evaluator(rhs, n_states: int, n_params: int):
         return jac
 
 
-def diagonal_evaluator(fn, n_states: int, n_params: int):
-    """``diag(t, y, ps)``: the S entries d f_s / d y_s of a traced
+def diagonal_evaluator(fn, n_states: int, params, forcings=None):
+    """``diag(t, y, ps, u=None)``: the S entries d f_s / d y_s of a traced
     function's Jacobian (:meth:`RhsProgram.diagonal`); for one that does
     not trace, the diagonal of the eager function's forward-mode columns
     (:func:`jvp_columns`, CPU twins only)."""
     try:
-        return trace_rhs(fn, n_states, n_params).diagonal().evaluate
+        return trace_rhs(fn, n_states, params, forcings).diagonal().evaluate
     except RhsTraceError:
-        f = torch_evaluator(fn, n_states, n_params)
+        f = eager_function(fn, params, forcings)
 
-        def diag(t, y, ps):
+        def diag(t, y, ps, u=None):
             cols = jvp_columns(lambda yy: torch.stack(f(t, list(yy), ps)),
                                torch.stack(list(y)))
             return [cols[s][s] for s in range(n_states)]

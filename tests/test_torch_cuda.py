@@ -957,3 +957,146 @@ def test_kvaerno3_kernels_match_twins(card, model):
     assert {k: v for k, v in T.LAUNCHES.items() if v} == {
         "survey_fused": 1, "metropolis_hastings_fused": 1 + -(-29 // 7),
         "ensemble_fused": 1, "parallel_tempering_fused": 1}
+
+
+# --- forcings and array parameters ---------------------------------------
+
+def _forced_zero_i(t, y, ps, u):
+    mu, phi, beta = ps
+    S, V = y
+    return [mu * u["g"] * S - phi * S * V, beta * phi * S * V - phi * S * V]
+
+
+def _vec_zero_i(t, y, ps):
+    mu, phi, beta = ps
+    S, V = y
+    return [mu[0] * S - phi * S * V,
+            beta * phi * S * V - phi * S * V - mu[1] * V]
+
+
+# each mode of the forcing g = ((0, 1.5, 3.2), (0.8, 1.4, 0.9)); zero_i
+# with mu a 2-vector, its second entry walked or pinned at 0
+_FA_CASES = ("linear", "hold", "cubic", "array", "array-pinned")
+
+
+def _fa_case(card, case):
+    """(spec, draws (N, P) float32, walk mask) of a forced or an
+    array-parameter zero_i on the demo data."""
+    _, obs, tf, y0 = card
+    base = _draws(1000, sd=0.05)
+    if case.startswith("array"):
+        spec = make_spec(adapt_rhs(_vec_zero_i), zero_i.pnames,
+                         zero_i.snames, pshapes=((2,), (), ()))
+        pinned = case.endswith("pinned")
+        mu1 = np.zeros(len(base)) if pinned else 0.05 * base[:, 0]
+        draws = np.c_[base[:, :1], mu1, base[:, 1:]].astype(np.float32)
+        return spec, draws, (1.0, 0.0 if pinned else 1.0, 1.0, 1.0)
+    spec = make_spec(adapt_rhs(_forced_zero_i), zero_i.pnames, zero_i.snames,
+                     forcings={"g": ((0.0, 1.5, 3.2), (0.8, 1.4, 0.9), case)})
+    return spec, base, (1.0, 1.0, 1.0)
+
+
+@pytest.mark.parametrize("stepper", ["dopri5", "rk4", "kvaerno3"])
+@pytest.mark.parametrize("case", _FA_CASES)
+def test_survey_kernel_forced_and_array_matches_twin(card, case, stepper):
+    """The survey kernel reads the plan's forcing table (a row per
+    distinct stage time) or an array parameter's slots: bitwise the
+    twin's."""
+    _, obs, tf, y0 = card
+    spec, draws, _ = _fa_case(card, case)
+    th = torch.as_tensor(draws, device="cuda")
+    k = T.survey_fused(spec, obs, tf, y0, th, substeps=4, stepper=stepper)
+    plan = T._build_plan(spec, obs, tf, 4)
+    tw = T.survey_plain(spec, plan, y0, th.t().contiguous(), stepper)
+    torch.cuda.synchronize()
+    assert np.isfinite(k.cpu().numpy()).mean() > 0.9
+    np.testing.assert_array_equal(k.cpu().numpy(), tw.cpu().numpy())
+
+
+@pytest.mark.parametrize("sampler", ["mh", "ensemble", "pt"])
+@pytest.mark.parametrize("case", _FA_CASES)
+def test_chain_kernels_forced_and_array_match_twins(card, case, sampler):
+    """MH, ensemble and PT through their wrappers, kernel (one launch)
+    against twin (plain_launchers) on the card: every record bitwise; a
+    pinned entry stays 0."""
+    from odelib_tpu_torch.ops import plain_launchers
+    _, obs, tf, y0 = card
+    spec, draws, mask = _fa_case(card, case)
+    th0 = torch.as_tensor(draws[:512], device="cuda")
+    kw = dict(nits=24, burnin=4, substeps=4, walk_mask=mask)
+    if sampler == "mh":
+        def run():
+            return T.metropolis_hastings_fused(spec, obs, tf, y0, th0, 11,
+                                               **kw)
+    elif sampler == "ensemble":
+        def run():
+            return T.ensemble_fused(spec, obs, tf, y0, th0, 11,
+                                    tile_chains=256, **kw)
+    else:
+        def run():
+            return TP.parallel_tempering_fused(
+                spec, obs, tf, y0, th0, 11, temperatures=(1.0, 2.0, 4.0),
+                **kw)[0]
+    n0 = sum(T.LAUNCHES.values())
+    k = run()
+    torch.cuda.synchronize()
+    assert sum(T.LAUNCHES.values()) == n0 + 1
+    with plain_launchers():
+        t = run()
+    torch.cuda.synchronize()
+    assert_bitwise([k.theta, k.chi, k.rsquared, k.aic, k.acceptance_ratio],
+                   [t.theta, t.chi, t.rsquared, t.aic, t.acceptance_ratio])
+    if case == "array-pinned":
+        assert (k.theta[:, :, 1] == 0.0).all()
+
+
+def test_joint_kernel_forced_and_array_matches_twin(card):
+    """A joint fit of zero_i, forced zero_i (hold) and the array model
+    (three ModelN types, each reading its experiment's plan and forcing
+    table), sharing phi and beta: bitwise the twin's."""
+    spec, obs, tf, y0 = card
+    f_spec, _, _ = _fa_case(card, "hold")
+    a_spec, _, _ = _fa_case(card, "array")
+    rng = np.random.default_rng(7)
+    obs_b = obs._replace(log_abundance=obs.log_abundance
+                         + rng.normal(0, 0.1, len(obs.log_abundance)))
+    specs = [spec, f_spec, a_spec]
+    idxs = [(2, 0, 1), (3, 0, 1), (4, 5, 0, 1)]
+    th0 = (np.array([2.4e-8, 24.0, 0.6, 0.6, 0.6, 0.03])
+           * np.exp(rng.normal(0, 0.05, (256, 6)))).astype(np.float32)
+    _check_joint(specs, [obs, obs_b, obs], [tf] * 3, [y0, 1.13 * y0, y0],
+                 idxs, torch.as_tensor(th0, device="cuda"), 11, 20, 5,
+                 (1.0,) * 6)
+
+
+@pytest.mark.parametrize("method", ["euler", "milstein"])
+def test_pf_kernel_forced_matches_twin(method):
+    """PMMH on the GBM with its drift scaled by a linear forcing: the Euler
+    row of the forcing table at each step's start reaches the drift, the
+    diffusion and the Milstein term. Bitwise the twin's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from odelib_tpu_torch.ops import cuda_pf as TF
+    base, obs, tf, y0 = _gbm_inputs()
+
+    def gbm(t, y, ps, u):
+        return [ps[0] * u["a"] * y[0]]
+
+    def noise(t, y, ps, u):
+        return [(0.2 + 0.1 * u["a"]) * y[0]]
+    spec = make_spec(adapt_rhs(gbm), ("mu",), ("N",),
+                     diffusion=adapt_rhs(noise),
+                     forcings={"a": ((0.0, 2.0, 4.0), (1.2, 0.6, 1.0))})
+    th0 = torch.as_tensor(np.exp(np.random.default_rng(1).normal(
+        np.log(0.4), 0.3, (202, 1))).astype(np.float32), device="cuda")
+    k = TF.pmmh_fused(spec, obs, tf, y0, th0, 3, nits=6, burnin=2,
+                      rwalk_std=0.3, n_particles=128, substeps=5,
+                      sde_method=method)
+    plan = T._build_plan(spec, obs, tf, 5)
+    tw = TF.pmmh_plain(spec, plan, y0, th0.t().contiguous(), 3, K=128,
+                       nits=6, burnin=2, walk=(1.0,), walked=(True,),
+                       rwalk_std=0.3, milstein=method == "milstein")
+    torch.cuda.synchronize()
+    assert_bitwise([k.theta.permute(1, 2, 0), k.chi.t(),
+                    k.acceptance_ratio.t()], tw)
+    assert np.isfinite(k.chi.cpu().numpy()).all()

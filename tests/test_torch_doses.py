@@ -118,9 +118,13 @@ def test_make_spec_dose_validation():
     s = make_spec(adapt_rhs(_decay), ("k",), ("A",),
                   dose_events=[(2.0, 0, 1.0), (1.0, "A", 2.0)])
     assert s.dose_events == ((1.0, 0, 2.0), (2.0, 0, 1.0))
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        make_spec(adapt_rhs(_decay), ("k",), ("A",),
+    # doses and forcings together (the forcings are validated as the
+    # reference validates them, tests/test_torch_forcings.py)
+    f = make_spec(adapt_rhs(_decay), ("k",), ("A",),
+                  dose_events=[(1.0, "A", 2.0)],
                   forcings={"u": ([0.0, 1.0], [1.0, 2.0])})
+    assert f.dose_events == ((1.0, 0, 2.0),)
+    assert f.forcings == (("u", (0.0, 1.0), (1.0, 2.0), "linear"),)
 
 
 def test_compact_grid_keeps_dose_times():

@@ -56,8 +56,9 @@ _GOLDEN_ZERO_I = """\
 // traced from zero_i
 #define ODE_S 2
 #define ODE_P 3
-__device__ __forceinline__ void rhs(float t, const float* y, const float* p, float* dy) {
-  (void)t; (void)y; (void)p;
+#define ODE_F 0
+__device__ __forceinline__ void rhs(float t, const float* y, const float* p, const float* u, float* dy) {
+  (void)t; (void)y; (void)p; (void)u;
   const float v0 = p[0] * y[0];
   const float v1 = p[1] * y[0];
   const float v2 = v1 * y[1];

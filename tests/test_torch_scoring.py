@@ -76,7 +76,7 @@ def test_plan_tables_censor_and_dose_rows():
     np.testing.assert_array_equal(amt, np.float32([2.0e7 + 0.1, 3.0]))
     assert T.scoring(plan) == ("lognormal", 0.0, True, True)
     # the original tables keep their header entries and sizes
-    assert plan_i[4] == 19 + len(cen) + len(ptr) + len(state)
+    assert plan_i[4] == T._HDR + len(cen) + len(ptr) + len(state)
     np.testing.assert_array_equal(plan_f[plan_i[13]:plan_i[13] + 2],
                                   np.float32([1.0, 1.0]))
 
