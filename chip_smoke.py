@@ -18,10 +18,10 @@ Phases, each failing the script if it fails:
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
    on 1024 chains x 200 iterations (the kernel's rounds counted by the
    iterations each completes), the ensemble on 2048 walkers (two
-   ensembles of 1024) x 100 iterations, in one launch of as many blocks as
+   ensembles of 1024) x 50 iterations, in one launch of as many blocks as
    can be co-resident and again on 7 blocks of 32 threads, so each thread
    loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
-   1024 chains x 200 iterations, and with 3 (an idle lane in each chain's
+   1024 chains x 100 iterations, and with 3 (an idle lane in each chain's
    group of 4) and 8 rungs on 1000 chains x 60 (identical accept
    sequences and swap counts),
    the joint kernel on the heterogeneous pair zero_i + one_i, 256
@@ -32,9 +32,9 @@ Phases, each failing the script if it fails:
    in shared memory, so both kernels read their tables from global
    memory, and with in-kernel priors: four assignments over zero_i's
    slots that together cover the ten in-kernel families (``prior_sets``),
-   each through MH (1024 chains x 25), the ensemble (2048 walkers x 20),
-   PT (1024 chains x 4 rungs x 25) and the joint pair zero_i + one_i (256
-   chains x 25), from start points around the fit (all bitwise records);
+   each through MH (1024 chains x 12), the ensemble (2048 walkers x 10),
+   PT (1024 chains x 4 rungs x 12) and the joint pair zero_i + one_i (256
+   chains x 12), from start points around the fit (all bitwise records);
 4. the main paths, each with launch counts reset just before and read just
    after (each launching survey_fused and its chain kernel's wrapper
    once; Python's garbage collections per stage, and for MH the chains
@@ -60,7 +60,7 @@ Phases, each failing the script if it fails:
    chains, so the last warp's group of 8 chains is part empty; rounds of
    2 and 3 iterations must both occur), ensemble_fused (its 10,000
    walkers and seed, the default tile of 4096, padded to 12,288 walkers;
-   100 iterations; the tile sets each walker's partners, so this is the
+   50 iterations; the tile sets each walker's partners, so this is the
    geometry the main path runs),
    parallel_tempering_fused (all 10,000 chains x 4 rungs x 20 iterations:
    40,000 threads, so the last block of 128 is part empty; identical swap
@@ -143,9 +143,9 @@ Phases, each failing the script if it fails:
    posterior columns, finite chi, acceptance in (0, 1), the path's kernel
    launched once; (4) each of those paths' wrapper calls, captured where
    the path made it (all chains), through its kernel and through its twin
-   for 20 proposals (PMMH: 10 of them adapting): equal accept sequences,
-   every record bitwise (the Tobit paths (a), (b) and (d) within 1e-6
-   relative); (5) paths (a)-(c)'s wrapper calls against the demo
+   for 10 proposals (PMMH: 20, 10 of them adapting): equal accept
+   sequences, every record bitwise (the Tobit paths (a), (b) and (d)
+   within 1e-6 relative); (5) paths (a)-(c)'s wrapper calls against the demo
    paths' (CUDA events around the call) and each kernel's time on each
    scoring branch at the main paths' shapes beside the demo's;
 Then the stiff path (the survey, MH, ensemble and PT kernels'
@@ -166,8 +166,8 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    steps not finite; (a) each of the four kernels against its twin at
    the wrapper calls (b) and (c) made (the survey's draws of config 6,
    of its 'auto' run and of the Robertson fit; MH at config 6, on its
-   'auto' schedule and on Robertson's, S = 3, all chains x 20 proposals;
-   the ensemble and PT, all chains x 10), bitwise, and MH in 4 chunks of
+   'auto' schedule and on Robertson's, S = 3, all chains x 10 proposals;
+   the ensemble and PT, all chains x 5), bitwise, and MH in 4 chunks of
    250 against its whole run, bitwise; (d) config 5's 4,096 Robertson
    solves on the card through the port's torch solvers (fixed Kvaerno3,
    adaptive Kvaerno5, auto_stiff_grid and the two-pass
@@ -192,7 +192,32 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    mu a 2-vector (per-slot priors), (b) with mu = [mu0, 0], the pinned
    entry exactly 0 in every row; and each forced kernel's time beside the
    unforced one on the same chains in the same call (the kernels line's
-   ``:forced``, ``:forced-kvaerno3`` and ``:array`` rows);
+   ``:forced``, ``:forced-kvaerno3`` and ``:array`` rows). Then the
+   shapes beyond the kernels' first limits, each path through the user
+   API at full width with its launch counts reset just before and read
+   just after, finite chi 1.0 and acceptance in (0, 1): limits (a)
+   MCMC(sampler='pt') on Lotka-Volterra (``scoring_cases.lv_frame``:
+   prey and predator at 25 times over [0, 50] from the defaults, log-normal
+   noise sd 0.1, numpy seed 13) on a 16-rung geometric ladder from 1 to
+   1,000 at 10,000 chains x 1,000, and on 40 rungs (the WIDE pt_kernel: a
+   chain over two warps, a library built with ODE_WIDE) at 256 chains;
+   (b) JointFit.MCMC of 12 chemostat runs at d = 0.05, ..., 0.60 (R and N
+   at 16 times over [0, 80], sd 0.1, numpy seed 11; shared vmax, Ks and
+   gamma, each run's d and Rin static slots) at 10,000 chains x 1,000,
+   and of 40 runs at d = 0.015, ..., 0.6 with Ks and gamma per run (D =
+   161, 81 walked) at 256 chains, both joint_kernel's WIDE instantiations; (c)
+   MCMC(sampler='mh', substeps=4) on two_i with 40 latent classes (42
+   states, the host summing 41: member masks of two words) on the demo
+   data at 10,000 chains x 1,000. Each path's wrapper call through kernel
+   and twin on its first chains for 1-2 proposals, bitwise; for (c) also
+   the survey on the path's 1,000 draws, the ensemble (256 walkers), PT (16
+   chains x 3 rungs) and kvaerno3 MH (4 chains, substeps 1, on the data's
+   first three sampling times; its library's unrolled elimination and
+   solves, its nvcc seconds in the build phase) at the path's seeds (PMMH at 33 states is the card test
+   ``test_chain_model_pf_kernel_matches_twin``: its library's particle
+   filters take ~15 minutes of nvcc); and each new instantiation's time
+   (the kernels line's ``:16-rungs``, ``:40-rungs``, ``:wide-12``,
+   ``:wide-40``, ``:42-states`` and ``:42-states-kvaerno3`` rows);
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MH, ensemble, PT and joint kernels with the demo's priors, with flat
@@ -482,7 +507,9 @@ def kernel_vs_twin_at(label, wrapper, call, nits, tobit=False):
     (``plain_launchers``, no launch): identical accept sequences, every
     record (with ``tobit``, censored data: within rtol 1e-6, ``held``) and
     PT's swap rates bitwise. Returns chi's max abs error and the kernel's
-    output."""
+    output; the twin run's seconds are left in ``kernel_vs_twin_at.twin_s``
+    and the kernel run's launches in ``kernel_vs_twin_at.launches``.
+    """
     import torch
     from odelib_tpu_torch.ops import cuda_mh, plain_launchers
     kw = {**call["kw"], "nits": nits, "burnin": 0}
@@ -490,9 +517,12 @@ def kernel_vs_twin_at(label, wrapper, call, nits, tobit=False):
     res_k = wrapper(*call["args"], **kw)
     torch.cuda.synchronize()
     n1 = sum(cuda_mh.LAUNCHES.values())
+    t0 = time.perf_counter()
     with plain_launchers():
         res_t = wrapper(*call["args"], **kw)
     torch.cuda.synchronize()
+    kernel_vs_twin_at.twin_s = time.perf_counter() - t0
+    kernel_vs_twin_at.launches = n1 - n0
     if (n1 - n0, sum(cuda_mh.LAUNCHES.values()) - n1) != (1, 0):
         fail(f"{label}: the kernel run launched {n1 - n0} kernels and the "
              "twin run launched some")
@@ -1449,10 +1479,10 @@ def scoring_phases(paths, calls, pf_call):
     phase("scoring (4): paths (a)-(e)'s kernels vs their twins at the "
           "paths' own inputs (all chains)")
     for key, wrapper, tobit, its in (
-            ("a", cuda_mh.metropolis_hastings_fused, True, 21),
-            ("b", cuda_pt.parallel_tempering_fused, True, 21),
-            ("c", cuda_mh.ensemble_fused, False, 21),
-            ("d", cuda_joint.joint_metropolis_hastings_fused, True, 21)):
+            ("a", cuda_mh.metropolis_hastings_fused, True, 11),
+            ("b", cuda_pt.parallel_tempering_fused, True, 11),
+            ("c", cuda_mh.ensemble_fused, False, 11),
+            ("d", cuda_joint.joint_metropolis_hastings_fused, True, 11)):
         call = captured[key]
         err, out = kernel_vs_twin_at(f"path ({key}) {wrapper.__name__}",
                                      wrapper, call, its, tobit=tobit)
@@ -1824,11 +1854,11 @@ def stiff_phases(framework, rfw, smi_line):
             f"stiff survey ({what}, {call['args'][4].shape[0]} draws)",
             call))
     for key, sampler, nits, what in (
-            ("mh", "mh", 21, "zero_i, substeps 4"),
-            ("auto", "mh", 21, "zero_i, 'auto'"),
-            ("robertson", "mh", 21, "Robertson, 'auto'"),
-            ("ensemble", "ensemble", 11, "zero_i, substeps 4"),
-            ("pt", "pt", 11, "zero_i, substeps 4")):
+            ("mh", "mh", 11, "zero_i, substeps 4"),
+            ("auto", "mh", 11, "zero_i, 'auto'"),
+            ("robertson", "mh", 11, "Robertson, 'auto'"),
+            ("ensemble", "ensemble", 6, "zero_i, substeps 4"),
+            ("pt", "pt", 6, "zero_i, substeps 4")):
         mod, name = wrapper[sampler]
         call = calls[key]
         if call["kw"]["stepper"] != "kvaerno3":
@@ -2310,6 +2340,278 @@ def forcing_phases(fa, joint_pair, plain, mh_in, pf_in, smi_line):
     return rows
 
 
+# -- the lifted limits: long ladders, many experiments, many states -----------
+
+LV_LADDER = tuple(float(t) for t in __import__("numpy").geomspace(
+    1.0, 1000.0, 16))
+LV_WIDE = tuple(float(t) for t in __import__("numpy").geomspace(
+    1.0, 1000.0, 40))
+FEW = 256                   # chains of the wide arms (40 rungs, K = 40)
+CHEMOSTAT_D = tuple(round(0.05 * (k + 1), 2) for k in range(12))
+CHEMOSTAT_D40 = tuple(round(0.015 * (k + 1), 3) for k in range(40))
+CHAIN_N = 40                # two_i's latent classes: 42 states
+
+
+def limits_frameworks(device="cuda"):
+    """(a) Lotka-Volterra on ``scoring_cases.lv_frame`` (t_steps 49: the
+    25 observation times on the grid), (b) ``chemostats(ds)``: one
+    chemostat framework per dilution rate d (feed 5, t_steps 16: the 16
+    times on the grid, ``chemostat_frames``), (c) the 42-state chain on
+    the demo data (host H = S + I1 + ... + I40, two_i's priors with tau's
+    scale x 39, S0 the host's first point), all on ``device``."""
+    from odelib_tpu_torch import ModelFramework, parameter
+    from odelib_tpu_torch.data import load_demo_dataframe
+    from odelib_tpu_torch.models import chemostat, lotka_volterra
+    from scoring_cases import (CHAIN_PNAMES, chain_priors, chain_rhs,
+                               chain_snames, chain_summations,
+                               chemostat_frames, lv_frame)
+    lv = lotka_volterra.framework(lv_frame(), t_steps=49, device=device)
+
+    def chemostats(ds):
+        return {f"d{k}": chemostat.framework(df, d=float(d), Rin=5.0,
+                                             t_steps=16, device=device)
+                for k, (d, df) in enumerate(zip(ds, chemostat_frames(ds)))}
+    df = load_demo_dataframe(host="H", virus="V")
+    pri = chain_priors(CHAIN_N)
+    chain = ModelFramework(
+        ODE=chain_rhs(CHAIN_N), parameter_names=list(CHAIN_PNAMES),
+        state_names=list(chain_snames(CHAIN_N)), dataframe=df,
+        state_summations=chain_summations(CHAIN_N), t_steps=288,
+        S=float(df[df.organism == "H"].abundance.iloc[0]), device=device,
+        ode_style="jax", **{p: parameter(stats_gen=pri[p], name=p,
+                                         random_seed=i)
+                            for i, p in enumerate(CHAIN_PNAMES)})
+    return lv, chemostats, chain
+
+
+def limits_builds(lf):
+    """load_kernels arguments of the libraries the limits phases load:
+    the 42-state chain's (kvaerno3 and dopri5),
+    Lotka-Volterra's and its wide library (40 rungs), and the chemostat's
+    wide library (12 and 40 experiments, one model)."""
+    lv, chemostats, chain = lf
+    one = next(iter(chemostats(CHEMOSTAT_D[:1]).values()))
+    return [(chain._spec, (), False, [fw_scoring(chain)], True),
+            (chain._spec, (), False, [fw_scoring(chain)]),
+            (lv._spec, (), False, [fw_scoring(lv)]),
+            (lv._spec, (), False, [fw_scoring(lv)], False, False, True),
+            (one._spec, (), False, [fw_scoring(one)], False, False, True)]
+
+
+def cut(call, n, index=4):
+    """A captured wrapper call on its first ``n`` chains."""
+    args = list(call["args"])
+    args[index] = args[index][:n].contiguous()
+    return {"args": tuple(args), "kw": dict(call["kw"])}
+
+
+def limits_phases(lf, smi_line):
+    """Phases limits (a)-(c) (the module docstring) on ``lf``
+    (:func:`limits_frameworks`). Returns their rows of the JSON line."""
+    import numpy as np
+    import torch
+    from odelib_tpu_torch import JointFit
+    from odelib_tpu_torch.ops import cuda_joint, cuda_mh, cuda_pt
+    lv, chemostats, chain = lf
+    csrc = "odelib_tpu_torch/ops/csrc/"
+    rows, errs, launches, calls, twin_s, counted = [], {}, {}, {}, {}, {}
+
+    def add(name, src, replaces, n, err, ms, plain_ms, b, what):
+        print(f"{name} ({what}): {ms:.4f} ms; twin {plain_ms:.1f} ms; bound "
+              f"{b[0]:.4f} ms by {b[1]}; max abs err {err}; launches {n}",
+              flush=True)
+        rows.append({"name": name, "route": "cuda", "source": csrc + src,
+                     "replaces": replaces, "launches": n,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+
+    def driven(key, label, model, mod, name, n_chains, pnames, samples=1000,
+               **kw):
+        # a JointFit's survey is its float64 fit_survey, not the kernel
+        with recording(mod, name, calls.setdefault(key, {})), \
+                recording(cuda_mh, "survey_fused",
+                          calls.setdefault(f"survey {key}", {})):
+            post, launches[key] = drive(
+                label, model, name, pnames, n_chains,
+                survey=not isinstance(model, JointFit),
+                chain_inits=n_chains, fitsurvey_samples=samples, **kw)
+        return post
+
+    def hold(key, label, fn, call, nits):
+        """kernel_vs_twin_at, keeping chi's error, the kernel run's
+        launches and the twin's seconds a proposal (its initial scoring
+        counted as one: the twins on the card are launch-bound, so their
+        time hardly depends on the chains)."""
+        errs[key], _ = kernel_vs_twin_at(label, fn, call, nits)
+        counted[key] = kernel_vs_twin_at.launches
+        twin_s[key] = kernel_vs_twin_at.twin_s / nits
+
+    phase("limits (a): MCMC(sampler='pt') on Lotka-Volterra (25 times over "
+          "[0, 50], numpy seed 13), a 16-rung geometric ladder from 1 to "
+          "1,000, 10,000 chains x 1,000; and 40 rungs on 256 chains")
+    # the oscillator's chi is rugged: of 1,000 LHS draws the best is a
+    # wrong mode (chi ~1,900), and 9 pass the chi cut at sd_fitdistance=20
+    post = driven("pt16", "limits (a) PT, 16 rungs", lv, cuda_pt,
+                  "parallel_tempering_fused", CHAINS, lv._pnames,
+                  sampler="pt", temperatures=LV_LADDER, sd_fitdistance=20.0)
+    post40 = driven("pt40", "limits (a) PT, 40 rungs", lv, cuda_pt,
+                    "parallel_tempering_fused", FEW, lv._pnames,
+                    sampler="pt", temperatures=LV_WIDE, sd_fitdistance=20.0,
+                    report=False)
+    for lab, p in (("16 rungs", post), ("40 rungs", post40)):
+        print(f"limits (a) {lab}: best chi {float(p.chi.min()):.4g}, "
+              "posterior medians " + ", ".join(
+                  f"{k} {float(np.median(p[k])):.4g}" for k in lv._pnames)
+              + " (simulated at 1.1, 0.4, 0.1, 0.4)", flush=True)
+    del post, post40
+    for key, n, what in (("pt16", 1000, "10,000 x 16 rungs x 1,000"),
+                         ("pt40", FEW, "256 x 40 rungs x 1,000")):
+        hold(key, f"limits (a) {key[2:]} rungs: parallel_tempering_fused "
+             f"({n} chains, 2 proposals)", cuda_pt.parallel_tempering_fused,
+             cut(calls[key], n), 3)
+        ms, _, b, _ = kernel_costs(
+            "pt", "dopri5", launch_args(calls[key], "pt"), short=2)
+        add(f"parallel_tempering_fused:{key[2:]}-rungs", "pt.cu",
+            "odelib_tpu/ops/pallas_pt.py:49",
+            launches[key]["parallel_tempering_fused"], errs[key], ms,
+            1e3 * twin_s[key] * NITS, b, f"Lotka-Volterra, {what}")
+
+    phase("limits (b): JointFit of 12 chemostat runs (d = 0.05, ..., 0.60, "
+          "shared vmax, Ks and gamma), MCMC 10,000 chains x 1,000; and 40 "
+          "runs (Ks and gamma per run) on 256 chains")
+    for key, ds, shared, n_chains, samples, n, nits in (
+            ("j12", CHEMOSTAT_D, ["vmax", "Ks", "gamma"], CHAINS, 1000,
+             1000, 3),
+            ("j40", CHEMOSTAT_D40, ["vmax"], FEW, 256, 64, 2)):
+        fws = chemostats(ds)
+        jf = JointFit(fws, shared=shared, random_seed=0)
+        static = [f"{nm}:{p}" for nm in fws for p in ("d", "Rin")]
+        post = driven(key, f"limits (b) JointFit, {len(ds)} chemostat runs "
+                      f"(D = {jf.dim}, {jf.dim - len(static)} walked)", jf,
+                      cuda_joint, "joint_metropolis_hastings_fused",
+                      n_chains, (), samples=samples,
+                      static_parameters=static, report=key == "j12")
+        print(f"limits (b) {len(ds)} runs: posterior median vmax "
+              f"{float(np.median(post['vmax'])):.4g} (simulated at 1)",
+              flush=True)
+        del post
+        call = calls[key]
+        hold(key, f"limits (b) {len(ds)} runs: joint_metropolis_hastings_"
+             f"fused ({n} chains, {nits - 1} proposals)",
+             cuda_joint.joint_metropolis_hastings_fused, cut(call, n, 5),
+             nits)
+        # the bound: one run's solve (the twin on one chain on the host
+        # CPU) times the K runs, the chains and the iterations
+        specs, idx, obs, times, y0s, th0 = call["args"][:6]
+        kw = call["kw"]
+        plans = [cuda_mh._build_plan(sp, ob, tm, sub) for sp, ob, tm, sub
+                 in zip(specs, obs, times, kw["substeps_list"])]
+        one = th0[:1, list(idx[0])].t().cpu().contiguous()
+        ops = fp32_ops(lambda: cuda_mh.survey_plain(specs[0], plans[0],
+                                                    y0s[0], one))
+        run = dict(walk=tuple(float(kw["rwalk_std"]) * float(w)
+                              for w in kw["walk_mask"]),
+                   walked=tuple(float(w) != 0.0 for w in kw["walk_mask"]))
+        th = th0.t().contiguous()
+        ms = events_ms(cuda_joint.joint_launcher(
+            specs, plans, y0s, idx, kw["stepper"], th, kw["seed"],
+            nits=NITS, burnin=BURNIN, **run))
+        C, D, K = th.shape[1], th.shape[0], len(specs)
+        nbytes = (NITS - 1 - BURNIN) * C * (D + K + 2) * 4
+        add(f"joint_metropolis_hastings_fused:wide-{len(ds)}", "joint.cu",
+            "odelib_tpu/ops/pallas_joint.py:347",
+            launches[key]["joint_metropolis_hastings_fused"], errs[key], ms,
+            1e3 * twin_s[key] * NITS, bound(C * NITS * K * ops, nbytes),
+            f"{n_chains:,} x 1,000, K = {len(ds)}, D = {jf.dim}")
+
+    phase("limits (c): MCMC(sampler='mh', substeps=4) on two_i with 40 "
+          "latent classes (42 states), the demo data, 10,000 chains x 1,000")
+    post = driven("mh42", "limits (c) MH, 42 states", chain, cuda_mh,
+                  "metropolis_hastings_fused", CHAINS, chain._pnames,
+                  substeps=4, sd_fitdistance=6.0)
+    del post
+    spec, obs, tf, y0 = (chain._spec, chain._obsdata_fit_host,
+                         chain._times_fit, chain.get_inits())
+    seeds = calls["mh42"]["args"][4]
+    t0 = time.perf_counter()
+    errs["survey42"] = survey_vs_twin(
+        "limits (c) survey_fused (the path's 1,000 draws)",
+        calls["survey mh42"])
+    twin_s["survey42"] = time.perf_counter() - t0
+    hold("mh42", "limits (c) metropolis_hastings_fused (16 chains, 2 "
+         "proposals)", cuda_mh.metropolis_hastings_fused,
+         cut(calls["mh42"], 16), 3)
+    # the 42-state ensemble, PT and kvaerno3 MH kernels at a few chains
+    # from the path's seeds; kvaerno3 on the data's first three sampling
+    # times (two steps: its twin takes ~100,000 launches a step), in the
+    # path's library (the same RHS and scoring)
+    from scoring_cases import chain_case
+    _, obs3, tf3, _ = chain_case(CHAIN_N, first=3)
+    small = {"ens42": (cuda_mh.ensemble_fused, seeds[:256],
+                       dict(tile_chains=256, a=2.0), 4, 2),
+             "pt42": (cuda_pt.parallel_tempering_fused, seeds[:16],
+                      dict(temperatures=(1.0, 2.0, 4.0), swap_every=1,
+                           rwalk_std=0.05), 4, 3),
+             "kv3": (cuda_mh.metropolis_hastings_fused, seeds[:4],
+                     dict(stepper="kvaerno3", rwalk_std=0.05), 1, 2)}
+    for key, (fn, th0, extra, sub, nits) in small.items():
+        data = (obs3, tf3) if key == "kv3" else (obs, tf)
+        calls[key] = {"args": (spec, *data, y0, th0, 11),
+                      "kw": {"substeps": sub, "stepper": "dopri5",
+                             "walk_mask": [1.0] * 5, **extra}}
+        hold(key, f"limits (c) {fn.__name__} {key} ({th0.shape[0]} chains, "
+             f"{nits - 1} proposals)", fn, calls[key], nits)
+
+    phase(f"limits: each new instantiation's time (CUDA events; {smi_line})")
+    # the bounds: one solve's float32 operations (the twin on one chain on
+    # the host CPU; the kvaerno3 solve's from one step's, times its steps:
+    # its elimination is ~25,000 operations a step, slow to count one by
+    # one) times the run's solves
+    from odelib_tpu_torch.ops.runge_kutta import kvaerno3_fixed_step
+    from odelib_tpu_torch.rhs import jacobian_evaluator, torch_evaluator
+    one = seeds[:1].t().cpu().contiguous()
+    S = len(spec.snames)
+    y1 = [torch.full((1,), float(v)) for v in y0]
+    f = torch_evaluator(spec.rhs, S, spec.pshapes)
+    jac = jacobian_evaluator(spec.rhs, S, spec.pshapes)
+    ops = {"dopri5": fp32_ops(lambda: cuda_mh.survey_plain(
+               spec, cuda_mh._build_plan(spec, obs, tf, 4), y0, one)),
+           "kvaerno3": (len(tf3) - 1) * fp32_ops(
+               lambda: kvaerno3_fixed_step(f, 0.0, y1, 0.1, list(one), jac))}
+    ms = kernel_costs("survey", "dopri5", launch_args(
+        calls["survey mh42"], "survey"), reps=5)[0]
+    add("survey_fused:42-states", "mh.cu", "odelib_tpu/ops/pallas_mh.py:1765",
+        launches["mh42"]["survey_fused"], errs["survey42"], ms,
+        1e3 * twin_s["survey42"], bound(1000 * ops["dopri5"], 1000 * 9 * 4),
+        "1,000 draws")
+    for key, name, src, replaces, C, nits, solves, what in (
+            ("mh42", "metropolis_hastings_fused", "mh.cu",
+             "odelib_tpu/ops/pallas_mh.py:1017", CHAINS, NITS, NITS,
+             "10,000 x 1,000"),
+            ("ens42", "ensemble_fused", "ensemble.cu",
+             "odelib_tpu/ops/pallas_mh.py:1514", 256, 100, 100,
+             "256 walkers x 100"),
+            ("pt42", "parallel_tempering_fused", "pt.cu",
+             "odelib_tpu/ops/pallas_pt.py:49", 16, 100, 300,
+             "16 x 3 rungs x 100"),
+            ("kv3", "metropolis_hastings_fused", "mh.cu",
+             "odelib_tpu/ops/pallas_mh.py:1017", 4, 20, 20,
+             "kvaerno3, 4 x 20, substeps 1, 3 sampling times")):
+        fn = small[key][0] if key in small else \
+            cuda_mh.metropolis_hastings_fused
+        call = calls[key]
+        ms = events_ms(lambda: fn(*call["args"], **{
+            **call["kw"], "nits": nits, "burnin": nits // 2}))
+        b = bound(C * solves * ops["kvaerno3" if key == "kv3" else "dopri5"],
+                  (nits - nits // 2 - 1) * C * (5 + 4) * 4)
+        add(f"{name}:42-states" + ("-kvaerno3" if key == "kv3" else ""),
+            src, replaces,
+            launches["mh42"][name] if key == "mh42" else counted[key],
+            errs[key], ms,
+            1e3 * twin_s[key] * nits, b, what)
+    return rows
+
+
 def _survey_held(label, case, chi_k, chi_t):
     """The survey's chi, kernel against twin: bitwise (compare_chi), or
     for a Tobit case within rtol 1e-6."""
@@ -2444,6 +2746,7 @@ def main():
     paths = slice_paths(framework)
     rob_fw = robertson_framework()
     fa = forcing_frameworks(framework, pmmh_framework)
+    lf = limits_frameworks()
 
     # -- 2. build -------------------------------------------------------------
     phase("build")
@@ -2451,7 +2754,9 @@ def main():
     shutil.rmtree(build.BUILD_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
     demo_sc = fw_scoring(fw)
-    builds = ([(spec, (), False, [demo_sc]),
+    # the limits phases' libraries first: the 42-state chain's (its
+    # kvaerno3 library takes minutes) and the SDE libraries
+    builds = (limits_builds(lf) + [(spec, (), False, [demo_sc]),
                (spec, (spec1,), False, [demo_sc, cuda_mh.scoring(
                    cuda_mh._build_plan(spec1, obs1, tf1, 1))]),
                (pf_spec, (), True, [fw_scoring(pf_fw0)])]
@@ -2467,13 +2772,18 @@ def main():
     with ThreadPoolExecutor(8) as ex:
         futs = {i: ex.submit(build.load_kernels, *a[:3], scoring=a[3],
                              stiff=a[4] if len(a) > 4 else False,
-                             milstein=a[5] if len(a) > 5 else False)
+                             milstein=a[5] if len(a) > 5 else False,
+                             wide=a[6] if len(a) > 6 else False)
                 for i, a in sorted(enumerate(builds),
-                                   key=lambda x: not x[1][2])}
+                                   key=lambda x: (x[0] >= 5, not x[1][2]))}
         libs = [futs[i].result() for i in range(len(builds))]
     build_s = time.perf_counter() - t0
     logs = ""
-    labels = (["zero_i", "zero_i + one_i (joint)", "GBM SDE"]
+    labels = (["42-state chain, stiff (kvaerno3)", "42-state chain",
+               "Lotka-Volterra",
+               "Lotka-Volterra (wide: over 32 rungs)",
+               "chemostat (wide: over 8 experiments)"]
+              + ["zero_i", "zero_i + one_i (joint)", "GBM SDE"]
               + [f"zero_i {scoring_id(c)}" for c in SCORING]
               + [f"GBM SDE {scoring_id(c)}" for c in PF_SCORING]
               + [f"path ({k})" for k in "abcde"]
@@ -2541,7 +2851,7 @@ def main():
 
     phase("ensemble kernel vs twin")
     W, tile, mask = 2048, 1024, (1.0, 1.0, 1.0)
-    e_nits = 100
+    e_nits = 50
     start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
         seeds[:W], seed, tile, mask, 0.01).T), device=dev)
     ens_kw = dict(tile=tile, nits=e_nits, burnin=0, a=2.0, walk=mask,
@@ -2567,7 +2877,7 @@ def main():
     # group of 4 lanes) and 8 (a full group), on 1000 chains so the last
     # block of 128 threads is part empty
     for temps, n_c, n_it in (
-            (TEMPS, C, nits), ((1.0, 2.0, 4.0), 1000, 60),
+            (TEMPS, C, 100), ((1.0, 2.0, 4.0), 1000, 60),
             (tuple(2.0 ** (k / 2) for k in range(8)), 1000, 60)):
         th0 = torch.as_tensor(seeds[:n_c], device=dev).t().contiguous()
         sc, bt, db = cuda_pt.ladder_constants(temps, 0.05, mask)
@@ -2674,7 +2984,7 @@ def main():
                              * np.exp(np.random.default_rng(10).normal(
                                  0, 0.05, (256, 5)))).astype(np.float32).T
                             .copy(), device=dev)
-    P_NITS = 25      # iterations a kernel: the twins are launch-bound
+    P_NITS = 12      # iterations a kernel: the twins are launch-bound
     pri_walk = (0.1,) * 3
     for label, pri in prior_sets().items():
         table = prior_table(pri)
@@ -2691,14 +3001,14 @@ def main():
         acc_mh = float(rec_k[4][-1].mean())
         start = torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
             near, seed, 1024, mask, 0.01).T), device=dev)
-        e_kw = dict(tile=1024, nits=20, burnin=0, a=2.0, walk=mask,
+        e_kw = dict(tile=1024, nits=10, burnin=0, a=2.0, walk=mask,
                     walked=(True,) * 3, num=3, W0=2048, prior=table)
         rec_k = cuda_mh.ensemble_launcher(spec, plan, y0, "dopri5", start,
                                           seed, **e_kw)()
         torch.cuda.synchronize()
         rec_t = cuda_mh.ensemble_plain(spec, plan, y0, start, seed, **e_kw)
         torch.cuda.synchronize()
-        compare_records(f"ensemble, priors {label}", rec_k, rec_t, 20)
+        compare_records(f"ensemble, priors {label}", rec_k, rec_t, 10)
         acc_ens = float(rec_k[4][-1].mean())
         sc, bt, db = cuda_pt.ladder_constants(TEMPS, 0.1, mask)
         p_kw = dict(nits=P_NITS, burnin=0, scales=sc, walked=(True,) * 3,
@@ -2729,7 +3039,7 @@ def main():
                         rec_t, P_NITS,
                         labels=("theta", "chi", "chi parts", "ar"))
         print(f"priors {label}: MH 1024 chains x {P_NITS}, ensemble 2048 "
-              f"walkers x 20, PT 1024 x 4 rungs x {P_NITS}, joint 256 x "
+              f"walkers x 10, PT 1024 x 4 rungs x {P_NITS}, joint 256 x "
               f"{P_NITS}: mean "
               f"acceptance {acc_mh:.4f}, {acc_ens:.4f}, {acc_pt:.4f}, "
               f"{float(rec_k[3][-1].mean()):.4f}", flush=True)
@@ -3282,7 +3592,7 @@ def main():
 
     phase("ensemble kernel vs twin at the main path's inputs")
     ens_th0, cfg, ens_seed = ens_in["theta0"], ens_in["cfg"], ens_in["seed"]
-    ens_nits = 100
+    ens_nits = 50
     tile_main = cfg.tile_chains or cuda_mh.pick_tile_chains(len(ens_th0))
     ens_walk = tuple(float(w) for w in cfg.mask)
     ens_sub = cuda_mh._normalize_substeps(cfg.substeps, len(tf) - 1)
@@ -3450,6 +3760,8 @@ def main():
     # forcings and array parameters through every kernel
     fa_rows = forcing_phases(fa, joint_pair, (spec, pf_spec), mh_in, pf_in,
                              smi_line)
+    # PT ladders, joint fits and models of any size
+    limit_rows = limits_phases(lf, smi_line)
 
     # -- 5. times -----------------------------------------------------------
     phase("times")
@@ -3762,7 +4074,7 @@ def main():
          "launches": mil_launches, "max_abs_err": mil_err, "ms": mil_ms,
          "plain_ms": mil_plain_ms, "bound_ms": mil_bound[0],
          "bound_by": mil_bound[1], "library_ms": None}]
-        + stiff_rows + fa_rows}))
+        + stiff_rows + fa_rows + limit_rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -39,9 +39,12 @@ from .runge_kutta import DP_A, KV3_A, KV3_NEWTON
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("mh.cu", "ensemble.cu", "pt.cu", "joint.cu", "pf.cu")
 HEADERS = ("common.cuh",)
-PT_KMAX = 8         # rungs the PT kernel holds per chain (csrc/pt.cu)
-JOINT_KMAX = 8      # experiments of the joint kernel (csrc/joint.cu)
-JOINT_DMAX = 64     # joint theta slots per chain (csrc/joint.cu)
+PT_KMAX = 32        # rungs of a chain on one warp (csrc/pt.cu); longer
+#                     ladders span warps in a library built with ODE_WIDE
+JOINT_KMAX = 8      # warps of a joint block, an experiment each
+#                     (csrc/joint.cu); with ODE_WIDE they loop over more
+JOINT_DMAX = 64     # joint theta slots of the one-experiment-a-warp
+#                     instantiations; more run in ODE_WIDE's
 PF_KMAX = 512       # particles per PMMH chain, at most 16 a lane (csrc/pf.cu)
 # -Xptxas -v: registers, stack and spills of each kernel go to nvcc.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -240,7 +243,7 @@ def _model_source(i: int, program, scoring, columns=None) -> str:
 
 def generated_header(program, diffusion, extra, scoring,
                      stiff: bool = False, milstein: bool = False,
-                     columns=None) -> str:
+                     columns=None, wide: bool = False) -> str:
     """``odelib_gen.cuh`` for a traced RHS program; with the traced
     ``diffusion`` of an SDE model (or None), with the ``extra`` programs
     of a joint fit's other models, with each model's ``scoring`` (one
@@ -249,7 +252,10 @@ def generated_header(program, diffusion, extra, scoring,
     ensemble and PT kernels then hold kvaerno3 instantiations), and with
     ``milstein`` the diffusion's diagonal derivative ``diffusion_diag()``
     (:meth:`~odelib_tpu_torch.rhs.RhsProgram.diagonal`; ``ODE_MILSTEIN``:
-    the particle filter's instantiations then take the Milstein step).
+    the particle filter's instantiations then take the Milstein step),
+    and with ``wide`` (``ODE_WIDE``) the PT kernel's instantiations for
+    ladders of more than ``PT_KMAX`` rungs and the joint kernel's for
+    more than ``JOINT_KMAX`` experiments or ``JOINT_DMAX`` slots.
     ``columns`` gives each model's forcing columns (the plan's forcing
     table, ``model.spec_columns``; model 0's cover its diffusion); by
     default each program's own (:func:`~odelib_tpu_torch.rhs.
@@ -272,6 +278,8 @@ def generated_header(program, diffusion, extra, scoring,
               obs_source(0, scoring[0])]
     if stiff:
         parts += ["#define ODE_KVAERNO3 1", kvaerno3_source(program, c0)]
+    if wide:
+        parts.append("#define ODE_WIDE 1")
     if diffusion is not None:
         parts += ["#define ODE_HAS_DIFFUSION 1",
                   f"// diffusion traced from {diffusion.name}",
@@ -301,15 +309,16 @@ def nvcc() -> str:
 
 
 def build(program, diffusion, extra, scoring, stiff: bool = False,
-          milstein: bool = False, columns=None) -> Path:
+          milstein: bool = False, columns=None, wide: bool = False) -> Path:
     """Compile the kernels for ``program`` (with an SDE's ``diffusion``, a
     joint fit's ``extra`` programs, each model's ``scoring``, with
-    ``stiff`` the Kvaerno3 instantiations and with ``milstein`` the
-    particle filter's Milstein step; cached by content hash); returns the
+    ``stiff`` the Kvaerno3 instantiations, with ``milstein`` the particle
+    filter's Milstein step and with ``wide`` the long-ladder and
+    many-experiment instantiations; cached by content hash); returns the
     shared library's path. The compiler's output and the build's seconds
     are kept beside it in ``nvcc.log``."""
     header = generated_header(program, diffusion, extra, scoring, stiff,
-                              milstein, columns)
+                              milstein, columns, wide)
     h = hashlib.sha256()
     for part in (header, *((CSRC / s).read_text()
                            for s in SOURCES + HEADERS),
@@ -367,7 +376,8 @@ def distinct_programs(specs, scoring, with_columns=False):
 
 
 def load_kernels(spec, others=(), diffusion=False, *, scoring,
-                 stiff: bool = False, milstein: bool = False):
+                 stiff: bool = False, milstein: bool = False,
+                 wide: bool = False):
     """The loaded kernel library for ``spec``'s RHS, with the models of
     ``others`` compiled in for the joint kernel (build at first use), each
     model scored as its entry of ``scoring`` says (one ``cuda_mh.scoring``
@@ -379,7 +389,11 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
     its own: the explicit steppers' libraries stay as they were). With
     ``diffusion`` and ``milstein`` the particle filter takes the Milstein
     step (a library of its own too, whose ``odelib_pf`` refuses an Euler
-    launch, as the Euler library's refuses a Milstein one)."""
+    launch, as the Euler library's refuses a Milstein one). With ``wide``
+    the PT kernel also holds ladders of more than ``PT_KMAX`` rungs and
+    the joint kernel fits of more than ``JOINT_KMAX`` experiments or
+    ``JOINT_DMAX`` slots (a library of its own: the others keep their code
+    and build time, and refuse such a launch)."""
     from ..model import diffusion_program
     specs = (spec, *others)
     scoring = tuple(tuple(k) for k in scoring)
@@ -388,12 +402,13 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
     diffusion = None if not diffusion or spec.diffusion is None else \
         diffusion_program(spec)
     milstein = bool(milstein) and diffusion is not None
-    key = (tuple(programs), keys, diffusion, bool(stiff), milstein, columns)
+    key = (tuple(programs), keys, diffusion, bool(stiff), milstein, columns,
+           bool(wide))
     lib = _BY_PROGRAM.get(key)
     if lib is not None:
         return lib
     path = str(build(programs[0], diffusion, tuple(programs[1:]), keys,
-                     bool(stiff), milstein, columns))
+                     bool(stiff), milstein, columns, bool(wide)))
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)
@@ -412,7 +427,7 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
             ctypes.c_uint, ctypes.c_float, _I, _P]
         lib.odelib_pt.restype = _I
         lib.odelib_joint.argtypes = [_P, _I, _P, _I, _P, _I] + [_P] * 9 \
-            + [_I] * 6 + [_U, _I, _P]
+            + [_I] * 6 + [_U, _I, _I, _P]
         lib.odelib_joint.restype = _I
         lib.odelib_pf.argtypes = [_P] * 10 + [_I] * 6 + [_U] * 2 + [_I] * 4 \
             + [_F] * 5 + [_P]

@@ -96,9 +96,11 @@ enum : int {
 enum : int { OBS_LOGNORMAL = 0, OBS_STUDENT_T, OBS_POISSON, OBS_NEGBINOM };
 
 // Observations are flat: observation o reads its member mask (the states
-// its prediction sums, bit s for state s), lab, den and ab at index o, and
-// step k the range [step_obs[2k], step_obs[2k + 1]) it scores; no load
-// waits on another's result but the range's.
+// its prediction sums, bit s for state s: one word at index o for a model
+// of at most 32 states, else mask_words(S) words from o mask_words(S)),
+// lab, den and ab at index o, and step k the range [step_obs[2k],
+// step_obs[2k + 1]) it scores; no load waits on another's result but the
+// range's.
 struct Plan {
   int n_steps;
   const int* step_gi;   // grid index scored after step k, or -1
@@ -119,6 +121,11 @@ struct Plan {
   const float* dose_amt;  // per dose: the amount (one entry per state)
   const float* forc;      // per step: forc_rows(stepper) rows of F columns
 };
+
+// Words of an observation's member mask in a model of S states.
+__host__ __device__ constexpr int mask_words(int S) {
+  return S <= 32 ? 1 : (S + 31) / 32;
+}
 
 __device__ __forceinline__ Plan load_plan(const int* __restrict__ pi,
                                           const float* __restrict__ pf) {
@@ -287,13 +294,26 @@ __device__ __forceinline__ void obs_terms(const Plan& pl, int o0, int o1,
                                           const float* y, float& chi,
                                           float& ssres) {
   for (int o = o0; o < o1; ++o) {
-    const int mask = pl.obs_mask[o];
+    // above 32 states, word s / 32 of the observation's words holds bit s
+    int mask = 0;
+    const int* words = nullptr;
+    if constexpr (M::S <= 32) {
+      mask = pl.obs_mask[o];
+    } else {
+      words = pl.obs_mask + (size_t)o * mask_words(M::S);
+    }
     const float lab = pl.lab[o], den = pl.den[o], ab = pl.ab[o];
     float pred = 0.0f;
     bool first = true;
 #pragma unroll
     for (int s = 0; s < M::S; ++s) {
-      if ((mask >> s) & 1) {
+      bool member;
+      if constexpr (M::S <= 32) {
+        member = (mask >> s) & 1;
+      } else {
+        member = (words[s / 32] >> (s % 32)) & 1;
+      }
+      if (member) {
         pred = first ? y[s] : pred + y[s];
         first = false;
       }

@@ -26,7 +26,7 @@
 // rungs one after another: latency-bound, at K times MH's time.
 //
 // What the design does about it: one thread per (chain, rung). A chain is a
-// group of G lanes, G the next power of two >= K (G <= PT_KMAX = 8); lane
+// group of G lanes, G the next power of two >= K (G <= PT_KMAX = 32); lane
 // k < K owns rung k, its log-theta, chi and R^2 in registers (no ladder in
 // local memory), and lanes k >= K idle. Blocks are 128 threads, 32/G
 // chains per warp, so the main path's 10,000 x 4 rungs are 9.5 warps per
@@ -54,6 +54,27 @@
 // is cosf's slow-path argument reduction (|x| > 105615, never 2 pi u), as
 // in mh_kernel.
 //
+// Ladders of more than 32 rungs (the WIDE instantiations, in a library
+// built with ODE_WIDE, ops/build.py): a chain no longer fits a warp. Of the
+// two layouts that keep a thread per (chain, rung), a chain spanning
+// ceil(K/32) warps of one block and a lane owning several rungs, this is
+// the first: a lane owning R rungs would solve them one after another
+// (R times the latency, and R ladders of registers), while a chain of G
+// lanes over G/32 warps keeps one solve a thread and only adds block
+// barriers to the swap phase. A block is max(128, G) threads, and its
+// launch bound is a template argument, so ptxas may give a thread
+// 65,536 / bound registers: 256 (255 registers) for G <= 256, which is
+// every ladder with a walked parameter (the RNG slots allow K (2 n_walked
+// + 1) + K - 1 <= 1024), and 512 (128 registers) for G = 512, the
+// ladders of 257 to 512 rungs that walk nothing. At a swap every lane
+// writes its rung's log-theta, chi, R^2 and log prior to shared memory,
+// the block waits, each lane reads its partner's (the pairs that straddle
+// a warp and those inside one alike: the barrier is needed for the first,
+// and then costs the others nothing), and the block waits again before
+// the planes are reused. The decisions are the shuffle layout's: each due
+// pair's two lanes read the same two snapshots, so a chain's draws and
+// swaps are the serial loop's, draw for draw.
+//
 // Chunk mode (pallas_pt.py:60-67, :106-115, :134-142, :220-225): a launch
 // covers the proposals it_base + 1 .. it_end - 1. The ladder state is the
 // JAX kernel's K (P + 3) + 2 planes of C: rung k's log-theta at k P + p,
@@ -76,6 +97,15 @@ static_assert(PT_KMAX <= 32 && (PT_KMAX & (PT_KMAX - 1)) == 0,
               "a chain's rungs are one power-of-two group of a warp");
 
 #define PT_BLOCK 128
+// the WIDE instantiations' launch bounds: chains of G <= 256 lanes, and of
+// G = 512 (the most the RNG slots allow)
+#define PT_WIDE_BLOCK 256
+#define PT_WIDEST_BLOCK 512
+#ifdef ODE_WIDE
+#define ODE_WIDE_ONLY(x) x
+#else
+#define ODE_WIDE_ONLY(x) nullptr
+#endif
 
 namespace {
 
@@ -84,8 +114,10 @@ using namespace odelib;
 // ladder: K*P walk scales f32(rwalk_std sqrt(T_k) mask_p), P walked flags,
 // K betas f32(1/T_k), K-1 pair factors f32(beta_k - beta_{k+1}).
 // prior: P table entries (read by the PRIORS instantiations only).
-template <int STEPPER, bool PRIORS>
-__global__ void __launch_bounds__(PT_BLOCK, 1)
+// BOUND: 0 for a chain inside a warp, else the launch bound of a chain over
+// warps (PT_WIDE_BLOCK or PT_WIDEST_BLOCK: the WIDE instantiations).
+template <int STEPPER, bool PRIORS, int BOUND>
+__global__ void __launch_bounds__(BOUND ? BOUND : PT_BLOCK, 1)
 pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
           const float* __restrict__ theta0, const float* __restrict__ ladder,
           const float* __restrict__ prior,
@@ -95,6 +127,7 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
           float* __restrict__ ar_rec, float* __restrict__ sw_rec, int C,
           int K, int G, int it_base, int it_end, int rec0, int swap_every,
           uint32_t seed, float aic_const) {
+  constexpr bool WIDE = BOUND != 0;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int c_own = t / G;
   const int k = t % G;
@@ -176,14 +209,33 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
       const int lo = (k % 2 == parity) ? k : k - 1;   // this lane's pair
       const bool paired = rung && lo >= 0 && lo + 1 < K;
       const int partner = paired ? (lo == k ? k + 1 : lo) : k;
-      const float chi_o = __shfl_sync(0xFFFFFFFFu, chi, partner, G);
+      // WIDE: the planes xs of the block's lanes, written before a barrier
+      extern __shared__ float xs[];
+      const int nb = blockDim.x, me = threadIdx.x, other = me - k + partner;
+      if constexpr (WIDE) {
+        xs[me] = chi;
+        xs[nb + me] = rsq;
+        xs[2 * nb + me] = lp;
+#pragma unroll
+        for (int p = 0; p < ODE_P; ++p) xs[(3 + p) * nb + me] = lt[p];
+        __syncthreads();
+      }
+      // the partner lane's value of plane `plane`
+      auto from_partner = [&](float v, int plane) {
+        if constexpr (WIDE) {
+          return xs[plane * nb + other];
+        } else {
+          return __shfl_sync(0xFFFFFFFFu, v, partner, G);
+        }
+      };
+      const float chi_o = from_partner(chi, 0);
       const float u_s = uniform(key, (uint32_t)it * 1024u +
                                          (uint32_t)K * per_rung +
                                          (uint32_t)(paired ? lo : 0));
       // the energies chi - lp (chi alone without priors), lower rung first
       float e = chi, e_o = chi_o, lp_o = 0.0f;
       if constexpr (PRIORS) {
-        lp_o = __shfl_sync(0xFFFFFFFFu, lp, partner, G);
+        lp_o = from_partner(lp, 2);
         e = chi - lp;
         e_o = chi_o - lp_o;
       }
@@ -192,10 +244,11 @@ pt_kernel(const int* __restrict__ pi, const float* __restrict__ pf,
       const bool swap = paired && expf(delta) > u_s && isfinite(delta);
 #pragma unroll
       for (int p = 0; p < ODE_P; ++p) {
-        const float o = __shfl_sync(0xFFFFFFFFu, lt[p], partner, G);
+        const float o = from_partner(lt[p], 3 + p);
         if (swap) lt[p] = o;
       }
-      const float rsq_o = __shfl_sync(0xFFFFFFFFu, rsq, partner, G);
+      const float rsq_o = from_partner(rsq, 1);
+      if constexpr (WIDE) __syncthreads();   // every lane has read xs
       if (swap) {
         chi = chi_o;
         rsq = rsq_o;
@@ -245,24 +298,40 @@ int odelib_pt(const int* pi, const float* pf, const float* theta0,
               int C, int K, int it_base, int it_end, int rec0,
               int swap_every, unsigned int seed, float aic_const,
               int stepper, void* stream) {
-  if (K < 2 || K > PT_KMAX || swap_every < 1 || C < 1 || it_base < 0
+  if (K < 2 || K > PT_WIDEST_BLOCK || swap_every < 1 || C < 1 || it_base < 0
       || it_end <= it_base)
     return (int)cudaErrorInvalidValue;
   int G = 2;
   while (G < K) G <<= 1;
+  const bool wide = K > PT_KMAX;
+  const int block = wide && G > PT_BLOCK ? G : PT_BLOCK;
+  const int bound = !wide ? 0 : G <= PT_WIDE_BLOCK ? 1 : 2;
+  const size_t smem = wide ? sizeof(float) * (3 + ODE_P) * block : 0;
   const long long threads = (long long)C * G;
-  const int grid = (int)((threads + PT_BLOCK - 1) / PT_BLOCK);
+  const int grid = (int)((threads + block - 1) / block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using Kernel = decltype(&pt_kernel<0, false>);
-  const Kernel kernels[3][2] = {
-      {&pt_kernel<0, false>, &pt_kernel<0, true>},
-      {&pt_kernel<1, false>, &pt_kernel<1, true>},
-      {ODE_KV3((&pt_kernel<3, false>)), ODE_KV3((&pt_kernel<3, true>))}};
+  using Kernel = decltype(&pt_kernel<0, false, 0>);
+  // [stepper][priors][bound]; the kvaerno3 row needs ODE_KVAERNO3, the
+  // wide entries ODE_WIDE
+#define PT_ROW(S, PR)                                                    \
+  {&pt_kernel<S, PR, 0>,                                                 \
+   ODE_WIDE_ONLY((&pt_kernel<S, PR, PT_WIDE_BLOCK>)),                    \
+   ODE_WIDE_ONLY((&pt_kernel<S, PR, PT_WIDEST_BLOCK>))}
+#define PT_KV3_ROW(PR)                                                   \
+  {ODE_KV3((&pt_kernel<3, PR, 0>)),                                      \
+   ODE_WIDE_ONLY(ODE_KV3((&pt_kernel<3, PR, PT_WIDE_BLOCK>))),           \
+   ODE_WIDE_ONLY(ODE_KV3((&pt_kernel<3, PR, PT_WIDEST_BLOCK>)))}
+  const Kernel kernels[3][2][3] = {
+      {PT_ROW(0, false), PT_ROW(0, true)},
+      {PT_ROW(1, false), PT_ROW(1, true)},
+      {PT_KV3_ROW(false), PT_KV3_ROW(true)}};
+#undef PT_ROW
+#undef PT_KV3_ROW
   const int row = stepper_row(stepper);
-  if (row < 0 || !kernels[row][prior != nullptr])
+  if (row < 0 || !kernels[row][prior != nullptr][bound])
     return (int)cudaErrorInvalidValue;
-  const Kernel kernel = kernels[row][prior != nullptr];
-  kernel<<<grid, PT_BLOCK, 0, s>>>(pi, pf, theta0, ladder, prior, state_in,
+  const Kernel kernel = kernels[row][prior != nullptr][bound];
+  kernel<<<grid, block, smem, s>>>(pi, pf, theta0, ladder, prior, state_in,
                                    state_out, th_rec, chi_rec, rsq_rec,
                                    aic_rec, ar_rec, sw_rec, C, K, G, it_base,
                                    it_end, rec0, swap_every, seed, aic_const);

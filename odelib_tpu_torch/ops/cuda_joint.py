@@ -147,19 +147,25 @@ def joint_tables(specs, plans, y0s, idx_maps, stepper):
 
 
 def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
-                   nits, burnin, walk, walked, prior=None, R_chunk=None):
+                   nits, burnin, walk, walked, prior=None, R_chunk=None,
+                   smem_cap=0):
     """Prepare the joint kernel for chains ``th0`` (D, C) on the card and
     return ``launch() -> records`` (as :func:`joint_plain`); each call
     launches the kernel once (and counts it). With ``R_chunk`` it is
     ``launch(it_base, state) -> (records, state)``, a chunk of
     :func:`joint_plain`'s chunk mode, state a (D + K + 3, C) tensor on the
-    card (None on the first chunk)."""
+    card (None on the first chunk). A fit of more than ``JOINT_KMAX``
+    experiments or ``JOINT_DMAX`` slots loads the library built with
+    ``wide`` (``joint_kernel``'s ``WIDE`` instantiations), whose log-theta
+    and proposal planes sit in shared memory up to ``smem_cap`` bytes (0:
+    the card's opt-in maximum), else in device memory."""
     from . import build
-    lib = build.load_kernels(specs[0], specs[1:],
-                             scoring=[scoring(pl) for pl in plans])
-    dev = th0.device
     D, C = th0.shape
     K = len(specs)
+    lib = build.load_kernels(
+        specs[0], specs[1:], scoring=[scoring(pl) for pl in plans],
+        wide=K > build.JOINT_KMAX or D > build.JOINT_DMAX)
+    dev = th0.device
     plan_i, plan_f, exp_tab, width = joint_tables(specs, plans, y0s,
                                                   idx_maps, stepper)
     plan_i, exp_tab = (torch.as_tensor(a, device=dev)
@@ -174,7 +180,7 @@ def joint_launcher(specs, plans, y0s, idx_maps, stepper, th0, seed, *,
             plan_f.numel(), exp_tab.data_ptr(), width, th0.data_ptr(),
             walk_t.data_ptr(), _ptr(prior_t))
     tail = (int(np.uint32(np.int64(seed) & _M32)), _STEPPER_ID[stepper],
-            build.stream(dev))
+            int(smem_cap), build.stream(dev))
 
     def launch(it_base=0, state=None):
         it_end, rec0 = chunk_range(nits, burnin, R_chunk, it_base)
@@ -220,7 +226,6 @@ def joint_metropolis_hastings_fused(
     configuration, or of ``odelib_tpu``, fails the resume with
     ``ValueError``. ``tile_chains``/``interpret`` are accepted and
     ignored; a ``mesh`` raises ``NotImplementedError``."""
-    from .build import JOINT_DMAX, JOINT_KMAX
     _check_mesh(mesh)
     # JointFit integrates dopri5 or rk4 under every method (kvaerno3 too,
     # as odelib_tpu/joint.py does): the joint kernel holds those two
@@ -238,10 +243,6 @@ def joint_metropolis_hastings_fused(
                              f"{sp.theta_size}")
         if any(i < 0 or i >= D for i in m):
             raise ValueError(f"idx map {m} out of range for joint size {D}")
-    if K > JOINT_KMAX or D > JOINT_DMAX:
-        raise ValueError(f"the joint kernel holds at most {JOINT_KMAX} "
-                         f"experiments and {JOINT_DMAX} joint slots, got "
-                         f"{K} and {D}")
     if nits - 1 <= burnin:
         raise ValueError(f"nits={nits} leaves no recorded iterations after "
                          f"burnin={burnin}")

@@ -214,7 +214,22 @@ def with_forcings(f, at):
     if at is None:
         return f
     return lambda t, y, ps: f(t, y, ps, at[t])
-_MAX_MASK_STATES = 32  # an observation's members are a bit mask of states
+
+
+def mask_words(n_states: int) -> int:
+    """Words of an observation's member mask (``csrc/common.cuh``
+    ``mask_words``): one for a model of at most 32 states, else one per
+    32 states."""
+    return 1 if n_states <= 32 else -(-n_states // 32)
+
+
+def member_mask(members, n_states: int):
+    """An observation's member mask as :func:`mask_words` int32 words,
+    bit ``s % 32`` of word ``s // 32`` for state ``s``."""
+    out = [0] * mask_words(n_states)
+    for m in members:
+        out[m // 32] |= 1 << (m % 32)
+    return [w - (1 << 32) if w >= 1 << 31 else w for w in out]
 
 
 def _check_stepper(stepper, allowed=tuple(_STEPPER_ID)):
@@ -229,14 +244,14 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     per-observation censor flags, the per-grid-point dose CSR and each
     dose's state, the step grid indices, each step's range of
     observations, the per-grid-point observation CSR, each observation's
-    member mask and the init-parameter wiring) and ``plan_f`` (float32:
-    sstot, each observation's log sigma, the dose amounts, then 8 floats
-    per step, the per-observation constants, y0 and the forcing table of
-    :func:`forcing_table`, step-major). The tables added with censoring
-    and doses come first and the forcing table last, so the others keep
-    the places they had. Floats are rounded to float32 on the host exactly
-    where the JAX
-    kernel's Python scalars meet float32 arrays (a grid point's doses of
+    member mask (:func:`member_mask`) and the init-parameter wiring) and
+    ``plan_f`` (float32: sstot, each observation's log sigma, the dose
+    amounts, then 8 floats per step, the per-observation constants, y0
+    and the forcing table of :func:`forcing_table`, step-major). The
+    tables added with censoring and doses come first and the forcing
+    table last, so the others keep the places they had. Floats are
+    rounded to float32 on the host exactly where the JAX kernel's Python
+    scalars meet float32 arrays (a grid point's doses of
     one state summed in double first). A step's 8 floats are, for
     'dopri5', h and its stage times; 'rk4' h, h/2, h/6 and its times;
     'kvaerno3' h, h gamma and the times of its four stages; 'euler' (the
@@ -244,10 +259,6 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
     term's factor."""
     if stepper != "euler":
         _check_stepper(stepper)
-    if len(spec.snames) > _MAX_MASK_STATES:
-        raise NotImplementedError(
-            f"the kernels score models of at most {_MAX_MASK_STATES} "
-            f"states, not {len(spec.snames)}")
     n_steps, n_grid = len(plan.step_ts), plan.n_grid
     obs = [o for grid in plan.obs_after for o in grid]
     obs_ptr = np.cumsum([0] + [len(g) for g in plan.obs_after])
@@ -260,7 +271,8 @@ def plan_tables(spec: ModelSpec, plan: _StaticPlan, y0_base, stepper: str):
             np.asarray([gi for _, _, gi in plan.step_ts]),
             np.asarray(step_obs).ravel(),
             obs_ptr,
-            np.asarray([sum(1 << m for m in o[0]) for o in obs]),
+            np.asarray([w for o in obs
+                        for w in member_mask(o[0], len(spec.snames))]),
             np.asarray(spec.init_pidx)]
     steps = np.zeros((n_steps, 8))
     forc = forcing_table(spec, plan, stepper)

@@ -30,7 +30,6 @@ from .cuda_mh import (_M32, _SLOT_BUDGET, _STEPPER_ID, LAUNCHES, Rng,
                       _normalize_substeps, _prior_tensor, _ptr, _records,
                       chunk_range, make_scorer, scoring, twin_launcher)
 from .priors import checked_priors, logprior_plain
-from .build import PT_KMAX
 from .runge_kutta import const
 
 
@@ -167,11 +166,12 @@ def pt_launcher(spec, plan, y0_base, stepper, th0, seed, *, nits, burnin,
     ``launch(it_base, state) -> (records, state)``, a chunk of
     :func:`pt_plain`'s chunk mode."""
     from . import build
+    K = len(betas)
     lib = build.load_kernels(spec, scoring=[scoring(plan)],
-                             stiff=stepper == "kvaerno3")
+                             stiff=stepper == "kvaerno3",
+                             wide=K > build.PT_KMAX)
     dev = th0.device
     P, C = th0.shape
-    K = len(betas)
     plan_i, plan_f = _device_plan(spec, plan, _key(y0_base), stepper,
                                   str(dev))
     ladder = torch.as_tensor(np.concatenate([
@@ -214,9 +214,11 @@ def parallel_tempering_fused(
     """Run C tempered ladders in one kernel launch.
 
     ``theta0`` is (C, P) float32; a CUDA tensor launches the PT kernel, a
-    CPU one runs its twin. ``temperatures`` (2 to ``PT_KMAX`` rungs,
-    starting at 1.0, strictly increasing) and ``swap_every`` as in the JAX
-    package. Returns ``(MHOutput of the T=1 rung, swap_rate (C,))``, the
+    CPU one runs its twin. ``temperatures`` (at least 2 rungs, starting
+    at 1.0, strictly increasing; as many as the RNG's 1024 slots an
+    iteration hold) and ``swap_every`` as in the JAX package: a ladder of
+    more than ``build.PT_KMAX`` rungs spans warps, in a library built
+    with ``wide``. Returns ``(MHOutput of the T=1 rung, swap_rate (C,))``, the
     cold pair's accepted swaps per proposal. ``priors``: one distribution
     (or None) per theta slot, in the tempered acceptance and the swaps as
     in the JAX kernel (a family without an in-kernel form raises
@@ -239,9 +241,6 @@ def parallel_tempering_fused(
     if any(b >= a for b, a in zip(temperatures, temperatures[1:])):
         raise ValueError("temperatures must be strictly increasing")
     K = len(temperatures)
-    if K > PT_KMAX:
-        raise ValueError(f"the PT kernel holds at most {PT_KMAX} rungs, "
-                         f"got {K}")
     if int(swap_every) < 1:
         raise ValueError("swap_every must be >= 1")
     theta0 = _as_f32_tensor(theta0)

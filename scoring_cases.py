@@ -4,16 +4,22 @@ card tests): each compiled scoring branch, the demo data as each
 observation model sees it (counts rounded, host points below 1.5e6
 left-censored there, virus points above 2.5e8 right-censored there),
 zero_i with a virus inoculum, pk_oral with six oral doses and points
-under the LLOQ, and the stiff Robertson system on ``bench/suite.py``'s
-config-5 grid. Imports neither jax nor the JAX package."""
+under the LLOQ, the stiff Robertson system on ``bench/suite.py``'s
+config-5 grid, and the shapes above the kernels' old limits: two_i with
+n latent classes (n + 2 states), Lotka-Volterra data for long PT ladders
+and chemostat runs at many dilution rates for joint fits. Imports neither
+jax nor the JAX package."""
 import numpy as np
 import pandas as pd
+import torch
 
 from odelib_tpu_torch.data import (build_obsdata_host,
                                    compact_observation_grid,
                                    format_dataframe, load_demo_dataframe)
 from odelib_tpu_torch.model import make_spec
-from odelib_tpu_torch.models import pk_oral, robertson, zero_i
+from odelib_tpu_torch.distributions import LogNormal
+from odelib_tpu_torch.models import (chemostat, lotka_volterra, pk_oral,
+                                     robertson, two_i, zero_i)
 from odelib_tpu_torch.rhs import adapt_rhs
 
 FAMILIES = {"lognormal": None, "student_t": 4.0, "poisson": None,
@@ -48,7 +54,7 @@ def scoring_id(case):
 
 
 def demo_frame(obs_model="lognormal", censor=(), scale=1.0, host="S",
-               thin=1):
+               thin=1, first=None):
     """The demo data (``host``, V) as ``obs_model`` sees it: divided by
     ``scale`` and rounded to counts for the count models; ``censor`` holds
     'left' (host points below 1.5e6 recorded at that limit) and/or
@@ -56,10 +62,10 @@ def demo_frame(obs_model="lognormal", censor=(), scale=1.0, host="S",
     in a ``censored`` column. ``thin`` keeps every thin-th sampling time
     from t = 0 (2: 9 of 18, both censored sides kept), which makes the
     interpret-mode JAX kernels' programs several times cheaper to
-    compile."""
+    compile; ``first`` keeps only the first that many of those times."""
     df = load_demo_dataframe(host=host, virus="V")
-    df = df[df["time"].isin(np.unique(df["time"])[::thin])].reset_index(
-        drop=True)
+    df = df[df["time"].isin(np.unique(df["time"])[::thin][:first])]
+    df = df.reset_index(drop=True)
     if obs_model in ("poisson", "negbinom"):
         df["abundance"] = np.round(df["abundance"] / scale)
     if censor:
@@ -192,3 +198,118 @@ def robertson_frame(seed=5):
                     0.1 * rng.normal(size=len(ROBERTSON_TIMES))),
                 "log_sigma": 0.1}))
     return pd.concat(rows, ignore_index=True)
+
+
+# -- models of any size, long ladders and many experiments --------------------
+
+def chain_rhs(n, stack=None):
+    """two_i generalised to ``n`` latent classes (a user RHS, torch's, or
+    with ``stack`` another array library's): dI1 = phi S V - tau I1, dIk
+    = tau I(k-1) - tau Ik, the last class lyses at lam, dV = beta lam In
+    - phi S V; states S, I1..In, V."""
+    def rhs(t, y, ps):
+        mu, phi, beta, lam, tau = ps
+        S, V = y[0], y[n + 1]
+        dI = [phi * S * V - tau * y[1]]
+        dI += [tau * y[k - 1] - tau * y[k] for k in range(2, n)]
+        dI.append(tau * y[n - 1] - lam * y[n])
+        out = [mu * S - phi * S * V] + dI + [beta * lam * y[n] - phi * S * V]
+        return torch.stack(out) if stack is None else stack(out)
+    return rhs
+
+
+CHAIN_PNAMES = ("mu", "phi", "beta", "lam", "tau")
+
+
+def chain_snames(n):
+    return ("S",) + tuple(f"I{k}" for k in range(1, n + 1)) + ("V",)
+
+
+def chain_summations(n):
+    """The observed host H = S + I1 + ... + In."""
+    return {"H": ["S"] + [f"I{k}" for k in range(1, n + 1)]}
+
+
+def chain_theta(n):
+    """two_i's starts with tau scaled by n - 1, so that the mean latent
+    period (n - 1)/tau + 1/lam is two_i's 1/tau + 1/lam."""
+    mu, phi, beta, lam, tau = two_i.default_theta
+    return (mu, phi, beta, lam, (n - 1) * tau)
+
+
+def chain_priors(n):
+    """two_i's priors, tau's scale times n - 1."""
+    p = two_i.priors()
+    p["tau"] = LogNormal(s=2.0, scale=(n - 1) * 1.0)
+    return p
+
+
+def chain_case(n, t_steps=288, thin=1, first=None):
+    """(spec, host obs, grid, y0) of the n-class chain on the demo data
+    (host H, V; ``thin`` and ``first`` as :func:`demo_frame`), y0
+    two_i's: S and V from the data, every class 0."""
+    snames = chain_snames(n)
+    spec = make_spec(adapt_rhs(chain_rhs(n), "jax"), CHAIN_PNAMES, snames,
+                     state_summations=chain_summations(n))
+    df = format_dataframe(demo_frame(host="H", thin=thin, first=first),
+                          snames)
+    obs, tf = fit_inputs(spec, df, t_steps)
+    y0 = np.zeros(n + 2)
+    y0[0] = df.loc["H"].iloc[0]["abundance"]
+    y0[-1] = df.loc["V"].iloc[0]["abundance"]
+    return spec, obs, tf, y0
+
+
+def chain_sde_spec(n, sd=0.02):
+    """The n-class chain with multiplicative process noise of sd ``sd`` on
+    every state (an SDE variant for PMMH)."""
+    def noise(t, y, ps):
+        return [sd * y[s] for s in range(n + 2)]
+    return make_spec(adapt_rhs(chain_rhs(n), "jax"), CHAIN_PNAMES,
+                     chain_snames(n), state_summations=chain_summations(n),
+                     diffusion=adapt_rhs(noise, "jax"))
+
+
+def _simulated(model, theta, times, seed, sd=0.1, y0=None):
+    """``model``'s states at ``times`` from ``theta`` (scipy LSODA, rtol
+    1e-10) with log-normal noise of sd ``sd`` (numpy ``seed``), one frame
+    row per state and time."""
+    from scipy.integrate import odeint
+    f = model.rhs
+
+    def g(y, t):
+        out = f(t, torch.as_tensor(y), list(torch.as_tensor(theta)))
+        return out.numpy()
+    ys = odeint(g, list(model.default_y0 if y0 is None else y0), times,
+                rtol=1e-10, atol=1e-12, mxstep=100000)
+    rng = np.random.default_rng(seed)
+    return pd.concat([pd.DataFrame({
+        "organism": name, "time": times,
+        "abundance": ys[:, s] * np.exp(sd * rng.normal(size=len(times))),
+        "log_sigma": sd}) for s, name in enumerate(model.snames)],
+        ignore_index=True)
+
+
+LV_TIMES = np.linspace(0.0, 50.0, 25)
+
+
+def lv_frame(seed=13):
+    """Lotka-Volterra's prey and predator at 25 times over [0, 50] from
+    its default theta and y0, log-normal noise of sd 0.1."""
+    return _simulated(lotka_volterra, lotka_volterra.default_theta,
+                      LV_TIMES, seed)
+
+
+CHEMOSTAT_TIMES = np.linspace(0.0, 80.0, 16)
+
+
+def chemostat_frames(dilutions, seed=11, rin=5.0):
+    """One frame per dilution rate d: the chemostat's R and N at 16 times
+    over [0, 80] from its defaults at that d (feed ``rin``), log-normal
+    noise of sd 0.1, all drawn from one numpy ``seed`` in order."""
+    rng_seeds = np.random.default_rng(seed).integers(0, 2 ** 31,
+                                                     len(dilutions))
+    vmax, Ks, gamma, _, _ = chemostat.default_theta
+    return [_simulated(chemostat, (vmax, Ks, gamma, float(d), rin),
+                       CHEMOSTAT_TIMES, int(s))
+            for d, s in zip(dilutions, rng_seeds)]

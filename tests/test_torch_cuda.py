@@ -1100,3 +1100,273 @@ def test_pf_kernel_forced_matches_twin(method):
     assert_bitwise([k.theta.permute(1, 2, 0), k.chi.t(),
                     k.acceptance_ratio.t()], tw)
     assert np.isfinite(k.chi.cpu().numpy()).all()
+
+
+# --- ladders of any length, fits of any size, models of any size ---------
+
+# (swap_every, K, priors, walk mask): one warp's group of 16 and of 32
+# lanes, then the WIDE instantiations (a library built with ODE_WIDE): a
+# chain over two warps (33: a group of 64 with 31 idle lanes; 40 with
+# priors), over four warps, a block of 128 threads holding one chain (100),
+# over eight (256 rungs, one parameter walked: the most its RNG slots
+# allow), and a chain of 512 lanes under the 512-thread launch bound (300
+# rungs, nothing walked)
+_WALK = [1, 0, 1]
+_LADDERS = [(1, 16, False, _WALK), (2, 32, False, _WALK),
+            (1, 33, False, _WALK), (1, 40, True, _WALK),
+            (3, 100, False, _WALK), (1, 256, False, [0, 0, 1]),
+            (2, 300, False, [0, 0, 0])]
+
+
+@pytest.mark.parametrize("every,K,prior,mask", _LADDERS)
+def test_pt_kernel_long_ladders_match_twin(card, every, K, prior, mask):
+    from odelib_tpu_torch import distributions as D
+    spec, obs, tf, y0 = card
+    temps = tuple(float(t) for t in np.geomspace(1.0, 1000.0, K))
+    th0 = torch.as_tensor(_draws(203, sd=0.05), device="cuda")
+    pri = (D.LogNormal(s=0.5, scale=0.6), None,
+           D.Normal(loc=24.0, scale=3.0)) if prior else None
+    before = T.LAUNCHES["parallel_tempering_fused"]
+    k, rate = TP.parallel_tempering_fused(
+        spec, obs, tf, y0, th0, 11, temperatures=temps, swap_every=every,
+        nits=16, burnin=4, substeps=4, walk_mask=mask, priors=pri)
+    assert T.LAUNCHES["parallel_tempering_fused"] == before + 1
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.05, mask)
+    tw = TP.pt_plain(spec, T._build_plan(spec, obs, tf, 4), y0,
+                     th0.t().contiguous(), 11, nits=16, burnin=4,
+                     scales=scales, walked=tuple(m != 0 for m in mask),
+                     betas=betas,
+                     dbetas=dbetas, swap_every=every, num=3,
+                     prior=None if pri is None else prior_table(pri))
+    torch.cuda.synchronize()
+    _equal_runs([k.theta.permute(1, 2, 0), k.chi.t(), k.rsquared.t(),
+                 k.aic.t(), k.acceptance_ratio.t()], tw[:5])
+    att = TP.swap_attempts(16, every, 1)[0]
+    np.testing.assert_array_equal(rate.cpu().numpy(),
+                                  (tw[5][-1] / torch.tensor(
+                                      att, dtype=torch.float32,
+                                      device="cuda")).cpu().numpy())
+
+
+def _wide_joint_inputs(card, K, shared):
+    """K zero_i experiments on the demo data perturbed per experiment
+    (numpy seed 7 + k), initial abundances x (1 + k / 100); ``shared``
+    names the tied slots (of mu, phi, beta), each experiment's others its
+    own. Returns specs, obs, grids, y0s, idx maps and the joint centre."""
+    spec, obs, tf, y0 = card
+    names = ("mu", "phi", "beta")
+    centre = [(0.6, 2.4e-8, 24.0)[names.index(p)] for p in shared]
+    exps = []
+    for k in range(K):
+        rng = np.random.default_rng(7 + k)
+        ob = obs if k == 0 else obs._replace(
+            log_abundance=obs.log_abundance
+            + rng.normal(0, 0.1, len(obs.log_abundance)))
+        idx = []
+        for i, p in enumerate(names):
+            if p in shared:
+                idx.append(shared.index(p))
+            else:
+                idx.append(len(centre))
+                centre.append((0.6, 2.4e-8, 24.0)[i])
+        exps.append((spec, ob, tf, (1 + k / 100) * y0, tuple(idx)))
+    return [list(x) for x in zip(*exps)] + [np.asarray(centre)]
+
+
+# (K, shared, chains, smem_cap): nine experiments on eight warps (warp 0
+# scores two); 33 experiments, D = 67, with the planes forced into device
+# memory; 56, D = 168, the planes above 48 KB of shared memory (opted in)
+_WIDE_JOINT = [(9, ("phi", "beta"), 203, 0), (33, ("mu",), 100, 4096),
+               (56, (), 64, 0)]
+
+
+@pytest.mark.parametrize("K,shared,C,cap", _WIDE_JOINT)
+def test_joint_wide_kernel_matches_twin(card, K, shared, C, cap):
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    specs, obs, tfs, y0s, idxs, centre = _wide_joint_inputs(card, K, shared)
+    D = len(centre)
+    rng = np.random.default_rng(K)
+    th0 = torch.as_tensor((centre * np.exp(rng.normal(0, 0.05, (C, D))))
+                          .astype(np.float32).T.copy(), device="cuda")
+    plans = [T._build_plan(sp, ob, tf, 2) for sp, ob, tf in
+             zip(specs, obs, tfs)]
+    run = dict(nits=8, burnin=2, walk=(0.02,) * D, walked=(True,) * D)
+    T.reset_launch_counts()
+    rec_k = TJ.joint_launcher(specs, plans, y0s, idxs, "dopri5", th0, 5,
+                              smem_cap=cap, **run)()
+    assert T.LAUNCHES["joint_metropolis_hastings_fused"] == 1
+    rec_t = TJ.joint_plain(specs, plans, y0s, idxs, th0, 5, **run)
+    torch.cuda.synchronize()
+    for a, b in zip(rec_k, rec_t):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert 0 < float(rec_k[3][-1].mean()) < 1
+
+
+def test_joint_wide_chunk_kernel_equals_whole(card):
+    """The WIDE joint kernel's chunk mode with priors: 9 experiments in chunks
+    of 3 proposals, bitwise one launch."""
+    from odelib_tpu_torch import distributions as D
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    specs, obs, tfs, y0s, idxs, centre = _wide_joint_inputs(
+        card, 9, ("phi", "beta"))
+    rng = np.random.default_rng(1)
+    th0 = torch.as_tensor((centre * np.exp(rng.normal(
+        0, 0.05, (100, len(centre))))).astype(np.float32), device="cuda")
+    pri = [D.LogNormal(s=0.2, scale=2.4e-8), D.Normal(loc=24.0, scale=2.0)] \
+        + [D.Gamma(a=100.0, scale=0.006)] * 9
+    kw = dict(nits=12, burnin=3, substeps_list=[2] * 9, rwalk_std=0.05,
+              priors=pri)
+    fn = TJ.joint_metropolis_hastings_fused
+    whole = _outputs(fn(specs, idxs, obs, tfs, y0s, th0, 3, **kw))
+    got = _outputs(fn(specs, idxs, obs, tfs, y0s, th0, 3,
+                      checkpoint_every=3, **kw))
+    for a, b in zip(whole, got):
+        np.testing.assert_array_equal(a, b)
+
+
+def _chain_inputs(n, sub=4):
+    """two_i with n latent classes on the demo (``scoring_cases``), draws
+    around its fit with tau 15 (Dopri5-stable at the grid's steps)."""
+    from scoring_cases import chain_case, chain_theta
+    spec, obs, tf, y0 = chain_case(n)
+    centre = np.asarray(chain_theta(n))
+    centre[4] = 15.0
+    rng = np.random.default_rng(n)
+    draws = (centre * np.exp(rng.normal(0, 0.05, (200, 5)))).astype(
+        np.float32)
+    return spec, obs, tf, y0, draws, T._build_plan(spec, obs, tf, sub)
+
+
+@pytest.mark.parametrize("n", [31, 40])
+def test_chain_model_kernels_match_twins(n):
+    """33 and 42 states (member masks of two words): the survey, MH,
+    ensemble, PT and joint (the chain on the demo twice, sharing mu, phi
+    and beta) kernels against their twins, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from odelib_tpu_torch.ops import cuda_joint as TJ
+    spec, obs, tf, y0, draws, plan = _chain_inputs(n)
+    th = torch.as_tensor(draws, device="cuda")
+    chi = T.survey_fused(spec, obs, tf, y0, th, substeps=4)
+    chi_t = T.survey_plain(spec, plan, y0, th.t().contiguous())
+    torch.cuda.synchronize()
+    assert np.isfinite(chi.cpu().numpy()).all()
+    np.testing.assert_array_equal(chi.cpu().numpy(), chi_t.cpu().numpy())
+    th0 = th[:40]
+    mh = T.metropolis_hastings_fused(spec, obs, tf, y0, th0, 11, nits=6,
+                                     burnin=1, substeps=4, rwalk_std=0.02)
+    tw = T.mh_plain(spec, plan, y0, th0.t().contiguous(), 11, nits=6,
+                    burnin=1, walk=(0.02,) * 5, walked=(True,) * 5, num=5)
+    torch.cuda.synchronize()
+    assert_bitwise((mh.theta.permute(1, 2, 0), mh.chi.t(), mh.rsquared.t(),
+                    mh.aic.t(), mh.acceptance_ratio.t()), tw)
+    ens = T.ensemble_fused(spec, obs, tf, y0, th[:200], 11, nits=4,
+                           burnin=1, tile_chains=256, substeps=4)
+    start = torch.as_tensor(T.ensemble_init(draws[:200], 11, 256,
+                                            (1.0,) * 5, 0.01).T.copy(),
+                            device="cuda")
+    tw = T.ensemble_plain(spec, plan, y0, start, 11, tile=256, nits=4,
+                          burnin=1, a=2.0, walk=(1.0,) * 5,
+                          walked=(True,) * 5, num=5, W0=200)
+    torch.cuda.synchronize()
+    assert_bitwise((ens.theta.permute(1, 2, 0), ens.chi.t(),
+                    ens.rsquared.t(), ens.aic.t(),
+                    ens.acceptance_ratio.t()), tw)
+    temps = (1.0, 2.0, 4.0)
+    pt, _ = TP.parallel_tempering_fused(spec, obs, tf, y0, th0, 11,
+                                        temperatures=temps, nits=4,
+                                        burnin=1, substeps=4,
+                                        rwalk_std=0.02)
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.02, [1] * 5)
+    tw = TP.pt_plain(spec, plan, y0, th0.t().contiguous(), 11, nits=4,
+                     burnin=1, scales=scales, walked=(True,) * 5,
+                     betas=betas, dbetas=dbetas, swap_every=1, num=5)
+    torch.cuda.synchronize()
+    assert_bitwise((pt.theta.permute(1, 2, 0), pt.chi.t(), pt.rsquared.t(),
+                    pt.aic.t(), pt.acceptance_ratio.t()), tw[:5])
+    run = dict(nits=4, burnin=1, walk=(0.02,) * 7, walked=(True,) * 7)
+    jth = torch.cat([th0[:, :3], th0[:, 3:], th0[:, 3:]], 1).t().contiguous()
+    idxs = [(0, 1, 2, 3, 4), (0, 1, 2, 5, 6)]
+    rec_k = TJ.joint_launcher([spec] * 2, [plan] * 2, [y0] * 2, idxs,
+                              "dopri5", jth, 5, **run)()
+    rec_t = TJ.joint_plain([spec] * 2, [plan] * 2, [y0] * 2, idxs, jth, 5,
+                           **run)
+    torch.cuda.synchronize()
+    for a, b in zip(rec_k, rec_t):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_chain_model_wide_pt_matches_twin():
+    """A 40-rung ladder (the WIDE PT kernel, a chain over two warps) at 42
+    states, 24 chains x 6 iterations, bitwise its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, obs, tf, y0, draws, plan = _chain_inputs(40)
+    th0 = torch.as_tensor(draws[:24], device="cuda")
+    temps = tuple(float(t) for t in np.geomspace(1.0, 1000.0, 40))
+    before = T.LAUNCHES["parallel_tempering_fused"]
+    pt, rate = TP.parallel_tempering_fused(spec, obs, tf, y0, th0, 11,
+                                           temperatures=temps, nits=6,
+                                           burnin=1, substeps=4,
+                                           rwalk_std=0.02)
+    assert T.LAUNCHES["parallel_tempering_fused"] == before + 1
+    scales, betas, dbetas = TP.ladder_constants(temps, 0.02, [1] * 5)
+    tw = TP.pt_plain(spec, plan, y0, th0.t().contiguous(), 11, nits=6,
+                     burnin=1, scales=scales, walked=(True,) * 5,
+                     betas=betas, dbetas=dbetas, swap_every=1, num=5)
+    torch.cuda.synchronize()
+    assert_bitwise((pt.theta.permute(1, 2, 0), pt.chi.t(), pt.rsquared.t(),
+                    pt.aic.t(), pt.acceptance_ratio.t()), tw[:5])
+    np.testing.assert_array_equal(
+        rate.cpu().numpy(), (tw[5][-1] / torch.tensor(
+            TP.swap_attempts(6, 1, 1)[0], dtype=torch.float32,
+            device="cuda")).cpu().numpy())
+
+
+def test_chain_model_kvaerno3_matches_twin():
+    """33 states through kvaerno3 (step_kvaerno3's unrolled elimination
+    and solves): the survey and MH kernels against their twins, bitwise,
+    at substeps 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, obs, tf, y0, draws, plan = _chain_inputs(31, sub=1)
+    th = torch.as_tensor(draws[:16], device="cuda")
+    kw = dict(substeps=1, stepper="kvaerno3")
+    chi = T.survey_fused(spec, obs, tf, y0, th, **kw)
+    chi_t = T.survey_plain(spec, plan, y0, th.t().contiguous(), "kvaerno3")
+    torch.cuda.synchronize()
+    assert np.isfinite(chi.cpu().numpy()).any()
+    np.testing.assert_array_equal(chi.cpu().numpy(), chi_t.cpu().numpy())
+    mh = T.metropolis_hastings_fused(spec, obs, tf, y0, th[:8], 11, nits=3,
+                                     burnin=0, rwalk_std=0.02, **kw)
+    tw = T.mh_plain(spec, plan, y0, th[:8].t().contiguous(), 11, nits=3,
+                    burnin=0, walk=(0.02,) * 5, walked=(True,) * 5, num=5,
+                    stepper="kvaerno3")
+    torch.cuda.synchronize()
+    assert_bitwise((mh.theta.permute(1, 2, 0), mh.chi.t(), mh.rsquared.t(),
+                    mh.aic.t(), mh.acceptance_ratio.t()), tw)
+
+
+def test_chain_model_pf_kernel_matches_twin():
+    """PMMH at 33 states: the chain with a diffusion on its virus (the
+    scorer's two-word masks in pf_kernel), 64 chains x 32 particles x 3
+    proposals, bitwise its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from odelib_tpu_torch.ops import cuda_pf as TF
+    from scoring_cases import chain_sde_spec
+    spec0, obs, tf, y0, draws, _ = _chain_inputs(31, sub=2)
+    spec = chain_sde_spec(31)
+    plan = T._build_plan(spec, obs, tf, 2)
+    th0 = torch.as_tensor(draws[:64], device="cuda")
+    k = TF.pmmh_fused(spec, obs, tf, y0, th0, 3, nits=3, burnin=1,
+                      rwalk_std=0.02, n_particles=32, substeps=2,
+                      adapt_proposal=False)
+    tw = TF.pmmh_plain(spec, plan, y0, th0.t().contiguous(), 3, K=32,
+                       nits=3, burnin=1, walk=(1.0,) * 5,
+                       walked=(True,) * 5, rwalk_std=0.02, prior=None,
+                       adapt=False, target=0.3, adapt_rate=0.15)
+    torch.cuda.synchronize()
+    got = [k.theta.permute(1, 2, 0), k.chi.t(), k.acceptance_ratio.t()]
+    for a, b in zip(got, tw):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())

@@ -170,22 +170,25 @@ def test_joint_twin_matches_pallas_interpret(name):
 
 
 def _joint_warps(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
-                 walk, walked, prior=None):
-    """joint.cu's layout: blocks of 32 chains (lanes) and K warps; lanes
-    past the last chain run chain C - 1's copy and store nothing. Warp k
-    draws the proposal's dimensions d = k, k + K, ... from their
+                 walk, walked, prior=None, warps=None):
+    """joint.cu's layout: blocks of 32 chains (lanes) and W = ``warps``
+    warps (K by default; min(K, 8) for joint_kernel's WIDE
+    instantiations); lanes past the last chain run chain C - 1's copy and store nothing.
+    Warp w draws the proposal's dimensions d = w, w + W, ... from their
     closed-form slots (two per walked dimension before d), scores
-    experiment k on exp(prop[idx_k]) and puts its part in the shared
-    buffer; then every warp sums the parts in k order from part 0, draws
-    the accept uniform after the walked dimensions' slots and decides for
-    itself. Warp k keeps part k and its dimensions and writes their
-    records, and chi's and the ratio's where D and D + 1 fall mod K. With
-    a ``prior`` every warp evaluates the log prior of the whole proposal
-    itself and adds it once."""
+    experiments k = w, w + W, ... on exp(prop[idx_k]) and puts their parts
+    in the shared buffer; then every warp sums the parts in k order from
+    part 0, draws the accept uniform after the walked dimensions' slots
+    and decides for itself. Warp w keeps its experiments' parts (in
+    shared memory beside the proposal's) and its dimensions and writes
+    their records, and chi's and the ratio's where D and D + 1 fall mod
+    W. With a ``prior`` every warp evaluates the log prior of the whole
+    proposal itself and adds it once."""
     scorers = [T.make_scorer(sp, pl, y0, "dopri5")
                for sp, pl, y0 in zip(specs, plans, y0s)]
     D, C = theta0.shape
     K = len(specs)
+    W = K if warps is None else warps
     c_own = torch.arange(-(-C // 32) * 32)
     live = c_own < C
     th0 = theta0[:, c_own.clamp(max=C - 1)]
@@ -205,46 +208,48 @@ def _joint_warps(specs, plans, y0s, idx_maps, theta0, seed, *, nits, burnin,
             for score, idx in zip(scorers, idx_maps)]
     part_k = list(part)
     lt = [torch.log(th) for th in th0]
-    chi, acc = [total(part)] * K, [torch.zeros(len(c_own))] * K
-    lp = [None if prior is None else logprior_plain(prior, list(th0))] * K
+    chi, acc = [total(part)] * W, [torch.zeros(len(c_own))] * W
+    lp = [None if prior is None else logprior_plain(prior, list(th0))] * W
     R = nits - 1 - burnin
     recs = (torch.full((R, D, C), np.nan), torch.full((R, C), np.nan),
             torch.full((R, K, C), np.nan), torch.full((R, C), np.nan))
     for it in range(1, nits):
         base, prop = it * 1024, [None] * D
-        for k in range(K):
-            for d in range(k, D, K):
+        for w in range(W):
+            for d in range(w, D, W):
                 prop[d] = lt[d] + f32(walk[d]) * TF.rng_normal(
                     key, base + slot[d]) if slot[d] >= 0 else lt[d]
         part = [score([torch.exp(prop[i]) for i in idx])[0]
                 for score, idx in zip(scorers, idx_maps)]
         oks = []
-        for k in range(K):
+        for w in range(W):
             chi_new = total(part)
-            log_ratio = chi[k] - chi_new
+            log_ratio = chi[w] - chi_new
             if prior is not None:
                 lp_new = logprior_plain(prior, [torch.exp(v) for v in prop])
-                log_ratio = log_ratio + (lp_new - lp[k])
+                log_ratio = log_ratio + (lp_new - lp[w])
             ok = torch.exp(log_ratio) > T.uniform_of(key, base + 2 * n_walked)
             if prior is not None:
-                lp[k] = torch.where(ok, lp_new, lp[k])
+                lp[w] = torch.where(ok, lp_new, lp[w])
             oks.append(ok)
-            for d in range(k, D, K):
+            for d in range(w, D, W):
                 lt[d] = torch.where(ok, prop[d], lt[d])
-            part_k[k] = torch.where(ok, part[k], part_k[k])
-            chi[k] = torch.where(ok, chi_new, chi[k])
-            acc[k] = acc[k] + ok.to(torch.float32)
+            for k in range(w, K, W):
+                part_k[k] = torch.where(ok, part[k], part_k[k])
+            chi[w] = torch.where(ok, chi_new, chi[w])
+            acc[w] = acc[w] + ok.to(torch.float32)
         assert all(torch.equal(ok, oks[0]) for ok in oks)
         r = it - 1 - burnin
         if r >= 0:
-            for k in range(K):
-                for d in range(k, D, K):
+            for w in range(W):
+                for d in range(w, D, W):
                     recs[0][r, d] = torch.exp(lt[d])[live]
-                recs[2][r, k] = part_k[k][live]
-                if k == D % K:
-                    recs[1][r] = chi[k][live]
-                if k == (D + 1) % K:
-                    recs[3][r] = (acc[k] / f32(float(it)))[live]
+                for k in range(w, K, W):
+                    recs[2][r, k] = part_k[k][live]
+                if w == D % W:
+                    recs[1][r] = chi[w][live]
+                if w == (D + 1) % W:
+                    recs[3][r] = (acc[w] / f32(float(it)))[live]
     return recs
 
 
@@ -269,6 +274,35 @@ def test_joint_warp_per_experiment_equals_twin():
               walked=(True, False, True))
     want = TJ.joint_plain(specs, plans, y0s, idx_maps, th0, 4, **kw)
     got = _joint_warps(specs, plans, y0s, idx_maps, th0, 4, **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert 0 < float(got[3][-1].mean()) < 1
+
+
+@pytest.mark.parametrize("K", [9, 20])
+def test_joint_wide_layout_equals_twin(K):
+    """The WIDE joint kernel's layout, 8 warps looping over K = 9 or 20
+    experiments (warp 0 scores experiments 0, 8 and 16 and keeps their
+    parts), gives joint_plain's records bitwise: decay experiments on the
+    heterogeneous pair's data, each with its own rate and a shared static
+    slot, 40 chains, with in-kernel priors at K = 20."""
+    jf = JointFit(_hetero_pair(odelib_tpu_torch, LogNormal, device="cpu"),
+                  shared=["k"], random_seed=3)
+    specs, _, obs, times, y0s = (list(x) for x in _host_args(jf))
+    specs, obs, times, y0s = ([x[0]] * K for x in (specs, obs, times, y0s))
+    dim = K + 1                 # slot 0 static, experiment k's rate k + 1
+    idx_maps = [(k + 1,) for k in range(K)]
+    plans = [T._build_plan(sp, ob, tm, 1)
+             for sp, ob, tm in zip(specs, obs, times)]
+    rng = np.random.default_rng(9)
+    th0 = torch.as_tensor((np.linspace(0.8, 1.2, dim) * np.exp(rng.normal(
+        0, 0.05, (40, dim)))).astype(np.float32).T.copy())
+    kw = dict(nits=9, burnin=2, walk=(0.0,) + (0.05,) * K,
+              walked=(False,) + (True,) * K,
+              prior=prior_table([None] + [D.LogNormal(s=0.5, scale=1.0)] * K)
+              if K == 20 else None)
+    want = TJ.joint_plain(specs, plans, y0s, idx_maps, th0, 4, **kw)
+    got = _joint_warps(specs, plans, y0s, idx_maps, th0, 4, warps=8, **kw)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert 0 < float(got[3][-1].mean()) < 1

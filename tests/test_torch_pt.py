@@ -21,20 +21,26 @@ import torch
 
 import odelib_tpu
 import odelib_tpu_torch
+from odelib_tpu.data import (build_obsdata_host, compact_observation_grid,
+                             format_dataframe)
+from odelib_tpu.model import make_spec
 from odelib_tpu.ops import pallas_pt as JP
 from odelib_tpu.samplers.pt import swap_attempts as jax_swap_attempts
 from odelib_tpu_torch.distributions import DiscreteNormal
+from odelib_tpu_torch.model import make_spec as t_make_spec
 from odelib_tpu_torch.ops import cuda_mh as T
 from odelib_tpu_torch.ops import cuda_pf as TF
 from odelib_tpu_torch.ops import cuda_pt as TP
 from odelib_tpu_torch.ops.priors import logprior_plain, prior_table
+from odelib_tpu_torch.rhs import adapt_rhs
 from odelib_tpu_torch.samplers.pt import swap_attempts
 
+from helpers import synthetic_df, zero_i
 from test_torch_api import _framework, _report_numbers
 from test_torch_ensemble import _inits, _theta0
 from test_torch_mh_prefetch import PRIOR_SETS
 from test_torch_priors import jax_priors
-from test_torch_survey import setup  # noqa: F401  (module fixture)
+from test_torch_survey import _PN, _SN, setup  # noqa: F401
 
 _NITS, _BURNIN, _TEMPS = 24, 12, (1.0, 2.0, 4.0)
 # (swap_every, walk_mask, substeps)
@@ -86,6 +92,59 @@ def test_pt_twin_matches_pallas_interpret(setup, refs, case):  # noqa: F811
         fixed = got.theta[:, :, 1].numpy()
         assert (fixed == fixed[:, :1]).all()
         np.testing.assert_allclose(fixed[:, 0], th0[:, 1], rtol=1e-6)
+
+
+# the ladders above the old 8-rung limit, geometric from 1 to 1,000: 9
+# (one rung past it) and 33 (a chain over two warps on the card; the
+# interpret-mode reference unrolls every rung's solve, and at 33 rungs
+# compiles for minutes even on two steps, so it runs in the full suite)
+_LONG = {9: 24, 33: 12}
+
+
+@pytest.fixture(scope="module")
+def short_setup():
+    """The survey fixture's data and grid up to t = 0.8: two grid steps."""
+    df = format_dataframe(synthetic_df(), _SN)
+    df = df[np.isclose(np.mod(np.round(df["time"] / 0.2), 2), 0)]
+    df = df[df["time"] <= 0.8]
+    times = np.linspace(0, 3.1, 288)
+    times = times[times <= 0.8]
+    spec = make_spec(zero_i, _PN, _SN)
+    obs_host, _ = build_obsdata_host(df, times, spec.post_snames)
+    times_fit, obs_fit = compact_observation_grid(obs_host, times)
+    y0 = np.array([df.loc["S"].iloc[0]["abundance"],
+                   df.loc["V"].iloc[0]["abundance"]])
+    return (spec, t_make_spec(adapt_rhs(zero_i), _PN, _SN), obs_fit,
+            times_fit, y0)
+
+
+@pytest.mark.parametrize("K", [9, pytest.param(33, marks=pytest.mark.slow)])
+def test_pt_long_ladders_match_pallas_interpret(short_setup, K):
+    """The T=1 accept sequence and the cold pair's swap counts equal the
+    JAX kernel's on ladders of 9 and 33 rungs (32 chains, the data up to
+    t = 0.8); theta within 1e-5, chi within 5e-5."""
+    spec, tspec, obs_fit, times_fit, y0 = short_setup
+    assert len(times_fit) == 3
+    temps = tuple(float(t) for t in np.geomspace(1.0, 1000.0, K))
+    nits = _LONG[K]
+    kw = dict(temperatures=temps, swap_every=1, nits=nits,
+              burnin=nits // 2, substeps=1, rwalk_std=0.1)
+    th0 = _theta0(32)
+    ref, ref_rate = JP.parallel_tempering_fused(
+        spec, obs_fit, times_fit, y0, th0, seed=11, tile_chains=128,
+        interpret=True, **kw)
+    obs_t, th_t, seed, y0_t = T.inputs_from_reference(obs_fit, th0, 11, y0)
+    got, rate = TP.parallel_tempering_fused(tspec, obs_t, times_fit, y0_t,
+                                            th_t, seed, **kw)
+    np.testing.assert_array_equal(got.acceptance_ratio.numpy(),
+                                  np.asarray(ref.acceptance_ratio))
+    np.testing.assert_array_equal(rate.numpy(), np.asarray(ref_rate))
+    assert 0 < float(rate.mean()) <= 1
+    assert 0 < float(got.acceptance_ratio[:, -1].mean()) < 1
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(ref.theta),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.chi.numpy(), np.asarray(ref.chi),
+                               rtol=5e-5)
 
 
 @pytest.mark.parametrize("nits,every", [(24, 1), (24, 2), (25, 3), (2, 5)])
@@ -146,13 +205,44 @@ def test_pt_slot_layout_is_the_serial_draw_order(monkeypatch, K, n_walked):
     assert drawn == expect
 
 
+def _wide_exchange(C, K, lanes):
+    """pt.cu's WIDE swap exchange: chain c's lanes are threads c G + k of
+    a grid of blocks of max(128, G) threads, G the next power of two >= K.
+    Every lane writes its planes (``lanes[k]``: per rung a list of (C,)
+    tensors) to its block's shared memory at its thread index, the block
+    waits, and each lane reads the planes of thread me - k + partner.
+    Returns ``read(k, partner) -> planes``, reading those block buffers."""
+    G = 1 << (K - 1).bit_length()
+    block = max(128, G)
+    n_blocks = -(-C * G // block)
+    n_planes = len(lanes[0])
+    xs = torch.full((n_blocks, n_planes, block), float("nan"))
+    for c in range(C):
+        for k in range(K):
+            t = c * G + k
+            for q in range(n_planes):
+                xs[t // block, q, t % block] = lanes[k][q][c]
+
+    def read(k, partner):
+        out = []
+        for q in range(n_planes):
+            v = torch.empty(C)
+            for c in range(C):
+                me = (c * G + k) % block
+                v[c] = xs[(c * G + k) // block, q, me - k + partner]
+            out.append(v)
+        return out
+    return read
+
+
 def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every,
               prior=None):
     """pt.cu lane by lane: each rung draws from its closed-form slots, then
     every lane takes the partner of its due pair (one parity), reads the
-    partner's chi (and log prior) as the shuffles do, and both lanes of a
-    pair compute the same delta (lower rung's chi - lp first) and decision
-    from the pair's own uniform.
+    partner's chi (and log prior) as the shuffles do (above 32 rungs from
+    the block's shared memory, :func:`_wide_exchange`), and both lanes of
+    a pair compute the same delta (lower rung's chi - lp first) and
+    decision from the pair's own uniform.
     Returns the cold rung's chi per iteration, its accept and swap counts."""
     score = _fake_scorer()
     K, P = len(betas), theta0.shape[0]
@@ -193,12 +283,19 @@ def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every,
         if it % every == 0:
             parity = (it // every) % 2
             lt0, chi0_, lp0 = [list(v) for v in lt], list(chi), list(lp)
+            if K > 32:     # the WIDE layout: planes through shared memory
+                read = _wide_exchange(theta0.shape[1], K, [
+                    [chi0_[k], lp0[k]] + lt0[k] for k in range(K)])
             for k in range(K):          # every lane at once, from lt0/chi0_
                 lo = k if k % 2 == parity else k - 1
                 paired = 0 <= lo and lo + 1 < K
                 partner = (k + 1 if lo == k else lo) if paired else k
-                chi_o = chi0_[partner]              # the width-G shuffles
-                lp_o = lp0[partner]
+                if K > 32:
+                    chi_o, lp_o, *lt_o = read(k, partner)
+                else:
+                    chi_o = chi0_[partner]          # the width-G shuffles
+                    lp_o = lp0[partner]
+                    lt_o = lt0[partner]
                 if not paired:
                     continue
                 e, e_o = chi0_[k], chi_o
@@ -209,7 +306,7 @@ def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every,
                 flag = (torch.exp(delta) > T.uniform_of(key, pairs[lo])) \
                     & torch.isfinite(delta)
                 lt[k] = [torch.where(flag, y, x)
-                         for x, y in zip(lt0[k], lt0[partner])]
+                         for x, y in zip(lt0[k], lt_o)]
                 chi[k] = torch.where(flag, chi_o, chi0_[k])
                 lp[k] = torch.where(flag, lp_o, lp0[k])
                 if k == 0:
@@ -218,11 +315,13 @@ def _pt_lanes(theta0, seed, nits, scales, walked, betas, dbetas, every,
     return torch.stack(out), acc, sw
 
 
-@pytest.mark.parametrize("K", [2, 3, 4, 8])
+@pytest.mark.parametrize("K", [2, 3, 4, 8, 16, 32, 40])
 def test_pt_lane_parallel_swaps_equal_the_serial_loop(monkeypatch, K):
-    """The kernel's layout (a rung per lane, due pairs deciding at once)
-    gives pt_plain's serial-loop records bitwise: the cold chi, accepts
-    and swaps (16 chains, 12 iterations, swaps every 1 and 2)."""
+    """The kernel's layout (a rung per lane, due pairs deciding at once;
+    above 32 rungs a chain over two warps exchanging through the block's
+    shared memory) gives pt_plain's serial-loop records bitwise: the cold
+    chi, accepts and swaps (16 chains, 12 iterations, swaps every 1 and
+    2)."""
     monkeypatch.setattr(TP, "make_scorer", _fake_scorer)
     temps = tuple(2.0 ** k for k in range(K))
     mask = [1, 0, 1]
@@ -340,7 +439,6 @@ def test_pt_rejects_bad_arguments(setup):  # noqa: F811
             (dict(temperatures=(1.0,)), ValueError, ">= 2"),
             (dict(temperatures=(2.0, 4.0)), ValueError, "must be 1.0"),
             (dict(temperatures=(1.0, 3.0, 2.0)), ValueError, "increasing"),
-            (dict(temperatures=tuple(range(1, 10))), ValueError, "at most"),
             (dict(swap_every=0), ValueError, "swap_every"),
             (dict(burnin=7), ValueError, "no recorded"),
             (dict(priors=[None, DiscreteNormal(0.0, 1.0), None]),

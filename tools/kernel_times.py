@@ -7,7 +7,8 @@ its libraries, and times with CUDA events, after a warm-up launch, the
 whole-run launches of ``mh_kernel``, ``ens_kernel`` and ``pt_kernel`` (each
 prior-free and with the demo's three lognormal priors; ``mh_kernel`` also on
 the 21-step schedule [3, 1 x 14, 2, 2] that ``substeps='auto'`` calibrates
-on the demo) and ``pf_kernel``,
+on the demo), ``joint_kernel`` (config 9: zero_i on the demo and on it
+perturbed, numpy seed 7, sharing phi and beta) and ``pf_kernel``,
 at the shapes of ``chip_smoke.py``'s main paths: 10,000 chains x 1,000
 iterations from the best of 4,096 LHS draws of the demo fit (the ensemble's
 10,000 walkers padded to 12,288 in ensembles of 4,096; PT on 4 rungs), and
@@ -120,7 +121,8 @@ def main():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = m.group(1)
-            elif name and re.search(r"(mh|ens|pt|pf)_kernel", name) and (
+            elif name and re.search(r"(mh|ens|pt|pf|joint)_kernel",
+                                    name) and (
                     "registers" in line or "spill" in line):
                 short = re.search(r"(\w+_kernelIL[^E]*E[^E]*E)", name)
                 print(f"{short.group(1) if short else name}: "
@@ -157,6 +159,12 @@ def main():
                  rwalk_std=0.4, prior=prior_table(
                      [D.LogNormal(s=0.5, scale=0.4)]), adapt=True,
                  target=0.3, adapt_rate=0.15)
+    from odelib_tpu_torch.ops import cuda_joint
+    obs_b = obs._replace(log_abundance=obs.log_abundance + np.random.
+                         default_rng(7).normal(0, 0.1, len(obs.log_abundance)))
+    plan_b = cuda_mh._build_plan(spec, obs_b, tf, 4)
+    j_th = th[[1, 2, 0, 0]].contiguous()        # phi, beta, a:mu, b:mu
+    j_kw = dict(nits=1000, burnin=500, walk=(0.05,) * 4, walked=(True,) * 4)
     runs = {
         "mh": cuda_mh.mh_launcher(spec, plan, y0, "dopri5", th, 11, **mh_kw),
         "mh, priors": cuda_mh.mh_launcher(spec, plan, y0, "dopri5", th, 11,
@@ -172,6 +180,9 @@ def main():
         "pt": cuda_pt.pt_launcher(spec, plan, y0, "dopri5", th, 11, **pt_kw),
         "pt, priors": cuda_pt.pt_launcher(spec, plan, y0, "dopri5", th, 11,
                                           prior=demo, **pt_kw),
+        "joint": cuda_joint.joint_launcher(
+            (spec, spec), (plan, plan_b), (y0, 1.13 * np.asarray(y0)),
+            ((2, 0, 1), (3, 0, 1)), "dopri5", j_th, 11, **j_kw),
         "pmmh": cuda_pf.pmmh_launcher(pfw._spec, pf_plan, pfw.get_inits(),
                                       pf_th, 3, **pf_kw),
     }
