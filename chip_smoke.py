@@ -13,14 +13,16 @@ Phases, each failing the script if it fails:
    each scoring branch's and path's, and the stiff path's two (zero_i's
    and Robertson's, with the kvaerno3 instantiations) and the PMMH
    path's Milstein library; the builds' seconds and each kernel's
-   registers, stack and spills;
+   registers, stack and spills. The 42-state chain's kvaerno3 library,
+   the longest build, goes on beside phases 3 onward and is awaited
+   before the limits phases, the only ones that load it;
 3. kernel versus twin on the card, at the main-path model (zero_i on the
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
    on 1024 chains x 200 iterations (the kernel's rounds counted by the
    iterations each completes), the ensemble on 2048 walkers (two
    ensembles of 1024) x 50 iterations, in one launch of as many blocks as
-   can be co-resident and again on 7 blocks of 32 threads, so each thread
-   loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
+   can be co-resident and again on 7 blocks (32 columns each, on three
+   warps), so each thread loops over 4-5 of the 1024 columns, PT with the main path's 4 rungs on
    1024 chains x 100 iterations, and with 3 (an idle lane in each chain's
    group of 4) and 8 rungs on 1000 chains x 60 (identical accept
    sequences and swap counts),
@@ -299,6 +301,20 @@ def prior_sets():
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def print_library(label, lib):
+    """Print a built library's kernels, registers, stacks and nvcc seconds
+    (its nvcc.log); returns the log."""
+    log = open(os.path.join(os.path.dirname(lib._name), "nvcc.log")).read()
+    print(f"library for {label}:")
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            print(f"kernel {m.group(1)}")
+        elif "seconds" in line or "registers" in line or "stack" in line:
+            print(line.strip())
+    return log
 
 
 T0 = time.perf_counter()
@@ -2768,15 +2784,18 @@ def main():
                  (pf_spec, (), True, [fw_scoring(pf_fw0)], False, True)]
               + forcing_builds(fa, spec, demo_sc, fw_scoring(pf_fw0)))
     # eight nvcc processes at once, the SDE libraries (their five
-    # pf_kernel instantiations take 1-2 minutes each) submitted first
-    with ThreadPoolExecutor(8) as ex:
-        futs = {i: ex.submit(build.load_kernels, *a[:3], scoring=a[3],
-                             stiff=a[4] if len(a) > 4 else False,
-                             milstein=a[5] if len(a) > 5 else False,
-                             wide=a[6] if len(a) > 6 else False)
-                for i, a in sorted(enumerate(builds),
-                                   key=lambda x: (x[0] >= 5, not x[1][2]))}
-        libs = [futs[i].result() for i in range(len(builds))]
+    # pf_kernel instantiations take 1-2 minutes each) submitted first. The
+    # 42-state chain's kvaerno3 library (builds[0]; 7-8 minutes of nvcc)
+    # builds on beside the phases that do not load it, and is awaited
+    # before the limits phases (late_library)
+    ex = ThreadPoolExecutor(8)
+    futs = {i: ex.submit(build.load_kernels, *a[:3], scoring=a[3],
+                         stiff=a[4] if len(a) > 4 else False,
+                         milstein=a[5] if len(a) > 5 else False,
+                         wide=a[6] if len(a) > 6 else False)
+            for i, a in sorted(enumerate(builds),
+                               key=lambda x: (x[0] >= 5, not x[1][2]))}
+    libs = [futs[i].result() for i in range(1, len(builds))]
     build_s = time.perf_counter() - t0
     logs = ""
     labels = (["42-state chain, stiff (kvaerno3)", "42-state chain",
@@ -2792,24 +2811,23 @@ def main():
                  "forced zero_i, stiff (kvaerno3)",
                  "zero_i + forced zero_i (joint)", "forced GBM SDE",
                  "zero_i, mu a 2-vector"])
-    for label, lib in zip(labels, libs):
-        log = open(os.path.join(os.path.dirname(lib._name),
-                                "nvcc.log")).read()
-        logs += log
-        print(f"library for {label}:")
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                print(f"kernel {m.group(1)}")
-            elif "seconds" in line or "registers" in line \
-                    or "stack" in line:
-                print(line.strip())
+    for label, lib in zip(labels[1:], libs):
+        logs += print_library(label, lib)
     for name in ("survey_kernel", "mh_kernel", "ens_kernel", "pt_kernel",
                  "joint_kernel", "pf_kernel"):
         if name not in logs:
             fail(f"build: {name} is missing from nvcc.log")
-    print(f"build seconds ({len(builds)} libraries, eight at a time): "
-          f"{build_s:.3f}", flush=True)
+    print(f"build seconds ({len(builds) - 1} libraries, eight at a time; "
+          f"the {labels[0]} library builds on): {build_s:.3f}", flush=True)
+
+    def late_library():
+        """Wait for builds[0], the last library still building."""
+        t = time.perf_counter()
+        lib = futs[0].result()
+        ex.shutdown()
+        print_library(labels[0], lib)
+        print(f"waited {time.perf_counter() - t:.3f} s for it, at "
+              f"{time.perf_counter() - T0:.0f} s", flush=True)
 
     # -- 3. kernel versus twin --------------------------------------------
     phase("survey kernel vs twin")
@@ -3761,6 +3779,7 @@ def main():
     fa_rows = forcing_phases(fa, joint_pair, (spec, pf_spec), mh_in, pf_in,
                              smi_line)
     # PT ladders, joint fits and models of any size
+    late_library()
     limit_rows = limits_phases(lf, smi_line)
 
     # -- 5. times -----------------------------------------------------------

@@ -110,26 +110,58 @@ def stepper_source(n_states: int, size: str = "ODE_S",
     return "\n".join(lines)
 
 
-def kvaerno3_source(program, columns=None) -> str:
-    """The RHS's Jacobian ``jac()`` (:meth:`~odelib_tpu_torch.rhs.
-    RhsProgram.jacobian`, reading the forcing ``columns``) and the
-    fixed-step Kvaerno3 ``step_kvaerno3`` over ``y[ODE_S]`` with the step's
-    constants ``sf`` (h, f32(h gamma), then the times of stages 1-4;
-    ``plan_tables``) and forcing rows ``uf`` (t, t + 2 gamma h, t + h):
-    I - h gamma J in
-    registers, its elimination without pivoting and the triangular solves
-    unrolled in the order of ``odelib_tpu/ops/runge_kutta.py``
-    ``kvaerno3_fixed_step``, ``KV3_NEWTON`` chord-Newton iterations a
-    stage, the last stage returned. The twin is
-    :func:`~.runge_kutta.kvaerno3_fixed_step`."""
-    S = program.n_states
-    columns = forcing_columns(program) if columns is None else columns
-    F = len(columns)
+# x / d without an IEEE division and without a branch. Once a step, each
+# divisor d (a diagonal entry of the factored matrix, and hg) is split as
+# d = ds 2^k with |ds| in [1, 2) (kv3_divisor): rs = 1/ds is the step's IEEE
+# reciprocal of d times 2^k (exact), and sc = 2^-k. A quotient is then
+# q0 = x rs, e = fma(-ds, q0, x), q1 = fma(e, rs, q0), q = q1 sc. By
+# Markstein's theorem q1 is the correctly rounded x / ds where e is exact,
+# which holds for |x| >= 2^-102; scaling by a power of two is exact while q
+# is normal, so q is bitwise the IEEE division's, overflow included. For
+# x = +-0, +-inf and NaN the result is q0 sc, IEEE's (the correction would
+# turn -0 / d into +0 and inf / d into NaN). What the theorem does not
+# cover sets the step's `bad` flag, and the step is taken again by
+# step_kvaerno3_ieee: a divisor with |d| outside [2^-125, 2^126) (zero,
+# subnormal, inf), a dividend below 2^-102 and a subnormal quotient (IEEE
+# rounds it once, the scaling twice). A NaN divisor gives NaN through rs,
+# as IEEE's, without the flag, so a diverged lane's steps stay on the fast
+# path. A branch a quotient (IEEE's FCHK, or a guard taking __fdiv_rn) cost
+# about as much again as the quotient itself on the card (PERF.md), and a
+# tiny dividend is flagged rather than scaled so that the common path stays
+# two multiplies, two FMAs and a select. Twin:
+# tests/test_torch_kv3_division.py.
+KV3_QUOTIENT = """\
+struct Kv3Div { float ds, rs, sc; };
+
+__device__ __forceinline__ Kv3Div kv3_divisor(float d, float inv,
+                                              bool& bad) {
+  const unsigned u = __float_as_uint(d), eb = (u >> 23) & 0xffu;
+  bad |= eb - 2u > 250u && (u & 0x7fffffffu) <= 0x7f800000u;
+  return {__uint_as_float((u & 0x807fffffu) | 0x3f800000u),
+          __fmul_rn(inv, __uint_as_float(eb << 23)),
+          __uint_as_float((254u - eb) << 23)};
+}
+
+__device__ __forceinline__ float kv3_quotient(float x, const Kv3Div& v,
+                                              bool& bad) {
+  const float q0 = __fmul_rn(x, v.rs);
+  const float q1 = __fmaf_rn(__fmaf_rn(-v.ds, q0, x), v.rs, q0);
+  const float ax = fabsf(x);
+  const bool finite = ax != 0.0f && ax < __int_as_float(0x7f800000);
+  const float q = __fmul_rn(finite ? q1 : q0, v.sc);
+  bad |= finite && (ax < 0x1p-102f || fabsf(q) <= 0x1p-126f);
+  return q;
+}
+"""
+
+
+def _kv3_body(S: int, F: int):
+    """The lines of the fast Kvaerno3 step over ``y``: the twin's operations
+    in its order, each 1 / a_kk (all S of them) and 1 / hg an IEEE
+    reciprocal taken once and split by ``kv3_divisor``, every quotient
+    ``kv3_quotient``'s, with the step's ``bad`` flag."""
     a = [[f"a{i}_{j}" for j in range(S)] for i in range(S)]
-    lines = [program.jacobian().cuda_function("jac", columns),
-             "__device__ __forceinline__ void step_kvaerno3(float* y, "
-             "const float* sf, const float* p, const float* uf) {",
-             "  const float h = sf[0], hg = sf[1];",
+    lines = ["  const float h = sf[0], hg = sf[1];",
              "  float k0[ODE_S], k1[ODE_S], k2[ODE_S], b[ODE_S], z[ODE_S], "
              f"fz[ODE_S], J[{S * S}];",
              "  (void)uf;",
@@ -139,13 +171,18 @@ def kvaerno3_source(program, columns=None) -> str:
         for j in range(S):
             lines.append(f"  float {a[i][j]} = {'1.0f' if i == j else '0.0f'}"
                          f" - hg * J[{i * S + j}];")
-    for k in range(S - 1):  # in-place LU, no pivoting
-        lines.append(f"  const float inv{k} = 1.0f / {a[k][k]};")
+    for k in range(S):  # in-place LU, no pivoting
+        lines.append(f"  const float inv{k} = __frcp_rn({a[k][k]});")
         for i in range(k + 1, S):
             lines.append(f"  {a[i][k]} = {a[i][k]} * inv{k};")
             for j in range(k + 1, S):
                 lines.append(f"  {a[i][j]} = {a[i][j]} - {a[i][k]} * "
                              f"{a[k][j]};")
+    lines += ["  const float rhg = __frcp_rn(hg);",
+              "  bool bad = false;",
+              "  const Kv3Div vh = kv3_divisor(hg, rhg, bad);"]
+    lines += [f"  const Kv3Div v{k} = kv3_divisor({a[k][k]}, inv{k}, bad);"
+              for k in range(S)]
     ks = ["k0", "k1", "k2"]
     for st in range(1, len(KV3_A)):
         for s in range(S):
@@ -163,13 +200,120 @@ def kvaerno3_source(program, columns=None) -> str:
         for i in reversed(range(S)):
             for j in range(i + 1, S):
                 lines.append(f"    x{i} = x{i} - {a[i][j]} * x{j};")
-            lines.append(f"    x{i} = x{i} / {a[i][i]};")
+            lines.append(f"    x{i} = kv3_quotient(x{i}, v{i}, bad);")
         for s in range(S):
             lines.append(f"    z[{s}] = z[{s}] - x{s};")
         lines.append("  }")
         if st < len(KV3_A) - 1:
             for s in range(S):
-                lines.append(f"  {ks[st]}[{s}] = (z[{s}] - b[{s}]) / hg;")
+                lines.append(f"  {ks[st]}[{s}] = "
+                             f"kv3_quotient(z[{s}] - b[{s}], vh, bad);")
+    return lines
+
+
+def _kv3_ieee(F: int):
+    """``step_kvaerno3_ieee``: the same step with the twin's IEEE divisions
+    (its S - 1 reciprocals for the elimination), in loops over ``ODE_S``
+    that nvcc unrolls only where the trip counts are small, so the rare
+    fallback adds no second unrolled elimination. Not inlined (one copy a
+    source file); the states and the parameters pass by value, so the
+    inlined fast step keeps its own in registers."""
+    ks = ["k0", "k1", "k2"]
+    loop = "  for (int s = 0; s < ODE_S; ++s) "
+    lines = ["static __device__ __noinline__ Kv3State step_kvaerno3_ieee("
+             "Kv3State in, const float* sf, Kv3Params ps, const float* uf) {",
+             "  const float* y = in.y;",
+             "  const float* p = ps.p;",
+             "  const float h = sf[0], hg = sf[1];",
+             "  float k0[ODE_S], k1[ODE_S], k2[ODE_S], b[ODE_S], z[ODE_S], "
+             "fz[ODE_S], x[ODE_S], A[ODE_S * ODE_S];",
+             "  (void)uf;",
+             "  rhs(sf[2], y, p, uf, k0);",
+             "  jac(sf[2], y, p, uf, A);",
+             "  for (int i = 0; i < ODE_S; ++i)",
+             "    for (int j = 0; j < ODE_S; ++j)",
+             "      A[i * ODE_S + j] = (i == j ? 1.0f : 0.0f) - hg * "
+             "A[i * ODE_S + j];",
+             "  for (int k = 0; k < ODE_S - 1; ++k) {   // LU, no pivoting",
+             "    const float inv = 1.0f / A[k * ODE_S + k];",
+             "    for (int i = k + 1; i < ODE_S; ++i) {",
+             "      const float m = A[i * ODE_S + k] * inv;",
+             "      A[i * ODE_S + k] = m;",
+             "      for (int j = k + 1; j < ODE_S; ++j)",
+             "        A[i * ODE_S + j] = A[i * ODE_S + j] - m * "
+             "A[k * ODE_S + j];",
+             "    }",
+             "  }"]
+    for st in range(1, len(KV3_A)):
+        lines += [loop + "{",
+                  f"    b[s] = y[s] + h * "
+                  f"({_stage_sum(KV3_A[st][:-1], ks, 's')});",
+                  f"    z[s] = b[s] + hg * {ks[st - 1]}[s];",
+                  "  }",
+                  f"  for (int it = 0; it < {KV3_NEWTON}; ++it) {{",
+                  f"    rhs(sf[{st + 2}], z, p, {_row(min(st, 2), F)}, fz);",
+                  "  " + loop + "x[s] = z[s] - hg * fz[s] - b[s];",
+                  "    for (int i = 0; i < ODE_S; ++i)   // unit lower",
+                  "      for (int j = 0; j < i; ++j)",
+                  "        x[i] = x[i] - A[i * ODE_S + j] * x[j];",
+                  "    for (int i = ODE_S - 1; i >= 0; --i) {",
+                  "      for (int j = i + 1; j < ODE_S; ++j)",
+                  "        x[i] = x[i] - A[i * ODE_S + j] * x[j];",
+                  "      x[i] = x[i] / A[i * ODE_S + i];",
+                  "    }",
+                  "  " + loop + "z[s] = z[s] - x[s];",
+                  "  }"]
+        if st < len(KV3_A) - 1:
+            lines.append(loop + f"{ks[st]}[s] = (z[s] - b[s]) / hg;")
+    lines += ["  Kv3State out;",
+              loop + "out.y[s] = z[s];",
+              "  return out;", "}", ""]
+    return lines
+
+
+def kvaerno3_source(program, columns=None) -> str:
+    """The RHS's Jacobian ``jac()`` (:meth:`~odelib_tpu_torch.rhs.
+    RhsProgram.jacobian`, reading the forcing ``columns``) and the
+    fixed-step Kvaerno3 ``step_kvaerno3`` over ``y[ODE_S]`` with the step's
+    constants ``sf`` (h, f32(h gamma), then the times of stages 1-4;
+    ``plan_tables``) and forcing rows ``uf`` (t, t + 2 gamma h, t + h):
+    I - h gamma J in
+    registers, its elimination without pivoting and the triangular solves
+    unrolled in the order of ``odelib_tpu/ops/runge_kutta.py``
+    ``kvaerno3_fixed_step``, ``KV3_NEWTON`` chord-Newton iterations a
+    stage, the last stage returned. The twin is
+    :func:`~.runge_kutta.kvaerno3_fixed_step`.
+
+    No IEEE division sits on the chord-Newton chain: the step takes the
+    reciprocals of the diagonal and of ``hg`` once (``__frcp_rn``, S + 1 of
+    them), and each quotient of the back substitutions and of the stage
+    slopes is ``kv3_quotient``'s corrected product, the same correctly
+    rounded float32 quotient as the twin's division. Where an operand
+    leaves the range that makes it so, the step sets ``bad`` and is taken
+    again by ``step_kvaerno3_ieee`` (:func:`_kv3_ieee`), the same step
+    with IEEE divisions."""
+    S = program.n_states
+    columns = forcing_columns(program) if columns is None else columns
+    F = len(columns)
+    copy = "  for (int s = 0; s < ODE_S; ++s) "
+    lines = [program.jacobian().cuda_function("jac", columns),
+             KV3_QUOTIENT,
+             "struct Kv3State { float y[ODE_S]; };",
+             "struct Kv3Params { float p[ODE_P]; };",
+             ""]
+    lines += _kv3_ieee(F)
+    lines += ["__device__ __forceinline__ void step_kvaerno3(float* y, "
+              "const float* sf, const float* p, const float* uf) {"]
+    lines += _kv3_body(S, F)
+    lines += ["  if (bad) {   // an operand out of kv3_quotient's range",
+              "    Kv3State in;",
+              "    Kv3Params ps;",
+              "  " + copy + "in.y[s] = y[s];",
+              "    for (int i = 0; i < ODE_P; ++i) ps.p[i] = p[i];",
+              "    const Kv3State out = step_kvaerno3_ieee(in, sf, ps, uf);",
+              "  " + copy + "y[s] = out.y[s];",
+              "    return;",
+              "  }"]
     for s in range(S):
         lines.append(f"  y[{s}] = z[{s}];")
     lines += ["}", ""]
@@ -420,7 +564,7 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
         lib.odelib_ensemble_blocks.argtypes = [_I, _I, _I, _I,
                                                ctypes.POINTER(_I)]
         lib.odelib_ensemble_blocks.restype = _I
-        lib.odelib_ensemble.argtypes = [_P, _I, _P, _I] + [_P] * 11 + [
+        lib.odelib_ensemble.argtypes = [_P, _I, _P, _I] + [_P] * 12 + [
             _I] * 6 + [_U] + [_F] * 4 + [_I, _I, _P]
         lib.odelib_ensemble.restype = _I
         lib.odelib_pt.argtypes = [_P] * 13 + [_I] * 6 + [
@@ -435,6 +579,9 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
         lib.odelib_tobit.argtypes = [_P, _I, _I] + [ctypes.c_double] * 5 \
             + [_P, _P]
         lib.odelib_tobit.restype = _I
+        if stiff:
+            lib.odelib_kv3_quotient.argtypes = [_P] * 5 + [_I, _P]
+            lib.odelib_kv3_quotient.restype = _I
         lib.odelib_error_string.argtypes = [_I]
         lib.odelib_error_string.restype = ctypes.c_char_p
         _LIBS[path] = lib

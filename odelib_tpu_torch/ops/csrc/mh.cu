@@ -97,8 +97,10 @@
 // with ODE_KVAERNO3 adds the STEPPER = 3 instantiations, which step with
 // the generated step_kvaerno3 (ops/build.py kvaerno3_source: one traced
 // Jacobian a step, I - h gamma J eliminated in registers, four
-// chord-Newton iterations a stage). Everything else is the same kernel:
-// in mh_kernel each of a chain's four lanes runs the stepper on its node.
+// chord-Newton iterations a stage, each quotient a corrected product of a
+// reciprocal taken once a step, with no IEEE division and no branch on the
+// Newton chain). Everything else is the same kernel: in mh_kernel each of
+// a chain's four lanes runs the stepper on its node.
 #include "common.cuh"  // staged_plan, score<STEPPER>, mix, uniform, normal
 
 #define SURVEY_BLOCK 32
@@ -343,6 +345,27 @@ __global__ void tobit_kernel(const float* __restrict__ z, int n, int which,
     out[i] = which ? odelib::t_logcdf(z[i], c) : odelib::log_ndtr(z[i]);
 }
 
+#ifdef ODE_KVAERNO3
+// A probe of step_kvaerno3's quotient (ops/build.py KV3_QUOTIENT): on
+// arrays, q = kv3_quotient(x, kv3_divisor(d, 1/d)) and its flag (1 where
+// the step would be taken again with IEEE divisions: d out of range, or a
+// subnormal quotient) beside ref = the IEEE division.
+__global__ void kv3_quotient_kernel(const float* __restrict__ x,
+                                    const float* __restrict__ d, int n,
+                                    float* __restrict__ q,
+                                    float* __restrict__ ref,
+                                    float* __restrict__ flag) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    bool bad = false;
+    const Kv3Div v = kv3_divisor(d[i], __frcp_rn(d[i]), bad);
+    q[i] = kv3_quotient(x[i], v, bad);
+    ref[i] = __fdiv_rn(x[i], d[i]);
+    flag[i] = bad ? 1.0f : 0.0f;
+  }
+}
+#endif
+
 }  // namespace
 
 extern "C" {
@@ -420,6 +443,17 @@ int odelib_tobit(const float* z, int n, int which, double nu, double a,
       z, n, which, odelib::TCdf{nu, a, thresh, ka, kb}, out);
   return (int)cudaGetLastError();
 }
+
+#ifdef ODE_KVAERNO3
+int odelib_kv3_quotient(const float* x, const float* d, float* q,
+                        float* ref, float* flag, int n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kv3_quotient_kernel<<<(n + 255) / 256, 256, 0, s>>>(x, d, n, q, ref,
+                                                      flag);
+  return (int)cudaGetLastError();
+}
+#endif
 
 const char* odelib_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -953,6 +953,10 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
         device=dev)
     prior_t = _prior_tensor(prior, dev)
     bar = torch.empty(2, dtype=torch.int32, device=dev)  # zeroed per launch
+    # the kernel's scratch: the state's other parity, each column's two
+    # candidates and its posted decision (csrc/ensemble.cu)
+    work = torch.empty((P + 4) * W + (2 * (P + 3) + 1) * (W // 2),
+                       dtype=torch.float32, device=dev)
     # a - 1, a, n_walked - 1 and the AIC term, rounded as JAX rounds them
     consts = tuple(float(np.float32(v)) for v in (a - 1.0, a,
                                                   sum(walked) - 1, 2.0 * num))
@@ -968,12 +972,13 @@ def ensemble_launcher(spec, plan, y0_base, stepper, th0, seed, *, tile,
         # R^2, the accept count and the log prior (0 without priors)
         buf = torch.zeros((P + 4, W), dtype=torch.float32, device=dev)
         build.check(lib, lib.odelib_ensemble(
-            *head, _ptr(state), buf.data_ptr(), bar.data_ptr(),
+            *head, _ptr(state), buf.data_ptr(), work.data_ptr(),
+            bar.data_ptr(),
             *(r.data_ptr() for r in recs), W, W0, int(tile), int(it_base),
             int(it_end), int(rec0), *tail), "ensemble")
         LAUNCHES["ensemble_fused"] += 1
         return recs if R_chunk is None else (recs, buf)
-    launch.keep = (walk_t, prior_t, bar)   # alive with the launcher
+    launch.keep = (walk_t, prior_t, bar, work)   # alive with the launcher
     return launch
 
 

@@ -23,6 +23,8 @@ from odelib_tpu_torch.ops.priors import prior_table
 from odelib_tpu_torch.rhs import RhsTraceError, adapt_rhs
 
 from scoring_cases import SCORING, scoring_id
+from test_torch_ensemble_spec import CASES as ENS_CASES
+from test_torch_ensemble_spec import case_inputs
 from test_torch_mh_prefetch import CASES as MH_CASES
 from test_torch_mh_prefetch import PRIOR_SETS, assert_bitwise, run_case
 
@@ -128,8 +130,9 @@ def test_ensemble_kernel_matches_twin(card):
 
 @pytest.mark.parametrize("blocks", [1, 3])
 def test_ensemble_column_loop_matches_twin(card, blocks):
-    """A grid of fewer threads than the 384 columns of three ensembles of
-    256 (32 threads: 12 columns each; 96: 4 each): bitwise the twin's."""
+    """A grid of fewer columns than the 384 of three ensembles of 256 (a
+    block holds 32 columns on three warps; 1 block: 12 passes, 3: 4):
+    bitwise the twin's."""
     spec, obs, tf, y0 = card
     walk = (1.0, 0.0, 1.0)
     th0 = torch.as_tensor(T.ensemble_init(_draws(700, sd=0.05), 11, 256,
@@ -143,6 +146,26 @@ def test_ensemble_column_loop_matches_twin(card, blocks):
     torch.cuda.synchronize()
     for a, b in zip(k, tw):          # bitwise: the same float32 operations
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("case", sorted(ENS_CASES))
+def test_ensemble_spec_cases_match_twin(card, case):
+    """The speculative ensemble kernel (B's update beside A's two
+    candidates a round) against ensemble_plain on every case of the CPU
+    emulation (tests/test_torch_ensemble_spec.py): dopri5 and kvaerno3,
+    with and without priors, nits 2 and 3, and kvaerno3 on grids of 1, 3
+    and 7 blocks (threads looping over the 384 columns), at the main
+    path's substeps: bitwise, one launch."""
+    spec, plan, y0, start, seed, kw = case_inputs(card, case, "cuda", 4)
+    stepper = kw.pop("stepper")
+    n0 = T.LAUNCHES["ensemble_fused"]
+    got = T.ensemble_launcher(spec, plan, y0, stepper, start, seed,
+                              blocks=ENS_CASES[case][-1], **kw)()
+    assert T.LAUNCHES["ensemble_fused"] == n0 + 1
+    want = T.ensemble_plain(spec, plan, y0, start, seed, stepper=stepper,
+                            **kw)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
 
 
 def test_ensemble_kernel_unstaged_plan_matches_twin(card):
@@ -957,6 +980,86 @@ def test_kvaerno3_kernels_match_twins(card, model):
     assert {k: v for k, v in T.LAUNCHES.items() if v} == {
         "survey_fused": 1, "metropolis_hastings_fused": 1 + -(-29 // 7),
         "ensemble_fused": 1, "parallel_tempering_fused": 1}
+
+
+def test_kv3_quotient_matches_fdiv_rn(card):
+    """step_kvaerno3's quotient (ops/build.py KV3_QUOTIENT, through the
+    probe odelib_kv3_quotient of a stiff library) against __fdiv_rn:
+    bitwise wherever its flag stays down, and the flag up exactly where d
+    is outside [2^-125, 2^126) (NaN excepted), or x is finite, non-zero and
+    below 2^-102 or gives a subnormal quotient (the step is then taken
+    again with IEEE divisions). Every float32 mantissa of x in [1, 2), at
+    scales 2^-103, 2^-1, 2^40 and 2^126, both signs, over 300 divisors of
+    both signs (200 in 2^+-0.33, where the step's diagonal lies, 100 with
+    exponents -130 .. 130), and the special operands of
+    tests/test_torch_kv3_division.py."""
+    from odelib_tpu_torch.ops import build
+    from test_torch_kv3_division import _specials
+    spec, obs, tf, y0 = card
+    lib = build.load_kernels(spec, scoring=[T.scoring(
+        T._build_plan(spec, obs, tf, 4))], stiff=True)
+    dev = torch.device("cuda")
+    stream = build.stream(dev)
+
+    def check(x, d):
+        """Mismatches where the flag is down, and misplaced flags."""
+        q, ref, flag = (torch.empty_like(x) for _ in range(3))
+        build.check(lib, lib.odelib_kv3_quotient(
+            x.data_ptr(), d.data_ptr(), q.data_ptr(), ref.data_ptr(),
+            flag.data_ptr(), x.numel(), stream), "kv3_quotient")
+        ad, ax = d.abs(), x.abs()
+        finite = (ax != 0) & torch.isfinite(x)
+        want = ((ad < 2.0 ** -125) | (ad >= 2.0 ** 126)) & ~torch.isnan(d) \
+            | finite & ((ax < 2.0 ** -102) | (ref.abs() <= 2.0 ** -126))
+        down = flag == 0
+        nan = torch.isnan(ref)
+        wrong = down & ((q.view(torch.int32) != ref.view(torch.int32))
+                        & ~nan | (torch.isnan(q) != nan))
+        return int(wrong.sum()), int((want == down).sum())
+    mant = (torch.arange(1 << 23, dtype=torch.int32, device=dev)
+            | (127 << 23)).view(torch.float32)
+    rng = np.random.default_rng(0)
+    divs = np.concatenate([2.0 ** rng.uniform(-0.33, 0.33, 200),
+                           rng.uniform(1, 2, 100)
+                           * 2.0 ** rng.integers(-130, 131, 100)])
+    divs = np.concatenate([divs, -divs]).astype(np.float32)
+    bad = misplaced = 0
+    for scale in (2.0 ** -103, 0.5, 2.0 ** 40, 2.0 ** 126):
+        for sign in (1.0, -1.0):
+            x = mant * (sign * scale)
+            for d in divs:
+                w, m = check(x, torch.full_like(x, float(d)))
+                bad, misplaced = bad + w, misplaced + m
+    xs, ds = (torch.as_tensor(v, device=dev) for v in _specials())
+    w, m = check(xs, ds)
+    assert (bad + w, misplaced + m) == (0, 0)
+
+
+def test_kvaerno3_fallback_step_matches_twin(card):
+    """Draws far from the fit (lognormal sd 2 around zero_i's, as LHS
+    draws from wide priors), whose solves diverge, blow up or shrink, so
+    steps leave kv3_quotient's exact range and take step_kvaerno3_ieee:
+    the survey (1,000 draws) and MH (256 chains x 12) kernels against
+    their twins, bitwise."""
+    spec, obs, tf, y0 = card
+    plan = T._build_plan(spec, obs, tf, 4)
+    th = torch.as_tensor(_draws(1000, sd=2.0, seed=4), device="cuda")
+    kw = dict(substeps=4, stepper="kvaerno3")
+    chi = T.survey_fused(spec, obs, tf, y0, th, **kw)
+    chi_t = T.survey_plain(spec, plan, y0, th.t().contiguous(), "kvaerno3")
+    torch.cuda.synchronize()
+    chi, chi_t = chi.cpu().numpy(), chi_t.cpu().numpy()
+    assert 0 < np.isfinite(chi).sum() < len(chi)
+    np.testing.assert_array_equal(chi, chi_t)
+    th0 = th[:256]
+    mh = T.metropolis_hastings_fused(spec, obs, tf, y0, th0, 11, nits=12,
+                                     burnin=0, **kw)
+    tw = T.mh_plain(spec, plan, y0, th0.t().contiguous(), 11, nits=12,
+                    burnin=0, walk=(0.05,) * 3, walked=(True,) * 3, num=3,
+                    stepper="kvaerno3")
+    torch.cuda.synchronize()
+    assert_bitwise((mh.theta.permute(1, 2, 0), mh.chi.t(), mh.rsquared.t(),
+                    mh.aic.t(), mh.acceptance_ratio.t()), tw)
 
 
 # --- forcings and array parameters ---------------------------------------

@@ -338,72 +338,19 @@ def test_ensemble_columns_are_the_halves(tile):
             assert torch.unique(gp).numel() == W // 2
 
 
-def _ensemble_columns(theta0, seed, threads, *, tile, nits, burnin, a, walk,
-                      walked, num, W0):
-    """ensemble.cu run by ``threads`` threads: walker state in the (P + 3)
-    x W buffer; each thread scores both walkers of its columns j, j +
-    threads, ...; then, after each half-update's barrier, the rounds of
-    columns in turn, each reading its own state and its partner's
-    log-theta from the buffer, writing back on accept and recording the
-    walker, whose state is final for the iteration."""
-    score = T.make_scorer(None, None, None, "dopri5")
-    P, W = theta0.shape
-    hn, cols = tile // 2, W // 2
-    f32 = lambda v: torch.tensor(np.float32(v))  # noqa: E731
-    key = T.Rng(seed, torch.arange(W))._key
-    lt, chi, rsq, acc = (torch.empty(P, W),) + tuple(torch.empty(W)
-                                                     for _ in range(3))
-    rounds = [torch.arange(j0, min(j0 + threads, cols))
-              for j0 in range(0, cols, threads)]
-    for j in rounds:
-        e = j // hn
-        for hb in (0, 1):
-            g = e * tile + hb * hn + (j - e * hn)
-            chi[g], rsq[g] = score(list(theta0[:, g]))
-            lt[:, g] = torch.log(theta0[:, g])
-            acc[g] = 0.0
-    R = nits - 1 - burnin
-    recs = [torch.full((R, P, W0), np.nan)] + [torch.full((R, W0), np.nan)
-                                                for _ in range(4)]
-    for it in range(1, nits):
-        for hb in (0, 1):
-            for j in rounds:
-                g, gp = _kernel_columns(j, tile, seed, it, hb)
-                ctr = it * 1024 + 2 * hb
-                s = f32(1.0) + f32(a - 1.0) * T.uniform_of(key[g], ctr)
-                z = (s * s) / f32(a)
-                cur = list(lt[:, g])
-                prop = [c + ((f32(1.0) - z) * (lt[p, gp] - c)) * f32(walk[p])
-                        if walked[p] else c for p, c in enumerate(cur)]
-                chi_new, rsq_new = score([torch.exp(v) for v in prop])
-                ok = torch.exp((f32(sum(walked) - 1) * torch.log(z) + chi[g])
-                               - chi_new) > T.uniform_of(key[g], ctr + 1)
-                lt[:, g] = torch.stack([torch.where(ok, v, c)
-                                        for v, c in zip(prop, cur)])
-                chi[g] = torch.where(ok, chi_new, chi[g])
-                rsq[g] = torch.where(ok, rsq_new, rsq[g])
-                acc[g] = acc[g] + ok.to(torch.float32)
-                r, m = it - 1 - burnin, g[g < W0]
-                if r >= 0:
-                    recs[0][r][:, m] = torch.exp(lt[:, m])
-                    recs[1][r][m] = chi[m]
-                    recs[2][r][m] = rsq[m]
-                    recs[3][r][m] = f32(2.0) * chi[m] + f32(2.0 * num)
-                    recs[4][r][m] = acc[m] / f32(float(it))
-    return recs
-
-
-# (W0, tile, walk mask, threads): a column a thread; 96 threads over 256
-# columns (rounds of 96, 96, 64); 700 walkers padded to three ensembles,
-# 40 threads over 384 columns, a static slot
+# (W0, tile, walk mask, threads): the grid's columns (three threads
+# each); 96 over 256 columns (passes of 96, 96, 64); 700 walkers padded to
+# three ensembles, 40 over 384 columns, a static slot
 @pytest.mark.parametrize("W0,tile,mask,threads", [
     (512, 256, (1.0, 1.0, 1.0), 256), (512, 256, (1.0, 1.0, 1.0), 96),
     (700, 256, (1.0, 0.0, 1.0), 40)])
 def test_ensemble_column_loop_equals_twin(monkeypatch, W0, tile, mask,
                                           threads):
-    """The kernel's schedule (state in the buffer, both halves' walkers a
-    thread, columns in rounds where threads are fewer, a barrier a
-    half-update) gives ensemble_plain's records bitwise."""
+    """The kernel's schedule (tests/test_torch_ensemble_spec.py: B's update
+    beside A's two candidates a round, the state in two parity buffers,
+    columns in passes where threads are fewer, a grid barrier a round)
+    gives ensemble_plain's records bitwise."""
+    from test_torch_ensemble_spec import speculative_ensemble
     from test_torch_pt import _fake_scorer
     monkeypatch.setattr(T, "make_scorer", _fake_scorer)
     seed = 9
@@ -412,7 +359,8 @@ def test_ensemble_column_loop_equals_twin(monkeypatch, W0, tile, mask,
     kw = dict(tile=tile, nits=9, burnin=2, a=2.0, walk=mask,
               walked=tuple(w != 0.0 for w in mask), num=3, W0=W0)
     want = T.ensemble_plain(None, None, None, th0, seed, **kw)
-    got = _ensemble_columns(th0, seed, threads, **kw)
+    got = speculative_ensemble(None, None, None, th0, seed, columns=threads,
+                               **kw)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert 0 < float(got[4][-1].mean()) < 1

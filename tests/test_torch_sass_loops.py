@@ -80,3 +80,18 @@ def test_every_loop_with_its_loads(tmp_path, capsys):
     assert "_Z9pf_kernelv: 17 instructions, 8 blocks, 1 loops" in out
     assert ("loop at 0x0020: 6 blocks, 14 instructions, cycle 9; loads "
             "generic 1, shared 1") in out
+
+
+def test_every_loop_counts_the_divisions(tmp_path, capsys):
+    """--all: each loop's and each function's IEEE division instructions
+    (the range check, the reciprocal, the slow path's call)."""
+    path = tmp_path / "k.sass"
+    path.write_text(LISTING.replace(
+        "FADD R4, R4, 1 ;", "MUFU.RCP R4, R4 ;").replace(
+        "FMUL R4, R4, R3 ;", "FCHK P0, R4, R3 ;").replace(
+        "FADD R4, R4, R6 ;", "CALL.REL.NOINC 0x100 ;"))
+    sass_loops.report(str(path), "pf_kernel", show_all=True)
+    out = capsys.readouterr().out
+    assert ("_Z9pf_kernelv: 17 instructions, 8 blocks, 1 loops; FCHK 1, "
+            "MUFU.RCP 1, CALL 1") in out
+    assert "loads none; FCHK 1, MUFU.RCP 1, CALL 1" in out

@@ -3,18 +3,24 @@
     python3 tools/kernel_times.py [--tree DIR] [--reps N]
 
 Imports ``odelib_tpu_torch`` from ``DIR`` (default: this checkout), builds
-its libraries, and times with CUDA events, after a warm-up launch, the
-whole-run launches of ``mh_kernel``, ``ens_kernel`` and ``pt_kernel`` (each
-prior-free and with the demo's three lognormal priors; ``mh_kernel`` also on
-the 21-step schedule [3, 1 x 14, 2, 2] that ``substeps='auto'`` calibrates
-on the demo), ``joint_kernel`` (config 9: zero_i on the demo and on it
-perturbed, numpy seed 7, sharing phi and beta) and ``pf_kernel``,
-at the shapes of ``chip_smoke.py``'s main paths: 10,000 chains x 1,000
-iterations from the best of 4,096 LHS draws of the demo fit (the ensemble's
-10,000 walkers padded to 12,288 in ensembles of 4,096; PT on 4 rungs), and
-PMMH on 10,240 chains x 128 particles x 200 proposals of the GBM. Prints
+its libraries, and times with CUDA events, after a warm-up launch,
+``survey_kernel`` (1,000 draws) and the whole-run launches of
+``mh_kernel``, ``ens_kernel`` and ``pt_kernel`` (each prior-free and with
+the demo's three lognormal priors; ``mh_kernel`` also on the 21-step
+schedule [3, 1 x 14, 2, 2] that ``substeps='auto'`` calibrates on the
+demo), ``joint_kernel`` (config 9: zero_i on the demo and on it perturbed,
+numpy seed 7, sharing phi and beta) and ``pf_kernel``, at the shapes of
+``chip_smoke.py``'s main paths: 10,000 chains x 1,000 iterations from the
+best of 4,096 LHS draws of the demo fit (the ensemble's 10,000 walkers
+padded to 12,288 in ensembles of 4,096; PT on 4 rungs), and PMMH on 10,240
+chains x 128 particles x 200 proposals of the GBM; then the survey, MH,
+ensemble and PT kernels' kvaerno3 instantiations at config 6's shapes
+(substeps 4: the survey on the first 1,000 LHS draws, MH on 10,240 chains
+x 1,000, the ensemble on 12,288 walkers, PT on 10,000 x 4 rungs, the
+chains from the best 200 draws, and again from every finite draw). Prints
 the card (``nvidia-smi``), each kernel's registers, stack and spills from
-its library's ``nvcc.log``, and a last line of JSON {label: ms}.
+its library's ``nvcc.log`` (of the stiff library, its kvaerno3
+instantiations), and a last line of JSON {label: ms}.
 
 To weigh a change to a kernel, unpack the parent (``git archive``) into the
 gitignored ``_archive/`` and run both trees in one call, in turns:
@@ -105,15 +111,18 @@ def main():
             "log_sigma": 0.15}), t_steps=41, N=2.0,
         mu=parameter(scipy.stats.lognorm, {"s": 0.5, "scale": 0.4}),
         device="cuda")
-    def load(f, diffusion=False):
+    def load(f, diffusion=False, stiff=False):
         # a tree from before the observation models builds without scoring
         kw = {"scoring": [cuda_mh.scoring(cuda_mh._build_plan(
             f._spec, f._obsdata_fit_host, f._times_fit, 1))]} \
             if hasattr(cuda_mh, "scoring") else {}
+        if stiff:
+            kw["stiff"] = True
         return build.load_kernels(f._spec, (), diffusion, **kw)
-    with ThreadPoolExecutor(2) as ex:       # two nvcc processes at once
-        libs = list(ex.map(lambda a: load(*a), [(fw,), (pfw, True)]))
-    for lib in libs:
+    with ThreadPoolExecutor(3) as ex:       # three nvcc processes at once
+        libs = list(ex.map(lambda a: load(*a), [(fw,), (pfw, True),
+                                                (fw, False, True)]))
+    for k, lib in enumerate(libs):
         log = open(os.path.join(os.path.dirname(lib._name),
                                 "nvcc.log")).read()
         name = None
@@ -121,9 +130,9 @@ def main():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = m.group(1)
-            elif name and re.search(r"(mh|ens|pt|pf|joint)_kernel",
-                                    name) and (
-                    "registers" in line or "spill" in line):
+            elif name and re.search(r"(survey|mh|ens|pt|pf|joint)_kernel",
+                                    name) and (k < 2 or "ILi3E" in name) \
+                    and ("registers" in line or "spill" in line):
                 short = re.search(r"(\w+_kernelIL[^E]*E[^E]*E)", name)
                 print(f"{short.group(1) if short else name}: "
                       f"{line.strip()}")
@@ -165,7 +174,21 @@ def main():
     plan_b = cuda_mh._build_plan(spec, obs_b, tf, 4)
     j_th = th[[1, 2, 0, 0]].contiguous()        # phi, beta, a:mu, b:mu
     j_kw = dict(nits=1000, burnin=500, walk=(0.05,) * 4, walked=(True,) * 4)
+    # config 6 (substeps 4): MH on 10,240 chains, the ensemble on 12,288
+    # walkers, PT on 10,000 x 4, from the best 200 draws (the regime of
+    # config 6's chi-cut seeds), and again from every finite draw ("all
+    # seeds": chains far from the fit, whose solves diverge or flag the
+    # step's fast quotient); the survey on the first 1,000 draws
+    def stiff_inputs(n_best):
+        pick = order[np.arange(12288) % min(n_best, max(fin.sum(), 1))]
+        th_ = torch.as_tensor(draws[pick], device=dev).t().contiguous()
+        return th_[:, :10240].contiguous(), th_[:, :10000].contiguous(), \
+            torch.as_tensor(np.ascontiguousarray(cuda_mh.ensemble_init(
+                draws[pick], 11, tile, mask, 0.01).T), device=dev)
+    survey_th = torch.as_tensor(draws[:1000], device=dev).t().contiguous()
     runs = {
+        "survey": cuda_mh.survey_launcher(spec, plan, y0, "dopri5",
+                                          survey_th),
         "mh": cuda_mh.mh_launcher(spec, plan, y0, "dopri5", th, 11, **mh_kw),
         "mh, priors": cuda_mh.mh_launcher(spec, plan, y0, "dopri5", th, 11,
                                           prior=demo, **mh_kw),
@@ -185,10 +208,24 @@ def main():
             ((2, 0, 1), (3, 0, 1)), "dopri5", j_th, 11, **j_kw),
         "pmmh": cuda_pf.pmmh_launcher(pfw._spec, pf_plan, pfw.get_inits(),
                                       pf_th, 3, **pf_kw),
+        "survey, kvaerno3": cuda_mh.survey_launcher(spec, plan, y0,
+                                                    "kvaerno3", survey_th),
     }
+    for tag, n_best in (("", 200), (", all seeds", len(draws))):
+        mh6, pt6, ens6 = stiff_inputs(n_best)
+        runs.update({
+            "mh, kvaerno3" + tag: cuda_mh.mh_launcher(
+                spec, plan, y0, "kvaerno3", mh6, 11, **mh_kw),
+            "ensemble, kvaerno3" + tag: cuda_mh.ensemble_launcher(
+                spec, plan, y0, "kvaerno3", ens6, 11,
+                **dict(ens_kw, W0=12288)),
+            "pt, kvaerno3" + tag: cuda_pt.pt_launcher(
+                spec, plan, y0, "kvaerno3", pt6, 11, **pt_kw)})
     times = {}
     for label, launch in runs.items():
-        times[label] = events_ms(launch, args.reps)
+        # a survey launch takes 0.02-0.4 ms: time 50 times as many
+        reps = 50 * args.reps if label.startswith("survey") else args.reps
+        times[label] = events_ms(launch, reps)
         print(f"{label}: {times[label]:.3f} ms", flush=True)
     print(json.dumps(times))
 

@@ -25,8 +25,10 @@ state, steps alternate between ``draw`` and ``plain``, so an ordinary
 step costs their mean, and a particle-step that mean over the particles a
 lane holds. ``--blocks`` lists the loop's basic blocks. ``--all`` lists
 instead every natural loop of each function, with its size, the fewest
-instructions around it and its loads (generic ``LD``, global, shared,
-constant): the MH kernel's step loop and the observation loop after it,
+instructions around it, its loads (generic ``LD``, global, shared,
+constant) and its IEEE divisions' instructions (``FCHK``, the range check
+that branches to the division's slow-path subroutine; ``MUFU.RCP``;
+``CALL``): the MH kernel's step loop and the observation loop after it,
 which hold no hash.
 """
 import heapq
@@ -194,8 +196,19 @@ def cycle(blocks, succ, body, head, latches, via=None):
     return best
 
 
+def divisions(insns):
+    """'FCHK a, MUFU.RCP b, CALL c': the IEEE divisions' range checks (each
+    guards a branch to the division's slow-path subroutine), the hardware
+    reciprocals and the subroutine calls among ``insns``."""
+    ops = Counter(split(t)[1] for _, t in insns)
+    return ", ".join(
+        f"{name} {sum(n for op, n in ops.items() if op.startswith(name))}"
+        for name in ("FCHK", "MUFU.RCP", "CALL"))
+
+
 def every_loop(blocks, succ, loops):
-    """One line per natural loop: size, shortest cycle, loads by class."""
+    """One line per natural loop: size, shortest cycle, loads by class, and
+    its divisions' instructions."""
     for h, (body, latches) in sorted(loops.items()):
         body_insns = [x for b in body for x in blocks[b]]
         loads = Counter(klass(split(t)[1]) for _, t in body_insns
@@ -203,7 +216,8 @@ def every_loop(blocks, succ, loops):
         print(f"  loop at {h:#06x}: {len(body)} blocks, {len(body_insns)} "
               f"instructions, cycle {cycle(blocks, succ, body, h, latches)}"
               "; loads " + (", ".join(f"{k} {v}" for k, v in
-                                      sorted(loads.items())) or "none"))
+                                      sorted(loads.items())) or "none")
+              + "; " + divisions(body_insns))
 
 
 def report(path, name="pf_kernel", show_blocks=False, show_all=False):
@@ -214,7 +228,7 @@ def report(path, name="pf_kernel", show_blocks=False, show_all=False):
         loops = natural_loops(insns[0][0], succ)
         if show_all:
             print(f"{fname}: {len(insns)} instructions, {len(blocks)} "
-                  f"blocks, {len(loops)} loops")
+                  f"blocks, {len(loops)} loops; {divisions(insns)}")
             every_loop(blocks, succ, loops)
             continue
         hashes = {b for b, body in blocks.items()
