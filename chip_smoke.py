@@ -219,7 +219,28 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    ``test_chain_model_pf_kernel_matches_twin``: its library's particle
    filters take ~15 minutes of nvcc); and each new instantiation's time
    (the kernels line's ``:16-rungs``, ``:40-rungs``, ``:wide-12``,
-   ``:wide-40``, ``:42-states`` and ``:42-states-kvaerno3`` rows);
+   ``:wide-40``, ``:42-states`` and ``:42-states-kvaerno3`` rows). Then
+   the scan phases (``scan_phases``: the reference's XLA samplers as the
+   port runs them, float64, every chain a lane of each iteration's
+   batched solve), each with launch counts reset just before and read
+   just after: (a) MCMC(backend='xla') MH with adaptive Dopri5 (rtol
+   1e-6, atol 1e-4, at most 1,024 steps a solve) at 10,000 chains, its
+   prescreen ``fit_survey``'s 1,000 draws; (b) MCMC(method='kvaerno5') under backend='auto' (the
+   scan MH); (c) MCMC(sampler='ensemble') with 32 walkers under 'auto'
+   (the scan ensemble; starts from (a)'s final draws); (d)
+   MCMC(sampler='pt', temperatures='auto') at 10,000 chains (the ladder
+   tuned on the scan PT with 32 pilot chains, ``SCAN_PILOT`` cut from
+   150 iterations and 6 rounds; the production run launching pt_kernel
+   once; from (a)'s final draws): the reference's columns, finite chi
+   1.0, the sampler's band, the arm in ``last_profile``, no fused kernel
+   on the scan routes, the ladder increasing from 1 and a swap rate in
+   (0, 1]; (e) each scan sampler at 64 chains on the card and on the CPU
+   from the same keys and starts: equal accept sequences and swap
+   counts, chi within 1e-8 relative; (f) the scan MH at 1,024 chains in
+   4 chunks and killed after one and resumed, bitwise its whole run;
+   (g) each scan sampler's seconds per iteration at 10,000 chains (the
+   ensemble at 32 and 1,024 walkers), its device launches per iteration
+   and the busy share under torch.profiler;
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MH, ensemble, PT and joint kernels with the demo's priors, with flat
@@ -2628,6 +2649,289 @@ def limits_phases(lf, smi_line):
     return rows
 
 
+# the scan samplers (odelib_tpu's XLA samplers in torch): chains, walkers,
+# iterations per path (set from one timed iteration each, so that the
+# phases take at most 90 s together on a slow host), tune_ladder's pilot,
+# cut from its defaults of 150 iterations x 6 rounds, and (a)'s step cap:
+# its prescreen's stiff LHS draws fail at any cap, and at the default
+# 4,096 they held the batch's launch-bound loop for 25-40 s, while the
+# chains' solves take under 100 steps
+SCAN_CHAINS, SCAN_WALKERS = 10000, (32, 1024)
+SCAN_NITS = {"a": 10, "b": 6, "c": 10, "d": NITS}
+SCAN_PILOT = (4, 2)
+SCAN_MAX_STEPS = 1024
+SCAN_PARITY, SCAN_CHUNKED = 64, 1024
+FUSED = ("survey_fused", "metropolis_hastings_fused", "ensemble_fused",
+         "parallel_tempering_fused", "joint_metropolis_hastings_fused",
+         "pmmh_fused")
+
+
+def scan_phases(framework, smi_line):
+    """The scan phases (a)-(g): the reference's XLA samplers as the port
+    runs them on the card (odelib_tpu_torch/samplers/mh.py, ensemble.py,
+    pt.py; float64, every chain a lane of each iteration's batched solve),
+    through the user API where ``backend='auto'`` or 'xla' routes to them,
+    each with launch counts reset just before and read just after. Returns
+    the phases' seconds."""
+    import numpy as np
+    import torch
+    from odelib_tpu_torch import random as jr
+    from odelib_tpu_torch.ops import cuda_mh
+    from odelib_tpu_torch.samplers import ensemble as sens
+    from odelib_tpu_torch.samplers import mh as smh
+    from odelib_tpu_torch.samplers import pt as spt
+
+    t_all = time.perf_counter()
+    log_buf = io.StringIO()
+    handler = logging.StreamHandler(log_buf)
+    pkg_log = logging.getLogger("odelib_tpu_torch")
+    pkg_log.addHandler(handler)
+    pkg_log.setLevel(logging.INFO)
+    cols = ["mu", "phi", "beta", "chi", "rsquared", "aic", "iteration",
+            "acceptance_ratio", "chain#", "all_rejected"]
+
+    def drive(label, n, nits, band, arm, starts=None, **kw):
+        """MCMC at n chains: seeded by its own prescreen, or from
+        ``starts`` (a DataFrame of n rows)."""
+        fw = framework()
+        out = io.StringIO()
+        cuda_mh.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            post = fw.MCMC(chain_inits=n if starts is None else starts,
+                           iterations_per_chain=nits,
+                           fitsurvey_samples=1000, sd_fitdistance=6.0,
+                           print_report=True, profile=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_mh.LAUNCHES)
+        last = post[post.iteration == post.iteration.max()]
+        finite = float(np.isfinite(post.chi.to_numpy()).mean())
+        acc = float(last.acceptance_ratio.mean())
+        print(f"scan ({label}): {n} chains x {nits} iterations, wall "
+              f"{wall:.3f} s; stages " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in fw.last_profile.items())
+              + f"; finite chi {finite}, mean final acceptance {acc:.4f}; "
+              f"launches {launches}", flush=True)
+        if list(post.columns) != cols:
+            fail(f"scan ({label}): posterior columns {list(post.columns)}")
+        if post["chain#"].nunique() != n or len(post) != n * (
+                nits - 1 - int(nits / 2)):
+            fail(f"scan ({label}): posterior has {len(post)} rows")
+        if f"chains[{arm}]" not in fw.last_profile:
+            fail(f"scan ({label}): not the {arm} arm: {fw.last_profile}")
+        if finite != 1.0:
+            fail(f"scan ({label}): finite chi fraction {finite}")
+        if not band[0] <= acc <= band[1]:
+            fail(f"scan ({label}): mean final acceptance {acc} outside "
+                 f"{band}")
+        if "Fitting Report" not in out.getvalue():
+            fail(f"scan ({label}): the Fitting Report did not print")
+        return fw, post, launches, wall
+
+    def no_fused(label, launches):
+        if any(launches[k] for k in FUSED):
+            fail(f"scan ({label}): a fused kernel was launched: {launches}")
+
+    secs = {}
+    t = time.perf_counter()
+    phase(f"scan (a): MCMC(backend='xla') MH with adaptive dopri5 (rtol "
+          f"1e-6, atol 1e-4, max_steps {SCAN_MAX_STEPS}) at {SCAN_CHAINS} "
+          "chains")
+    _, post_a, launches, _ = drive("a", SCAN_CHAINS, SCAN_NITS["a"],
+                                   BANDS["mh"], "xla", backend="xla",
+                                   max_steps=SCAN_MAX_STEPS)
+    no_fused("a", launches)
+    last = post_a[post_a.iteration == post_a.iteration.max()]
+    starts = last[cols[:3]].reset_index(drop=True)
+    seeds = torch.as_tensor(starts.to_numpy(np.float64), device="cuda")
+    secs["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"scan (b): MCMC(method='kvaerno5') under backend='auto', the scan "
+          f"MH at {SCAN_CHAINS} chains")
+    _, _, launches, _ = drive("b", SCAN_CHAINS, SCAN_NITS["b"], BANDS["mh"],
+                              "xla", method="kvaerno5")
+    no_fused("b", launches)
+    secs["b"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"scan (c): MCMC(sampler='ensemble') with {SCAN_WALKERS[0]} "
+          "walkers under backend='auto', the scan ensemble, from (a)'s "
+          "final draws")
+    _, _, launches, _ = drive("c", SCAN_WALKERS[0], SCAN_NITS["c"],
+                              BANDS["ensemble"], "ensemble",
+                              starts=starts[:SCAN_WALKERS[0]],
+                              sampler="ensemble")
+    no_fused("c", launches)
+    secs["c"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"scan (d): MCMC(sampler='pt', temperatures='auto') at "
+          f"{SCAN_CHAINS} chains: the ladder tuned on the scan PT "
+          f"({min(SCAN_CHAINS, 32)} pilot chains, pilot_iters "
+          f"{SCAN_PILOT[0]} and ladder_rounds {SCAN_PILOT[1]}, cut from 150 "
+          "and 6), the production run on pt_kernel, from (a)'s final draws")
+    log_buf.truncate(0)
+    fw, _, launches, _ = drive("d", SCAN_CHAINS, SCAN_NITS["d"], BANDS["pt"],
+                               "pallas", starts=starts, sampler="pt",
+                               temperatures="auto",
+                               pilot_iters=SCAN_PILOT[0],
+                               ladder_rounds=SCAN_PILOT[1])
+    temps, acc = fw.last_ladder
+    print(f"scan (d): tuned ladder {[round(x, 4) for x in temps]}, pilot "
+          f"mean swap acceptance {acc:.4f}", flush=True)
+    if temps[0] != 1.0 or not all(b > a for a, b in zip(temps, temps[1:])):
+        fail(f"scan (d): ladder {temps} does not increase from 1")
+    if launches["parallel_tempering_fused"] != 1:
+        fail(f"scan (d): pt_kernel not launched once: {launches}")
+    m = re.findall(r"\(fused\): mean cold-pair swap acceptance ([0-9.]+)",
+                   log_buf.getvalue())
+    rate = float(m[-1]) if m else float("nan")
+    print(f"scan (d): production run's cold-pair swap acceptance {rate}")
+    if not 0.0 < rate <= 1.0:
+        fail(f"scan (d): swap rate {rate} not in (0, 1]")
+    secs["d"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"scan (e): each scan sampler at {SCAN_PARITY} chains in float64, "
+          "on the card and on the CPU from the same keys and starts")
+    fw = framework()
+    args = (fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits())
+    th = seeds[:SCAN_PARITY]
+    keys = jr.fold_in(jr.PRNGKey(0), torch.arange(SCAN_PARITY))
+    runs = {
+        "MH": lambda dev: (smh.metropolis_hastings(
+            *args, th.to(dev), keys.to(dev), nits=8),),
+        "ensemble": lambda dev: (sens.ensemble_mh(
+            *args, th.to(dev), jr.PRNGKey(3).to(dev), nits=6),),
+        "PT": lambda dev: spt.parallel_tempering(
+            *args, th.to(dev), keys.to(dev), nits=6)}
+    bad = []
+    for name, run in runs.items():
+        card, cpu = run("cuda"), run("cpu")
+        (a, *rest_a), (b, *rest_b) = card, cpu
+        # the accept counts after each recorded iteration: the sequences
+        its = b.iteration.numpy()[None, :]
+        ar_a, ar_b = a.acceptance_ratio.cpu().numpy(), \
+            b.acceptance_ratio.numpy()
+        ca, cb = a.chi.cpu().numpy(), b.chi.numpy()
+        same = np.rint(ar_a * its) == np.rint(ar_b * its)
+        ok = np.isfinite(cb) & same
+        rel = float(np.max(np.abs(ca[ok] - cb[ok]) / np.abs(cb[ok]),
+                           initial=0.0))
+        print(f"scan (e) {name}: accept sequences equal on "
+              f"{int(same.all(axis=1).sum())} of {len(same)} chains "
+              f"(acceptance ratios bitwise: {np.array_equal(ar_a, ar_b)}); "
+              "chi max relative difference card vs CPU where they agree "
+              f"{rel:.3e}", flush=True)
+        for c in np.flatnonzero(~same.all(axis=1))[:4]:
+            r = int(np.argmin(same[c]))
+            print(f"  chain {c} parts at record {r}: acceptance "
+                  f"{ar_a[c, r]!r} / {ar_b[c, r]!r}, chi "
+                  f"{ca[c, r]!r} / {cb[c, r]!r}, theta "
+                  f"{a.theta[c, r].tolist()} / {b.theta[c, r].tolist()}")
+        if not same.all():
+            bad.append(f"{name}: accept sequences differ card vs CPU")
+        if rest_a and not np.array_equal(rest_a[0].cpu().numpy(),
+                                         rest_b[0].numpy()):
+            bad.append(f"{name}: swap counts differ card vs CPU")
+        if not rel <= 1e-8:
+            bad.append(f"{name}: chi differs by {rel} relative")
+    if bad:
+        fail("scan (e) " + "; ".join(bad))
+    secs["e"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"scan (f): scan MH at {SCAN_CHUNKED} chains in 4 chunks against "
+          "its whole run, and killed after one chunk and resumed, bitwise")
+    import tempfile
+    th = seeds[:SCAN_CHUNKED]
+    keys = jr.fold_in(jr.PRNGKey(0), torch.arange(SCAN_CHUNKED,
+                                                  device="cuda"))
+    kw = dict(nits=9, burnin=3)
+    whole = smh.metropolis_hastings(*args, th, keys, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(kw, checkpoint_every=2,
+                  checkpoint_path=os.path.join(tmp, "scan.progress"))
+        same_bits("scan (f) in 4 chunks", smh.metropolis_hastings_checkpointed(
+            *args, th, keys, **ck), whole)
+        if smh.metropolis_hastings_checkpointed(
+                *args, th, keys, _stop_after_chunks=1, **ck) is not None:
+            fail("scan (f): the killed run did not stop")
+        same_bits("scan (f) killed and resumed",
+                  smh.metropolis_hastings_checkpointed(
+                      *args, th, keys, resume_from=ck["checkpoint_path"],
+                      **ck), whole)
+    print("scan (f): 4 chunks and the resumed run bitwise the whole run",
+          flush=True)
+    secs["f"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase("scan (g): each scan sampler's seconds per iteration on the card, "
+          f"launches per iteration and the device's busy share ({smi_line})")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n_it = 1
+    keys = jr.fold_in(jr.PRNGKey(0), torch.arange(SCAN_CHAINS,
+                                                  device="cuda"))
+    cases = [("MH", SCAN_CHAINS, lambda nits: smh.metropolis_hastings(
+        *args, seeds, keys, nits=nits, burnin=0))]
+    for W in SCAN_WALKERS:
+        cases.append((f"ensemble {W} walkers", W,
+                      lambda nits, W=W: sens.ensemble_mh(
+                          *args, seeds[:W], jr.PRNGKey(3, device="cuda"), nits=nits,
+                          burnin=0)))
+    cases.append((f"PT x {len(TEMPS)} rungs", SCAN_CHAINS,
+                  lambda nits: spt.parallel_tempering(
+                      *args, seeds, keys, nits=nits, burnin=0)))
+    def profiled(run, nits):
+        """(device activities, busy seconds, wall seconds) of run(nits)
+        under the profiler, from its raw results (parsing them into
+        FunctionEvents takes seconds at these counts)."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(nits)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = sorted((e.start_ns(), e.end_ns())
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA)
+        busy, end = 0.0, float("-inf")
+        for s0, e0 in spans:
+            if e0 > end:
+                busy += e0 - max(s0, end)
+                end = e0
+        return len(spans), busy / 1e9, wall
+
+    def timed(run, nits):
+        t0 = time.perf_counter()
+        run(nits)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name, n, run in cases:
+        # with burnin=0, run(k) is the start's solve and k - 1 iterations:
+        # an iteration is the difference of run(2 + n_it) and run(2) over
+        # n_it (the ensemble's two half-solves), its activities and busy
+        # share the difference of run(3) and run(2) under the profiler
+        (n2, b2, w2), (n3, b3, w3) = profiled(run, 2), profiled(run, 3)
+        per_it = (timed(run, 2 + n_it) - timed(run, 2)) / n_it
+        print(f"scan (g) {name} ({n} lanes): {per_it:.4f} s per iteration "
+              f"(run({2 + n_it}) less run(2), over {n_it}); under the "
+              f"profiler {n3 - n2} device activities per iteration, busy "
+              f"{b3 - b2:.4f} s = {100 * (b3 - b2) / (w3 - w2):.2f} % of "
+              f"its {w3 - w2:.3f} s wall (run(3) less run(2))", flush=True)
+    secs["g"] = time.perf_counter() - t
+    pkg_log.removeHandler(handler)
+    total = time.perf_counter() - t_all
+    print("scan phases' seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in secs.items()) + f"; all {total:.1f} s",
+        flush=True)
+    return secs
+
+
 def _survey_held(label, case, chi_k, chi_t):
     """The survey's chi, kernel against twin: bitwise (compare_chi), or
     for a Tobit case within rtol 1e-6."""
@@ -3781,6 +4085,8 @@ def main():
     # PT ladders, joint fits and models of any size
     late_library()
     limit_rows = limits_phases(lf, smi_line)
+    # the reference's XLA samplers, on the scan routes
+    scan_phases(framework, smi_line)
 
     # -- 5. times -----------------------------------------------------------
     phase("times")

@@ -9,20 +9,21 @@ doses), the fit
 statistics of every observation model (censored points scored by Tobit
 terms and left out of R^2), the LHS
 prescreen, ``fit_survey`` and ``MCMC`` with ``sampler='mh'``,
-``'ensemble'``, ``'pt'`` and ``'pmmh'`` — prescreen scored by the survey
-kernel (by ``fit_survey``'s batched solve of the drift for 'pmmh'),
-chains seeded under the ``sd_fitdistance`` chi cut, all chains in the
-sampler's fused kernel (MH, Goodman-Weare ensemble, parallel tempering,
-particle-marginal MH; in-kernel priors with ``use_priors=True``, a
-calibrated schedule with ``substeps='auto'``), the posterior DataFrame and
-the Fitting Report.
+``'ensemble'``, ``'pt'`` and ``'pmmh'``: where ``odelib_tpu`` on a TPU
+runs its fused kernels, the sampler's CUDA kernel (MH, Goodman-Weare
+ensemble, parallel tempering, particle-marginal MH; the prescreen scored
+by the survey kernel; in-kernel priors with ``use_priors=True``, a
+calibrated schedule with ``substeps='auto'``), elsewhere the reference's
+XLA scan samplers in torch (``samplers/mh.py``, ``ensemble.py``,
+``pt.py``: any method, prior, observation model and RHS; the prescreen by
+``fit_survey``); chains seeded under the ``sd_fitdistance`` chi cut, the
+posterior DataFrame and the Fitting Report.
 
 ``ModelFramework(device=...)`` picks where everything runs: ``cuda`` by
 default, and ``cpu`` only when asked for; without a card the default
 raises. On ``cuda`` the kernels run; on ``cpu`` their torch twins do. An
-option the kernels do not
-support yet raises ``NotImplementedError`` naming its ROADMAP item; it is
-never moved to the twin.
+option not ported yet raises ``NotImplementedError`` naming its ROADMAP
+item; it is never moved to the twin.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from . import data as _data
 from . import dispatch as _dispatch
 from . import distributions as _dist
 from . import stats as tstats
-from .model import dose_matrix, make_spec, state_func, state_jac
+from .model import (dose_matrix, make_spec, state_func, state_jac,
+                    traces)
 from .ops.integrate import odeint_grid
 from .rhs import adapt_rhs
 from .samplers.lhs import sample_lhs
@@ -112,15 +114,14 @@ class parameter:
         return self.dist is not None
 
 
-_FUSED_SAMPLERS = ("mh", "ensemble", "pt", "pmmh")
+_SAMPLERS = ("mh", "ensemble", "pt", "pmmh")
 _UNPORTED_SAMPLERS = {
     "hmc": "ROADMAP queue 1, item 16", "amh": "ROADMAP queue 1, item 16"}
-# what the reference runs where the port has no kernel arm yet
-_XLA_SAMPLER_ITEM = {
-    "mh": "the XLA scan sampler is ROADMAP queue 1, item 8",
-    "ensemble": "the XLA samplers/ensemble.py is ROADMAP queue 1, item 15",
-    "pt": "the XLA samplers/pt.py is ROADMAP queue 1, item 15",
-    "pmmh": "the XLA samplers/pf.py is ROADMAP queue 1, item 15"}
+# PMMH's XLA sampler: of the reference's XLA samplers only the particle
+# filter's and the joint fit's remain to be ported
+_PF_XLA_ITEM = ("the XLA samplers/pf.py is ROADMAP queue 1, item 15 (of the "
+                "reference's XLA samplers only PF and joint remain)")
+_FIXED = ("dopri5", "rk4", "kvaerno3")
 
 
 class ModelFramework:
@@ -137,12 +138,13 @@ class ModelFramework:
     kernels run (default ``cuda``; ``cpu`` runs the kernels' torch twins
     and must be asked for). Solver
     knobs: ``method`` 'dopri5' | 'rk4' | 'kvaerno3' (the fixed-step
-    kernels' stepper; 'kvaerno5' and 'auto' for the adaptive
-    ``integrate`` only), ``rtol``/
-    ``atol``/``max_steps`` for the adaptive ``integrate``, ``substeps``
-    (int or per-interval schedule) for the kernels. ``diffusion`` is the
-    diagonal process noise ``g`` of ``dy = f dt + g dW``, with the RHS's
-    signature convention: the model is then fitted with
+    kernels' stepper) or 'kvaerno5' | 'auto' (adaptive: ``integrate`` and
+    the scan samplers), ``rtol``/``atol``/``max_steps`` for the adaptive
+    solves (``integrate``, the prescreen and chains of the scan samplers),
+    ``substeps`` (int or per-interval schedule) for the kernels.
+    ``diffusion`` is the diagonal process noise ``g`` of
+    ``dy = f dt + g dW``, with the RHS's signature convention: the model is
+    then fitted with
     ``MCMC(sampler='pmmh')`` (any other sampler warns and fits the drift
     only, as the reference does), and ``integrate`` solves its drift.
     """
@@ -321,6 +323,37 @@ class ModelFramework:
             else:
                 out.extend(d if v != 0 else None for v in tmpl)
         return out
+
+    def _prior_logpdf(self):
+        """``prior_logpdf(theta (N, P)) -> (N,)`` for the scan samplers
+        (``odelib_tpu``'s ``_prior_logpdf_for``): each parameter's prior
+        log density, summed over its entries, added in parameter order; an
+        array parameter's zero-template entries are left out (they never
+        walk, and their log density is -inf on both sides of the ratio).
+        Any family: DiscreteNormal and array hyperparameters too."""
+        spec = self._spec
+        parts = []
+        for p, tmpl in zip(self._pnames, self._templates()):
+            par = self.parameters[p]
+            d = par.tdist if par is not None else None
+            parts.append(None if d is None else
+                         (d, None if tmpl is None else tmpl != 0))
+
+        def prior_logpdf(theta):
+            lead = tuple(theta.shape[:-1])
+            tot = torch.zeros(lead, dtype=theta.dtype, device=theta.device)
+            for part, v in zip(parts, spec.unpack_theta(theta)):
+                if part is None:
+                    continue
+                d, keep = part
+                lp = d.logpdf(v)
+                if keep is not None:
+                    k = torch.as_tensor(keep.reshape(v.shape[len(lead):]),
+                                        device=v.device)
+                    lp = torch.where(k, lp, 0.0).reshape(lead + (-1,)).sum(-1)
+                tot = tot + lp
+            return tot
+        return prior_logpdf
 
     def _theta_from_df(self, df: pd.DataFrame):
         """(N, P) float64 thetas from a parameter dataframe (array
@@ -554,25 +587,29 @@ class ModelFramework:
              sde_substeps=4, adapt_proposal=None, adapt_rate=0.05,
              **solver_kw):
         """Markov Chain Monte Carlo: every chain in one run of the
-        sampler's fused kernel (on a CPU framework, its twin).
+        sampler's fused kernel (on a CPU framework, its twin), or of the
+        reference's scan sampler where ``odelib_tpu`` takes its XLA
+        samplers.
 
         Same signature and posterior DataFrame as ``odelib_tpu``: columns
         pnames..., chi, rsquared, aic, iteration, acceptance_ratio, chain#,
         all_rejected. Samplers:
 
-        * ``'mh'``: random-walk Metropolis-Hastings, one launch of the MH
-          kernel;
+        * ``'mh'``: random-walk Metropolis-Hastings;
         * ``'ensemble'``: Goodman-Weare stretch moves (``stretch_a``), the
-          ``chain_inits`` count being the walker count; every
+          ``chain_inits`` count being the walker count; in the kernel every
           ``pallas_tile_chains`` walkers (default the JAX package's
           ``pick_tile_chains``) form one independent ensemble, so that
-          knob is part of the result here. As in the reference,
-          ``backend='auto'`` takes the kernel only with at least
-          ``pallas_tile_chains or 1024`` walkers;
+          knob is part of the result there;
         * ``'pt'``: parallel tempering over the ``temperatures`` ladder
           with swaps every ``swap_every`` iterations; the T=1 rung is
-          returned and the mean cold-pair swap acceptance is logged
-          (logger ``odelib_tpu_torch``);
+          returned and the mean swap acceptance is logged (logger
+          ``odelib_tpu_torch``). ``temperatures='auto'`` tunes a geometric
+          ladder toward 0.3 swap acceptance first (``tune_ladder`` on the
+          scan PT: ``min(chains, 32)`` pilot chains, ``pilot_iters``
+          iterations, at most ``ladder_rounds`` rounds, ``n_temps`` rungs;
+          the ladder and its acceptance are logged and kept in
+          ``last_ladder``);
         * ``'pmmh'``: particle-marginal MH for a model built with
           ``diffusion=``: each proposal is scored by an ``n_particles``
           bootstrap particle filter over the SDE (``sde_method``
@@ -584,25 +621,45 @@ class ModelFramework:
           ``target_accept`` (default 0.3) with gain ``adapt_rate``. The
           ``rsquared`` column is NaN.
 
+        Routing (``odelib_tpu``'s decision on a TPU, the platform test
+        left out): ``backend='auto'`` runs the fused kernel when the
+        method is dopri5, rk4 or kvaerno3, every prior (with
+        ``use_priors``) has an in-kernel form, censored data are lognormal
+        or Student-t, the RHS traces into the kernels and, for the
+        ensemble, there are at least ``pallas_tile_chains or 1024``
+        walkers; otherwise, and always under ``backend='xla'``, it runs
+        the scan sampler: MH (``chains[xla]`` in ``last_profile``), the
+        ensemble (one ensemble of all walkers, ``chains[ensemble]``) or PT
+        (``chains[pt]``), on the framework's device in float64, its
+        prescreen :meth:`fit_survey` with the configured solver, draws
+        from ``jax.random``'s stream (:mod:`odelib_tpu_torch.random`), so
+        a run equals ``odelib_tpu``'s XLA sampler on the same starts. An
+        RHS the tracer refuses is called per lane through
+        ``torch.func.vmap`` there (Python control flow on a value raises).
+        ``backend='pallas'`` runs the kernel: a prior without an in-kernel
+        form or an RHS that does not trace raise ``ValueError``, another
+        method warns that it is not honoured. PMMH runs its kernel; its
+        XLA sampler (``backend='xla'``) is not ported yet.
+
         ``use_priors=True`` adds the parameters' log priors to every
-        sampler's acceptance inside its kernel (the ten in-kernel families
-        of :mod:`~odelib_tpu_torch.ops.priors`; another family raises
-        ``ValueError`` under ``backend='pallas'``, and under ``'auto'``
-        ``NotImplementedError``, since the reference runs it on its XLA
-        sampler). ``substeps='auto'`` (here or on the framework) calibrates
+        sampler's acceptance (in the kernels the ten families of
+        :mod:`~odelib_tpu_torch.ops.priors`; the scan samplers take any
+        family). ``substeps='auto'`` (here or on the framework) calibrates
         the kernels' per-interval schedule from this run's seeding draws
         with the adaptive solver (:mod:`~odelib_tpu_torch.ops.schedule`),
         caches it as ``_auto_schedule`` and logs it; the prescreen uses the
         last calibrated schedule, or 4 on the first call.
 
-        ``checkpoint_every`` runs the chains' kernel in chunks of that many
-        proposals and persists the chain state and records after each to
+        ``checkpoint_every`` runs the chains in chunks of that many
+        proposals (the kernel's, the scan MH's or the scan PT's) and
+        persists the chain state and records after each to
         ``<checkpoint_path>.progress`` (the port's own format: a file
         ``odelib_tpu`` wrote fails the resume); ``resume_from`` (with the
         same ``checkpoint_every``) continues a killed run from such a file,
         bitwise the uninterrupted run's posterior, and raises
         ``ValueError`` for one written by a different configuration, data
-        or priors. ``checkpoint_path`` alone saves the posterior there
+        or priors; the scan ensemble warns and runs without.
+        ``checkpoint_path`` alone saves the posterior there
         (:func:`~odelib_tpu_torch.utils.checkpoint.save_posterior`).
         ``until_rhat``/``until_min_ess`` (``sampler='mh'``, not with
         checkpointing): after the run, while the pooled posterior's worst
@@ -616,18 +673,12 @@ class ModelFramework:
         ``cpu_cores``, ``route`` and ``pallas_interpret`` are accepted and
         ignored, and so is ``pallas_tile_chains`` for 'mh' and 'pt'.
         ``profile=True`` records each stage's wall seconds in
-        ``last_profile``, with a device synchronize at each stage
-        boundary. ``method='kvaerno3'`` runs the kernels' implicit
-        fixed-step Kvaerno3 (the stiff path; ``substeps='auto'``
-        calibrates it with Kvaerno5). ``backend='pallas'`` runs the fused
-        kernel and warns if the configured method is not
-        dopri5/rk4/kvaerno3; ``backend='auto'`` raises for such a method
-        ('kvaerno5', 'auto'), since its JAX counterpart takes the XLA
-        sampler there. Not ported yet, each raising
-        ``NotImplementedError``: the other samplers, ``backend='xla'``
-        (and what ``backend='auto'`` sends to an XLA sampler) and
-        ``temperatures='auto'`` (with ``n_temps``/``pilot_iters``/
-        ``ladder_rounds``).
+        ``last_profile`` (the chains' stage as ``chains[<arm>]``), with a
+        device synchronize at each stage boundary. ``method='kvaerno3'``
+        runs the kernels' implicit fixed-step Kvaerno3 (the stiff path;
+        ``substeps='auto'`` calibrates it with Kvaerno5). Not ported yet,
+        each raising ``NotImplementedError``: ``sampler='hmc'`` and
+        ``'amh'``.
         """
         until = until_rhat is not None or until_min_ess is not None
         if until and sampler != "mh":
@@ -639,12 +690,7 @@ class ModelFramework:
             raise ValueError(
                 "until_rhat/until_min_ess cannot be combined with "
                 "checkpointing (the extension count is data-dependent)")
-        if resume_from is not None and checkpoint_every is None:
-            raise ValueError(
-                "resume_from requires checkpoint_every (and "
-                "checkpoint_path) — restate the checkpointing "
-                "configuration the run was started with")
-        if sampler not in _FUSED_SAMPLERS:
+        if sampler not in _SAMPLERS:
             if sampler not in _UNPORTED_SAMPLERS:
                 raise ValueError(f"sampler must be 'mh', 'hmc', 'pt', "
                                  f"'ensemble', 'amh' or 'pmmh', got "
@@ -652,16 +698,12 @@ class ModelFramework:
             raise NotImplementedError(
                 f"sampler={sampler!r} is not ported yet "
                 f"({_UNPORTED_SAMPLERS[sampler]})")
-        if sampler == "pt" and isinstance(temperatures, str):
-            if temperatures != "auto":
-                raise ValueError("temperatures must be a ladder tuple or "
-                                 "'auto'")
-            raise NotImplementedError(
-                "temperatures='auto' tunes the ladder with the XLA PT "
-                "sampler (tune_ladder), not ported yet (ROADMAP queue 1, "
-                "item 15)")
-        _dispatch.require_traced(self._spec, sampler,
-                                 _XLA_SAMPLER_ITEM[sampler])
+        if backend not in ("auto", "pallas", "xla"):
+            raise ValueError(f"backend must be 'auto', 'pallas' or 'xla', "
+                             f"got {backend!r}")
+        tune = sampler == "pt" and isinstance(temperatures, str)
+        if tune and temperatures != "auto":
+            raise ValueError("temperatures must be a ladder tuple or 'auto'")
         if sampler == "pmmh" and self._spec.diffusion is None:
             raise ValueError(
                 "sampler='pmmh' targets the STOCHASTIC model: construct the "
@@ -673,41 +715,8 @@ class ModelFramework:
                 "fits the DRIFT ONLY: the deterministic likelihood "
                 "mis-attributes process noise to observation error. Use "
                 "sampler='pmmh' for the exact stochastic posterior.")
-        priors = None
-        if use_priors:
-            # per slot: an array parameter's prior on each non-zero entry
-            from .ops.priors import require_kernel_priors
-            priors = require_kernel_priors(self._slot_priors(), backend,
-                                           _XLA_SAMPLER_ITEM[sampler])
-        if sampler == "pmmh":
-            if sde_method not in ("euler", "milstein"):
-                raise ValueError("the fused PMMH kernel integrates "
-                                 "Euler-Maruyama or Milstein, got "
-                                 f"sde_method={sde_method!r}")
-            if not isinstance(sde_substeps, (int, np.integer)):
-                raise ValueError("sde_substeps must be an int")
-        if backend not in ("auto", "pallas"):
-            raise NotImplementedError(
-                f"backend={backend!r}: the port runs the fused kernels "
-                f"({_XLA_SAMPLER_ITEM[sampler]})")
-        if (backend == "auto" and sampler != "pmmh"
-                and self._obsdata_fit_host is not None
-                and self._obsdata_fit_host.censor is not None
-                and self._spec.obs_model not in ("lognormal", "student_t")):
-            # the kernels score censored lognormal and Student-t data; the
-            # reference runs censored counts on its XLA samplers
-            raise NotImplementedError(
-                f"censored {self._spec.obs_model!r} observations run on the "
-                f"XLA sampler, not ported yet ({_XLA_SAMPLER_ITEM[sampler]})")
         n_req = chain_inits if isinstance(chain_inits, int) \
             else len(chain_inits)
-        if sampler == "ensemble" and backend == "auto" \
-                and n_req < int(pallas_tile_chains or 1024):
-            raise NotImplementedError(
-                f"{n_req} walkers do not fill an ensemble tile, where "
-                "backend='auto' runs the reference's XLA ensemble "
-                f"({_XLA_SAMPLER_ITEM['ensemble']}); pass backend='pallas' "
-                "to run the fused kernel")
         n_fit_intervals = len(self._times_fit) - 1
         method, rtol, atol, max_steps, substeps = self._solver_args(
             solver_kw, n_fit_intervals, keep_auto=True)
@@ -717,17 +726,68 @@ class ModelFramework:
             # uniform default on the first call); the chains' schedule is
             # calibrated below from this run's own seeding draws
             substeps = self._resolve_substeps("auto", n_fit_intervals)
-        if method not in ("dopri5", "rk4", "kvaerno3") \
-                and sampler != "pmmh":
-            if backend == "auto":
+        # per slot: an array parameter's prior on each non-zero entry
+        from .ops.priors import kernel_priors_supported, require_kernel_priors
+        slot_priors = tuple(self._slot_priors()) if use_priors else None
+        if sampler == "pmmh":
+            # PMMH runs the fused kernel; its XLA sampler is not ported
+            if backend == "xla":
                 raise NotImplementedError(
-                    f"method={method!r} runs on the XLA sampler, not "
-                    f"ported yet ({_XLA_SAMPLER_ITEM[sampler]}); pass "
-                    "backend='pallas' to run fixed-step dopri5 instead")
-            warnings.warn(
-                f"backend='pallas' integrates fixed-step dopri5/rk4/"
-                f"kvaerno3; the configured method={method!r} is not "
-                "honored there")
+                    f"backend='xla' for sampler='pmmh' runs the reference's "
+                    f"XLA particle filter: {_PF_XLA_ITEM}")
+            _dispatch.require_traced(self._spec, sampler, _PF_XLA_ITEM)
+            priors = None if not use_priors else require_kernel_priors(
+                slot_priors, backend, _PF_XLA_ITEM)
+            if sde_method not in ("euler", "milstein"):
+                raise ValueError("the fused PMMH kernel integrates "
+                                 "Euler-Maruyama or Milstein, got "
+                                 f"sde_method={sde_method!r}")
+            if not isinstance(sde_substeps, (int, np.integer)):
+                raise ValueError("sde_substeps must be an int")
+            arm = "pallas"
+        else:
+            # odelib_tpu's TPU decision: the fused kernel when the method
+            # is a fixed-step one, every prior has an in-kernel form,
+            # censored data are lognormal or Student-t, the RHS traces and
+            # an ensemble fills a tile of walkers; else the scan sampler
+            priors = slot_priors if use_priors and kernel_priors_supported(
+                slot_priors) else None
+            fused_ok = (
+                method in _FIXED and (not use_priors or priors is not None)
+                and (self._obsdata_fit_host is None
+                     or self._obsdata_fit_host.censor is None
+                     or self._spec.obs_model in ("lognormal", "student_t"))
+                and traces(self._spec)
+                and (sampler != "ensemble"
+                     or n_req >= int(pallas_tile_chains or 1024)))
+            if backend == "pallas":
+                if use_priors:
+                    priors = require_kernel_priors(slot_priors, backend, "")
+                _dispatch.require_kernel_rhs(self._spec, sampler)
+                if method not in _FIXED:
+                    warnings.warn(
+                        f"backend='pallas' integrates fixed-step dopri5/rk4/"
+                        f"kvaerno3; the configured method={method!r} is not "
+                        "honored there")
+                arm = "pallas"
+            else:
+                arm = "pallas" if backend == "auto" and fused_ok else "xla"
+            if arm == "xla":
+                if sampler != "mh":
+                    arm = sampler
+                _dispatch.require_batched(self._spec, self._current_theta()[
+                    None], self.get_inits(), self._times_fit[0])
+        if arm == "ensemble" and checkpoint_every is not None:
+            warnings.warn("checkpoint_every is supported on the fused "
+                          "MH/ensemble/PT kernels and the scan MH and PT "
+                          "samplers; running sampler='ensemble' without "
+                          "periodic checkpoints")
+            checkpoint_every = None
+        if resume_from is not None and checkpoint_every is None:
+            raise ValueError(
+                "resume_from requires checkpoint_every (and "
+                "checkpoint_path) — restate the checkpointing "
+                "configuration the run was started with")
         nits = iterations_per_chain
         if burnin is None:
             burnin = int(nits / 2)
@@ -748,9 +808,10 @@ class ModelFramework:
                            chain_inits[self.get_pnames()].iterrows()]
         if isinstance(chain_inits, int):
             n_chains = chain_inits
-            if sampler == "pmmh":
-                # the drift's chi: a prescreen of start points, not part
-                # of the particle filter's target
+            if arm != "pallas" or sampler == "pmmh":
+                # the scan samplers' own solver; for 'pmmh' the drift's
+                # chi, a prescreen of start points, not part of the
+                # particle filter's target
                 fitsurvey = self.fit_survey(samples=fitsurvey_samples,
                                             **solver_kw)
             else:
@@ -796,7 +857,7 @@ class ModelFramework:
             theta0 = self._theta_from_df(pd.DataFrame(chain_inits))
 
         stage_done("seeding")
-        if auto_substeps and method in ("dopri5", "rk4", "kvaerno3"):
+        if auto_substeps and method in _FIXED:
             # substeps='auto': the adaptive solver over this run's seeding
             # draws sets the fixed schedule (ops/schedule.py), cached on the
             # instance for later surveys
@@ -812,11 +873,39 @@ class ModelFramework:
                 "steps/solve vs %d at uniform 4)", list(substeps),
                 schedule_cost(substeps), 4 * n_fit_intervals)
             stage_done("calibration")
+        mask = self._walk_mask(static_parameters)
+        prior_logpdf = self._prior_logpdf() if use_priors else None
+        if tune:
+            # temperatures='auto': a geometric ladder tuned toward 0.3
+            # swap acceptance per proposal by pilot runs of the scan PT
+            # (samplers/pt.py tune_ladder) on the first min(chains, 32)
+            # seeds; the production run then goes where routing sends it
+            from . import random as jr
+            from .samplers.pt import tune_ladder
+            pilot_n = min(n_chains, 32)
+            temperatures, tuned_acc = tune_ladder(
+                self._spec, self._obsdata_fit_host, self._times_fit,
+                self.get_inits(), torch.as_tensor(
+                    np.asarray(theta0, np.float64)[:pilot_n],
+                    device=self.device),
+                jr.split(jr.PRNGKey(int(self.random_seed) ^ 0x7A5,
+                                    device=self.device), pilot_n),
+                n_temps=int(n_temps), target_swap=0.3,
+                pilot_iters=int(pilot_iters), max_rounds=int(ladder_rounds),
+                walk_mask=mask, rwalk_std=rwalk_std,
+                prior_logpdf=prior_logpdf, use_priors=use_priors,
+                swap_every=swap_every, method=method, rtol=rtol, atol=atol,
+                max_steps=max_steps, substeps=substeps)
+            self.last_ladder = (temperatures, tuned_acc)
+            _dispatch.log.info(
+                "temperatures='auto': tuned geometric ladder %s (pilot mean "
+                "swap acceptance %.3f)", [round(t, 3) for t in temperatures],
+                tuned_acc)
+            stage_done("ladder")
         # a digest of the data, solver and (with use_priors) priors in the
         # resume signature: a resume against edited data must fail
         config_token = "" if checkpoint_every is None else \
             self._stable_config_token(method, substeps, use_priors)
-        mask = self._walk_mask(static_parameters)
         cfg = _dispatch.RunConfig(
             nits=nits, burnin=burnin,
             mask=mask, rwalk_std=rwalk_std,
@@ -834,19 +923,25 @@ class ModelFramework:
             else float(target_accept),
             checkpoint_every=checkpoint_every,
             checkpoint_path=checkpoint_path, resume_from=resume_from,
-            config_token=config_token)
-        out = _dispatch.dispatch(self, sampler, theta0, cfg)
+            config_token=config_token, rtol=rtol, atol=atol,
+            max_steps=max_steps, prior_logpdf=prior_logpdf)
+        out = _dispatch.dispatch(self, sampler, theta0, cfg, arm, n_chains)
         if until:
             def run_more(th_last, salt):
-                return _dispatch.run_fused_mh(
-                    self, th_last, dataclasses.replace(
-                        cfg, burnin=0, seed_offset=104729 * salt))
+                more = dataclasses.replace(cfg, burnin=0)
+                if arm == "pallas":
+                    return _dispatch.run_fused_mh(self, th_last, dataclasses.
+                                                  replace(more, seed_offset=
+                                                          104729 * salt))
+                return _dispatch.run_scan_mh(
+                    self, th_last, dataclasses.replace(more, key_salt=salt),
+                    len(th_last))
             from .utils.diagnostics import extend_until
             out = extend_until(
                 out, run_more, nits=nits, mask=mask, until_rhat=until_rhat,
                 until_min_ess=until_min_ess,
                 max_extensions=int(max_extensions))
-        stage_done("chains")
+        stage_done(f"chains[{'pmmh' if sampler == 'pmmh' else arm}]")
         posterior = self._posterior_to_df(out, n_chains, static_parameters)
         if checkpoint_path:
             from .utils.checkpoint import save_posterior

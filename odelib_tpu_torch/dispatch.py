@@ -1,7 +1,7 @@
-"""Per-(device, sampler) MCMC dispatch.
+"""Per-(route, sampler) MCMC dispatch.
 
-Counterpart of ``odelib_tpu/dispatch.py``'s fused arms. Each arm is keyed
-by the device the framework runs on and the sampler: ``cuda:mh``,
+Counterpart of ``odelib_tpu/dispatch.py``. The fused arms are keyed by the
+device the framework runs on and the sampler: ``cuda:mh``,
 ``cuda:ensemble``, ``cuda:pt`` and ``cuda:pmmh`` launch the CUDA kernels,
 ``cpu:mh``, ``cpu:ensemble``, ``cpu:pt`` and ``cpu:pmmh`` run their torch
 twins. Both go through the public wrappers of
@@ -9,11 +9,15 @@ twins. Both go through the public wrappers of
 and :mod:`~odelib_tpu_torch.ops.cuda_pf`, which pick kernel or twin from
 the tensor's device. With ``checkpoint_every`` each arm runs its kernel
 in chunks and persists the chain state to ``<checkpoint_path>.progress``
-(:mod:`~odelib_tpu_torch.ops.chunked`). The other samplers are ROADMAP
-queue 1, item 16. A model whose RHS (or, for PMMH, diffusion) does not
-trace into the kernels (:func:`require_traced`: linear algebra on an array
-parameter, Python control flow on a value) raises ``NotImplementedError``:
-the reference runs it on its XLA sampler (``rhs_supports_tiles``).
+(:mod:`~odelib_tpu_torch.ops.chunked`). The scan arms ``run_scan_mh``,
+``run_scan_ensemble`` and ``run_scan_pt`` run the reference's XLA samplers
+(:mod:`~odelib_tpu_torch.samplers.mh`, ``ensemble``, ``pt``) on the
+framework's device in float64, every chain a lane of each iteration's
+batched solve, with per-chain keys from ``fold_in(PRNGKey(seed), salt *
+1_000_003 + i)`` as ``_xla_setup`` derives them. The kernels refuse a
+model whose RHS (or, for PMMH, diffusion) does not trace
+(:func:`require_traced`, :func:`require_kernel_rhs`); the scan arms call
+such an RHS per lane (:func:`require_batched`).
 """
 from __future__ import annotations
 
@@ -54,6 +58,14 @@ class RunConfig:
     checkpoint_path: Optional[str] = None
     resume_from: Optional[str] = None
     config_token: str = ""
+    # the scan arms: the adaptive solver's settings, the prior as a
+    # function (None without priors) and the stream salt of a run-length
+    # extension
+    rtol: float = 1e-6
+    atol: float = 1e-4
+    max_steps: int = 4096
+    prior_logpdf: Any = None
+    key_salt: int = 0
 
 
 def require_traced(spec, sampler: str, item: str):
@@ -72,6 +84,41 @@ def require_traced(spec, sampler: str, item: str):
             f"the model does not trace into the fused kernels ({e}); the "
             f"reference runs it on its XLA sampler, not ported yet ({item})"
         ) from e
+
+
+def require_kernel_rhs(spec, sampler: str):
+    """``backend='pallas'``'s check: ``ValueError`` when the model's RHS
+    (or, for PMMH, its diffusion) does not trace into the kernels."""
+    try:
+        require_traced(spec, sampler, "")
+    except NotImplementedError as e:
+        raise ValueError(
+            f"backend='pallas' runs the fused kernels, and {e.__cause__}; "
+            "use backend='xla' (or 'auto')") from e.__cause__
+
+
+def require_batched(spec, theta, y0, t0):
+    """The scan arms' check of an RHS the tracer refuses: one call of it
+    per lane under ``torch.func.vmap`` at ``theta`` (N, P) and ``y0``
+    (S,). Python control flow on a value cannot run there and raises
+    ``NotImplementedError`` (ROADMAP queue 3)."""
+    from .model import traces
+    from .rhs import lane_function, vmap_refused
+    if traces(spec):
+        return
+    th = torch.as_tensor(np.asarray(theta, np.float64))[:2]
+    y = spec.override_inits(torch.as_tensor(np.asarray(y0, np.float64)), th)
+    try:
+        lane_function(spec.rhs, spec.pshapes, spec.forcings)(
+            float(t0), y, spec.slots(th))
+    except RuntimeError as e:
+        if not vmap_refused(e):
+            raise
+        raise NotImplementedError(
+            "the RHS neither traces into the kernels nor runs per lane "
+            f"under torch.func.vmap ({type(e).__name__}: {e}); Python "
+            "control flow on t, a forcing or a state value has no batched "
+            "form in the port (ROADMAP queue 3)") from e
 
 
 def fused_stepper(method: str) -> str:
@@ -159,15 +206,97 @@ def run_pmmh(fw, theta0, cfg: RunConfig):
                     iteration=out.iteration)
 
 
+def _scan_setup(fw, theta0, cfg: RunConfig, n_chains: int):
+    """The scan arms' preamble (``_xla_setup`` on one device): theta0 on
+    the framework's device in float64, the base key and the chains' keys
+    ``fold_in(PRNGKey(seed), key_salt * 1_000_003 + i)``."""
+    from . import random as jr
+    dev = fw.device
+    th0 = torch.as_tensor(np.asarray(theta0, np.float64), device=dev)
+    base = jr.PRNGKey(int(fw.random_seed), device=dev)
+    keys = jr.fold_in(base, cfg.key_salt * 1_000_003
+                      + torch.arange(n_chains, device=dev))
+    return th0, base, keys
+
+
+def _scan_kw(cfg: RunConfig):
+    return dict(nits=cfg.nits, burnin=cfg.burnin, walk_mask=cfg.mask,
+                prior_logpdf=cfg.prior_logpdf,
+                use_priors=cfg.prior_logpdf is not None,
+                method=cfg.method, rtol=cfg.rtol, atol=cfg.atol,
+                max_steps=cfg.max_steps, substeps=cfg.substeps)
+
+
+def _scan_args(fw, th0, keys):
+    return (fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits(),
+            th0, keys)
+
+
+def run_scan_mh(fw, theta0, cfg: RunConfig, n_chains: int):
+    """The scan MH (``samplers/mh.py``), optionally checkpointed: the
+    route of any method, prior family, observation model and RHS."""
+    from .samplers import mh
+    th0, _, keys = _scan_setup(fw, theta0, cfg, n_chains)
+    kw = dict(_scan_kw(cfg), rwalk_std=cfg.rwalk_std)
+    if cfg.checkpoint_every is not None:
+        return mh.metropolis_hastings_checkpointed(
+            *_scan_args(fw, th0, keys), **_checkpoint_args(cfg), **kw)
+    return mh.metropolis_hastings(*_scan_args(fw, th0, keys), **kw)
+
+
+def run_scan_ensemble(fw, theta0, cfg: RunConfig, n_chains: int):
+    """The scan Goodman-Weare ensemble (``samplers/ensemble.py``): one
+    ensemble of the walkers, padded to an even count of at least 4 by
+    repeating the last (the padding is dropped with the records), keyed
+    by ``fold_in(PRNGKey(seed), 0xE75)``."""
+    from . import random as jr
+    from .samplers.ensemble import ensemble_mh
+    th0, base, _ = _scan_setup(fw, theta0, cfg, n_chains)
+    target = max(4, n_chains + n_chains % 2)
+    if target > n_chains:
+        th0 = torch.cat([th0, th0[-1:].expand(target - n_chains, -1)])
+    return ensemble_mh(*_scan_args(fw, th0, jr.fold_in(base, 0xE75)),
+                       a=cfg.stretch_a, **_scan_kw(cfg))
+
+
+def run_scan_pt(fw, theta0, cfg: RunConfig, n_chains: int):
+    """The scan replica-exchange sampler (``samplers/pt.py``), optionally
+    checkpointed; logs the mean swap acceptance."""
+    from .samplers import pt
+    th0, _, keys = _scan_setup(fw, theta0, cfg, n_chains)
+    kw = dict(_scan_kw(cfg), rwalk_std=cfg.rwalk_std,
+              temperatures=tuple(cfg.temperatures),
+              swap_every=cfg.swap_every)
+    if cfg.checkpoint_every is not None:
+        out, swap_rate = pt.parallel_tempering_checkpointed(
+            *_scan_args(fw, th0, keys), **_checkpoint_args(cfg), **kw)
+    else:
+        out, swap_rate = pt.parallel_tempering(*_scan_args(fw, th0, keys),
+                                               **kw)
+    log.info("parallel tempering: mean swap acceptance %.3f per proposal "
+             "over %d temperatures", float(swap_rate.mean()),
+             len(cfg.temperatures))
+    return out
+
+
 _ARMS = {f"{dev}:{s}": arm for dev in ("cuda", "cpu")
          for s, arm in (("mh", run_fused_mh),
                         ("ensemble", run_fused_ensemble),
                         ("pt", run_fused_pt),
                         ("pmmh", run_pmmh))}
+_SCAN_ARMS = {"xla": run_scan_mh, "ensemble": run_scan_ensemble,
+              "pt": run_scan_pt}
 
 
-def dispatch(fw, sampler: str, theta0, cfg: RunConfig):
-    """Route one resolved MCMC run to its (device, sampler) arm."""
+def dispatch(fw, sampler: str, theta0, cfg: RunConfig, arm: str = "pallas",
+             n_chains: Optional[int] = None):
+    """Route one resolved MCMC run to its arm: ``'pallas'`` (the fused
+    kernel of the framework's device and the sampler, PMMH's included), or
+    a scan arm, ``'xla'`` (MH), ``'ensemble'`` or ``'pt'``, the names
+    ``odelib_tpu``'s ``chains[...]`` profile stage uses."""
+    if arm != "pallas":
+        return _SCAN_ARMS[arm](fw, theta0, cfg,
+                               len(theta0) if n_chains is None else n_chains)
     key = f"{fw.device.type}:{sampler}"
     if key not in _ARMS:
         raise NotImplementedError(f"no MCMC arm {key!r} in the port yet")

@@ -20,6 +20,21 @@ import numpy as np
 import torch
 
 
+def device_tensor(x, dtype, device="cuda"):
+    """``x`` as a ``dtype`` tensor: a tensor keeps its device; an array or
+    list goes to ``device``, the card by default, which raises without
+    CUDA (as ``ModelFramework`` does) unless the CPU is asked for."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the input goes to a CUDA device by default and none was found "
+            "(torch.cuda.is_available() is False); pass device='cpu' or a "
+            "CPU tensor to run on the CPU")
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
 class ObsData(NamedTuple):
     """Flat per-observation arrays (states concatenated)."""
     log_abundance: Any   # (N,)
@@ -468,13 +483,46 @@ def column_values(spec: ModelSpec, t, like=None) -> dict:
     return {c: fold_torch(c, raw) for c in cols}
 
 
+def traces(spec: ModelSpec) -> bool:
+    """Whether the spec's RHS traces into the kernels' DAG
+    (:func:`rhs_program`)."""
+    from .rhs import RhsTraceError
+    try:
+        rhs_program(spec)
+    except RhsTraceError:
+        return False
+    return True
+
+
 def state_func(spec: ModelSpec):
     """``func(t, y (S, N), ps) -> (S, N)`` for the integrators, ``ps`` the
     per-slot values; a forced model's columns at ``t`` (float or tensor,
-    :func:`column_values`)."""
-    from .rhs import torch_evaluator
-    f = torch_evaluator(spec.rhs, len(spec.snames), spec.pshapes,
-                        spec.forcings)
+    :func:`column_values`). An RHS the tracer refuses is called per lane
+    through ``torch.func.vmap`` (:func:`~odelib_tpu_torch.rhs.
+    lane_function`, the JAX package's vmapped solve); where ``vmap``
+    refuses it on the first call (Python control flow on a value,
+    :func:`~odelib_tpu_torch.rhs.vmap_refused`), eagerly on the whole
+    batch from then on. Any other error propagates."""
+    from .rhs import eager_function, lane_function, vmap_refused
+    if not traces(spec):
+        lanes = lane_function(spec.rhs, spec.pshapes, spec.forcings)
+        eager = eager_function(spec.rhs, spec.pshapes, spec.forcings)
+        mode = []
+
+        def f(t, y, ps):
+            if not mode:
+                try:
+                    out = lanes(t, y, ps)
+                    mode.append(lanes)
+                    return out
+                except RuntimeError as e:
+                    if not vmap_refused(e):
+                        raise
+                    mode.append(lambda t_, y_, p_: torch.stack(
+                        eager(t_, list(y_), p_)))
+            return mode[0](t, y, ps)
+        return f
+    f = rhs_program(spec).evaluate
     if not spec_columns(spec):
         return lambda t, y, ps: torch.stack(f(t, list(y), ps))
     return lambda t, y, ps: torch.stack(
@@ -485,9 +533,12 @@ def state_jac(spec: ModelSpec):
     """``jac(t, y (S, N), ps) -> (S, S, N)``: the RHS's Jacobian in the
     states from the traced DAG's forward-mode columns
     (:meth:`~odelib_tpu_torch.rhs.RhsProgram.jacobian`), for the implicit
-    integrators."""
-    from .rhs import jacobian_evaluator
+    integrators; for an RHS the tracer refuses, ``torch.func.jacfwd`` of
+    each lane (:func:`~odelib_tpu_torch.rhs.lane_jacobian`)."""
+    from .rhs import jacobian_evaluator, lane_jacobian
     S = len(spec.snames)
+    if not traces(spec):
+        return lane_jacobian(spec.rhs, spec.pshapes, spec.forcings)
     J = jacobian_evaluator(spec.rhs, S, spec.pshapes, spec.forcings)
     forced = bool(spec_columns(spec))
 
@@ -537,15 +588,34 @@ def integrate_theta(spec: ModelSpec, thetas, y0, times, *, method="dopri5",
                        jac=state_jac(spec)).ys
 
 
+def _col(a, dtype, device):
+    """A field of :class:`ObsData` as a tensor: an array is copied to
+    ``device``, a tensor already there in ``dtype`` is taken as it is."""
+    return torch.as_tensor(a if isinstance(a, torch.Tensor)
+                           else np.asarray(a), dtype=dtype, device=device)
+
+
+def device_obs(obs: ObsData, dtype, device) -> ObsData:
+    """:class:`ObsData` with every field a tensor on ``device`` (the values
+    in ``dtype``, the indices and censor flags int64), made once for the
+    samplers' repeated :func:`fit_metrics`."""
+    i64 = torch.int64
+    return ObsData(
+        log_abundance=_col(obs.log_abundance, dtype, device),
+        log_sigma=_col(obs.log_sigma, dtype, device),
+        abundance=_col(obs.abundance, dtype, device),
+        t_index=_col(obs.t_index, i64, device),
+        state_index=_col(obs.state_index, i64, device),
+        sstot=_col(obs.sstot, dtype, device),
+        censor=None if obs.censor is None else _col(obs.censor, i64, device))
+
+
 def observe(spec: ModelSpec, obs: ObsData, ys):
     """Predictions at the observation points: (T, S_raw, N) -> (N, n_obs),
     after summation."""
     post = spec.apply_summations(ys.permute(2, 0, 1))      # (N, T, S_post)
-    ti = torch.as_tensor(np.asarray(obs.t_index), dtype=torch.int64,
-                         device=ys.device)
-    si = torch.as_tensor(np.asarray(obs.state_index), dtype=torch.int64,
-                         device=ys.device)
-    return post[:, ti, si]
+    return post[:, _col(obs.t_index, torch.int64, ys.device),
+                _col(obs.state_index, torch.int64, ys.device)]
 
 
 def score_pred(spec: ModelSpec, obs: ObsData, pred):
@@ -553,13 +623,29 @@ def score_pred(spec: ModelSpec, obs: ObsData, pred):
     observation model and the observations' censoring -> (N,)."""
     from . import stats
     dt, dev = pred.dtype, pred.device
-
-    def col(a, dtype=dt):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
     return stats.obs_negloglik(
-        spec.obs_model, spec.obs_param, col(obs.log_abundance),
-        torch.log(pred), col(obs.log_sigma), col(obs.abundance), pred,
-        censor=None if obs.censor is None else col(obs.censor, torch.int64))
+        spec.obs_model, spec.obs_param, _col(obs.log_abundance, dt, dev),
+        torch.log(pred), _col(obs.log_sigma, dt, dev),
+        _col(obs.abundance, dt, dev), pred,
+        censor=None if obs.censor is None
+        else _col(obs.censor, torch.int64, dev))
+
+
+def fit_metrics(spec: ModelSpec, obs: ObsData, ys, num_params):
+    """chi, R^2 and AIC of trajectories ``ys`` (T, S_raw, N) -> three (N,)
+    tensors (``odelib_tpu``'s ``fit_metrics``): chi under the spec's
+    observation model (:func:`score_pred`), R^2 over the uncensored points
+    and ``2 chi + 2 num_params``. ``obs`` from :func:`device_obs` costs no
+    copy to the device."""
+    from . import stats
+    pred = observe(spec, obs, ys)
+    dt, dev = pred.dtype, pred.device
+    chi = score_pred(spec, obs, pred)
+    mask = None if obs.censor is None else \
+        _col(obs.censor, torch.int64, dev) == 0
+    rsq = stats.rsqrd_flat(pred, _col(obs.abundance, dt, dev),
+                           _col(obs.sstot, dt, dev), mask=mask)
+    return chi, rsq, stats.AIC(chi, num_params)
 
 
 def chi_of_theta(spec: ModelSpec, obs: ObsData, thetas, y0, times, **ikw):

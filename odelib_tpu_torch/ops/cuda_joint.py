@@ -207,11 +207,13 @@ def joint_metropolis_hastings_fused(
         checkpoint_every: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
         resume_from: Optional[str] = None, config_token: str = "",
-        _stop_after_chunks: Optional[int] = None):
+        _stop_after_chunks: Optional[int] = None, device="cuda"):
     """Run C joint chains over K experiments in one kernel launch.
 
     ``theta0`` is (C, D) float32 joint thetas; a CUDA tensor launches the
-    joint kernel, a CPU one runs its twin. ``idx_maps`` gives each
+    joint kernel, a CPU one runs its twin, an array goes to ``device``
+    (the card by default; without CUDA it raises unless
+    ``device='cpu'``). ``idx_maps`` gives each
     experiment's gather map into the joint theta and ``substeps_list`` its
     substeps (default 4 each). ``priors``: one distribution (or None) per
     joint dimension, added once to the acceptance (a family without an
@@ -232,7 +234,7 @@ def joint_metropolis_hastings_fused(
     _check_stepper(stepper, ("dopri5", "rk4"))
     if burnin is None:
         burnin = int(nits / 2)
-    theta0 = _as_f32_tensor(theta0)
+    theta0 = _as_f32_tensor(theta0, device)
     C, D = theta0.shape
     specs = tuple(specs)
     K = len(specs)

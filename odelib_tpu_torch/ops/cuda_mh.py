@@ -27,8 +27,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..model import (ModelSpec, ObsData, forcing_rows, obsdata_from_arrays,
-                     rhs_program, spec_columns)
+from ..model import (ModelSpec, ObsData, device_tensor, forcing_rows,
+                     obsdata_from_arrays, rhs_program, spec_columns)
 from ..rhs import jacobian_evaluator, torch_evaluator
 from . import chunked
 from .priors import checked_priors, logprior_plain
@@ -797,11 +797,11 @@ def ensemble_plain(spec, plan, y0_base, theta0, seed, *, tile, nits, burnin,
 # public wrappers
 # --------------------------------------------------------------------------
 
-def _as_f32_tensor(x):
-    """A tensor keeps its device; an array becomes a CPU tensor."""
-    if isinstance(x, torch.Tensor):
-        return x.to(torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32))
+def _as_f32_tensor(x, device="cuda"):
+    """A float32 tensor: a tensor keeps its device; an array goes to
+    ``device`` (the card by default; without CUDA only ``device='cpu'``
+    runs, as :func:`~odelib_tpu_torch.model.device_tensor` says)."""
+    return device_tensor(x, torch.float32, device)
 
 
 def _check_mesh(mesh):
@@ -988,15 +988,18 @@ def _key(y0_base):
 
 def survey_fused(spec: ModelSpec, obs: ObsData, times, y0_base, thetas, *,
                  substeps: int = 4, stepper: str = "dopri5",
-                 tile_chains: Optional[int] = None, interpret: bool = False):
+                 tile_chains: Optional[int] = None, interpret: bool = False,
+                 device="cuda"):
     """Chi of N parameter draws in one kernel launch (the fused survey).
 
     ``thetas`` is (N, P) flat slots; a CUDA tensor launches the survey
-    kernel, a CPU one runs its twin. Returns chi (N,) float32 on the
-    input's device. ``tile_chains``/``interpret`` are the JAX signature's
-    and are ignored (the CUDA grid covers N exactly)."""
+    kernel, a CPU one runs its twin, and an array goes to ``device`` (the
+    card by default; without CUDA it raises unless ``device='cpu'``).
+    Returns chi (N,) float32 on the input's device. ``tile_chains``/
+    ``interpret`` are the JAX signature's and are ignored (the CUDA grid
+    covers N exactly)."""
     _check_stepper(stepper)
-    thetas = _as_f32_tensor(thetas)
+    thetas = _as_f32_tensor(thetas, device)
     N, P = thetas.shape
     if P != spec.theta_size:
         raise ValueError(f"thetas must have {spec.theta_size} columns")
@@ -1017,11 +1020,12 @@ def metropolis_hastings_fused(
         mesh=None, priors=None, checkpoint_every: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
         resume_from: Optional[str] = None, config_token: str = "",
-        _stop_after_chunks: Optional[int] = None):
+        _stop_after_chunks: Optional[int] = None, device="cuda"):
     """Run C chains of reference-semantics MH in one kernel launch.
 
     ``theta0`` is (C, P) float32; a CUDA tensor launches the MH kernel,
-    a CPU one runs its twin. Returns ``MHOutput`` with theta (C, R, P) and
+    a CPU one runs its twin, an array goes to ``device`` (as
+    :func:`survey_fused`'s ``thetas``). Returns ``MHOutput`` with theta (C, R, P) and
     chi, rsquared, aic, acceptance_ratio (C, R), R = nits - 1 - burnin, and
     iteration (R,).
     Chain c keys its RNG on its global index c, as in the JAX kernel, so
@@ -1047,7 +1051,7 @@ def metropolis_hastings_fused(
     if R <= 0:
         raise ValueError(f"nits={nits} leaves no recorded iterations after "
                          f"burnin={burnin}")
-    theta0 = _as_f32_tensor(theta0)
+    theta0 = _as_f32_tensor(theta0, device)
     C, P = theta0.shape
     if P != spec.theta_size:
         raise ValueError(f"theta0 must have {spec.theta_size} columns")
@@ -1099,11 +1103,12 @@ def ensemble_fused(
         checkpoint_every: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
         resume_from: Optional[str] = None, config_token: str = "",
-        _stop_after_chunks: Optional[int] = None):
+        _stop_after_chunks: Optional[int] = None, device="cuda"):
     """Affine-invariant ensemble sampler (Goodman-Weare stretch moves).
 
     ``theta0`` is (W0, P) float32 walkers; a CUDA tensor launches the
-    ensemble kernel, a CPU one runs its twin. Walkers are jittered and
+    ensemble kernel, a CPU one runs its twin, an array goes to ``device``
+    (as :func:`survey_fused`'s ``thetas``). Walkers are jittered and
     padded on the host exactly as in the JAX package (:func:`ensemble_init`),
     to W, a multiple of ``tile_chains``; every ``tile_chains`` walkers are
     one independent ensemble, so the tile is part of the result (default:
@@ -1121,9 +1126,9 @@ def ensemble_fused(
     P = spec.theta_size
     if a <= 1.0:
         raise ValueError(f"stretch scale a must exceed 1, got {a}")
-    dev = theta0.device if isinstance(theta0, torch.Tensor) \
-        else torch.device("cpu")
-    th_np = _as_f32_tensor(theta0).cpu().numpy()
+    theta0 = _as_f32_tensor(theta0, device)
+    dev = theta0.device
+    th_np = theta0.cpu().numpy()
     W0 = th_np.shape[0]
     if th_np.shape[1] != P:
         raise ValueError(f"theta0 must have {P} columns")
@@ -1179,6 +1184,6 @@ def inputs_from_reference(obs, theta0, seed, y0):
     temperature ladder is a plain tuple), the kernel seed and y0. Reads
     plain numpy only. Returns (ObsData, theta0 CPU tensor, seed, y0
     ndarray); move the tensor to run on the card."""
-    th = _as_f32_tensor(theta0)
+    th = _as_f32_tensor(theta0, "cpu")
     return (obsdata_from_arrays(obs), th, int(seed),
             np.asarray(y0, np.float64))

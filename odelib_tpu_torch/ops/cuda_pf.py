@@ -392,11 +392,12 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
                checkpoint_every: Optional[int] = None,
                checkpoint_path: Optional[str] = None,
                resume_from: Optional[str] = None, config_token: str = "",
-               _stop_after_chunks: Optional[int] = None):
+               _stop_after_chunks: Optional[int] = None, device="cuda"):
     """Run C chains of particle-marginal MH in one kernel launch.
 
     ``theta0`` is (C, P) float32; a CUDA tensor launches the PMMH kernel, a
-    CPU one runs its twin. ``substeps`` Euler-Maruyama steps per interval
+    CPU one runs its twin, an array goes to ``device`` (the card by
+    default; without CUDA it raises unless ``device='cpu'``). ``substeps`` Euler-Maruyama steps per interval
     of ``times``; ``priors`` one distribution (or None) per theta slot,
     LogNormal, Normal or Uniform. Returns :class:`PMMHOutput` with
     ``aic = 2 chi + 2 count_nonzero(theta0[0])``. ``checkpoint_every``/
@@ -426,7 +427,7 @@ def pmmh_fused(spec: ModelSpec, obs: ObsData, times, y0_base, theta0,
         raise ValueError(f"nits={nits} leaves no recorded iterations after "
                          f"burnin={burnin}")
     P = spec.theta_size
-    theta0 = _as_f32_tensor(theta0)
+    theta0 = _as_f32_tensor(theta0, device)
     if theta0.shape[1] != P:
         raise ValueError(f"theta0 must have {P} columns")
     num = int(torch.count_nonzero(theta0[0]))

@@ -210,11 +210,12 @@ def parallel_tempering_fused(
         mesh=None, priors=None, checkpoint_every: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
         resume_from: Optional[str] = None, config_token: str = "",
-        _stop_after_chunks: Optional[int] = None):
+        _stop_after_chunks: Optional[int] = None, device="cuda"):
     """Run C tempered ladders in one kernel launch.
 
     ``theta0`` is (C, P) float32; a CUDA tensor launches the PT kernel, a
-    CPU one runs its twin. ``temperatures`` (at least 2 rungs, starting
+    CPU one runs its twin, an array goes to ``device`` (the card by
+    default; without CUDA it raises unless ``device='cpu'``). ``temperatures`` (at least 2 rungs, starting
     at 1.0, strictly increasing; as many as the RNG's 1024 slots an
     iteration hold) and ``swap_every`` as in the JAX package: a ladder of
     more than ``build.PT_KMAX`` rungs spans warps, in a library built
@@ -243,7 +244,7 @@ def parallel_tempering_fused(
     K = len(temperatures)
     if int(swap_every) < 1:
         raise ValueError("swap_every must be >= 1")
-    theta0 = _as_f32_tensor(theta0)
+    theta0 = _as_f32_tensor(theta0, device)
     C, P = theta0.shape
     if P != spec.theta_size:
         raise ValueError(f"theta0 must have {spec.theta_size} columns")

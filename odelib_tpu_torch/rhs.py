@@ -373,6 +373,16 @@ class _Shim:
 
     asarray = array
 
+    def dot(self, a, b):
+        if _first_expr(a, b) is not None:
+            raise RhsTraceError(
+                f"{self._name}.dot is not supported by the RHS tracer "
+                f"(supported: {', '.join(_SUPPORTED)})")
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        if a.ndim <= 2 and b.ndim <= 2:
+            return torch.matmul(a, b) if a.ndim and b.ndim else a * b
+        return torch.tensordot(a, b, dims=([-1], [-2 if b.ndim > 1 else 0]))
+
     def __getattr__(self, name):
         attr = getattr(torch, name)
         if not callable(attr) or isinstance(attr, type):
@@ -917,6 +927,75 @@ def eager_function(fn, params, forcings=None):
             raw = eval_forcings(forcings, t)
         return list(_call(fn, t, y, ps, raw))
     return run
+
+
+def lane_function(fn, params, forcings=None):
+    """``f(t, y (S, N), ps) -> (S, N)``: ``fn`` called once per lane
+    through ``torch.func.vmap``, as the JAX package ``vmap``s a solve over
+    chains: each call sees one lane's states (S,), its parameters (an
+    array parameter with its shape, so linear algebra such as ``A @ y``
+    runs as written) and, for a forced ``fn``, the forcing dict at its
+    time. ``ps`` are the per-slot values (N,) or scalars. Python control
+    flow on a value cannot run under ``vmap`` and raises."""
+    pshapes = pshapes_of(params)
+    one = _lane_call(fn, pshapes, forcings)
+    batched = torch.func.vmap(one)
+
+    def run(t, y, ps):
+        tt, theta = _lane_args(t, y, ps)
+        return batched(tt, y.t(), theta).t()
+    return run
+
+
+def vmap_refused(e: BaseException) -> bool:
+    """Whether ``e`` is ``torch.func.vmap`` refusing a function it cannot
+    batch (Python control flow on a value, ``.item()``, an unbatchable
+    operator), as opposed to an error of the function itself."""
+    return isinstance(e, RuntimeError) and str(e).startswith("vmap:")
+
+
+def lane_jacobian(fn, params, forcings=None):
+    """``jac(t, y (S, N), ps) -> (S, S, N)``, d f_i / d y_j of
+    :func:`lane_function`'s ``fn`` by ``torch.func.jacfwd`` on each lane
+    (the JAX package's ``jax.jacfwd`` of its vmapped solve)."""
+    one = _lane_call(fn, pshapes_of(params), forcings)
+    batched = torch.func.vmap(torch.func.jacfwd(one, argnums=1))
+
+    def jac(t, y, ps):
+        tt, theta = _lane_args(t, y, ps)
+        return batched(tt, y.t(), theta).permute(1, 2, 0)
+    return jac
+
+
+def _lane_args(t, y, ps):
+    """The lanes' times (N,) and flat parameters (N, P)."""
+    N = y.shape[1]
+    tt = torch.as_tensor(t, dtype=y.dtype, device=y.device).expand(N)
+    theta = torch.stack([torch.as_tensor(p, dtype=y.dtype,
+                                         device=y.device).expand(N)
+                         for p in ps], dim=-1) if len(ps) else \
+        y.new_zeros((N, 0))
+    return tt, theta
+
+
+def _lane_call(fn, pshapes, forcings):
+    """One lane of :func:`lane_function`: ``(t, y (S,), theta (P,)) ->
+    (S,)``."""
+    def one(t, y, theta):
+        ps, off = [], 0
+        for shp in pshapes:
+            n = int(np.prod(shp)) if shp else 1
+            ps.append(theta[off:off + n].reshape(shp) if shp else theta[off])
+            off += n
+        raw = None
+        if forcings:
+            from .model import eval_forcings
+            raw = eval_forcings(forcings, t)
+        out = _call(fn, t, y, ps, raw)
+        if isinstance(out, torch.Tensor):
+            return out.to(y.dtype)
+        return _eager_stack(list(out)).to(y.dtype)
+    return one
 
 
 def torch_evaluator(rhs, n_states: int, params, forcings=None):

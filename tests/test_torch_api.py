@@ -95,7 +95,8 @@ def test_lhs_seeding_path(monkeypatch):
     draws = fw._lhs_samples(64)
     thetas = fw._theta_from_df(draws).astype(np.float32)
     got = cuda_mh.survey_fused(fw._spec, fw._obsdata_fit_host, fw._times_fit,
-                               fw.get_inits(), thetas, substeps=1).numpy()
+                               fw.get_inits(), thetas, substeps=1,
+                               device="cpu").numpy()
     ref = np.asarray(jax_survey_fused(
         _framework(odelib_tpu)._spec, fw._obsdata_fit_host, fw._times_fit,
         fw.get_inits(), thetas, substeps=1, tile_chains=128,
@@ -114,29 +115,42 @@ def test_lhs_seeding_path(monkeypatch):
     seeds = seen["theta0"].astype(np.float32)
     seed_chi = cuda_mh.survey_fused(fw._spec, fw._obsdata_fit_host,
                                     fw._times_fit, fw.get_inits(), seeds,
-                                    substeps=1).numpy()
+                                    substeps=1, device="cpu").numpy()
     assert (seed_chi < cut).all()
     # the seeds are prescreen draws
     assert all((np.abs(thetas - s).max(axis=1) == 0).any() for s in seeds)
 
 
 def test_unported_options_raise():
+    """Where odelib_tpu leaves its kernels for its XLA samplers, the port
+    runs its scan samplers (the arm read from ``last_profile``'s
+    ``chains[...]`` stage, as the reference names it); the samplers not
+    ported still raise naming their ROADMAP item."""
     fw = _framework(odelib_tpu_torch, device="cpu")
-    for kw, item in ((dict(sampler="hmc"), "item 16"),
-                     (dict(backend="xla"), "item 8"),
-                     (dict(method="auto"), "item 8"),
-                     (dict(method="kvaerno5"), "item 8"),
-                     (dict(sampler="pt", method="kvaerno5"), "item 15"),
-                     (dict(sampler="pt", temperatures="auto"), "item 15"),
-                     (dict(sampler="pt", backend="xla"), "item 15"),
-                     # fewer walkers than a tile: the reference's XLA
-                     # ensemble under backend='auto'
-                     (dict(sampler="ensemble"), "item 15"),
-                     (dict(sampler="ensemble", pallas_tile_chains=256),
-                      "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            fw.MCMC(chain_inits=_INITS, iterations_per_chain=6,
-                    print_report=False, **kw)
+    run = dict(chain_inits=_INITS, iterations_per_chain=6,
+               print_report=False, profile=True)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        fw.MCMC(sampler="hmc", **run)
+    for kw, arm in ((dict(backend="xla"), "xla"),
+                    (dict(method="auto"), "xla"),
+                    (dict(method="kvaerno5"), "xla"),
+                    (dict(sampler="pt", method="kvaerno5"), "pt"),
+                    # the ladder is tuned on the scan PT, then the
+                    # production run takes the kernel
+                    (dict(sampler="pt", temperatures="auto", pilot_iters=6,
+                          ladder_rounds=1), "pallas"),
+                    (dict(sampler="pt", backend="xla"), "pt"),
+                    # fewer walkers than a tile: the reference's XLA
+                    # ensemble under backend='auto'
+                    (dict(sampler="ensemble"), "ensemble"),
+                    (dict(sampler="ensemble", pallas_tile_chains=256),
+                     "ensemble")):
+        post = fw.MCMC(**run, **kw)
+        assert f"chains[{arm}]" in fw.last_profile, kw
+        assert post["chain#"].nunique() == 4 and len(post) == 4 * 2
+        assert np.isfinite(post["chi"]).all(), kw
+    temps, acc = fw.last_ladder
+    assert temps[0] == 1.0 and np.all(np.diff(temps) > 0) and 0 <= acc <= 1
     with pytest.raises(ValueError, match="ladder tuple"):
         fw.MCMC(chain_inits=_INITS, iterations_per_chain=6, sampler="pt",
                 temperatures="hot", print_report=False)
@@ -148,15 +162,15 @@ def test_unported_options_raise():
         with pytest.raises(ValueError, match=msg):
             fw.MCMC(chain_inits=_INITS, iterations_per_chain=6,
                     print_report=False, **kw)
-    # a prior without an in-kernel form: the reference's XLA samplers
+    # a prior without an in-kernel form: the scan samplers
     fw_dn = _framework(odelib_tpu_torch, device="cpu")
     fw_dn.set_parameters(mu=odelib_tpu_torch.parameter(
         DiscreteNormal(mu=1.0, sigma=0.2)))
-    for sampler, item in (("mh", "item 8"), ("pt", "item 15"),
-                          ("ensemble", "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            fw_dn.MCMC(chain_inits=_INITS, iterations_per_chain=6,
-                       sampler=sampler, use_priors=True, print_report=False)
+    for sampler, arm in (("mh", "xla"), ("pt", "pt"),
+                         ("ensemble", "ensemble")):
+        post = fw_dn.MCMC(sampler=sampler, use_priors=True, **run)
+        assert f"chains[{arm}]" in fw_dn.last_profile
+        assert np.isfinite(post["chi"]).all()
 
 
 def test_pallas_backend_warns_for_adaptive_method():

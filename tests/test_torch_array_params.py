@@ -119,8 +119,8 @@ def _dot_model(t, y, ps):
                                     (_dot_model, "jnp.dot is not supported")])
 def test_tracer_refuses_linear_algebra_as_reference(fn, msg):
     """``rhs_supports_tiles`` sends these to the XLA sampler; the tracer
-    refuses them naming the construct, and ``MCMC`` raises naming the
-    ROADMAP item of that sampler."""
+    refuses them naming the construct, and ``MCMC`` runs them on the scan
+    MH, the RHS called per lane through torch.func.vmap."""
     jbad = JM.make_spec(fn, ("A", "phi", "beta"), SN,
                         pshapes=((2, 2), (), ()))
     assert not rhs_supports_tiles(jbad)
@@ -132,8 +132,14 @@ def test_tracer_refuses_linear_algebra_as_reference(fn, msg):
         fn, ["A", "phi", "beta"], list(SN), dataframe=vec_df(),
         A=np.array([[0.5, 0.0], [0.0, 0.1]]), phi=2.4e-8, beta=24.0,
         t_steps=64, ode_style="jax", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fw.MCMC(chain_inits=2, iterations_per_chain=4, print_report=False)
+    starts = [dict(A=np.array([[0.5, 0.0], [0.0, 0.1]]) * f, phi=2.4e-8,
+                   beta=24.0) for f in (1.0, 1.1)]
+    post = fw.MCMC(chain_inits=starts, iterations_per_chain=4,
+                   print_report=False, profile=True)
+    assert "chains[xla]" in fw.last_profile
+    A = np.stack(post["A"].to_numpy())
+    assert A.shape == (2, 2, 2) and (A[:, 0, 1] == 0).all()
+    assert np.isfinite(post["chi"]).all()
 
 
 def test_survey_twin_matches_pallas_interpret(kernel_setup):
@@ -222,8 +228,9 @@ def test_slot_priors_in_the_mh_twin_match_pallas_interpret(kernel_setup):
 
 def test_array_hyperparameters_run_on_the_host_only():
     """An array hyperparameter gives each entry its own prior in the LHS;
-    with use_priors=True it raises naming item 8 (the reference runs
-    vector hyperparameters on its XLA sampler)."""
+    with use_priors=True the fit runs on the scan MH (the reference runs
+    vector hyperparameters on its XLA sampler), each entry under its own
+    prior."""
     d = D.from_scipy(scipy.stats.lognorm,
                      {"s": 0.5, "scale": np.array([0.6, 0.1])})
     assert isinstance(d, D.ArrayHyper) and d.shape == (2,)
@@ -240,9 +247,11 @@ def test_array_hyperparameters_run_on_the_host_only():
         phi=2.4e-8, beta=24.0, t_steps=288, ode_style="jax", device="cpu")
     mu = np.stack(fw._lhs_samples(256)["mu"].to_numpy())
     np.testing.assert_allclose(np.median(mu, axis=0), [0.6, 0.1], rtol=0.05)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fw.MCMC(chain_inits=2, iterations_per_chain=4, use_priors=True,
-                print_report=False)
+    post = fw.MCMC(chain_inits=2, iterations_per_chain=4, use_priors=True,
+                   fitsurvey_samples=64, sd_fitdistance=20.0,
+                   print_report=False, profile=True)
+    assert "chains[xla]" in fw.last_profile
+    assert np.isfinite(post["chi"]).all()
 
 
 def test_lhs_draws_only_non_zero_entries():

@@ -182,9 +182,10 @@ def test_mh_twin_on_censored_student_t_matches_pallas_interpret():
 
 def test_censored_counts_raise():
     """Censored counts: the kernels raise the JAX kernel's ValueError
-    (matching 'lognormal'); MCMC under backend='auto' and JointFit.MCMC
-    raise NotImplementedError naming the XLA samplers' item; 'pallas'
-    gives the kernel's ValueError."""
+    (matching 'lognormal'); MCMC under backend='auto' runs them on the scan
+    samplers, as the reference runs them on its XLA samplers; 'pallas'
+    gives the kernel's ValueError; JointFit.MCMC raises naming the XLA
+    joint sampler's item."""
     jspec, tspec, obs, tf, y0, centre = fam_case("lognormal", ("left",))
     pspec = dataclasses.replace(tspec, obs_model="poisson")
     with pytest.raises(ValueError, match="lognormal"):
@@ -199,11 +200,14 @@ def test_censored_counts_raise():
             t_steps=64, ode_style="jax", mu=0.6, phi=2.4e-3, beta=24.0,
             device="cpu")
     model = fw("poisson")
-    for sampler, item in (("mh", "item 8"), ("ensemble", "item 15"),
-                          ("pt", "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            model.MCMC(chain_inits=4, iterations_per_chain=4,
-                       sampler=sampler, print_report=False)
+    for sampler, arm in (("mh", "xla"), ("ensemble", "ensemble"),
+                         ("pt", "pt")):
+        post = model.MCMC(chain_inits=4, iterations_per_chain=4,
+                          sampler=sampler, fitsurvey_samples=32,
+                          sd_fitdistance=1e3, print_report=False,
+                          profile=True, max_steps=64)
+        assert f"chains[{arm}]" in model.last_profile
+        assert post["chain#"].nunique() == 4
     with pytest.raises(ValueError, match="lognormal"):
         model.MCMC(chain_inits=4, iterations_per_chain=4,
                    backend="pallas", fitsurvey_samples=8,

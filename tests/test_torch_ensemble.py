@@ -125,7 +125,8 @@ def test_ensemble_twin_matches_pallas_interpret(setup, refs, case):  # noqa: F81
     for chi, theta, tol in ((got.chi, got.theta, 0.0),
                             (ref.chi, ref.theta, 1e-4)):
         s = T.survey_fused(tspec, obs_t, times_fit, y0_t,
-                           _np(theta).reshape(-1, 3), substeps=substeps)
+                           _np(theta).reshape(-1, 3), substeps=substeps,
+                           device="cpu")
         np.testing.assert_allclose(s.numpy(), _np(chi).reshape(-1),
                                    rtol=tol)
     np.testing.assert_array_equal(

@@ -1,0 +1,131 @@
+"""The port's ``jax.random`` stream (odelib_tpu_torch/random.py) against
+jax.random itself under the JAX package's test settings (x64, threefry
+partitionable): keys, fold-ins, splits, bits, uniforms and randints
+bitwise over several seeds and shapes, float64 normals within 2 ulps
+(measured 0), batched keys as a vmap over keys."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from odelib_tpu_torch import random as R
+
+SEEDS = [0, 1, 42, 2 ** 31 - 1, -3, 2 ** 40 + 7]
+SHAPES = [(), (5,), (3, 4), (2, 3, 5)]
+
+
+def _words(k):
+    return np.asarray(k).astype(np.int64)
+
+
+def test_partitionable_threefry_is_the_setting_ported():
+    """The port implements threefry2x32 with the partitionable key
+    derivation; a jax with another default must fail here loudly."""
+    assert jax.config.jax_threefry_partitionable is True
+    assert jax.config.jax_default_prng_impl == "threefry2x32"
+    assert jax.config.jax_enable_x64 is True
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_keys_fold_in_and_split_bitwise(seed):
+    k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    np.testing.assert_array_equal(t.numpy(), _words(k))
+    for data in (0, 1, 12345, 2 ** 32 - 1, 2 ** 33 + 5, -7):
+        np.testing.assert_array_equal(
+            R.fold_in(t, data).numpy(),
+            _words(jax.random.fold_in(k, jnp.asarray(data).astype(
+                jnp.uint32))))
+    for num in (2, 3, 4, 7):
+        np.testing.assert_array_equal(R.split(t, num).numpy(),
+                                      _words(jax.random.split(k, num)))
+    # a batch of keys is a vmap over keys
+    ks = jax.random.split(k, 6)
+    np.testing.assert_array_equal(
+        R.fold_in(R.split(t, 6), torch.arange(6)).numpy(),
+        _words(jax.vmap(jax.random.fold_in)(ks, jnp.arange(6))))
+    np.testing.assert_array_equal(
+        R.split(R.split(t, 6), 3).numpy(),
+        _words(jax.vmap(lambda kk: jax.random.split(kk, 3))(ks)))
+    data = R.key_data(R.split(t, 6))
+    np.testing.assert_array_equal(data, np.asarray(jax.random.key_data(ks)))
+    np.testing.assert_array_equal(R.wrap_key_data(data).numpy(), _words(ks))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_bits_and_uniforms_bitwise(seed, shape):
+    k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    np.testing.assert_array_equal(
+        R.bits(t, shape).numpy(),
+        np.asarray(jax.random.bits(k, shape, jnp.uint32)).astype(np.int64))
+    for dt, tdt in ((jnp.float64, torch.float64),
+                    (jnp.float32, torch.float32)):
+        np.testing.assert_array_equal(
+            R.uniform(t, shape, tdt).numpy(),
+            np.asarray(jax.random.uniform(k, shape, dt)))
+        np.testing.assert_array_equal(
+            R.uniform(t, shape, tdt, -2.5, 7.0).numpy(),
+            np.asarray(jax.random.uniform(k, shape, dt, -2.5, 7.0)))
+    ks = jax.random.split(k, 5)
+    np.testing.assert_array_equal(
+        R.uniform(R.split(t, 5), shape).numpy(),
+        np.asarray(jax.vmap(lambda kk: jax.random.uniform(
+            kk, shape, jnp.float64))(ks)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_bitwise(seed):
+    k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    for dt, tdt in ((jnp.int64, torch.int64), (jnp.int32, torch.int32)):
+        for lo, hi in ((0, 2), (0, 3), (0, 16), (-5, 995), (0, 2 ** 20 + 3),
+                       (7, 7)):
+            got = R.randint(t, (4, 25), lo, hi, tdt)
+            assert got.dtype == tdt
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(jax.random.randint(
+                    k, (4, 25), lo, hi, dt)))
+    # the ensemble's partner draw: int (int64 under x64), a batch of keys
+    ks = jax.random.split(k, 4)
+    np.testing.assert_array_equal(
+        R.randint(R.split(t, 4), (6,), 0, 6).numpy(),
+        np.asarray(jax.vmap(lambda kk: jax.random.randint(kk, (6,), 0, 6))(
+            ks)))
+
+
+def _ulps(got, ref):
+    ref = np.asarray(ref)
+    return np.abs(got - ref) / np.spacing(np.abs(ref).astype(ref.dtype))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_within_two_ulps(seed):
+    """float64, the samplers' dtype (float32 normals differ a little more:
+    XLA computes their log1p's logarithm by a polynomial of its own)."""
+    k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    got = R.normal(t, (4000,), torch.float64).numpy()
+    ref = np.asarray(jax.random.normal(k, (4000,), jnp.float64))
+    assert _ulps(got, ref).max() <= 2.0
+    ks = jax.random.split(k, 8)
+    got = R.normal(R.split(t, 8), (3,)).numpy()
+    ref = jax.vmap(lambda kk: jax.random.normal(kk, (3,), jnp.float64))(ks)
+    assert _ulps(got, ref).max() <= 2.0
+
+
+def test_erfinv_and_log1p_edges():
+    """The +-1 ends, zero and the region boundaries of XLA's polynomials;
+    a NaN stays NaN."""
+    x = torch.tensor([-1.0, -0.999999, -0.5, 0.0, 1e-300, 0.41421356,
+                      0.9, 0.99999999999, 1.0, float("nan")],
+                     dtype=torch.float64)
+    got = R.erfinv(x).numpy()
+    ref = np.asarray(jax.lax.erf_inv(jnp.asarray(x.numpy())))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    ok = np.isfinite(ref)
+    assert np.isinf(got[~ok & ~np.isnan(ref)]).all()
+    np.testing.assert_allclose(got[ok], ref[ok], rtol=1e-15)
+    y = torch.tensor([-0.5, -0.4142, -1e-8, 0.0, 1e-8, 0.4142, 3.0],
+                     dtype=torch.float64)
+    np.testing.assert_allclose(
+        R.log1p(y).numpy(), np.asarray(jax.lax.log1p(jnp.asarray(
+            y.numpy()))), rtol=1e-15)

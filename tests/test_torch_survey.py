@@ -124,7 +124,7 @@ def test_survey_substeps1_against_witnesses(setup, stepper, spread, band):
         torch.as_tensor(thetas.T.astype(np.float64)), stepper)
     np.testing.assert_allclose(twin64.numpy(), w64, rtol=1e-12)
     got = T.survey_fused(tspec, obs_t, times_fit, y0, thetas, substeps=1,
-                         stepper=stepper).numpy()
+                         stepper=stepper, device="cpu").numpy()
     np.testing.assert_allclose(got, w32, rtol=1e-5)
     ref = np.asarray(J.survey_fused(spec, obs_fit, times_fit, y0, thetas,
                                     substeps=1, stepper=stepper,
@@ -155,7 +155,7 @@ def test_survey_twin_matches_pallas_interpret_with_summation():
     tspec = t_make_spec(adapt_rhs(one_i), pn, sn, state_summations=ss)
     assert tspec.sum_matrix == spec.sum_matrix
     got = T.survey_fused(tspec, T.obsdata_from_arrays(obs_fit), times_fit,
-                         y0, thetas, substeps=2).numpy()
+                         y0, thetas, substeps=2, device="cpu").numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5)
 
 
@@ -168,7 +168,7 @@ def test_survey_blowup_gives_nonfinite_chi(setup):
                                     substeps=1, tile_chains=128,
                                     interpret=True))
     got = T.survey_fused(tspec, T.obsdata_from_arrays(obs_fit), times_fit,
-                         y0, thetas, substeps=1).numpy()
+                         y0, thetas, substeps=1, device="cpu").numpy()
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
     assert not np.isfinite(got[0]) and np.isfinite(got[1])
 
