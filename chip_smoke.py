@@ -6,16 +6,24 @@ Phases, each failing the script if it fails:
 
 1. device: the card's name and power limit (nvidia-smi); exits non-zero
    without CUDA;
-2. build: all six kernels (ops/csrc/*.cu) from the checkout's sources
-   into a clean build directory, every library the run loads started
-   together, eight at a time: the main-path model's, a joint fit of two
-   different models' (zero_i and one_i), the PMMH path's SDE model's,
-   each scoring branch's and path's, and the stiff path's two (zero_i's
-   and Robertson's, with the kvaerno3 instantiations) and the PMMH
-   path's Milstein library; the builds' seconds and each kernel's
-   registers, stack and spills. The 42-state chain's kvaerno3 library,
-   the longest build, goes on beside phases 3 onward and is awaited
-   before the limits phases, the only ones that load it;
+2. build: all six kernels (ops/csrc/*.cu) and the device probe from the
+   checkout's sources into a clean build directory, every library the
+   run loads submitted together, as many at a time as the process has
+   cores less one (at most eight; the counts are printed): the
+   main-path model's, a joint fit of two different models' (zero_i and
+   one_i), the PMMH path's SDE model's, each scoring branch's and
+   path's, the stiff path's two (zero_i's and Robertson's, with the
+   kvaerno3 instantiations), the PMMH path's Milstein library and the
+   limits phases' (the 42-state chain's kvaerno3 library the longest).
+   The first phases' two libraries (zero_i's and the joint pair's) are
+   built first, alone; the others go on beside the phases, at nice 10: a
+   phase's first load of a library waits for its build (or builds it, if
+   it has not started), and
+   before the limits phases every build is awaited: the builds'
+   seconds, each library's ready time against its first load, and each
+   kernel's registers, stack and spills. Each library, as it loads,
+   runs the device probe (probe_kernel: x + 1 on an 8 x 128 float32
+   tile) and raises if its result is wrong;
 3. kernel versus twin on the card, at the main-path model (zero_i on the
    demo data, t_steps=288, substeps=4): the survey on 4096 LHS draws, MH
    on 1024 chains x 200 iterations (the kernel's rounds counted by the
@@ -40,7 +48,9 @@ Phases, each failing the script if it fails:
 4. the main paths, each with launch counts reset just before and read just
    after (each launching survey_fused and its chain kernel's wrapper
    once; Python's garbage collections per stage, and for MH the chains
-   stage's host part, kernel time and record allocations):
+   stage's host part, kernel time and record allocations; the MH path
+   starts with no library loaded, as a process's first call does, so it
+   runs the device probe once):
    ModelFramework(..., device='cuda').MCMC(chain_inits=10000,
    iterations_per_chain=1000, fitsurvey_samples=1000, sd_fitdistance=6.0)
    with sampler='mh', 'ensemble' and 'pt' (temperatures (1, 2, 4, 8)):
@@ -104,7 +114,7 @@ Phases, each failing the script if it fails:
    column rising without a reset, acceptance_ratio x iteration integral,
    and the target met or the cap's warning given; (e) the joint kernel's
    chunk instantiation against the twin's chunk mode at both joint paths'
-   inputs (all chains, 50 proposals in chunks of 20), bitwise; (f)
+   inputs (all chains, 30 proposals in chunks of 12), bitwise; (f)
    JointFit.MCMC at the joint path's shape with checkpoint_every=250 and
    a file (four chunk launches, the posterior equal to the joint path's),
    then killed after its first chunk and resumed (equal again); (g)
@@ -240,12 +250,33 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    4 chunks and killed after one and resumed, bitwise its whole run;
    (g) each scan sampler's seconds per iteration at 10,000 chains (the
    ensemble at 32 and 1,024 walkers), its device launches per iteration
-   and the busy share under torch.profiler;
+   and the busy share, all under torch.profiler (run(3) less run(2)).
+   Then the XLA particle filter
+   and joint samplers (``xla_phases``: samplers/pf.py, samplers/joint.py
+   and ops/sde.py, float64), each path through the user API at full
+   chain width with its launch counts reset just before and read just
+   after (no fused kernel launched; the reference's columns, finite chi
+   1.0, mean final acceptance in (0, 1), the arm in ``last_profile`` and
+   in the log; iterations cut to ``XLA_NITS``): (h)
+   MCMC(sampler='pmmh', n_particles=100) under backend='auto' on config
+   14 at 10,240 chains (a count the kernel does not take: the XLA
+   particle filter), (i) the same under backend='xla' at 128 particles,
+   (j) simulate of 10,240 paths at (h)'s median mu, (k) tune_particles
+   at the PMMH path's best survey row, (l) JointFit.MCMC(backend='xla')
+   on config 9 at 10,000 chains, (m) joint PMMH (tests/test_joint.py's
+   deterministic growth model and GBM sharing r) at 10,000 chains x 128
+   particles; (n) PMMH, joint MH, joint PMMH and simulate at 64 chains
+   (32 particles) on the card and on the CPU from the same keys (equal
+   accept sequences, chi within 1e-8 relative), and PMMH and joint MH in
+   4 chunks and
+   killed after two and resumed, bitwise their whole runs; each
+   sampler's seconds an iteration (its chains stage over its filters);
 5. times: each kernel against its plain torch twin on the card at the main
    path's shapes (CUDA events; the twin over a few proposals, scaled), the
    MH, ensemble, PT and joint kernels with the demo's priors, with flat
    priors (the prior-free run's chains, so the prior's own cost) and MH on
-   the calibrated schedule, the MCMC wall times with their stage breakdowns,
+   the calibrated schedule, the device probe against x + 1 and torch.add,
+   the MCMC wall times with their stage breakdowns,
    and one more MH and
    ensemble run each under torch.profiler: the device's busy share (the
    union of its kernels' and copies' intervals), each kernel's launches,
@@ -273,6 +304,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -324,10 +356,10 @@ def fail(msg):
     sys.exit(1)
 
 
-def print_library(label, lib):
+def print_library(label, path):
     """Print a built library's kernels, registers, stacks and nvcc seconds
-    (its nvcc.log); returns the log."""
-    log = open(os.path.join(os.path.dirname(lib._name), "nvcc.log")).read()
+    (its nvcc.log beside the library's ``path``); returns the log."""
+    log = open(os.path.join(os.path.dirname(path), "nvcc.log")).read()
     print(f"library for {label}:")
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -900,8 +932,8 @@ def extension_checks(label, post, target, min_ess, nits, n_ext, caught):
 def joint_chunk_phases(joint_fit, jpost_plain, calls, nits):
     """The joint kernel's chunk mode beyond chunks (a)-(b): its CHUNK
     instantiation against the twin's chunk mode at the joint paths'
-    captured calls (``calls``: (label, call), all chains, 50 proposals in
-    chunks of 20), then ``JointFit.MCMC`` at the joint path's shape with
+    captured calls (``calls``: (label, call), all chains, 30 proposals in
+    chunks of 12), then ``JointFit.MCMC`` at the joint path's shape with
     a checkpoint file, killed after its first chunk and resumed, and with
     ``until_min_ess``. Returns (chi's max abs error, the checkpointed
     run's launches, {label: seconds})."""
@@ -916,11 +948,11 @@ def joint_chunk_phases(joint_fit, jpost_plain, calls, nits):
 
     name = "joint_metropolis_hastings_fused"
     phase("chunks (e): the joint kernel's chunk mode against the twin's at "
-          "the joint paths' inputs (all chains, 50 proposals in chunks of "
-          "20)")
+          "the joint paths' inputs (all chains, 30 proposals in chunks of "
+          "12)")
     err = 0.0
     for label, call in calls:
-        kw = {**call["kw"], "nits": 51, "burnin": 0, "checkpoint_every": 20}
+        kw = {**call["kw"], "nits": 31, "burnin": 0, "checkpoint_every": 12}
         n0 = cuda_mh.LAUNCHES[name]
         out_k = cuda_joint.joint_metropolis_hastings_fused(*call["args"],
                                                            **kw)
@@ -937,9 +969,9 @@ def joint_chunk_phases(joint_fit, jpost_plain, calls, nits):
             f"{label} in chunks, kernel vs twin",
             *([o.theta.permute(1, 2, 0), o.chi.t(),
                o.chi_parts.permute(1, 2, 0), o.acceptance_ratio.t()]
-              for o in (out_k, out_t)), 51,
+              for o in (out_k, out_t)), 31,
             labels=("theta", "chi", "chi parts", "ar")))
-        print(f"{label}: all {call['args'][5].shape[0]} chains x 50 "
+        print(f"{label}: all {call['args'][5].shape[0]} chains x 30 "
               "proposals in 3 chunk launches, records bitwise the twin's "
               "chunk mode", flush=True)
 
@@ -2873,7 +2905,6 @@ def scan_phases(framework, smi_line):
           f"launches per iteration and the device's busy share ({smi_line})")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    n_it = 1
     keys = jr.fold_in(jr.PRNGKey(0), torch.arange(SCAN_CHAINS,
                                                   device="cuda"))
     cases = [("MH", SCAN_CHAINS, lambda nits: smh.metropolis_hastings(
@@ -2905,24 +2936,16 @@ def scan_phases(framework, smi_line):
                 end = e0
         return len(spans), busy / 1e9, wall
 
-    def timed(run, nits):
-        t0 = time.perf_counter()
-        run(nits)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
     for name, n, run in cases:
         # with burnin=0, run(k) is the start's solve and k - 1 iterations:
-        # an iteration is the difference of run(2 + n_it) and run(2) over
-        # n_it (the ensemble's two half-solves), its activities and busy
-        # share the difference of run(3) and run(2) under the profiler
+        # an iteration (the ensemble's two half-solves) is the difference
+        # of run(3) and run(2) under the profiler: its wall, device
+        # activities and busy share
         (n2, b2, w2), (n3, b3, w3) = profiled(run, 2), profiled(run, 3)
-        per_it = (timed(run, 2 + n_it) - timed(run, 2)) / n_it
-        print(f"scan (g) {name} ({n} lanes): {per_it:.4f} s per iteration "
-              f"(run({2 + n_it}) less run(2), over {n_it}); under the "
-              f"profiler {n3 - n2} device activities per iteration, busy "
-              f"{b3 - b2:.4f} s = {100 * (b3 - b2) / (w3 - w2):.2f} % of "
-              f"its {w3 - w2:.3f} s wall (run(3) less run(2))", flush=True)
+        print(f"scan (g) {name} ({n} lanes): {w3 - w2:.4f} s per "
+              f"iteration, {n3 - n2} device activities, busy {b3 - b2:.4f} "
+              f"s = {100 * (b3 - b2) / (w3 - w2):.2f} % (run(3) less "
+              "run(2), under the profiler)", flush=True)
     secs["g"] = time.perf_counter() - t
     pkg_log.removeHandler(handler)
     total = time.perf_counter() - t_all
@@ -2930,6 +2953,322 @@ def scan_phases(framework, smi_line):
         f"({k}) {v:.1f}" for k, v in secs.items()) + f"; all {total:.1f} s",
         flush=True)
     return secs
+
+
+# the XLA particle filter's and joint samplers' phases: iterations of the
+# full-width paths (every path at its main path's chain width) and the
+# card-against-CPU width
+XLA_NITS = {"pmmh": 3, "joint": 4, "joint_pmmh": 3}
+XLA_PARITY, XLA_PARITY_K = 64, 32     # chains and particles of (n)
+
+
+def det_gbm_fit(device="cuda"):
+    """tests/test_joint.py's pair, a deterministic growth model (det) and
+    a GBM with diffusion= (sto) sharing r: 8 observations each on [0.25,
+    2] (numpy seed 7), t_steps 17, LogNormal priors."""
+    import numpy as np
+    import pandas as pd
+    from odelib_tpu_torch import JointFit, ModelFramework, parameter
+    from odelib_tpu_torch.distributions import LogNormal
+    r_true, sig = 0.5, 0.25
+    rng = np.random.default_rng(7)
+    ts = np.linspace(0.25, 2.0, 8)
+    ab_det = 5.0 * np.exp(r_true * ts) * np.exp(rng.normal(0, 0.1, ts.size))
+    z, zs, prev = np.log(10.0), [], 0.0
+    for t in ts:
+        z += (r_true - 0.5 * sig ** 2) * (t - prev) \
+            + sig * np.sqrt(t - prev) * rng.normal()
+        prev = t
+        zs.append(z)
+    ab_sto = np.exp(np.array(zs) + 0.1 * rng.normal(size=ts.size))
+
+    def frame(ab):
+        return pd.DataFrame({"organism": "X", "time": ts, "abundance": ab,
+                             "log_sigma": 0.1})
+
+    def growth(y, t, ps):
+        return np.array([ps[0] * y[0]])
+
+    def gnoise(y, t, ps):
+        return np.array([ps[1] * y[0]])
+
+    def r():
+        return parameter(stats_gen=LogNormal(s=0.5, scale=0.4),
+                         hyperparameters={}, random_seed=0)
+    fw_det = ModelFramework(
+        ODE=growth, parameter_names=["r"], state_names=["X"],
+        dataframe=frame(ab_det), t_steps=17, random_seed=0, r=r(), X=5.0,
+        device=device)
+    fw_sto = ModelFramework(
+        ODE=growth, diffusion=gnoise, parameter_names=["r", "s"],
+        state_names=["X"], dataframe=frame(ab_sto), t_steps=17,
+        random_seed=1, r=r(),
+        s=parameter(stats_gen=LogNormal(s=0.4, scale=0.25),
+                    hyperparameters={}, random_seed=1), X=10.0,
+        device=device)
+    return JointFit({"det": fw_det, "sto": fw_sto}, shared=["r"])
+
+
+def xla_phases(pmmh_framework, joint_fit, smi_line):
+    """The phases (h)-(n) of the reference's XLA particle filter and joint
+    samplers as the port runs them on the card (odelib_tpu_torch/samplers/
+    pf.py and joint.py, ops/sde.py; float64, chains x particles one batch
+    of each substep), through the user API at full chain width where
+    routing sends a run there, each with launch counts reset just before
+    and read just after (no fused kernel may launch): (h) PMMH at 100
+    particles under backend='auto', (i) PMMH under backend='xla' at 128,
+    both on config 14; (j) simulate, (k) tune_particles at the PMMH
+    path's best survey row; (l) JointFit(backend='xla') on config 9; (m)
+    joint PMMH on tests/test_joint.py's pair; (n) at 64 chains (32
+    particles), card against CPU from the same keys (PMMH, joint MH, joint
+    PMMH, simulate's paths), and PMMH and joint MH in 4 chunks and killed
+    and resumed,
+    bitwise their whole runs. Returns the phases' seconds and each
+    sampler's seconds per iteration (its chains stage over its
+    filters or solves: the start's and nits - 1 proposals')."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from odelib_tpu_torch import random as jr
+    from odelib_tpu_torch.model import sdeint_theta
+    from odelib_tpu_torch.ops import cuda_mh
+    from odelib_tpu_torch.samplers import joint as sj
+    from odelib_tpu_torch.samplers import pf as spf
+
+    t_all = time.perf_counter()
+    log_buf = io.StringIO()
+    handler = logging.StreamHandler(log_buf)
+    pkg_log = logging.getLogger("odelib_tpu_torch")
+    pkg_log.addHandler(handler)
+    pkg_log.setLevel(logging.INFO)
+    secs, per_it = {}, {}
+    tail = ["iteration", "acceptance_ratio", "chain#", "all_rejected"]
+
+    def run_path(label, model, n, nits, cols, arm, logged, **kw):
+        """One MCMC call at n chains: the reference's columns, every chain,
+        finite chi 1.0, mean final acceptance in (0, 1), the arm in
+        last_profile and the log, no fused launch."""
+        log_buf.seek(0)
+        log_buf.truncate(0)
+        out = io.StringIO()
+        cuda_mh.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            post = model.MCMC(chain_inits=n, iterations_per_chain=nits,
+                              fitsurvey_samples=1000, profile=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_mh.LAUNCHES)
+        stages = model.last_profile
+        last = post[post.iteration == post.iteration.max()]
+        finite = float(np.isfinite(post.chi.to_numpy()).mean())
+        acc = float(last.acceptance_ratio.mean())
+        per_it[label] = stages[f"chains[{arm}]"] / nits
+        print(f"{label}: {n} chains x {nits} iterations, wall {wall:.3f} s; "
+              "stages " + ", ".join(f"{k} {v:.3f} s"
+                                    for k, v in stages.items())
+              + f"; finite chi {finite}, mean final acceptance {acc:.4f}; "
+              f"launches {launches}; {per_it[label]:.4f} s an iteration "
+              f"(chains[{arm}] over {nits})", flush=True)
+        if list(post.columns) != cols + tail:
+            fail(f"{label}: posterior columns {list(post.columns)}")
+        if post["chain#"].nunique() != n or len(post) != n * (
+                nits - 1 - int(nits / 2)):
+            fail(f"{label}: posterior has {len(post)} rows")
+        if f"chains[{arm}]" not in stages:
+            fail(f"{label}: not the {arm} arm: {stages}")
+        if logged not in log_buf.getvalue():
+            fail(f"{label}: the log does not name {logged!r}: "
+                 f"{log_buf.getvalue()!r}")
+        if any(launches.values()):
+            fail(f"{label}: a fused kernel was launched: {launches}")
+        if finite != 1.0 or not 0.0 < acc < 1.0:
+            fail(f"{label}: finite chi {finite}, acceptance {acc}")
+        return post
+
+    pf_cols = ["mu", "chi", "rsquared", "aic"]
+    pf_kw = dict(sampler="pmmh", sde_substeps=PF_SUB, rwalk_std=0.4,
+                 use_priors=True, adapt_proposal=True, target_accept=0.3,
+                 adapt_rate=0.15)
+    t = time.perf_counter()
+    phase(f"xla (h): MCMC(sampler='pmmh', n_particles=100) under "
+          f"backend='auto' on config 14 at {PF_CHAINS} chains: the XLA "
+          "particle filter (the kernel takes multiples of 8)")
+    fw = pmmh_framework()
+    post_h = run_path("xla (h)", fw, PF_CHAINS, XLA_NITS["pmmh"], pf_cols,
+                      "pmmh", "the XLA particle filter (samplers/pf.py), "
+                      "100 particles (fused PMMH needs", n_particles=100,
+                      **pf_kw)
+    secs["h"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"xla (i): MCMC(sampler='pmmh', backend='xla') at 128 particles "
+          f"on config 14 at {PF_CHAINS} chains")
+    run_path("xla (i)", pmmh_framework(), PF_CHAINS, XLA_NITS["pmmh"],
+             pf_cols, "pmmh", "the XLA particle filter (samplers/pf.py), "
+             "128 particles (backend='xla')", n_particles=PF_K,
+             backend="xla", **pf_kw)
+    secs["i"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"xla (j): simulate(n_paths={PF_CHAINS}) of config 14's SDE at "
+          "the PMMH path's median mu")
+    mu = float(np.median(post_h["mu"]))
+    fw.set_parameters(mu=mu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = fw.simulate(n_paths=PF_CHAINS, seed=3)
+    wall = time.perf_counter() - t0
+    finite = float(np.isfinite(sim["N"].to_numpy()).mean())
+    print(f"xla (j): simulate at mu {mu:.6f}: {len(sim)} rows in "
+          f"{wall:.3f} s, finite {finite}", flush=True)
+    if list(sim.columns) != ["N", "time", "path#"] or len(sim) != \
+            PF_CHAINS * len(fw.times) or finite != 1.0:
+        fail(f"xla (j): simulate gave {list(sim.columns)}, {len(sim)} rows, "
+             f"finite {finite}")
+    secs["j"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase("xla (k): tune_particles at the PMMH path's best survey row "
+          "(64 pilot particles x 32 replicates)")
+    surv = fw.fit_survey(1000)
+    best = surv.loc[surv["chi"].idxmin()]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        k, v = fw.tune_particles(theta=[float(best["mu"])])
+    print(f"xla (k): best survey row mu {float(best['mu']):.6f} (chi "
+          f"{float(best['chi']):.4f}); {out.getvalue().strip()}", flush=True)
+    if not (isinstance(k, int) and k % 8 == 0 and np.isfinite(v)
+            and v >= 0.0):
+        fail(f"xla (k): tune_particles returned ({k}, {v})")
+    secs["k"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"xla (l): JointFit(config 9).MCMC(backend='xla') at {CHAINS} "
+          "chains")
+    jf = joint_fit()
+    jcols = list(jf.columns) + ["chi"] + [f"chi:{k}" for k in jf.frameworks]
+    post_l = run_path("xla (l)", jf, CHAINS, XLA_NITS["joint"], jcols,
+                      "xla", "the XLA joint sampler (samplers/joint.py, "
+                      "joint MH)", backend="xla")
+    secs["l"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"xla (m): JointFit(det + GBM, shared=['r']).MCMC() at {CHAINS} "
+          f"chains x {PF_K} particles: joint PMMH")
+    dg = det_gbm_fit()
+    dcols = list(dg.columns) + ["chi"] + [f"chi:{k}" for k in dg.frameworks]
+    run_path("xla (m)", dg, CHAINS, XLA_NITS["joint_pmmh"], dcols, "pmmh",
+             f"joint PMMH, {PF_K} particles", n_particles=PF_K,
+             use_priors=True, rwalk_std=0.1)
+    secs["m"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"xla (n): at {XLA_PARITY} chains, card against CPU from the same "
+          "keys and starts; PMMH and joint MH in 4 chunks and killed and "
+          "resumed, bitwise their whole runs")
+    n = XLA_PARITY
+    keys = jr.fold_in(jr.PRNGKey(0), torch.arange(n))
+    pargs = (fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits())
+    pth = torch.as_tensor(post_h.groupby("chain#")["mu"].last().to_numpy()
+                          [:n, None])
+    jargs = jf._device_args({})
+    jth = torch.as_tensor(jf._thetas_from_df(
+        post_l[post_l.iteration == post_l.iteration.max()])[:n])
+    dargs = dg._device_args({})
+    dth = torch.as_tensor(dg._current_joint_theta()[None] * np.exp(
+        np.random.default_rng(5).normal(0, 0.1, (n, dg.dim))))
+    blocks = tuple(spf.obs_blocks(f._obsdata_fit_host)
+                   if f._spec.diffusion is not None else None
+                   for f in dg.frameworks.values())
+    kp = XLA_PARITY_K
+    runs = {
+        "PMMH": lambda d: spf.pmmh(
+            *pargs, pth.to(d), keys.to(d), nits=3, burnin=0,
+            n_particles=kp, substeps=PF_SUB, rwalk_std=0.4,
+            adapt_proposal=True, adapt_rate=0.15),
+        "joint MH": lambda d: sj.joint_metropolis_hastings(
+            *jargs[:5], jth.to(d), keys.to(d), nits=4, burnin=0,
+            method=jargs[5], substeps_list=jargs[6]),
+        "joint PMMH": lambda d: sj.joint_pmmh(
+            *dargs[:5], dth.to(d), keys.to(d), stoch_blocks=blocks, nits=3,
+            burnin=0, method=dargs[5], substeps_list=dargs[6],
+            n_particles=kp, rwalk_std=0.1)}
+    bad = []
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        a = run("cuda")
+        t1 = time.perf_counter()
+        b = run("cpu")
+        print(f"xla (n) {name}: card {t1 - t0:.2f} s, CPU "
+              f"{time.perf_counter() - t1:.2f} s", flush=True)
+        its = b.iteration.numpy()[None, :]
+        ar_a, ar_b = a.acceptance_ratio.cpu().numpy(), \
+            b.acceptance_ratio.numpy()
+        ca, cb = a.chi.cpu().numpy(), b.chi.numpy()
+        same = np.rint(ar_a * its) == np.rint(ar_b * its)
+        ok = np.isfinite(cb) & same
+        rel = float(np.max(np.abs(ca[ok] - cb[ok]) / np.abs(cb[ok]),
+                           initial=0.0))
+        print(f"xla (n) {name}: accept sequences equal on "
+              f"{int(same.all(axis=1).sum())} of {len(same)} chains; chi "
+              f"finite {float(np.isfinite(cb).mean())}, max relative "
+              f"difference card vs CPU {rel:.3e}", flush=True)
+        if not same.all():
+            bad.append(f"{name}: accept sequences differ card vs CPU")
+        if not rel <= 1e-8 or not np.array_equal(np.isfinite(ca),
+                                                  np.isfinite(cb)):
+            bad.append(f"{name}: chi differs by {rel} relative")
+    spec, times = fw._spec, fw.times
+    th = torch.full((n, 1), mu, dtype=torch.float64)
+    y_card = fw.simulate(n_paths=n, seed=3, as_dataframe=False)
+    y_cpu = sdeint_theta(spec, th, fw.get_inits(), times,
+                         jr.fold_in(jr.PRNGKey(3), torch.arange(n))).numpy()
+    rel = float(np.max(np.abs(y_card - y_cpu) / np.abs(y_cpu)))
+    print(f"xla (n) simulate: {n} paths, max relative difference card vs "
+          f"CPU {rel:.3e}", flush=True)
+    if not rel <= 1e-8:
+        bad.append(f"simulate: paths differ by {rel} relative")
+    if bad:
+        fail("xla (n) " + "; ".join(bad))
+    kc = keys.to("cuda")
+    chunk_runs = {
+        "PMMH": (spf.pmmh, spf.pmmh_checkpointed,
+                 (*pargs, pth.to("cuda"), kc),
+                 dict(nits=5, burnin=2, n_particles=kp,
+                      substeps=PF_SUB // 4, rwalk_std=0.4,
+                      adapt_proposal=True, adapt_rate=0.15)),
+        "joint MH": (sj.joint_metropolis_hastings,
+                     sj.joint_metropolis_hastings_checkpointed,
+                     (*jargs[:5], jth.to("cuda"), kc),
+                     dict(nits=5, burnin=2, method=jargs[5],
+                          substeps_list=(1,) * len(jargs[0])))}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (whole_fn, ck_fn, args, kw) in chunk_runs.items():
+            t0 = time.perf_counter()
+            whole = whole_fn(*args, **kw)
+            ck = dict(kw, checkpoint_every=1,
+                      checkpoint_path=os.path.join(tmp, f"{name}.progress"))
+            same_bits(f"xla (n) {name} in 4 chunks", ck_fn(*args, **ck),
+                      whole)
+            if ck_fn(*args, _stop_after_chunks=2, **ck) is not None:
+                fail(f"xla (n) {name}: the killed run did not stop")
+            same_bits(f"xla (n) {name} killed and resumed", ck_fn(
+                *args, resume_from=ck["checkpoint_path"], **ck), whole)
+            print(f"xla (n) {name}: 4 chunks and the resumed run bitwise "
+                  f"the whole run ({time.perf_counter() - t0:.2f} s)",
+                  flush=True)
+    secs["n"] = time.perf_counter() - t
+    pkg_log.removeHandler(handler)
+    total = time.perf_counter() - t_all
+    print("xla phases' seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in secs.items()) + f"; all {total:.1f} s",
+        flush=True)
+    print(f"scan (g) rows ({smi_line}): " + "; ".join(
+        f"{k} {v:.4f} s an iteration" for k, v in per_it.items()),
+        flush=True)
+    return secs, per_it
 
 
 def _survey_held(label, case, chi_k, chi_t):
@@ -3072,7 +3411,7 @@ def main():
     phase("build")
     from concurrent.futures import ThreadPoolExecutor
     shutil.rmtree(build.BUILD_ROOT, ignore_errors=True)
-    t0 = time.perf_counter()
+    t_build = time.perf_counter()
     demo_sc = fw_scoring(fw)
     # the limits phases' libraries first: the 42-state chain's (its
     # kvaerno3 library takes minutes) and the SDE libraries
@@ -3087,21 +3426,59 @@ def main():
                  # the PMMH path's Milstein instantiations
                  (pf_spec, (), True, [fw_scoring(pf_fw0)], False, True)]
               + forcing_builds(fa, spec, demo_sc, fw_scoring(pf_fw0)))
-    # eight nvcc processes at once, the SDE libraries (their five
-    # pf_kernel instantiations take 1-2 minutes each) submitted first. The
-    # 42-state chain's kvaerno3 library (builds[0]; 7-8 minutes of nvcc)
-    # builds on beside the phases that do not load it, and is awaited
-    # before the limits phases (late_library)
-    ex = ThreadPoolExecutor(8)
-    futs = {i: ex.submit(build.load_kernels, *a[:3], scoring=a[3],
-                         stiff=a[4] if len(a) > 4 else False,
-                         milstein=a[5] if len(a) > 5 else False,
-                         wide=a[6] if len(a) > 6 else False)
-            for i, a in sorted(enumerate(builds),
-                               key=lambda x: (x[0] >= 5, not x[1][2]))}
-    libs = [futs[i].result() for i in range(1, len(builds))]
-    build_s = time.perf_counter() - t0
-    logs = ""
+    # nvcc processes at nice 10 on all but one of the cores (at most
+    # eight; the 42-state chain's kvaerno3 library, 7-8 minutes, and the
+    # SDE libraries, whose five pf_kernel instantiations take 1-2 minutes
+    # each, submitted first), beside the phases: a phase's first launch
+    # from a library loads it, waiting for its build (build.library_path
+    # and build.load_kernels build each library once, in whichever thread
+    # asks first). finish_builds() awaits the rest before the limits
+    # phases
+    cores = len(os.sched_getaffinity(0))
+    workers = max(1, min(8, cores - 1))
+    print(f"os.cpu_count() {os.cpu_count()}, cores this process may run on "
+          f"{cores}: {workers} nvcc builds at a time beside the phases, at "
+          "nice 10", flush=True)
+
+    def background(fn, *args, **kw):
+        """Run a build in this worker thread at nice 10 (its nvcc
+        processes inherit it), so the phases keep their cores."""
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
+        return fn(*args, **kw)
+    ready, first_use, futs = {}, {}, {}
+
+    def submit(pool, i, fn=build.library_path):
+        a = builds[i]
+        futs[i] = pool.submit(fn, *a[:3], scoring=a[3],
+                              stiff=a[4] if len(a) > 4 else False,
+                              milstein=a[5] if len(a) > 5 else False,
+                              wide=a[6] if len(a) > 6 else False)
+        futs[i].add_done_callback(
+            lambda f, i=i: ready.setdefault(i, time.perf_counter() - T0))
+    # the first phases' libraries (zero_i's and the joint pair's) first,
+    # alone, so that those phases do not wait on them
+    with ThreadPoolExecutor(2) as first:
+        for i in (5, 6):
+            submit(first, i)
+    for i in (5, 6):
+        futs[i].result()
+    print(f"zero_i's and the joint pair's libraries built first: "
+          f"{max(ready[5], ready[6]) - (t_build - T0):.3f} s", flush=True)
+    ex = ThreadPoolExecutor(workers)
+    for i in sorted(set(range(len(builds))) - {5, 6},
+                    key=lambda i: (i >= 5, not builds[i][2])):
+        submit(ex, i, lambda *a, **kw: background(build.library_path, *a,
+                                                  **kw))
+    real_load = build.load_kernels
+
+    def first_use_load(*args, **kw):
+        """build.load_kernels, noting when each library is first asked
+        for and how long that call waited for it."""
+        t = time.perf_counter()
+        lib = real_load(*args, **kw)
+        first_use.setdefault(lib._name, (t - T0, time.perf_counter() - t))
+        return lib
+    build.load_kernels = first_use_load
     labels = (["42-state chain, stiff (kvaerno3)", "42-state chain",
                "Lotka-Volterra",
                "Lotka-Volterra (wide: over 32 rungs)",
@@ -3115,23 +3492,33 @@ def main():
                  "forced zero_i, stiff (kvaerno3)",
                  "zero_i + forced zero_i (joint)", "forced GBM SDE",
                  "zero_i, mu a 2-vector"])
-    for label, lib in zip(labels[1:], libs):
-        logs += print_library(label, lib)
-    for name in ("survey_kernel", "mh_kernel", "ens_kernel", "pt_kernel",
-                 "joint_kernel", "pf_kernel"):
-        if name not in logs:
-            fail(f"build: {name} is missing from nvcc.log")
-    print(f"build seconds ({len(builds) - 1} libraries, eight at a time; "
-          f"the {labels[0]} library builds on): {build_s:.3f}", flush=True)
+    build_s = [None]
 
-    def late_library():
-        """Wait for builds[0], the last library still building."""
+    def finish_builds():
+        """Await every library's build, print each one's kernels and
+        registers, its ready time against its first load, and the builds'
+        seconds."""
         t = time.perf_counter()
-        lib = futs[0].result()
+        paths = {i: str(f.result()) for i, f in futs.items()}
         ex.shutdown()
-        print_library(labels[0], lib)
-        print(f"waited {time.perf_counter() - t:.3f} s for it, at "
-              f"{time.perf_counter() - T0:.0f} s", flush=True)
+        logs = ""
+        for i, label in enumerate(labels):
+            logs += print_library(label, paths[i])
+            use = first_use.get(paths[i])
+            print(f"  built at {ready[i]:.1f} s (or found built then, if a "
+                  "phase built it first); " + (
+                      f"first loaded at {use[0]:.1f} s (that call waited "
+                      f"{use[1]:.3f} s)" if use else "not loaded yet"))
+        for name in ("survey_kernel", "mh_kernel", "ens_kernel", "pt_kernel",
+                     "joint_kernel", "pf_kernel", "probe_kernel"):
+            if name not in logs:
+                fail(f"build: {name} is missing from nvcc.log")
+        build_s[0] = max(ready.values()) - (t_build - T0)
+        waited = time.perf_counter() - t
+        print(f"build seconds ({len(builds)} libraries, {workers} at a "
+              f"time beside the phases): {build_s[0]:.3f}, the last ready "
+              f"at {max(ready.values()):.0f} s; waited {waited:.3f} s for "
+              "them here", flush=True)
 
     # -- 3. kernel versus twin --------------------------------------------
     phase("survey kernel vs twin")
@@ -3470,6 +3857,10 @@ def main():
         out = io.StringIO()
         extra = dict(temperatures=TEMPS) if sampler == "pt" else {}
         current[0] = sampler
+        if sampler == "mh":
+            # the MH path starts as a process's first MCMC call does, its
+            # library not loaded yet: loading it runs the device probe
+            build.forget_libraries()
         cuda_mh.reset_launch_counts()
         torch.cuda.synchronize()
         GC_SPANS.clear()
@@ -3481,7 +3872,7 @@ def main():
                            **extra)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = dict(cuda_mh.LAUNCHES)
+        launches = dict(cuda_mh.LAUNCHES, **build.PROBE_LAUNCHES)
         print(out.getvalue())
         print(f"MCMC({sampler}) wall seconds: {wall_s:.3f}; launches "
               f"{launches}; stages " + ", ".join(
@@ -3522,6 +3913,9 @@ def main():
         if launches[kernel_of[sampler]] != 1:
             fail(f"{sampler}: {kernel_of[sampler]} was not launched once: "
                  f"{launches}")
+        if sampler == "mh" and launches["device_probe"] != 1:
+            fail(f"mh: the device probe did not run once as the path "
+                 f"loaded its library: {launches}")
         if not isinstance(post, pd.DataFrame):
             fail(f"{sampler}: MCMC did not return a DataFrame")
         if sampler == "pt":
@@ -4083,10 +4477,11 @@ def main():
     fa_rows = forcing_phases(fa, joint_pair, (spec, pf_spec), mh_in, pf_in,
                              smi_line)
     # PT ladders, joint fits and models of any size
-    late_library()
+    finish_builds()
     limit_rows = limits_phases(lf, smi_line)
     # the reference's XLA samplers, on the scan routes
     scan_phases(framework, smi_line)
+    xla_phases(pmmh_framework, joint_fit, smi_line)
 
     # -- 5. times -----------------------------------------------------------
     phase("times")
@@ -4229,7 +4624,23 @@ def main():
     for sampler, (wall_s, _, stages) in runs.items():
         print(f"MCMC({sampler}) wall time: {wall_s:.3f} s; stages "
               + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
-    print(f"build {build_s:.3f} s ({smi_line})")
+    print(f"build {build_s[0]:.3f} s ({smi_line})")
+    # the device probe on its 8 x 128 tile: kernel, its plain version
+    # (x + 1 on the card) and torch.add
+    probe_lib = build.load_kernels(spec, scoring=[demo_sc])
+    xt = torch.arange(1024, dtype=torch.float32, device=dev).reshape(
+        build.PROBE_TILE) * 0.5 - 100.0
+    probe_err = float((build.device_probe(xt, probe_lib)
+                       - (xt + 1.0)).abs().max())
+    probe_ms = events_ms(lambda: build.device_probe(xt, probe_lib),
+                         reps=100)
+    probe_plain_ms = events_ms(lambda: xt + 1.0, reps=100)
+    probe_lib_ms = events_ms(lambda: torch.add(xt, 1.0), reps=100)
+    probe_bound = bound(xt.numel(), 2 * xt.numel() * 4)
+    print(f"device probe: {probe_ms * 1e3:.3f} us a launch (plain x + 1 "
+          f"{probe_plain_ms * 1e3:.3f} us, torch.add "
+          f"{probe_lib_ms * 1e3:.3f} us, bound {probe_bound[0] * 1e3:.5f} "
+          f"us by {probe_bound[1]}), max abs err {probe_err}")
 
     # bounds (survey, MH, ensemble and PT: kernel_costs): float32
     # operations from the twins on the CPU, bytes from the main path's shapes
@@ -4394,6 +4805,12 @@ def main():
          "ms": joint_chunk_ms, "plain_ms": joint_chunk_plain_ms,
          "bound_ms": joint_chunk_bound[0], "bound_by": joint_chunk_bound[1],
          "library_ms": None},
+        {"name": "device_probe", "route": "cuda", "source": csrc + "mh.cu",
+         "replaces": "odelib_tpu/ops/pallas_mh.py:282",
+         "launches": runs["mh"][1]["device_probe"], "max_abs_err": probe_err,
+         "ms": probe_ms, "plain_ms": probe_plain_ms,
+         "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
+         "library_ms": probe_lib_ms},
         {"name": "pmmh:milstein", "route": "cuda", "source": csrc + "pf.cu",
          "replaces": "odelib_tpu/ops/pallas_pf.py:289",
          "launches": mil_launches, "max_abs_err": mil_err, "ms": mil_ms,

@@ -14,10 +14,12 @@ runs its fused kernels, the sampler's CUDA kernel (MH, Goodman-Weare
 ensemble, parallel tempering, particle-marginal MH; the prescreen scored
 by the survey kernel; in-kernel priors with ``use_priors=True``, a
 calibrated schedule with ``substeps='auto'``), elsewhere the reference's
-XLA scan samplers in torch (``samplers/mh.py``, ``ensemble.py``,
-``pt.py``: any method, prior, observation model and RHS; the prescreen by
-``fit_survey``); chains seeded under the ``sd_fitdistance`` chi cut, the
-posterior DataFrame and the Fitting Report.
+XLA samplers in torch (``samplers/mh.py``, ``ensemble.py``, ``pt.py``,
+``pf.py``: any method, prior, observation model and RHS, any particle
+count; the prescreen by ``fit_survey``); chains seeded under the
+``sd_fitdistance`` chi cut, the posterior DataFrame and the Fitting
+Report. An SDE model (``diffusion=``) also has ``simulate`` (stochastic
+paths) and ``tune_particles`` (PMMH's particle count).
 
 ``ModelFramework(device=...)`` picks where everything runs: ``cuda`` by
 default, and ``cpu`` only when asked for; without a card the default
@@ -117,10 +119,6 @@ class parameter:
 _SAMPLERS = ("mh", "ensemble", "pt", "pmmh")
 _UNPORTED_SAMPLERS = {
     "hmc": "ROADMAP queue 1, item 16", "amh": "ROADMAP queue 1, item 16"}
-# PMMH's XLA sampler: of the reference's XLA samplers only the particle
-# filter's and the joint fit's remain to be ported
-_PF_XLA_ITEM = ("the XLA samplers/pf.py is ROADMAP queue 1, item 15 (of the "
-                "reference's XLA samplers only PF and joint remain)")
 _FIXED = ("dopri5", "rk4", "kvaerno3")
 
 
@@ -452,6 +450,92 @@ class ModelFramework:
                     if sname in self._pred_tindex}
         return mod
 
+    def simulate(self, n_paths=1, inits=None, parameters=None, seed=None,
+                 sde_method="euler", sde_substeps=4, sum_subpopulations=True,
+                 as_dataframe=True):
+        """Stochastic forward simulation: ``n_paths`` independent paths of
+        the model's SDE (it needs ``diffusion=``) on ``self.times``, every
+        path a lane of one fixed-grid Euler-Maruyama or Milstein loop
+        (:func:`~odelib_tpu_torch.model.sdeint_theta`) on the framework's
+        device in float64. Path ``i`` uses ``fold_in(PRNGKey(seed), i)``
+        (``seed`` defaults to ``random_seed``), so it does not depend on
+        ``n_paths``, and equals ``odelib_tpu``'s path for that key.
+        Returns a tidy DataFrame of the (post-summation, with
+        ``sum_subpopulations``) state columns plus ``time`` and ``path#``,
+        or the ``(n_paths, T, S)`` array with ``as_dataframe=False``. A
+        diverged path is NaN from its failure on."""
+        if self._spec.diffusion is None:
+            raise ValueError(
+                "simulate() needs a stochastic model — construct the "
+                "ModelFramework with diffusion=g (same signature "
+                "convention as the ODE, returning per-state noise "
+                "intensities)")
+        from . import random as jr
+        from .model import sdeint_theta
+        initials = self.get_inits() if inits is None \
+            else np.asarray(inits, float)
+        if parameters is None:
+            theta = self._current_theta()
+        else:
+            if isinstance(parameters, tuple) and len(parameters) == 1:
+                parameters = parameters[0]
+            theta = self._spec.pack_theta(list(parameters))
+        base = jr.PRNGKey(self.random_seed if seed is None else int(seed),
+                          device=self.device)
+        keys = jr.fold_in(base, torch.arange(int(n_paths),
+                                             device=self.device))
+        th = torch.as_tensor(np.asarray(theta, np.float64),
+                             device=self.device)
+        ys = sdeint_theta(self._spec, th.expand(int(n_paths), -1),
+                          initials, self.times, keys,
+                          substeps=int(sde_substeps), method=str(sde_method))
+        mod = ys.cpu().numpy()                    # (n_paths, T, S_raw)
+        if sum_subpopulations and self._spec.sum_matrix is not None:
+            mod = mod @ np.asarray(self._spec.sum_matrix)
+        if not as_dataframe:
+            return mod
+        snames = self.get_snames(after_summation=sum_subpopulations)
+        n, T = mod.shape[:2]
+        df = pd.DataFrame(mod.reshape(n * T, -1), columns=snames)
+        df["time"] = np.tile(np.asarray(self.times, float), n)
+        df["path#"] = np.repeat(np.arange(n, dtype=np.int64), T)
+        return df
+
+    def tune_particles(self, theta=None, pilot_particles=64, n_reps=32,
+                       target_var=1.2, sde_substeps=4, sde_method="euler",
+                       seed=None, print_report=True):
+        """Recommend ``n_particles`` for ``MCMC(sampler='pmmh')`` by the
+        var(log-likelihood) rule (:func:`~odelib_tpu_torch.samplers.pf.
+        tune_particles`): ``n_reps`` independent ``pilot_particles``
+        filters at ``theta`` (default the current parameter values), keyed
+        from ``PRNGKey(seed)`` (default ``random_seed``). Returns
+        ``(n_particles, loglik_var)`` and prints a one-line report."""
+        from . import random as jr
+        from .samplers.pf import tune_particles as _tune
+        if self._spec.diffusion is None:
+            raise ValueError(
+                "tune_particles requires a stochastic model — construct "
+                "the framework with diffusion=... (deterministic fits "
+                "have no particle filter)")
+        if theta is None:
+            theta = np.asarray(self._current_theta(), float)
+        key = jr.PRNGKey(self.random_seed if seed is None else int(seed),
+                         device=self.device)
+        k, v = _tune(self._spec, self._obsdata_fit_host,
+                     np.asarray(self._times_fit, float),
+                     np.asarray(self.get_inits(), float),
+                     torch.as_tensor(np.asarray(theta, np.float64),
+                                     device=self.device), key,
+                     pilot_particles=int(pilot_particles),
+                     n_reps=int(n_reps), target_var=float(target_var),
+                     substeps=int(sde_substeps),
+                     sde_method=str(sde_method))
+        if print_report:
+            print(f"tune_particles: var(log-lik) = {v:.2f} at "
+                  f"K={pilot_particles} -> recommended n_particles = {k} "
+                  f"(target var {target_var})")
+        return k, v
+
     # -- goodness of fit ---------------------------------------------------
     def _obs_censor_dict(self):
         """Per-state censoring flags of the dataframe's 'censored' column,
@@ -638,8 +722,14 @@ class ModelFramework:
         ``torch.func.vmap`` there (Python control flow on a value raises).
         ``backend='pallas'`` runs the kernel: a prior without an in-kernel
         form or an RHS that does not trace raise ``ValueError``, another
-        method warns that it is not honoured. PMMH runs its kernel; its
-        XLA sampler (``backend='xla'``) is not ported yet.
+        method warns that it is not honoured. PMMH runs its kernel when
+        the kernel takes the run (Euler-Maruyama or Milstein, 8 to 512
+        particles in multiples of 8, a drift and diffusion that trace,
+        in-kernel priors, an int ``sde_substeps``), else and under
+        ``backend='xla'`` the reference's XLA particle filter
+        (:func:`~odelib_tpu_torch.samplers.pf.pmmh`, float64, the scan
+        samplers' keys); ``backend='pallas'`` on a run the kernel cannot
+        take raises ``ValueError``. The arm is logged.
 
         ``use_priors=True`` adds the parameters' log priors to every
         sampler's acceptance (in the kernels the ten families of
@@ -651,7 +741,7 @@ class ModelFramework:
         last calibrated schedule, or 4 on the first call.
 
         ``checkpoint_every`` runs the chains in chunks of that many
-        proposals (the kernel's, the scan MH's or the scan PT's) and
+        proposals (the kernel's, the scan MH's, PT's or PMMH's) and
         persists the chain state and records after each to
         ``<checkpoint_path>.progress`` (the port's own format: a file
         ``odelib_tpu`` wrote fails the resume); ``resume_from`` (with the
@@ -730,20 +820,10 @@ class ModelFramework:
         from .ops.priors import kernel_priors_supported, require_kernel_priors
         slot_priors = tuple(self._slot_priors()) if use_priors else None
         if sampler == "pmmh":
-            # PMMH runs the fused kernel; its XLA sampler is not ported
-            if backend == "xla":
-                raise NotImplementedError(
-                    f"backend='xla' for sampler='pmmh' runs the reference's "
-                    f"XLA particle filter: {_PF_XLA_ITEM}")
-            _dispatch.require_traced(self._spec, sampler, _PF_XLA_ITEM)
-            priors = None if not use_priors else require_kernel_priors(
-                slot_priors, backend, _PF_XLA_ITEM)
-            if sde_method not in ("euler", "milstein"):
-                raise ValueError("the fused PMMH kernel integrates "
-                                 "Euler-Maruyama or Milstein, got "
-                                 f"sde_method={sde_method!r}")
-            if not isinstance(sde_substeps, (int, np.integer)):
-                raise ValueError("sde_substeps must be an int")
+            # the pmmh arm picks the fused kernel or the XLA particle
+            # filter itself (dispatch.run_pmmh); 'pallas'/'xla' force it
+            priors = slot_priors if use_priors and kernel_priors_supported(
+                slot_priors) else None
             arm = "pallas"
         else:
             # odelib_tpu's TPU decision: the fused kernel when the method
@@ -762,8 +842,8 @@ class ModelFramework:
                      or n_req >= int(pallas_tile_chains or 1024)))
             if backend == "pallas":
                 if use_priors:
-                    priors = require_kernel_priors(slot_priors, backend, "")
-                _dispatch.require_kernel_rhs(self._spec, sampler)
+                    priors = require_kernel_priors(slot_priors)
+                _dispatch.require_kernel_rhs(self._spec)
                 if method not in _FIXED:
                     warnings.warn(
                         f"backend='pallas' integrates fixed-step dopri5/rk4/"
@@ -914,8 +994,9 @@ class ModelFramework:
                          else int(pallas_tile_chains)),
             temperatures=tuple(temperatures), swap_every=int(swap_every),
             stretch_a=float(stretch_a), priors=priors,
-            n_particles=int(n_particles), sde_substeps=int(sde_substeps),
+            n_particles=int(n_particles), sde_substeps=sde_substeps,
             sde_method=str(sde_method),
+            pmmh_mode=backend if backend in ("pallas", "xla") else "auto",
             adapt_proposal=(sampler == "pmmh" if adapt_proposal is None
                             else bool(adapt_proposal)),
             adapt_rate=float(adapt_rate),

@@ -2,22 +2,24 @@
 
 Counterpart of ``odelib_tpu/dispatch.py``. The fused arms are keyed by the
 device the framework runs on and the sampler: ``cuda:mh``,
-``cuda:ensemble``, ``cuda:pt`` and ``cuda:pmmh`` launch the CUDA kernels,
-``cpu:mh``, ``cpu:ensemble``, ``cpu:pt`` and ``cpu:pmmh`` run their torch
-twins. Both go through the public wrappers of
-:mod:`~odelib_tpu_torch.ops.cuda_mh`, :mod:`~odelib_tpu_torch.ops.cuda_pt`
-and :mod:`~odelib_tpu_torch.ops.cuda_pf`, which pick kernel or twin from
-the tensor's device. With ``checkpoint_every`` each arm runs its kernel
-in chunks and persists the chain state to ``<checkpoint_path>.progress``
-(:mod:`~odelib_tpu_torch.ops.chunked`). The scan arms ``run_scan_mh``,
+``cuda:ensemble`` and ``cuda:pt`` launch the CUDA kernels, ``cpu:mh``,
+``cpu:ensemble`` and ``cpu:pt`` run their torch twins. Both go through the
+public wrappers of :mod:`~odelib_tpu_torch.ops.cuda_mh`,
+:mod:`~odelib_tpu_torch.ops.cuda_pt` and :mod:`~odelib_tpu_torch.ops.
+cuda_pf`, which pick kernel or twin from the tensor's device. PMMH's arm,
+:func:`run_pmmh`, runs the fused kernel (or its twin) where the reference
+does and its XLA particle filter elsewhere. With ``checkpoint_every`` each
+arm runs its kernel in chunks and persists the chain state to
+``<checkpoint_path>.progress`` (:mod:`~odelib_tpu_torch.ops.chunked`).
+The scan arms ``run_scan_mh``,
 ``run_scan_ensemble`` and ``run_scan_pt`` run the reference's XLA samplers
 (:mod:`~odelib_tpu_torch.samplers.mh`, ``ensemble``, ``pt``) on the
 framework's device in float64, every chain a lane of each iteration's
 batched solve, with per-chain keys from ``fold_in(PRNGKey(seed), salt *
 1_000_003 + i)`` as ``_xla_setup`` derives them. The kernels refuse a
-model whose RHS (or, for PMMH, diffusion) does not trace
-(:func:`require_traced`, :func:`require_kernel_rhs`); the scan arms call
-such an RHS per lane (:func:`require_batched`).
+model whose RHS does not trace (:func:`require_kernel_rhs`; PMMH's
+eligibility asks the same of the diffusion); the scan arms call such an
+RHS per lane (:func:`require_batched`).
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ class RunConfig:
     stretch_a: float = 2.0
     priors: Optional[Tuple[Any, ...]] = None   # per slot, or None
     n_particles: int = 128
-    sde_substeps: int = 4
+    sde_substeps: Any = 4          # as given: the kernel needs an int
     sde_method: str = "euler"
     adapt_proposal: bool = False
     adapt_rate: float = 0.05
@@ -66,35 +68,21 @@ class RunConfig:
     max_steps: int = 4096
     prior_logpdf: Any = None
     key_salt: int = 0
+    pmmh_mode: str = "auto"        # 'auto' | 'pallas' | 'xla'
 
 
-def require_traced(spec, sampler: str, item: str):
-    """Raise ``NotImplementedError`` naming ``item`` (the ROADMAP item that
-    ports the XLA sampler, ``odelib_tpu``'s route for such a model) when
-    the spec's RHS, or for ``sampler='pmmh'`` its diffusion, does not
-    trace into the kernels; the twins never stand in for the kernels."""
-    from .model import diffusion_program, rhs_program
+def require_kernel_rhs(spec):
+    """``backend='pallas'``'s check: ``ValueError`` when the model's RHS
+    does not trace into the kernels (the twins never stand in for
+    them)."""
+    from .model import rhs_program
     from .rhs import RhsTraceError
     try:
         rhs_program(spec)
-        if sampler == "pmmh" and spec.diffusion is not None:
-            diffusion_program(spec)
     except RhsTraceError as e:
-        raise NotImplementedError(
-            f"the model does not trace into the fused kernels ({e}); the "
-            f"reference runs it on its XLA sampler, not ported yet ({item})"
-        ) from e
-
-
-def require_kernel_rhs(spec, sampler: str):
-    """``backend='pallas'``'s check: ``ValueError`` when the model's RHS
-    (or, for PMMH, its diffusion) does not trace into the kernels."""
-    try:
-        require_traced(spec, sampler, "")
-    except NotImplementedError as e:
         raise ValueError(
-            f"backend='pallas' runs the fused kernels, and {e.__cause__}; "
-            "use backend='xla' (or 'auto')") from e.__cause__
+            f"backend='pallas' runs the fused kernels, and {e}; use "
+            "backend='xla' (or 'auto')") from e
 
 
 def require_batched(spec, theta, y0, t0):
@@ -184,22 +172,74 @@ def run_fused_pt(fw, theta0, cfg: RunConfig):
     return out
 
 
+def pmmh_fused_eligible(fw, cfg: RunConfig) -> Tuple[bool, str]:
+    """Whether the fused PMMH kernel runs this run, and why not
+    (``odelib_tpu``'s ``_pmmh_fused_eligible`` on a device with the
+    kernel): Euler-Maruyama or Milstein, 8 to 512 particles in multiples
+    of 8 and a drift and diffusion that trace
+    (:func:`~odelib_tpu_torch.ops.cuda_pf.pmmh_supported`), priors (with
+    ``use_priors``) of in-kernel families, and an int ``sde_substeps``."""
+    from .ops.cuda_pf import pmmh_supported
+    if not pmmh_supported(fw._spec, cfg.n_particles, cfg.sde_method):
+        return False, ("fused PMMH needs euler or milstein, n_particles "
+                       "a multiple of 8 in [8, 512], and a "
+                       "tile-traceable drift/diffusion")
+    if cfg.prior_logpdf is not None and cfg.priors is None:
+        return False, "priors are not a kernel-supported family"
+    if not isinstance(cfg.sde_substeps, (int, np.integer)):
+        return False, "sde_substeps must be an int for the fused kernel"
+    return True, ""
+
+
 def run_pmmh(fw, theta0, cfg: RunConfig):
-    """The fused particle-marginal MH kernel (or its twin), Euler-Maruyama
-    or Milstein (``cfg.sde_method``: ``odelib_tpu/dispatch.py`` routes both
-    to the fused kernel), as an ``MHOutput`` whose ``rsquared`` is NaN: a
-    noisy likelihood estimate has no single trajectory to take R^2 of."""
-    from .ops.cuda_pf import pmmh_fused
+    """Particle-marginal MH over the stochastic model, routed as
+    ``odelib_tpu/dispatch.py`` routes it: the fused kernel (or its twin)
+    when :func:`pmmh_fused_eligible` holds and ``cfg.pmmh_mode`` is not
+    'xla', else the XLA particle filter's sampler
+    (:func:`~odelib_tpu_torch.samplers.pf.pmmh`, or ``pmmh_checkpointed``
+    with ``checkpoint_every``) with the scan arms' keys and float64;
+    ``pmmh_mode='pallas'`` on an ineligible run raises ``ValueError``. The
+    arm is logged. An ``MHOutput`` whose ``rsquared`` is NaN: a noisy
+    likelihood estimate has no single trajectory to take R^2 of."""
     from .samplers.mh import MHOutput
-    th0 = torch.as_tensor(np.asarray(theta0, np.float32), device=fw.device)
-    out = pmmh_fused(
-        fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits(), th0,
-        seed=int(fw.random_seed) + cfg.seed_offset, nits=cfg.nits,
-        burnin=cfg.burnin, walk_mask=cfg.mask, rwalk_std=cfg.rwalk_std,
-        n_particles=cfg.n_particles, substeps=cfg.sde_substeps,
-        sde_method=cfg.sde_method, priors=cfg.priors, adapt_proposal=cfg.adapt_proposal,
-        target_accept=cfg.target_accept, adapt_rate=cfg.adapt_rate,
-        **_checkpoint_args(cfg))
+    ok, why = pmmh_fused_eligible(fw, cfg)
+    if cfg.pmmh_mode == "pallas" and not ok:
+        raise ValueError(f"backend='pallas' for sampler='pmmh' is not "
+                         f"available here: {why}")
+    if cfg.pmmh_mode != "xla" and ok:
+        from .ops.cuda_pf import pmmh_fused
+        log.info("particle-marginal MH (fused): pf_kernel, %d particles",
+                 int(cfg.n_particles))
+        th0 = torch.as_tensor(np.asarray(theta0, np.float32),
+                              device=fw.device)
+        out = pmmh_fused(
+            fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits(),
+            th0, seed=int(fw.random_seed) + cfg.seed_offset, nits=cfg.nits,
+            burnin=cfg.burnin, walk_mask=cfg.mask, rwalk_std=cfg.rwalk_std,
+            n_particles=int(cfg.n_particles),
+            substeps=int(cfg.sde_substeps), sde_method=cfg.sde_method,
+            priors=cfg.priors, adapt_proposal=cfg.adapt_proposal,
+            target_accept=cfg.target_accept, adapt_rate=cfg.adapt_rate,
+            **_checkpoint_args(cfg))
+    else:
+        from .samplers import pf
+        log.info("particle-marginal MH: the XLA particle filter "
+                 "(samplers/pf.py), %d particles (%s)", int(cfg.n_particles),
+                 "backend='xla'" if cfg.pmmh_mode == "xla" else why)
+        require_batched(fw._spec, theta0, fw.get_inits(), fw._times_fit[0])
+        th0, _, keys = _scan_setup(fw, theta0, cfg, len(theta0))
+        args = _scan_args(fw, th0, keys)
+        kw = dict(nits=cfg.nits, burnin=cfg.burnin, walk_mask=cfg.mask,
+                  rwalk_std=cfg.rwalk_std, prior_logpdf=cfg.prior_logpdf,
+                  use_priors=cfg.prior_logpdf is not None,
+                  n_particles=int(cfg.n_particles),
+                  substeps=int(cfg.sde_substeps), sde_method=cfg.sde_method,
+                  adapt_proposal=cfg.adapt_proposal,
+                  target_accept=cfg.target_accept, adapt_rate=cfg.adapt_rate)
+        if cfg.checkpoint_every is not None:
+            out = pf.pmmh_checkpointed(*args, **_checkpoint_args(cfg), **kw)
+        else:
+            out = pf.pmmh(*args, **kw)
     return MHOutput(theta=out.theta, chi=out.chi,
                     rsquared=torch.full_like(out.chi, float("nan")),
                     aic=out.aic, acceptance_ratio=out.acceptance_ratio,
@@ -291,7 +331,8 @@ _SCAN_ARMS = {"xla": run_scan_mh, "ensemble": run_scan_ensemble,
 def dispatch(fw, sampler: str, theta0, cfg: RunConfig, arm: str = "pallas",
              n_chains: Optional[int] = None):
     """Route one resolved MCMC run to its arm: ``'pallas'`` (the fused
-    kernel of the framework's device and the sampler, PMMH's included), or
+    kernel of the framework's device and the sampler; for PMMH
+    :func:`run_pmmh`, which takes the kernel or the XLA filter itself), or
     a scan arm, ``'xla'`` (MH), ``'ensemble'`` or ``'pt'``, the names
     ``odelib_tpu``'s ``chains[...]`` profile stage uses."""
     if arm != "pallas":

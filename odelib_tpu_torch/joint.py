@@ -5,16 +5,18 @@ and no pooling (the default): ``JointFit`` ties named parameters (scalar
 or array-valued, one joint slot per entry) across several
 ``ModelFramework`` instances (the same or different models, each with its
 own data, observation model, censoring, doses and forcings) and samples
-the joint posterior
+the joint posterior where ``odelib_tpu`` on a TPU runs its fused kernel
 with every experiment scored in one kernel per iteration
 (:mod:`odelib_tpu_torch.ops.cuda_joint`; its torch twin on a CPU
-framework). The joint layout, LHS survey, seeding, posterior frame and
-report are the JAX package's, and so are chunked checkpointing with a
-bit-exact resume and ``until_rhat``/``until_min_ess`` run-length
-extension. Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP item: ``hierarchical=``, stochastic experiments (joint PMMH),
-``sampler='hmc'`` and ``backend='xla'`` (and what the reference runs
-there: priors without an in-kernel form, an RHS that does not trace).
+framework), and elsewhere (``backend='xla'``, priors without an in-kernel
+form, censored counts, an RHS that does not trace) on the reference's XLA
+joint sampler (:mod:`odelib_tpu_torch.samplers.joint`); a stochastic
+(``diffusion=``) experiment sends the fit to joint particle-marginal MH.
+The joint layout, LHS survey, seeding, posterior frame and report are the
+JAX package's, and so are chunked checkpointing with a bit-exact resume
+and ``until_rhat``/``until_min_ess`` run-length extension. Not ported
+yet, each raising ``NotImplementedError`` naming its ROADMAP item:
+``hierarchical=`` and ``sampler='hmc'``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ import pandas as pd
 import torch
 
 from . import stats as tstats
+from .dispatch import log as _log
+from .dispatch import require_batched, require_kernel_rhs
+from .model import traces
 from .samplers.joint import joint_survey
 from .samplers.lhs import sample_lhs
 
@@ -282,7 +287,8 @@ class JointFit:
              sde_method="euler", adapt_proposal=True, profile=False,
              **solver_kw) -> pd.DataFrame:
         """Joint MCMC posterior over all experiments: one launch of the
-        joint kernel (its twin on a CPU framework).
+        joint kernel (its twin on a CPU framework), or the XLA joint
+        sampler, routed as ``odelib_tpu`` routes on a TPU.
 
         Chains seed from the best ``chain_inits`` of ``fitsurvey_samples``
         LHS prior draws (sampled with replacement among the lowest chi).
@@ -307,7 +313,21 @@ class JointFit:
         target, every chain continues from its last state for another
         ``iterations_per_chain`` proposals (a fresh stream, no burn-in),
         at most ``max_extensions`` times (then a warning).
-        ``pallas_tile_chains``, ``pallas_interpret`` and the HMC and SDE
+        Routing: ``backend='auto'`` runs the kernel unless a prior (with
+        ``use_priors``) has no in-kernel form, an experiment holds
+        censored count data or an RHS does not trace; those runs and
+        ``backend='xla'`` take the XLA joint MH
+        (:func:`~odelib_tpu_torch.samplers.joint.joint_metropolis_hastings`,
+        ``..._checkpointed`` with ``checkpoint_every``; float64, chain i
+        keyed ``fold_in(PRNGKey(random_seed), i)``, any prior family). A
+        stochastic experiment sends every backend but 'pallas' to
+        :func:`~odelib_tpu_torch.samplers.joint.joint_pmmh`
+        (``n_particles``, ``sde_substeps``, ``sde_method``,
+        ``adapt_proposal`` during burn-in; extensions run unadapted);
+        'pallas', checkpointing and ``sampler='hmc'`` with one raise the
+        reference's ``ValueError``. The arm is logged and names the
+        ``chains[<arm>]`` stage of ``last_profile`` ('pallas', 'xla' or
+        'pmmh'). ``pallas_tile_chains``, ``pallas_interpret`` and the HMC
         knobs are accepted; the options that are not ported raise
         ``NotImplementedError`` naming their ROADMAP item.
         """
@@ -321,6 +341,36 @@ class JointFit:
             raise ValueError(
                 "until_rhat/until_min_ess cannot be combined with "
                 "checkpointing (the extension count is data-dependent)")
+        if backend not in ("auto", "pallas", "xla"):
+            raise ValueError(f"backend must be 'auto', 'pallas' or 'xla', "
+                             f"got {backend!r}")
+        if sampler not in ("mh", "hmc"):
+            raise ValueError(f"sampler must be 'mh' or 'hmc', got "
+                             f"{sampler!r}")
+        if self._stoch:
+            # a diffusion= experiment routes the fit through joint PMMH:
+            # exact chi for the deterministic experiments plus unbiased
+            # filter estimates for the stochastic ones
+            if sampler == "hmc":
+                raise ValueError(
+                    "sampler='hmc' needs differentiable likelihoods; "
+                    f"stochastic experiment(s) {sorted(self._stoch)} "
+                    "score through a (non-differentiable) particle "
+                    "filter — use sampler='mh'")
+            if backend == "pallas":
+                raise ValueError(
+                    "backend='pallas' does not support stochastic "
+                    "experiments; joint PMMH runs on the XLA backend "
+                    "(backend='xla' or 'auto')")
+            if checkpoint_every is not None or resume_from is not None:
+                raise ValueError(
+                    "checkpointing is not supported for joint PMMH; run "
+                    "uninterrupted or checkpoint the per-experiment "
+                    "fits individually (MCMC(sampler='pmmh', "
+                    "checkpoint_every=...))")
+        if sampler == "hmc":
+            raise NotImplementedError(
+                "sampler='hmc' is not ported yet (ROADMAP queue 1, item 16)")
         if checkpoint_every is not None and checkpoint_path is None:
             # resume_from alone is not enough: without a path the resumed
             # run would silently stop persisting
@@ -332,44 +382,37 @@ class JointFit:
                 "resume_from requires checkpoint_every (and "
                 "checkpoint_path) — restate the checkpointing "
                 "configuration the run was started with")
-        if backend not in ("auto", "pallas", "xla"):
-            raise ValueError(f"backend must be 'auto', 'pallas' or 'xla', "
-                             f"got {backend!r}")
-        if sampler not in ("mh", "hmc"):
-            raise ValueError(f"sampler must be 'mh' or 'hmc', got "
-                             f"{sampler!r}")
+        from .ops.priors import kernel_priors_supported
+        # odelib_tpu's decision on a TPU: the fused kernel when every
+        # prior (with use_priors) has an in-kernel form, every RHS traces
+        # and censored data are lognormal or Student-t; else the XLA joint
+        # sampler, which 'xla' forces
+        fused_ok = (
+            (not use_priors or kernel_priors_supported(self._dists()))
+            and all(traces(fw._spec) for fw in self.frameworks.values())
+            and all(fw._obsdata_fit_host.censor is None
+                    or fw._spec.obs_model in ("lognormal", "student_t")
+                    for fw in self.frameworks.values()))
         if self._stoch:
-            raise NotImplementedError(
-                f"stochastic experiment(s) {sorted(self._stoch)}: joint "
-                "PMMH runs on the XLA samplers/joint.py, not ported yet "
-                "(ROADMAP queue 1, item 15)")
-        from .dispatch import require_traced
-        for fw in self.frameworks.values():
-            require_traced(fw._spec, "mh", "the XLA samplers/joint.py is "
-                           "ROADMAP queue 1, item 15")
-        if sampler == "hmc":
-            raise NotImplementedError(
-                "sampler='hmc' is not ported yet (ROADMAP queue 1, item 16)")
-        if backend == "xla":
-            raise NotImplementedError(
-                "backend='xla': the XLA samplers/joint.py is not ported yet "
-                "(ROADMAP queue 1, item 15)")
-        counted = [nm for nm, fw in self.frameworks.items()
-                   if fw._obsdata_fit_host.censor is not None
-                   and fw._spec.obs_model not in ("lognormal", "student_t")]
-        if counted and backend == "auto":
-            # the joint kernel scores censored lognormal and Student-t
-            # data; the reference runs censored counts on its XLA sampler
-            raise NotImplementedError(
-                f"experiment(s) {counted} hold censored count data, which "
-                "runs on the XLA samplers/joint.py, not ported yet (ROADMAP "
-                "queue 1, item 15)")
+            arm = "pmmh"
+        elif backend == "pallas":
+            for fw in self.frameworks.values():
+                require_kernel_rhs(fw._spec)
+            arm = "pallas"
+        else:
+            arm = "pallas" if backend == "auto" and fused_ok else "xla"
         priors = None
-        if use_priors:
+        if use_priors and arm == "pallas":
             from .ops.priors import require_kernel_priors
-            priors = require_kernel_priors(
-                self._dists(), backend,
-                "the XLA samplers/joint.py is ROADMAP queue 1, item 15")
+            priors = require_kernel_priors(self._dists())
+        if arm != "pallas":
+            for fw in self.frameworks.values():
+                require_batched(fw._spec, fw._current_theta()[None],
+                                fw.get_inits(), fw._times_fit[0])
+            _log.info("JointFit.MCMC: the XLA joint sampler "
+                      "(samplers/joint.py, %s)", "joint PMMH, "
+                      f"{int(n_particles)} particles" if arm == "pmmh"
+                      else "joint MH")
         stages, clock = {}, [time.perf_counter()]
 
         def stage_done(name):
@@ -404,33 +447,52 @@ class JointFit:
             self._stable_config_token(method, subs,
                                       include_priors=use_priors)
 
-        from .ops.cuda_joint import joint_metropolis_hastings_fused
+        progress = (None if checkpoint_every is None
+                    else checkpoint_path + ".progress")
+        if arm == "pallas":
+            from .ops.cuda_joint import joint_metropolis_hastings_fused
 
-        def run(th0, seed, burnin, **ck):
-            return joint_metropolis_hastings_fused(
-                specs, idxs, obs, times, y0s,
-                torch.as_tensor(np.asarray(th0, np.float32),
-                                device=self.device),
-                seed=seed, nits=nits, burnin=int(burnin), walk_mask=mask,
-                rwalk_std=float(rwalk_std),
-                stepper="rk4" if method == "rk4" else "dopri5",
-                substeps_list=subs, priors=priors, **ck)
-        out = run(theta0, int(self.random_seed), burnin,
-                  checkpoint_every=checkpoint_every,
-                  checkpoint_path=(None if checkpoint_every is None
-                                   else checkpoint_path + ".progress"),
-                  resume_from=resume_from, config_token=config_token)
+            def run(th0, seed, burnin, **ck):
+                return joint_metropolis_hastings_fused(
+                    specs, idxs, obs, times, y0s,
+                    torch.as_tensor(np.asarray(th0, np.float32),
+                                    device=self.device),
+                    seed=seed, nits=nits, burnin=int(burnin),
+                    walk_mask=mask, rwalk_std=float(rwalk_std),
+                    stepper="rk4" if method == "rk4" else "dopri5",
+                    substeps_list=subs, priors=priors, **ck)
+            out = run(theta0, int(self.random_seed), burnin,
+                      checkpoint_every=checkpoint_every,
+                      checkpoint_path=progress, resume_from=resume_from,
+                      config_token=config_token)
+
+            def run_more(th_last, salt):
+                # a reseed with random_seed + 104729 * salt, no burn-in
+                # (odelib_tpu/joint.py:1076-1095)
+                return run(th_last, int(self.random_seed) + 104729 * salt, 0)
+        else:
+            run = self._xla_runner(
+                specs, idxs, obs, times, y0s, method, subs, mask,
+                nits=nits, rwalk_std=float(rwalk_std), use_priors=use_priors,
+                n_particles=int(n_particles), sde_substeps=int(sde_substeps),
+                sde_method=str(sde_method))
+            out = run(theta0, 0, burnin, adapt=bool(adapt_proposal),
+                      checkpoint_every=checkpoint_every,
+                      checkpoint_path=progress, resume_from=resume_from,
+                      config_token=config_token)
+
+            def run_more(th_last, salt):
+                # fresh keys fold_in(PRNGKey(seed), salt * 1_000_003 + i),
+                # no burn-in; joint PMMH extensions run unadapted
+                # (odelib_tpu/joint.py:1097-1135)
+                return run(th_last, salt, 0)
         if until:
-            # each extension reseeds with random_seed + 104729 * salt, no
-            # burn-in (odelib_tpu/joint.py:1076-1095)
             from .utils.diagnostics import extend_until
             out = extend_until(
-                out, lambda th_last, salt: run(
-                    th_last, int(self.random_seed) + 104729 * salt, 0),
-                nits=nits, mask=mask, until_rhat=until_rhat,
+                out, run_more, nits=nits, mask=mask, until_rhat=until_rhat,
                 until_min_ess=until_min_ess,
                 max_extensions=int(max_extensions), what="joint run")
-        stage_done("chains")
+        stage_done(f"chains[{arm}]")
         posterior = self._posterior_to_df(out, n_chains)
         stage_done("posterior")
         if print_report:
@@ -439,6 +501,64 @@ class JointFit:
         if profile:
             self.last_profile = stages
         return posterior
+
+    def _joint_prior_logpdf(self):
+        """``prior_logpdf(theta (N, D)) -> (N,)`` for the XLA joint
+        samplers: each joint slot's prior log density (a shared
+        parameter's from the first framework; an array parameter's on its
+        non-zero template entries), added in slot order (``odelib_tpu``'s
+        ``_joint_prior_logpdf``); any family."""
+        slots = [(j, self._slot_dist(j)) for j, d in enumerate(self._dists())
+                 if d is not None]
+
+        def prior_logpdf(theta):
+            tot = torch.zeros(theta.shape[:-1], dtype=theta.dtype,
+                              device=theta.device)
+            for j, d in slots:
+                tot = tot + d.logpdf(theta[..., j])
+            return tot
+        return prior_logpdf
+
+    def _xla_runner(self, specs, idxs, obs, times, y0s, method, subs, mask,
+                    *, nits, rwalk_std, use_priors, n_particles,
+                    sde_substeps, sde_method):
+        """``run(theta0, salt, burnin, adapt=False, **checkpointing)``: the
+        XLA joint sampler (``odelib_tpu/joint.py``'s xla branch) on the
+        frameworks' device in float64, chain i keyed
+        ``fold_in(PRNGKey(random_seed), salt * 1_000_003 + i)``: joint PMMH
+        with a stochastic experiment, else joint MH (checkpointed with
+        ``checkpoint_every``)."""
+        from . import random as jr
+        from .samplers import joint as sj
+        from .samplers.pf import obs_blocks
+        common = dict(walk_mask=mask, rwalk_std=rwalk_std, method=method,
+                      substeps_list=subs, use_priors=bool(use_priors),
+                      prior_logpdf=(self._joint_prior_logpdf() if use_priors
+                                    else None))
+        base = jr.PRNGKey(int(self.random_seed), device=self.device)
+
+        def run(theta0, salt, burnin, adapt=False, checkpoint_every=None,
+                **ck):
+            th0 = torch.as_tensor(np.asarray(theta0, np.float64),
+                                  device=self.device)
+            keys = jr.fold_in(base, salt * 1_000_003 + torch.arange(
+                len(th0), device=self.device))
+            args = (specs, idxs, obs, times, y0s, th0, keys)
+            if self._stoch:
+                blocks = tuple(obs_blocks(fw._obsdata_fit_host)
+                               if nm in self._stoch else None
+                               for nm, fw in self.frameworks.items())
+                return sj.joint_pmmh(
+                    *args, stoch_blocks=blocks, nits=nits, burnin=burnin,
+                    n_particles=n_particles, sde_substeps=sde_substeps,
+                    sde_method=sde_method, adapt_proposal=adapt, **common)
+            if checkpoint_every is not None:
+                return sj.joint_metropolis_hastings_checkpointed(
+                    *args, nits=nits, burnin=burnin,
+                    checkpoint_every=int(checkpoint_every), **ck, **common)
+            return sj.joint_metropolis_hastings(*args, nits=nits,
+                                                burnin=burnin, **common)
+        return run
 
     def _stable_config_token(self, method, subs, include_priors=False):
         """A process-stable sha1 of what the joint target bakes in: the

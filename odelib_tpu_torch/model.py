@@ -503,10 +503,61 @@ def state_func(spec: ModelSpec):
     refuses it on the first call (Python control flow on a value,
     :func:`~odelib_tpu_torch.rhs.vmap_refused`), eagerly on the whole
     batch from then on. Any other error propagates."""
+    return _batched(spec, spec.rhs, rhs_program(spec) if traces(spec)
+                    else None)
+
+
+def diffusion_func(spec: ModelSpec):
+    """:func:`state_func` of an SDE model's diffusion, the diagonal noise
+    ``g(t, y (S, N), ps) -> (S, N)``: the traced program where the drift
+    and the diffusion both trace (the forcing columns are the drift's and
+    the diffusion's), else the diffusion called per lane."""
+    from .rhs import RhsTraceError
+    prog = None
+    if traces(spec):
+        try:
+            prog = diffusion_program(spec)
+        except RhsTraceError:
+            prog = None
+    return _batched(spec, spec.diffusion, prog)
+
+
+def diffusion_diagonal(spec: ModelSpec):
+    """``dg(t, y (S, N), ps) -> (S, N)``, d g_s / d y_s of the diffusion
+    (the Milstein correction's derivative, ``jax.jacfwd``'s diagonal in
+    the JAX package): the traced diffusion's
+    :meth:`~odelib_tpu_torch.rhs.RhsProgram.diagonal`
+    (:func:`~odelib_tpu_torch.rhs.diagonal_evaluator`), or for a diffusion
+    that does not trace (or has an operation without a derivative rule)
+    the diagonal of :func:`~odelib_tpu_torch.rhs.lane_jacobian`."""
+    from .rhs import RhsTraceError, diagonal_evaluator, lane_jacobian
+    d = None
+    if traces(spec):
+        try:
+            diffusion_program(spec).diagonal()
+            d = diagonal_evaluator(spec.diffusion, len(spec.snames),
+                                   spec.pshapes, spec.forcings)
+        except RhsTraceError:
+            d = None
+    if d is None:
+        jac = lane_jacobian(spec.diffusion, spec.pshapes, spec.forcings)
+        return lambda t, y, ps: torch.diagonal(jac(t, y, ps), dim1=0,
+                                               dim2=1).t()
+    if not spec_columns(spec):
+        return lambda t, y, ps: torch.stack(d(t, list(y), ps))
+    return lambda t, y, ps: torch.stack(
+        d(t, list(y), ps, column_values(spec, t, y)))
+
+
+def _batched(spec: ModelSpec, fn, program):
+    """``f(t, y (S, N), ps) -> (S, N)`` of ``fn`` (the RHS or the
+    diffusion): its traced ``program``'s evaluator, or with ``program``
+    None the function per lane, then eagerly where ``vmap`` refuses it
+    (:func:`state_func`)."""
     from .rhs import eager_function, lane_function, vmap_refused
-    if not traces(spec):
-        lanes = lane_function(spec.rhs, spec.pshapes, spec.forcings)
-        eager = eager_function(spec.rhs, spec.pshapes, spec.forcings)
+    if program is None:
+        lanes = lane_function(fn, spec.pshapes, spec.forcings)
+        eager = eager_function(fn, spec.pshapes, spec.forcings)
         mode = []
 
         def f(t, y, ps):
@@ -522,7 +573,7 @@ def state_func(spec: ModelSpec):
                         eager(t_, list(y_), p_)))
             return mode[0](t, y, ps)
         return f
-    f = rhs_program(spec).evaluate
+    f = program.evaluate
     if not spec_columns(spec):
         return lambda t, y, ps: torch.stack(f(t, list(y), ps))
     return lambda t, y, ps: torch.stack(
@@ -586,6 +637,36 @@ def integrate_theta(spec: ModelSpec, thetas, y0, times, *, method="dopri5",
     return odeint_grid(f, y0, times, ps, rtol=rtol, atol=atol,
                        max_steps=max_steps, method=method, dose=dose,
                        jac=state_jac(spec)).ys
+
+
+def sdeint_theta(spec: ModelSpec, theta, y0, times, key, *, substeps=4,
+                 method="euler", device="cuda"):
+    """Stochastic paths of the spec's SDE (it needs ``diffusion=``):
+    ``theta`` (P,) or (N, P) flat parameters (a tensor keeps its device,
+    an array goes to ``device``), ``y0`` (S,) with the '<s>0' overrides,
+    ``key`` (2,) or (N, 2), in float64 unless ``theta`` is a float32
+    tensor. Euler-Maruyama or Milstein (``method``) with ``substeps`` per
+    interval of ``times`` (:func:`~odelib_tpu_torch.ops.sde.sde_paths`);
+    the doses apply at their nearest grid points as in
+    :func:`integrate_theta`. Returns raw-state ys (T, S) for one theta and
+    key, (N, T, S) for a batch, NaN-tailed after a failure."""
+    if spec.diffusion is None:
+        raise ValueError("spec has no diffusion function — pass "
+                         "diffusion= to make_spec for SDE simulation")
+    from .ops.sde import sde_paths
+    dtype = theta.dtype if isinstance(theta, torch.Tensor) \
+        and theta.dtype == torch.float32 else torch.float64
+    theta = device_tensor(theta, dtype, device)
+    one = theta.ndim == 1 and torch.as_tensor(key).ndim == 1
+    theta = torch.atleast_2d(theta)
+    keys = torch.as_tensor(key, dtype=torch.int64).to(theta.device)
+    keys = keys.expand(theta.shape[0], 2) if keys.ndim == 1 else keys
+    theta = theta.expand(keys.shape[0], -1)
+    y0 = torch.as_tensor(np.asarray(y0, np.float64) if not isinstance(
+        y0, torch.Tensor) else y0, dtype=dtype, device=theta.device)
+    ys = sde_paths(spec, theta, spec.override_inits(y0, theta), times, keys,
+                   substeps=substeps, method=method)
+    return ys[0] if one else ys
 
 
 def _col(a, dtype, device):

@@ -28,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -470,26 +471,47 @@ def build(program, diffusion, extra, scoring, stiff: bool = False,
         h.update(part.encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib = out_dir / "libodelib_kernels.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "odelib_gen.cuh").write_text(header)
-    tmp = out_dir / f"{lib.name}.{os.getpid()}"
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-shared",
-           *(str(CSRC / s) for s in SOURCES), "-o", str(tmp)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    text = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
-    secs = time.perf_counter() - t0
-    (out_dir / "nvcc.log").write_text(f"seconds: {secs:.3f}\n{text}")
-    os.replace(tmp, lib)
+    # one build of a library at a time: a thread that asks for a library
+    # another thread is building waits for it (and builds it itself if
+    # that build failed)
+    while True:
+        with _BUILD_LOCK:
+            if lib.exists():
+                return lib
+            busy = _BUILDING.get(lib)
+            if busy is None:
+                busy = _BUILDING[lib] = threading.Event()
+                break
+        busy.wait()
+    try:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "odelib_gen.cuh").write_text(header)
+        tmp = out_dir / f"{lib.name}.{os.getpid()}"
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-shared",
+               *(str(CSRC / s) for s in SOURCES), "-o", str(tmp)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        text = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+        secs = time.perf_counter() - t0
+        (out_dir / "nvcc.log").write_text(f"seconds: {secs:.3f}\n{text}")
+        os.replace(tmp, lib)
+    finally:
+        with _BUILD_LOCK:
+            del _BUILDING[lib]
+        busy.set()
     return lib
 
 
 _LIBS = {}          # by library path
 _BY_PROGRAM = {}    # by traced programs (skips regenerating the header)
+_BUILD_LOCK = threading.Lock()
+_BUILDING = {}      # library path -> Event set when its build ends
+# the device probe's launches (odelib_probe, one as each library loads);
+# cuda_mh.reset_launch_counts() zeroes it with the samplers' counts
+PROBE_LAUNCHES = {"device_probe": 0}
+PROBE_TILE = (8, 128)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
@@ -519,6 +541,67 @@ def distinct_programs(specs, scoring, with_columns=False):
     return programs, model_of
 
 
+def _library(spec, others, diffusion, scoring, stiff, milstein, wide):
+    """The cache key of a library and the arguments of its :func:`build`
+    (:func:`load_kernels`' inputs)."""
+    from ..model import diffusion_program
+    specs = (spec, *others)
+    scoring = tuple(tuple(k) for k in scoring)
+    programs, model_of, columns = distinct_programs(specs, scoring, True)
+    keys = tuple(scoring[model_of.index(i)] for i in range(len(programs)))
+    diffusion = None if not diffusion or spec.diffusion is None else \
+        diffusion_program(spec)
+    milstein = bool(milstein) and diffusion is not None
+    key = (tuple(programs), keys, diffusion, bool(stiff), milstein, columns,
+           bool(wide))
+    return key, (programs[0], diffusion, tuple(programs[1:]), keys,
+                 bool(stiff), milstein, columns, bool(wide))
+
+
+def library_path(spec, others=(), diffusion=False, *, scoring,
+                 stiff: bool = False, milstein: bool = False,
+                 wide: bool = False) -> Path:
+    """Build (or find) :func:`load_kernels`' library without loading it;
+    thread-safe, so a script can compile libraries in the background
+    while it runs, and a load waits for a build under way."""
+    return build(*_library(spec, others, diffusion, scoring, stiff,
+                           milstein, wide)[1])
+
+
+def forget_libraries():
+    """Drop the loaded libraries from this process's caches: the next
+    :func:`load_kernels` of each loads it again (ctypes maps the same
+    file) and runs the device probe, as a process's first call does."""
+    _BY_PROGRAM.clear()
+    _LIBS.clear()
+
+
+def device_probe(x, lib=None):
+    """``x + 1`` of a float32 tensor: on a CUDA tensor the library's
+    ``probe_kernel`` (counted in ``PROBE_LAUNCHES``), on a CPU tensor its
+    plain version."""
+    if x.device.type != "cuda":
+        return x + 1.0
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    check(lib, lib.odelib_probe(x.data_ptr(), x.numel(), y.data_ptr(),
+                                stream(x.device)), "probe")
+    PROBE_LAUNCHES["device_probe"] += 1
+    return y
+
+
+def _probe(lib):
+    """The check a library passes as it loads: the probe on an 8 x 128
+    float32 tile must return the tile plus one, bit for bit (``odelib_tpu``
+    asks ``mosaic_supported``, a trivial ``pallas_call``, the same)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.arange(PROBE_TILE[0] * PROBE_TILE[1], dtype=torch.float32,
+                     device=dev).reshape(PROBE_TILE) * 0.5 - 100.0
+    if not torch.equal(device_probe(x, lib), x + 1.0):
+        raise RuntimeError("the CUDA device probe (probe_kernel, x + 1 on an "
+                           "8 x 128 tile) returned a wrong result")
+
+
 def load_kernels(spec, others=(), diffusion=False, *, scoring,
                  stiff: bool = False, milstein: bool = False,
                  wide: bool = False):
@@ -537,22 +620,14 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
     the PT kernel also holds ladders of more than ``PT_KMAX`` rungs and
     the joint kernel fits of more than ``JOINT_KMAX`` experiments or
     ``JOINT_DMAX`` slots (a library of its own: the others keep their code
-    and build time, and refuse such a launch)."""
-    from ..model import diffusion_program
-    specs = (spec, *others)
-    scoring = tuple(tuple(k) for k in scoring)
-    programs, model_of, columns = distinct_programs(specs, scoring, True)
-    keys = tuple(scoring[model_of.index(i)] for i in range(len(programs)))
-    diffusion = None if not diffusion or spec.diffusion is None else \
-        diffusion_program(spec)
-    milstein = bool(milstein) and diffusion is not None
-    key = (tuple(programs), keys, diffusion, bool(stiff), milstein, columns,
-           bool(wide))
+    and build time, and refuse such a launch). A library that loads runs
+    the device probe once (:func:`device_probe`) and raises if it fails."""
+    key, args = _library(spec, others, diffusion, scoring, stiff, milstein,
+                         wide)
     lib = _BY_PROGRAM.get(key)
     if lib is not None:
         return lib
-    path = str(build(programs[0], diffusion, tuple(programs[1:]), keys,
-                     bool(stiff), milstein, columns, bool(wide)))
+    path = str(build(*args))
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)
@@ -582,8 +657,11 @@ def load_kernels(spec, others=(), diffusion=False, *, scoring,
         if stiff:
             lib.odelib_kv3_quotient.argtypes = [_P] * 5 + [_I, _P]
             lib.odelib_kv3_quotient.restype = _I
+        lib.odelib_probe.argtypes = [_P, _I, _P, _P]
+        lib.odelib_probe.restype = _I
         lib.odelib_error_string.argtypes = [_I]
         lib.odelib_error_string.restype = ctypes.c_char_p
+        _probe(lib)
         _LIBS[path] = lib
     _BY_PROGRAM[key] = lib
     return lib

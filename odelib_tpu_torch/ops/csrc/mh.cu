@@ -338,6 +338,16 @@ __global__ void __launch_bounds__(MH_BLOCK, 1) mh_kernel(const MhArgs a) {
 
 namespace {
 
+// The device probe: y = x + 1 over a float32 tile, one thread an element.
+// ops/build.py launches it once as it loads each library and raises if
+// the result is wrong (the JAX package's mosaic_supported compiles and
+// runs a trivial pallas_call once for the same purpose).
+__global__ void probe_kernel(const float* __restrict__ x, int n,
+                             float* __restrict__ y) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] + 1.0f;
+}
+
 __global__ void tobit_kernel(const float* __restrict__ z, int n, int which,
                              odelib::TCdf c, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -428,6 +438,13 @@ int odelib_mh(const int* pi, int n_i, const float* pf, int n_f,
              [state_in != nullptr || state_out != nullptr];
   if (!kernel) return (int)cudaErrorInvalidValue;
   kernel<<<grid, MH_BLOCK, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int odelib_probe(const float* x, int n, float* y, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probe_kernel<<<(n + 127) / 128, 128, 0, s>>>(x, n, y);
   return (int)cudaGetLastError();
 }
 

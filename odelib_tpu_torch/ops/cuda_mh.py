@@ -46,8 +46,11 @@ LAUNCHES = {"survey_fused": 0, "metropolis_hastings_fused": 0,
 
 
 def reset_launch_counts():
+    """Zero every wrapper's launch count, the device probe's too."""
+    from . import build
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    build.PROBE_LAUNCHES["device_probe"] = 0
 
 
 # --------------------------------------------------------------------------

@@ -97,20 +97,13 @@ def prior_table(priors) -> np.ndarray:
     return np.asarray(rows, np.float64).astype(np.float32).reshape(-1, WIDTH)
 
 
-def require_kernel_priors(priors, backend: str, item: str):
-    """The MCMC entry points' check of ``use_priors=True``: ``priors`` as
-    given when every family has an in-kernel form. Otherwise
-    ``backend='pallas'`` raises the reference's ``ValueError``, and
-    ``'auto'``, where the reference takes its XLA sampler,
-    ``NotImplementedError`` naming ``item``, the ROADMAP item that ports
-    that sampler."""
+def require_kernel_priors(priors):
+    """``backend='pallas'``'s check of ``use_priors=True``: ``priors`` as
+    a tuple when every family has an in-kernel form, else the reference's
+    ``ValueError`` (:func:`prior_table`'s)."""
     priors = tuple(priors)
     if not kernel_priors_supported(priors):
-        if backend == "pallas":
-            prior_table(priors)
-        raise NotImplementedError("a prior without an in-kernel form runs "
-                                  f"on the XLA sampler, not ported yet "
-                                  f"({item})")
+        prior_table(priors)
     return priors
 
 

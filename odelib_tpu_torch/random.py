@@ -146,12 +146,13 @@ def fma(a, b, c):
 
 def _horner(coefs, x):
     """Fused Horner steps of the polynomial ``coefs`` (highest power
-    first: Python floats, or tensors broadcast against x) at x, whose
-    split is taken once."""
+    first, any iterable: Python floats, or tensors broadcast against x) at
+    x, whose split is taken once."""
     xh, xl = _split(x)
-    p = torch.as_tensor(coefs[0], dtype=x.dtype, device=x.device) \
+    coefs = iter(coefs)
+    p = torch.as_tensor(next(coefs), dtype=x.dtype, device=x.device) \
         .expand_as(x)
-    for c in coefs[1:]:
+    for c in coefs:
         p = _fma(p, x, xh, xl, c)
     return p
 
@@ -269,7 +270,9 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     v = torch.empty_like(x)
     for k, (_, shift, root, _) in enumerate(table):
         v = torch.where(region == k, (sw if root else w) - shift, v)
-    p = _horner(coefs.t().contiguous()[:, region], v)   # (n, ...) rows
+    # each step's coefficients gathered as the step needs them: one
+    # tensor of x's size at a time, not the (n, ...) table of every step
+    p = _horner((row[region] for row in coefs.t()), v)
     return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
 
 

@@ -1,18 +1,28 @@
 """Samplers: Latin-hypercube draws, the batched and joint surveys, and the
-reference's XLA scan samplers in torch (MH, its checkpointed run, the
+reference's XLA samplers in torch (MH and its checkpointed run, the
 Goodman-Weare ensemble, parallel tempering with its checkpointed run and
-``tune_ladder``), with the record structure and the tempering
-bookkeeping."""
+``tune_ladder``, the particle filter's PMMH with its checkpointed run and
+``tune_particles``, the joint MH and joint PMMH), with the record
+structures and the tempering bookkeeping."""
 from .ensemble import ensemble_mh
-from .joint import joint_survey
+from .joint import (JointOutput, joint_metropolis_hastings,
+                    joint_metropolis_hastings_checkpointed, joint_pmmh,
+                    joint_survey)
 from .lhs import lhs_unit, sample_lhs
 from .mh import (MHOutput, metropolis_hastings,
                  metropolis_hastings_checkpointed, survey)
+from .pf import (PMMHOutput, obs_blocks, particle_filter_chi, pmmh,
+                 pmmh_checkpointed, tune_particles)
 from .pt import (parallel_tempering, parallel_tempering_checkpointed,
                  swap_attempts, tune_ladder)
 
-__all__ = ["lhs_unit", "sample_lhs", "MHOutput", "survey", "joint_survey",
-           "metropolis_hastings", "metropolis_hastings_checkpointed",
-           "ensemble_mh", "parallel_tempering",
+__all__ = ["lhs_unit", "sample_lhs", "MHOutput", "metropolis_hastings",
+           "metropolis_hastings_checkpointed", "survey",
+           "parallel_tempering", "ensemble_mh",
+           "joint_metropolis_hastings",
+           "joint_metropolis_hastings_checkpointed", "joint_pmmh",
+           "joint_survey", "JointOutput",
+           "pmmh", "PMMHOutput", "particle_filter_chi", "obs_blocks",
+           "pmmh_checkpointed", "tune_particles",
            "parallel_tempering_checkpointed", "tune_ladder",
            "swap_attempts"]

@@ -219,8 +219,9 @@ def test_fit_survey_matches_odelib_tpu(solver):
 def test_priors_and_diffusion_options():
     """use_priors=True with a prior that has no in-kernel form under
     backend='pallas' raises the reference's ValueError; a model without
-    diffusion= cannot run sampler='pmmh', nor can a JointFit with such a
-    member."""
+    diffusion= cannot run sampler='pmmh'; a JointFit with a diffusion=
+    member runs joint PMMH, and raises the reference's ValueError under
+    backend='pallas'."""
     fw = _framework(odelib_tpu_torch, device="cpu")
     with pytest.raises(ValueError, match="diffusion"):
         fw.MCMC(chain_inits=_INITS, iterations_per_chain=6, sampler="pmmh",
@@ -236,8 +237,13 @@ def test_priors_and_diffusion_options():
     sde = _framework(odelib_tpu_torch, device="cpu",
                      diffusion=lambda t, y, ps: [0.1 * y[0], 0.1 * y[1]])
     jf = odelib_tpu_torch.JointFit([sde, fw], shared=["phi"])
-    with pytest.raises(NotImplementedError, match="joint PMMH"):
-        jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=8)
+    post = jf.MCMC(chain_inits=4, iterations_per_chain=6,
+                   fitsurvey_samples=8, n_particles=8, print_report=False,
+                   profile=True)
+    assert "chains[pmmh]" in jf.last_profile and len(post) == 4 * 2
+    with pytest.raises(ValueError, match="joint PMMH runs on the XLA"):
+        jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=8,
+                backend="pallas")
 
 
 def _prior_framework(pkg, **kw):

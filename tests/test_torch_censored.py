@@ -184,8 +184,8 @@ def test_censored_counts_raise():
     """Censored counts: the kernels raise the JAX kernel's ValueError
     (matching 'lognormal'); MCMC under backend='auto' runs them on the scan
     samplers, as the reference runs them on its XLA samplers; 'pallas'
-    gives the kernel's ValueError; JointFit.MCMC raises naming the XLA
-    joint sampler's item."""
+    gives the kernel's ValueError; JointFit.MCMC runs them on the XLA
+    joint sampler, as the reference does."""
     jspec, tspec, obs, tf, y0, centre = fam_case("lognormal", ("left",))
     pspec = dataclasses.replace(tspec, obs_model="poisson")
     with pytest.raises(ValueError, match="lognormal"):
@@ -213,5 +213,11 @@ def test_censored_counts_raise():
                    backend="pallas", fitsurvey_samples=8,
                    sd_fitdistance=1e3, print_report=False)
     jf = JointFit({"a": model, "b": fw("lognormal")})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        jf.MCMC(chain_inits=4, iterations_per_chain=4, print_report=False)
+    # these values leave every LHS draw's chi NaN: seed from the current
+    # values (the chains stay there, all rejected)
+    jf.fit_survey = lambda samples, **kw: jf._df_from_thetas(
+        np.tile(jf._current_joint_theta(), (8, 1)), {"chi": np.arange(8.0)})
+    with pytest.warns(UserWarning, match="never accepted"):
+        post = jf.MCMC(chain_inits=4, iterations_per_chain=4,
+                       print_report=False, profile=True)
+    assert "chains[xla]" in jf.last_profile and len(post) == 4

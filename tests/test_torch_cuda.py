@@ -868,6 +868,23 @@ def test_pf_kernel_scoring_branches_match_twin(case):
     assert np.isfinite(k.chi.cpu().numpy()).all()
 
 
+def test_device_probe_runs_as_a_library_loads(card):
+    """Each library runs probe_kernel (x + 1 on an 8 x 128 tile) once as
+    it loads; the wrapper on a CUDA tensor launches it (counted), bitwise
+    its plain version x + 1."""
+    from odelib_tpu_torch.ops import build
+    sc = [T.scoring(T._build_plan(*card[:3], 4))]
+    build.load_kernels(card[0], scoring=sc)
+    build.forget_libraries()
+    T.reset_launch_counts()
+    lib = build.load_kernels(card[0], scoring=sc)
+    assert build.PROBE_LAUNCHES["device_probe"] == 1
+    x = torch.randn(build.PROBE_TILE, device="cuda")
+    y = build.device_probe(x, lib)
+    assert build.PROBE_LAUNCHES["device_probe"] == 2
+    assert torch.equal(y, x + 1.0)
+
+
 def test_tobit_device_functions_against_float64(card):
     """log Phi within 2e-6 relative of float64 over z in [-37, 8]; the
     t log-CDF within 1e-5 for nu in {1, 2, 4, 10, 30, 100}, z in

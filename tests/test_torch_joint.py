@@ -514,11 +514,16 @@ def test_joint_unported_options_raise():
     """The options not ported raise naming their ROADMAP item; the
     checkpoint and run-length options, ported, raise the reference's
     ValueErrors where misused (tests/test_torch_joint_checkpoint.py runs
-    them)."""
+    them); backend='xla', and a prior without an in-kernel form under
+    'auto', run the XLA joint sampler (tests/test_torch_scan_joint.py
+    holds it to the reference)."""
     _, jf = _fits("zero_i-pair")
+    run = dict(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=16,
+               print_report=False, profile=True)
+    post = jf.MCMC(backend="xla", **run)
+    assert "chains[xla]" in jf.last_profile and len(post) == 4 * 2
     for kw, exc, match in (
             (dict(sampler="hmc"), NotImplementedError, "item 16"),
-            (dict(backend="xla"), NotImplementedError, "item 15"),
             (dict(checkpoint_every=5), ValueError,
              "requires checkpoint_path"),
             (dict(until_rhat=1.1, checkpoint_every=5,
@@ -531,9 +536,8 @@ def test_joint_unported_options_raise():
     # under backend='auto', its ValueError under 'pallas'
     jf.frameworks["b"].set_parameters(mu=odelib_tpu_torch.parameter(
         D.DiscreteNormal(mu=1.0, sigma=0.2)))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=16,
-                print_report=False, use_priors=True)
+    post = jf.MCMC(use_priors=True, **run)
+    assert "chains[xla]" in jf.last_profile and len(post) == 4 * 2
     with pytest.raises(ValueError, match="unsupported prior family"):
         jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=16,
                 print_report=False, use_priors=True, backend="pallas")

@@ -396,10 +396,26 @@ def test_fit_survey_scores_the_drift():
     np.testing.assert_allclose(got["chi"], ref["chi"], rtol=1e-9)
 
 
-def test_pmmh_options_raise():
+def test_pmmh_options_raise(caplog):
+    """The options PMMH refuses raise; backend='xla' and the particle
+    counts the kernel does not take (100, 1,024) run the XLA particle
+    filter, as the reference routes them (the logged arm), and 'pallas'
+    at 100 particles raises the reference's ValueError."""
+    import logging
     fw = _gbm_framework(odelib_tpu_torch, device="cpu")
     kw = dict(chain_inits=[{"mu": 0.4}], iterations_per_chain=6,
               print_report=False)
+    for extra in (dict(backend="xla"), dict(n_particles=100),
+                  dict(n_particles=1024)):
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger="odelib_tpu_torch"):
+            post = fw.MCMC(sampler="pmmh", **kw, **extra)
+        assert "the XLA particle filter" in caplog.text, extra
+        assert "pf_kernel" not in caplog.text
+        assert len(post) == 2 and np.isfinite(post["chi"]).all()
+    with pytest.raises(ValueError, match="not available here: fused PMMH "
+                       "needs euler or milstein, n_particles a multiple"):
+        fw.MCMC(sampler="pmmh", n_particles=100, backend="pallas", **kw)
     # Milstein runs (tests/test_torch_milstein.py holds it to the JAX
     # kernel): the reference's columns, finite chi
     post = fw.MCMC(sampler="pmmh", sde_method="milstein", n_particles=8,
@@ -409,16 +425,10 @@ def test_pmmh_options_raise():
                                   "all_rejected"]
     assert np.isfinite(post["chi"]).all()
     for extra, exc, match in (
-            (dict(sampler="pmmh", backend="xla"), NotImplementedError,
-             "item 15"),
             (dict(sampler="pmmh", checkpoint_every=3), ValueError,
              "requires checkpoint_path"),
             (dict(sampler="pmmh", sde_method="srk"), ValueError,
-             "Euler-Maruyama"),
-            (dict(sampler="pmmh", n_particles=100), ValueError,
-             "multiple of 8"),
-            (dict(sampler="pmmh", n_particles=1024), ValueError,
-             "multiple of 8")):
+             "Euler-Maruyama")):
         with pytest.raises(exc, match=match):
             fw.MCMC(**kw, **extra)
     ode = _gbm_framework(odelib_tpu_torch, device="cpu")

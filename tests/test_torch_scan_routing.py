@@ -98,6 +98,118 @@ CASES = {
 }
 
 
+def _sde(pkg, **kw):
+    return _framework(pkg, diffusion=lambda t, y, ps: [0.1 * y[0],
+                                                       0.1 * y[1]], **kw)
+
+
+def _sde_discrete(pkg, **kw):
+    fw = _sde(pkg, **kw)
+    dn = DiscreteNormal if pkg is odelib_tpu_torch \
+        else odelib_tpu.distributions.DiscreteNormal
+    fw.set_parameters(mu=pkg.parameter(dn(mu=1.0, sigma=0.2)))
+    return fw
+
+
+def _joint(make_a, make_b=_framework):
+    """A JointFit of two frameworks sharing phi, its survey one row of
+    the current values repeated (so that neither package compiles it)."""
+    def make(pkg, **kw):
+        jf = pkg.JointFit({"a": make_a(pkg, **kw), "b": make_b(pkg, **kw)},
+                          shared=["phi"])
+        jf.fit_survey = lambda samples, **skw: jf._df_from_thetas(
+            np.tile(jf._current_joint_theta(), (8, 1)),
+            {"chi": np.arange(8.0)})
+        return jf
+    make.joint = True
+    return make
+
+
+# PMMH: the arm run_pmmh takes (the fused kernel, 'pallas', or the XLA
+# particle filter, 'xla'), or the ValueError both raise
+PMMH_CASES = {
+    "pmmh-128-particles": (_sde, dict(sampler="pmmh"), "pallas"),
+    "pmmh-100-particles": (_sde, dict(sampler="pmmh", n_particles=100),
+                           "xla"),
+    "pmmh-1024-particles": (_sde, dict(sampler="pmmh", n_particles=1024),
+                            "xla"),
+    "pmmh-float-sde-substeps": (_sde, dict(sampler="pmmh",
+                                           sde_substeps=4.0), "xla"),
+    "pmmh-non-kernel-prior": (_sde_discrete, dict(sampler="pmmh",
+                                                  use_priors=True), "xla"),
+    "pmmh-backend-xla": (_sde, dict(sampler="pmmh", backend="xla"), "xla"),
+    "pmmh-pallas-not-eligible": (_sde, dict(
+        sampler="pmmh", backend="pallas", n_particles=100), "ValueError"),
+}
+# JointFit: the fused joint kernel ('pallas'), the XLA joint MH ('xla'),
+# joint PMMH ('pmmh'), or the ValueError both raise
+JOINT_CASES = {
+    "joint-default": (_joint(_framework), {}, "pallas"),
+    "joint-stochastic-member": (_joint(_sde), {}, "pmmh"),
+    "joint-censored-counts": (_joint(_censored("poisson")), {}, "xla"),
+    "joint-non-kernel-priors": (_joint(_discrete), dict(use_priors=True),
+                                "xla"),
+    "joint-backend-xla": (_joint(_framework), dict(backend="xla"), "xla"),
+    "joint-pallas-stochastic": (_joint(_sde), dict(backend="pallas"),
+                                "ValueError"),
+    "joint-checkpoint-stochastic": (_joint(_sde), dict(
+        checkpoint_every=2, checkpoint_path="unused.npz"), "ValueError"),
+}
+CASES.update(PMMH_CASES)
+CASES.update(JOINT_CASES)
+
+
+def _deep_capture(m, pkg):
+    """Patch the samplers behind a PMMH or joint dispatch to raise
+    _Routed naming their arm."""
+    def arm(name):
+        def raise_(*a, **k):
+            raise _Routed(name)
+        return raise_
+    if pkg is odelib_tpu:
+        m.setattr("odelib_tpu.ops.pallas_pf.pmmh_fused", arm("pallas"))
+        m.setattr("odelib_tpu.ops.pallas_joint."
+                  "joint_metropolis_hastings_fused", arm("pallas"))
+        m.setattr("odelib_tpu.joint.joint_metropolis_hastings", arm("xla"))
+    else:
+        m.setattr("odelib_tpu_torch.ops.cuda_pf.pmmh_fused", arm("pallas"))
+        m.setattr("odelib_tpu_torch.ops.cuda_joint."
+                  "joint_metropolis_hastings_fused", arm("pallas"))
+        m.setattr("odelib_tpu_torch.samplers.joint."
+                  "joint_metropolis_hastings", arm("xla"))
+    pre = pkg.__name__
+    m.setattr(f"{pre}.samplers.pf.pmmh", arm("xla"))
+    m.setattr(f"{pre}.samplers.pf.pmmh_checkpointed", arm("xla"))
+    m.setattr(f"{pre}.samplers.joint.joint_metropolis_hastings_checkpointed",
+              arm("xla"))
+    m.setattr(f"{pre}.samplers.joint.joint_pmmh", arm("pmmh"))
+
+
+def deep_arm(pkg, make, kw):
+    """The arm of a PMMH or joint run, or the ValueError it raises."""
+    m = pytest.MonkeyPatch()
+    try:
+        if pkg is odelib_tpu:
+            m.setattr(jax, "default_backend", lambda: "tpu")
+            m.setattr(JPM, "mosaic_supported", lambda: True)
+        _deep_capture(m, pkg)
+        fw = make(pkg) if pkg is odelib_tpu else make(pkg, device="cpu")
+        run = dict(iterations_per_chain=6, print_report=False)
+        try:
+            if getattr(make, "joint", False):
+                fw.MCMC(chain_inits=4, **run, **kw)
+            else:
+                fw.MCMC(chain_inits=_starts(fw), route="device", **run,
+                        **kw)
+        except _Routed as e:
+            return {"arm": e.args[0]}
+        except ValueError as e:
+            return {"arm": "ValueError", "message": str(e)}
+        raise AssertionError("the run was not routed")
+    finally:
+        m.undo()
+
+
 def _starts(fw):
     if "A" in fw.get_pnames():
         return [dict(A=np.array([[0.6, 0.0], [0.0, 0.1]]) * f, phi=2.4e-8,
@@ -147,6 +259,12 @@ def port_arm(make, kw, monkeypatch):
 @pytest.mark.parametrize("case", list(CASES))
 def test_port_takes_the_reference_tpu_route(case, monkeypatch):
     make, kw, arm = CASES[case]
+    if case in PMMH_CASES or case in JOINT_CASES:
+        ref, got = deep_arm(odelib_tpu, make, kw), \
+            deep_arm(odelib_tpu_torch, make, kw)
+        assert ref["arm"] == arm, ref
+        assert got == ref
+        return
     ref = reference_arm(make, kw, monkeypatch)
     got = port_arm(make, kw, monkeypatch)
     assert ref["arm"] == arm
@@ -155,22 +273,32 @@ def test_port_takes_the_reference_tpu_route(case, monkeypatch):
         assert got["temperatures"] == LADDER[0]
 
 
-def test_pmmh_and_joint_xla_still_raise():
-    """The XLA particle filter and joint sampler are the next slice."""
+def test_pmmh_and_joint_xla_still_raise(caplog):
+    """backend='xla' runs the XLA particle filter for PMMH and the XLA
+    joint sampler for JointFit (the arms they log; the name is the one
+    this test had when both raised, before they were ported)."""
+    import logging
     fw = _framework(odelib_tpu_torch, device="cpu",
                     diffusion=lambda t, y, ps: [0.1 * y[0], 0.1 * y[1]])
-    with pytest.raises(NotImplementedError,
-                       match="item 15.*only PF and joint remain"):
-        fw.MCMC(chain_inits=INITS, iterations_per_chain=6, sampler="pmmh",
-                backend="xla", print_report=False)
+    with caplog.at_level(logging.INFO, logger="odelib_tpu_torch"):
+        post = fw.MCMC(chain_inits=INITS, iterations_per_chain=6,
+                       sampler="pmmh", backend="xla", n_particles=8,
+                       print_report=False)
+    assert "the XLA particle filter (samplers/pf.py), 8 particles " \
+        "(backend='xla')" in caplog.text
+    assert len(post) == len(INITS) * 2
     jf = odelib_tpu_torch.JointFit([_framework(odelib_tpu_torch,
                                                device="cpu"),
                                     _framework(odelib_tpu_torch,
                                                device="cpu")],
                                    shared=["phi"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        jf.MCMC(chain_inits=4, iterations_per_chain=6, backend="xla",
-                print_report=False)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="odelib_tpu_torch"):
+        post = jf.MCMC(chain_inits=4, iterations_per_chain=6, backend="xla",
+                       fitsurvey_samples=16, print_report=False)
+    assert "the XLA joint sampler (samplers/joint.py, joint MH)" \
+        in caplog.text
+    assert len(post) == 4 * 2
 
 
 def test_control_flow_rhs_raises_on_the_scan_route():
@@ -220,8 +348,31 @@ out = metropolis_hastings(*a, keys, nits=4, device="cpu")
 ens = ensemble_mh(*a, R.PRNGKey(1), nits=4, device="cpu")
 pt, rate = parallel_tempering(*a, keys, nits=4, device="cpu")
 lad = tune_ladder(*a, keys, pilot_iters=4, max_rounds=1, device="cpu")
+from odelib_tpu_torch.model import make_spec
+from odelib_tpu_torch.ops.sde import sdeint_fixed
+from odelib_tpu_torch.samplers.pf import obs_blocks, pmmh, tune_particles
+from odelib_tpu_torch.samplers.joint import (joint_metropolis_hastings,
+                                             joint_pmmh)
+sde = sdeint_fixed(lambda t, y, a: 0.4 * y, lambda t, y, a: 0.3 * y,
+                   np.ones(1), np.linspace(0, 1, 5), R.PRNGKey(2),
+                   method="milstein", device="cpu")
+gbm = make_spec(lambda t, y, ps: [ps[0] * y[0]], ("mu",), ("S",),
+                diffusion=lambda t, y, ps: [0.3 * y[0]])
+keep = np.asarray(obs.state_index) == 0
+obs1 = obs._replace(**{f: np.asarray(getattr(obs, f))[keep] for f in (
+    "log_abundance", "log_sigma", "abundance", "t_index", "state_index")})
+g = (gbm, obs1, tf, y0[:1])
+pf = pmmh(*g, th0[:, :1], keys, nits=4, n_particles=8, device="cpu")
+k, v = tune_particles(*g, th0[0, :1], R.PRNGKey(3), pilot_particles=8,
+                      n_reps=4, device="cpu")
+j = ((spec, spec), ((0, 1, 2), (0, 1, 2)), (obs, obs), (tf, tf), (y0, y0))
+jm = joint_metropolis_hastings(*j, th0, keys, nits=4, device="cpu")
+jp = joint_pmmh((spec, gbm), ((0, 1, 2), (0,)), (obs, obs1), (tf, tf),
+                (y0, y0[:1]), th0, keys, stoch_blocks=(None, obs_blocks(obs1)),
+                nits=4, n_particles=8, device="cpu")
 assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
-print("ok", out.chi.shape, ens.chi.shape, pt.chi.shape, len(lad[0]))
+print("ok", out.chi.shape, ens.chi.shape, pt.chi.shape, len(lad[0]),
+      sde.ys.shape, pf.chi.shape, k, jm.chi.shape, jp.chi.shape)
 """
 
 
