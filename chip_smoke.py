@@ -288,7 +288,19 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    twin and kernel make by a search, one add per particle and state,
    or by a masked sum where rounding made the prefix sum dip: averaged
    over PF_OPS_CHAINS chains) over the FP32 peak and its
-   bytes (inputs read once, outputs written once) over the memory rate.
+   bytes (inputs read once, outputs written once) over the memory rate;
+6. the gradient samplers (``grad_phases``: samplers/hmc.py and amh.py,
+   JointFit's hierarchical pooling; float64, autograd through the
+   fixed-step solve), with the xla phases' checks (iterations cut to
+   ``GRAD_NITS``), after the profiler passes: (a) MCMC(sampler='hmc') at
+   10,000 chains from scan (a)'s final draws, (b) the same with a dense
+   mass and ChEES (max_leapfrog ``GRAD_MAX_LEAPFROG``), (c)
+   MCMC(sampler='amh') with adapt_start inside burn-in, (d) JointFit of
+   config 9 with hierarchical=['mu'] under sampler='hmc' and under 'mh';
+   (e) the four samplers at 64 chains on the card and on the CPU from the
+   same keys (equal accept sequences, chi within 1e-8 relative); (f) HMC
+   in 4 chunks, killed after two and resumed, bitwise its whole run; (g)
+   one gradient of 10,000 lanes, its seconds and peak device memory.
 
 Each phase's header gives the seconds since the start; the twins on the
 card are launch-bound and take most of the run. Prints the device line
@@ -2704,7 +2716,8 @@ def scan_phases(framework, smi_line):
     pt.py; float64, every chain a lane of each iteration's batched solve),
     through the user API where ``backend='auto'`` or 'xla' routes to them,
     each with launch counts reset just before and read just after. Returns
-    the phases' seconds."""
+    the phases' seconds and (a)'s final draws (a DataFrame of mu, phi and
+    beta, one row a chain)."""
     import numpy as np
     import torch
     from odelib_tpu_torch import random as jr
@@ -2952,7 +2965,7 @@ def scan_phases(framework, smi_line):
     print("scan phases' seconds: " + ", ".join(
         f"({k}) {v:.1f}" for k, v in secs.items()) + f"; all {total:.1f} s",
         flush=True)
-    return secs
+    return secs, starts
 
 
 # the XLA particle filter's and joint samplers' phases: iterations of the
@@ -3269,6 +3282,288 @@ def xla_phases(pmmh_framework, joint_fit, smi_line):
         f"{k} {v:.4f} s an iteration" for k, v in per_it.items()),
         flush=True)
     return secs, per_it
+
+
+# the gradient samplers' phases: iterations of the full-width paths (a)-(d)
+# (every path at 10,000 chains), ChEES's cap on a trajectory's leapfrog
+# steps in (b), and the card-against-CPU width of (e)-(f), cut so that
+# the seven phases take at most 45 s together
+GRAD_NITS = {"hmc": 3, "dense": 4, "amh": 8, "joint": 3}
+GRAD_MAX_LEAPFROG = 8
+GRAD_PARITY = 64
+
+
+def grad_phases(framework, joint_pair, starts, smi_line):
+    """The phases (a)-(g) of HMC, adaptive Metropolis and the hierarchical
+    joint fit (odelib_tpu_torch/samplers/hmc.py and amh.py, JointFit's
+    pooling; float64, autograd through the fixed-step solve), through the
+    user API at full chain width, each with launch counts reset just
+    before and read just after (no fused kernel may launch): (a)
+    MCMC(sampler='hmc') on zero_i at 10,000 chains from ``starts`` (scan
+    (a)'s final draws), diagonal mass; (b) the same with
+    dense_mass=True, path_adapt=True and max_leapfrog
+    ``GRAD_MAX_LEAPFROG``; (c) MCMC(sampler='amh') with adapt_start inside
+    burn-in; (d) JointFit of config 9 with hierarchical=['mu'] under
+    sampler='hmc', then under 'mh' (the XLA joint sampler); (e) at 64
+    chains, card against CPU from the same keys (HMC diagonal, dense with
+    ChEES, AMH, the hierarchical joint HMC): equal accept sequences, chi
+    within 1e-8 relative; (f) HMC in 4 chunks, killed after two and
+    resumed, bitwise its whole run; (g) the seconds of one gradient (the
+    potential, its metrics and dU/dz of 10,000 lanes) and its peak device
+    memory, and each path's seconds an iteration. Returns the phases'
+    seconds."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from odelib_tpu_torch import JointFit
+    from odelib_tpu_torch import random as jr
+    from odelib_tpu_torch.ops import cuda_mh
+    from odelib_tpu_torch.samplers import amh as samh
+    from odelib_tpu_torch.samplers import hmc as shmc
+
+    t_all = time.perf_counter()
+    log_buf = io.StringIO()
+    handler = logging.StreamHandler(log_buf)
+    pkg_log = logging.getLogger("odelib_tpu_torch")
+    pkg_log.addHandler(handler)
+    pkg_log.setLevel(logging.INFO)
+    secs, per_it = {}, {}
+    tail = ["iteration", "acceptance_ratio", "chain#", "all_rejected"]
+    cols = ["mu", "phi", "beta", "chi", "rsquared", "aic"]
+
+    def run_path(label, model, chains, nits, cols, arm, grads, **kw):
+        """One MCMC call: the reference's columns, every chain, finite chi
+        1.0, mean final acceptance in (0, 1), the arm in last_profile, no
+        fused launch, the report printed. ``grads``: the solves of the
+        chains stage (gradients, or MH's solves), for its seconds each."""
+        log_buf.seek(0)
+        log_buf.truncate(0)
+        out = io.StringIO()
+        cuda_mh.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            post = model.MCMC(chain_inits=chains, iterations_per_chain=nits,
+                              fitsurvey_samples=1000, print_report=True,
+                              profile=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_mh.LAUNCHES)
+        stages = model.last_profile
+        n = chains if isinstance(chains, int) else len(chains)
+        last = post[post.iteration == post.iteration.max()]
+        finite = float(np.isfinite(post.chi.to_numpy()).mean())
+        acc = float(last.acceptance_ratio.mean())
+        chain_s = stages.get(f"chains[{arm}]", float("nan"))
+        per_it[label] = (chain_s / (nits - 1), chain_s / grads)
+        print(f"{label}: {n} chains x {nits} iterations, wall {wall:.3f} s; "
+              "stages " + ", ".join(f"{k} {v:.3f} s"
+                                    for k, v in stages.items())
+              + f"; finite chi {finite}, mean final acceptance {acc:.4f}; "
+              f"launches {launches}; {per_it[label][0]:.4f} s an iteration, "
+              f"{per_it[label][1]:.4f} s a solve (chains[{arm}] over "
+              f"{nits - 1} and over {grads})", flush=True)
+        if list(post.columns) != cols + tail:
+            fail(f"{label}: posterior columns {list(post.columns)}")
+        if post["chain#"].nunique() != n or len(post) != n * (
+                nits - 1 - int(nits / 2)):
+            fail(f"{label}: posterior has {len(post)} rows")
+        if f"chains[{arm}]" not in stages:
+            fail(f"{label}: not the {arm} arm: {stages}")
+        if any(launches.values()):
+            fail(f"{label}: a fused kernel was launched: {launches}")
+        if finite != 1.0 or not 0.0 < acc < 1.0:
+            fail(f"{label}: finite chi {finite}, acceptance {acc}")
+        if "Report" not in out.getvalue():
+            fail(f"{label}: the report did not print")
+        return post
+
+    t = time.perf_counter()
+    n = GRAD_NITS["hmc"]
+    phase(f"grad (a): MCMC(sampler='hmc') on zero_i at {len(starts)} chains "
+          f"x {n} (burn-in {int(n / 2)}) from scan (a)'s final draws, "
+          "diagonal mass, n_leapfrog 4")
+    run_path("grad (a)", framework(), starts, n, cols, "hmc", 1 + 4 * (n - 1),
+             sampler="hmc")
+    secs["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    n = GRAD_NITS["dense"]
+    phase(f"grad (b): the same with dense_mass=True, path_adapt=True (ChEES)"
+          f", max_leapfrog {GRAD_MAX_LEAPFROG}")
+    fw = framework()
+    calls = []
+    vag0 = shmc.potential
+
+    def counted(*a, **k):
+        vag = vag0(*a, **k)
+
+        def wrapped(z):
+            calls.append(1)
+            return vag(z)
+        return wrapped
+    shmc.potential = counted
+    try:
+        run_path("grad (b)", fw, starts, n, cols, "hmc", 1, sampler="hmc",
+                 dense_mass=True, path_adapt=True,
+                 max_leapfrog=GRAD_MAX_LEAPFROG)
+    finally:
+        shmc.potential = vag0
+    s_b = per_it["grad (b)"][0] * (n - 1)
+    per_it["grad (b)"] = (per_it["grad (b)"][0], s_b / len(calls))
+    print(f"grad (b): {len(calls)} gradients ({len(calls) - 1} leapfrog "
+          f"steps in {n - 1} iterations), {s_b / len(calls):.4f} s each",
+          flush=True)
+    secs["b"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    n = GRAD_NITS["amh"]
+    phase(f"grad (c): MCMC(sampler='amh', adapt_start=2) at {len(starts)} "
+          f"chains x {n} (burn-in {int(n / 2)}: the adapted covariance "
+          "proposes from iteration 4), adaptive dopri5")
+    run_path("grad (c)", framework(), starts, n, cols, "amh", n,
+             sampler="amh", adapt_start=2)
+    secs["c"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    n = GRAD_NITS["joint"]
+    phase(f"grad (d): JointFit(config 9, hierarchical=['mu']).MCMC("
+          f"sampler='hmc', n_leapfrog=1) at 10,000 chains x {n} (burn-in "
+          f"{int(n / 2)}), then sampler='mh' (the XLA joint sampler)")
+    jf = JointFit(joint_pair(), shared=["phi", "beta"],
+                  hierarchical=["mu"], random_seed=0)
+    jcols = list(jf.columns) + ["chi"]
+    if jcols[-3:-1] != ["mu:pop_median", "mu:pop_sigma"]:
+        fail(f"grad (d): joint columns {jf.columns}")
+    post_d = run_path("grad (d) HMC", jf, 10000, n, jcols, "xla", n,
+                      sampler="hmc", n_leapfrog=1)
+    if "joint HMC over the summed chi" not in log_buf.getvalue():
+        fail(f"grad (d): the log does not name joint HMC: "
+             f"{log_buf.getvalue()!r}")
+    run_path("grad (d) MH", jf, 10000, n,
+             jcols + [f"chi:{k}" for k in jf.frameworks], "xla", n)
+    if "the XLA joint sampler (samplers/joint.py, joint MH)" \
+            not in log_buf.getvalue():
+        fail(f"grad (d): the log does not name the XLA joint MH: "
+             f"{log_buf.getvalue()!r}")
+    secs["d"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    n = GRAD_PARITY
+    phase(f"grad (e): at {n} chains, card against CPU from the same keys "
+          "and starts: HMC (diagonal; dense with ChEES), AMH and the "
+          "hierarchical joint HMC")
+    fw = framework()
+    args = (fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits())
+    th = torch.as_tensor(starts.to_numpy(np.float64)[:n])
+    keys = jr.fold_in(jr.PRNGKey(0), torch.arange(n))
+    jth = torch.as_tensor(jf._thetas_from_df(
+        post_d[post_d.iteration == post_d.iteration.max()])[:n])
+    prior, _ = jf._effective_prior(False)
+    chi_fn = jf._joint_chi_fn({})
+    # one leapfrog step a trajectory; every run crosses its burn-in's end
+    # (the step size's switch, the rejuvenation of stuck chains), AMH's
+    # after its adapted covariance proposed
+    hkw = dict(nits=5, burnin=2, n_leapfrog=1)
+    runs = {
+        "HMC": lambda d: shmc.hamiltonian_mc(*args, th.to(d), keys.to(d),
+                                             **hkw),
+        "HMC dense, ChEES": lambda d: shmc.hamiltonian_mc(
+            *args, th.to(d), keys.to(d), dense_mass=True, path_adapt=True,
+            max_leapfrog=2, **dict(hkw, nits=3, burnin=1)),
+        "AMH": lambda d: samh.adaptive_metropolis(
+            *args, th.to(d), keys.to(d), nits=5, burnin=3, adapt_start=1),
+        "joint HMC, hierarchical": lambda d: shmc.hamiltonian_mc_custom(
+            chi_fn, jth.to(d), keys.to(d), nits=3, burnin=1, n_leapfrog=1,
+            prior_logpdf=prior, use_priors=True)}
+    bad, card_hmc = [], None
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        a = run("cuda")
+        t1 = time.perf_counter()
+        b = run("cpu")
+        if name == "HMC":
+            card_hmc = a
+        its = b.iteration.numpy()[None, :]
+        ar_a, ar_b = a.acceptance_ratio.cpu().numpy(), \
+            b.acceptance_ratio.numpy()
+        ca, cb = a.chi.cpu().numpy(), b.chi.numpy()
+        same = np.rint(ar_a * its) == np.rint(ar_b * its)
+        ok = np.isfinite(cb) & same
+        rel = float(np.max(np.abs(ca[ok] - cb[ok]) / np.abs(cb[ok]),
+                           initial=0.0))
+        print(f"grad (e) {name}: card {t1 - t0:.2f} s, CPU "
+              f"{time.perf_counter() - t1:.2f} s; accept sequences equal on "
+              f"{int(same.all(axis=1).sum())} of {len(same)} chains, mean "
+              f"final acceptance {ar_b[:, -1].mean():.4f}; chi finite "
+              f"{float(np.isfinite(cb).mean())}, max relative difference "
+              f"card vs CPU {rel:.3e}", flush=True)
+        if not same.all():
+            bad.append(f"{name}: accept sequences differ card vs CPU")
+        if not rel <= 1e-8 or not np.array_equal(np.isfinite(ca),
+                                                  np.isfinite(cb)):
+            bad.append(f"{name}: chi differs by {rel} relative")
+    if bad:
+        fail("grad (e) " + "; ".join(bad))
+    secs["e"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"grad (f): HMC at {n} chains in 4 chunks, killed after two and "
+          "resumed from its file, bitwise its whole run")
+    tc, kc = th.to("cuda"), keys.to("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(hkw, checkpoint_every=1,
+                  checkpoint_path=os.path.join(tmp, "hmc.progress"))
+        if shmc.hamiltonian_mc_checkpointed(
+                *args, tc, kc, _stop_after_chunks=2, **ck) is not None:
+            fail("grad (f): the killed run did not stop")
+        same_bits("grad (f) killed and resumed",
+                  shmc.hamiltonian_mc_checkpointed(
+                      *args, tc, kc, resume_from=ck["checkpoint_path"],
+                      **ck), card_hmc)
+    print("grad (f): the 4 chunks, killed after two and resumed, bitwise "
+          "the whole run", flush=True)
+    secs["f"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"grad (g): one gradient of 10,000 lanes, its seconds and peak "
+          f"device memory; each path's seconds an iteration ({smi_line})")
+    seeds = torch.as_tensor(starts.to_numpy(np.float64), device="cuda")
+    z = torch.log(seeds)
+    jz = torch.log(torch.as_tensor(jf._thetas_from_df(
+        post_d[post_d.iteration == post_d.iteration.max()]),
+        device="cuda"))
+    for name, vag in (
+            ("zero_i", shmc.potential(*args, seeds, num_params=3)),
+            ("joint, 2 experiments, hierarchical", shmc.potential_custom(
+                chi_fn, use_priors=True, prior_logpdf=prior))):
+        zz = z if name == "zero_i" else jz
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        u, _, g = vag(zz)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"grad (g) {name}: {len(zz)} lanes, {dt:.4f} s a gradient, "
+              f"peak device memory {peak / 2 ** 20:.1f} MiB above the "
+              f"{base / 2 ** 20:.1f} MiB held; finite U "
+              f"{float(torch.isfinite(u).float().mean()):.4f}", flush=True)
+        if not torch.isfinite(g[torch.isfinite(u)]).all():
+            fail(f"grad (g) {name}: a finite potential with a non-finite "
+                 "gradient")
+    secs["g"] = time.perf_counter() - t
+    pkg_log.removeHandler(handler)
+    total = time.perf_counter() - t_all
+    print("grad phases' seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in secs.items()) + f"; all {total:.1f} s",
+        flush=True)
+    print(f"grad rows ({smi_line}): " + "; ".join(
+        f"{k} {v[0]:.4f} s an iteration, {v[1]:.4f} s a solve"
+        for k, v in per_it.items()), flush=True)
+    return secs
 
 
 def _survey_held(label, case, chi_k, chi_t):
@@ -4480,7 +4775,7 @@ def main():
     finish_builds()
     limit_rows = limits_phases(lf, smi_line)
     # the reference's XLA samplers, on the scan routes
-    scan_phases(framework, smi_line)
+    _, scan_draws = scan_phases(framework, smi_line)
     xla_phases(pmmh_framework, joint_fit, smi_line)
 
     # -- 5. times -----------------------------------------------------------
@@ -4771,6 +5066,10 @@ def main():
                      "ens_kernel under the profiler, not 1")
             print(f"ensemble main path: 1 device launch of ens_kernel, "
                   f"{(ens[0][1] - ens[0][0]) / 1e3:.3f} ms")
+
+    # HMC, adaptive Metropolis and the hierarchical joint fit, after the
+    # profiler passes (which count the main paths' launches as before)
+    grad_phases(framework, joint_pair, scan_draws, smi_line)
 
     csrc = "odelib_tpu_torch/ops/csrc/"
 

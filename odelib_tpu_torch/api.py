@@ -9,17 +9,20 @@ doses), the fit
 statistics of every observation model (censored points scored by Tobit
 terms and left out of R^2), the LHS
 prescreen, ``fit_survey`` and ``MCMC`` with ``sampler='mh'``,
-``'ensemble'``, ``'pt'`` and ``'pmmh'``: where ``odelib_tpu`` on a TPU
-runs its fused kernels, the sampler's CUDA kernel (MH, Goodman-Weare
+``'ensemble'``, ``'pt'``, ``'pmmh'``, ``'hmc'`` and ``'amh'``: where
+``odelib_tpu`` on a TPU runs its fused kernels, the sampler's CUDA
+kernel (MH, Goodman-Weare
 ensemble, parallel tempering, particle-marginal MH; the prescreen scored
 by the survey kernel; in-kernel priors with ``use_priors=True``, a
 calibrated schedule with ``substeps='auto'``), elsewhere the reference's
 XLA samplers in torch (``samplers/mh.py``, ``ensemble.py``, ``pt.py``,
-``pf.py``: any method, prior, observation model and RHS, any particle
-count; the prescreen by ``fit_survey``); chains seeded under the
+``pf.py``, ``hmc.py``, ``amh.py``: any method, prior, observation model
+and RHS, any particle count; the prescreen by ``fit_survey``); chains
+seeded under the
 ``sd_fitdistance`` chi cut, the posterior DataFrame and the Fitting
 Report. An SDE model (``diffusion=``) also has ``simulate`` (stochastic
-paths) and ``tune_particles`` (PMMH's particle count).
+paths) and ``tune_particles`` (PMMH's particle count);
+``get_chi_sensitivity`` is chi's gradient through the fixed-step solve.
 
 ``ModelFramework(device=...)`` picks where everything runs: ``cuda`` by
 default, and ``cpu`` only when asked for; without a card the default
@@ -116,9 +119,7 @@ class parameter:
         return self.dist is not None
 
 
-_SAMPLERS = ("mh", "ensemble", "pt", "pmmh")
-_UNPORTED_SAMPLERS = {
-    "hmc": "ROADMAP queue 1, item 16", "amh": "ROADMAP queue 1, item 16"}
+_SAMPLERS = ("mh", "hmc", "pt", "ensemble", "amh", "pmmh")
 _FIXED = ("dopri5", "rk4", "kvaerno3")
 
 
@@ -586,6 +587,35 @@ class ModelFramework:
         fs["AIC"] = self.get_AIC(fs["Chi"])
         return fs
 
+    def get_chi_sensitivity(self, parameters=None, log_scale=True,
+                            **solver_kw):
+        """Chi's gradient in each parameter at the current (or the given,
+        in ``pnames`` order) values: autograd through the fixed-step Dopri5
+        solve of the fit grid (the configured ``substeps``), in float64 on
+        the framework's device. ``{pname: dchi/dp}`` (an array parameter's
+        entries in its shape); with ``log_scale`` (default) the derivative
+        in ``log p``, chi's change per e-fold of the parameter."""
+        from .model import chi_of_theta
+        theta = self._current_theta() if parameters is None \
+            else self._spec.pack_theta(list(parameters))
+        substeps = self._solver_args(solver_kw, len(self._times_fit) - 1)[4]
+        th = torch.as_tensor(np.asarray(theta, np.float64)[None],
+                             device=self.device).requires_grad_(True)
+        chi = chi_of_theta(self._spec, self._obsdata_fit_host, th,
+                           self.get_inits(), self._times_fit,
+                           method="fixed_dopri5", substeps=substeps)
+        g, = torch.autograd.grad(chi.sum(), th)
+        if log_scale:
+            g = g * th.detach()
+        g = g[0].cpu().numpy()
+        out = {}
+        for p, off, shp in zip(self._pnames, self._spec.theta_offsets,
+                               self._spec.pshapes):
+            n = int(np.prod(shp)) if shp else 1
+            v = g[off:off + n]
+            out[p] = v.reshape(shp) if shp else float(v[0])
+        return out
+
     # -- LHS sampling ------------------------------------------------------
     def _lhs_samples(self, samples=100, seed=None, **kwargs):
         """LHS draws from the priors (a ``torch.Generator`` seeded from
@@ -669,7 +699,9 @@ class ModelFramework:
              pallas_interpret=False, pallas_tile_chains=None, route="auto",
              target_accept=None, n_particles=128, sde_method="euler",
              sde_substeps=4, adapt_proposal=None, adapt_rate=0.05,
-             **solver_kw):
+             n_leapfrog=4, step_size=0.02, mass_adapt=True,
+             path_adapt=False, max_leapfrog=256, dense_mass=False,
+             adapt_start=50, **solver_kw):
         """Markov Chain Monte Carlo: every chain in one run of the
         sampler's fused kernel (on a CPU framework, its twin), or of the
         reference's scan sampler where ``odelib_tpu`` takes its XLA
@@ -703,7 +735,19 @@ class ModelFramework:
           from :meth:`fit_survey` (the drift's chi). During burn-in the
           proposal scale adapts (``adapt_proposal``, default True) toward
           ``target_accept`` (default 0.3) with gain ``adapt_rate``. The
-          ``rsquared`` column is NaN.
+          ``rsquared`` column is NaN;
+        * ``'hmc'``: Hamiltonian Monte Carlo through the differentiable
+          fixed-step solve (``samplers/hmc.py``; 'rk4' runs rk4, every
+          other method fixed-step Dopri5 with ``substeps``): trajectories
+          of ``n_leapfrog`` steps of ``step_size``, both adapted during
+          burn-in across the chains: the inverse mass from their spread
+          (``mass_adapt``; ``dense_mass`` a full covariance), the step
+          size toward ``target_accept`` (default 0.65) and, with
+          ``path_adapt`` (ChEES), the trajectory length, capped at
+          ``max_leapfrog`` steps. One stream drives all chains;
+        * ``'amh'``: adaptive Metropolis (``samplers/amh.py``): each
+          chain's proposal covariance learnt from its own burn-in states
+          after ``adapt_start`` of them, with the configured solver.
 
         Routing (``odelib_tpu``'s decision on a TPU, the platform test
         left out): ``backend='auto'`` runs the fused kernel when the
@@ -729,7 +773,10 @@ class ModelFramework:
         ``backend='xla'`` the reference's XLA particle filter
         (:func:`~odelib_tpu_torch.samplers.pf.pmmh`, float64, the scan
         samplers' keys); ``backend='pallas'`` on a run the kernel cannot
-        take raises ``ValueError``. The arm is logged.
+        take raises ``ValueError``. The arm is logged. HMC and adaptive
+        Metropolis have no kernel, in ``odelib_tpu`` as here: they run
+        their scan samplers (``chains[hmc]``, ``chains[amh]``) under
+        'auto' and 'xla', and ``backend='pallas'`` raises ``ValueError``.
 
         ``use_priors=True`` adds the parameters' log priors to every
         sampler's acceptance (in the kernels the ten families of
@@ -741,14 +788,15 @@ class ModelFramework:
         last calibrated schedule, or 4 on the first call.
 
         ``checkpoint_every`` runs the chains in chunks of that many
-        proposals (the kernel's, the scan MH's, PT's or PMMH's) and
+        proposals (the kernel's, the scan MH's, PT's, PMMH's or HMC's) and
         persists the chain state and records after each to
         ``<checkpoint_path>.progress`` (the port's own format: a file
         ``odelib_tpu`` wrote fails the resume); ``resume_from`` (with the
         same ``checkpoint_every``) continues a killed run from such a file,
         bitwise the uninterrupted run's posterior, and raises
         ``ValueError`` for one written by a different configuration, data
-        or priors; the scan ensemble warns and runs without.
+        or priors; the scan ensemble and adaptive Metropolis warn and run
+        without.
         ``checkpoint_path`` alone saves the posterior there
         (:func:`~odelib_tpu_torch.utils.checkpoint.save_posterior`).
         ``until_rhat``/``until_min_ess`` (``sampler='mh'``, not with
@@ -766,9 +814,7 @@ class ModelFramework:
         ``last_profile`` (the chains' stage as ``chains[<arm>]``), with a
         device synchronize at each stage boundary. ``method='kvaerno3'``
         runs the kernels' implicit fixed-step Kvaerno3 (the stiff path;
-        ``substeps='auto'`` calibrates it with Kvaerno5). Not ported yet,
-        each raising ``NotImplementedError``: ``sampler='hmc'`` and
-        ``'amh'``.
+        ``substeps='auto'`` calibrates it with Kvaerno5).
         """
         until = until_rhat is not None or until_min_ess is not None
         if until and sampler != "mh":
@@ -781,13 +827,8 @@ class ModelFramework:
                 "until_rhat/until_min_ess cannot be combined with "
                 "checkpointing (the extension count is data-dependent)")
         if sampler not in _SAMPLERS:
-            if sampler not in _UNPORTED_SAMPLERS:
-                raise ValueError(f"sampler must be 'mh', 'hmc', 'pt', "
-                                 f"'ensemble', 'amh' or 'pmmh', got "
-                                 f"{sampler!r}")
-            raise NotImplementedError(
-                f"sampler={sampler!r} is not ported yet "
-                f"({_UNPORTED_SAMPLERS[sampler]})")
+            raise ValueError(f"sampler must be 'mh', 'hmc', 'pt', "
+                             f"'ensemble', 'amh' or 'pmmh', got {sampler!r}")
         if backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"backend must be 'auto', 'pallas' or 'xla', "
                              f"got {backend!r}")
@@ -825,6 +866,14 @@ class ModelFramework:
             priors = slot_priors if use_priors and kernel_priors_supported(
                 slot_priors) else None
             arm = "pallas"
+        elif sampler in ("hmc", "amh"):
+            # no kernel: the scan sampler under 'auto' and 'xla'
+            if backend == "pallas":
+                raise ValueError(f"sampler={sampler!r} runs on the XLA "
+                                 "backend; drop backend='pallas'")
+            priors, arm = None, sampler
+            _dispatch.require_batched(self._spec, self._current_theta()[
+                None], self.get_inits(), self._times_fit[0])
         else:
             # odelib_tpu's TPU decision: the fused kernel when the method
             # is a fixed-step one, every prior has an in-kernel form,
@@ -857,11 +906,11 @@ class ModelFramework:
                     arm = sampler
                 _dispatch.require_batched(self._spec, self._current_theta()[
                     None], self.get_inits(), self._times_fit[0])
-        if arm == "ensemble" and checkpoint_every is not None:
+        if arm in ("ensemble", "amh") and checkpoint_every is not None:
             warnings.warn("checkpoint_every is supported on the fused "
-                          "MH/ensemble/PT kernels and the scan MH and PT "
-                          "samplers; running sampler='ensemble' without "
-                          "periodic checkpoints")
+                          "MH/ensemble/PT kernels and the scan MH, HMC, "
+                          f"PMMH and PT samplers; running sampler={sampler!r}"
+                          " without periodic checkpoints")
             checkpoint_every = None
         if resume_from is not None and checkpoint_every is None:
             raise ValueError(
@@ -1000,8 +1049,14 @@ class ModelFramework:
             adapt_proposal=(sampler == "pmmh" if adapt_proposal is None
                             else bool(adapt_proposal)),
             adapt_rate=float(adapt_rate),
-            target_accept=0.3 if target_accept is None
-            else float(target_accept),
+            # HMC's dual averaging aims at the gradient samplers' 0.65,
+            # PMMH's proposal adaptation at 0.3
+            target_accept=(0.3 if sampler == "pmmh" else 0.65)
+            if target_accept is None else float(target_accept),
+            n_leapfrog=int(n_leapfrog), step_size=float(step_size),
+            mass_adapt=bool(mass_adapt), path_adapt=bool(path_adapt),
+            max_leapfrog=int(max_leapfrog), dense_mass=bool(dense_mass),
+            adapt_start=int(adapt_start),
             checkpoint_every=checkpoint_every,
             checkpoint_path=checkpoint_path, resume_from=resume_from,
             config_token=config_token, rtol=rtol, atol=atol,

@@ -12,8 +12,9 @@ does and its XLA particle filter elsewhere. With ``checkpoint_every`` each
 arm runs its kernel in chunks and persists the chain state to
 ``<checkpoint_path>.progress`` (:mod:`~odelib_tpu_torch.ops.chunked`).
 The scan arms ``run_scan_mh``,
-``run_scan_ensemble`` and ``run_scan_pt`` run the reference's XLA samplers
-(:mod:`~odelib_tpu_torch.samplers.mh`, ``ensemble``, ``pt``) on the
+``run_scan_ensemble``, ``run_scan_pt``, ``run_hmc`` and ``run_amh`` run
+the reference's XLA samplers (:mod:`~odelib_tpu_torch.samplers.mh`,
+``ensemble``, ``pt``, ``hmc``, ``amh``) on the
 framework's device in float64, every chain a lane of each iteration's
 batched solve, with per-chain keys from ``fold_in(PRNGKey(seed), salt *
 1_000_003 + i)`` as ``_xla_setup`` derives them. The kernels refuse a
@@ -69,6 +70,14 @@ class RunConfig:
     prior_logpdf: Any = None
     key_salt: int = 0
     pmmh_mode: str = "auto"        # 'auto' | 'pallas' | 'xla'
+    # HMC and adaptive Metropolis (the names of MCMC's keywords)
+    n_leapfrog: int = 4
+    step_size: float = 0.02
+    mass_adapt: bool = True
+    path_adapt: bool = False
+    max_leapfrog: int = 256
+    dense_mass: bool = False
+    adapt_start: int = 50
 
 
 def require_kernel_rhs(spec):
@@ -319,13 +328,43 @@ def run_scan_pt(fw, theta0, cfg: RunConfig, n_chains: int):
     return out
 
 
+def run_hmc(fw, theta0, cfg: RunConfig, n_chains: int):
+    """HMC through the differentiable fixed-step solve
+    (``samplers/hmc.py``), optionally checkpointed. As in ``odelib_tpu``,
+    'rk4' runs rk4 and every other method fixed-step Dopri5."""
+    from .samplers import hmc
+    th0, _, keys = _scan_setup(fw, theta0, cfg, n_chains)
+    kw = dict(nits=cfg.nits, burnin=cfg.burnin, walk_mask=cfg.mask,
+              n_leapfrog=cfg.n_leapfrog, step_size=cfg.step_size,
+              target_accept=cfg.target_accept, mass_adapt=cfg.mass_adapt,
+              path_adapt=cfg.path_adapt, max_leapfrog=cfg.max_leapfrog,
+              dense_mass=cfg.dense_mass, prior_logpdf=cfg.prior_logpdf,
+              use_priors=cfg.prior_logpdf is not None,
+              method="rk4" if cfg.method == "rk4" else "fixed_dopri5",
+              substeps=cfg.substeps)
+    if cfg.checkpoint_every is not None:
+        return hmc.hamiltonian_mc_checkpointed(
+            *_scan_args(fw, th0, keys), **_checkpoint_args(cfg), **kw)
+    return hmc.hamiltonian_mc(*_scan_args(fw, th0, keys), **kw)
+
+
+def run_amh(fw, theta0, cfg: RunConfig, n_chains: int):
+    """Adaptive Metropolis (``samplers/amh.py``) with the configured
+    solver, any method."""
+    from .samplers.amh import adaptive_metropolis
+    th0, _, keys = _scan_setup(fw, theta0, cfg, n_chains)
+    return adaptive_metropolis(*_scan_args(fw, th0, keys),
+                               rwalk_std=cfg.rwalk_std,
+                               adapt_start=cfg.adapt_start, **_scan_kw(cfg))
+
+
 _ARMS = {f"{dev}:{s}": arm for dev in ("cuda", "cpu")
          for s, arm in (("mh", run_fused_mh),
                         ("ensemble", run_fused_ensemble),
                         ("pt", run_fused_pt),
                         ("pmmh", run_pmmh))}
 _SCAN_ARMS = {"xla": run_scan_mh, "ensemble": run_scan_ensemble,
-              "pt": run_scan_pt}
+              "pt": run_scan_pt, "hmc": run_hmc, "amh": run_amh}
 
 
 def dispatch(fw, sampler: str, theta0, cfg: RunConfig, arm: str = "pallas",
@@ -333,8 +372,9 @@ def dispatch(fw, sampler: str, theta0, cfg: RunConfig, arm: str = "pallas",
     """Route one resolved MCMC run to its arm: ``'pallas'`` (the fused
     kernel of the framework's device and the sampler; for PMMH
     :func:`run_pmmh`, which takes the kernel or the XLA filter itself), or
-    a scan arm, ``'xla'`` (MH), ``'ensemble'`` or ``'pt'``, the names
-    ``odelib_tpu``'s ``chains[...]`` profile stage uses."""
+    a scan arm, ``'xla'`` (MH), ``'ensemble'``, ``'pt'``, ``'hmc'`` or
+    ``'amh'``, the names ``odelib_tpu``'s ``chains[...]`` profile stage
+    uses."""
     if arm != "pallas":
         return _SCAN_ARMS[arm](fw, theta0, cfg,
                                len(theta0) if n_chains is None else n_chains)

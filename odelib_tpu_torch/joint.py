@@ -1,8 +1,10 @@
 """User-facing joint multi-experiment fitting: ``JointFit``.
 
-Counterpart of ``odelib_tpu/joint.py`` for complete pooling (``shared``)
-and no pooling (the default): ``JointFit`` ties named parameters (scalar
-or array-valued, one joint slot per entry) across several
+Counterpart of ``odelib_tpu/joint.py``: complete pooling (``shared``),
+no pooling (the default) and partial pooling (``hierarchical``, a
+lognormal population law whose median and spread are sampled too).
+``JointFit`` ties named parameters (scalar or array-valued, one joint
+slot per entry) across several
 ``ModelFramework`` instances (the same or different models, each with its
 own data, observation model, censoring, doses and forcings) and samples
 the joint posterior where ``odelib_tpu`` on a TPU runs its fused kernel
@@ -12,11 +14,12 @@ framework), and elsewhere (``backend='xla'``, priors without an in-kernel
 form, censored counts, an RHS that does not trace) on the reference's XLA
 joint sampler (:mod:`odelib_tpu_torch.samplers.joint`); a stochastic
 (``diffusion=``) experiment sends the fit to joint particle-marginal MH.
-The joint layout, LHS survey, seeding, posterior frame and report are the
-JAX package's, and so are chunked checkpointing with a bit-exact resume
-and ``until_rhat``/``until_min_ess`` run-length extension. Not ported
-yet, each raising ``NotImplementedError`` naming its ROADMAP item:
-``hierarchical=`` and ``sampler='hmc'``.
+``sampler='hmc'`` runs HMC over the summed chi
+(:func:`~odelib_tpu_torch.samplers.hmc.hamiltonian_mc_custom`), as does
+the reference. The joint layout, LHS survey, seeding, posterior frame and
+report are the JAX package's, and so are chunked checkpointing with a
+bit-exact resume and ``until_rhat``/``until_min_ess`` run-length
+extension.
 """
 from __future__ import annotations
 
@@ -45,12 +48,22 @@ class JointFit:
     ``exp0``, ``exp1``, ...), each with its own data and all on one
     device. ``shared``: parameter names tied across all frameworks (each
     must exist in every framework); the others are per-experiment.
+    ``hierarchical``: scalar parameter names partially pooled: experiment
+    ``nm`` keeps its own ``<nm>:<p>``, and ``log <nm>:<p> ~ Normal(log
+    <p>:pop_median, <p>:pop_sigma)`` with both hyperparameters sampled
+    (not overlapping ``shared``). ``hyperpriors``: ``p -> (median_dist,
+    sigma_dist)`` (the port's distributions or scipy frozen ones); by
+    default the first framework's prior of ``p`` on the median and
+    ``LogNormal(s=1, scale=0.3)`` on the spread. The pooling density and
+    the hyperpriors are always part of the target; ``use_priors`` adds
+    the non-pooled slots' own priors.
 
     Joint layout: ``[shared..., <name>:<p> for each experiment's free
-    parameters...]``, an array parameter one slot per entry (a shared one
-    must have one shape in every experiment); posterior columns use the
-    same naming, an array parameter's cells holding its array. Priors for
-    shared parameters come from the first framework.
+    parameters..., <p>:pop_median, <p>:pop_sigma for each hierarchical
+    p]``, an array parameter one slot per entry (a shared one must have
+    one shape in every experiment); posterior columns use the same naming,
+    an array parameter's cells holding its array. Priors for shared
+    parameters come from the first framework.
     """
 
     def __init__(self, frameworks, shared=(), hierarchical=(),
@@ -59,20 +72,21 @@ class JointFit:
             frameworks = {f"exp{i}": f for i, f in enumerate(frameworks)}
         if len(frameworks) < 2:
             raise ValueError("JointFit needs at least two experiments")
-        if hierarchical or hyperpriors:
-            raise NotImplementedError(
-                "hierarchical= (partial pooling) is not ported yet (ROADMAP "
-                "queue 1, item 16)")
         self.frameworks = dict(frameworks)
         self.shared = list(shared)
-        self.hierarchical = []
+        self.hierarchical = list(hierarchical)
         self.random_seed = random_seed
         self._stoch = {nm for nm, fw in self.frameworks.items()
                        if fw._spec.diffusion is not None}
+        overlap = set(self.shared) & set(self.hierarchical)
+        if overlap:
+            raise ValueError(f"parameter(s) {sorted(overlap)} cannot be "
+                             f"both shared and hierarchical")
         for nm, fw in self.frameworks.items():
             if fw.df is None:
                 raise ValueError(f"experiment {nm!r} has no data")
-            missing = [p for p in self.shared if p not in fw._pnames]
+            missing = [p for p in self.shared + self.hierarchical
+                       if p not in fw._pnames]
             if missing:
                 raise ValueError(f"experiment {nm!r} lacks tied "
                                  f"parameter(s) {missing}")
@@ -123,6 +137,50 @@ class JointFit:
                                              else 1)))
             self._idx_maps[nm] = tuple(idx)
 
+        # partial pooling: a median and a spread slot per hierarchical
+        # parameter after every experiment's slots (in no idx map, so no
+        # solve sees them), started at the geometric mean and log-spread
+        # (at least 0.1) of the experiments' current values
+        from .distributions import LogNormal, from_scipy
+        self._hyper_vals = {}      # hyper label -> current value
+        self._hyper_priors = {}    # hyper label -> Distribution or None
+        self._hyper_cols = {}      # p -> (median label, sigma label)
+        hyperpriors = dict(hyperpriors or {})
+        unknown = set(hyperpriors) - set(self.hierarchical)
+        if unknown:
+            raise ValueError(f"hyperpriors given for non-hierarchical "
+                             f"parameter(s) {sorted(unknown)}")
+        for p in self.hierarchical:
+            for nm, fw in self.frameworks.items():
+                if pshape(fw, p):
+                    raise ValueError(
+                        f"hierarchical parameter {p!r} must be scalar "
+                        f"(shape {pshape(fw, p)} in experiment {nm!r}); "
+                        f"array-valued parameters can be tied with "
+                        f"shared= instead")
+            lab_m, lab_t = f"{p}:pop_median", f"{p}:pop_sigma"
+            add_column(lab_m, (), None, p)
+            add_column(lab_t, (), None, p)
+            self._hyper_cols[p] = (lab_m, lab_t)
+            vals = [float(np.asarray(fw.parameters[p].val))
+                    for fw in self.frameworks.values()
+                    if fw.parameters[p] is not None
+                    and np.all(np.asarray(fw.parameters[p].val) > 0)]
+            logs = np.log(vals) if vals else np.zeros(1)
+            self._hyper_vals[lab_m] = float(np.exp(logs.mean()))
+            self._hyper_vals[lab_t] = float(max(logs.std(), 0.1))
+            m_d, t_d = hyperpriors.get(p, (None, None))
+            if m_d is None:
+                par = first.parameters[p]
+                m_d = par.tdist if par is not None \
+                    and par.has_distribution() else None
+            if t_d is None:
+                t_d = LogNormal(s=1.0, loc=0.0, scale=0.3)
+            self._hyper_priors[lab_m] = None if m_d is None \
+                else from_scipy(m_d)
+            self._hyper_priors[lab_t] = None if t_d is None \
+                else from_scipy(t_d)
+
     def _template(self, lab):
         """The flat current value of an array column (None for a scalar):
         its zero entries never walk and draw no LHS dimension."""
@@ -140,6 +198,9 @@ class JointFit:
         out = [None] * self.dim
         for lab in self.columns:
             fw, p = self._col_params[lab]
+            if fw is None:                       # a hyperparameter slot
+                out[self._col_offsets[lab]] = self._hyper_priors[lab]
+                continue
             par = fw.parameters[p]
             d = par.tdist if par is not None and par.has_distribution() \
                 else None
@@ -156,6 +217,9 @@ class JointFit:
         th = np.zeros(self.dim)
         for lab in self.columns:
             fw, p = self._col_params[lab]
+            if fw is None:                       # a hyperparameter slot
+                th[self._col_offsets[lab]] = self._hyper_vals[lab]
+                continue
             par = fw.parameters[p]
             if par is not None:
                 v = np.ravel(np.asarray(par.val, float))
@@ -248,8 +312,67 @@ class JointFit:
         return d
 
     def _seed_hyper_slots(self, theta0):
-        """Hyperparameter slots of hierarchical pooling (not ported): no-op."""
+        """Each chain's hyperparameter slots from its own experiments'
+        values: their geometric mean and log-spread (at least 0.1), so a
+        chain starts inside the pooling term's bulk (the survey draws the
+        hyper slots independently). No-op without hierarchical
+        parameters."""
+        for p in self.hierarchical:
+            lab_m, lab_t = self._hyper_cols[p]
+            logs = np.log(theta0[:, [self._col_offsets[f"{nm}:{p}"]
+                                     for nm in self.frameworks]])
+            theta0[:, self._col_offsets[lab_m]] = np.exp(logs.mean(axis=1))
+            theta0[:, self._col_offsets[lab_t]] = np.maximum(
+                logs.std(axis=1), 0.1)
         return theta0
+
+    def _effective_prior(self, use_priors):
+        """(prior_logpdf, use_priors) as the samplers see them
+        (``odelib_tpu``'s ``_effective_prior``). Without hierarchical
+        parameters, the slot priors with ``use_priors``. With them, always
+        on: ``sum_k log Normal(log theta_k | log pop_median, pop_sigma)``
+        over z = log theta (the space the chains walk), the hyperpriors,
+        and with ``use_priors`` the non-pooled slots' priors (a pooled
+        slot's prior is the population law)."""
+        if not self.hierarchical:
+            return ((self._joint_prior_logpdf(), True) if use_priors
+                    else (None, False))
+        table, hyper, pooled = [], set(), set()
+        for p in self.hierarchical:
+            ms, ts = (self._col_offsets[lab] for lab in self._hyper_cols[p])
+            exps = tuple(self._col_offsets[f"{nm}:{p}"]
+                         for nm in self.frameworks)
+            hyper.update((ms, ts))
+            pooled.update(exps)
+            table.append((ms, ts, exps))
+        slots = [(j, self._slot_dist(j)) for j, d in enumerate(self._dists())
+                 if d is not None
+                 and (j in hyper or (use_priors and j not in pooled))]
+        half_log_2pi = 0.5 * float(np.log(2.0 * np.pi))
+
+        def prior_logpdf(theta):
+            tot = torch.zeros(theta.shape[:-1], dtype=theta.dtype,
+                              device=theta.device)
+            for j, d in slots:
+                tot = tot + d.logpdf(theta[..., j])
+            for ms, ts, exps in table:
+                mu, tau = torch.log(theta[..., ms]), theta[..., ts]
+                for es in exps:
+                    zk = torch.log(theta[..., es])
+                    tot = tot - 0.5 * ((zk - mu) / tau) ** 2 \
+                        - torch.log(tau) - half_log_2pi
+            return tot
+        return prior_logpdf, True
+
+    def _joint_chi_fn(self, solver_kw):
+        """``chi(theta (N, D)) -> (N,)``: the experiments' summed chi with
+        fixed steps, the HMC potential's (``odelib_tpu``'s
+        ``_joint_chi_fn``)."""
+        from .samplers.joint import _total_chi_fn
+        specs, idxs, obs, times, y0s, method, subs = \
+            self._device_args(solver_kw)
+        total = _total_chi_fn(specs, idxs, obs, times, y0s, method, subs)
+        return lambda theta: total(theta)[0]
 
     def fit_survey(self, samples=1000, **solver_kw) -> pd.DataFrame:
         """LHS over the joint priors (a ``torch.Generator`` seeded from
@@ -325,11 +448,18 @@ class JointFit:
         (``n_particles``, ``sde_substeps``, ``sde_method``,
         ``adapt_proposal`` during burn-in; extensions run unadapted);
         'pallas', checkpointing and ``sampler='hmc'`` with one raise the
-        reference's ``ValueError``. The arm is logged and names the
+        reference's ``ValueError``. Hierarchical parameters and
+        ``sampler='hmc'`` take the XLA route under 'auto' and 'xla' (the
+        pooling density couples slots, which the kernel's per-slot priors
+        cannot), and raise ``ValueError`` under 'pallas'. HMC
+        (:func:`~odelib_tpu_torch.samplers.hmc.hamiltonian_mc_custom`,
+        checkpointed with ``checkpoint_every``) runs over the summed chi
+        with ``n_leapfrog``, ``step_size``, ``path_adapt`` (ChEES) and
+        ``dense_mass``, keyed by chain 0's key; its posterior has no
+        ``chi:<name>`` columns. The arm is logged and names the
         ``chains[<arm>]`` stage of ``last_profile`` ('pallas', 'xla' or
-        'pmmh'). ``pallas_tile_chains``, ``pallas_interpret`` and the HMC
-        knobs are accepted; the options that are not ported raise
-        ``NotImplementedError`` naming their ROADMAP item.
+        'pmmh'). ``pallas_tile_chains`` and ``pallas_interpret`` are
+        accepted and ignored.
         """
         until = until_rhat is not None or until_min_ess is not None
         if until and sampler != "mh":
@@ -368,9 +498,13 @@ class JointFit:
                     "uninterrupted or checkpoint the per-experiment "
                     "fits individually (MCMC(sampler='pmmh', "
                     "checkpoint_every=...))")
-        if sampler == "hmc":
-            raise NotImplementedError(
-                "sampler='hmc' is not ported yet (ROADMAP queue 1, item 16)")
+        if sampler == "hmc" and backend == "pallas":
+            raise ValueError("sampler='hmc' runs on the XLA backend")
+        if self.hierarchical and backend == "pallas":
+            raise ValueError(
+                "backend='pallas' does not support hierarchical "
+                "parameters (the pooling prior couples joint slots); "
+                "use backend='xla' or 'auto'")
         if checkpoint_every is not None and checkpoint_path is None:
             # resume_from alone is not enough: without a path the resumed
             # run would silently stop persisting
@@ -395,6 +529,8 @@ class JointFit:
                     for fw in self.frameworks.values()))
         if self._stoch:
             arm = "pmmh"
+        elif sampler == "hmc" or self.hierarchical:
+            arm = "xla"
         elif backend == "pallas":
             for fw in self.frameworks.values():
                 require_kernel_rhs(fw._spec)
@@ -409,10 +545,14 @@ class JointFit:
             for fw in self.frameworks.values():
                 require_batched(fw._spec, fw._current_theta()[None],
                                 fw.get_inits(), fw._times_fit[0])
-            _log.info("JointFit.MCMC: the XLA joint sampler "
-                      "(samplers/joint.py, %s)", "joint PMMH, "
-                      f"{int(n_particles)} particles" if arm == "pmmh"
-                      else "joint MH")
+            if sampler == "hmc":
+                _log.info("JointFit.MCMC: joint HMC over the summed chi "
+                          "(samplers/hmc.py)")
+            else:
+                _log.info("JointFit.MCMC: the XLA joint sampler "
+                          "(samplers/joint.py, %s)", "joint PMMH, "
+                          f"{int(n_particles)} particles" if arm == "pmmh"
+                          else "joint MH")
         stages, clock = {}, [time.perf_counter()]
 
         def stage_done(name):
@@ -441,11 +581,13 @@ class JointFit:
             self._device_args(solver_kw)
         stage_done("seeding")
 
-        # a digest of the data, solver and (with use_priors) priors in the
-        # resume signature: a resume against edited data must fail
+        # a digest of the data, solver and (with a prior in the target)
+        # priors in the resume signature: a resume against edited data
+        # must fail
+        prior_logpdf, use_priors_eff = self._effective_prior(use_priors)
         config_token = "" if checkpoint_every is None else \
             self._stable_config_token(method, subs,
-                                      include_priors=use_priors)
+                                      include_priors=use_priors_eff)
 
         progress = (None if checkpoint_every is None
                     else checkpoint_path + ".progress")
@@ -471,11 +613,16 @@ class JointFit:
                 # (odelib_tpu/joint.py:1076-1095)
                 return run(th_last, int(self.random_seed) + 104729 * salt, 0)
         else:
+            hmc = None if sampler != "hmc" else dict(
+                chi_fn=self._joint_chi_fn(solver_kw),
+                n_leapfrog=int(n_leapfrog), step_size=float(step_size),
+                path_adapt=bool(path_adapt), dense_mass=bool(dense_mass))
             run = self._xla_runner(
                 specs, idxs, obs, times, y0s, method, subs, mask,
-                nits=nits, rwalk_std=float(rwalk_std), use_priors=use_priors,
+                nits=nits, rwalk_std=float(rwalk_std),
+                prior_logpdf=prior_logpdf, use_priors=use_priors_eff,
                 n_particles=int(n_particles), sde_substeps=int(sde_substeps),
-                sde_method=str(sde_method))
+                sde_method=str(sde_method), hmc=hmc)
             out = run(theta0, 0, burnin, adapt=bool(adapt_proposal),
                       checkpoint_every=checkpoint_every,
                       checkpoint_path=progress, resume_from=resume_from,
@@ -520,21 +667,22 @@ class JointFit:
         return prior_logpdf
 
     def _xla_runner(self, specs, idxs, obs, times, y0s, method, subs, mask,
-                    *, nits, rwalk_std, use_priors, n_particles,
-                    sde_substeps, sde_method):
+                    *, nits, rwalk_std, prior_logpdf, use_priors,
+                    n_particles, sde_substeps, sde_method, hmc=None):
         """``run(theta0, salt, burnin, adapt=False, **checkpointing)``: the
         XLA joint sampler (``odelib_tpu/joint.py``'s xla branch) on the
         frameworks' device in float64, chain i keyed
         ``fold_in(PRNGKey(random_seed), salt * 1_000_003 + i)``: joint PMMH
-        with a stochastic experiment, else joint MH (checkpointed with
+        with a stochastic experiment, HMC over ``hmc['chi_fn']`` with
+        ``hmc`` (its knobs), else joint MH (checkpointed with
         ``checkpoint_every``)."""
         from . import random as jr
+        from . import samplers
         from .samplers import joint as sj
         from .samplers.pf import obs_blocks
         common = dict(walk_mask=mask, rwalk_std=rwalk_std, method=method,
                       substeps_list=subs, use_priors=bool(use_priors),
-                      prior_logpdf=(self._joint_prior_logpdf() if use_priors
-                                    else None))
+                      prior_logpdf=prior_logpdf)
         base = jr.PRNGKey(int(self.random_seed), device=self.device)
 
         def run(theta0, salt, burnin, adapt=False, checkpoint_every=None,
@@ -544,6 +692,17 @@ class JointFit:
             keys = jr.fold_in(base, salt * 1_000_003 + torch.arange(
                 len(th0), device=self.device))
             args = (specs, idxs, obs, times, y0s, th0, keys)
+            if hmc is not None:
+                kw = dict(hmc, nits=nits, burnin=burnin, walk_mask=mask,
+                          use_priors=bool(use_priors),
+                          prior_logpdf=prior_logpdf)
+                chi_fn = kw.pop("chi_fn")
+                if checkpoint_every is not None:
+                    return samplers.hamiltonian_mc_custom_checkpointed(
+                        chi_fn, th0, keys,
+                        checkpoint_every=int(checkpoint_every), **ck, **kw)
+                return samplers.hamiltonian_mc_custom(chi_fn, th0, keys,
+                                                      **kw)
             if self._stoch:
                 blocks = tuple(obs_blocks(fw._obsdata_fit_host)
                                if nm in self._stoch else None
@@ -585,6 +744,8 @@ class JointFit:
         if include_priors:
             for fw in self.frameworks.values():
                 digest_priors(h, fw.parameters)
+            for lab, hyp in sorted(self._hyper_priors.items()):
+                h.update(repr((lab, repr(hyp))).encode())
         return h.hexdigest()
 
     def _posterior_to_df(self, out, n_chains):
@@ -592,7 +753,9 @@ class JointFit:
         chain (built column-wise; the same frame as a per-chain concat)."""
         theta = out.theta[:n_chains].cpu().numpy()          # (C, R, D)
         C, R, _ = theta.shape
-        parts = out.chi_parts[:n_chains].cpu().numpy()
+        # HMC's potential is the summed chi: no per-experiment parts
+        parts = out.chi_parts[:n_chains].cpu().numpy() \
+            if hasattr(out, "chi_parts") else None
         ar = out.acceptance_ratio[:n_chains].cpu().numpy()
         all_rejected = ar[:, -1] == 0.0 if R else np.zeros(C, bool)
         cols = {}
@@ -605,7 +768,7 @@ class JointFit:
             else:
                 cols[lab] = theta[:, :, off].reshape(-1).astype(np.float64)
         cols["chi"] = out.chi[:n_chains].cpu().numpy().reshape(-1)
-        for k, nm in enumerate(self.frameworks):
+        for k, nm in enumerate(self.frameworks if parts is not None else ()):
             cols[f"chi:{nm}"] = parts[:, :, k].reshape(-1)
         cols["iteration"] = np.tile(out.iteration.cpu().numpy(), C)
         cols["acceptance_ratio"] = ar.reshape(-1)
@@ -634,14 +797,22 @@ class JointFit:
                           f"deviation = {float(std):0.3e}")
         best = posterior.loc[posterior["chi"].idxmin()]
         report.append("\nBest joint sample:")
-        report.append("\tChi = {:0.3e} ({})".format(
-            best["chi"], ", ".join(f"chi:{nm} = {best[f'chi:{nm}']:0.3e}"
-                                   for nm in self.frameworks)))
+        if all(f"chi:{nm}" in best for nm in self.frameworks):
+            report.append("\tChi = {:0.3e} ({})".format(
+                best["chi"], ", ".join(
+                    f"chi:{nm} = {best[f'chi:{nm}']:0.3e}"
+                    for nm in self.frameworks)))
+        else:
+            report.append("\tChi = {:0.3e}".format(best["chi"]))
         print("\n".join(report))
 
     def set_best_params(self, posterior):
-        """Push the min-chi joint sample back into every framework."""
+        """Push the min-chi joint sample back into every framework, and
+        keep its hyperparameter values."""
         best = posterior.loc[posterior["chi"].idxmin()]
+        for lab in self._hyper_vals:
+            if lab in best:
+                self._hyper_vals[lab] = float(best[lab])
         for nm, fw in self.frameworks.items():
             vals = {}
             for p, shp in zip(fw._pnames, fw._spec.pshapes):

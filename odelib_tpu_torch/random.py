@@ -118,6 +118,22 @@ def bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
     return b1 ^ b2
 
 
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` of each key: ``arange(n)`` put
+    through ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each splitting the key
+    and stably sorting by 32-bit words drawn over the positions (jax's
+    ``_shuffle``; equal words keep their order, as the sort is stable).
+    Returns int64 ``keys.shape[:-1] + (n,)``."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    x = torch.arange(n, device=keys.device).expand(keys.shape[:-1] + (n,))
+    for _ in range(rounds):
+        keys, sub = split(keys).unbind(-2)
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.take_along_dim(x, order, dim=-1)
+    return x
+
+
 def _split(x):
     """Veltkamp's split of x into two halves whose products are exact."""
     c = x * (134217729.0 if x.dtype == torch.float64 else 4097.0)

@@ -2,12 +2,16 @@
 reference's XLA samplers in torch (MH and its checkpointed run, the
 Goodman-Weare ensemble, parallel tempering with its checkpointed run and
 ``tune_ladder``, the particle filter's PMMH with its checkpointed run and
-``tune_particles``, the joint MH and joint PMMH), with the record
-structures and the tempering bookkeeping."""
+``tune_particles``, the joint MH and joint PMMH, HMC over a model or any
+differentiable chi with their checkpointed runs, adaptive Metropolis),
+with the record structures and the tempering bookkeeping."""
+from .amh import adaptive_metropolis
 from .ensemble import ensemble_mh
 from .joint import (JointOutput, joint_metropolis_hastings,
                     joint_metropolis_hastings_checkpointed, joint_pmmh,
                     joint_survey)
+from .hmc import (hamiltonian_mc, hamiltonian_mc_checkpointed,
+                  hamiltonian_mc_custom, hamiltonian_mc_custom_checkpointed)
 from .lhs import lhs_unit, sample_lhs
 from .mh import (MHOutput, metropolis_hastings,
                  metropolis_hastings_checkpointed, survey)
@@ -25,4 +29,6 @@ __all__ = ["lhs_unit", "sample_lhs", "MHOutput", "metropolis_hastings",
            "pmmh", "PMMHOutput", "particle_filter_chi", "obs_blocks",
            "pmmh_checkpointed", "tune_particles",
            "parallel_tempering_checkpointed", "tune_ladder",
-           "swap_attempts"]
+           "swap_attempts", "hamiltonian_mc", "hamiltonian_mc_checkpointed",
+           "hamiltonian_mc_custom", "hamiltonian_mc_custom_checkpointed",
+           "adaptive_metropolis"]

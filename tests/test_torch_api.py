@@ -124,14 +124,15 @@ def test_lhs_seeding_path(monkeypatch):
 def test_unported_options_raise():
     """Where odelib_tpu leaves its kernels for its XLA samplers, the port
     runs its scan samplers (the arm read from ``last_profile``'s
-    ``chains[...]`` stage, as the reference names it); the samplers not
-    ported still raise naming their ROADMAP item."""
+    ``chains[...]`` stage, as the reference names it); HMC and adaptive
+    Metropolis, which have no kernel in either package, run theirs under
+    backend='auto'."""
     fw = _framework(odelib_tpu_torch, device="cpu")
     run = dict(chain_inits=_INITS, iterations_per_chain=6,
                print_report=False, profile=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fw.MCMC(sampler="hmc", **run)
-    for kw, arm in ((dict(backend="xla"), "xla"),
+    for kw, arm in ((dict(sampler="hmc"), "hmc"),
+                    (dict(sampler="amh"), "amh"),
+                    (dict(backend="xla"), "xla"),
                     (dict(method="auto"), "xla"),
                     (dict(method="kvaerno5"), "xla"),
                     (dict(sampler="pt", method="kvaerno5"), "pt"),

@@ -511,7 +511,8 @@ def test_joint_mcmc_use_priors_matches_odelib_tpu(monkeypatch):
 
 
 def test_joint_unported_options_raise():
-    """The options not ported raise naming their ROADMAP item; the
+    """sampler='hmc' and hierarchical= run on the reference's XLA route
+    (tests/test_torch_hierarchical.py holds them to the reference); the
     checkpoint and run-length options, ported, raise the reference's
     ValueErrors where misused (tests/test_torch_joint_checkpoint.py runs
     them); backend='xla', and a prior without an in-kernel form under
@@ -522,8 +523,10 @@ def test_joint_unported_options_raise():
                print_report=False, profile=True)
     post = jf.MCMC(backend="xla", **run)
     assert "chains[xla]" in jf.last_profile and len(post) == 4 * 2
+    post = jf.MCMC(sampler="hmc", n_leapfrog=2, **run)
+    assert "chains[xla]" in jf.last_profile and len(post) == 4 * 2
+    assert "chi:a" not in post and np.isfinite(post["chi"]).all()
     for kw, exc, match in (
-            (dict(sampler="hmc"), NotImplementedError, "item 16"),
             (dict(checkpoint_every=5), ValueError,
              "requires checkpoint_path"),
             (dict(until_rhat=1.1, checkpoint_every=5,
@@ -542,7 +545,9 @@ def test_joint_unported_options_raise():
         jf.MCMC(chain_inits=4, iterations_per_chain=6, fitsurvey_samples=16,
                 print_report=False, use_priors=True, backend="pallas")
     fws = _zero_i_pair(odelib_tpu_torch, LogNormal, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        JointFit(fws, shared=["phi"], hierarchical=["beta"])
+    hier = JointFit(fws, shared=["phi"], hierarchical=["beta"])
+    assert hier.columns[-2:] == ["beta:pop_median", "beta:pop_sigma"]
+    post = hier.MCMC(**run)
+    assert "chains[xla]" in hier.last_profile and len(post) == 4 * 2
     with pytest.raises(ValueError, match="lacks tied"):
         JointFit(fws, shared=["lam"])

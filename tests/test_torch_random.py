@@ -2,7 +2,8 @@
 jax.random itself under the JAX package's test settings (x64, threefry
 partitionable): keys, fold-ins, splits, bits, uniforms and randints
 bitwise over several seeds and shapes, float64 normals within 2 ulps
-(measured 0), batched keys as a vmap over keys."""
+(measured 0), permutations bitwise (tied sort words included), batched
+keys as a vmap over keys."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,3 +130,33 @@ def test_erfinv_and_log1p_edges():
     np.testing.assert_allclose(
         R.log1p(y).numpy(), np.asarray(jax.lax.log1p(jnp.asarray(
             y.numpy()))), rtol=1e-15)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 1000, 10000])
+def test_permutation_bitwise(n):
+    """``jax.random.permutation(key, n)`` (HMC's warmup-boundary
+    rejuvenation): one round of stable sorts by 32-bit words up to 1,625
+    elements, two at 10,000, where equal words keep their order; over
+    several keys, and a batch of keys as a vmap."""
+    for seed in SEEDS[:4]:
+        k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+        np.testing.assert_array_equal(
+            R.permutation(t, n).numpy(),
+            np.asarray(jax.random.permutation(k, n)))
+    ks = jax.random.split(jax.random.PRNGKey(5), 3)
+    np.testing.assert_array_equal(
+        R.permutation(R.split(R.PRNGKey(5), 3), n).numpy(),
+        np.asarray(jax.vmap(lambda kk: jax.random.permutation(kk, n))(ks)))
+
+
+@pytest.mark.parametrize("seed", [98, 148])
+def test_permutation_keeps_tied_words_in_order(seed):
+    """Equal sort words keep their positions' order (jax's stable
+    ``sort_key_val``): under PRNGKey(98) and PRNGKey(148) two of the first
+    round's 10,000 words are equal (the first two such keys of 0..199)."""
+    n = 10000
+    words = R.bits(R.split(R.PRNGKey(seed))[1], (n,))
+    assert len(torch.unique(words)) == n - 1
+    np.testing.assert_array_equal(
+        R.permutation(R.PRNGKey(seed), n).numpy(),
+        np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n)))

@@ -95,6 +95,17 @@ CASES = {
         sampler="ensemble", pallas_tile_chains=4), "pallas"),
     "pt-auto-ladder": (_framework, dict(sampler="pt", temperatures="auto"),
                        "pallas"),
+    # no kernel for HMC and adaptive Metropolis in either package: their
+    # scan samplers; HMC's fixed Dopri5 for any method but rk4
+    "hmc": (_framework, dict(sampler="hmc"), "hmc"),
+    "hmc-kvaerno3": (_framework, dict(sampler="hmc", method="kvaerno3"),
+                     "hmc"),
+    "hmc-dense-chees-priors": (_framework, dict(
+        sampler="hmc", dense_mass=True, path_adapt=True, use_priors=True),
+        "hmc"),
+    "amh": (_framework, dict(sampler="amh"), "amh"),
+    "amh-backend-xla": (_framework, dict(sampler="amh", backend="xla"),
+                        "amh"),
 }
 
 
@@ -111,12 +122,13 @@ def _sde_discrete(pkg, **kw):
     return fw
 
 
-def _joint(make_a, make_b=_framework):
-    """A JointFit of two frameworks sharing phi, its survey one row of
-    the current values repeated (so that neither package compiles it)."""
+def _joint(make_a, make_b=_framework, **jkw):
+    """A JointFit of two frameworks sharing phi (and ``jkw``), its survey
+    one row of the current values repeated (so that neither package
+    compiles it)."""
     def make(pkg, **kw):
         jf = pkg.JointFit({"a": make_a(pkg, **kw), "b": make_b(pkg, **kw)},
-                          shared=["phi"])
+                          shared=["phi"], **jkw)
         jf.fit_survey = lambda samples, **skw: jf._df_from_thetas(
             np.tile(jf._current_joint_theta(), (8, 1)),
             {"chi": np.arange(8.0)})
@@ -154,9 +166,29 @@ JOINT_CASES = {
                                 "ValueError"),
     "joint-checkpoint-stochastic": (_joint(_sde), dict(
         checkpoint_every=2, checkpoint_path="unused.npz"), "ValueError"),
+    "joint-hmc": (_joint(_framework), dict(sampler="hmc"), "hmc"),
+    "joint-hierarchical": (_joint(_framework, hierarchical=["beta"]), {},
+                           "xla"),
+    "joint-hierarchical-hmc": (_joint(_framework, hierarchical=["beta"]),
+                               dict(sampler="hmc"), "hmc"),
+    "joint-hierarchical-pallas": (_joint(_framework, hierarchical=["beta"]),
+                                  dict(backend="pallas"), "ValueError"),
+    "joint-hmc-pallas": (_joint(_framework), dict(sampler="hmc",
+                                                  backend="pallas"),
+                         "ValueError"),
+    "joint-hmc-stochastic": (_joint(_sde), dict(sampler="hmc"),
+                             "ValueError"),
+}
+# the ValueErrors both raise before dispatching
+RAISE_CASES = {
+    "hmc-pallas": (_framework, dict(sampler="hmc", backend="pallas"),
+                   "ValueError"),
+    "amh-pallas": (_framework, dict(sampler="amh", backend="pallas"),
+                   "ValueError"),
 }
 CASES.update(PMMH_CASES)
 CASES.update(JOINT_CASES)
+CASES.update(RAISE_CASES)
 
 
 def _deep_capture(m, pkg):
@@ -183,6 +215,7 @@ def _deep_capture(m, pkg):
     m.setattr(f"{pre}.samplers.joint.joint_metropolis_hastings_checkpointed",
               arm("xla"))
     m.setattr(f"{pre}.samplers.joint.joint_pmmh", arm("pmmh"))
+    m.setattr(f"{pre}.samplers.hamiltonian_mc_custom", arm("hmc"))
 
 
 def deep_arm(pkg, make, kw):
@@ -259,7 +292,7 @@ def port_arm(make, kw, monkeypatch):
 @pytest.mark.parametrize("case", list(CASES))
 def test_port_takes_the_reference_tpu_route(case, monkeypatch):
     make, kw, arm = CASES[case]
-    if case in PMMH_CASES or case in JOINT_CASES:
+    if case in PMMH_CASES or case in JOINT_CASES or case in RAISE_CASES:
         ref, got = deep_arm(odelib_tpu, make, kw), \
             deep_arm(odelib_tpu_torch, make, kw)
         assert ref["arm"] == arm, ref
