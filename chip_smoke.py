@@ -300,7 +300,19 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    (e) the four samplers at 64 chains on the card and on the CPU from the
    same keys (equal accept sequences, chi within 1e-8 relative); (f) HMC
    in 4 chunks, killed after two and resumed, bitwise its whole run; (g)
-   one gradient of 10,000 lanes, its seconds and peak device memory.
+   one gradient of 10,000 lanes, its seconds and peak device memory;
+7. the point estimates, variational fits and evidence (``opt_phases``:
+   api_inference.py, samplers/optimize.py, advi.py and smc.py; float64,
+   autograd through the fixed-step solve), each at its default lane
+   count with its steps cut to ``OPT_STEPS`` and each against the same
+   call on a CPU framework from the same starts, no fused kernel
+   launched: (a) fit_map(starts=64, use_priors=True), (b)
+   laplace_approximation at (a)'s winner, (c) fit_advi(rank='full') from
+   it, (d) profile_likelihood('beta') at 21 points x 8 starts, (e)
+   model_evidence(particles=1024, method='rk4') and 64 particles card
+   against CPU, (f) JointFit of config 9 with fit_map(starts=64) and
+   fit_advi; (g) the seconds and peak device memory of an Adam step at 65
+   and 10,000 lanes, an ELBO step, a Hessian and an SMC stage.
 
 Each phase's header gives the seconds since the start; the twins on the
 card are launch-bound and take most of the run. Prints the device line
@@ -3566,6 +3578,323 @@ def grad_phases(framework, joint_pair, starts, smi_line):
     return secs
 
 
+# the inference methods' phases: fit_map's, fit_advi's and
+# profile_likelihood's Adam steps and the joint fit's, cut from the
+# defaults' 500, 800 and 400 so that the seven phases take at most 50 s
+# together; the lane counts (65 starts, 8 MC draws, 21 x 8, 1,024
+# particles, 1,000 draws) are the defaults'
+OPT_STEPS = {"map": 4, "advi": 4, "profile": 3, "joint_map": 3,
+             "joint_advi": 3}
+OPT_PARTICLES, OPT_PARITY_PARTICLES = 1024, 64
+
+
+def _measured(fn):
+    """``fn()`` on the card: (result, seconds, peak device MiB above what
+    was held before the call)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+
+
+def _close(label, got, ref, rtol):
+    """Card against CPU: equal NaN positions and values within ``rtol``
+    relative; returns the largest relative difference."""
+    import numpy as np
+    a = np.asarray(got, float).ravel()
+    b = np.asarray(ref, float).ravel()
+    if a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+        fail(f"{label}: shapes or NaN positions differ card vs CPU")
+    fin = np.isfinite(b)
+    rel = float(np.max(np.abs(a[fin] - b[fin]) / np.maximum(
+        np.abs(b[fin]), 1e-300), initial=0.0))
+    if not rel <= rtol:
+        fail(f"{label}: card and CPU differ by {rel:.3e} relative "
+             f"(limit {rtol})")
+    return rel
+
+
+def opt_phases(framework, joint_pair, smi_line):
+    """The phases (a)-(g) of the inference methods (odelib_tpu_torch/
+    api_inference.py, samplers/optimize.py, advi.py, smc.py; float64,
+    autograd through the fixed-step solve), through the user API at their
+    default lane counts, each with launch counts reset just before and
+    read just after (no fused kernel may launch), each against the same
+    call on a CPU framework from the same starts: (a) fit_map(starts=64,
+    use_priors=True) on zero_i (65 lanes): a finite best chi and every
+    best loss not above the best start's potential, theta, chi and loss
+    within 1e-8 relative and converged equal; (b)
+    laplace_approximation(use_priors=True) at (a)'s winner: a finite
+    Hessian (a finite covariance), cov within 1e-7; (c)
+    fit_advi(rank='full', n_mc=8, draws=1000) from the winner: the ELBO
+    trace and the draws' chi within 1e-8, khat within 1e-6; (d)
+    profile_likelihood('beta') at 21 points x 8 starts (168 lanes): the
+    profile within 1e-8; (e) model_evidence(particles=1024,
+    method='rk4'), its stages, betas, acceptances and seconds a stage,
+    then at 64 particles (n_moves 2) card against CPU: betas within 1e-12,
+    acceptances equal, logZ within 1e-8; (f) JointFit of config 9 with
+    fit_map(starts=64) and fit_advi, card against CPU as (a) and (c);
+    (g) the seconds and peak device memory of one Adam step at 65 and at
+    10,000 lanes, one ELBO step, one Hessian and one SMC stage (1,024
+    particles, the default adaptive Dopri5, n_moves 5). Step counts are
+    ``OPT_STEPS``. Returns the phases' seconds."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from odelib_tpu_torch import JointFit
+    from odelib_tpu_torch import random as jr
+    from odelib_tpu_torch.model import chi_of_theta
+    from odelib_tpu_torch.ops import cuda_mh
+    from odelib_tpu_torch.samplers import smc as ssmc
+    from odelib_tpu_torch.samplers.mh import metrics_fn
+
+    t_all = time.perf_counter()
+    secs, costs = {}, {}
+    pn = ["mu", "phi", "beta"]
+
+    def on_card(label, fn):
+        """``fn()`` with the launch counts reset before and read after (no
+        fused kernel may launch), its printed output kept aside; returns
+        (result, seconds, peak MiB, the output)."""
+        out = io.StringIO()
+        cuda_mh.reset_launch_counts()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res, dt, peak = _measured(fn)
+        launches = dict(cuda_mh.LAUNCHES)
+        if any(launches.values()):
+            fail(f"{label}: a fused kernel was launched: {launches}")
+        return res, dt, peak, out.getvalue()
+
+    def on_cpu(fn):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t0 = time.perf_counter()
+            return fn(), time.perf_counter() - t0
+
+    def frames(label, got, ref, cols, exact=()):
+        rel = 0.0
+        for c in cols:
+            if c in exact:
+                if not np.array_equal(got[c].to_numpy(), ref[c].to_numpy()):
+                    fail(f"{label}: {c} differs card vs CPU")
+                continue
+            rel = max(rel, _close(f"{label} {c}", got[c].to_numpy(float),
+                                  ref[c].to_numpy(float), 1e-8))
+        return rel
+
+    t = time.perf_counter()
+    n = OPT_STEPS["map"]
+    phase(f"opt (a): fit_map(starts=64, use_priors=True) on zero_i, 65 "
+          f"lanes x {n} Adam steps (cut from 500), card against CPU")
+    fw, cpu = framework(), framework(device="cpu")
+    cpu._lhs_samples = fw._lhs_samples
+    spec, obs, times, y0, method, sub = fw._fit_args({})
+    th0 = torch.as_tensor(np.concatenate([
+        fw._theta_from_df(fw._lhs_samples(64)),
+        np.asarray(fw._current_theta())[None]]), device=fw.device)
+    th0 = torch.exp(torch.log(th0))
+    u0 = (chi_of_theta(spec, obs, th0, y0, times, method=method,
+                       substeps=sub) - fw._prior_logpdf()(th0)).cpu().numpy()
+    df_a, s_a, m_a, _ = on_card("opt (a)", lambda: fw.fit_map(
+        starts=64, steps=n, use_priors=True))
+    df_ac, c_a = on_cpu(lambda: cpu.fit_map(starts=64, steps=n,
+                                            use_priors=True))
+    best = df_a.iloc[0]
+    u_fin = u0[np.isfinite(u0)]
+    print(f"opt (a): card {s_a:.3f} s (peak {m_a:.1f} MiB), CPU {c_a:.3f} "
+          f"s; best chi {best.chi:.6g} (loss {best.loss:.6g}; the best "
+          f"start's potential {u_fin.min():.6g}), finite chi "
+          f"{float(np.isfinite(df_a.chi).mean()):.4f}, converged "
+          f"{int(df_a.converged.sum())} of {len(df_a)}", flush=True)
+    if not np.isfinite(best.chi) or not len(u_fin) \
+            or not df_a.loss.min() <= u_fin.min():
+        fail(f"opt (a): best chi {best.chi}, loss {df_a.loss.min()} above "
+             f"the best start's potential {u_fin.min()}")
+    rel = frames("opt (a)", df_a, df_ac, pn + ["chi", "loss", "converged"],
+                 exact=("converged",))
+    print(f"opt (a): card against CPU within {rel:.3e} relative, converged "
+          "equal", flush=True)
+    secs["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase("opt (b): laplace_approximation(use_priors=True) at (a)'s "
+          "winner, card against CPU")
+    win = [float(best[p]) for p in pn]
+    lap, s_b, m_b, _ = on_card("opt (b)", lambda: fw.laplace_approximation(
+        parameters=win, use_priors=True))
+    lap_c, c_b = on_cpu(lambda: cpu.laplace_approximation(
+        parameters=win, use_priors=True))
+    cov = lap["cov"].to_numpy()
+    print(f"opt (b): card {s_b:.3f} s (peak {m_b:.1f} MiB), CPU {c_b:.3f} "
+          f"s; hessian_pd {lap['hessian_pd']}, log_std "
+          + ", ".join(f"{k} {v:.4g}" for k, v in lap["log_std"].items()),
+          flush=True)
+    if not np.isfinite(cov).all() or lap["hessian_pd"] != lap_c["hessian_pd"]:
+        fail(f"opt (b): Hessian not finite or hessian_pd differs: {cov}")
+    rel = _close("opt (b) cov", cov, lap_c["cov"].to_numpy(), 1e-7)
+    print(f"opt (b): cov card against CPU within {rel:.3e}", flush=True)
+    costs["Hessian, 3 x 3"] = [s_b, m_b]
+    secs["b"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    n = OPT_STEPS["advi"]
+    phase(f"opt (c): fit_advi(rank='full', n_mc=8, draws=1000) from (a)'s "
+          f"winner, {n} ELBO steps (cut from 800), card against CPU")
+    for f in (fw, cpu):
+        f.set_parameters(**dict(zip(pn, win)))
+    akw = dict(rank="full", n_mc=8, draws=1000)
+    adv, s_c, m_c, rep = on_card("opt (c)", lambda: fw.fit_advi(
+        steps=n, **akw))
+    adv_c, c_c = on_cpu(lambda: cpu.fit_advi(steps=n, **akw))
+    a, b = adv.attrs["advi"], adv_c.attrs["advi"]
+    print(f"opt (c): card {s_c:.3f} s (peak {m_c:.1f} MiB), CPU {c_c:.3f} "
+          f"s; ELBO {a['elbo'][0]:.6g} -> {a['elbo'][-1]:.6g}, khat "
+          f"{a['khat']:.4f}, finite draws "
+          f"{float(np.isfinite(adv.chi).mean()):.4f}", flush=True)
+    if "ADVI Report" not in rep or len(adv) != 1000:
+        fail("opt (c): no report, or not 1,000 draws")
+    rel = max(_close("opt (c) ELBO", a["elbo"], b["elbo"], 1e-8),
+              _close("opt (c) chi", adv.chi, adv_c.chi, 1e-8),
+              _close("opt (c) khat", a["khat"], b["khat"], 1e-6))
+    print(f"opt (c): card against CPU within {rel:.3e}", flush=True)
+    costs["ELBO step, 8 draws"] = [s_c, m_c]
+    secs["c"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    n = OPT_STEPS["profile"]
+    phase(f"opt (d): profile_likelihood('beta') at 21 points x 8 starts "
+          f"(168 lanes), {n} Adam steps (cut from 400), card against CPU")
+    prof, s_d, m_d, rep = on_card("opt (d)", lambda: fw.profile_likelihood(
+        "beta", steps=n))
+    prof_c, c_d = on_cpu(lambda: cpu.profile_likelihood("beta", steps=n))
+    print(f"opt (d): card {s_d:.3f} s (peak {m_d:.1f} MiB), CPU {c_d:.3f} "
+          f"s; {rep.strip()}; identifiable {prof['identifiable']}",
+          flush=True)
+    rel = max(_close("opt (d) profile", prof["profile"]["chi"],
+                     prof_c["profile"]["chi"], 1e-8),
+              _close("opt (d) ci", prof["ci"], prof_c["ci"], 1e-8))
+    if prof["identifiable"] != prof_c["identifiable"]:
+        fail("opt (d): identifiable differs card vs CPU")
+    print(f"opt (d): card against CPU within {rel:.3e}", flush=True)
+    secs["d"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"opt (e): model_evidence(particles={OPT_PARTICLES}, "
+          f"method='rk4'), then {OPT_PARITY_PARTICLES} particles card "
+          "against CPU")
+    ev, s_e, m_e, rep = on_card("opt (e)", lambda: fw.model_evidence(
+        particles=OPT_PARTICLES, method="rk4"))
+    stages = len(ev["betas"]) - 1
+    print(f"opt (e): {rep.strip()}; {s_e:.3f} s, {s_e / stages:.3f} s a "
+          f"stage of 5 sweeps (peak {m_e:.1f} MiB); betas "
+          + ", ".join(f"{b:.6g}" for b in ev["betas"]) + "; acceptances "
+          + ", ".join(f"{x:.4f}" for x in ev["acceptance"]), flush=True)
+    post = ev["posterior"]
+    if ev["betas"][-1] != 1.0 or not np.isfinite(ev["log_evidence"]) \
+            or not np.isfinite(post.chi).all() or len(post) != OPT_PARTICLES:
+        fail(f"opt (e): betas {ev['betas']}, logZ {ev['log_evidence']}, "
+             f"finite chi {float(np.isfinite(post.chi).mean())}")
+    ekw = dict(particles=OPT_PARITY_PARTICLES, n_moves=2, method="rk4",
+               print_report=False)
+    ev64, s_e64, _, _ = on_card("opt (e) 64", lambda: fw.model_evidence(
+        **ekw))
+    ev64_c, c_e64 = on_cpu(lambda: cpu.model_evidence(**ekw))
+    bit = ev64["betas"] == ev64_c["betas"]
+    rel = max(_close("opt (e) betas", ev64["betas"], ev64_c["betas"],
+                     1e-12),
+              _close("opt (e) logZ", ev64["log_evidence"],
+                     ev64_c["log_evidence"], 1e-8))
+    if ev64["acceptance"] != ev64_c["acceptance"]:
+        fail(f"opt (e): acceptances differ card vs CPU: "
+             f"{ev64['acceptance']} / {ev64_c['acceptance']}")
+    print(f"opt (e) {OPT_PARITY_PARTICLES}: card {s_e64:.3f} s, CPU "
+          f"{c_e64:.3f} s, {len(ev64['betas']) - 1} stages; betas "
+          f"{'bitwise equal' if bit else 'equal within 1e-12'}, "
+          f"acceptances equal, within {rel:.3e}", flush=True)
+    secs["e"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    nm, na = OPT_STEPS["joint_map"], OPT_STEPS["joint_advi"]
+    phase(f"opt (f): JointFit(config 9).fit_map(starts=64) x {nm} steps, "
+          f"then fit_advi(draws=1000) x {na}, card against CPU")
+    jf = JointFit(joint_pair(), shared=["phi", "beta"], random_seed=0)
+    jc = JointFit(joint_pair(device="cpu"), shared=["phi", "beta"],
+                  random_seed=0)
+    jcols = list(jf.columns)
+    jm, s_f1, m_f1, _ = on_card("opt (f) fit_map", lambda: jf.fit_map(
+        starts=64, steps=nm))
+    jm_c, c_f1 = on_cpu(lambda: jc.fit_map(starts=64, steps=nm))
+    rel = frames("opt (f) fit_map", jm, jm_c,
+                 jcols + ["chi", "loss", "converged"], exact=("converged",))
+    jc.set_best_params(jm)              # the CPU fit from the card's winner
+    ja, s_f2, m_f2, rep = on_card("opt (f) fit_advi", lambda: jf.fit_advi(
+        steps=na, n_mc=8, draws=1000))
+    ja_c, c_f2 = on_cpu(lambda: jc.fit_advi(steps=na, n_mc=8, draws=1000))
+    a, b = ja.attrs["advi"], ja_c.attrs["advi"]
+    rel = max(rel, _close("opt (f) ELBO", a["elbo"], b["elbo"], 1e-8),
+              _close("opt (f) chi", ja.chi, ja_c.chi, 1e-8),
+              _close("opt (f) khat", a["khat"], b["khat"], 1e-6))
+    if "Joint ADVI Report" not in rep or not np.isfinite(jm.chi.iloc[0]):
+        fail("opt (f): no report, or no finite best chi")
+    print(f"opt (f): fit_map card {s_f1:.3f} s (peak {m_f1:.1f} MiB), CPU "
+          f"{c_f1:.3f} s, best chi {jm.chi.iloc[0]:.6g}; fit_advi card "
+          f"{s_f2:.3f} s (peak {m_f2:.1f} MiB), CPU {c_f2:.3f} s, khat "
+          f"{a['khat']:.4f}; card against CPU within {rel:.3e}",
+          flush=True)
+    secs["f"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"opt (g): one Adam step at 65 and 10,000 lanes, one ELBO step, "
+          f"one Hessian, one SMC stage; seconds and peak memory "
+          f"({smi_line})")
+    # a step's seconds: the difference of two calls' walls over their
+    # step counts (the LHS, the end point's evaluations and the draws
+    # cancel)
+    for starts in (64, 9999):
+        _, s1, _, _ = on_card("opt (g)", lambda: fw.fit_map(
+            starts=starts, steps=1, use_priors=True, set_best=False))
+        _, s3, m3, _ = on_card("opt (g)", lambda: fw.fit_map(
+            starts=starts, steps=3, use_priors=True, set_best=False))
+        costs[f"Adam step, {starts + 1:,} lanes"] = [(s3 - s1) / 2, m3]
+    _, s1, _, _ = on_card("opt (g)", lambda: fw.fit_advi(steps=1, **akw))
+    costs["ELBO step, 8 draws"][0] = (s_c - s1) / (OPT_STEPS["advi"] - 1)
+    # one stage of the default method (adaptive Dopri5, 5 sweeps) from
+    # (e)'s posterior particles
+    th = torch.as_tensor(fw._theta_from_df(post), device=fw.device)
+    z = torch.log(th)
+    metrics = metrics_fn(spec, obs, times, y0, 3, th, method="dopri5",
+                         rtol=1e-6, atol=1e-4, max_steps=4096, substeps=4)
+    prior = fw._prior_logpdf()
+    chi, rsq, aic = metrics(torch.exp(z))
+    lp = prior(torch.exp(z))
+    cov = np.cov(z.cpu().numpy(), rowvar=False) + 1e-10 * np.eye(3)
+    chol = torch.as_tensor(2.38 / np.sqrt(3) * np.linalg.cholesky(cov),
+                           device=fw.device)
+    mask = torch.ones(3, dtype=torch.float64, device=fw.device)
+    out, s_st, m_st, _ = on_card("opt (g)", lambda: ssmc._stage(
+        metrics, prior, z, chi, rsq, aic, lp, jr.PRNGKey(0, device=fw.device),
+        1.0, torch.zeros_like(chi), chol, mask, 5))
+    costs[f"SMC stage, {len(th)} particles, adaptive Dopri5"] = [s_st, m_st]
+    costs[f"SMC stage, {len(th)} particles, rk4 (e)"] = [s_e / stages, m_e]
+    for k, (v, m) in costs.items():
+        print(f"opt (g) {k}: {v:.4f} s, peak {m:.1f} MiB", flush=True)
+    print(f"opt (g): the adaptive stage's acceptance {out[5]:.4f}",
+          flush=True)
+    secs["g"] = time.perf_counter() - t
+    total = time.perf_counter() - t_all
+    print("opt phases' seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in secs.items()) + f"; all {total:.1f} s",
+        flush=True)
+    return secs
+
 def _survey_held(label, case, chi_k, chi_t):
     """The survey's chi, kernel against twin: bitwise (compare_chi), or
     for a Tobit case within rtol 1e-6."""
@@ -3581,6 +3910,50 @@ def _survey_held(label, case, chi_k, chi_t):
         fail(f"{label} survey: kernel and twin differ (max rel err "
              f"{rel.max():.3g})")
     return float(np.max(np.abs(a[fin] - b[fin])))
+
+
+def demo_framework(df=None, ode=None, device="cuda", **kw):
+    """zero_i (or ``ode`` with its names) on the demo data with the main
+    paths' priors (``kw`` may replace one), on ``device``."""
+    import numpy as np  # noqa: F401
+    import scipy.stats
+    from odelib_tpu_torch import ModelFramework, parameter
+    from odelib_tpu_torch.data import load_demo_dataframe
+    from odelib_tpu_torch.models import zero_i
+    pri = dict(
+        mu=parameter(scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
+                     random_seed=1),
+        phi=parameter(scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
+                      random_seed=2),
+        beta=parameter(scipy.stats.lognorm, {"s": 1, "scale": 25},
+                       random_seed=3))
+    pri.update(kw)
+    return ModelFramework(
+        ODE=zero_i.rhs if ode is None else ode,
+        parameter_names=list(zero_i.pnames),
+        state_names=list(zero_i.snames),
+        dataframe=(load_demo_dataframe(host="S", virus="V")
+                   if df is None else df),
+        t_steps=288, device=device, ode_style="jax", **pri)
+
+
+def demo_joint_pair(make_b=None, device="cuda"):
+    """bench/suite.py's config 9 pair: zero_i on the demo data (a) and
+    ``make_b`` (zero_i on ``device`` by default) on the same frame with
+    its log abundances perturbed (numpy seed 7, sd 0.1) and both initial
+    abundances x 1.13 (b)."""
+    import numpy as np
+    from odelib_tpu_torch.data import load_demo_dataframe
+    if make_b is None:
+        def make_b(df, **kw):
+            return demo_framework(df, device=device, **kw)
+    fw_a = demo_framework(device=device)
+    df = load_demo_dataframe(host="S", virus="V")
+    df["abundance"] = df["abundance"] * np.exp(
+        np.random.default_rng(7).normal(0, 0.1, len(df)))
+    y0_a = fw_a.get_inits(as_dict=True)
+    return {"a": fw_a, "b": make_b(df, **{s: 1.13 * float(v)
+                                          for s, v in y0_a.items()})}
 
 
 def main():
@@ -3627,36 +4000,7 @@ def main():
           f"device: {kind}", flush=True)
     dev = torch.device("cuda")
 
-    def framework(df=None, ode=None, **kw):
-        """zero_i (or ``ode`` with its names) on the demo data with the
-        main paths' priors (``kw`` may replace one)."""
-        pri = dict(
-            mu=parameter(scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
-                         random_seed=1),
-            phi=parameter(scipy.stats.lognorm, {"s": 3, "scale": 1e-8},
-                          random_seed=2),
-            beta=parameter(scipy.stats.lognorm, {"s": 1, "scale": 25},
-                           random_seed=3))
-        pri.update(kw)
-        return ModelFramework(
-            ODE=zero_i.rhs if ode is None else ode,
-            parameter_names=list(zero_i.pnames),
-            state_names=list(zero_i.snames),
-            dataframe=(load_demo_dataframe(host="S", virus="V")
-                       if df is None else df),
-            t_steps=288, device="cuda", ode_style="jax", **pri)
-
-    def joint_pair(make_b=framework):
-        """zero_i on the demo data (a) and ``make_b`` (zero_i) on the same
-        frame with its log abundances perturbed (numpy seed 7, sd 0.1) and
-        both initial abundances x 1.13 (b)."""
-        fw_a = framework()
-        df = load_demo_dataframe(host="S", virus="V")
-        df["abundance"] = df["abundance"] * np.exp(
-            np.random.default_rng(7).normal(0, 0.1, len(df)))
-        y0_a = fw_a.get_inits(as_dict=True)
-        return {"a": fw_a, "b": make_b(df, **{s: 1.13 * float(v)
-                                              for s, v in y0_a.items()})}
+    framework, joint_pair = demo_framework, demo_joint_pair
 
     def joint_fit():
         """joint_pair() sharing phi and beta: D = 4."""
@@ -5070,6 +5414,8 @@ def main():
     # HMC, adaptive Metropolis and the hierarchical joint fit, after the
     # profiler passes (which count the main paths' launches as before)
     grad_phases(framework, joint_pair, scan_draws, smi_line)
+    # the point estimates, variational fits and evidence
+    opt_phases(framework, joint_pair, smi_line)
 
     csrc = "odelib_tpu_torch/ops/csrc/"
 

@@ -23,6 +23,9 @@ seeded under the
 Report. An SDE model (``diffusion=``) also has ``simulate`` (stochastic
 paths) and ``tune_particles`` (PMMH's particle count);
 ``get_chi_sensitivity`` is chi's gradient through the fixed-step solve.
+``fit_map``, ``laplace_approximation``, ``fit_advi``,
+``profile_likelihood`` and ``model_evidence`` come from
+:class:`~odelib_tpu_torch.api_inference.InferenceMixin`.
 
 ``ModelFramework(device=...)`` picks where everything runs: ``cuda`` by
 default, and ``cpu`` only when asked for; without a card the default
@@ -45,6 +48,7 @@ from . import data as _data
 from . import dispatch as _dispatch
 from . import distributions as _dist
 from . import stats as tstats
+from .api_inference import InferenceMixin
 from .model import (dose_matrix, make_spec, state_func, state_jac,
                     traces)
 from .ops.integrate import odeint_grid
@@ -123,7 +127,7 @@ _SAMPLERS = ("mh", "hmc", "pt", "ensemble", "amh", "pmmh")
 _FIXED = ("dopri5", "rk4", "kvaerno3")
 
 
-class ModelFramework:
+class ModelFramework(InferenceMixin):
     """Bayesian ODE fitting framework (reference API) on PyTorch.
 
     Same construction and semantics as ``odelib_tpu.ModelFramework``
@@ -323,18 +327,20 @@ class ModelFramework:
                 out.extend(d if v != 0 else None for v in tmpl)
         return out
 
-    def _prior_logpdf(self):
+    def _prior_logpdf(self, skip=()):
         """``prior_logpdf(theta (N, P)) -> (N,)`` for the scan samplers
         (``odelib_tpu``'s ``_prior_logpdf_for``): each parameter's prior
         log density, summed over its entries, added in parameter order; an
         array parameter's zero-template entries are left out (they never
         walk, and their log density is -inf on both sides of the ratio).
-        Any family: DiscreteNormal and array hyperparameters too."""
+        The parameters named in ``skip`` (static ones, held fixed) and
+        those without a prior contribute nothing. Any family:
+        DiscreteNormal and array hyperparameters too."""
         spec = self._spec
         parts = []
         for p, tmpl in zip(self._pnames, self._templates()):
             par = self.parameters[p]
-            d = par.tdist if par is not None else None
+            d = par.tdist if par is not None and p not in skip else None
             parts.append(None if d is None else
                          (d, None if tmpl is None else tmpl != 0))
 

@@ -16,10 +16,11 @@ joint sampler (:mod:`odelib_tpu_torch.samplers.joint`); a stochastic
 (``diffusion=``) experiment sends the fit to joint particle-marginal MH.
 ``sampler='hmc'`` runs HMC over the summed chi
 (:func:`~odelib_tpu_torch.samplers.hmc.hamiltonian_mc_custom`), as does
-the reference. The joint layout, LHS survey, seeding, posterior frame and
-report are the JAX package's, and so are chunked checkpointing with a
-bit-exact resume and ``until_rhat``/``until_min_ess`` run-length
-extension.
+the reference; ``fit_map`` (multi-start Adam) and ``fit_advi`` run over
+the same summed chi and pooling density. The joint layout, LHS survey,
+seeding, posterior frame and report are the JAX package's, and so are
+chunked checkpointing with a bit-exact resume and
+``until_rhat``/``until_min_ess`` run-length extension.
 """
 from __future__ import annotations
 
@@ -374,20 +375,26 @@ class JointFit:
         total = _total_chi_fn(specs, idxs, obs, times, y0s, method, subs)
         return lambda theta: total(theta)[0]
 
+    def _lhs_thetas(self, samples):
+        """(samples, D) LHS draws over the joint priors (a
+        ``torch.Generator`` seeded from ``random_seed``), the slots without
+        a prior at their current values."""
+        dists = self._dists()
+        thetas = np.tile(self._current_joint_theta(), (int(samples), 1))
+        draw_dims = [j for j, d in enumerate(dists) if d is not None]
+        if draw_dims:
+            gen = torch.Generator().manual_seed(int(self.random_seed))
+            thetas[:, draw_dims] = sample_lhs(
+                gen, [self._slot_dist(j) for j in draw_dims],
+                int(samples)).numpy()
+        return thetas
+
     def fit_survey(self, samples=1000, **solver_kw) -> pd.DataFrame:
         """LHS over the joint priors (a ``torch.Generator`` seeded from
         ``random_seed``) -> DataFrame[columns..., chi], scored by
         :func:`~odelib_tpu_torch.samplers.joint.joint_survey` in float64
         on the frameworks' device with fixed steps."""
-        dists = self._dists()
-        cur = self._current_joint_theta()
-        draw_dims = [j for j, d in enumerate(dists) if d is not None]
-        thetas = np.tile(cur, (samples, 1))
-        if draw_dims:
-            gen = torch.Generator().manual_seed(int(self.random_seed))
-            thetas[:, draw_dims] = sample_lhs(
-                gen, [self._slot_dist(j) for j in draw_dims],
-                samples).numpy()
+        thetas = self._lhs_thetas(samples)
         specs, idxs, obs, times, y0s, method, subs = \
             self._device_args(solver_kw)
         chis = joint_survey(
@@ -648,6 +655,118 @@ class JointFit:
         if profile:
             self.last_profile = stages
         return posterior
+
+    def _require_deterministic(self, what, drift_only):
+        """A joint method whose math assumes deterministic likelihoods
+        refuses when any experiment carries process noise, unless opted
+        into the drift-only approximation (then it warns)."""
+        if not self._stoch:
+            return
+        if not drift_only:
+            raise ValueError(
+                f"{what} assumes deterministic likelihoods, but "
+                f"experiment(s) {sorted(self._stoch)} carry process "
+                "noise (diffusion=...): a single drift trajectory's fit "
+                "statistic is not the SDE's marginal likelihood. Use "
+                "MCMC() (joint particle-marginal MH), or pass "
+                "drift_only=True to run on the drift skeletons (the "
+                "diffusion terms are IGNORED).")
+        warnings.warn(
+            f"{what}: drift_only=True with stochastic experiment(s) "
+            f"{sorted(self._stoch)} — diffusion terms are ignored; "
+            "treat the result as an analysis of the deterministic "
+            "skeletons, not of the SDEs.")
+
+    def fit_map(self, starts=64, steps=500, learning_rate=0.05,
+                use_priors=False, static_parameters=(), set_best=True,
+                drift_only=False, **solver_kw) -> pd.DataFrame:
+        """Multi-start Adam on the joint posterior (``odelib_tpu``'s
+        ``JointFit.fit_map``): maximum likelihood over the summed chi, or
+        MAP with ``use_priors=True``; hierarchical pooling always enters
+        (:meth:`_effective_prior`). The starts are ``starts`` LHS draws
+        over the joint priors and the current values, each a lane of every
+        experiment's fixed-step solve. Returns the per-start optima
+        (columns..., chi, loss, converged) sorted by chi; ``set_best=True``
+        pushes the winner into every framework."""
+        self._require_deterministic("fit_map", drift_only)
+        from .samplers.optimize import map_fit_custom
+
+        cur = self._current_joint_theta()
+        thetas = np.concatenate([self._lhs_thetas(starts), cur[None]])
+        prior_fn, use_eff = self._effective_prior(use_priors)
+        res = map_fit_custom(
+            self._joint_chi_fn(solver_kw), thetas, steps=int(steps),
+            learning_rate=float(learning_rate),
+            walk_mask=self._walk_mask(static_parameters),
+            prior_logpdf=prior_fn, use_priors=use_eff, device=self.device)
+        df = self._df_from_thetas(res.theta.cpu().numpy())
+        df["chi"] = res.chi.cpu().numpy()
+        df["loss"] = res.loss.cpu().numpy()
+        df["converged"] = res.converged.cpu().numpy()
+        df = df.sort_values("chi").reset_index(drop=True)
+        if set_best and len(df) and np.isfinite(df["chi"].iloc[0]):
+            self.set_best_params(df)
+        return df
+
+    def fit_advi(self, steps=800, learning_rate=0.05, n_mc=8,
+                 rank="full", draws=1000, use_priors=True,
+                 static_parameters=(), resample=False, print_report=True,
+                 drift_only=False, **solver_kw) -> pd.DataFrame:
+        """Variational (ADVI) joint posterior (``odelib_tpu``'s
+        ``JointFit.fit_advi``): a Gaussian over the joint log-parameters
+        fitted by ELBO ascent through every experiment's solve, from the
+        current values with key ``PRNGKey(random_seed)``; the diagnostics
+        in ``df.attrs['advi']`` as :meth:`ModelFramework.fit_advi`'s.
+        Returns ``draws`` rows of the joint columns and total ``chi``."""
+        self._require_deterministic("fit_advi", drift_only)
+        from .samplers.advi import advi_custom, attach_advi_diagnostics
+
+        if rank not in ("full", "diag"):
+            raise ValueError(f"rank must be 'full' or 'diag', got {rank!r}")
+        cur = self._current_joint_theta()
+        mask = self._walk_mask(static_parameters)
+        if np.any((cur <= 0) & (mask != 0)):
+            raise ValueError(
+                "fit_advi needs positive current values on every free "
+                "joint dimension; run fit_map (or set parameters) first")
+        prior_fn, use_eff = self._effective_prior(use_priors)
+        res = advi_custom(
+            self._joint_chi_fn(solver_kw), cur, steps=int(steps),
+            learning_rate=float(learning_rate), n_mc=int(n_mc),
+            full_rank=(rank == "full"), draws=int(draws), walk_mask=mask,
+            prior_logpdf=prior_fn, use_priors=use_eff,
+            seed=int(self.random_seed), device=self.device)
+        df = self._df_from_thetas(res.theta.cpu().numpy())
+        df["chi"] = res.chi.cpu().numpy()
+        df, khat = attach_advi_diagnostics(
+            df, res, seed=self.random_seed, resample=resample,
+            label="joint ADVI")
+        if print_report:
+            report = ["\nJoint ADVI Report (variational posterior)\n"
+                      "========================================="]
+            for col in self.columns:
+                tmpl = self._template(col)
+                if tmpl is None:
+                    m, s = tstats.rawstats(df[col].to_numpy(float))
+                    report.append(f"parameter: {col}\n\tmedian = "
+                                  f"{float(m):0.3e}, Standard deviation "
+                                  f"= {float(s):0.3e}")
+                    continue
+                vals = np.stack([np.ravel(np.asarray(v, float))
+                                 for v in df[col].to_numpy()])
+                for i in range(vals.shape[1]):
+                    if tmpl[i] == 0:
+                        continue
+                    m, s = tstats.rawstats(vals[:, i])
+                    report.append(f"parameter: {col}[{i}]\n\tmedian = "
+                                  f"{float(m):0.3e}, Standard deviation "
+                                  f"= {float(s):0.3e}")
+            report.append(f"\nfinal ELBO = {float(res.elbo[-1]):0.4e}, "
+                          f"converged = {bool(res.converged)}, "
+                          f"khat = {khat:0.3f} "
+                          f"({'reliable' if khat < 0.7 else 'UNRELIABLE'})")
+            print("\n".join(report))
+        return df
 
     def _joint_prior_logpdf(self):
         """``prior_logpdf(theta (N, D)) -> (N,)`` for the XLA joint

@@ -4,7 +4,10 @@ Goodman-Weare ensemble, parallel tempering with its checkpointed run and
 ``tune_ladder``, the particle filter's PMMH with its checkpointed run and
 ``tune_particles``, the joint MH and joint PMMH, HMC over a model or any
 differentiable chi with their checkpointed runs, adaptive Metropolis),
-with the record structures and the tempering bookkeeping."""
+multi-start Adam (``map_fit``), ADVI and tempered SMC, with the record
+structures and the tempering bookkeeping."""
+from .advi import (ADVIResult, advi, advi_custom, psis_weights,
+                   resample_indices)
 from .amh import adaptive_metropolis
 from .ensemble import ensemble_mh
 from .joint import (JointOutput, joint_metropolis_hastings,
@@ -15,10 +18,12 @@ from .hmc import (hamiltonian_mc, hamiltonian_mc_checkpointed,
 from .lhs import lhs_unit, sample_lhs
 from .mh import (MHOutput, metropolis_hastings,
                  metropolis_hastings_checkpointed, survey)
+from .optimize import MAPResult, map_fit, map_fit_custom
 from .pf import (PMMHOutput, obs_blocks, particle_filter_chi, pmmh,
                  pmmh_checkpointed, tune_particles)
 from .pt import (parallel_tempering, parallel_tempering_checkpointed,
                  swap_attempts, tune_ladder)
+from .smc import SMCOutput, smc_sample
 
 __all__ = ["lhs_unit", "sample_lhs", "MHOutput", "metropolis_hastings",
            "metropolis_hastings_checkpointed", "survey",
@@ -31,4 +36,6 @@ __all__ = ["lhs_unit", "sample_lhs", "MHOutput", "metropolis_hastings",
            "parallel_tempering_checkpointed", "tune_ladder",
            "swap_attempts", "hamiltonian_mc", "hamiltonian_mc_checkpointed",
            "hamiltonian_mc_custom", "hamiltonian_mc_custom_checkpointed",
-           "adaptive_metropolis"]
+           "adaptive_metropolis", "map_fit", "map_fit_custom", "MAPResult",
+           "advi", "advi_custom", "ADVIResult", "psis_weights",
+           "resample_indices", "smc_sample", "SMCOutput"]

@@ -137,15 +137,22 @@ def potential(spec, obs, times, y0_base, like, *, num_params,
         use_priors, prior_logpdf)
 
 
-def potential_custom(chi_fn, *, use_priors=False, prior_logpdf=None):
-    """:func:`potential` over any differentiable ``chi_fn(theta (N, D)) ->
-    (N,)`` (a JointFit's summed chi); R^2 and AIC come back NaN
-    (``odelib_tpu``'s ``_make_vag_u_custom``)."""
+def custom_metrics(chi_fn):
+    """``metrics(theta) -> (chi, NaN, NaN)`` over any ``chi_fn(theta (N,
+    D)) -> (N,)``: no single-experiment R^2 or AIC."""
     def metrics(theta):
         chi = chi_fn(theta)
         nan = torch.full_like(chi, math.nan)
         return chi, nan, nan
-    return _autograd_potential(metrics, use_priors, prior_logpdf)
+    return metrics
+
+
+def potential_custom(chi_fn, *, use_priors=False, prior_logpdf=None):
+    """:func:`potential` over any differentiable ``chi_fn(theta (N, D)) ->
+    (N,)`` (a JointFit's summed chi); R^2 and AIC come back NaN
+    (``odelib_tpu``'s ``_make_vag_u_custom``)."""
+    return _autograd_potential(custom_metrics(chi_fn), use_priors,
+                               prior_logpdf)
 
 
 def _leapfrog(vag, z, p, g, eps, n_steps, free, drift):

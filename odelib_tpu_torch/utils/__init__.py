@@ -1,1 +1,2 @@
-"""Host-side utilities: convergence diagnostics and posterior files."""
+"""Host-side utilities: convergence diagnostics, posterior files and the
+predictive criteria (WAIC, PSIS-LOO) with their Pareto smoothing."""
