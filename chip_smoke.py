@@ -312,7 +312,21 @@ Then the stiff path (the survey, MH, ensemble and PT kernels'
    model_evidence(particles=1024, method='rk4') and 64 particles card
    against CPU, (f) JointFit of config 9 with fit_map(starts=64) and
    fit_advi; (g) the seconds and peak device memory of an Adam step at 65
-   and 10,000 lanes, an ELBO step, a Hessian and an SMC stage.
+   and 10,000 lanes, an ELBO step, a Hessian and an SMC stage;
+8. the model-criticism tools (``crit_phases``: api_inference.py,
+   joint.py, utils/sbc.py, sensitivity.py, diagnostics.py; float64 torch
+   solves and host numpy) on the main paths' full-width posteriors (the
+   MH path's, its prior-aware twin's, config 9's with priors), each
+   against the same call on a CPU framework, no fused kernel launched:
+   (a) information_criteria(n_draws=400), (b) posterior_predictive
+   (n_draws=200) and prior_predictive(samples=200, rk4), (c) diagnostics
+   of the 10,000-chain frame and (d) power_scale_sensitivity (each whole
+   on the card, card against CPU on 500 chains), (e)
+   sobol_sensitivity(samples=512, rk4: 2,560 solves), (f)
+   local_sensitivity at the best fit, (g) sbc(reps=128) at 21 iterations
+   (cut from 2,000) and 16 replications card against CPU, (h) JointFit's
+   four methods on config 9; (i) the seconds of an SBC iteration and of a
+   Sobol batch, and the defaults' cost extrapolated.
 
 Each phase's header gives the seconds since the start; the twins on the
 card are launch-bound and take most of the run. Prints the device line
@@ -3895,6 +3909,411 @@ def opt_phases(framework, joint_pair, smi_line):
         flush=True)
     return secs
 
+CRIT_SBC = {"reps": 128, "nits": 21, "burnin": 10, "thin": 2,
+            "parity_reps": 16, "short_nits": 11}
+CRIT_SLICE = 500          # chains of the power-scaling parity slice
+
+
+def crit_phases(mh, mh_priors, joint, framework, joint_pair, smi_line):
+    """The model-criticism phases (a)-(i) (odelib_tpu_torch/
+    api_inference.py, joint.py, utils/sbc.py, utils/sensitivity.py,
+    utils/diagnostics.py; float64 torch solves and host numpy), on the
+    main paths' full-width posteriors: ``mh`` (framework, posterior) of
+    the MH main path (10,000 chains x 1,000), ``mh_priors`` its
+    prior-aware twin's, ``joint`` (JointFit, posterior) of config 9 with
+    priors. Each call runs with the launch counts reset before and read
+    after (no fused kernel may launch) and against the same call on a CPU
+    framework from the same inputs: (a) information_criteria(n_draws=400):
+    elpd, p and khat within 1e-8, n_bad_khat equal; (b)
+    posterior_predictive(n_draws=200) and prior_predictive(samples=200,
+    method='rk4', substeps=4): samples within 1e-8, coverage equal and in
+    [0, 1]; (c) diagnostics on the whole frame, card against CPU on its
+    first ``CRIT_SLICE`` chains: the table within 1e-10;
+    (d) power_scale_sensitivity on the prior-aware posterior, whole on the
+    card, card against CPU on its first ``CRIT_SLICE`` chains (shifts
+    within 1e-8, khat within 1e-6, diagnoses equal); (e)
+    sobol_sensitivity(samples=512, method='rk4', substeps=4) over zero_i's
+    three priors (2,560 solves): indices within 1e-8; (f)
+    local_sensitivity at the MH path's best fit: within 1e-8; (g)
+    sbc(reps=128) at ``CRIT_SBC``'s iterations, n_valid > 0, then the
+    128 at 11 iterations (utils.sbc.sbc_ranks), whose first 16 card
+    against CPU: ranks, validity and acceptance equal, the prior draws
+    within 1e-13;
+    (h) JointFit's information_criteria, posterior_predictive,
+    diagnostics and power_scale_sensitivity on config 9, as (a)-(d)
+    (diagnostics and power-scaling card against CPU on the slice); (i)
+    the seconds of one SBC iteration at 128 replications ((g)'s 21- less
+    its 11-iteration run) and of one 2,560-lane Sobol batch, rk4 and
+    adaptive Dopri5 at 32 and 64 steps, and what the defaults would cost (2,000
+    SBC iterations; an adaptive design run to max_steps 4,096). Returns
+    the phases' seconds."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from odelib_tpu_torch import JointFit
+    from odelib_tpu_torch import random as jr
+    from odelib_tpu_torch.ops import cuda_mh
+    from odelib_tpu_torch.utils import sensitivity as sens
+    from odelib_tpu_torch.model import (dose_matrix, state_func,
+                                        state_jac)
+    from odelib_tpu_torch.ops.integrate import odeint_grid
+    from odelib_tpu_torch.utils.sbc import sbc_ranks
+
+    import gc
+
+    # the phases time the tools, not the collector's walks over what the
+    # earlier phases left alive: those objects go to the permanent
+    # generation (the collections during the phases are counted below)
+    gc.collect()
+    gc.freeze()
+    GC_SPANS.clear()
+    t_all = time.perf_counter()
+    secs, costs = {}, {}
+    fw, post = mh
+    fwp, postp = mh_priors
+    jf, jpost = joint
+    pn = ["mu", "phi", "beta"]
+
+    def cpu_twin():
+        c = framework(device="cpu")
+        c.set_parameters(**{p: fw.parameters[p].val for p in pn})
+        return c
+    cpu = cpu_twin()
+
+    def on_card(label, fn):
+        """``fn()`` with the launch counts reset before and read after (no
+        fused kernel may launch), its printed output kept aside; returns
+        (result, seconds, peak MiB, the output)."""
+        out = io.StringIO()
+        cuda_mh.reset_launch_counts()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res, dt, peak = _measured(fn)
+        launches = dict(cuda_mh.LAUNCHES)
+        if any(launches.values()):
+            fail(f"{label}: a fused kernel was launched: {launches}")
+        return res, dt, peak, out.getvalue()
+
+    def on_cpu(fn):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t0 = time.perf_counter()
+            return fn(), time.perf_counter() - t0
+
+    def close(label, got, ref, rtol=1e-8, scale=False):
+        """_close, or with ``scale`` within rtol of the largest |value|
+        (Sobol indices and sensitivities cross zero)."""
+        if not scale:
+            return _close(label, got, ref, rtol)
+        a = np.asarray(got, float).ravel()
+        b = np.asarray(ref, float).ravel()
+        if a.shape != b.shape or not np.array_equal(np.isnan(a),
+                                                    np.isnan(b)):
+            fail(f"{label}: shapes or NaN positions differ card vs CPU")
+        fin = np.isfinite(b)
+        err = float(np.max(np.abs(a[fin] - b[fin]), initial=0.0)
+                    / max(np.max(np.abs(b[fin]), initial=0.0), 1e-300))
+        if not err <= rtol:
+            fail(f"{label}: card and CPU differ by {err:.3e} of the "
+                 f"largest value (limit {rtol})")
+        return err
+
+    def ic_close(label, a, b):
+        if a["loo"]["n_bad_khat"] != b["loo"]["n_bad_khat"] \
+                or a["n_draws"] != b["n_draws"]:
+            fail(f"{label}: n_bad_khat or n_draws differs card vs CPU")
+        vals = [a["waic"][k] for k in ("elpd_waic", "p_waic")] \
+            + [a["loo"][k] for k in ("elpd_loo", "p_loo")]
+        if not np.isfinite(vals).all() \
+                or not np.isfinite(a["loo"]["khat"]).all():
+            fail(f"{label}: non-finite criteria {vals}")
+        return max(close(f"{label} waic", vals[:2], [
+            b["waic"][k] for k in ("elpd_waic", "p_waic")]),
+            close(f"{label} loo", vals[2:], [
+                b["loo"][k] for k in ("elpd_loo", "p_loo")]),
+            close(f"{label} khat", a["loo"]["khat"], b["loo"]["khat"]))
+
+    def pp_close(label, a, b):
+        if not 0.0 <= a["coverage"] <= 1.0 \
+                or a["coverage"] != b["coverage"]:
+            fail(f"{label}: coverage {a['coverage']} (CPU "
+                 f"{b['coverage']})")
+        if not np.isfinite(a["samples"]).any():
+            fail(f"{label}: no finite replicate")
+        return close(f"{label} samples", a["samples"], b["samples"])
+
+    def table_close(label, a, b, rtol=1e-10):
+        if list(a.index) != list(b.index) or not np.isfinite(
+                a[["mean", "ess", "rhat"]].to_numpy(float)).all():
+            fail(f"{label}: rows differ or non-finite ess/rhat:\n{a}")
+        return close(label, a.to_numpy(float), b.to_numpy(float), rtol)
+
+    def ps_close(label, a, b):
+        if list(a.diagnosis) != list(b.diagnosis) \
+                or list(a.parameter) != list(b.parameter):
+            fail(f"{label}: diagnoses differ card vs CPU")
+        return max(close(f"{label} shifts",
+                         a[["prior_sens", "lik_sens"]].to_numpy(float),
+                         b[["prior_sens", "lik_sens"]].to_numpy(float),
+                         scale=True),
+                   close(f"{label} khat", a.khat, b.khat, 1e-6, scale=True))
+
+    def head_chains(df, n):
+        return df[df["chain#"].to_numpy() < n]
+
+    t = time.perf_counter()
+    phase("crit (a): information_criteria(n_draws=400) on the MH path's "
+          f"posterior ({len(post):,} rows), card against CPU")
+    ic, s_a, m_a, rep = on_card("crit (a)", lambda: fw.information_criteria(
+        post, n_draws=400))
+    ic_c, c_a = on_cpu(lambda: cpu.information_criteria(post, n_draws=400))
+    rel = ic_close("crit (a)", ic, ic_c)
+    print(f"crit (a): card {s_a:.3f} s (peak {m_a:.1f} MiB), CPU {c_a:.3f} "
+          f"s; {' '.join(rep.split())}; card against CPU within {rel:.3e}",
+          flush=True)
+    secs["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase("crit (b): posterior_predictive(n_draws=200), then "
+          "prior_predictive(samples=200, method='rk4', substeps=4), card "
+          "against CPU")
+    pp, s_b1, m_b1, rep1 = on_card("crit (b)", lambda: fw.posterior_predictive(
+        post, n_draws=200))
+    pp_c, c_b1 = on_cpu(lambda: cpu.posterior_predictive(post, n_draws=200))
+    pkw = dict(samples=200, method="rk4", substeps=4)
+    pr, s_b2, m_b2, rep2 = on_card("crit (b) prior", lambda: fw.
+                                   prior_predictive(**pkw))
+    pr_c, c_b2 = on_cpu(lambda: cpu.prior_predictive(**pkw))
+    rel = max(pp_close("crit (b) posterior", pp, pp_c),
+              pp_close("crit (b) prior", pr, pr_c))
+    print(f"crit (b): posterior card {s_b1:.3f} s (peak {m_b1:.1f} MiB), "
+          f"CPU {c_b1:.3f} s; prior card {s_b2:.3f} s (peak {m_b2:.1f} "
+          f"MiB), CPU {c_b2:.3f} s; {rep1.strip()}; {rep2.strip()}; finite "
+          f"prior replicates {float(np.isfinite(pr['samples']).mean()):.4f}"
+          f"; card against CPU within {rel:.3e}", flush=True)
+    secs["b"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"crit (c): diagnostics on the whole frame "
+          f"({post['chain#'].nunique():,} chains), card against CPU on its "
+          f"first {CRIT_SLICE} chains")
+    dg, s_c, _, _ = on_card("crit (c)", lambda: fw.diagnostics(post))
+    sl = head_chains(post, CRIT_SLICE)
+    dg1, _, _, _ = on_card("crit (c) slice", lambda: fw.diagnostics(sl))
+    dg1_c, c_c = on_cpu(lambda: cpu.diagnostics(sl))
+    table_close("crit (c)", dg, dg)
+    rel = table_close("crit (c) slice", dg1, dg1_c)
+    print(f"crit (c): card framework {s_c:.3f} s, the slice on the CPU "
+          f"{c_c:.3f} s; within {rel:.3e}\n{dg.to_string()}", flush=True)
+    secs["c"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"crit (d): power_scale_sensitivity on the prior-aware MH "
+          f"posterior ({len(postp):,} rows), card against CPU on its "
+          f"first {CRIT_SLICE} chains")
+    cpu_p = cpu_twin()
+    ps, s_d, m_d, rep = on_card("crit (d)", lambda: fwp.
+                                power_scale_sensitivity(postp))
+    if not np.isfinite(ps[["prior_sens", "lik_sens", "khat"]].to_numpy(
+            float)).all():
+        fail(f"crit (d): non-finite shifts\n{ps}")
+    sl = head_chains(postp, CRIT_SLICE)
+    ps1, s_d1, _, _ = on_card("crit (d) slice", lambda: fwp.
+                              power_scale_sensitivity(sl))
+    ps1_c, c_d1 = on_cpu(lambda: cpu_p.power_scale_sensitivity(sl))
+    rel = ps_close("crit (d)", ps1, ps1_c)
+    print(f"crit (d): card {s_d:.3f} s (peak {m_d:.1f} MiB); the slice "
+          f"({len(sl):,} rows) card {s_d1:.3f} s, CPU {c_d1:.3f} s, within "
+          f"{rel:.3e}\n{ps.to_string()}", flush=True)
+    secs["d"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase("crit (e): sobol_sensitivity(samples=512, method='rk4', "
+          "substeps=4) over zero_i's three priors (2,560 solves), card "
+          "against CPU")
+    skw = dict(samples=512, method="rk4", substeps=4)
+    so, s_e, m_e, rep = on_card("crit (e)", lambda: fw.sobol_sensitivity(
+        **skw))
+    so_c, c_e = on_cpu(lambda: cpu.sobol_sensitivity(**skw))
+    if not np.isfinite(so.to_numpy(float)).all():
+        fail(f"crit (e): non-finite indices\n{so}")
+    rel = close("crit (e)", so.to_numpy(float), so_c.to_numpy(float),
+                scale=True)
+    print(f"crit (e): card {s_e:.3f} s (peak {m_e:.1f} MiB), CPU {c_e:.3f} "
+          f"s; within {rel:.3e}\n{rep.strip()}", flush=True)
+    secs["e"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    best = [float(fw.parameters[p].val) for p in pn]
+    phase(f"crit (f): local_sensitivity at the MH path's best fit "
+          f"{best}, card against CPU")
+    ls, s_f, m_f, _ = on_card("crit (f)", lambda: fw.local_sensitivity())
+    ls_c, c_f = on_cpu(lambda: cpu.local_sensitivity())
+    rel = 0.0
+    for s_ in ls:
+        if not np.isfinite(ls[s_].to_numpy()).all():
+            fail(f"crit (f): non-finite sensitivities of {s_}")
+        rel = max(rel, close(f"crit (f) {s_}", ls[s_].to_numpy(),
+                             ls_c[s_].to_numpy(), scale=True))
+    print(f"crit (f): card {s_f:.3f} s (peak {m_f:.1f} MiB), CPU {c_f:.3f} "
+          f"s, {len(ls['S'])} times x {len(pn)}; within {rel:.3e}; at the "
+          "last time d log-scale S: " + ", ".join(
+              f"{p} {ls['S'][p].iloc[-1]:.4g}" for p in pn), flush=True)
+    secs["f"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    n, b = CRIT_SBC["nits"], CRIT_SBC["burnin"]
+    ns, r16 = CRIT_SBC["short_nits"], CRIT_SBC["parity_reps"]
+    phase(f"crit (g): sbc(reps={CRIT_SBC['reps']}) at {n} iterations "
+          f"(burnin {b}, thin {CRIT_SBC['thin']}; cut from 2,000), then "
+          f"{CRIT_SBC['reps']} replications at {ns} iterations, whose first "
+          f"{r16} (their draws do not depend on the others) card against "
+          "CPU")
+    sb, s_g, m_g, rep = on_card("crit (g)", lambda: fw.sbc(
+        reps=CRIT_SBC["reps"], iterations_per_chain=n, burnin=b,
+        thin=CRIT_SBC["thin"]))
+    if sb["n_valid"] <= 0 or not np.isfinite(sb["mean_acceptance"]):
+        fail(f"crit (g): n_valid {sb['n_valid']}, acceptance "
+             f"{sb['mean_acceptance']}")
+
+    def ranks_of(f, reps):
+        """utils.sbc.sbc_ranks as ``f.sbc`` calls it, at ``ns``
+        iterations: the per-replication ranks, validity and acceptance."""
+        return sbc_ranks(
+            f._spec, f._obsdata_fit_host, f._times_fit, f.get_inits(),
+            tuple(f.parameters[p].tdist for p in pn),
+            np.asarray(f._current_theta(), float), reps=reps, nits=ns,
+            burnin=ns // 2, thin=CRIT_SBC["thin"], seed=f.random_seed,
+            method="fixed_dopri5", substeps=4, device=f.device)
+    short, s_gs, _, _ = on_card("crit (g) short", lambda: ranks_of(
+        fw, CRIT_SBC["reps"]))
+    short_c, c_g16 = on_cpu(lambda: ranks_of(cpu, r16))
+    for k in ("ranks", "valid", "acceptance"):
+        if not np.array_equal(getattr(short, k)[:r16],
+                              getattr(short_c, k)):
+            fail(f"crit (g): the first {r16} replications' {k} differ "
+                 "card vs CPU")
+    # the priors' ppf of two libraries: within ulps
+    rel_star = close("crit (g) prior draws", short.theta_star[:r16],
+                     short_c.theta_star, 1e-13)
+    per_it = (s_g - s_gs) / (n - ns)
+    costs[f"SBC iteration, {CRIT_SBC['reps']} replications"] = per_it
+    print(f"crit (g): card {s_g:.3f} s (peak {m_g:.1f} MiB); "
+          f"{' '.join(rep.split())}; at {ns} iterations card {s_gs:.3f} s; "
+          f"{r16} replications on the CPU {c_g16:.3f} s, "
+          f"{int(short_c.valid.sum())} valid: ranks, validity and "
+          f"acceptance bitwise the card's, prior draws within "
+          f"{rel_star:.3e}", flush=True)
+    secs["g"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase("crit (h): JointFit(config 9) information_criteria(n_draws=400), "
+          "posterior_predictive(n_draws=200), diagnostics and "
+          f"power_scale_sensitivity on its prior-aware posterior "
+          f"({len(jpost):,} rows), card against CPU")
+    jc = JointFit(joint_pair(device="cpu"), shared=["phi", "beta"],
+                  random_seed=0)
+    jic, s_h1, m_h1, rep1 = on_card("crit (h) ic", lambda: jf.
+                                    information_criteria(jpost, n_draws=400))
+    jic_c, c_h1 = on_cpu(lambda: jc.information_criteria(jpost,
+                                                         n_draws=400))
+    rel = max(ic_close(f"crit (h) ic {nm}", jic[nm], jic_c[nm])
+              for nm in ("a", "b"))
+    rel = max(rel, close("crit (h) overall", [
+        v for k, v in jic["overall"].items() if k != "n_bad_khat"], [
+        v for k, v in jic_c["overall"].items() if k != "n_bad_khat"]))
+    jpp, s_h2, m_h2, rep2 = on_card("crit (h) pp", lambda: jf.
+                                    posterior_predictive(jpost, n_draws=200))
+    jpp_c, c_h2 = on_cpu(lambda: jc.posterior_predictive(jpost,
+                                                         n_draws=200))
+    rel = max([rel] + [pp_close(f"crit (h) pp {nm}", jpp[nm], jpp_c[nm])
+                       for nm in ("a", "b")])
+    if jpp["overall"] != jpp_c["overall"]:
+        fail("crit (h): the pooled coverage differs card vs CPU")
+    jdg, s_h3, _, _ = on_card("crit (h) diagnostics", lambda: jf.
+                              diagnostics(jpost))
+    table_close("crit (h) diagnostics", jdg, jdg)
+    jsl = head_chains(jpost, CRIT_SLICE)
+    jdg1, _, _, _ = on_card("crit (h) diagnostics slice", lambda: jf.
+                            diagnostics(jsl))
+    jdg1_c, _ = on_cpu(lambda: jc.diagnostics(jsl))
+    rel = max(rel, table_close("crit (h) diagnostics", jdg1, jdg1_c))
+    jps, s_h4, m_h4, _ = on_card("crit (h) ps", lambda: jf.
+                                 power_scale_sensitivity(jpost))
+    jps1, _, _, _ = on_card("crit (h) ps slice", lambda: jf.
+                            power_scale_sensitivity(jsl))
+    jps1_c, c_h4 = on_cpu(lambda: jc.power_scale_sensitivity(jsl))
+    rel = max(rel, ps_close("crit (h) ps", jps1, jps1_c))
+    if not np.isfinite(jps[["prior_sens", "lik_sens", "khat"]].to_numpy(
+            float)).all():
+        fail(f"crit (h): non-finite shifts\n{jps}")
+    print(f"crit (h): information_criteria card {s_h1:.3f} s (peak "
+          f"{m_h1:.1f} MiB), CPU {c_h1:.3f} s; {' '.join(rep1.split())}; "
+          f"posterior_predictive card {s_h2:.3f} s (peak {m_h2:.1f} MiB), "
+          f"CPU {c_h2:.3f} s; {rep2.strip()}; diagnostics {s_h3:.3f} s; "
+          f"power_scale_sensitivity card {s_h4:.3f} s (peak {m_h4:.1f} "
+          f"MiB), the slice on the CPU {c_h4:.3f} s; card against CPU "
+          f"within {rel:.3e}\n{jdg.to_string()}\n{jps.to_string()}",
+          flush=True)
+    secs["h"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    phase(f"crit (i): the seconds of one SBC iteration at "
+          f"{CRIT_SBC['reps']} replications ((g)'s two runs) and of one "
+          f"2,560-lane Sobol batch, and what the defaults would cost "
+          f"({smi_line})")
+    thetas = sens.saltelli_design(
+        jr.PRNGKey(fw.random_seed ^ 0x50B01, device=fw.device),
+        [fw.parameters[p].tdist for p in pn], 512)[0]
+    tkw = dict(target=("chi",), num_params=3, rtol=1e-6, atol=1e-4)
+    args = (fw._spec, fw._obsdata_fit_host, fw._times_fit, fw.get_inits(),
+            thetas)
+    _, s_rk4, _, _ = on_card("crit (i) rk4", lambda: sens._eval_target(
+        *args, method="rk4", max_steps=4096, substeps=4, **tkw))
+    costs["Sobol batch, 2,560 lanes, rk4 x 4"] = s_rk4
+    # the adaptive batch as integrate_theta runs it, with its step counts:
+    # a warm-up at 8 steps, then caps of 32 and 64; lanes still at the
+    # cap at 64 would run the default's batch on to max_steps 4,096
+    spec = fw._spec
+    y0 = torch.as_tensor(fw.get_inits(), device=fw.device)
+
+    def adaptive(cap):
+        return odeint_grid(
+            state_func(spec), spec.override_inits(y0, thetas), fw._times_fit,
+            spec.slots(thetas), rtol=1e-6, atol=1e-4, max_steps=cap,
+            method="dopri5", dose=dose_matrix(spec, fw._times_fit),
+            jac=state_jac(spec)).num_steps
+    on_card("crit (i) warm-up", lambda: adaptive(8))
+    st, steps = {}, {}
+    for cap in (32, 64):
+        steps[cap], st[cap], _, _ = on_card("crit (i) dopri5",
+                                            lambda: adaptive(cap))
+    per_step = (st[64] - st[32]) / 32
+    at_cap = int((steps[64] >= 64).sum())
+    costs["Sobol batch, adaptive Dopri5, 32 steps"] = st[32]
+    costs["Sobol batch, adaptive Dopri5, 64 steps"] = st[64]
+    costs["Sobol batch, adaptive Dopri5, a step"] = per_step
+    for k, v in costs.items():
+        print(f"crit (i) {k}: {v:.4f} s", flush=True)
+    sobol_default = st[64] + (4096 - 64) * per_step if at_cap else st[64]
+    print(f"crit (i): at a cap of 64 steps {at_cap} of the 2,560 lanes "
+          f"were still stepping (the most steps {int(steps[64].max())}); "
+          f"the defaults, extrapolated (not run): sbc(reps=128, "
+          f"iterations_per_chain=2000) ~{2000 * per_it:.0f} s of chains "
+          f"({s_g - n * per_it:+.1f} s set-up); "
+          f"sobol_sensitivity(samples=512) with the default adaptive "
+          f"Dopri5 (max_steps 4,096) ~{sobol_default:.0f} s", flush=True)
+    secs["i"] = time.perf_counter() - t
+    total = time.perf_counter() - t_all
+    print("crit phases' seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in secs.items()) + f"; all {total:.1f} s; "
+        f"{len(GC_SPANS)} garbage collections, "
+        f"{sum(e - s for s, e, _ in GC_SPANS):.3f} s", flush=True)
+    return secs
+
+
 def _survey_held(label, case, chi_k, chi_t):
     """The survey's chi, kernel against twin: bitwise (compare_chi), or
     for a Tobit case within rtol 1e-6."""
@@ -4490,6 +4909,9 @@ def main():
         return res
     cuda_mh.survey_fused = recording_survey
     cuda_mh.metropolis_hastings_fused = recording_mh
+    # the full-width posteriors the crit phases reuse: the MH path's, its
+    # prior-aware twin's and config 9's with priors (the only ones kept)
+    crit_in = {}
     for sampler in ("mh", "ensemble", "pt"):
         phase(f"main path: ModelFramework(...).MCMC(sampler={sampler!r})")
         fw = framework()
@@ -4564,6 +4986,8 @@ def main():
             if not 0.0 < rate <= 1.0:
                 fail(f"pt: swap rate {rate} not in (0, 1]")
         runs[sampler] = (wall_s, launches, dict(fw.last_profile))
+        if sampler == "mh":
+            crit_in["mh"] = (fw, post)
     pkg_log.removeHandler(handler)
     dispatch._ARMS["cuda:ensemble"] = ens_arm
     cuda_pt.parallel_tempering_fused = pt_fused
@@ -4761,6 +5185,8 @@ def main():
                  f"not launched once each: {launches}")
         auto_runs[sampler] = (fw, sched,
                               last[["mu", "phi", "beta"]].to_numpy(copy=True))
+        if sampler == "mh":
+            crit_in["mh_priors"] = (fw, post)
     schedule.calibrate_substeps = real_calibrate
 
     phase("main path: JointFit({'a', 'b'}).MCMC(use_priors=True, "
@@ -4807,6 +5233,7 @@ def main():
     if launches["joint_metropolis_hastings_fused"] != 1:
         fail(f"joint (priors): the joint kernel was not launched once: "
              f"{launches}")
+    crit_in["joint"] = (jf, jpost)
 
     phase("calibration: calibrate_substeps on the card and on the CPU, the "
           "MH path's seeds")
@@ -5416,6 +5843,9 @@ def main():
     grad_phases(framework, joint_pair, scan_draws, smi_line)
     # the point estimates, variational fits and evidence
     opt_phases(framework, joint_pair, smi_line)
+    # the model-criticism tools on the main paths' posteriors
+    crit_phases(crit_in["mh"], crit_in["mh_priors"], crit_in["joint"],
+                framework, joint_pair, smi_line)
 
     csrc = "odelib_tpu_torch/ops/csrc/"
 

@@ -24,7 +24,10 @@ Report. An SDE model (``diffusion=``) also has ``simulate`` (stochastic
 paths) and ``tune_particles`` (PMMH's particle count);
 ``get_chi_sensitivity`` is chi's gradient through the fixed-step solve.
 ``fit_map``, ``laplace_approximation``, ``fit_advi``,
-``profile_likelihood`` and ``model_evidence`` come from
+``profile_likelihood``, ``model_evidence`` and the model-criticism tools
+(``information_criteria``, ``posterior_predictive``, ``prior_predictive``,
+``diagnostics``, ``sbc``, ``power_scale_sensitivity``,
+``sobol_sensitivity``, ``local_sensitivity``) come from
 :class:`~odelib_tpu_torch.api_inference.InferenceMixin`.
 
 ``ModelFramework(device=...)`` picks where everything runs: ``cuda`` by
@@ -55,6 +58,8 @@ from .ops.integrate import odeint_grid
 from .rhs import adapt_rhs
 from .samplers.lhs import sample_lhs
 from .samplers.mh import survey as _survey
+from .utils.profiling import StageTimer
+from .utils.profiling import get_logger as _get_logger
 
 
 def rawstats(pdseries):
@@ -326,6 +331,23 @@ class ModelFramework(InferenceMixin):
             else:
                 out.extend(d if v != 0 else None for v in tmpl)
         return out
+
+    def _prior_nonzero_masks(self):
+        """Per parameter: an array parameter's non-zero template mask (a
+        tuple of 0/1), None for a scalar (``odelib_tpu``'s
+        ``_prior_nonzero_masks``). Zero entries never walk and their
+        positive-support log density is -inf: they stay out of a prior
+        sum."""
+        masks = []
+        for p, shp in zip(self._pnames, self._spec.pshapes):
+            if not shp:
+                masks.append(None)
+                continue
+            par = self.parameters[p]
+            tmpl = np.ravel(np.asarray(
+                par.val if par is not None else np.zeros(shp)))
+            masks.append(tuple(1 if v != 0 else 0 for v in tmpl))
+        return tuple(masks)
 
     def _prior_logpdf(self, skip=()):
         """``prior_logpdf(theta (N, P)) -> (N,)`` for the scan samplers
@@ -818,7 +840,9 @@ class ModelFramework(InferenceMixin):
         ignored, and so is ``pallas_tile_chains`` for 'mh' and 'pt'.
         ``profile=True`` records each stage's wall seconds in
         ``last_profile`` (the chains' stage as ``chains[<arm>]``), with a
-        device synchronize at each stage boundary. ``method='kvaerno3'``
+        device synchronize at each stage boundary, and logs them as the
+        "stage timings:" report (:class:`~odelib_tpu_torch.utils.
+        StageTimer`). ``method='kvaerno3'``
         runs the kernels' implicit fixed-step Kvaerno3 (the stiff path;
         ``substeps='auto'`` calibrates it with Kvaerno5).
         """
@@ -1003,7 +1027,7 @@ class ModelFramework(InferenceMixin):
                 method="kvaerno5" if method == "kvaerno3" else "dopri5",
                 max_steps=max_steps, device=self.device)
             self._auto_schedule = substeps
-            _dispatch.log.info(
+            _get_logger().info(
                 "substeps='auto': calibrated schedule %s (total %d RHS "
                 "steps/solve vs %d at uniform 4)", list(substeps),
                 schedule_cost(substeps), 4 * n_fit_intervals)
@@ -1032,7 +1056,7 @@ class ModelFramework(InferenceMixin):
                 swap_every=swap_every, method=method, rtol=rtol, atol=atol,
                 max_steps=max_steps, substeps=substeps)
             self.last_ladder = (temperatures, tuned_acc)
-            _dispatch.log.info(
+            _get_logger().info(
                 "temperatures='auto': tuned geometric ladder %s (pilot mean "
                 "swap acceptance %.3f)", [round(t, 3) for t in temperatures],
                 tuned_acc)
@@ -1116,6 +1140,9 @@ class ModelFramework(InferenceMixin):
         stage_done("report")
         if profile:
             self.last_profile = stages
+            timer = StageTimer()
+            timer.times.update(stages)
+            timer.report()
         return posterior
 
     def _stable_config_token(self, method, substeps, include_priors=False):

@@ -1,17 +1,22 @@
-"""Point estimates, variational fits and evidence: the inference methods
-that ``ModelFramework`` mixes in.
+"""Point estimates, variational fits, evidence and model criticism: the
+inference methods that ``ModelFramework`` mixes in.
 
-Counterpart of the first part of ``odelib_tpu/api_inference.py``'s
-``InferenceMixin``: ``fit_map`` (multi-start Adam, samplers/optimize.py),
+Counterpart of ``odelib_tpu/api_inference.py``'s ``InferenceMixin``:
+``fit_map`` (multi-start Adam, samplers/optimize.py),
 ``laplace_approximation`` (the Hessian of the potential by double
 backward through the fixed-step solve), ``fit_advi`` (samplers/advi.py),
 ``profile_likelihood`` (every grid point x start one lane of
-``map_fit``) and ``model_evidence`` (tempered SMC, samplers/smc.py). The
-solves run in float64 on the framework's device (``device='cpu'`` when
-the framework was built so); the host steps (the pseudo-inverse, the
-chi-square threshold, Pareto smoothing, the tempering schedule) are numpy
-and scipy, as in the reference. A stochastic (``diffusion=``) model is
-refused unless the caller passes ``drift_only=True``, which warns.
+``map_fit``), ``model_evidence`` (tempered SMC, samplers/smc.py), WAIC and
+PSIS-LOO (``information_criteria``), the posterior and prior predictive
+checks, convergence ``diagnostics``, simulation-based calibration
+(``sbc``, utils/sbc.py) and the power-scaling, Sobol and local
+sensitivities (utils/sensitivity.py). The solves run in float64 on the
+framework's device (``device='cpu'`` when the framework was built so);
+the host steps (the pseudo-inverse, the chi-square threshold, Pareto
+smoothing, the tempering schedule, the predictive noise, the indices) are
+numpy and scipy, as in the reference. A method whose math assumes a
+deterministic likelihood refuses a stochastic (``diffusion=``) model
+unless the caller passes ``drift_only=True``, which warns.
 """
 from __future__ import annotations
 
@@ -464,3 +469,521 @@ class InferenceMixin:
                   f"{float(np.mean(out.acceptance)):.3f})")
         return {"log_evidence": out.log_evidence, "posterior": df,
                 "betas": out.betas, "acceptance": out.acceptance}
+
+    def _posterior_logpred(self, posterior, n_draws, solver_kw,
+                           stochastic=None):
+        """(S, N) log predictions at the observation points of ``n_draws``
+        posterior rows (``posterior.sample(n_draws, random_state=
+        random_seed)`` when there are more): one batched float64 solve of
+        every draw with the framework's solver on its device, or with
+        ``stochastic`` (default: the model has a diffusion) one SDE path a
+        draw, draw i keyed ``fold_in(PRNGKey(random_seed), i)`` (Euler,
+        the integer ``substeps`` or 4)."""
+        from . import random as jr
+        from .model import integrate_theta, observe, sdeint_theta
+
+        pnames = list(self.get_pnames())
+        rows = posterior.dropna(subset=pnames)
+        if len(rows) == 0:
+            raise ValueError("posterior has no complete parameter rows")
+        if len(rows) > n_draws:
+            rows = rows.sample(int(n_draws), random_state=self.random_seed)
+        thetas = torch.as_tensor(self._theta_from_df(rows[pnames]),
+                                 dtype=torch.float64, device=self.device)
+        method, rtol, atol, max_steps, substeps = self._solver_args(
+            solver_kw, len(self._times_fit) - 1)
+        y0 = torch.as_tensor(self.get_inits(), dtype=torch.float64,
+                             device=self.device)
+        obs = self._obsdata_fit_host
+        if stochastic is None:
+            stochastic = self._spec.diffusion is not None
+        if stochastic:
+            keys = jr.fold_in(jr.PRNGKey(self.random_seed,
+                                         device=self.device),
+                              torch.arange(len(thetas), device=self.device))
+            ys = sdeint_theta(self._spec, thetas, y0, self._times_fit, keys,
+                              substeps=substeps if isinstance(substeps, int)
+                              else 4, method="euler")
+            ys = ys.permute(1, 2, 0)
+        else:
+            ys = integrate_theta(
+                self._spec, thetas, self._spec.override_inits(y0, thetas),
+                self._times_fit, method=method, rtol=rtol, atol=atol,
+                max_steps=max_steps, substeps=substeps)
+        return torch.log(observe(self._spec, obs, ys)).cpu().numpy()
+
+    def _pointwise_loglik(self, logpred):
+        """(draws, obs) exact pointwise log-likelihood matrix (constants
+        included: WAIC and LOO need true densities) under the framework's
+        observation model, and the valid-observation mask. ``logpred``:
+        (draws, obs) log predictions at the observation points."""
+        from scipy.special import gammaln
+
+        obs = self._obsdata_fit_host
+        m = self._spec.obs_model
+        nu_or_r = self._spec.obs_param
+        S_ = np.asarray(obs.log_sigma, np.float64)
+        if m in ("poisson", "negbinom"):
+            O = np.asarray(obs.abundance, np.float64)
+            valid = np.isfinite(O)
+            with np.errstate(over="ignore"):
+                lam = np.exp(logpred)
+            if m == "poisson":
+                ll = (O[None, :] * logpred - lam
+                      - gammaln(O + 1.0)[None, :])
+            else:
+                r = nu_or_r
+                ll = (gammaln(O + r) - gammaln(r) - gammaln(O + 1.0)
+                      )[None, :] \
+                    + r * np.log(r / (r + lam)) \
+                    + O[None, :] * (logpred - np.log(r + lam))
+            return ll, valid
+        O = np.asarray(obs.log_abundance, np.float64)
+        valid = np.isfinite(O)
+        t = (O[None, :] - logpred) / S_[None, :]
+        if m == "student_t":
+            nu = nu_or_r
+            ll = (gammaln((nu + 1.0) / 2.0) - gammaln(nu / 2.0)
+                  - 0.5 * np.log(nu * np.pi) - np.log(S_[None, :])
+                  - 0.5 * (nu + 1.0) * np.log1p(t * t / nu))
+        else:
+            ll = (-0.5 * t * t - np.log(S_[None, :])
+                  - 0.5 * np.log(2.0 * np.pi))
+        return ll, valid
+
+    def information_criteria(self, posterior, n_draws=400,
+                             print_report=True, **solver_kw):
+        """WAIC and PSIS-LOO from a posterior DataFrame (``odelib_tpu``'s
+        ``information_criteria``; utils/model_comparison.py): ``n_draws``
+        rows re-solved in one batch, their pointwise log-likelihood matrix
+        reduced to ``waic`` (elpd_waic, p_waic, waic, se_elpd_waic) and
+        ``loo`` (elpd_loo, p_loo, looic, se_elpd_loo, the per-point Pareto
+        ``khat`` and ``n_bad_khat``, k > 0.7), with ``n_draws`` and
+        ``n_obs``. Draws whose solve failed are dropped (a warning); fewer
+        than 20 left raise. A stochastic model is scored on its drift (a
+        warning)."""
+        from .utils import model_comparison as _mc
+
+        if self._spec.diffusion is not None:
+            warnings.warn(
+                "information_criteria on a stochastic model uses the "
+                "drift-only (deterministic) predictions: a single path's "
+                "pointwise density is not the filtering marginal "
+                "likelihood. Treat WAIC/LOO as approximate here.")
+        logpred = self._posterior_logpred(posterior, n_draws, solver_kw,
+                                          stochastic=False)
+        ll, valid = self._pointwise_loglik(logpred)
+        ll = ll[:, valid]
+        finite_rows = np.all(np.isfinite(ll), axis=1)
+        if not finite_rows.all():
+            warnings.warn(f"dropping {int((~finite_rows).sum())} posterior "
+                          "draws with failed integrations from the "
+                          "log-likelihood matrix")
+            ll = ll[finite_rows]
+        if len(ll) < 20:
+            raise ValueError(f"only {len(ll)} finite posterior draws — too "
+                             "few for WAIC/LOO")
+        w = _mc.waic(ll)
+        lo = _mc.psis_loo(ll)
+        if print_report:
+            print(f"WAIC: elpd = {w['elpd_waic']:.2f} "
+                  f"(se {w['se_elpd_waic']:.2f}), p_waic = "
+                  f"{w['p_waic']:.2f}")
+            print(f"PSIS-LOO: elpd = {lo['elpd_loo']:.2f} "
+                  f"(se {lo['se_elpd_loo']:.2f}), p_loo = "
+                  f"{lo['p_loo']:.2f}, bad khat: {lo['n_bad_khat']}"
+                  f"/{ll.shape[1]}")
+        return {"waic": w, "loo": lo, "n_draws": int(len(ll)),
+                "n_obs": int(ll.shape[1])}
+
+    def posterior_predictive(self, posterior, n_draws=200, ci=0.9,
+                             print_report=True, **solver_kw):
+        """Posterior predictive check (``odelib_tpu``'s
+        ``posterior_predictive``): replicated observations of ``n_draws``
+        posterior rows (one batched solve, the observation model's noise
+        from ``numpy.random.default_rng(random_seed)``; for a stochastic
+        model one SDE path a draw) against the data. Returns ``summary``
+        (per observation: organism, time, the observed value, the
+        predictive median and ``ci`` interval, ``covered``), ``coverage``
+        (the covered fraction, near ``ci`` for a well-specified model) and
+        ``samples`` (draws x observations)."""
+        logpred = self._posterior_logpred(posterior, n_draws, solver_kw)
+        return self._predictive_summary(logpred, ci, print_report,
+                                        "posterior predictive")
+
+    def prior_predictive(self, samples=200, ci=0.9, print_report=True,
+                         **solver_kw):
+        """Prior predictive check (``odelib_tpu``'s ``prior_predictive``):
+        as :meth:`posterior_predictive` from ``samples`` LHS prior draws
+        (the port's LHS, :meth:`_lhs_samples`). Coverage far below ``ci``:
+        the priors cannot generate the data; near 1 with huge intervals:
+        they are uninformatively wide."""
+        draws = self._lhs_samples(int(samples))
+        logpred = self._posterior_logpred(draws, int(samples), solver_kw)
+        return self._predictive_summary(logpred, ci, print_report,
+                                        "prior predictive")
+
+    def _predictive_summary(self, logpred, ci, print_report, label):
+        """The predictive checks' coverage summary: observation noise of
+        the framework's observation model added to ``logpred``, per-point
+        intervals and their coverage. Log-space models compare in log
+        abundance (column ``log_abundance``), count models simulate counts
+        and compare in linear space (column ``abundance``)."""
+        obs = self._obsdata_fit_host
+        Sg = np.asarray(obs.log_sigma, float)
+        rng = np.random.default_rng(self.random_seed)
+        m = self._spec.obs_model
+        if m in ("poisson", "negbinom"):
+            O = np.asarray(obs.abundance, float)
+            with np.errstate(over="ignore"):
+                lam = np.exp(logpred)
+            lam_ok = np.isfinite(lam)
+            # counts overflow int64 well before a float rate does; those
+            # points are masked back to NaN below
+            lam_s = np.clip(np.where(lam_ok, lam, 0.0), 0.0, 1e15)
+            if m == "poisson":
+                sims = rng.poisson(lam_s).astype(float)
+            else:
+                r = self._spec.obs_param
+                sims = rng.poisson(rng.gamma(r, lam_s / r)).astype(float)
+            sims = np.where(lam_ok, sims, np.nan)
+            value_col = "abundance"
+        else:
+            O = np.asarray(obs.log_abundance, float)
+            if m == "student_t":
+                eps = rng.standard_t(self._spec.obs_param, logpred.shape)
+            else:
+                eps = rng.normal(0.0, 1.0, logpred.shape)
+            sims = logpred + Sg[None, :] * eps
+            value_col = "log_abundance"
+        alpha = (1.0 - float(ci)) / 2.0
+        lo = np.nanquantile(sims, alpha, axis=0)
+        hi = np.nanquantile(sims, 1.0 - alpha, axis=0)
+        med = np.nanmedian(sims, axis=0)
+        covered = (O >= lo) & (O <= hi)
+        valid = np.isfinite(O)
+        snames = list(self._spec.post_snames)
+        sidx = np.asarray(obs.state_index, int)
+        times = np.asarray(self._times_fit, float)
+        tidx = np.asarray(obs.t_index, int)
+        summary = pd.DataFrame({
+            "organism": [snames[i] for i in sidx],
+            "time": times[tidx],
+            value_col: O,
+            "pred_median": med, "pred_lo": lo, "pred_hi": hi,
+            "covered": covered,
+        }).loc[valid]
+        coverage = float(covered[valid].mean())
+        if print_report:
+            print(f"{label}: {coverage:.1%} of observations "
+                  f"inside the {int(ci * 100)}% interval "
+                  f"({int(covered[valid].sum())}/{int(valid.sum())})")
+        return {"summary": summary.reset_index(drop=True),
+                "coverage": coverage, "samples": sims}
+
+    def diagnostics(self, posteriors) -> pd.DataFrame:
+        """Convergence diagnostics of an MCMC posterior with the
+        ``chain#`` column: per parameter mean, std, median, effective
+        sample size (FFT autocovariance, Geyer truncation), ESS per draw
+        and split-chain R-hat (:func:`~odelib_tpu_torch.utils.
+        summarize`)."""
+        from .utils.diagnostics import summarize
+        return summarize(posteriors, list(self.get_pnames()))
+
+    def sbc(self, reps=128, iterations_per_chain=2000, thin=10, bins=16,
+            rwalk_std=0.05, burnin=None, static_parameters=(),
+            print_report=True, drift_only=False, **solver_kw) -> dict:
+        """Simulation-based calibration of the whole pipeline (Talts et al.
+        2018; ``odelib_tpu``'s ``sbc``): ``reps`` replications each draw
+        true parameters from the priors, simulate data with this
+        framework's observation design and noise model, run an MH chain on
+        it (fixed-step Dopri5, or rk4) and rank the truth among the
+        thinned draws; all replications one batched loop on the
+        framework's device (utils/sbc.py). Returns ``ranks`` (a column per
+        prior parameter or array slot), ``pvalues`` (chi-square
+        uniformity), ``n_draws`` (M), ``n_valid``, ``reps``,
+        ``mean_acceptance`` and ``calibrated`` (every p > 0.01)."""
+        self._require_deterministic(
+            'sbc', drift_only,
+            hint="Calibration of the stochastic pipeline would need "
+                 "per-replication PMMH (data-dependent filters). ")
+        from .utils.sbc import rank_uniformity_pvalue, sbc_ranks
+
+        offsets = self._spec.theta_offsets
+        dists = [None] * self._spec.theta_size
+        labels = {}
+        for i, p in enumerate(self._pnames):
+            par = self.parameters[p]
+            if par is None or not par.has_distribution() \
+                    or p in static_parameters:
+                continue
+            shp = self._spec.pshapes[i]
+            if shp:
+                tmpl = np.ravel(np.asarray(par.val, float))
+                for k in range(tmpl.size):
+                    if tmpl[k] != 0:
+                        dists[offsets[i] + k] = par.tdist
+                        labels[offsets[i] + k] = f"{p}[{k}]"
+            else:
+                dists[offsets[i]] = par.tdist
+                labels[offsets[i]] = p
+        if not labels:
+            raise ValueError("sbc needs at least one parameter with a "
+                             "prior distribution")
+        method, _, _, _, substeps = self._solver_args(
+            solver_kw, len(self._times_fit) - 1)
+        res = sbc_ranks(
+            self._spec, self._obsdata_fit_host, self._times_fit,
+            self.get_inits(), tuple(dists),
+            np.asarray(self._current_theta(), float), reps=int(reps),
+            nits=int(iterations_per_chain), burnin=burnin, thin=int(thin),
+            rwalk_std=float(rwalk_std), seed=int(self.random_seed),
+            method="rk4" if method == "rk4" else "fixed_dopri5",
+            substeps=substeps, device=self.device)
+        valid = np.asarray(res.valid, bool)
+        cols = {lab: res.ranks[valid, j] for j, lab in labels.items()}
+        ranks_df = pd.DataFrame(cols)
+        pvalues = {lab: rank_uniformity_pvalue(ranks_df[lab], res.n_draws,
+                                               bins=bins)
+                   for lab in ranks_df}
+        out = {"ranks": ranks_df, "pvalues": pvalues,
+               "n_draws": int(res.n_draws), "n_valid": int(valid.sum()),
+               "reps": int(reps),
+               "mean_acceptance": float(np.mean(res.acceptance[valid]))
+               if valid.any() else float("nan"),
+               "calibrated": bool(all(p > 0.01 for p in pvalues.values()))}
+        if int(valid.sum()) < reps:
+            warnings.warn(
+                f"sbc: {reps - int(valid.sum())}/{reps} replications had "
+                "non-finite synthetic solves and were dropped — prior "
+                "mass is escaping the solver's stable region")
+        if print_report:
+            lines = ["\nSBC Report (rank-uniformity of the pipeline)\n"
+                     "============================================",
+                     f"replications: {int(valid.sum())}/{int(reps)} valid, "
+                     f"M = {int(res.n_draws)} draws/rank, mean acceptance "
+                     f"{out['mean_acceptance']:.3f}"]
+            for lab, p in pvalues.items():
+                flag = "ok" if p > 0.01 else "MISCALIBRATED"
+                lines.append(f"\t{lab}: uniformity p = {p:0.3f}  [{flag}]")
+            print("\n".join(lines))
+        return out
+
+    def power_scale_sensitivity(self, posterior, alphas=(0.8, 1.25),
+                                threshold=0.05, print_report=True):
+        """Prior and likelihood power-scaling sensitivity of a fitted
+        posterior, no refit (Kallioinen et al. 2023; ``odelib_tpu``'s
+        ``power_scale_sensitivity``): the draws (parameter and ``chi``
+        columns of a prior-aware run) are PSIS-reweighted to ``prior^a``
+        (per parameter, its prior from the port's distributions' ``logpdf``
+        on the framework's device) and ``lik^a``; each varying positive
+        slot's normalized shift and its diagnosis (utils/sensitivity.py).
+        Returns DataFrame[parameter, prior_sens, lik_sens, khat,
+        diagnosis]."""
+        from .utils.sensitivity import power_scale_sensitivity as _ps
+
+        if self._spec.diffusion is not None:
+            warnings.warn(
+                "power_scale_sensitivity on a PMMH posterior reweights "
+                "by the particle filter's NOISY log-likelihood estimate "
+                "(the chi column): the power-scaled shifts are "
+                "approximate — treat flags near the threshold with "
+                "caution.")
+        tdists = tuple(self.parameters[p].tdist
+                       if self.parameters[p] is not None else None
+                       for p in self._pnames)
+        if all(d is None for d in tdists):
+            raise ValueError("power_scale_sensitivity needs at least one "
+                             "parameter with a prior distribution")
+        finite = posterior[np.isfinite(posterior["chi"].astype(float))]
+        thetas = np.asarray(self._theta_from_df(finite), float)
+        chi = finite["chi"].to_numpy(float)
+        # per-PARAMETER prior factors (selective scaling): dimension j's
+        # prior sensitivity scales only the prior of the parameter owning
+        # slot j
+        spec = self._spec
+        masks = (self._prior_nonzero_masks()
+                 if any(s for s in spec.pshapes)
+                 else (None,) * len(tdists))
+        th = torch.as_tensor(thetas, device=self.device)
+        parts = []
+        for d, v, mk in zip(tdists, spec.unpack_theta(th), masks):
+            if d is None:
+                parts.append(torch.zeros(len(th), dtype=th.dtype,
+                                         device=th.device))
+                continue
+            lp = d.logpdf(v)
+            if mk is not None:
+                keep = torch.as_tensor(np.asarray(mk, bool).reshape(
+                    v.shape[1:]), device=th.device)
+                lp = torch.where(keep, lp, 0.0)
+            parts.append(lp.reshape(len(th), -1).sum(-1))
+        parts = torch.stack(parts, dim=1).cpu().numpy()
+        # per-parameter columns to per-SLOT columns
+        slot_cols, labels = [], []
+        for i, p in enumerate(self._pnames):
+            shp = spec.pshapes[i]
+            n = int(np.prod(shp)) if shp else 1
+            slot_cols += [parts[:, i]] * n
+            labels += [f"{p}[{k}]" for k in range(n)] if shp else [p]
+        log_prior = np.stack(slot_cols, axis=1)
+        # slots that move and stay positive (a log-space diagnostic):
+        # zero-template entries and static parameters drop out
+        keep = [j for j in range(thetas.shape[1])
+                if np.ptp(thetas[:, j]) > 0 and np.all(thetas[:, j] > 0)]
+        if not keep:
+            raise ValueError("no varying positive parameter slots in the "
+                             "posterior")
+        df = _ps(np.log(thetas[:, keep]), -chi, log_prior[:, keep],
+                 alphas=tuple(alphas), threshold=float(threshold),
+                 labels=[labels[j] for j in keep])
+        if print_report:
+            print(_power_scale_report(
+                df, threshold, "\nPower-scaling sensitivity (prior | "
+                "likelihood)\n=============================================="
+                ))
+        return df
+
+    def sobol_sensitivity(self, samples=512, target="chi", n_boot=200,
+                          print_report=True, drift_only=False,
+                          **solver_kw) -> pd.DataFrame:
+        """Variance-based global sensitivity over the priors
+        (``odelib_tpu``'s ``sobol_sensitivity``): first-order (S1) and
+        total-order (ST) Sobol indices per prior slot with bootstrap
+        standard errors (utils/sensitivity.py). ``target``: 'chi', a
+        post-summation state name (its final-time value) or ``('log',
+        name)``. The Saltelli design, ``samples * (P + 2)`` solves from
+        key ``PRNGKey(random_seed ^ 0x50B01)`` on the JAX package's
+        stream, runs as one batched solve on the framework's device with
+        its solver; parameters without a prior stay at their current
+        values. Returns DataFrame[S1, S1_se, ST, ST_se] indexed by
+        slot."""
+        self._require_deterministic(
+            'sobol_sensitivity', drift_only,
+            hint="Sensitivity targets are drift statistics. ")
+        from . import random as jr
+        from .distributions import ArrayHyper
+        from .utils import sensitivity as _sens
+
+        # one dimension per flat slot with a prior: scalars directly, an
+        # array parameter one per non-zero template entry, "<p>[k]"
+        free = []
+        offsets = self._spec.theta_offsets
+        for i, p in enumerate(self._pnames):
+            par = self.parameters[p]
+            if par is None or not par.has_distribution():
+                continue
+            shp = self._spec.pshapes[i]
+            d = par.tdist
+            if shp:
+                tmpl = np.ravel(np.asarray(par.val, float))
+                free.extend((offsets[i] + k, f"{p}[{k}]",
+                             d.element(k) if isinstance(d, ArrayHyper)
+                             else d)
+                            for k in range(tmpl.size) if tmpl[k] != 0)
+            else:
+                free.append((offsets[i], p, d))
+        if len(free) < 2:
+            raise ValueError("sobol_sensitivity needs >= 2 parameters "
+                             "with prior distributions")
+        if target == "chi":
+            tgt = ("chi",)
+        else:
+            if isinstance(target, tuple) and target[0] == "log":
+                kind, sname = "log_state", target[1]
+            else:
+                kind, sname = "state", target
+            if sname not in self._spec.post_snames:
+                raise ValueError(f"unknown state {sname!r}; have "
+                                 f"{self._spec.post_snames}")
+            tgt = (kind, self._spec.post_snames.index(sname))
+
+        key = jr.PRNGKey(self.random_seed ^ 0x50B01, device=self.device)
+        design, N, P = _sens.saltelli_design(
+            key, [d for _, _, d in free], int(samples))
+        thetas = torch.as_tensor(self._current_theta(), dtype=torch.float64,
+                                 device=self.device).repeat(len(design), 1)
+        for col, (i, _, _) in enumerate(free):
+            thetas[:, i] = design[:, col]
+        method, rtol, atol, max_steps, substeps = self._solver_args(
+            solver_kw, len(self._times_fit) - 1)
+        f = _sens._eval_target(
+            self._spec, self._obsdata_fit_host, self._times_fit,
+            self.get_inits(), thetas, target=tgt,
+            num_params=len(self._pnames), method=method, rtol=rtol,
+            atol=atol, max_steps=max_steps,
+            substeps=substeps).cpu().numpy()
+        fA, fB = f[:N], f[N:2 * N]
+        fAB = f[2 * N:].reshape(P, N)
+        res = _sens.sobol_indices(fA, fB, fAB, n_boot=int(n_boot),
+                                  seed=self.random_seed)
+        out = pd.DataFrame(
+            {"S1": res["S1"], "S1_se": res["S1_se"],
+             "ST": res["ST"], "ST_se": res["ST_se"]},
+            index=[p for _, p, _ in free])
+        if print_report:
+            t = target if isinstance(target, str) else "/".join(
+                map(str, target))
+            print(f"Sobol indices on {t} "
+                  f"({res['n_effective']}/{N} finite samples):")
+            print(out.round(3).to_string())
+        return out
+
+    def local_sensitivity(self, parameters=None, log_scale=True,
+                          drift_only=False, **solver_kw):
+        """Time-resolved local sensitivities d state / d (log) parameter
+        along the current (or the given) trajectory, by reverse-mode
+        differentiation through the fixed-step solve (fixed Dopri5, or rk4)
+        in float64 on the framework's device (``odelib_tpu``'s
+        ``local_sensitivity``): ``{state_name: DataFrame(index=times,
+        columns=labels)}``, an array parameter one column per non-zero
+        template entry, ``"<p>[k]"``."""
+        self._require_deterministic(
+            'local_sensitivity', drift_only,
+            hint="Sensitivities are along the drift trajectory. ")
+        from .utils import sensitivity as _sens
+
+        if parameters is None:
+            theta = self._current_theta()
+        else:
+            theta = self._spec.pack_theta(list(parameters))
+        method, _, _, _, substeps = self._solver_args(
+            solver_kw, len(self._times_fit) - 1)
+        J = _sens.local_sensitivity(
+            self._spec, torch.as_tensor(np.asarray(theta, np.float64),
+                                        device=self.device),
+            self.get_inits(), self._times_fit, log_scale=bool(log_scale),
+            method="rk4" if method == "rk4" else "fixed_dopri5",
+            substeps=substeps).cpu().numpy()
+        offsets = self._spec.theta_offsets
+        keep, labels = [], []
+        for i, p in enumerate(self._pnames):
+            shp = self._spec.pshapes[i]
+            if not shp:
+                keep.append(offsets[i])
+                labels.append(p)
+                continue
+            par = self.parameters[p]
+            tmpl = np.ravel(np.asarray(
+                par.val if par is not None else np.ones(shp), float))
+            for k in range(tmpl.size):
+                if tmpl[k] != 0:
+                    keep.append(offsets[i] + k)
+                    labels.append(f"{p}[{k}]")
+        return {s: pd.DataFrame(J[:, i, keep], index=self._times_fit,
+                                columns=labels)
+                for i, s in enumerate(self._spec.post_snames)}
+
+
+def _power_scale_report(df, threshold, header):
+    """The power-scaling table under ``header`` as the reports print
+    it."""
+    lines = [header]
+    for _, r in df.iterrows():
+        lines.append(
+            f"\t{r['parameter']}: prior {r['prior_sens']:0.3f}, "
+            f"likelihood {r['lik_sens']:0.3f}  [{r['diagnosis']}]")
+    lines.append(f"(threshold {threshold}; khat max "
+                 f"{df['khat'].max():0.2f} — reweighting reliable "
+                 f"below 0.7)")
+    return "\n".join(lines)

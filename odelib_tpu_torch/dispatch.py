@@ -25,13 +25,12 @@ RHS per lane (:func:`require_batched`).
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-log = logging.getLogger("odelib_tpu_torch")
+from .utils.profiling import get_logger
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,9 +174,9 @@ def run_fused_pt(fw, theta0, cfg: RunConfig):
         *args, temperatures=tuple(cfg.temperatures),
         swap_every=cfg.swap_every, rwalk_std=cfg.rwalk_std,
         priors=cfg.priors, **kw)
-    log.info("parallel tempering (fused): mean cold-pair swap acceptance "
-             "%.3f per proposal over %d temperatures",
-             float(swap_rate.mean()), len(cfg.temperatures))
+    get_logger().info("parallel tempering (fused): mean cold-pair swap "
+                      "acceptance %.3f per proposal over %d temperatures",
+                      float(swap_rate.mean()), len(cfg.temperatures))
     return out
 
 
@@ -217,8 +216,8 @@ def run_pmmh(fw, theta0, cfg: RunConfig):
                          f"available here: {why}")
     if cfg.pmmh_mode != "xla" and ok:
         from .ops.cuda_pf import pmmh_fused
-        log.info("particle-marginal MH (fused): pf_kernel, %d particles",
-                 int(cfg.n_particles))
+        get_logger().info("particle-marginal MH (fused): pf_kernel, %d "
+                          "particles", int(cfg.n_particles))
         th0 = torch.as_tensor(np.asarray(theta0, np.float32),
                               device=fw.device)
         out = pmmh_fused(
@@ -232,9 +231,10 @@ def run_pmmh(fw, theta0, cfg: RunConfig):
             **_checkpoint_args(cfg))
     else:
         from .samplers import pf
-        log.info("particle-marginal MH: the XLA particle filter "
-                 "(samplers/pf.py), %d particles (%s)", int(cfg.n_particles),
-                 "backend='xla'" if cfg.pmmh_mode == "xla" else why)
+        get_logger().info("particle-marginal MH: the XLA particle filter "
+                          "(samplers/pf.py), %d particles (%s)",
+                          int(cfg.n_particles), "backend='xla'"
+                          if cfg.pmmh_mode == "xla" else why)
         require_batched(fw._spec, theta0, fw.get_inits(), fw._times_fit[0])
         th0, _, keys = _scan_setup(fw, theta0, cfg, len(theta0))
         args = _scan_args(fw, th0, keys)
@@ -322,9 +322,9 @@ def run_scan_pt(fw, theta0, cfg: RunConfig, n_chains: int):
     else:
         out, swap_rate = pt.parallel_tempering(*_scan_args(fw, th0, keys),
                                                **kw)
-    log.info("parallel tempering: mean swap acceptance %.3f per proposal "
-             "over %d temperatures", float(swap_rate.mean()),
-             len(cfg.temperatures))
+    get_logger().info("parallel tempering: mean swap acceptance %.3f per "
+                      "proposal over %d temperatures",
+                      float(swap_rate.mean()), len(cfg.temperatures))
     return out
 
 

@@ -17,8 +17,12 @@ joint sampler (:mod:`odelib_tpu_torch.samplers.joint`); a stochastic
 ``sampler='hmc'`` runs HMC over the summed chi
 (:func:`~odelib_tpu_torch.samplers.hmc.hamiltonian_mc_custom`), as does
 the reference; ``fit_map`` (multi-start Adam) and ``fit_advi`` run over
-the same summed chi and pooling density. The joint layout, LHS survey,
-seeding, posterior frame and report are the JAX package's, and so are
+the same summed chi and pooling density. ``posterior_predictive``,
+``information_criteria`` and ``diagnostics`` slice the joint posterior
+per experiment and delegate to each framework, and
+``power_scale_sensitivity`` reweights it by per-slot priors. The joint
+layout, LHS survey, seeding, posterior frame and report are the JAX
+package's, and so are
 chunked checkpointing with a bit-exact resume and
 ``until_rhat``/``until_min_ess`` run-length extension.
 """
@@ -33,11 +37,11 @@ import pandas as pd
 import torch
 
 from . import stats as tstats
-from .dispatch import log as _log
 from .dispatch import require_batched, require_kernel_rhs
 from .model import traces
 from .samplers.joint import joint_survey
 from .samplers.lhs import sample_lhs
+from .utils.profiling import StageTimer, get_logger
 
 __all__ = ["JointFit"]
 
@@ -429,7 +433,7 @@ class JointFit:
         shared parameter's from the first framework) to the acceptance in
         the kernel, once per proposal. ``profile=True`` records each
         stage's wall seconds in ``last_profile`` (synchronising the device
-        at each boundary).
+        at each boundary) and logs them as the "stage timings:" report.
         ``checkpoint_every`` (with ``checkpoint_path``) runs the joint
         kernel in chunks of that many proposals and persists the chain
         state and records after each to ``<checkpoint_path>.progress``;
@@ -553,13 +557,13 @@ class JointFit:
                 require_batched(fw._spec, fw._current_theta()[None],
                                 fw.get_inits(), fw._times_fit[0])
             if sampler == "hmc":
-                _log.info("JointFit.MCMC: joint HMC over the summed chi "
-                          "(samplers/hmc.py)")
+                get_logger().info("JointFit.MCMC: joint HMC over the "
+                                  "summed chi (samplers/hmc.py)")
             else:
-                _log.info("JointFit.MCMC: the XLA joint sampler "
-                          "(samplers/joint.py, %s)", "joint PMMH, "
-                          f"{int(n_particles)} particles" if arm == "pmmh"
-                          else "joint MH")
+                get_logger().info(
+                    "JointFit.MCMC: the XLA joint sampler (samplers/joint.py,"
+                    " %s)", f"joint PMMH, {int(n_particles)} particles"
+                    if arm == "pmmh" else "joint MH")
         stages, clock = {}, [time.perf_counter()]
 
         def stage_done(name):
@@ -654,6 +658,9 @@ class JointFit:
         stage_done("report")
         if profile:
             self.last_profile = stages
+            timer = StageTimer()
+            timer.times.update(stages)
+            timer.report()
         return posterior
 
     def _require_deterministic(self, what, drift_only):
@@ -767,6 +774,135 @@ class JointFit:
                           f"({'reliable' if khat < 0.7 else 'UNRELIABLE'})")
             print("\n".join(report))
         return df
+
+    def power_scale_sensitivity(self, posterior, alphas=(0.8, 1.25),
+                                threshold=0.05, print_report=True):
+        """Prior and likelihood power-scaling sensitivity of a fitted joint
+        posterior (``odelib_tpu``'s ``JointFit.power_scale_sensitivity``,
+        the mirror of :meth:`ModelFramework.power_scale_sensitivity`): the
+        draws are PSIS-reweighted to per-slot ``prior^a`` (each slot's
+        prior ``logpdf`` on the frameworks' device) and total ``lik^a``,
+        no refit. Hierarchical pooling factors are not perturbed, only the
+        slots' priors and hyperpriors. Expects a prior-aware posterior
+        (``use_priors=True``, or hierarchical)."""
+        from .api_inference import _power_scale_report
+        from .utils.sensitivity import power_scale_sensitivity as _ps
+
+        dists = self._dists()
+        if all(d is None for d in dists):
+            raise ValueError("power_scale_sensitivity needs at least one "
+                             "joint slot with a prior distribution")
+        finite = posterior[np.isfinite(posterior["chi"].astype(float))]
+        thetas = np.asarray(self._thetas_from_df(finite), float)
+        chi = finite["chi"].to_numpy(float)
+        th = torch.as_tensor(thetas, device=self.device)
+        log_prior = torch.zeros_like(th)
+        for j, d in enumerate(dists):
+            if d is not None:
+                log_prior[:, j] = self._slot_dist(j).logpdf(th[:, j])
+        log_prior = log_prior.cpu().numpy()
+        labels = []
+        for lab in self.columns:
+            tmpl = self._template(lab)
+            if tmpl is None:
+                labels.append(lab)
+            else:
+                labels += [f"{lab}[{i}]" for i in range(tmpl.size)]
+        keep = [j for j in range(thetas.shape[1])
+                if np.ptp(thetas[:, j]) > 0 and np.all(thetas[:, j] > 0)]
+        if not keep:
+            raise ValueError("no varying positive slots in the posterior")
+        df = _ps(np.log(thetas[:, keep]), -chi, log_prior[:, keep],
+                 alphas=tuple(alphas), threshold=float(threshold),
+                 labels=[labels[j] for j in keep])
+        if print_report:
+            print(_power_scale_report(
+                df, threshold, "\nJoint power-scaling sensitivity (prior | "
+                "likelihood)\n================================================"
+                ))
+        return df
+
+    def _experiment_posterior(self, posterior, nm):
+        """The joint posterior's columns of experiment ``nm``, named by its
+        own parameter names."""
+        fw = self.frameworks[nm]
+        sub = pd.DataFrame(index=posterior.index)
+        for p in fw._pnames:
+            lab = p if p in self.shared else f"{nm}:{p}"
+            sub[p] = posterior[lab]
+        return sub
+
+    def posterior_predictive(self, posterior, n_draws=200, ci=0.9,
+                             print_report=True, **solver_kw):
+        """Posterior predictive check of every experiment (``odelib_tpu``'s
+        ``JointFit.posterior_predictive``): each framework's
+        :meth:`ModelFramework.posterior_predictive` on its slice of the
+        joint posterior. Returns ``{name: result}`` and ``overall`` (the
+        observation-weighted coverage, ``n_observations``)."""
+        out, n_cov, n_obs = {}, 0.0, 0
+        for nm, fw in self.frameworks.items():
+            res = fw.posterior_predictive(
+                self._experiment_posterior(posterior, nm),
+                n_draws=n_draws, ci=ci, print_report=False, **solver_kw)
+            out[nm] = res
+            k = len(res["summary"])
+            n_cov += res["coverage"] * k
+            n_obs += k
+        coverage = n_cov / max(n_obs, 1)
+        out["overall"] = {"coverage": coverage, "n_observations": n_obs}
+        if print_report:
+            parts = ", ".join(f"{nm}: {out[nm]['coverage']:.1%}"
+                              for nm in self.frameworks)
+            print(f"joint posterior predictive: {coverage:.1%} of "
+                  f"{n_obs} observations inside the {int(ci * 100)}% "
+                  f"interval ({parts})")
+        return out
+
+    def information_criteria(self, posterior, n_draws=400,
+                             print_report=True, **solver_kw):
+        """WAIC and PSIS-LOO of every experiment and their pooled totals
+        (``odelib_tpu``'s ``JointFit.information_criteria``): per
+        experiment :meth:`ModelFramework.information_criteria` on its
+        slice; ``overall`` sums the elpd and p terms (the experiments are
+        independent given the parameters) and the standard errors in
+        quadrature. Prefer the pooling variant with the higher
+        ``overall['elpd_loo']``."""
+        out, tot = {}, {"elpd_waic": 0.0, "elpd_loo": 0.0,
+                        "p_waic": 0.0, "p_loo": 0.0,
+                        "se2_waic": 0.0, "se2_loo": 0.0, "n_bad_khat": 0}
+        for nm, fw in self.frameworks.items():
+            res = fw.information_criteria(
+                self._experiment_posterior(posterior, nm),
+                n_draws=n_draws, print_report=False, **solver_kw)
+            out[nm] = res
+            tot["elpd_waic"] += res["waic"]["elpd_waic"]
+            tot["p_waic"] += res["waic"]["p_waic"]
+            tot["se2_waic"] += res["waic"]["se_elpd_waic"] ** 2
+            tot["elpd_loo"] += res["loo"]["elpd_loo"]
+            tot["p_loo"] += res["loo"]["p_loo"]
+            tot["se2_loo"] += res["loo"]["se_elpd_loo"] ** 2
+            tot["n_bad_khat"] += res["loo"]["n_bad_khat"]
+        overall = {
+            "elpd_waic": tot["elpd_waic"], "p_waic": tot["p_waic"],
+            "se_elpd_waic": float(np.sqrt(tot["se2_waic"])),
+            "elpd_loo": tot["elpd_loo"], "p_loo": tot["p_loo"],
+            "se_elpd_loo": float(np.sqrt(tot["se2_loo"])),
+            "n_bad_khat": tot["n_bad_khat"]}
+        out["overall"] = overall
+        if print_report:
+            print(f"joint WAIC: elpd = {overall['elpd_waic']:.2f} "
+                  f"(se {overall['se_elpd_waic']:.2f}); joint PSIS-LOO: "
+                  f"elpd = {overall['elpd_loo']:.2f} "
+                  f"(se {overall['se_elpd_loo']:.2f}), bad khat: "
+                  f"{overall['n_bad_khat']}")
+        return out
+
+    def diagnostics(self, posterior) -> pd.DataFrame:
+        """Convergence diagnostics (mean, std, median, ess, ess_per_draw,
+        rhat) of every joint column, hyperparameters included: the table
+        of :meth:`ModelFramework.diagnostics` over the joint posterior."""
+        from .utils.diagnostics import summarize
+        return summarize(posterior, list(self.columns))
 
     def _joint_prior_logpdf(self):
         """``prior_logpdf(theta (N, D)) -> (N,)`` for the XLA joint

@@ -16,7 +16,11 @@ bitwise ``jax.random``'s; ``normal`` is ``sqrt(2) * erfinv(u)`` of
 its ``log1p`` computed as XLA:CPU expands them (the same polynomials and
 fused multiply-adds), so a float64 normal differs from the reference only
 where the two libraries' ``log`` round differently (a float32 one also
-where XLA's own float32 ``log`` does). Seeds, integer
+where XLA's own float32 ``log`` does). ``exponential``, ``gamma``
+(Marsaglia and Tsang, each rejection loop masked over the batch), ``t``
+and ``poisson`` (Knuth below a rate of 10, Hörmann's transformed
+rejection above, in float32) follow jax 0.9's algorithms on the same key
+derivation (SBC's Student-t and count data draw them). Seeds, integer
 draws and fold-in data follow ``jax_enable_x64=True`` (the JAX package's
 tests' setting): a Python seed is a 64-bit value and ``randint`` draws
 int64 by default.
@@ -330,3 +334,171 @@ def randint(keys: torch.Tensor, shape, minval: int, maxval: int,
     else:
         raise TypeError(f"randint draws int32 or int64, not {dtype}")
     return (minval + off).to(dtype)
+
+
+def exponential(keys: torch.Tensor, shape=(), dtype=torch.float64
+                ) -> torch.Tensor:
+    """``jax.random.exponential(key, shape, dtype)`` of each key:
+    ``-log1p(-u)``, u ``jax.random``'s uniform, the ``log1p`` XLA's
+    (:func:`log1p`)."""
+    return -log1p(-uniform(keys, shape, dtype))
+
+
+def _gamma_one(keys, alpha):
+    """``jax.random``'s ``_gamma_one`` (Marsaglia and Tsang, with the
+    boost ``Gamma(a) = Gamma(a + 1) U^(1/a)`` below a = 1) of every key
+    ``(..., 2)`` at its ``alpha`` ``(...)``: each rejection loop a masked
+    loop over the batch, a lane's draws taken only while its own loop
+    runs."""
+    dt = alpha.dtype
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - 1.0 / 3.0
+    c = (1.0 / 3.0) / torch.sqrt(d)
+    keys, sub = split(keys).unbind(-2)
+    X = torch.zeros_like(a)
+    V = torch.ones_like(a)
+    U = torch.full_like(a, 2.0)
+
+    def running(X, V, U):
+        return (U >= 1.0 - 0.0331 * (X * X)) & (
+            torch.log(U) >= X * 0.5 + d * ((1.0 - V) + torch.log(V)))
+
+    run = running(X, V, U)
+    while bool(run.any()):
+        keys_n, x_key, u_key = split(keys, 3).unbind(-2)
+        x = torch.zeros_like(a)
+        v = torch.full_like(a, -1.0)
+        inner = run.clone()
+        while bool(inner.any()):
+            x_next, s = split(x_key).unbind(-2)
+            xn = normal(s, (), dt)
+            x_key = torch.where(inner[..., None], x_next, x_key)
+            x = torch.where(inner, xn, x)
+            v = torch.where(inner, fma(xn, c, 1.0), v)
+            inner = inner & (v <= 0.0)
+        keys = torch.where(run[..., None], keys_n, keys)
+        X = torch.where(run, x * x, X)
+        V = torch.where(run, (v * v) * v, V)
+        U = torch.where(run, uniform(u_key, (), dt), U)
+        run = run & running(X, V, U)
+    samples = 1.0 - uniform(sub, (), dt)
+    b = torch.where(boost, torch.ones_like(a),
+                    torch.pow(samples, 1.0 / alpha))
+    return (d * V) * b
+
+
+def gamma(keys: torch.Tensor, a, shape=None, dtype=torch.float64
+          ) -> torch.Tensor:
+    """``jax.random.gamma(key, a, shape, dtype)`` of each key: ``a``
+    broadcast to the keys' batch shape + ``shape`` (default: ``a``'s
+    dimensions past the keys' batch), element j drawn by
+    :func:`_gamma_one` from ``split(key, prod(shape))[j]``."""
+    a = torch.as_tensor(a, dtype=dtype, device=keys.device)
+    lead = tuple(keys.shape[:-1])
+    shape = tuple(a.shape[len(lead):]) if shape is None \
+        else tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    subs = split(keys, n)                          # (..., n, 2)
+    alpha = a.expand(lead + shape).reshape(lead + (n,))
+    return _gamma_one(subs, alpha).reshape(lead + shape)
+
+
+def t(keys: torch.Tensor, df, shape=(), dtype=torch.float64) -> torch.Tensor:
+    """``jax.random.t(key, df, shape, dtype)`` of each key: ``n sqrt(df/2
+    / g)``, n normal from the key's first split and g :func:`gamma` of
+    ``df / 2`` from its second."""
+    key_n, key_g = split(keys).unbind(-2)
+    n = normal(key_n, shape, dtype)
+    half = torch.as_tensor(df, dtype=dtype, device=keys.device) / 2.0
+    g = gamma(key_g, half, shape, dtype)
+    return n * torch.sqrt(half / g)
+
+
+def _fma32(a, b, c):
+    """a * b + c of float32 values rounded once to float32 (XLA:CPU
+    contracts such a pair): the product is exact in float64, and the
+    float64 sum rounds to float32 as the fused result does but for a sum
+    on a float32 halfway point, a case of about one in 2**29."""
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32) for x in (a, b, c))
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _poisson_knuth(keys, lam, nd):
+    """Knuth's product of uniforms (``jax.random``'s ``_poisson_knuth``):
+    float32 uniforms and their float32 logs, one draw over the whole shape
+    each round while any element of any key still runs (an element that
+    stopped keeps its count)."""
+    k = torch.zeros(lam.shape, dtype=torch.int64, device=lam.device)
+    log_prod = torch.zeros(lam.shape, dtype=torch.float32,
+                           device=lam.device)
+    shape = tuple(lam.shape[len(lam.shape) - nd:])
+    while True:
+        going = log_prod > -lam
+        if not bool(going.any()):
+            break
+        keys, sub = split(keys).unbind(-2)
+        k = torch.where(going, k + 1, k)
+        log_prod = log_prod + torch.log(uniform(sub, shape, torch.float32))
+    return k - 1
+
+
+def _poisson_rejection(keys, lam, nd):
+    """Hörmann's transformed rejection (``jax.random``'s
+    ``_poisson_rejection``) in float32: a key's round draws two uniforms
+    over its whole shape, and every accepted element takes that round's
+    count, until each element of the key has been accepted once (a key
+    that is done draws no more)."""
+    f32 = torch.float32
+    log_lam = torch.log(lam)
+    b = _fma32(2.53, torch.sqrt(lam), 0.931)
+    a = _fma32(0.02483, b, -0.059)
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2.0)
+    shape = tuple(lam.shape[len(lam.shape) - nd:])
+    red = tuple(range(-nd, 0))
+    k_out = torch.full(lam.shape, -1.0, dtype=f32, device=lam.device)
+    accepted = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
+    while True:
+        running = ~accepted.all(dim=red) if nd else ~accepted
+        if not bool(running.any()):
+            break
+        run = running.reshape(running.shape + (1,) * nd)
+        keys, s0, s1 = split(keys, 3).unbind(-2)
+        u = uniform(s0, shape, f32) - 0.5
+        v = uniform(s1, shape, f32)
+        us = 0.5 - torch.abs(u)
+        k = torch.floor(_fma32(2.0 * a / us + b, u, lam) + 0.43)
+        s = torch.log(v * inv_alpha / (a / (us * us) + b))
+        tt = _fma32(k, log_lam, -lam) - torch.lgamma(k + 1.0)
+        accept1 = (us >= 0.07) & (v <= v_r)
+        reject = (k < 0) | ((us < 0.013) & (v > us))
+        accept = (accept1 | (~reject & (s <= tt))) & run
+        k_out = torch.where(accept, k, k_out)
+        accepted = accepted | accept
+    return k_out.to(torch.int64)
+
+
+def poisson(keys: torch.Tensor, lam, shape=None, dtype=torch.int64
+            ) -> torch.Tensor:
+    """``jax.random.poisson(key, lam, shape, dtype)`` of each key: ``lam``
+    broadcast to the keys' batch shape + ``shape`` (default: ``lam``'s
+    dimensions past the keys' batch) and rounded to float32, Knuth's
+    method below 10 (and at NaN), the transformed rejection from 10, both
+    run on the key (each with a placeholder rate where the other applies,
+    as jax runs them: the placeholders take part in the rounds), 0 where
+    lam is 0. The rejection's float32 ``log`` and ``lgamma`` are torch's,
+    not XLA's: above a rate of about 10^3 a draw may differ from jax's,
+    and since jax's rounds re-accept, a key's other draws with it."""
+    lam = torch.as_tensor(lam, device=keys.device)
+    lead = tuple(keys.shape[:-1])
+    shape = tuple(lam.shape[len(lead):]) if shape is None \
+        else tuple(int(s) for s in shape)
+    lam = lam.to(torch.float32).expand(lead + shape)
+    nd = len(shape)
+    knuth = torch.isnan(lam) | (lam < 10)
+    lam_k = torch.where(knuth, lam, torch.zeros_like(lam))
+    lam_r = torch.where(knuth, torch.full_like(lam, 1e5), lam)
+    out = torch.where(knuth, _poisson_knuth(keys, lam_k, nd),
+                      _poisson_rejection(keys, lam_r, nd))
+    return torch.where(lam == 0, torch.zeros_like(out), out).to(dtype)

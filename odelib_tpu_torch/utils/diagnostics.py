@@ -1,21 +1,24 @@
-"""MCMC convergence diagnostics: split-R-hat and effective sample size.
+"""MCMC convergence diagnostics: split-R-hat, effective sample size and
+the per-parameter table.
 
-A numpy copy of ``odelib_tpu/utils/diagnostics.py``'s ``split_rhat`` and
+A numpy copy of ``odelib_tpu/utils/diagnostics.py``'s ``split_rhat``,
 ``effective_sample_size`` (Gelman et al., *Bayesian Data Analysis* 3rd ed.
-§11.4-11.5), over the (chains, draws) layout of the posterior records.
+§11.4-11.5) and ``summarize`` (:meth:`ModelFramework.diagnostics`), over
+the (chains, draws) layout of the posterior records.
 They run on the host once per posterior, as the run-length extension of
 ``ModelFramework.MCMC`` and ``JointFit.MCMC`` (``until_rhat=...``,
 ``until_min_ess=...``; :func:`extend_until`) calls them.
 """
 from __future__ import annotations
 
-import logging
 import warnings
+from typing import Dict
 
 import numpy as np
+import pandas as pd
 import torch
 
-log = logging.getLogger("odelib_tpu_torch")
+from .profiling import get_logger
 
 
 def _split_chains(x: np.ndarray) -> np.ndarray:
@@ -83,6 +86,52 @@ def effective_sample_size(x) -> float:
     return float(C * N / max(tau, 1.0))
 
 
+def summarize(posterior: pd.DataFrame, pnames,
+              chain_col: str = "chain#") -> pd.DataFrame:
+    """Per-parameter diagnostic table of a posterior DataFrame: mean, std,
+    median, ess, ess_per_draw and rhat, the chains cut to the shortest's
+    length. Array-valued parameter columns are skipped (pass their
+    flattened components' column names). Each chain's rows keep their
+    order, gathered by one stable sort of the chain column (the JAX
+    package masks the column once per chain, which at 10,000 chains of a
+    5-million-row frame takes minutes)."""
+    if chain_col not in posterior:
+        raise ValueError(f"posterior has no {chain_col!r} column")
+    chains = np.asarray(posterior[chain_col].to_numpy(), float)
+    rows_in = np.flatnonzero(np.isfinite(chains))
+    ids, inv = np.unique(chains[rows_in], return_inverse=True)
+    rows_in = rows_in[np.argsort(inv, kind="stable")]
+    bounds = np.cumsum(np.bincount(inv, minlength=len(ids)))[:-1]
+    rows = {}
+    for p in pnames:
+        col = posterior[p].to_numpy()
+        if col.dtype == object:
+            continue
+        col = np.asarray(col, float)
+        per_chain = np.split(col[rows_in], bounds) if len(ids) else []
+        n = min((len(v) for v in per_chain), default=0)
+        stats: Dict[str, float] = {
+            "mean": float(np.nanmean(col)),
+            "std": float(np.nanstd(col, ddof=1)),
+            "median": float(np.nanmedian(col)),
+        }
+        if n >= 4 and len(per_chain) >= 1:
+            x = np.stack([v[:n] for v in per_chain])
+            finite = np.isfinite(x).all()
+            ess = effective_sample_size(x) if finite else float("nan")
+            stats["ess"] = ess
+            stats["ess_per_draw"] = (ess / x.size if np.isfinite(ess)
+                                     else float("nan"))
+            stats["rhat"] = (split_rhat(x) if finite and len(per_chain) >= 2
+                             else float("nan"))
+        else:
+            stats["ess"] = stats["ess_per_draw"] = stats["rhat"] = \
+                float("nan")
+        rows[p] = stats
+    return pd.DataFrame(rows).T[
+        ["mean", "std", "median", "ess", "ess_per_draw", "rhat"]]
+
+
 def extend_until(out, run_more, *, nits, mask, until_rhat, until_min_ess,
                  max_extensions, what="run"):
     """Extend a finished run in whole-run increments until the pooled
@@ -121,9 +170,9 @@ def extend_until(out, run_more, *, nits, mask, until_rhat, until_min_ess,
         if ((until_rhat is None or max_rh <= until_rhat)
                 and (until_min_ess is None or min_ess >= until_min_ess)):
             if ext:
-                log.info("%s converged after %d extension(s): max "
-                         "split-rhat %.4f, min ESS %.0f", what, ext, max_rh,
-                         min_ess)
+                get_logger().info("%s converged after %d extension(s): "
+                                  "max split-rhat %.4f, min ESS %.0f", what,
+                                  ext, max_rh, min_ess)
             break
         if ext == max_extensions:
             warnings.warn(
@@ -133,8 +182,9 @@ def extend_until(out, run_more, *, nits, mask, until_rhat, until_min_ess,
                 f"{min_ess:.0f} (target {until_min_ess}) — the returned "
                 "posterior holds everything sampled so far")
             break
-        log.info("extending %s (%d/%d): max split-rhat %.4f, min ESS %.0f",
-                 what, ext + 1, max_extensions, max_rh, min_ess)
+        get_logger().info("extending %s (%d/%d): max split-rhat %.4f, min "
+                          "ESS %.0f", what, ext + 1, max_extensions, max_rh,
+                          min_ess)
         more = run_more(recs["theta"][:, -1, :], ext + 1)
         its = np.arange(1, nits)
         m_counts = host(more.acceptance_ratio) * its[None, :]

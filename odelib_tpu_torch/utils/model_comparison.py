@@ -81,11 +81,13 @@ def _psis_smooth_lw(lw: np.ndarray):
     if M < 5:
         return lw - _logsumexp(lw), 0.0
     lw = lw - lw.max()   # normalization-invariant; keeps exp() in range
-    order = np.argsort(lw)
-    lw_max_raw = lw[order[-1]]
-    cutoff_idx = order[-M - 1] if S > M else order[0]
-    u = lw[cutoff_idx]
-    tail_idx = order[-M:]
+    # the cutoff and the M largest by one selection, not a sort of all S
+    # (the same values: of tied weights, which index is in the tail may
+    # differ, and their smoothed values are equal); S > M here
+    part = np.argpartition(lw, S - M - 1)
+    u = lw[part[S - M - 1]]
+    tail_idx = part[S - M:]
+    lw_max_raw = lw[tail_idx].max()
     # fit in cutoff-relative scale: exceedances of w/e^u over 1 — the GPD
     # shape is scale-invariant, and this avoids exp(u) overflow/underflow
     # when the weights are extremely concentrated

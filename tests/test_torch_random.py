@@ -3,7 +3,9 @@ jax.random itself under the JAX package's test settings (x64, threefry
 partitionable): keys, fold-ins, splits, bits, uniforms and randints
 bitwise over several seeds and shapes, float64 normals within 2 ulps
 (measured 0), permutations bitwise (tied sort words included), batched
-keys as a vmap over keys."""
+keys as a vmap over keys; exponentials within 1 ulp, gammas bitwise from
+a = 1 (2 ulps below: the boost's ``pow``), Student-t within 2 ulps and
+Poisson counts equal up to a rate of 300."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,3 +162,72 @@ def test_permutation_keeps_tied_words_in_order(seed):
     np.testing.assert_array_equal(
         R.permutation(R.PRNGKey(seed), n).numpy(),
         np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n)))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+def test_exponential_within_one_ulp(seed):
+    """``-log1p(-u)`` with XLA's log1p: 0 ulps but where the two
+    libraries' ``log`` round apart (1 ulp, seen under PRNGKey(42))."""
+    k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    got = R.exponential(t, (3000,)).numpy()
+    ref = np.asarray(jax.random.exponential(k, (3000,), jnp.float64))
+    assert _ulps(got, ref).max() <= 1.0
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("a", [0.3, 1.0, 2.5, 7.0])
+def test_gamma_bitwise_from_one_and_within_two_ulps_below(seed, a):
+    """Marsaglia-Tsang on jax's keys, both rejection loops masked over the
+    batch: bitwise for a >= 1; below 1 the boost's ``pow`` of two
+    libraries parts them by up to 2 ulps. A batch of keys with per-key
+    shapes is a vmap."""
+    k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    got = R.gamma(t, a, (1500,)).numpy()
+    ref = np.asarray(jax.random.gamma(k, a, (1500,), jnp.float64))
+    tol = 0.0 if a >= 1.0 else 2.0
+    assert _ulps(got, ref).max() <= tol
+    ks = jax.random.split(k, 4)
+    alphas = np.array([a, a + 0.5, 3.0, 11.0])
+    ref = np.asarray(jax.vmap(lambda kk, aa: jax.random.gamma(
+        kk, aa, (5,), jnp.float64))(ks, alphas))
+    got = R.gamma(R.split(t, 4), torch.as_tensor(alphas)[:, None],
+                  (5,)).numpy()
+    assert _ulps(got, ref).max() <= tol
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("df", [1.5, 4.0, 30.0])
+def test_t_within_two_ulps(seed, df):
+    """A normal times sqrt(df / 2 / gamma(df / 2)), each from its split of
+    the key: within the normal's 2 ulps (and the gamma's below 1)."""
+    k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    got = R.t(t, df, (2000,)).numpy()
+    ref = np.asarray(jax.random.t(k, df, (2000,), jnp.float64))
+    assert _ulps(got, ref).max() <= 2.0
+    ref = np.asarray(jax.vmap(lambda kk: jax.random.t(
+        kk, df, (3, 2), jnp.float64))(jax.random.split(k, 5)))
+    assert _ulps(R.t(R.split(t, 5), df, (3, 2)).numpy(), ref).max() <= 2.0
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+def test_poisson_counts_equal(seed):
+    """Knuth below a rate of 10 (float32 logs) and the float32 transformed
+    rejection from 10 up to 300, jax's placeholders in the rounds, 0 at a
+    zero rate and -1 at NaN (jax's result): equal counts, for one key over
+    mixed rates and a batch of keys as a vmap. Above a rate of ~10^3 the
+    two libraries' float32 ``lgamma`` and ``log`` part a few draws (ROADMAP
+    queue 3)."""
+    k, t = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    for lam in (0.5, 3.0, 9.99, 10.0, 60.0, 300.0):
+        got = R.poisson(t, lam, (2000,)).numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(jax.random.poisson(k, lam, (2000,))))
+        assert got.dtype == np.int64
+    lam = np.random.default_rng(seed).uniform(0.0, 40.0, (6, 25))
+    lam[0, :3] = (0.0, np.nan, 10.0)
+    ks = jax.random.split(k, 6)
+    ref = np.asarray(jax.vmap(lambda kk, ll: jax.random.poisson(
+        kk, ll, (25,)))(ks, lam))
+    got = R.poisson(R.split(t, 6), torch.as_tensor(lam), (25,)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got[0, 0] == 0 and got[0, 1] == -1
